@@ -1,0 +1,89 @@
+"""Weights of the JAX package -> the port's ``state_dict``.
+
+Input is the flax ``params`` tree of a ``SegInterestModel`` as nested dicts
+of numpy arrays (no flax needed to read it). Path rules, as in
+tools/ref_torch_loader.py:175-265:
+
+  Dense  {kernel (in, out), bias}  -> {weight (out, in), bias}
+  Embed  {embedding}               -> {weight} as is
+  LayerNorm {scale, bias}          -> {weight, bias}
+  other leaves (vid_pe, usr_pe, fusion_module/w_xy, bias_weight/bias_bias)
+                                   -> as is
+  ``layer_{i}`` (encoder layer, KnMLP layer) -> ``layers.{i}``
+  ``{stream}_proj_{j}``            -> ``{stream}_proj.{j}``
+
+The same tree serves every attention route: the projection-fused path
+declares Dense-compatible names (segformerx.py:96-107). Every leaf must land
+on a key of the target model with the same shape, and every key of the
+model must be written; anything else raises.
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Dict, Mapping
+
+import numpy as np
+import torch
+import torch.nn as nn
+
+_LAYER = re.compile(r"^layer_(\d+)$")
+_PROJ = re.compile(r"^(t2v|v2v|t2t|v2t)_proj_(\d+)$")
+
+
+def _module_key(name: str) -> str:
+    m = _LAYER.match(name)
+    if m:
+        return f"layers.{m.group(1)}"
+    m = _PROJ.match(name)
+    if m:
+        return f"{m.group(1)}_proj.{m.group(2)}"
+    return name
+
+
+def _leaves(tree: Mapping, prefix=()):
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            yield from _leaves(v, prefix + (k,))
+        else:
+            yield prefix + (k,), np.asarray(v)
+
+
+def flax_to_state_dict(params: Mapping, model: nn.Module
+                       ) -> Dict[str, torch.Tensor]:
+    """The state_dict for ``model`` holding the flax ``params``; every shape
+    checked against the model, every model key covered."""
+    target = model.state_dict()
+    out: Dict[str, torch.Tensor] = {}
+    for path, arr in _leaves(params):
+        *mods, leaf = path
+        base = ".".join(_module_key(m) for m in mods)
+        if leaf == "kernel":
+            if arr.ndim != 2:
+                raise ValueError(f"{'/'.join(path)}: kernel of rank "
+                                 f"{arr.ndim} (only Dense is ported)")
+            key, arr = f"{base}.weight", arr.T
+        elif leaf in ("scale", "embedding"):
+            key = f"{base}.weight"
+        else:
+            key = f"{base}.{leaf}" if base else leaf
+        if key not in target:
+            raise KeyError(f"flax param {'/'.join(path)} -> {key}: no such "
+                           "key in the model")
+        if tuple(target[key].shape) != arr.shape:
+            raise ValueError(f"{'/'.join(path)} -> {key}: shape {arr.shape} "
+                             f"vs model {tuple(target[key].shape)}")
+        if key in out:
+            raise KeyError(f"two flax params map to {key}")
+        out[key] = torch.from_numpy(np.array(arr, np.float32))
+    missing = sorted(set(target) - set(out))
+    if missing:
+        raise KeyError(f"model keys with no flax param: {missing[:8]}"
+                       f"{' ...' if len(missing) > 8 else ''}")
+    return out
+
+
+def load_flax_params(model: nn.Module, params: Mapping) -> nn.Module:
+    """Copy the flax ``params`` into ``model`` (cast to its dtype)."""
+    model.load_state_dict(flax_to_state_dict(params, model))
+    return model
