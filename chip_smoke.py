@@ -5,15 +5,25 @@ Run from the root of a checkout:  python3 chip_smoke.py
 (`--phases build,kernels` runs a subset while developing.)
 
 Phases, each of which fails the run (non-zero exit) on any error:
-  build    compile the CUDA kernels of core/csrc with nvcc for sm_90a
-  kernels  each kernel against its plain PyTorch version on the card, at the
-           main path's stream shapes, fp32 and bf16; times at B=1024
-  serving  the flagship both/both model (d=512, 16 heads, 6 layers) served
-           with the --serving preset over a 3,920,483-row int8 feature table
-           built on the card, through the exporter's functions, plus one run
-           of the exporter's CLI over a small memmap; latency per batch size
-  default  the default config (K1 route, fp32) on the same checkpoint,
-           against an fp32 K2 run and against the CPU's plain versions
+  build          compile the CUDA kernels of core/csrc with nvcc for sm_90a
+  kernels        each kernel (K1f, K1b, K2f, K2b, K7b) against its plain
+                 PyTorch version on the card, at the main path's stream
+                 shapes, fp32 and bf16, dropout off and on; times at B=1024
+  serving        the flagship both/both model (d=512, 16 heads, 6 layers)
+                 served with the --serving preset over a 3,920,483-row int8
+                 feature table built on the card, through the exporter's
+                 functions, plus one run of the exporter's CLI over a small
+                 memmap; latency per batch size
+  default        the default config (K1 route, fp32) on the same checkpoint,
+                 against an fp32 K2 run and against the CPU's plain versions
+  train          the production training config (bf16, K2, int8 table, no
+                 remat, B=1024) for 12 steps through the engine's own
+                 functions: ms per step, interactions/s, 20 K2f + 18 K2b
+                 launches per step; then 3 steps of the K7b route
+  train_default  the default config trained (K1, fp32, layer remat): 40 K1f
+                 + 18 K1b per step; one 32-row fp32 step against the CPU
+  train_cli      skip_train's CLI over the small memmap, then export_logits
+                 serving the checkpoint it wrote
 The last line is {"ok": true, "device": {...}}; before it come the card's
 name and power limit (nvidia-smi) and one JSON line describing the kernels.
 It needs no network and writes only under build/ (the kernels in
@@ -49,8 +59,17 @@ PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 # projection sum that rounds the other way moves a logit by ~one ulp, so
 # the outputs may differ by a few ulps: atol 2e-2 + rtol 2e-2.
 TOL = {torch.float32: (1e-4, 0.0), torch.bfloat16: (2e-2, 2e-2)}
+# gradients, as max |err| over max |want| per tensor. fp32: the same sums in
+# another order, dW over up to 6,400 rows here (~1e-6 relative). bf16: the
+# kernels recompute the projections and round them to bf16; a value that
+# rounds the other way moves by one ulp (2^-8 relative) and carries into
+# the gradients: 3e-2 is a few ulps.
+BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+DROP_RATE = 0.1                      # the model's dropout
 
-RESULT = {"kernels": {}}
+RESULT = {"kernels": {}, "launches": {}}
+ALL_PHASES = ("build", "kernels", "serving", "default", "train",
+              "train_default", "train_cli")
 
 
 def log(*a):
@@ -130,6 +149,30 @@ def _elem(dt):
     return torch.tensor([], dtype=dt).element_size()
 
 
+def _rel_err(name, got, want, tol):
+    """max |got - want| over max |want|, per tensor; fails above tol."""
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(got, want)):
+        a, b = a.float(), b.float()
+        if not torch.isfinite(a).all():
+            raise AssertionError(f"{name}: output {i} is not finite")
+        e = ((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
+        worst = max(worst, e)
+    if worst > tol:
+        raise AssertionError(f"{name}: kernel disagrees with its plain version "
+                             f"(max relative err {worst:.3g} > {tol})")
+    return worst
+
+
+def _grads(fn, inputs, g):
+    """Gradients of fn(*inputs) . g with respect to the float inputs,
+    through the wrapper's autograd.Function (the backward kernel)."""
+    leaves = [t.detach().requires_grad_(t.is_floating_point()) for t in inputs]
+    out = fn(*leaves)
+    diff = [t for t in leaves if t.requires_grad]
+    return torch.autograd.grad(out, diff, g)
+
+
 def phase_kernels():
     from segmminterest_tpu_torch.core import attention as A
     dev = torch.device("cuda")
@@ -137,29 +180,65 @@ def phase_kernels():
     scale = 1.0 / math.sqrt(D_MODEL // HEADS)
     H, Dh, d = HEADS, D_MODEL // HEADS, D_MODEL
 
-    def k1(qkv, m):
-        return A.fused_two_block_attention(*qkv, *m, scale=scale)
+    def k1(qkv, m, rate=0.0, seed=0):
+        return A.fused_two_block_attention(*qkv, *m, scale=scale,
+                                           dropout_rate=rate, seed=seed,
+                                           deterministic=rate == 0)
 
-    def k1_plain(qkv, m):
-        return A.two_block_attention_plain(*qkv, *m, scale)
+    def k1_plain(qkv, m, rate=0.0, seed=0):
+        return A.two_block_attention_plain(*qkv, *m, scale, rate, seed)
 
-    def k2(x, ws, m):
-        return A.fused_proj_two_block_attention(*x, *ws, *m, num_heads=H,
-                                                scale=scale)
+    def k2(x, ws, m, rate=0.0, seed=0):
+        return A.fused_proj_two_block_attention(
+            *x, *ws, *m, num_heads=H, scale=scale, dropout_rate=rate,
+            seed=seed, deterministic=rate == 0)
 
-    def k2_plain(x, ws, m):
-        return A.proj_two_block_attention_plain(*x, *ws, *m, H, scale)
+    def k2_plain(x, ws, m, rate=0.0, seed=0):
+        return A.proj_two_block_attention_plain(*x, *ws, *m, H, scale, rate,
+                                                seed)
 
+    worst = {}
     for dt in (torch.float32, torch.bfloat16):
         for (Lq, L1, L2) in STREAM_SHAPES:
+            tag = f"{str(dt)[6:]} {(Lq, L1, L2)}"
             qkv, m = _k1_inputs(g, 64, Lq, L1, L2, dt, dev)
-            e1 = _check(f"K1 {dt} {(Lq, L1, L2)}", k1(qkv, m),
-                        k1_plain(qkv, m), dt)
-            x, ws, m = _k2_inputs(g, 64, Lq, L1, L2, dt, dev)
-            e2 = _check(f"K2 {dt} {(Lq, L1, L2)}", k2(x, ws, m),
-                        k2_plain(x, ws, m), dt)
-            log(f"  B=64 {str(dt):14s} (Lq,L1,L2)={(Lq, L1, L2)}: "
-                f"max|err| K1 {e1:.3g}  K2 {e2:.3g}")
+            x, ws, mx = _k2_inputs(g, 64, Lq, L1, L2, dt, dev)
+            gq = torch.randn(64, Lq, H, Dh, generator=g, device=dev).to(dt)
+            gx = gq.reshape(64, Lq, d)
+            errs = {}
+            for rate, seed in ((0.0, 0), (DROP_RATE, 1234567)):
+                on = "drop" if rate else "eval"
+                errs[f"K1f {on}"] = _check(
+                    f"K1 {tag} {on}", k1(qkv, m, rate, seed),
+                    k1_plain(qkv, m, rate, seed), dt)
+                errs[f"K2f {on}"] = _check(
+                    f"K2 {tag} {on}", k2(x, ws, m, rate, seed),
+                    k2_plain(x, ws, m, rate, seed), dt)
+                n = A.LAUNCHES["two_block_attention_bwd"]
+                got = _grads(lambda *t: k1(t, m, rate, seed), qkv, gq)
+                if A.LAUNCHES["two_block_attention_bwd"] != n + 1:
+                    raise AssertionError("K1b did not launch")
+                errs[f"K1b {on}"] = _rel_err(
+                    f"K1b {tag} {on}", got, A.two_block_attention_bwd_plain(
+                        *qkv, *m, gq, scale, rate, seed), BWD_TOL[dt])
+                want = A.proj_two_block_attention_bwd_plain(
+                    *x, *ws, *mx, gx, H, scale, rate, seed)
+                for v3, key in ((False, "proj_two_block_attention_bwd"),
+                                (True, "proj_two_block_attention_qkv_bwd")):
+                    A.ATTN_V3_BWD = v3
+                    n = A.LAUNCHES[key]
+                    got = _grads(lambda *t: k2(t[:3], t[3:], mx, rate, seed),
+                                 tuple(x) + tuple(ws), gx)
+                    A.ATTN_V3_BWD = False
+                    if A.LAUNCHES[key] != n + 1:
+                        raise AssertionError(f"{key} did not launch")
+                    name = "K7b" if v3 else "K2b"
+                    errs[f"{name} {on}"] = _rel_err(f"{name} {tag} {on}",
+                                                    got, want, BWD_TOL[dt])
+            for k, v in errs.items():
+                worst[k.split()[0]] = max(worst.get(k.split()[0], 0.0), v)
+            log(f"  B=64 {tag}: " + ", ".join(f"{k} {v:.2g}"
+                                              for k, v in errs.items()))
     torch.cuda.synchronize()
 
     # the main path's largest launch: backbone1's video stream at B=1024;
@@ -188,20 +267,40 @@ def phase_kernels():
     bytes1 = (e * B * H * Dh * (3 * Lq + 2 * L1 + 2 * L2)
               + 4 * B * (Lq + L1 + L2))
     flops1 = 4.0 * B * H * Lq * Lk * Dh
-    bound1 = max(bytes1 / HBM_BYTES_PER_S,
-                 flops1 / PEAK_FLOPS[torch.float32]) * 1e3
-    RESULT["kernels"]["K1"] = dict(
-        name="two_block_attention_fwd (K1)", route="cuda",
-        source="segmminterest_tpu_torch/core/csrc/two_block_attention.cu",
-        replaces="segmminterest_tpu/core/attention.py:527",
-        launches=None, max_abs_err=err1, ms=ms1, plain_ms=plain1,
-        bound_ms=bound1,
-        bound_by="bytes" if bytes1 / HBM_BYTES_PER_S
-        >= flops1 / PEAK_FLOPS[torch.float32] else "operations",
-        library_ms=lib1)
-    log(f"  K1 fp32 B=1024 {(Lq, L1, L2)}: {ms1:.3f} ms (plain {plain1:.3f}, "
-        f"sdpa {lib1:.3f}, bound {bound1:.3f}) max|err| {err1:.3g}")
-    del qkv, qc, kc, vc, bias
+    _record("K1", "two_block_attention_fwd (K1f)",
+            "two_block_attention.cu", 527, err1, ms1, plain1, bytes1,
+            flops1 / PEAK_FLOPS[torch.float32], lib1)
+    log(f"  K1f fp32 B=1024 {(Lq, L1, L2)}: {ms1:.3f} ms (plain "
+        f"{plain1:.3f}, sdpa {lib1:.3f}) max|err| {err1:.3g}")
+
+    # K1b, fp32, B=1024: gradients of the six inputs
+    gq = torch.randn(B, Lq, H, Dh, generator=g, device=dev)
+    A.reset_launch_counts()
+    got = _grads(lambda *t: k1(t, m), qkv, gq)
+    want = A.two_block_attention_bwd_plain(*qkv, *m, gq, scale)
+    err1b = _rel_err("K1b B=1024", got, want, BWD_TOL[torch.float32])
+    del got, want
+    leaves = [t.detach().requires_grad_() for t in qkv]
+    out = k1(leaves, m)
+    ms1b = _time_ms(lambda: torch.autograd.grad(out, leaves, gq,
+                                                retain_graph=True), 10)
+    plain1b = _time_ms(lambda: A.two_block_attention_bwd_plain(
+        *qkv, *m, gq, scale), 3)
+    cl = [t.detach().requires_grad_() for t in (qc, kc, vc)]
+    lib_out = sdpa(*cl, attn_mask=bias, scale=scale)
+    gc = gq.transpose(1, 2)
+    lib1b = _time_ms(lambda: torch.autograd.grad(lib_out, cl, gc,
+                                                 retain_graph=True), 10)
+    bytes1b = (e * B * H * Dh * (5 * Lq + 4 * L1 + 4 * L2)
+               + 4 * B * (Lq + L1 + L2))
+    flops1b = 10.0 * B * H * Lq * Lk * Dh
+    _record("K1b", "two_block_attention_bwd (K1b)",
+            "two_block_attention_bwd.cu", 558, err1b, ms1b, plain1b,
+            bytes1b, flops1b / PEAK_FLOPS[torch.float32], lib1b)
+    log(f"  K1b fp32 B=1024 {(Lq, L1, L2)}: {ms1b:.3f} ms (plain "
+        f"{plain1b:.3f}, sdpa backward {lib1b:.3f}) max rel err "
+        f"{err1b:.3g}")
+    del qkv, qc, kc, vc, bias, cl, lib_out, leaves, out
 
     x, ws, m = _k2_inputs(g, B, Lq, L1, L2, torch.bfloat16, dev)
     err2 = _check("K2 B=1024", k2(x, ws, m), k2_plain(x, ws, m),
@@ -209,31 +308,94 @@ def phase_kernels():
     ms2 = _time_ms(lambda: k2(x, ws, m), 10)
     plain2 = _time_ms(lambda: k2_plain(x, ws, m), 5)
     e = _elem(torch.bfloat16)
+    n_rows = 2 * Lq + 2 * L1 + 2 * L2     # rows through the six projections
+    proj_flops = 2.0 * B * d * d * n_rows
     bytes2 = (e * (B * d * (2 * Lq + L1 + L2) + 6 * (d * d + d))
               + 4 * B * (Lq + L1 + L2))
-    flops2 = 2.0 * B * d * d * (2 * Lq + 2 * L1 + 2 * L2) \
-        + 4.0 * B * Lq * Lk * d
-    bound2 = max(bytes2 / HBM_BYTES_PER_S,
-                 flops2 / PEAK_FLOPS[torch.bfloat16]) * 1e3
-    RESULT["kernels"]["K2"] = dict(
-        name="proj_two_block_attention_fwd (K2)", route="cuda",
-        source="segmminterest_tpu_torch/core/csrc/proj_two_block_attention.cu",
-        replaces="segmminterest_tpu/core/attention.py:776",
-        launches=None, max_abs_err=err2, ms=ms2, plain_ms=plain2,
-        bound_ms=bound2,
-        bound_by="bytes" if bytes2 / HBM_BYTES_PER_S
-        >= flops2 / PEAK_FLOPS[torch.bfloat16] else "operations",
-        library_ms=None)
-    log(f"  K2 bf16 B=1024 {(Lq, L1, L2)}: {ms2:.3f} ms (plain {plain2:.3f}, "
-        f"bound {bound2:.3f}) max|err| {err2:.3g}")
+    flops2 = proj_flops + 4.0 * B * Lq * Lk * d
+    _record("K2", "proj_two_block_attention_fwd (K2f)",
+            "proj_two_block_attention.cu", 776, err2, ms2, plain2, bytes2,
+            flops2 / PEAK_FLOPS[torch.bfloat16], None)
+    log(f"  K2f bf16 B=1024 {(Lq, L1, L2)}: {ms2:.3f} ms (plain "
+        f"{plain2:.3f}) max|err| {err2:.3g}")
+
+    # K2b (and K7b), bf16, B=1024
+    gx = torch.randn(B, Lq, d, generator=g, device=dev).to(torch.bfloat16)
+    inputs = tuple(x) + tuple(ws)
+    want = A.proj_two_block_attention_bwd_plain(*x, *ws, *m, gx, H, scale)
+    leaves = [t.detach().requires_grad_() for t in inputs]
+    out = k2(leaves[:3], leaves[3:], m)
+    timed = {}
+    for v3, name in ((False, "K2b"), (True, "K7b")):
+        A.ATTN_V3_BWD = v3
+        got = torch.autograd.grad(out, leaves, gx, retain_graph=True)
+        timed[name] = (_rel_err(f"{name} B=1024", got, want,
+                                BWD_TOL[torch.bfloat16]),
+                       _time_ms(lambda: torch.autograd.grad(
+                           out, leaves, gx, retain_graph=True), 5))
+        A.ATTN_V3_BWD = False
+        del got
+    plain2b = _time_ms(lambda: A.proj_two_block_attention_bwd_plain(
+        *x, *ws, *m, gx, H, scale), 3)
+    # K2b: projection recompute on the bf16 tensor cores, dx and dW with
+    # fp32 operands and the attention core on the fp32 units; reads x, W,
+    # g once, writes dx, dW, db once
+    core_flops = 10.0 * B * Lq * Lk * d
+    ops2b = (proj_flops / PEAK_FLOPS[torch.bfloat16]
+             + (2 * proj_flops + core_flops) / PEAK_FLOPS[torch.float32])
+    bytes2b = (e * (2 * B * d * (Lq + L1 + L2) + B * Lq * d + 6 * (d * d + d))
+               + 4 * 6 * (d * d + d) + 4 * B * (Lq + L1 + L2))
+    _record("K2b", "proj_two_block_attention_bwd (K2b)",
+            "proj_two_block_attention_bwd.cu", 808, timed["K2b"][0],
+            timed["K2b"][1], plain2b, bytes2b, ops2b, None)
+    # K7b does the recompute and the core; dx and dW are torch.matmul
+    ops7b = (proj_flops / PEAK_FLOPS[torch.bfloat16]
+             + core_flops / PEAK_FLOPS[torch.float32])
+    bytes7b = (e * (B * d * (Lq + L1 + L2) + B * Lq * d + 6 * (d * d + d))
+               + 4 * B * d * n_rows // 2 + 4 * B * (Lq + L1 + L2))
+    _record("K7b", "proj_two_block_attention_qkv_bwd (K7b)",
+            "proj_two_block_attention_bwd.cu", 1568, timed["K7b"][0],
+            timed["K7b"][1], plain2b, bytes7b, ops7b, None)
+    log(f"  K2b bf16 B=1024 {(Lq, L1, L2)}: {timed['K2b'][1]:.3f} ms, K7b "
+        f"path (qkv pass + torch.matmul) {timed['K7b'][1]:.3f} ms (plain "
+        f"{plain2b:.3f}); max rel err K2b {timed['K2b'][0]:.3g}, K7b "
+        f"{timed['K7b'][0]:.3g}")
+    del leaves, out, want
     # the other three launch shapes of a layer, timed for PERF.md
     for (Lq, L1, L2) in STREAM_SHAPES[1:]:
         x, ws, m = _k2_inputs(g, B, Lq, L1, L2, torch.bfloat16, dev)
         qkv, mk = _k1_inputs(g, B, Lq, L1, L2, torch.float32, dev)
-        log(f"  B=1024 {(Lq, L1, L2)}: K2 bf16 "
-            f"{_time_ms(lambda: k2(x, ws, m), 5):.3f} ms, K1 fp32 "
-            f"{_time_ms(lambda: k1(qkv, mk), 5):.3f} ms")
+        gx = torch.randn(B, Lq, d, generator=g, device=dev).to(torch.bfloat16)
+        leaves = [t.detach().requires_grad_()
+                  for t in tuple(x) + tuple(ws)]
+        out = k2(leaves[:3], leaves[3:], m)
+        k1l = [t.detach().requires_grad_() for t in qkv]
+        out1 = k1(k1l, mk)
+        g1 = torch.randn_like(out1)
+        log(f"  B=1024 {(Lq, L1, L2)}: K2f bf16 "
+            f"{_time_ms(lambda: k2(x, ws, m), 5):.3f} ms, K2b bf16 "
+            f"{_time_ms(lambda: torch.autograd.grad(out, leaves, gx, retain_graph=True), 3):.3f}"
+            f" ms, K1f fp32 {_time_ms(lambda: k1(qkv, mk), 5):.3f} ms, K1b "
+            f"fp32 {_time_ms(lambda: torch.autograd.grad(out1, k1l, g1, retain_graph=True), 3):.3f}"
+            " ms")
+        del leaves, out, k1l, out1
     A.reset_launch_counts()
+
+
+def _record(key, name, src, line, err, ms, plain_ms, nbytes, ops_s,
+            library_ms):
+    """One kernel's entry of the kernels JSON line; the bound is the larger
+    of its bytes over the memory rate and its operations over the peak
+    rate of their type (ops_s: seconds at those peaks)."""
+    by_bytes = nbytes / HBM_BYTES_PER_S
+    RESULT["kernels"][key] = dict(
+        name=name, route="cuda",
+        source=f"segmminterest_tpu_torch/core/csrc/{src}",
+        replaces=f"segmminterest_tpu/core/attention.py:{line}",
+        launches=None, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+        bound_ms=max(by_bytes, ops_s) * 1e3,
+        bound_by="bytes" if by_bytes >= ops_s else "operations",
+        library_ms=library_ms)
 
 
 # ---------------------------------------------------------------------------
@@ -260,18 +422,16 @@ def _device_int8_table(rows, dev, seed=0, chunk=1 << 18):
     return table, scale
 
 
-def phase_serving(ctx):
-    from segmminterest_tpu_torch.core import attention as A
-    from segmminterest_tpu_torch.data.dataset import BatchIterator
+def _data(ctx):
+    """The synthetic interactions, their reader and segment map, and the
+    3,920,483-row int8 table on the card; built once, for every phase that
+    needs them."""
+    if "reader" in ctx:
+        return ctx
     from segmminterest_tpu_torch.data.feature_store import FeatureStore
     from segmminterest_tpu_torch.data.reader import SeqReader
     from segmminterest_tpu_torch.data.synthetic import (synthetic_lineid_map,
                                                         write_synthetic_csv)
-    from segmminterest_tpu_torch.engine.checkpoint import CheckPointer
-    from segmminterest_tpu_torch.engine.train import InterestEngine
-    from segmminterest_tpu_torch.tasks import export_logits as X
-
-    dev = torch.device("cuda")
     os.makedirs(WORK, exist_ok=True)
     t0 = time.perf_counter()
     csv_path = write_synthetic_csv(os.path.join(WORK, "inter.csv"),
@@ -284,12 +444,53 @@ def phase_serving(ctx):
     stub = np.broadcast_to(np.zeros((1, FEAT_DIM), np.float32),
                            (PRODUCTION_ROWS, FEAT_DIM))
     store = FeatureStore(stub, lineid_map)
-    table = _device_int8_table(PRODUCTION_ROWS, dev)
+    table = _device_int8_table(PRODUCTION_ROWS, torch.device("cuda"))
     torch.cuda.synchronize()
-    n_test = len(reader.tables["test"])
-    log(f"  data: {n_test} test interactions, {len(lineid_map)} segments, "
-        f"table {PRODUCTION_ROWS} x {FEAT_DIM} int8 on the card "
+    log(f"  data: {len(reader.tables['train'])} train / "
+        f"{len(reader.tables['test'])} test interactions, {len(lineid_map)} "
+        f"segments, table {PRODUCTION_ROWS} x {FEAT_DIM} int8 on the card "
         f"({time.perf_counter() - t0:.1f} s)")
+    ctx.update(reader=reader, store=store, table=table, csv=csv_path)
+    return ctx
+
+
+def _cli_files(ctx):
+    """A small float32 memmap and its segment map for the CLIs
+    (FeatureStore.open reads one memmap row per lineid-map entry: ~200k rows
+    here, the size bench.py:75 uses). Removed at the end of the run."""
+    if "memmap" in ctx:
+        return ctx["memmap"], ctx["lineid"]
+    from segmminterest_tpu_torch.data.synthetic import synthetic_lineid_map
+    cli_map = synthetic_lineid_map(_data(ctx)["reader"])
+    rows = len(cli_map)
+    memmap = os.path.join(WORK, "feat.dat")
+    mm = np.memmap(memmap, dtype="float32", mode="w+",
+                   shape=(rows, FEAT_DIM))
+    rs = np.random.default_rng(2)
+    for s in range(0, rows, 50_000):
+        e = min(rows, s + 50_000)
+        mm[s:e] = rs.standard_normal((e - s, FEAT_DIM), dtype=np.float32)
+    mm.flush()
+    del mm
+    lineid_path = os.path.join(WORK, "lineid.json")
+    with open(lineid_path, "w") as f:
+        json.dump(cli_map, f)
+    ctx.update(memmap=memmap, lineid=lineid_path, memmap_rows=rows)
+    return memmap, lineid_path
+
+
+def phase_serving(ctx):
+    from segmminterest_tpu_torch.core import attention as A
+    from segmminterest_tpu_torch.data.dataset import BatchIterator
+    from segmminterest_tpu_torch.engine.checkpoint import CheckPointer
+    from segmminterest_tpu_torch.engine.train import InterestEngine
+    from segmminterest_tpu_torch.tasks import export_logits as X
+
+    dev = torch.device("cuda")
+    _data(ctx)
+    reader, store, table, csv_path = (ctx["reader"], ctx["store"],
+                                      ctx["table"], ctx["csv"])
+    n_test = len(reader.tables["test"])
 
     cfg = X.apply_serving_preset(_flagship_cfg(csv_path))
     engine = InterestEngine(cfg, reader.n_users, reader.n_items,
@@ -324,7 +525,7 @@ def phase_serving(ctx):
             launches["two_block_attention"] != 0:
         raise AssertionError(f"serving: launches {launches}, expected K2 = "
                              f"20 x {n_batches} batches and K1 = 0")
-    RESULT["kernels"]["K2"]["launches"] = launches["proj_two_block_attention"]
+    RESULT["launches"]["K2"] = launches["proj_two_block_attention"]
     log(f"  serving: {n_test} interactions in {n_batches} batches of "
         f"{cfg.test_batch_size}: {n_test / wall:.1f} interactions/s, "
         f"{1e3 * wall / n_batches:.1f} ms per batch (host pipeline included,"
@@ -340,23 +541,8 @@ def phase_serving(ctx):
         log(f"  latency B={bs}: {ms:.1f} ms per batch "
             f"({1e3 * bs / ms:.1f} interactions/s)")
 
-    # the exporter's CLI itself, over a small float32 memmap
-    # (FeatureStore.open reads one memmap row per lineid-map entry:
-    # ~200k rows here, the size bench.py:75 uses)
-    cli_map = synthetic_lineid_map(reader)
-    rows = len(cli_map)
-    memmap = os.path.join(WORK, "feat.dat")
-    mm = np.memmap(memmap, dtype="float32", mode="w+",
-                   shape=(rows, FEAT_DIM))
-    rs = np.random.default_rng(2)
-    for s in range(0, rows, 50_000):
-        e = min(rows, s + 50_000)
-        mm[s:e] = rs.standard_normal((e - s, FEAT_DIM), dtype=np.float32)
-    mm.flush()
-    del mm
-    lineid_path = os.path.join(WORK, "lineid.json")
-    with open(lineid_path, "w") as f:
-        json.dump(cli_map, f)
+    # the exporter's CLI itself, over the small float32 memmap
+    memmap, lineid_path = _cli_files(ctx)
     A.reset_launch_counts()
     out_dir = os.path.join(WORK, "cli_logits")
     out_path = X.main([
@@ -373,12 +559,9 @@ def phase_serving(ctx):
                              "are not finite")
     if A.LAUNCHES["proj_two_block_attention"] != 20 * n_batches:
         raise AssertionError(f"CLI: launches {A.LAUNCHES}")
-    log(f"  CLI export_logits --serving 1 over a {rows}-row memmap: "
-        f"{len(cli)} rows, launches "
-        f"{dict(A.LAUNCHES)}")
-    os.remove(memmap)
-    ctx.update(reader=reader, store=store, table=table, cfg=cfg,
-               ckpt=ckpt, csv=csv_path)
+    log(f"  CLI export_logits --serving 1 over a {ctx['memmap_rows']}-row "
+        f"memmap: {len(cli)} rows, launches {dict(A.LAUNCHES)}")
+    ctx.update(cfg=cfg, ckpt=ckpt)
 
 
 def phase_default(ctx):
@@ -408,7 +591,7 @@ def phase_default(ctx):
             launches["proj_two_block_attention"] != 0:
         raise AssertionError(f"default config: launches {launches}, "
                              f"expected K1 = 20 x {len(batches)}")
-    RESULT["kernels"]["K1"]["launches"] = launches["two_block_attention"]
+    RESULT["launches"]["K1"] = launches["two_block_attention"]
 
     k2_eng, k2_state = engine_for("cuda", ctx["table"],
                                   fused_attention=True, fuse_qkv=True)
@@ -451,9 +634,253 @@ def phase_default(ctx):
 
 
 # ---------------------------------------------------------------------------
+# training
+
+TRAIN_STEPS = 10        # production config, timed after 2 warm-up steps
+DEFAULT_TRAIN_STEPS = 3
+# attention launches per flagship step: 2 backbones x 5 run layers x 2
+# streams forward; the last layer's user stream reaches no output, so its
+# backward never runs: 18 backward launches
+FWD_PER_STEP, BWD_PER_STEP = 20, 18
+K2_NAMES = ("proj_two_block", "dx_kernel", "dw_kernel", "dw_reduce_kernel")
+K1_NAMES = ("two_block_fwd_kernel", "two_block_bwd_kernel")
+
+
+def _production_train_cfg(csv_path, **kw):
+    """The production training configuration (bench.py:363-371 through
+    tools/perf_ab.py): flagship both/both, B=1024, bf16, the six QKV
+    projections inside K2, int8 table, no remat; dropout 0.1."""
+    return _flagship_cfg(csv_path).replace(
+        train_batch_size=1024, compute_dtype="bfloat16",
+        fused_attention=True, fuse_qkv=True, table_quant="int8",
+        remat=False, **kw)
+
+
+def _train_steps(engine, batches):
+    """Train on `batches` (already on the card); per-step host time after a
+    synchronise, the losses and the launch counts of the run."""
+    from segmminterest_tpu_torch.core import attention as A
+    state = engine.init_state()
+    A.reset_launch_counts()
+    times, losses = [], []
+    for b in batches:
+        t0 = time.perf_counter()
+        state, ld = engine.train_step(state, b)
+        loss = float(ld["loss"])  # synchronises
+        times.append(time.perf_counter() - t0)
+        losses.append(loss)
+    counts = dict(A.LAUNCHES)
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite training loss: {losses}")
+    return state, times, losses, counts
+
+
+def _expect(counts, want, what):
+    for k, v in want.items():
+        if counts[k] != v:
+            raise AssertionError(f"{what}: launches {counts}, expected "
+                                 f"{k} = {v}")
+
+
+def _kernel_share(engine, batches, names=None):
+    """Share of device time in the kernels whose names contain one of
+    `names` (default K2f + K2b) over training steps, and the device time
+    per step, from a torch.profiler trace; None when the trace holds no
+    device times."""
+    names = names or K2_NAMES
+    prof = torch.profiler.profile(activities=[
+        torch.profiler.ProfilerActivity.CPU,
+        torch.profiler.ProfilerActivity.CUDA])
+    state = engine.init_state()
+    with prof:
+        for b in batches:
+            state, ld = engine.train_step(state, b)
+        float(ld["loss"])
+    # kernel rows only: an operator's row repeats its kernels' time
+    total = k2 = 0.0
+    for e in prof.key_averages():
+        if "CUDA" not in str(getattr(e, "device_type", "")):
+            continue
+        t = getattr(e, "self_device_time_total", 0.0) or 0.0
+        total += t
+        if any(n in e.key for n in names):
+            k2 += t
+    return (k2 / total, total / 1e3 / len(batches)) if total > 0 else None
+
+
+def phase_train(ctx):
+    """The production training configuration at full width over the
+    3.9M-row int8 table, through the engine's own functions; then the
+    K7b route (SEGMM_ATTN_V3_BWD's switch) for two steps."""
+    from segmminterest_tpu_torch.core import attention as A
+    from segmminterest_tpu_torch.data.dataset import BatchIterator
+    from segmminterest_tpu_torch.engine.train import InterestEngine
+
+    _data(ctx)
+    reader, store = ctx["reader"], ctx["store"]
+    cfg = _production_train_cfg(ctx["csv"])
+    engine = InterestEngine(cfg, reader.n_users, reader.n_items,
+                            feature_table=ctx["table"], device="cuda")
+    it = BatchIterator(reader, reader.tables["train"], cfg.train_batch_size,
+                       shuffle=True, feature_store=store, seed=cfg.seed,
+                       transform=engine.batch_transform)
+    batches = [b for _, b in zip(range(TRAIN_STEPS + 2), it)]
+    if len(batches) < TRAIN_STEPS + 2:
+        raise AssertionError(f"only {len(batches)} training batches")
+    _, times, losses, counts = _train_steps(engine, batches)
+    n = len(batches)
+    _expect(counts, {"proj_two_block_attention": FWD_PER_STEP * n,
+                     "proj_two_block_attention_bwd": BWD_PER_STEP * n,
+                     "two_block_attention": 0, "two_block_attention_bwd": 0,
+                     "proj_two_block_attention_qkv_bwd": 0}, "production train")
+    RESULT["launches"]["K2b"] = counts[
+        "proj_two_block_attention_bwd"]
+    steady = times[2:]
+    rows = sum(int(b["row_mask"].sum()) for b in batches[2:])
+    ms = 1e3 * sum(steady) / len(steady)
+    log(f"  production train (bf16, K2, int8 table, no remat, B=1024): "
+        f"{ms:.1f} ms per step, {rows / sum(steady):.1f} interactions/s over "
+        f"{len(steady)} steps after 2 warm-up steps; losses "
+        f"{[round(x, 4) for x in losses]}; launches {counts}")
+    log(f"  peak device memory so far "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    share = _kernel_share(engine, batches[:2])
+    if share is None:
+        log("  K2f + K2b share of the step: not measured (the profiler "
+            "trace holds no device times)")
+    else:
+        log(f"  K2f + K2b share of device time: {100 * share[0]:.1f}% of "
+            f"{share[1]:.1f} ms device time per step (torch.profiler, 2 "
+            "steps)")
+
+    # the K7b route: the qkv pass alone, dx and dW by torch.matmul
+    A.ATTN_V3_BWD = True
+    _, times7, losses7, counts7 = _train_steps(engine, batches[:3])
+    A.ATTN_V3_BWD = False
+    _expect(counts7, {"proj_two_block_attention_qkv_bwd": BWD_PER_STEP * 3,
+                      "proj_two_block_attention_bwd": 0}, "K7b train")
+    RESULT["launches"]["K7b"] = counts7[
+        "proj_two_block_attention_qkv_bwd"]
+    log(f"  K7b route (SEGMM_ATTN_V3_BWD=1): {1e3 * times7[-1]:.1f} ms for "
+        f"the last of 3 steps; losses {[round(x, 4) for x in losses7]}")
+    del engine
+    torch.cuda.empty_cache()
+
+
+def phase_train_default(ctx):
+    """The default configuration (K1 route, fp32, remat of each encoder
+    layer) for a few steps; then one 32-row fp32 step on the card against
+    the same step on the CPU."""
+    from segmminterest_tpu_torch.data.dataset import BatchIterator
+    from segmminterest_tpu_torch.engine.train import InterestEngine
+
+    _data(ctx)
+    reader, store = ctx["reader"], ctx["store"]
+    cfg = _flagship_cfg(ctx["csv"]).replace(train_batch_size=1024,
+                                            table_quant="int8")
+    engine = InterestEngine(cfg, reader.n_users, reader.n_items,
+                            feature_table=ctx["table"], device="cuda")
+    batches = [b for _, b in zip(range(DEFAULT_TRAIN_STEPS), BatchIterator(
+        reader, reader.tables["train"], 1024, shuffle=True,
+        feature_store=store, seed=cfg.seed,
+        transform=engine.batch_transform))]
+    _, times, losses, counts = _train_steps(engine, batches)
+    n = len(batches)
+    # layer remat runs each layer's forward twice
+    _expect(counts, {"two_block_attention": 2 * FWD_PER_STEP * n,
+                     "two_block_attention_bwd": BWD_PER_STEP * n,
+                     "proj_two_block_attention": 0,
+                     "proj_two_block_attention_bwd": 0}, "default train")
+    RESULT["launches"]["K1b"] = counts["two_block_attention_bwd"]
+    rows = sum(int(b["row_mask"].sum()) for b in batches[1:])
+    share = _kernel_share(engine, batches[:2], K1_NAMES)
+    log("  K1f + K1b share of device time: " + (
+        "not measured (no device times in the trace)" if share is None else
+        f"{100 * share[0]:.1f}% of {share[1]:.1f} ms device time per step "
+        "(torch.profiler, 2 steps)"))
+    log(f"  default train (fp32, K1, layer remat, B=1024): "
+        f"{1e3 * sum(times[1:]) / (n - 1):.1f} ms per step, "
+        f"{rows / sum(times[1:]):.1f} interactions/s (steps 2-{n}); losses "
+        f"{[round(x, 4) for x in losses]}; launches {counts}")
+    del engine
+    torch.cuda.empty_cache()
+
+    # 32 rows, fp32, K2 route, dropout off (nn.Dropout draws from another
+    # generator on each device): the card against the CPU's plain versions
+    small = next(iter(BatchIterator(reader, reader.tables["train"], 32,
+                                    feature_store=store, seed=7,
+                                    prefetch_size=0)))
+    one = cfg.replace(train_batch_size=32, dropout=0.0, fuse_qkv=True)
+    got = {}
+    for dev, table in (("cuda", ctx["table"]),
+                       ("cpu", tuple(t.cpu() for t in ctx["table"]))):
+        eng = InterestEngine(one, reader.n_users, reader.n_items,
+                             feature_table=table, device=dev)
+        _, ld = eng.train_step(eng.init_state(), small)
+        got[dev] = (float(ld["loss"]), float(eng.last_grad_norm))
+        del eng, table
+    dl = abs(got["cuda"][0] - got["cpu"][0]) / abs(got["cpu"][0])
+    dg = abs(got["cuda"][1] - got["cpu"][1]) / got["cpu"][1]
+    log(f"  32-row fp32 step, card vs CPU: loss {got['cuda'][0]:.6f} vs "
+        f"{got['cpu'][0]:.6f} (rel {dl:.2g}), grad norm {got['cuda'][1]:.6f}"
+        f" vs {got['cpu'][1]:.6f} (rel {dg:.2g})")
+    # fp32 through five layers in another summation order: 1e-4 relative
+    if not (dl <= 1e-4 and dg <= 1e-4):
+        raise AssertionError(f"card and CPU training steps differ: {got}")
+
+
+def phase_train_cli(ctx):
+    """skip_train's CLI (production flags, --debug 1) over the small
+    memmap, then export_logits serving the checkpoint it wrote."""
+    from segmminterest_tpu_torch.core import attention as A
+    from segmminterest_tpu_torch.tasks import export_logits as X
+    from segmminterest_tpu_torch.tasks import skip_train
+
+    _data(ctx)
+    memmap, lineid = _cli_files(ctx)
+    common = ["--sample_csv", ctx["csv"], "--min_interactions", "100",
+              "--num_warmup", "80", "--memmap", memmap, "--lineid_map",
+              lineid, "--seed", "7"]
+    A.reset_launch_counts()
+    res = skip_train.main(common + [
+        "--debug", "1", "--compute_dtype", "bfloat16", "--fuse_qkv", "1",
+        "--table_quant", "int8", "--remat", "0", "--ckpt_dir",
+        os.path.join(WORK, "train_cli")])
+    work = res["work_dir"]
+    for f in ("ckpt-latest.pt", "final_results.json"):
+        if not os.path.exists(os.path.join(work, f)):
+            raise AssertionError(f"skip_train wrote no {f}")
+    if not any(f.startswith("ckpt-best-") for f in os.listdir(work)):
+        raise AssertionError("skip_train wrote no ckpt-best-*.pt")
+    steps = res["steps"]
+    if steps < 1 or \
+            A.LAUNCHES["proj_two_block_attention_bwd"] != BWD_PER_STEP * steps:
+        raise AssertionError(f"skip_train CLI: {steps} steps, launches "
+                             f"{A.LAUNCHES}")
+    metrics = res["test_metrics"]
+    if not all(math.isfinite(v) for v in metrics.values()):
+        raise AssertionError(f"skip_train CLI: test metrics {metrics}")
+    log(f"  skip_train CLI: {steps} steps, test HR@5 {metrics['HR@5']:.4f}, "
+        f"{res['interactions_per_sec']:.1f} interactions/s; launches "
+        f"{dict(A.LAUNCHES)}")
+    out_path = X.main(common + ["--serving", "1", "--splits", "test",
+                                "--work_dir", work, "--out_dir",
+                                os.path.join(WORK, "trained_logits")])
+    with open(out_path) as f:
+        served = json.load(f)
+    n_test = len(ctx["reader"].tables["test"])
+    if len(served) != n_test or not all(
+            len(v) == 40 and np.isfinite(v).all() for v in served.values()):
+        raise AssertionError("export_logits of the trained checkpoint: "
+                             f"{len(served)} rows of {n_test}")
+    log(f"  export_logits --serving 1 of the trained checkpoint: "
+        f"{len(served)} rows of 40 finite logits")
+
+
+# ---------------------------------------------------------------------------
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    p.add_argument("--phases", default="build,kernels,serving,default")
+    p.add_argument("--phases", default=",".join(ALL_PHASES))
     args = p.parse_args(argv)
     phases = args.phases.split(",")
     if not torch.cuda.is_available():
@@ -474,15 +901,27 @@ def main(argv=None):
         log(f"phase {name}")
         {"build": phase_build, "kernels": phase_kernels,
          "serving": lambda: phase_serving(ctx),
-         "default": lambda: phase_default(ctx)}[name]()
+         "default": lambda: phase_default(ctx),
+         "train": lambda: phase_train(ctx),
+         "train_default": lambda: phase_train_default(ctx),
+         "train_cli": lambda: phase_train_cli(ctx)}[name]()
         log(f"phase {name}: ok ({time.perf_counter() - t0:.1f} s)")
     log(f"all phases: {time.perf_counter() - t_all:.1f} s")
+    if "memmap" in ctx:
+        os.remove(ctx["memmap"])
+    if set(phases) >= set(ALL_PHASES):
+        idle = [k for k in RESULT["kernels"] if not RESULT["launches"].get(k)]
+        if idle:
+            raise AssertionError(f"kernels never launched on their path: "
+                                 f"{idle}")
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
     print(smi.stdout.strip().splitlines()[0], flush=True)
     if RESULT["kernels"]:
+        for key, entry in RESULT["kernels"].items():
+            entry["launches"] = RESULT["launches"].get(key)
         print(json.dumps({"kernels": list(RESULT["kernels"].values())}),
               flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,12 +1,13 @@
-"""Two-block jointly normalised attention: the K1 and K2 kernel wrappers and
-their plain PyTorch versions (port of the forward halves of
+"""Two-block jointly normalised attention: the K1 and K2 kernel wrappers,
+their backward kernels, and their plain PyTorch versions (port of
 ``segmminterest_tpu/core/attention.py`` fused_two_block_attention and
-fused_proj_two_block_attention v1).
+fused_proj_two_block_attention v1, forward and custom VJP).
 
 Semantics (reference order of operations, encoder.py:44-161):
 
     l1 = q1 . k1^T,  l2 = q2 . k2^T        per head, fp32 accumulation
     fill -10000 where mask_q x mask_k is 0  (before the scale)
+    training: keep ? l / (1 - rate) : 0     (a dropped masked logit is 0)
     x scale                                 (1/sqrt(head dim))
     one fp32 softmax over [l1 | l2]
     out = p1 . v1 + p2 . v2                 p cast to v's dtype first, both
@@ -14,17 +15,33 @@ Semantics (reference order of operations, encoder.py:44-161):
 
 A fully padded query row is the uniform softmax of a constant, not zero.
 
+The dropout mask is the JAX package's interpret-mode hash
+(``_dropout_keep``, attention.py:114-123), so the CUDA kernels, the plain
+versions and the JAX kernels run with ``interpret=True`` draw the same bits:
+iota axes (row within the batch tile, query row, key column), batch tile
+``_pick_block_b`` (8 if B % 8 == 0 else B), seed ``seed + tile index``,
+salt ``2h`` for block 1 and ``2h + 1`` for block 2, uint32 arithmetic, keep
+iff ``(h >> 8) * 2^-24 >= rate`` in fp32.
+
+The backward recomputes the probabilities (none are saved) and follows
+``_bwd2_kernel`` / ``_attn_group_bwd`` (attention.py:448-622): dv = p^T g
+with p in fp32, dp = g v^T, s summed over both blocks, dl = p (dp - s)
+scale, then the dropout mask, then the pair mask, dq = dl k, dk = dl^T q.
+K1's gradients come back in the input dtype; K2 keeps dq..dv in fp32 and
+chains them through its projections (dx in x's dtype, dW and db summed
+over the batch in fp32, then cast to the weight's dtype as
+``_fp_bwd_rule`` does, attention.py:1044-1046).
+
 Each wrapper launches its CUDA kernel (``core/csrc``) for CUDA tensors and
 runs the plain version only for CPU tensors; there is no fall-back from one
-to the other. Both are forward only: the backward kernels and the in-kernel
-dropout mask come with the training slice, so training-mode dropout and
-inputs that require grad raise.
+to the other.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
+import os
 from typing import Optional
 
 import torch
@@ -32,20 +49,78 @@ import torch
 from .numerics import MASK_FILL_VALUE
 
 # launches of each kernel, counted where the wrapper launches it (plain ints)
-LAUNCHES = {"two_block_attention": 0, "proj_two_block_attention": 0}
+LAUNCHES = {"two_block_attention": 0, "proj_two_block_attention": 0,
+            "two_block_attention_bwd": 0, "proj_two_block_attention_bwd": 0,
+            "proj_two_block_attention_qkv_bwd": 0}
 
 # the most shared memory one block may use on an H100 (227 KB)
 MAX_SMEM_BYTES = 232_448
 MAX_GRID_Y = 65_535
 K2_MAX_LEN = 128
 K2_HEAD_DIMS = (16, 32, 64)
+# the backward kernels keep a whole probability row per lane group in
+# registers: every stream at most 128 long, head dim at most 64
+BWD_MAX_LEN = 128
+BWD_MAX_HEAD_DIM = 64
+# K2's weight gradients are summed over the batch in this many row chunks,
+# then the chunks are added in order (deterministic, no atomics)
+K2_DW_SPLITS = 4
+# SEGMM_ATTN_V3_BWD=1: K2's backward emits dq..dv only (K7b) and leaves dx,
+# dW and db to torch.matmul, as the JAX package's switch does (:1565)
+ATTN_V3_BWD = os.environ.get("SEGMM_ATTN_V3_BWD", "0") == "1"
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+DEFAULT_BLOCK_B = 8
 
 
 def reset_launch_counts() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def pick_block_b(B: int) -> int:
+    """The TPU kernels' batch tile (attention.py:206-209); the dropout hash
+    is seeded per tile."""
+    return DEFAULT_BLOCK_B if B % DEFAULT_BLOCK_B == 0 else B
+
+
+def keep_divisor(rate: float) -> float:
+    """``1 - rate`` as JAX forms it: in double, rounded once to fp32."""
+    return float(torch.tensor(1.0 - rate, dtype=torch.float32))
+
+
+# ---------------------------------------------------------------------------
+# the dropout mask (attention.py:114-123, interpret mode)
+# ---------------------------------------------------------------------------
+
+_U32 = 0xFFFFFFFF
+
+
+def _mul32(a: torch.Tensor, c: int) -> torch.Tensor:
+    """(a * c) mod 2^32 for int64 a in [0, 2^32), without int64 overflow."""
+    lo, hi = a & 0xFFFF, a >> 16
+    return (lo * c + (((hi * c) & 0xFFFF) << 16)) & _U32
+
+
+def dropout_keep(B: int, H: int, Lq: int, Lk: int, seed: int, block: int,
+                 rate: float, device) -> torch.Tensor:
+    """(B, H, Lq, Lk) bool keep-mask of key block ``block`` (0 or 1) for
+    heads 0..H-1, the bits of ``_dropout_keep(interpret=True)``."""
+    bt = pick_block_b(B)
+    ar = lambda n: torch.arange(n, dtype=torch.int64, device=device)  # noqa: E731
+    b = ar(B)
+    row = _mul32(b % bt, 2654435761)[:, None, None, None]
+    col = _mul32(ar(Lq), 40503)[None, None, :, None]
+    key = _mul32(ar(Lk), 69069)[None, None, None, :]
+    seed_val = (seed + b // bt) & _U32
+    salt = 2 * ar(H) + block
+    h = ((row ^ col ^ key)
+         + _mul32(seed_val, 2246822519)[:, None, None, None]
+         + _mul32(salt, 3266489917)[None, :, None, None]) & _U32
+    h = _mul32(h ^ (h >> 15), 2246822519)
+    h = h ^ (h >> 13)
+    u = (h >> 8).to(torch.float32) * (1.0 / (1 << 24))
+    return u >= torch.tensor(rate, dtype=torch.float32, device=device)
 
 
 # ---------------------------------------------------------------------------
@@ -60,11 +135,28 @@ def _pair_mask(mask_q, mask_k):
     return ((mq[:, :, None] * mk[:, None, :]) > 0)[:, None]
 
 
-def _joint_probs(l1, l2, pair1, pair2, scale):
-    """mask fill -> scale -> one fp32 softmax over both blocks
-    (attention.py:374-396, deterministic)."""
-    l1 = torch.where(pair1, l1, MASK_FILL_VALUE) * scale
-    l2 = torch.where(pair2, l2, MASK_FILL_VALUE) * scale
+def _keeps(q1, L1, L2, rate, seed):
+    """Both blocks' keep-masks for (B, Lq, H, D) queries, or None when no
+    dropout applies."""
+    if rate <= 0:
+        return None, None
+    B, Lq, H = q1.shape[:3]
+    return tuple(dropout_keep(B, H, Lq, L, seed, blk, rate, q1.device)
+                 for blk, L in ((0, L1), (1, L2)))
+
+
+def _joint_probs(l1, l2, pair1, pair2, scale, keep1=None, keep2=None,
+                 keep_div=1.0):
+    """mask fill -> dropout -> scale -> one fp32 softmax over both blocks
+    (attention.py:374-396)."""
+    l1 = torch.where(pair1, l1, MASK_FILL_VALUE)
+    l2 = torch.where(pair2, l2, MASK_FILL_VALUE)
+    if keep1 is not None:
+        div = torch.tensor(keep_div, dtype=torch.float32, device=l1.device)
+        l1 = torch.where(keep1, l1 / div, 0.0)
+        l2 = torch.where(keep2, l2 / div, 0.0)
+    l1 = l1 * scale
+    l2 = l2 * scale
     m = torch.maximum(l1.amax(-1, keepdim=True), l2.amax(-1, keepdim=True))
     e1 = torch.exp(l1 - m)
     e2 = torch.exp(l2 - m)
@@ -72,19 +164,69 @@ def _joint_probs(l1, l2, pair1, pair2, scale):
     return e1 / den, e2 / den
 
 
+def _logits(q, k):
+    return torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
+
+
 def two_block_attention_plain(q1, q2, k1, k2, v1, v2, mask_q, mask_k1,
-                              mask_k2, scale: float):
+                              mask_k2, scale: float, rate: float = 0.0,
+                              seed: int = 0):
     """K1's plain version: q1/q2 (B, Lq, H, D), k1/v1 (B, L1, H, D),
-    k2/v2 (B, L2, H, D) -> (B, Lq, H, D) in q1's dtype."""
-    l1 = torch.einsum("bqhd,bkhd->bhqk", q1.float(), k1.float())
-    l2 = torch.einsum("bqhd,bkhd->bhqk", q2.float(), k2.float())
-    p1, p2 = _joint_probs(l1, l2, _pair_mask(mask_q, mask_k1),
-                          _pair_mask(mask_q, mask_k2), scale)
+    k2/v2 (B, L2, H, D) -> (B, Lq, H, D) in q1's dtype. ``rate`` > 0 applies
+    the dropout mask of ``seed``."""
+    keep1, keep2 = _keeps(q1, k1.shape[1], k2.shape[1], rate, seed)
+    p1, p2 = _joint_probs(_logits(q1, k1), _logits(q2, k2),
+                          _pair_mask(mask_q, mask_k1),
+                          _pair_mask(mask_q, mask_k2), scale, keep1, keep2,
+                          keep_divisor(rate))
     out = (torch.einsum("bhqk,bkhd->bqhd", p1.to(v1.dtype).float(),
                         v1.float())
            + torch.einsum("bhqk,bkhd->bqhd", p2.to(v2.dtype).float(),
                           v2.float()))
     return out.to(q1.dtype)
+
+
+def _joint_bwd_plain(q1, q2, k1, k2, v1, v2, mask_q, mask_k1, mask_k2, g,
+                     scale, rate, seed):
+    """The joint-softmax backward of ``_attn_group_bwd`` (attention.py:
+    448-524) on (B, L, H, D) tensors; fp32 dq1, dq2, dk1, dk2, dv1, dv2."""
+    pair1 = _pair_mask(mask_q, mask_k1)
+    pair2 = _pair_mask(mask_q, mask_k2)
+    keep1, keep2 = _keeps(q1, k1.shape[1], k2.shape[1], rate, seed)
+    p1, p2 = _joint_probs(_logits(q1, k1), _logits(q2, k2), pair1, pair2,
+                          scale, keep1, keep2, keep_divisor(rate))
+    gf = g.float()
+    dv1 = torch.einsum("bhqk,bqhd->bkhd", p1, gf)
+    dv2 = torch.einsum("bhqk,bqhd->bkhd", p2, gf)
+    dp1 = torch.einsum("bqhd,bkhd->bhqk", gf, v1.float())
+    dp2 = torch.einsum("bqhd,bkhd->bhqk", gf, v2.float())
+    # the dot term sums over BOTH blocks
+    s = (dp1 * p1).sum(-1, keepdim=True) + (dp2 * p2).sum(-1, keepdim=True)
+    dl1 = p1 * (dp1 - s) * scale
+    dl2 = p2 * (dp2 - s) * scale
+    if keep1 is not None:
+        div = torch.tensor(keep_divisor(rate), dtype=torch.float32,
+                           device=g.device)
+        dl1 = torch.where(keep1, dl1 / div, 0.0)
+        dl2 = torch.where(keep2, dl2 / div, 0.0)
+    dl1 = torch.where(pair1, dl1, 0.0)
+    dl2 = torch.where(pair2, dl2, 0.0)
+    dq1 = torch.einsum("bhqk,bkhd->bqhd", dl1, k1.float())
+    dq2 = torch.einsum("bhqk,bkhd->bqhd", dl2, k2.float())
+    dk1 = torch.einsum("bhqk,bqhd->bkhd", dl1, q1.float())
+    dk2 = torch.einsum("bhqk,bqhd->bkhd", dl2, q2.float())
+    return dq1, dq2, dk1, dk2, dv1, dv2
+
+
+def two_block_attention_bwd_plain(q1, q2, k1, k2, v1, v2, mask_q, mask_k1,
+                                  mask_k2, g, scale: float, rate: float = 0.0,
+                                  seed: int = 0):
+    """K1b's plain version (``_bwd2_kernel``, attention.py:558-622):
+    dq1, dq2, dk1, dk2, dv1, dv2, each in its input's dtype."""
+    grads = _joint_bwd_plain(q1, q2, k1, k2, v1, v2, mask_q, mask_k1,
+                             mask_k2, g, scale, rate, seed)
+    return tuple(d.to(t.dtype)
+                 for d, t in zip(grads, (q1, q2, k1, k2, v1, v2)))
 
 
 def _proj(x, w, b):
@@ -94,39 +236,73 @@ def _proj(x, w, b):
             + b.to(x.dtype))
 
 
+def _heads(t, num_heads):
+    return t.reshape(t.shape[0], t.shape[1], num_heads, -1)
+
+
+def _projections(xq, x1, x2, ws, num_heads):
+    wq1, bq1, wq2, bq2, wk1, bk1, wk2, bk2, wv1, bv1, wv2, bv2 = ws
+    return tuple(_heads(_proj(x, w, b), num_heads) for x, w, b in (
+        (xq, wq1, bq1), (xq, wq2, bq2), (x1, wk1, bk1), (x2, wk2, bk2),
+        (x1, wv1, bv1), (x2, wv2, bv2)))
+
+
 def proj_two_block_attention_plain(xq, x1, x2, wq1, bq1, wq2, bq2, wk1, bk1,
                                    wk2, bk2, wv1, bv1, wv2, bv2, mask_q,
                                    mask_1, mask_2, num_heads: int,
-                                   scale: float):
+                                   scale: float, rate: float = 0.0,
+                                   seed: int = 0):
     """K2's plain version: the six projections, then K1's plain version.
     xq (B, Lq, d), x1 (B, L1, d), x2 (B, L2, d) -> (B, Lq, d)."""
-    B, Lq, d = xq.shape
-
-    def heads(t):
-        return t.reshape(t.shape[0], t.shape[1], num_heads, d // num_heads)
-
+    ws = (wq1, bq1, wq2, bq2, wk1, bk1, wk2, bk2, wv1, bv1, wv2, bv2)
     out = two_block_attention_plain(
-        heads(_proj(xq, wq1, bq1)), heads(_proj(xq, wq2, bq2)),
-        heads(_proj(x1, wk1, bk1)), heads(_proj(x2, wk2, bk2)),
-        heads(_proj(x1, wv1, bv1)), heads(_proj(x2, wv2, bv2)),
-        mask_q, mask_1, mask_2, scale)
-    return out.reshape(B, Lq, d)
+        *_projections(xq, x1, x2, ws, num_heads), mask_q, mask_1, mask_2,
+        scale, rate, seed)
+    return out.reshape(xq.shape)
+
+
+def _chain_grads(xq, x1, x2, ws, dys):
+    """dx through the projections and dW, db over the whole batch, fp32
+    (attention.py:854-894 and 1720-1735); dW in nn.Linear layout."""
+    wq1, _, wq2, _, wk1, _, wk2, _, wv1, _, wv2, _ = ws
+    dq1, dq2, dk1, dk2, dv1, dv2 = dys
+    d = xq.shape[-1]
+
+    def dgrad(dy, w):
+        return torch.matmul(dy, w.float())
+
+    dxq = (dgrad(dq1, wq1) + dgrad(dq2, wq2)).to(xq.dtype)
+    dx1 = (dgrad(dk1, wk1) + dgrad(dv1, wv1)).to(x1.dtype)
+    dx2 = (dgrad(dk2, wk2) + dgrad(dv2, wv2)).to(x2.dtype)
+    dws = []
+    for x, dy, i in ((xq, dq1, 0), (xq, dq2, 2), (x1, dk1, 4), (x2, dk2, 6),
+                     (x1, dv1, 8), (x2, dv2, 10)):
+        dyf = dy.reshape(-1, d)
+        dws += [(dyf.t() @ x.reshape(-1, d).float()).to(ws[i].dtype),
+                dyf.sum(0).to(ws[i + 1].dtype)]
+    return (dxq, dx1, dx2, *dws)
+
+
+def proj_two_block_attention_bwd_plain(xq, x1, x2, wq1, bq1, wq2, bq2, wk1,
+                                       bk1, wk2, bk2, wv1, bv1, wv2, bv2,
+                                       mask_q, mask_1, mask_2, g,
+                                       num_heads: int, scale: float,
+                                       rate: float = 0.0, seed: int = 0):
+    """K2b's plain version (``_fp_bwd_kernel``, attention.py:808-894):
+    recompute the projections with ``_proj``'s rounding, the core backward
+    in fp32, then dxq, dx1, dx2 (x's dtype) and dW, db of the six
+    projections (each cast to its weight's dtype)."""
+    ws = (wq1, bq1, wq2, bq2, wk1, bk1, wk2, bk2, wv1, bv1, wv2, bv2)
+    grads = _joint_bwd_plain(*_projections(xq, x1, x2, ws, num_heads),
+                             mask_q, mask_1, mask_2, _heads(g, num_heads),
+                             scale, rate, seed)
+    dys = [t.reshape(t.shape[0], t.shape[1], -1) for t in grads]
+    return _chain_grads(xq, x1, x2, ws, dys)
 
 
 # ---------------------------------------------------------------------------
-# wrappers
+# launching the kernels
 # ---------------------------------------------------------------------------
-
-def _check_forward_only(tensors, dropout_rate, deterministic):
-    if dropout_rate > 0 and not deterministic:
-        raise NotImplementedError(
-            "training-mode attention dropout is not ported yet (forward-only "
-            "kernels); call with deterministic=True")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise NotImplementedError(
-            "the attention kernels are forward only: run under "
-            "torch.no_grad() / torch.inference_mode()")
-
 
 def _check_cuda(tensors, dtype):
     dev = tensors[0].device
@@ -159,102 +335,123 @@ def _raise_on_cuda_error(code: int, what: str) -> None:
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {code}")
 
 
-def fused_two_block_attention(q1, q2, k1, k2, v1, v2, mask_q, mask_k1,
-                              mask_k2, *, dropout_rate: float = 0.0,
-                              deterministic: bool = True,
-                              scale: Optional[float] = None):
-    """Jointly normalised attention of one query set over two KV blocks with
-    a different q per block (K1). q1/q2 (B, Lq, H, D), k1/v1 (B, L1, H, D),
-    k2/v2 (B, L2, H, D), masks (B, L) bool or int -> (B, Lq, H, D)."""
-    tensors = (q1, q2, k1, k2, v1, v2)
-    _check_forward_only(tensors, dropout_rate, deterministic)
-    if scale is None:
-        scale = 1.0 / math.sqrt(v1.shape[-1])
-    if q1.device.type == "cpu":
-        return two_block_attention_plain(q1, q2, k1, k2, v1, v2, mask_q,
-                                         mask_k1, mask_k2, scale)
-    if q1.device.type != "cuda":
-        raise ValueError(f"unsupported device {q1.device}")
+def _fn(lib_name, symbol, restype, argtypes):
+    from .build import load_library
+    fn = getattr(load_library(lib_name), symbol)
+    fn.restype = restype
+    fn.argtypes = argtypes
+    return fn
+
+
+_DROP_ARGS = [ctypes.c_float, ctypes.c_float, ctypes.c_uint32]
+
+
+def _drop_args(rate, seed):
+    return float(rate), keep_divisor(rate), int(seed) & _U32
+
+
+def _check_k1(tensors, masks, bwd):
+    q1, q2, k1, k2, v1, v2 = tensors[:6]
     _check_cuda(tensors, q1.dtype)
     B, Lq, H, D = q1.shape
     L1, L2 = k1.shape[1], k2.shape[1]
     for t, L, name in ((q2, Lq, "q2"), (k1, L1, "k1"), (v1, L1, "v1"),
-                       (k2, L2, "k2"), (v2, L2, "v2")):
+                       (k2, L2, "k2"), (v2, L2, "v2")) + (
+                           ((tensors[6], Lq, "g"),) if bwd else ()):
         if tuple(t.shape) != (B, L, H, D):
             raise ValueError(f"{name} must be {(B, L, H, D)}, got "
                              f"{tuple(t.shape)}")
-    _check_mask(mask_q, B, Lq, "mask_q")
-    _check_mask(mask_k1, B, L1, "mask_k1")
-    _check_mask(mask_k2, B, L2, "mask_k2")
+    for m, L, name in zip(masks, (Lq, L1, L2), ("mask_q", "mask_k1",
+                                                  "mask_k2")):
+        _check_mask(m, B, L, name)
     if D % 4:
         raise ValueError(f"head dim {D} unsupported: the kernel reads q and k "
                          "four values at a time (D % 4 == 0)")
+    if bwd and (max(Lq, L1, L2) > BWD_MAX_LEN or D > BWD_MAX_HEAD_DIM):
+        raise ValueError(f"(Lq, L1, L2, D)={(Lq, L1, L2, D)}: the backward "
+                         f"takes lengths <= {BWD_MAX_LEN} and head dims <= "
+                         f"{BWD_MAX_HEAD_DIM}")
     if B > MAX_GRID_Y:
         raise ValueError(f"batch {B} exceeds the grid limit {MAX_GRID_Y}")
-    from .build import load_library
-    lib = load_library("two_block_attention")
-    fn = lib.segmm_two_block_attention_fwd
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 10
-                   + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p])
-    smem = lib.segmm_two_block_attention_smem_bytes
-    smem.restype = ctypes.c_size_t
-    smem.argtypes = [ctypes.c_int] * 4
+    return B, Lq, L1, L2, H, D
+
+
+def _k1_forward_cuda(q1, q2, k1, k2, v1, v2, mask_q, mask_k1, mask_k2,
+                     scale, rate, seed):
+    tensors = (q1, q2, k1, k2, v1, v2)
+    B, Lq, L1, L2, H, D = _check_k1(tensors, (mask_q, mask_k1, mask_k2),
+                                    False)
+    smem = _fn("two_block_attention", "segmm_two_block_attention_smem_bytes",
+               ctypes.c_size_t, [ctypes.c_int] * 4)
     if smem(Lq, L1, L2, D) > MAX_SMEM_BYTES:
         raise ValueError(f"(Lq, L1, L2, D)={(Lq, L1, L2, D)} needs more "
                          "shared memory than one block has")
+    fn = _fn("two_block_attention", "segmm_two_block_attention_fwd",
+             ctypes.c_int, [ctypes.c_int] + [ctypes.c_void_p] * 10
+             + [ctypes.c_int] * 6 + [ctypes.c_float] + _DROP_ARGS
+             + [ctypes.c_void_p])
     mq, mk1, mk2 = _masks_i32(mask_q, mask_k1, mask_k2)
     out = torch.empty_like(q1)
     with torch.cuda.device(q1.device):
         code = fn(_DTYPE_CODE[q1.dtype], *(t.data_ptr() for t in tensors),
                   mq.data_ptr(), mk1.data_ptr(), mk2.data_ptr(),
                   out.data_ptr(), B, Lq, L1, L2, H, D, float(scale),
-                  _stream_ptr(q1.device))
+                  *_drop_args(rate, seed), _stream_ptr(q1.device))
     _raise_on_cuda_error(code, "two_block_attention")
     LAUNCHES["two_block_attention"] += 1
     return out
 
 
-def fused_proj_two_block_attention(xq, x1, x2, wq1, bq1, wq2, bq2,
-                                   wk1, bk1, wk2, bk2, wv1, bv1, wv2, bv2,
-                                   mask_q, mask_1, mask_2, *,
-                                   num_heads: int,
-                                   dropout_rate: float = 0.0,
-                                   deterministic: bool = True,
-                                   scale: Optional[float] = None):
-    """Two-block jointly normalised attention with the six QKV projections
-    inside the kernel (K2): q1 = xq.Wq1^T + bq1 attends k1 = x1.Wk1^T + bk1,
-    q2 = xq.Wq2^T + bq2 attends k2 = x2.Wk2^T + bk2, one softmax over both,
-    values from x1/x2. Weights in nn.Linear layout (d, d) = (out, in),
-    biases (d,). xq (B, Lq, d), x1 (B, L1, d), x2 (B, L2, d) -> (B, Lq, d).
-    """
-    ws = (wq1, bq1, wq2, bq2, wk1, bk1, wk2, bk2, wv1, bv1, wv2, bv2)
-    tensors = (xq, x1, x2) + ws
-    _check_forward_only(tensors, dropout_rate, deterministic)
+def _k1_backward_cuda(q1, q2, k1, k2, v1, v2, mask_q, mask_k1, mask_k2, g,
+                      scale, rate, seed):
+    tensors = (q1, q2, k1, k2, v1, v2, g)
+    B, Lq, L1, L2, H, D = _check_k1(tensors, (mask_q, mask_k1, mask_k2),
+                                    True)
+    smem = _fn("two_block_attention_bwd",
+               "segmm_two_block_attention_bwd_smem_bytes", ctypes.c_size_t,
+               [ctypes.c_int] * 4)
+    if smem(Lq, L1, L2, D) > MAX_SMEM_BYTES:
+        raise ValueError(f"(Lq, L1, L2, D)={(Lq, L1, L2, D)} needs more "
+                         "shared memory than one block has")
+    fn = _fn("two_block_attention_bwd", "segmm_two_block_attention_bwd",
+             ctypes.c_int, [ctypes.c_int] + [ctypes.c_void_p] * 16
+             + [ctypes.c_int] * 6 + [ctypes.c_float] + _DROP_ARGS
+             + [ctypes.c_void_p])
+    mq, mk1, mk2 = _masks_i32(mask_q, mask_k1, mask_k2)
+    grads = [torch.empty_like(t) for t in tensors[:6]]
+    with torch.cuda.device(q1.device):
+        code = fn(_DTYPE_CODE[q1.dtype], *(t.data_ptr() for t in tensors[:6]),
+                  mq.data_ptr(), mk1.data_ptr(), mk2.data_ptr(), g.data_ptr(),
+                  *(t.data_ptr() for t in grads), B, Lq, L1, L2, H, D,
+                  float(scale), *_drop_args(rate, seed),
+                  _stream_ptr(q1.device))
+    _raise_on_cuda_error(code, "two_block_attention_bwd")
+    LAUNCHES["two_block_attention_bwd"] += 1
+    return tuple(grads)
+
+
+def _check_k2(tensors, masks, num_heads, g=None):
+    xq, x1, x2 = tensors[:3]
+    ws = tensors[3:]
+    _check_cuda(tensors + ((g,) if g is not None else ()), xq.dtype)
     B, Lq, d = xq.shape
     if d % num_heads:
         raise ValueError(f"d={d} is not a multiple of num_heads={num_heads}")
     dh = d // num_heads
-    if scale is None:
-        scale = 1.0 / math.sqrt(dh)
-    if xq.device.type == "cpu":
-        return proj_two_block_attention_plain(
-            xq, x1, x2, *ws, mask_q, mask_1, mask_2, num_heads, scale)
-    if xq.device.type != "cuda":
-        raise ValueError(f"unsupported device {xq.device}")
-    _check_cuda(tensors, xq.dtype)
     L1, L2 = x1.shape[1], x2.shape[1]
     if x1.shape != (B, L1, d) or x2.shape != (B, L2, d):
         raise ValueError(f"x1/x2 must be (B, L, {d}), got "
                          f"{tuple(x1.shape)}, {tuple(x2.shape)}")
+    if g is not None and g.shape != xq.shape:
+        raise ValueError(f"g must be {tuple(xq.shape)}, got {tuple(g.shape)}")
     for i in range(0, 12, 2):
         if ws[i].shape != (d, d) or ws[i + 1].shape != (d,):
             raise ValueError(f"projection {i // 2} must be ({d}, {d}) + "
                              f"({d},), got {tuple(ws[i].shape)} + "
                              f"{tuple(ws[i + 1].shape)}")
-    _check_mask(mask_q, B, Lq, "mask_q")
-    _check_mask(mask_1, B, L1, "mask_1")
-    _check_mask(mask_2, B, L2, "mask_2")
+    for m, L, name in zip(masks, (Lq, L1, L2), ("mask_q", "mask_1",
+                                                  "mask_2")):
+        _check_mask(m, B, L, name)
     if dh not in K2_HEAD_DIMS or d % 32:
         raise ValueError(f"head dim {dh} (d={d}) unsupported: the kernel "
                          f"takes head dims {K2_HEAD_DIMS} and d % 32 == 0")
@@ -266,26 +463,221 @@ def fused_proj_two_block_attention(xq, x1, x2, wq1, bq1, wq2, bq2,
     # the kernel reads x and W rows 16 bytes at a time
     if any(t.data_ptr() % 16 for t in tensors):
         raise ValueError("inputs must start on a 16-byte boundary")
-    from .build import load_library
-    lib = load_library("proj_two_block_attention")
-    fn = lib.segmm_proj_two_block_attention_fwd
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_int, ctypes.POINTER(ctypes.c_void_p)]
-                   + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
-                   + [ctypes.c_float, ctypes.c_void_p])
-    smem = lib.segmm_proj_two_block_attention_smem_bytes
-    smem.restype = ctypes.c_size_t
-    smem.argtypes = [ctypes.c_int] * 5
+    return B, Lq, L1, L2, d, dh
+
+
+def _k2_smem_check(lib, symbol, xq, Lq, L1, L2, dh):
+    smem = _fn(lib, symbol, ctypes.c_size_t, [ctypes.c_int] * 5)
     if smem(_DTYPE_CODE[xq.dtype], Lq, L1, L2, dh) > MAX_SMEM_BYTES:
         raise ValueError(f"(Lq, L1, L2)={(Lq, L1, L2)} needs more shared "
                          "memory than one block has")
-    mq, m1, m2 = _masks_i32(mask_q, mask_1, mask_2)
+
+
+def _k2_forward_cuda(xq, x1, x2, ws, masks, num_heads, scale, rate, seed):
+    tensors = (xq, x1, x2) + tuple(ws)
+    B, Lq, L1, L2, d, dh = _check_k2(tensors, masks, num_heads)
+    _k2_smem_check("proj_two_block_attention",
+                   "segmm_proj_two_block_attention_smem_bytes", xq, Lq, L1,
+                   L2, dh)
+    fn = _fn("proj_two_block_attention", "segmm_proj_two_block_attention_fwd",
+             ctypes.c_int, [ctypes.c_int, ctypes.POINTER(ctypes.c_void_p)]
+             + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_float]
+             + _DROP_ARGS + [ctypes.c_void_p])
+    mq, m1, m2 = _masks_i32(*masks)
     ptrs = (ctypes.c_void_p * 15)(*(t.data_ptr() for t in tensors))
     out = torch.empty_like(xq)
     with torch.cuda.device(xq.device):
         code = fn(_DTYPE_CODE[xq.dtype], ptrs, mq.data_ptr(), m1.data_ptr(),
                   m2.data_ptr(), out.data_ptr(), B, Lq, L1, L2, d, num_heads,
-                  float(scale), _stream_ptr(xq.device))
+                  float(scale), *_drop_args(rate, seed),
+                  _stream_ptr(xq.device))
     _raise_on_cuda_error(code, "proj_two_block_attention")
     LAUNCHES["proj_two_block_attention"] += 1
     return out
+
+
+def _k2_qkv_grads_cuda(xq, x1, x2, ws, masks, g, num_heads, scale, rate,
+                       seed):
+    """K2's backward pass over (head, batch row): recompute the projections
+    and the core backward, write fp32 dq1, dq2, dk1, dk2, dv1, dv2 as
+    (B, L, d). Alone it is K7b (``_fp3_bwd_kernel``)."""
+    tensors = (xq, x1, x2) + tuple(ws)
+    B, Lq, L1, L2, d, dh = _check_k2(tensors, masks, num_heads, g)
+    _k2_smem_check("proj_two_block_attention_bwd",
+                   "segmm_proj_two_block_attention_bwd_smem_bytes", xq, Lq,
+                   L1, L2, dh)
+    fn = _fn("proj_two_block_attention_bwd",
+             "segmm_proj_two_block_attention_qkv_bwd", ctypes.c_int,
+             [ctypes.c_int, ctypes.POINTER(ctypes.c_void_p)]
+             + [ctypes.c_void_p] * 4 + [ctypes.POINTER(ctypes.c_void_p)]
+             + [ctypes.c_int] * 6 + [ctypes.c_float] + _DROP_ARGS
+             + [ctypes.c_void_p])
+    mq, m1, m2 = _masks_i32(*masks)
+    dys = [torch.empty(B, L, d, dtype=torch.float32, device=xq.device)
+           for L in (Lq, Lq, L1, L2, L1, L2)]
+    ptrs = (ctypes.c_void_p * 15)(*(t.data_ptr() for t in tensors))
+    out = (ctypes.c_void_p * 6)(*(t.data_ptr() for t in dys))
+    with torch.cuda.device(xq.device):
+        code = fn(_DTYPE_CODE[xq.dtype], ptrs, mq.data_ptr(), m1.data_ptr(),
+                  m2.data_ptr(), g.data_ptr(), out, B, Lq, L1, L2, d,
+                  num_heads, float(scale), *_drop_args(rate, seed),
+                  _stream_ptr(xq.device))
+    _raise_on_cuda_error(code, "proj_two_block_attention_qkv_bwd")
+    return dys
+
+
+def _k2_backward_cuda(xq, x1, x2, ws, masks, g, num_heads, scale, rate,
+                      seed):
+    """K2b: the per-(head, batch row) pass into an fp32 workspace, then the
+    kernel's own tiled products for dx and for dW, db over the batch. With
+    ``ATTN_V3_BWD`` the pass runs alone (K7b) and dx, dW, db are
+    torch.matmul, as ``_fp3_call_bwd`` leaves them to XLA."""
+    dys = _k2_qkv_grads_cuda(xq, x1, x2, ws, masks, g, num_heads, scale,
+                             rate, seed)
+    if ATTN_V3_BWD:
+        LAUNCHES["proj_two_block_attention_qkv_bwd"] += 1
+        return _chain_grads(xq, x1, x2, ws, dys)
+    d = xq.shape[-1]
+    dx = [torch.empty_like(x) for x in (xq, x1, x2)]
+    dw = [torch.empty(d, d, dtype=torch.float32, device=xq.device)
+          for _ in range(6)]
+    db = [torch.empty(d, dtype=torch.float32, device=xq.device)
+          for _ in range(6)]
+    scratch = torch.empty(6 * K2_DW_SPLITS * (d * d + d),
+                          dtype=torch.float32, device=xq.device)
+    fn = _fn("proj_two_block_attention_bwd",
+             "segmm_proj_two_block_attention_chain_bwd", ctypes.c_int,
+             [ctypes.c_int] + [ctypes.POINTER(ctypes.c_void_p)] * 4
+             + [ctypes.c_void_p] + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+    arr = lambda ts: (ctypes.c_void_p * len(ts))(  # noqa: E731
+        *(t.data_ptr() for t in ts))
+    B, Lq, L1, L2 = xq.shape[0], xq.shape[1], x1.shape[1], x2.shape[1]
+    with torch.cuda.device(xq.device):
+        code = fn(_DTYPE_CODE[xq.dtype], arr((xq, x1, x2) + tuple(ws)),
+                  arr(dys), arr(dx), arr(dw + db), scratch.data_ptr(), B, Lq,
+                  L1, L2, d, K2_DW_SPLITS, _stream_ptr(xq.device))
+    _raise_on_cuda_error(code, "proj_two_block_attention_bwd (dx, dW)")
+    LAUNCHES["proj_two_block_attention_bwd"] += 1
+    grads = list(dx)
+    for i in range(6):
+        grads += [dw[i].to(ws[2 * i].dtype), db[i].to(ws[2 * i + 1].dtype)]
+    return tuple(grads)
+
+
+# ---------------------------------------------------------------------------
+# autograd
+# ---------------------------------------------------------------------------
+
+def _device_kind(t):
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {t.device}")
+    return t.device.type
+
+
+class _TwoBlockAttention(torch.autograd.Function):
+    """K1 forward and K1b backward (``_fused_two_block`` custom VJP,
+    attention.py:704-729): saves the inputs, masks and seed."""
+
+    @staticmethod
+    def forward(ctx, q1, q2, k1, k2, v1, v2, mask_q, mask_k1, mask_k2, scale,
+                rate, seed):
+        args = (q1, q2, k1, k2, v1, v2, mask_q, mask_k1, mask_k2)
+        ctx.save_for_backward(*args)
+        ctx.hyper = (scale, rate, seed)
+        if _device_kind(q1) == "cpu":
+            return two_block_attention_plain(*args, scale, rate, seed)
+        return _k1_forward_cuda(*args, scale, rate, seed)
+
+    @staticmethod
+    def backward(ctx, g):
+        args = ctx.saved_tensors
+        g = g.contiguous()
+        if g.device.type == "cpu":
+            grads = two_block_attention_bwd_plain(*args, g, *ctx.hyper)
+        else:
+            grads = _k1_backward_cuda(*args, g, *ctx.hyper)
+        return grads + (None,) * 6
+
+
+class _ProjTwoBlockAttention(torch.autograd.Function):
+    """K2 forward and K2b backward (``_fused_proj_attention`` custom VJP,
+    attention.py:1007-1051)."""
+
+    @staticmethod
+    def forward(ctx, xq, x1, x2, wq1, bq1, wq2, bq2, wk1, bk1, wk2, bk2, wv1,
+                bv1, wv2, bv2, mask_q, mask_1, mask_2, num_heads, scale,
+                rate, seed):
+        ws = (wq1, bq1, wq2, bq2, wk1, bk1, wk2, bk2, wv1, bv1, wv2, bv2)
+        masks = (mask_q, mask_1, mask_2)
+        ctx.save_for_backward(xq, x1, x2, *ws, *masks)
+        ctx.hyper = (num_heads, scale, rate, seed)
+        if _device_kind(xq) == "cpu":
+            return proj_two_block_attention_plain(
+                xq, x1, x2, *ws, *masks, num_heads, scale, rate, seed)
+        return _k2_forward_cuda(xq, x1, x2, ws, masks, num_heads, scale,
+                                rate, seed)
+
+    @staticmethod
+    def backward(ctx, g):
+        saved = ctx.saved_tensors
+        xq, x1, x2, ws, masks = saved[0], saved[1], saved[2], saved[3:15], \
+            saved[15:]
+        g = g.contiguous()
+        if g.device.type == "cpu":
+            grads = proj_two_block_attention_bwd_plain(
+                xq, x1, x2, *ws, *masks, g, *ctx.hyper)
+        else:
+            grads = _k2_backward_cuda(xq, x1, x2, ws, masks, g, *ctx.hyper)
+        return tuple(grads) + (None,) * 7
+
+
+# ---------------------------------------------------------------------------
+# public entry points
+# ---------------------------------------------------------------------------
+
+def _rate(dropout_rate, deterministic):
+    if not 0.0 <= dropout_rate < 1.0:
+        raise ValueError(f"dropout_rate must be in [0, 1), got {dropout_rate}")
+    return 0.0 if deterministic else float(dropout_rate)
+
+
+def fused_two_block_attention(q1, q2, k1, k2, v1, v2, mask_q, mask_k1,
+                              mask_k2, *, dropout_rate: float = 0.0,
+                              seed: int = 0, deterministic: bool = True,
+                              scale: Optional[float] = None):
+    """Jointly normalised attention of one query set over two KV blocks with
+    a different q per block (K1). q1/q2 (B, Lq, H, D), k1/v1 (B, L1, H, D),
+    k2/v2 (B, L2, H, D), masks (B, L) bool or int -> (B, Lq, H, D).
+    Differentiable (K1b); with ``deterministic=False`` the dropout mask of
+    ``seed`` applies."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(v1.shape[-1])
+    return _TwoBlockAttention.apply(q1, q2, k1, k2, v1, v2, mask_q, mask_k1,
+                                    mask_k2, float(scale),
+                                    _rate(dropout_rate, deterministic),
+                                    int(seed))
+
+
+def fused_proj_two_block_attention(xq, x1, x2, wq1, bq1, wq2, bq2,
+                                   wk1, bk1, wk2, bk2, wv1, bv1, wv2, bv2,
+                                   mask_q, mask_1, mask_2, *,
+                                   num_heads: int,
+                                   dropout_rate: float = 0.0,
+                                   seed: int = 0,
+                                   deterministic: bool = True,
+                                   scale: Optional[float] = None):
+    """Two-block jointly normalised attention with the six QKV projections
+    inside the kernel (K2): q1 = xq.Wq1^T + bq1 attends k1 = x1.Wk1^T + bk1,
+    q2 = xq.Wq2^T + bq2 attends k2 = x2.Wk2^T + bk2, one softmax over both,
+    values from x1/x2. Weights in nn.Linear layout (d, d) = (out, in),
+    biases (d,). xq (B, Lq, d), x1 (B, L1, d), x2 (B, L2, d) -> (B, Lq, d).
+    Differentiable (K2b)."""
+    d = xq.shape[-1]
+    if d % num_heads:
+        raise ValueError(f"d={d} is not a multiple of num_heads={num_heads}")
+    if scale is None:
+        scale = 1.0 / math.sqrt(d // num_heads)
+    return _ProjTwoBlockAttention.apply(
+        xq, x1, x2, wq1, bq1, wq2, bq2, wk1, bk1, wk2, bk2, wv1, bv1, wv2,
+        bv2, mask_q, mask_1, mask_2, int(num_heads), float(scale),
+        _rate(dropout_rate, deterministic), int(seed))

@@ -4,7 +4,8 @@
 // (:527), launched by _call2_fwd (:625) behind fused_two_block_attention
 // (:732). One query set (q1 for key block 1, q2 for key block 2) attends two
 // key/value blocks with one softmax over both:
-//   l1 = q1.k1^T, l2 = q2.k2^T; fill -10000 where mq x mk is 0; x scale;
+//   l1 = q1.k1^T, l2 = q2.k2^T; fill -10000 where mq x mk is 0; in training
+//   keep ? l / (1 - rate) : 0 (joint_attention.cuh's hash mask); x scale;
 //   softmax over [l1 | l2] in fp32; out = p1.v1 + p2.v2.
 // Inputs (B, L, H, D) contiguous, fp32 or bf16; masks int32 (B, L).
 //
@@ -29,23 +30,15 @@ constexpr int kK1Threads = 256;
 // one query row per warp at a time: more would cost blocks per SM
 constexpr int kK1Rows = 1;
 
-template <typename T>
-__device__ __forceinline__ void load_head_rows(const T* __restrict__ src, float* dst,
-                                               int b, int L, int H, int h, int D, int ds) {
-  for (int i = threadIdx.x; i < L * D; i += blockDim.x) {
-    const int r = i / D, d = i - r * D;
-    dst[r * ds + d] = to_f<T>(src[(((long)b * L + r) * H + h) * D + d]);
-  }
-}
-
-template <typename T>
+template <typename T, bool kDrop>
 __global__ void __launch_bounds__(kK1Threads)
 two_block_fwd_kernel(const T* __restrict__ q1, const T* __restrict__ q2,
                      const T* __restrict__ k1, const T* __restrict__ k2,
                      const T* __restrict__ v1, const T* __restrict__ v2,
                      const int* __restrict__ mq, const int* __restrict__ mk1,
                      const int* __restrict__ mk2, T* __restrict__ out,
-                     int Lq, int L1, int L2, int H, int D, float scale) {
+                     int Lq, int L1, int L2, int H, int D, float scale, float rate,
+                     float keep_div, unsigned seed) {
   const int h = blockIdx.x, b = blockIdx.y;
   const int ds = tile_stride(D);
   extern __shared__ __align__(16) float smem[];
@@ -66,13 +59,12 @@ two_block_fwd_kernel(const T* __restrict__ q1, const T* __restrict__ q2,
   load_head_rows<T>(v1, sv1, b, L1, H, h, D, ds);
   load_head_rows<T>(k2, sk2, b, L2, H, h, D, ds);
   load_head_rows<T>(v2, sv2, b, L2, H, h, D, ds);
-  for (int i = threadIdx.x; i < Lq; i += blockDim.x) smq[i] = mq[(long)b * Lq + i];
-  for (int i = threadIdx.x; i < L1; i += blockDim.x) smk1[i] = mk1[(long)b * L1 + i];
-  for (int i = threadIdx.x; i < L2; i += blockDim.x) smk2[i] = mk2[(long)b * L2 + i];
+  load_masks(mq, mk1, mk2, b, Lq, L1, L2, smq, smk1, smk2);
   __syncthreads();
 
-  joint_attention_rows<T, kK1Rows>(sq1, sq2, sk1, sk2, sv1, sv2, ds, D, smq, smk1, smk2,
-                          Lq, L1, L2, scale, pbuf,
+  const Dropout dr = make_dropout(rate, keep_div, seed, b, gridDim.y);
+  joint_attention_rows<T, kK1Rows, kDrop>(sq1, sq2, sk1, sk2, sv1, sv2, ds, D, smq, smk1, smk2,
+                          Lq, L1, L2, scale, dr, h, pbuf,
                           out + ((long)b * Lq * H + h) * D, (long)H * D);
 }
 
@@ -81,21 +73,33 @@ inline size_t k1_smem_bytes(int Lq, int L1, int L2, int D) {
          core_extra_bytes(Lq, L1, L2, kK1Threads / 32, kK1Rows);
 }
 
+template <typename T, bool kDrop>
+cudaError_t launch_k1_variant(const void* q1, const void* q2, const void* k1, const void* k2,
+                              const void* v1, const void* v2, const int* mq, const int* mk1,
+                              const int* mk2, void* out, int B, int Lq, int L1, int L2, int H,
+                              int D, float scale, float rate, float keep_div, unsigned seed,
+                              cudaStream_t stream) {
+  const size_t smem = k1_smem_bytes(Lq, L1, L2, D);
+  cudaError_t err = cudaFuncSetAttribute(two_block_fwd_kernel<T, kDrop>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+  if (err != cudaSuccess) return err;
+  two_block_fwd_kernel<T, kDrop><<<dim3(H, B), kK1Threads, smem, stream>>>(
+      static_cast<const T*>(q1), static_cast<const T*>(q2), static_cast<const T*>(k1),
+      static_cast<const T*>(k2), static_cast<const T*>(v1), static_cast<const T*>(v2),
+      mq, mk1, mk2, static_cast<T*>(out), Lq, L1, L2, H, D, scale, rate, keep_div, seed);
+  return cudaGetLastError();
+}
+
 template <typename T>
 cudaError_t launch_k1(const void* q1, const void* q2, const void* k1, const void* k2,
                       const void* v1, const void* v2, const int* mq, const int* mk1,
                       const int* mk2, void* out, int B, int Lq, int L1, int L2,
-                      int H, int D, float scale, cudaStream_t stream) {
-  const size_t smem = k1_smem_bytes(Lq, L1, L2, D);
-  cudaError_t err = cudaFuncSetAttribute(two_block_fwd_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-  if (err != cudaSuccess) return err;
-  two_block_fwd_kernel<T><<<dim3(H, B), kK1Threads, smem, stream>>>(
-      static_cast<const T*>(q1), static_cast<const T*>(q2), static_cast<const T*>(k1),
-      static_cast<const T*>(k2), static_cast<const T*>(v1), static_cast<const T*>(v2),
-      mq, mk1, mk2, static_cast<T*>(out), Lq, L1, L2, H, D, scale);
-  return cudaGetLastError();
+                      int H, int D, float scale, float rate, float keep_div, unsigned seed,
+                      cudaStream_t stream) {
+  auto launch = rate > 0.f ? launch_k1_variant<T, true> : launch_k1_variant<T, false>;
+  return launch(q1, q2, k1, k2, v1, v2, mq, mk1, mk2, out, B, Lq, L1, L2, H, D, scale, rate,
+                keep_div, seed, stream);
 }
 
 }  // namespace segmm
@@ -104,17 +108,20 @@ extern "C" size_t segmm_two_block_attention_smem_bytes(int Lq, int L1, int L2, i
   return segmm::k1_smem_bytes(Lq, L1, L2, D);
 }
 
-// dtype: 0 = float32, 1 = bfloat16. Returns a cudaError_t (0 = launched).
+// dtype: 0 = float32, 1 = bfloat16. rate > 0 applies the dropout mask of
+// `seed` (keep_div = 1 - rate in fp32). Returns a cudaError_t (0 = launched).
 extern "C" int segmm_two_block_attention_fwd(
     int dtype, const void* q1, const void* q2, const void* k1, const void* k2,
     const void* v1, const void* v2, const int* mq, const int* mk1, const int* mk2,
-    void* out, int B, int Lq, int L1, int L2, int H, int D, float scale, void* stream) {
+    void* out, int B, int Lq, int L1, int L2, int H, int D, float scale, float rate,
+    float keep_div, unsigned seed, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return (int)segmm::launch_k1<float>(q1, q2, k1, k2, v1, v2, mq, mk1, mk2, out,
-                                        B, Lq, L1, L2, H, D, scale, s);
+                                        B, Lq, L1, L2, H, D, scale, rate, keep_div, seed, s);
   if (dtype == 1)
     return (int)segmm::launch_k1<__nv_bfloat16>(q1, q2, k1, k2, v1, v2, mq, mk1, mk2,
-                                                out, B, Lq, L1, L2, H, D, scale, s);
+                                                out, B, Lq, L1, L2, H, D, scale, rate,
+                                                keep_div, seed, s);
   return (int)cudaErrorInvalidValue;
 }

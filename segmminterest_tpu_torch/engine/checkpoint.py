@@ -7,12 +7,15 @@ monitored metric improves, the previous best file is removed and a new
 ``ckpt-best-ep{epoch}-{metric}.pt`` is written. ``load_checkpoint`` with
 ``mode='best'`` globs for the best file.
 
-State is a nested dict of tensors (``{"params": state_dict, ...}``); it is
-saved on the host with ``torch.save`` and loaded with ``weights_only=True``.
-Loading copies into the tensors of the target in place, as
-``load_state_dict`` does, so a target that shares storage with a model
-updates that model. The JAX package's ``.msgpack`` checkpoints are not read
-yet.
+State is ``{"params": {name: tensor}, "opt_state": optimizer state_dict}``
+(nested dicts, lists, tuples, numbers and tensors); it is saved on the host
+with ``torch.save`` and loaded with ``weights_only=True``. Loading copies
+the params into the target's tensors in place, as ``load_state_dict`` does
+(every name and shape checked), so a target that shares storage with a
+model updates that model; every other entry the target names (the
+optimizer state) comes back as it was saved, on the host. A target without
+``opt_state`` (serving) reads the params only. The JAX package's
+``.msgpack`` checkpoints are not read yet.
 """
 
 from __future__ import annotations
@@ -31,6 +34,8 @@ def _to_host(tree):
         return tree.detach().cpu()
     if isinstance(tree, Mapping):
         return {k: _to_host(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to_host(v) for v in tree)
     return tree
 
 
@@ -101,5 +106,11 @@ class CheckPointer:
         else:
             raise NotImplementedError(mode)
         data = torch.load(fn, map_location="cpu", weights_only=True)
-        return dict(state=_copy_into(target, data["state"]),
-                    num_epochs=data["num_epochs"], metrics=data["metrics"])
+        saved = data["state"]
+        missing = sorted(set(target) - set(saved))
+        if missing:
+            raise KeyError(f"{fn} holds no {missing}")
+        state = {k: (_copy_into(v, saved[k], f"state/{k}") if k == "params"
+                     else saved[k]) for k, v in target.items()}
+        return dict(state=state, num_epochs=data["num_epochs"],
+                    metrics=data["metrics"])

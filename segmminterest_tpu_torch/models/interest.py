@@ -1,6 +1,6 @@
 """Segment-interest model: SegFormerX backbone(s) + fusion head (port of
-``segmminterest_tpu/models/interest.py``; the loss zoo comes with the
-training slice).
+``segmminterest_tpu/models/interest.py``; the loss zoo is
+``models/losses.py``).
 
 Behavioral spec: reference MMinterest/models/decoder_leave_focal.py
 (MultiScaleTemporalDetrLeaveFocal :425-658, InteractionAggregation :392-423).
@@ -14,10 +14,12 @@ Fusion heads (``fusion_heads``, reference :459-471,624-636):
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn as nn
 
-from .segformerx import SegFormerX
+from .segformerx import LayerNorm, SegFormerX
 
 
 class InteractionAggregation(nn.Module):
@@ -76,7 +78,8 @@ class SegInterestModel(nn.Module):
                  photo_input: str = "both", fusion_heads: int = 2,
                  learnable_bias: bool = False, use_pe: bool = True,
                  ablation: str = "ours", feat_dim: int = 1024,
-                 fused_attention: bool = False, fuse_qkv: bool = False):
+                 fused_attention: bool = False, fuse_qkv: bool = False,
+                 remat: bool = False, remat_scope: str = "layer"):
         super().__init__()
         self.user_input, self.photo_input = user_input, photo_input
         self.fusion_heads = fusion_heads
@@ -91,7 +94,7 @@ class SegInterestModel(nn.Module):
                 user_id_max=user_id_max, video_id_max=video_id_max,
                 feat_dim=feat_dim, use_pe=use_pe, ablation=ablation,
                 output_layers=[-1], fused_attention=fused_attention,
-                fuse_qkv=fuse_qkv)
+                fuse_qkv=fuse_qkv, remat=remat, remat_scope=remat_scope)
 
         u1_id = -1 if user_input in ("both", "image") else n_users
         u1_len = 1 if u1_id >= 0 else max_usr_len_image
@@ -136,6 +139,34 @@ class SegInterestModel(nn.Module):
         if self.learnable_bias:
             self.bias_weight.data.fill_(1.0)
             self.bias_bias.data.fill_(1.0)
+
+    def backbones(self):
+        return [self.backbone1] + ([self.backbone2] if self.dual else [])
+
+    def set_seed_generator(self, generator: Optional[torch.Generator]):
+        """The generator the backbones draw their kernel dropout seeds from."""
+        for bb in self.backbones():
+            bb.seed_generator = generator
+
+    def fp32_param_names(self):
+        """Parameters that stay fp32 whatever the compute dtype: LayerNorm
+        scale and bias and the learnable positional bias, which the flax
+        model uses in fp32 (param_dtype); every other weight is used in the
+        compute dtype."""
+        names = {f"{m}.{p}" for m, mod in self.named_modules()
+                 if isinstance(mod, LayerNorm)
+                 for p, _ in mod.named_parameters(recurse=False)}
+        if self.learnable_bias:
+            names |= {"bias_weight", "bias_bias"}
+        return names
+
+    def to_compute_dtype(self, dtype: torch.dtype) -> "SegInterestModel":
+        """Cast every parameter to ``dtype`` except
+        :meth:`fp32_param_names`, in place."""
+        keep = self.fp32_param_names()
+        for name, p in self.named_parameters():
+            p.data = p.data.to(torch.float32 if name in keep else dtype)
+        return self
 
     def forward(self, usr_image, usr_id, usr_mask, vid_image, vid_id,
                 vid_mask):

@@ -22,6 +22,21 @@ the 1/sqrt(d_head) scale; dropout acts on attention logits; LayerNorm eps is
 1e-12; GELU is exact; ``output_layers=[-1]`` selects the INPUT of the last
 encoder layer, so that layer is never built (PARITY M1).
 
+Training: dropout runs inside the kernels on the K1 and K2 routes (the hash
+mask of core/attention.py, seeded per attention call as segformerx.py:
+328-333,412-416 seeds them: two int32 per layer, slot 0 for the video
+stream, slot 1 for the user stream) and through ``nn.Dropout`` elsewhere.
+The seeds are drawn from ``seed_generator`` before any recomputed region,
+so a remat replay sees the same ones. ``remat`` recomputes each encoder
+layer (scope 'layer') or each attention block (scope 'attention') in the
+backward with ``torch.utils.checkpoint`` (segformerx.py:795-803,521-536);
+it changes no numbers.
+
+Compute dtype: the model runs in the dtype of its Dense/Embedding weights.
+LayerNorm keeps fp32 statistics, scale and bias and casts its output, as
+flax's LayerNorm(dtype=compute dtype) over fp32 params does
+(:class:`LayerNorm`).
+
 The ablation paths, the sr_ratio / patch-merge pyramid, ``fuse_projections``,
 ``fuse_dual`` and ``fuse_layer`` are not ported yet; the port raises on them.
 """
@@ -29,11 +44,12 @@ The ablation paths, the sr_ratio / patch-merge pyramid, ``fuse_projections``,
 from __future__ import annotations
 
 import math
-from typing import List, Optional, Sequence
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..core.attention import (fused_proj_two_block_attention,
                               fused_two_block_attention)
@@ -41,6 +57,23 @@ from ..core.numerics import masked_attention_logits
 
 LN_EPS = 1e-12
 INIT_STD = 0.02  # encoder.py:414-423: Linear/Embedding ~ N(0, 0.02)
+NO_SEEDS = (0, 0)
+
+
+class LayerNorm(nn.LayerNorm):
+    """LayerNorm whose statistics, scale and bias are fp32 whatever the input
+    dtype, with the output in the input's dtype."""
+
+    def forward(self, x):
+        return F.layer_norm(x.float(), self.normalized_shape,
+                            self.weight.float(), self.bias.float(),
+                            self.eps).to(x.dtype)
+
+
+def _remat(fn, *args):
+    """Recompute ``fn`` in the backward (non-reentrant checkpoint; the RNG
+    state of nn.Dropout is restored for the replay)."""
+    return checkpoint(fn, *args, use_reentrant=False)
 
 
 def init_normal_(module: nn.Module, generator: torch.Generator) -> None:
@@ -95,21 +128,24 @@ class FourStreamAttention(nn.Module):
                 nn.Linear(d_model, d_model) for _ in range(3)))
         self.ff_usr = nn.Linear(d_model, d_model)
         self.ff_vid = nn.Linear(d_model, d_model)
-        self.ln_vid = nn.LayerNorm(d_model, eps=LN_EPS)
-        self.ln_usr = nn.LayerNorm(d_model, eps=LN_EPS)
+        self.ln_vid = LayerNorm(d_model, eps=LN_EPS)
+        self.ln_usr = LayerNorm(d_model, eps=LN_EPS)
         self.drop = nn.Dropout(dropout)
 
     def _heads(self, x):
         b, l, _ = x.shape
         return x.reshape(b, l, self.num_heads, self.d_model // self.num_heads)
 
-    def forward(self, vid_feat, vid_mask, usr_feat, usr_mask):
+    def forward(self, vid_feat, vid_mask, usr_feat, usr_mask,
+                seeds: Tuple[int, int] = NO_SEEDS):
+        """``seeds``: the kernels' dropout seeds of the video and the user
+        stream (used in training on the K1 and K2 routes)."""
         if self.fused and self.fuse_qkv:
             vid_out, usr_out = self._proj_fused(vid_feat, vid_mask, usr_feat,
-                                                usr_mask)
+                                                usr_mask, seeds)
         elif self.fused:
             vid_out, usr_out = self._two_block(vid_feat, vid_mask, usr_feat,
-                                               usr_mask)
+                                               usr_mask, seeds)
         else:
             vid_out, usr_out = self._composed(vid_feat, vid_mask, usr_feat,
                                               usr_mask)
@@ -150,30 +186,30 @@ class FourStreamAttention(nn.Module):
         return (vid_out.reshape(b, vid.shape[1], self.d_model),
                 usr_out.reshape(b, usr.shape[1], self.d_model))
 
-    def _attn_args(self):
+    def _attn_args(self, seed):
         return dict(dropout_rate=self.drop.p, deterministic=not self.training,
+                    seed=seed,
                     scale=1.0 / math.sqrt(self.d_model // self.num_heads))
 
-    def _two_block(self, vid, vid_mask, usr, usr_mask):
+    def _two_block(self, vid, vid_mask, usr, usr_mask, seeds):
         """Projections by nn.Linear, attention by kernel K1
         (segformerx.py:437-467)."""
         h = self._heads
         t2v, v2v, t2t, v2t = self.t2v_proj, self.v2v_proj, self.t2t_proj, \
             self.v2t_proj
-        kw = self._attn_args()
         vid_out = fused_two_block_attention(
             h(v2v[0](vid)), h(t2v[0](vid)), h(v2v[1](vid)), h(t2v[1](usr)),
             h(v2v[2](vid)), h(t2v[2](usr)), vid_mask, vid_mask, usr_mask,
-            **kw)
+            **self._attn_args(seeds[0]))
         usr_out = fused_two_block_attention(
             h(v2t[0](usr)), h(t2t[0](usr)), h(v2t[1](vid)), h(t2t[1](usr)),
             h(v2t[2](vid)), h(t2t[2](usr)), usr_mask, vid_mask, usr_mask,
-            **kw)
+            **self._attn_args(seeds[1]))
         b = vid.shape[0]
         return (vid_out.reshape(b, vid.shape[1], self.d_model),
                 usr_out.reshape(b, usr.shape[1], self.d_model))
 
-    def _proj_fused(self, vid, vid_mask, usr, usr_mask):
+    def _proj_fused(self, vid, vid_mask, usr, usr_mask, seeds):
         """All twelve QKV projections inside kernel K2
         (segformerx.py:319-397)."""
         def wb(*lins):
@@ -181,15 +217,16 @@ class FourStreamAttention(nn.Module):
 
         t2v, v2v, t2t, v2t = self.t2v_proj, self.v2v_proj, self.t2t_proj, \
             self.v2t_proj
-        kw = dict(num_heads=self.num_heads, **self._attn_args())
         vid_out = fused_proj_two_block_attention(
             vid, vid, usr,
             *wb(v2v[0], t2v[0], v2v[1], t2v[1], v2v[2], t2v[2]),
-            vid_mask, vid_mask, usr_mask, **kw)
+            vid_mask, vid_mask, usr_mask, num_heads=self.num_heads,
+            **self._attn_args(seeds[0]))
         usr_out = fused_proj_two_block_attention(
             usr, vid, usr,
             *wb(v2t[0], t2t[0], v2t[1], t2t[1], v2t[2], t2t[2]),
-            usr_mask, vid_mask, usr_mask, **kw)
+            usr_mask, vid_mask, usr_mask, num_heads=self.num_heads,
+            **self._attn_args(seeds[1]))
         return vid_out, usr_out
 
 
@@ -199,19 +236,26 @@ class SegFormerXLayer(nn.Module):
 
     def __init__(self, d_model: int, num_heads: int, ff_dim: int,
                  dropout: float = 0.1, fused: bool = False,
-                 fuse_qkv: bool = False):
+                 fuse_qkv: bool = False, remat_attention: bool = False):
         super().__init__()
         self.cross_attn = FourStreamAttention(d_model, num_heads, dropout,
                                               fused=fused, fuse_qkv=fuse_qkv)
         self.ff_vid = KnMLP([d_model, ff_dim, d_model], dropout)
         self.ff_usr = KnMLP([d_model, ff_dim, d_model], dropout)
-        self.ln_vid = nn.LayerNorm(d_model, eps=LN_EPS)
-        self.ln_usr = nn.LayerNorm(d_model, eps=LN_EPS)
+        self.ln_vid = LayerNorm(d_model, eps=LN_EPS)
+        self.ln_usr = LayerNorm(d_model, eps=LN_EPS)
         self.drop = nn.Dropout(dropout)
+        self.remat_attention = remat_attention
 
-    def forward(self, usr_feat, usr_mask, vid_feat, vid_mask):
-        vid_feat, usr_feat = self.cross_attn(vid_feat, vid_mask, usr_feat,
-                                             usr_mask)
+    def forward(self, usr_feat, usr_mask, vid_feat, vid_mask,
+                seeds: Tuple[int, int] = NO_SEEDS):
+        if self.remat_attention and self.training and \
+                torch.is_grad_enabled():
+            vid_feat, usr_feat = _remat(self.cross_attn, vid_feat, vid_mask,
+                                        usr_feat, usr_mask, seeds)
+        else:
+            vid_feat, usr_feat = self.cross_attn(vid_feat, vid_mask,
+                                                 usr_feat, usr_mask, seeds)
         vid_feat = self.ln_vid(vid_feat + self.drop(self.ff_vid(vid_feat)))
         usr_feat = self.ln_usr(usr_feat + self.drop(self.ff_usr(usr_feat)))
         return vid_feat, usr_feat
@@ -235,11 +279,15 @@ class SegFormerX(nn.Module):
                  video_id_max: int = -1, feat_dim: int = 1024,
                  use_pe: bool = True, ablation: str = "ours",
                  output_layers: Optional[Sequence[int]] = None,
-                 fused_attention: bool = False, fuse_qkv: bool = False):
+                 fused_attention: bool = False, fuse_qkv: bool = False,
+                 remat: bool = False, remat_scope: str = "layer"):
         super().__init__()
         if ablation != "ours":
             raise NotImplementedError(
                 f"ablation {ablation!r} is not ported yet (only 'ours')")
+        if remat_scope not in ("layer", "attention"):
+            raise ValueError(f"remat_scope must be 'layer' or 'attention', "
+                             f"got {remat_scope!r}")
         d = d_model
         self.d_model = d
         self.num_layers = num_layers
@@ -256,9 +304,14 @@ class SegFormerX(nn.Module):
                          else nn.Linear(feat_dim, d))
         self.vid_pe = nn.Parameter(torch.zeros(max_vid_len, d))
         self.usr_pe = nn.Parameter(torch.zeros(max_usr_len, d))
-        self.vid_ln = nn.LayerNorm(d, eps=LN_EPS)
-        self.usr_ln = nn.LayerNorm(d, eps=LN_EPS)
+        self.vid_ln = LayerNorm(d, eps=LN_EPS)
+        self.usr_ln = LayerNorm(d, eps=LN_EPS)
         self.drop = nn.Dropout(dropout)
+        self.fused_attention = fused_attention
+        self.remat_layers = remat and remat_scope == "layer"
+        # where the kernels' dropout seeds come from (None: torch's default
+        # CPU generator); the engine sets one seeded from its config
+        self.seed_generator: Optional[torch.Generator] = None
         # intermediate state i is the INPUT of layer i, so only layers
         # 0..max(output_layers)-1 are observable and built (PARITY M1)
         self.output_layers = (list(output_layers) if output_layers is not None
@@ -267,13 +320,26 @@ class SegFormerX(nn.Module):
         n_run = max(wanted) if wanted else 0
         self.layers = nn.ModuleList(
             SegFormerXLayer(d, num_heads, ff_dim, dropout,
-                            fused=fused_attention, fuse_qkv=fuse_qkv)
+                            fused=fused_attention, fuse_qkv=fuse_qkv,
+                            remat_attention=remat and
+                            remat_scope == "attention")
             for _ in range(n_run))
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         init_normal_(self, generator)
         self.vid_pe.data.normal_(0.0, INIT_STD, generator=generator)
         self.usr_pe.data.normal_(0.0, INIT_STD, generator=generator)
+
+    def _layer_seeds(self) -> List[Tuple[int, int]]:
+        """Two kernel dropout seeds per layer in [0, 2^31 - 1), drawn on the
+        host as segformerx.py:330-331 draws them, only where the kernels
+        apply dropout (training on the K1/K2 routes)."""
+        n = len(self.layers)
+        if not (self.training and self.fused_attention and self.drop.p > 0):
+            return [NO_SEEDS] * n
+        seeds = torch.randint(0, 2 ** 31 - 1, (n, 2),
+                              generator=self.seed_generator)
+        return [tuple(r) for r in seeds.tolist()]
 
     def forward(self, usr_feat, usr_mask, vid_feat, vid_mask
                 ) -> tuple[List[torch.Tensor], torch.Tensor]:
@@ -311,8 +377,11 @@ class SegFormerX(nn.Module):
         # ---- encoder stack (encoder.py:302-324) ----
         states = [vid_x]
         vid_cur, usr_cur = vid_x, usr_x
-        for layer in self.layers:
-            vid_cur, usr_cur = layer(usr_cur, usr_mask, vid_cur, vid_mask)
+        remat = self.remat_layers and self.training and \
+            torch.is_grad_enabled()
+        for layer, seeds in zip(self.layers, self._layer_seeds()):
+            args = (usr_cur, usr_mask, vid_cur, vid_mask, seeds)
+            vid_cur, usr_cur = _remat(layer, *args) if remat else layer(*args)
             states.append(vid_cur)
         return [states[i % self.num_layers] for i in self.output_layers], \
             usr_cur

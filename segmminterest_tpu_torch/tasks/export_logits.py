@@ -37,8 +37,8 @@ logger = logging.getLogger(__name__)
 # batch size: the flagship both/both model, --serving preset, over a
 # 3,920,483-row int8 table. Card: NVIDIA H100 80GB HBM3, power limit
 # 700.00 W; measured by chip_smoke.py, phase "serving" ("latency B=...").
-SERVING_LATENCY_TABLE = ((1024, 100.3), (512, 51.4), (256, 26.8),
-                         (128, 14.1))
+SERVING_LATENCY_TABLE = ((1024, 108.9), (512, 55.7), (256, 28.8),
+                         (128, 15.2))
 
 
 def apply_serving_preset(cfg: InterestConfig,
@@ -138,9 +138,9 @@ def main(argv=None):
         cfg, n_users=reader.n_users, n_items=reader.n_items,
         feature_table=np.asarray(store.feat) if store else None,
         device=args.device)
-    state = engine.init_state()
     ckpt = CheckPointer("main_metric", args.work_dir, mode="max")
-    state = ckpt.load_checkpoint(state, mode=args.ckpt_mode)["state"]
+    state = ckpt.load_checkpoint({"params": engine.init_state()["params"]},
+                                 mode=args.ckpt_mode)["state"]
 
     os.makedirs(args.out_dir, exist_ok=True)
     all_logits: Dict[str, List[float]] = {}

@@ -1,17 +1,32 @@
-"""CLI arguments of segment-level skip (leave-position) prediction (port
-of ``segmminterest_tpu/tasks/skip_train.py``: ``build_parser`` and
-``config_from_args``, which the logit exporter shares; the training
-``main`` comes with the training slice).
+"""Command-line entry point of segment-level skip (leave-position) training
+(port of ``segmminterest_tpu/tasks/skip_train.py``; the logit exporter
+shares ``build_parser`` and ``config_from_args``).
 
 Mirrors reference MMinterest/main_for_seq_leave_earlystop_SegMM.py
-(argparse :474-576).
+(argparse :474-576). Examples:
+
+  # ID-mode training on a sample csv, on the CPU
+  python -m segmminterest_tpu_torch.tasks.skip_train --sample_csv inter.csv \
+      --user_input_type id --photo_input_type id --d_model 64 \
+      --num_layers_enc 2 --nhead 4 --train_batch_size 256 --epochs 2 \
+      --device cpu
+
+  # the production training configuration on the card (K2 route, bf16)
+  python -m segmminterest_tpu_torch.tasks.skip_train --path SegMM/ \
+      --memmap SegMM_feat_memmap.dat \
+      --lineid_map SegMM_photoidframeid2lineid.json \
+      --compute_dtype bfloat16 --fuse_qkv 1 --table_quant int8 --remat 0
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import logging
 
+from ..data.feature_store import FeatureStore
+from ..data.reader import SeqReader
+from ..engine.train import run_training
 from ..utils.config import InterestConfig
 
 
@@ -92,6 +107,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--fuse_projections", type=int,
                    default=int(d.fuse_projections),
                    help="horizontally fuse the 12 per-stream QKV projections")
+    p.add_argument("--fuse_qkv", type=int, default=int(d.fuse_qkv),
+                   help="the six QKV projections of each attention inside "
+                        "the two-block kernel (K2); needs --fused_attention 1")
     p.add_argument("--fuse_layer", type=int, default=int(d.fuse_layer),
                    help="whole encoder-layer streams in one kernel each "
                         "(not ported yet: raises)")
@@ -103,6 +121,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", type=str, default=None,
                    help="torch device; default: the CUDA card (raises "
                         "without one — pass 'cpu' to run on the CPU)")
+    p.add_argument("--distributed", type=int, default=0,
+                   help="multi-GPU training (not ported yet: raises)")
     return p
 
 
@@ -140,7 +160,7 @@ def config_from_args(args: argparse.Namespace) -> InterestConfig:
         remat_scope=args.remat_scope,
         fused_attention=bool(args.fused_attention),
         fuse_projections=bool(args.fuse_projections),
-        fuse_layer=bool(args.fuse_layer),
+        fuse_qkv=bool(args.fuse_qkv), fuse_layer=bool(args.fuse_layer),
         table_quant=args.table_quant)
     cfg.loss_weight["surviveCE"] = args.loss_weight_surviveCE
     cfg.loss_weight["interestBPR"] = args.loss_weight_interestBPR
@@ -156,3 +176,43 @@ def config_from_args(args: argparse.Namespace) -> InterestConfig:
                           train_batch_size=128, valid_batch_size=128,
                           test_batch_size=128)
     return cfg
+
+
+def main(argv=None):
+    """Read the data, train, test; print the JSON summary
+    (skip_train.py:177-212)."""
+    logging.basicConfig(level=logging.INFO,
+                        format="%(asctime)s %(levelname)s %(message)s")
+    args = build_parser().parse_args(argv)
+    if args.distributed:
+        raise NotImplementedError(
+            "--distributed (multi-GPU training) is not ported yet")
+    cfg = config_from_args(args)
+    if cfg.sample_csv:
+        reader = SeqReader.from_single_csv(
+            cfg.sample_csv, history_max=cfg.history_max,
+            min_interactions=args.min_interactions,
+            num_warmup=args.num_warmup)
+    else:
+        reader = SeqReader.from_dir(cfg.path, sep=cfg.sep,
+                                    history_max=cfg.history_max)
+    store = None
+    if args.memmap and args.lineid_map:
+        store = FeatureStore.open(args.memmap, args.lineid_map)
+    if store is None and (cfg.user_input_type != "id"
+                          or cfg.photo_input_type != "id"):
+        raise SystemExit(
+            f"--user_input_type={cfg.user_input_type} / "
+            f"--photo_input_type={cfg.photo_input_type} need segment CLIP "
+            "features: pass --memmap and --lineid_map, or use id/id.")
+    result = run_training(cfg, reader, feature_store=store,
+                          device=args.device)
+    print(json.dumps({k: v for k, v in result.items()
+                      if k in ("test_metrics", "cold_test_metrics",
+                               "hot_test_metrics", "interactions_per_sec",
+                               "steps", "work_dir")}, indent=2, default=str))
+    return result
+
+
+if __name__ == "__main__":
+    main()

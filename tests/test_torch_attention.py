@@ -89,14 +89,21 @@ def test_padded_query_row_is_uniform(rng):
 
 
 def test_forward_only_guards(rng):
+    """The wrappers are no longer forward only: training-mode dropout runs
+    and inputs that require grad get gradients (K1b on the card, the plain
+    backward here). What stays guarded is a dropout rate outside [0, 1)."""
     arrays, masks = _k1_inputs(rng, 2, 5, 4, 3)
     ts = [_t(a) for a in arrays]
-    with pytest.raises(NotImplementedError):
-        A.fused_two_block_attention(*ts, *map(_t, masks), dropout_rate=0.1,
-                                    deterministic=False)
+    out = A.fused_two_block_attention(*ts, *map(_t, masks), dropout_rate=0.1,
+                                      deterministic=False, seed=3)
+    assert torch.isfinite(out).all()
     ts[0].requires_grad_(True)
-    with pytest.raises(NotImplementedError):
-        A.fused_two_block_attention(*ts, *map(_t, masks))
+    A.fused_two_block_attention(*ts, *map(_t, masks)).sum().backward()
+    assert ts[0].grad is not None and torch.isfinite(ts[0].grad).all()
+    for bad in (-0.1, 1.0):
+        with pytest.raises(ValueError):
+            A.fused_two_block_attention(*ts, *map(_t, masks),
+                                        dropout_rate=bad, deterministic=False)
 
 
 def test_cpu_tensors_launch_nothing(rng):

@@ -1,7 +1,8 @@
-"""K1 and K2 on the card against their plain PyTorch versions, on the same
-seeded inputs, at the flagship width (16 heads of 32, d=512) and the four
-(Lq, L1, L2) stream shapes of a both/both layer, with padded query and key
-rows, in fp32 and bf16. Each launch must add one to its kernel's count.
+"""K1 and K2, forward and backward (K1b, K2b and K7b), on the card against
+their plain PyTorch versions, on the same seeded inputs, at the flagship
+width (16 heads of 32, d=512) and the four (Lq, L1, L2) stream shapes of a
+both/both layer, with padded query and key rows, in fp32 and bf16, with
+dropout off and on. Each launch must add one to its kernel's count.
 
 These tests need a CUDA device and skip without one. The file imports
 neither JAX nor the JAX package, so it also runs where the card is, which
@@ -90,3 +91,86 @@ def test_k2_kernel_matches_plain(cuda, shape, dtype):
     assert A.LAUNCHES["proj_two_block_attention"] == before + 1
     want = A.proj_two_block_attention_plain(*args, H, SCALE)
     torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+
+
+# gradients, as max |err| over max |want| per tensor: fp32 sums in another
+# order; bf16 recomputes the projections and rounds them to bf16, and a value
+# that rounds the other way moves by an ulp (2^-8 relative) into the
+# gradients
+BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+
+
+def _rel_close(got, want, dtype):
+    for i, (a, b) in enumerate(zip(got, want)):
+        a, b = a.float(), b.float()
+        assert torch.isfinite(a).all(), i
+        err = ((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
+        assert err <= BWD_TOL[dtype], f"output {i}: relative error {err:.3g}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.1], ids=["eval", "dropout"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_k1_backward_kernel_matches_plain(cuda, shape, dtype, rate):
+    """K1f with dropout and K1b against their plain versions; each launch
+    counts once."""
+    rng = np.random.default_rng(3)
+    B, (Lq, L1, L2) = 16, shape
+    qkv = _on(cuda, [rng.normal(size=(B, L, H, DH)).astype(np.float32)
+                     for L in (Lq, Lq, L1, L2, L1, L2)], dtype)
+    masks = _on(cuda, _masks_for(rng, B, *shape))
+    g = _on(cuda, [rng.normal(size=(B, Lq, H, DH)).astype(np.float32)],
+            dtype)[0]
+    leaves = [t.clone().requires_grad_() for t in qkv]
+    before = dict(A.LAUNCHES)
+    out = A.fused_two_block_attention(*leaves, *masks, scale=SCALE,
+                                      dropout_rate=rate, seed=99,
+                                      deterministic=rate == 0)
+    got = torch.autograd.grad(out, leaves, g)
+    assert A.LAUNCHES["two_block_attention"] == \
+        before["two_block_attention"] + 1
+    assert A.LAUNCHES["two_block_attention_bwd"] == \
+        before["two_block_attention_bwd"] + 1
+    torch.testing.assert_close(
+        out.float(), A.two_block_attention_plain(
+            *qkv, *masks, SCALE, rate, 99).float(), **TOL[dtype])
+    _rel_close(got, A.two_block_attention_bwd_plain(
+        *qkv, *masks, g, SCALE, rate, 99), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("v3", [False, True], ids=["K2b", "K7b"])
+@pytest.mark.parametrize("rate", [0.0, 0.1], ids=["eval", "dropout"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_k2_backward_kernel_matches_plain(cuda, shape, dtype, rate, v3,
+                                          monkeypatch):
+    """K2f with dropout and K2b (or, with SEGMM_ATTN_V3_BWD's switch, K7b's
+    qkv pass + torch.matmul) against their plain versions."""
+    monkeypatch.setattr(A, "ATTN_V3_BWD", v3)
+    rng = np.random.default_rng(4)
+    B, (Lq, L1, L2), d = 16, shape, H * DH
+    arrays = [rng.normal(size=(B, L, d)).astype(np.float32)
+              for L in (Lq, L1, L2)]
+    for _ in range(6):
+        arrays += [(rng.normal(size=(d, d)) / math.sqrt(d)).astype(
+            np.float32), (0.1 * rng.normal(size=d)).astype(np.float32)]
+    inputs = _on(cuda, arrays, dtype)
+    masks = _on(cuda, _masks_for(rng, B, *shape))
+    g = _on(cuda, [rng.normal(size=(B, Lq, d)).astype(np.float32)],
+            dtype)[0]
+    leaves = [t.clone().requires_grad_() for t in inputs]
+    key = ("proj_two_block_attention_qkv_bwd" if v3
+           else "proj_two_block_attention_bwd")
+    before = A.LAUNCHES[key]
+    out = A.fused_proj_two_block_attention(
+        *leaves, *masks, num_heads=H, scale=SCALE, dropout_rate=rate,
+        seed=99, deterministic=rate == 0)
+    got = torch.autograd.grad(out, leaves, g)
+    assert A.LAUNCHES[key] == before + 1
+    torch.testing.assert_close(
+        out.float(), A.proj_two_block_attention_plain(
+            *inputs, *masks, H, SCALE, rate, 99).float(), **TOL[dtype])
+    _rel_close(got, A.proj_two_block_attention_bwd_plain(
+        *inputs, *masks, g, H, SCALE, rate, 99), dtype)
