@@ -6,9 +6,10 @@ Run from the root of a checkout:  python3 chip_smoke.py
 
 Phases, each of which fails the run (non-zero exit) on any error:
   build          compile the CUDA kernels of core/csrc with nvcc for sm_90a
-  kernels        each kernel (K1f, K1b, K2f, K2b, K7b) against its plain
-                 PyTorch version on the card, at the main path's stream
-                 shapes, fp32 and bf16, dropout off and on; times at B=1024
+  kernels        each kernel (K1f, K1b, K2f, K2b, K7b, K3f, K3b) against
+                 its plain PyTorch version on the card, at the main paths'
+                 stream shapes, fp32 and bf16, dropout off and on; times at
+                 B=1024 (K1f and K2f also with their dropout branch)
   serving        the flagship both/both model (d=512, 16 heads, 6 layers)
                  served with the --serving preset over a 3,920,483-row int8
                  feature table built on the card, through the exporter's
@@ -22,8 +23,16 @@ Phases, each of which fails the run (non-zero exit) on any error:
                  launches per step; then 3 steps of the K7b route
   train_default  the default config trained (K1, fp32, layer remat): 40 K1f
                  + 18 K1b per step; one 32-row fp32 step against the CPU
+  ablation       the ablation models at the flagship width over the same
+                 table: CrossAtt and SelfAtt trained in the default config
+                 (fp32, K3, layer remat; 40 K3f + 18 K3b and 20 K3f + 10 K3b
+                 per step), CrossAtt served with --serving 1 (bf16, 20 K3f
+                 per forward), one step each of CrossMLP, SelfMLP, w/oAtt,
+                 noPos and fuse_projections; one 32-row fp32 CrossAtt step
+                 against the CPU
   train_cli      skip_train's CLI over the small memmap, then export_logits
-                 serving the checkpoint it wrote
+                 serving the checkpoint it wrote; the same for
+                 --ablation_type CrossAtt
 The last line is {"ok": true, "device": {...}}; before it come the card's
 name and power limit (nvidia-smi) and one JSON line describing the kernels.
 It needs no network and writes only under build/ (the kernels in
@@ -50,6 +59,8 @@ D_MODEL, HEADS, FEAT_DIM = 512, 16, 1024
 PRODUCTION_ROWS = 3_920_483          # SegMM segment count (bench.py:327)
 # (Lq, L1, L2) of the four K1/K2 launches of one both/both layer
 STREAM_SHAPES = ((40, 40, 100), (100, 40, 100), (40, 40, 1), (1, 40, 1))
+# (Lq, Lk) of the K3 launches: CrossAtt's four streams, SelfAtt's video one
+K3_SHAPES = ((40, 100), (100, 40), (40, 1), (1, 40), (40, 40))
 HBM_BYTES_PER_S = 3.35e12            # H100 SXM
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 # fp32: the kernels and the plain versions sum the same products in other
@@ -69,7 +80,7 @@ DROP_RATE = 0.1                      # the model's dropout
 
 RESULT = {"kernels": {}, "launches": {}}
 ALL_PHASES = ("build", "kernels", "serving", "default", "train",
-              "train_default", "train_cli")
+              "train_default", "ablation", "train_cli")
 
 
 def log(*a):
@@ -379,7 +390,133 @@ def phase_kernels():
             f"fp32 {_time_ms(lambda: torch.autograd.grad(out1, k1l, g1, retain_graph=True), 3):.3f}"
             " ms")
         del leaves, out, k1l, out1
+
+    # the training variants of K1f and K2f (compiled with the dropout
+    # branch), alone, at (40, 40, 100)
+    (Lq, L1, L2) = STREAM_SHAPES[0]
+    qkv, mk = _k1_inputs(g, B, Lq, L1, L2, torch.float32, dev)
+    x, ws, m = _k2_inputs(g, B, Lq, L1, L2, torch.bfloat16, dev)
+    log(f"  dropout variants, B=1024 {(Lq, L1, L2)}, rate {DROP_RATE}: K1f "
+        f"fp32 {_time_ms(lambda: k1(qkv, mk, DROP_RATE, 5), 20):.3f} ms "
+        f"(eval variant {_time_ms(lambda: k1(qkv, mk), 20):.3f}), K2f bf16 "
+        f"{_time_ms(lambda: k2(x, ws, m, DROP_RATE, 5), 10):.3f} ms (eval "
+        f"variant {_time_ms(lambda: k2(x, ws, m), 10):.3f})")
+    del qkv, mk, x, ws, m
+    _k3_kernels(A, g, dev)
     A.reset_launch_counts()
+
+
+def _k3_kernels(A, g, dev):
+    """K3f and K3b against their plain versions at the ablations' (Lq, Lk)
+    shapes, B=64, fp32 and bf16, dropout off and on, padded rows; then
+    their times at B=1024 on CrossAtt's video stream (40, 100)."""
+    scale = 1.0 / math.sqrt(D_MODEL // HEADS)
+    H, Dh = HEADS, D_MODEL // HEADS
+
+    def inputs(B, Lq, Lk, dt):
+        def r(L):
+            return torch.randn(B, L, H, Dh, generator=g, device=dev).to(dt)
+        return ((r(Lq), r(Lk), r(Lk)),
+                (_masks(g, B, Lq, dev), _masks(g, B, Lk, dev, False)))
+
+    def k3(qkv, m, rate=0.0, seed=0):
+        return A.fused_masked_attention(*qkv, *m, scale=scale,
+                                        dropout_rate=rate, seed=seed,
+                                        deterministic=rate == 0)
+
+    worst = {}  # (kernel, dtype) -> largest error over the B=64 checks
+    for dt in (torch.float32, torch.bfloat16):
+        for (Lq, Lk) in K3_SHAPES:
+            qkv, m = inputs(64, Lq, Lk, dt)
+            gq = torch.randn(64, Lq, H, Dh, generator=g, device=dev).to(dt)
+            errs = []
+            for rate, seed in ((0.0, 0), (DROP_RATE, 7654321)):
+                on = "drop" if rate else "eval"
+                tag = f"{str(dt)[6:]} {(Lq, Lk)} {on}"
+                errs.append(_check(f"K3f {tag}", k3(qkv, m, rate, seed),
+                                   A.masked_attention_plain(
+                                       *qkv, *m, scale, rate, seed), dt))
+                n = A.LAUNCHES["masked_attention_bwd"]
+                got = _grads(lambda *t: k3(t, m, rate, seed), qkv, gq)
+                if A.LAUNCHES["masked_attention_bwd"] != n + 1:
+                    raise AssertionError("K3b did not launch")
+                errs.append(_rel_err(f"K3b {tag}", got,
+                                     A.masked_attention_bwd_plain(
+                                         *qkv, *m, gq, scale, rate, seed),
+                                     BWD_TOL[dt]))
+            for name, e in (("K3f", max(errs[0], errs[2])),
+                            ("K3b", max(errs[1], errs[3]))):
+                worst[name, dt] = max(worst.get((name, dt), 0.0), e)
+            log(f"  B=64 {str(dt)[6:]} {(Lq, Lk)}: K3f eval/drop "
+                f"{errs[0]:.2g}/{errs[2]:.2g}, K3b eval/drop "
+                f"{errs[1]:.2g}/{errs[3]:.2g}")
+    torch.cuda.synchronize()
+
+    B, (Lq, Lk) = 1024, K3_SHAPES[0]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    timed = {}
+    for dt in (torch.float32, torch.bfloat16):
+        qkv, m = inputs(B, Lq, Lk, dt)
+        gq = torch.randn(B, Lq, H, Dh, generator=g, device=dev).to(dt)
+        err_f = _check(f"K3f B=1024 {dt}", k3(qkv, m),
+                       A.masked_attention_plain(*qkv, *m, scale), dt)
+        got = _grads(lambda *t: k3(t, m), qkv, gq)
+        err_b = _rel_err(f"K3b B=1024 {dt}", got,
+                         A.masked_attention_bwd_plain(*qkv, *m, gq, scale),
+                         BWD_TOL[dt])
+        del got
+        ms_f = _time_ms(lambda: k3(qkv, m), 20)
+        plain_f = _time_ms(lambda: A.masked_attention_plain(*qkv, *m, scale),
+                           5)
+        leaves = [t.detach().requires_grad_() for t in qkv]
+        out = k3(leaves, m)
+        ms_b = _time_ms(lambda: torch.autograd.grad(out, leaves, gq,
+                                                    retain_graph=True), 10)
+        plain_b = _time_ms(lambda: A.masked_attention_bwd_plain(
+            *qkv, *m, gq, scale), 3)
+        # yardstick: SDPA over (B, H, L, D) with an additive -10000 pair mask
+        # (added after the scale, where K3 fills before it); never called by
+        # the port
+        ql, kl, vl = (t.transpose(1, 2).contiguous().requires_grad_()
+                      for t in qkv)
+        bias = torch.zeros(A._pair_mask(*m).shape, device=dev, dtype=dt
+                           ).masked_fill(~A._pair_mask(*m), -10000.0)
+        lib_f = _time_ms(lambda: sdpa(ql.detach(), kl.detach(), vl.detach(),
+                                      attn_mask=bias, scale=scale), 20)
+        lib_out = sdpa(ql, kl, vl, attn_mask=bias, scale=scale)
+        gl = gq.transpose(1, 2).contiguous()
+        lib_b = _time_ms(lambda: torch.autograd.grad(
+            lib_out, (ql, kl, vl), gl, retain_graph=True), 10)
+        timed[dt] = (err_f, err_b, ms_f, ms_b, plain_f, plain_b, lib_f, lib_b)
+        log(f"  K3 {str(dt)[6:]} B=1024 {(Lq, Lk)}: K3f {ms_f:.3f} ms (plain "
+            f"{plain_f:.3f}, sdpa {lib_f:.3f}), K3b {ms_b:.3f} ms (plain "
+            f"{plain_b:.3f}, sdpa backward {lib_b:.3f}); max err K3f "
+            f"{err_f:.3g}, K3b {err_b:.3g}")
+        del qkv, m, gq, leaves, out, ql, kl, vl, bias, lib_out, gl
+    # bytes: K3f reads q, k, v and writes out; K3b reads q, k, v, g and
+    # writes dq, dk, dv; both read the two masks (int32)
+    def cost(dt):
+        elems, e = B * H * Dh, _elem(dt)
+        masks = 4 * B * (Lq + Lk)
+        return ((e * elems * (2 * Lq + 2 * Lk) + masks,
+                 4.0 * B * H * Lq * Lk * Dh / PEAK_FLOPS[dt]),
+                (e * elems * (3 * Lq + 4 * Lk) + masks,
+                 10.0 * B * H * Lq * Lk * Dh / PEAK_FLOPS[dt]))
+
+    # the JSON line carries fp32, the dtype of the default config
+    err_f, err_b, ms_f, ms_b, plain_f, plain_b, lib_f, lib_b = \
+        timed[torch.float32]
+    (fb, fo), (bb, bo) = cost(torch.float32)
+    _record("K3", "masked_attention_fwd (K3f)", "masked_attention.cu", 126,
+            max(worst["K3f", torch.float32], err_f), ms_f, plain_f, fb, fo, lib_f)
+    _record("K3b", "masked_attention_bwd (K3b)", "masked_attention_bwd.cu",
+            156, max(worst["K3b", torch.float32], err_b), ms_b, plain_b, bb, bo, lib_b)
+    (fb, fo), (bb, bo) = cost(torch.bfloat16)
+    log(f"  K3 bounds at B=1024 {(Lq, Lk)}: fp32 K3f "
+        f"{RESULT['kernels']['K3']['bound_ms']:.3f} ms, K3b "
+        f"{RESULT['kernels']['K3b']['bound_ms']:.3f} ms; bf16 K3f "
+        f"{1e3 * max(fb / HBM_BYTES_PER_S, fo):.3f} ms, K3b "
+        f"{1e3 * max(bb / HBM_BYTES_PER_S, bo):.3f} ms")
 
 
 def _record(key, name, src, line, err, ms, plain_ms, nbytes, ops_s,
@@ -644,6 +781,7 @@ DEFAULT_TRAIN_STEPS = 3
 FWD_PER_STEP, BWD_PER_STEP = 20, 18
 K2_NAMES = ("proj_two_block", "dx_kernel", "dw_kernel", "dw_reduce_kernel")
 K1_NAMES = ("two_block_fwd_kernel", "two_block_bwd_kernel")
+K3_NAMES = ("masked_fwd_kernel", "masked_bwd_kernel")
 
 
 def _production_train_cfg(csv_path, **kw):
@@ -829,6 +967,141 @@ def phase_train_default(ctx):
         raise AssertionError(f"card and CPU training steps differ: {got}")
 
 
+# launches per flagship step of the ablations (2 backbones x 5 run layers):
+# CrossAtt runs both streams (K3), SelfAtt the video stream only; the last
+# layer's user stream reaches no output, so its backward never runs
+CROSS_FWD, CROSS_BWD = 20, 18
+SELF_FWD, SELF_BWD = 10, 10
+NO_LAUNCHES = {"two_block_attention": 0, "two_block_attention_bwd": 0,
+               "proj_two_block_attention": 0, "proj_two_block_attention_bwd": 0,
+               "masked_attention": 0, "masked_attention_bwd": 0}
+ABLATION_STEPS = 3
+
+
+def phase_ablation(ctx):
+    """The ablation models at the flagship width over the 3.9M-row int8
+    table, through the engine's own functions: CrossAtt and SelfAtt trained
+    in the default config (fp32, K3, layer remat, dropout 0.1), CrossAtt
+    served with the --serving preset (bf16, K3), one step each of the other
+    ablations and of fuse_projections, and one 32-row fp32 CrossAtt step
+    on the card against the CPU."""
+    from segmminterest_tpu_torch.core import attention as A
+    from segmminterest_tpu_torch.data.dataset import BatchIterator
+    from segmminterest_tpu_torch.engine.train import InterestEngine
+    from segmminterest_tpu_torch.tasks import export_logits as X
+
+    _data(ctx)
+    reader, store = ctx["reader"], ctx["store"]
+    base = _flagship_cfg(ctx["csv"]).replace(train_batch_size=1024,
+                                             table_quant="int8")
+    batches = None
+
+    def train(cfg, n, share_of=None):
+        nonlocal batches
+        engine = InterestEngine(cfg, reader.n_users, reader.n_items,
+                                feature_table=ctx["table"], device="cuda")
+        if batches is None:
+            batches = [b for _, b in zip(range(ABLATION_STEPS), BatchIterator(
+                reader, reader.tables["train"], 1024, shuffle=True,
+                feature_store=store, seed=cfg.seed,
+                transform=engine.batch_transform))]
+        _, times, losses, counts = _train_steps(engine, batches[:n])
+        if share_of:
+            share = _kernel_share(engine, batches[:2], share_of)
+            log("  K3f + K3b share of device time: " + (
+                "not measured (no device times in the trace)" if share is None
+                else f"{100 * share[0]:.1f}% of {share[1]:.1f} ms device time"
+                " per step (torch.profiler, 2 steps)"))
+        del engine
+        torch.cuda.empty_cache()
+        return times, losses, counts
+
+    def expect(counts, n, what, **want):
+        _expect(counts, {k: n * want.get(k, 0) for k in NO_LAUNCHES}, what)
+
+    for abl, fwd, bwd in (("CrossAtt", CROSS_FWD, CROSS_BWD),
+                          ("SelfAtt", SELF_FWD, SELF_BWD)):
+        n = ABLATION_STEPS
+        times, losses, counts = train(base.replace(ablation_type=abl), n,
+                                      K3_NAMES)
+        # layer remat runs each layer's forward twice
+        expect(counts, n, f"{abl} train", masked_attention=2 * fwd,
+               masked_attention_bwd=bwd)
+        if abl == "CrossAtt":
+            RESULT["launches"]["K3"] = counts["masked_attention"]
+            RESULT["launches"]["K3b"] = counts["masked_attention_bwd"]
+        rows = sum(int(b["row_mask"].sum()) for b in batches[1:n])
+        log(f"  {abl} train (fp32, K3, layer remat, B=1024): "
+            f"{1e3 * sum(times[1:]) / (n - 1):.1f} ms per step, "
+            f"{rows / sum(times[1:]):.1f} interactions/s (steps 2-{n}); "
+            f"losses {[round(x, 4) for x in losses]}; launches {counts}")
+
+    # CrossAtt served: --serving 1 (bf16, int8 table), K3 in bf16
+    cfg = X.apply_serving_preset(base.replace(ablation_type="CrossAtt"))
+    engine = InterestEngine(cfg, reader.n_users, reader.n_items,
+                            feature_table=ctx["table"], device="cuda")
+    state = engine.init_state()
+    dev_batch = {"_dev": engine.put_batch(batches[0])}
+    A.reset_launch_counts()
+    _, logits, _ = engine.eval_step(state, dev_batch)
+    torch.cuda.synchronize()
+    expect(dict(A.LAUNCHES), 1, "CrossAtt serving",
+           masked_attention=CROSS_FWD)
+    if logits.shape != (1024, 40) or not torch.isfinite(logits).all():
+        raise AssertionError("CrossAtt serving: logits not (1024, 40) finite")
+    ms = _time_ms(lambda: engine.eval_step(state, dev_batch), 5)
+    log(f"  CrossAtt serving (--serving 1: bf16, int8, K3) latency B=1024: "
+        f"{ms:.1f} ms per batch ({1e3 * 1024 / ms:.1f} interactions/s); "
+        f"{CROSS_FWD} K3f per forward")
+    del engine, state
+    torch.cuda.empty_cache()
+
+    # one step each: the MLP ablations launch no attention kernel; noPos and
+    # fuse_projections run the 'ours' K1 route
+    for what, kw, want in (
+            ("CrossMLP", dict(ablation_type="CrossMLP"), {}),
+            ("SelfMLP", dict(ablation_type="SelfMLP"), {}),
+            ("w/oAtt", dict(ablation_type="w/oAtt"), {}),
+            ("noPos", dict(ablation_type="noPos"),
+             dict(two_block_attention=2 * FWD_PER_STEP,
+                  two_block_attention_bwd=BWD_PER_STEP)),
+            ("fuse_projections", dict(fuse_projections=True),
+             dict(two_block_attention=2 * FWD_PER_STEP,
+                  two_block_attention_bwd=BWD_PER_STEP))):
+        times, losses, counts = train(base.replace(**kw), 1)
+        expect(counts, 1, what, **want)
+        log(f"  {what}: one step, loss {losses[0]:.4f}, "
+            f"{1e3 * times[0]:.1f} ms (first step); launches "
+            f"{ {k: v for k, v in counts.items() if v} }")
+
+    # 32 rows, fp32, CrossAtt on K3, dropout off: card against CPU
+    small = next(iter(BatchIterator(reader, reader.tables["train"], 32,
+                                    feature_store=store, seed=7,
+                                    prefetch_size=0)))
+    one = base.replace(ablation_type="CrossAtt", train_batch_size=32,
+                       dropout=0.0)
+    got = {}
+    for dev, table in (("cuda", ctx["table"]),
+                       ("cpu", tuple(t.cpu() for t in ctx["table"]))):
+        eng = InterestEngine(one, reader.n_users, reader.n_items,
+                             feature_table=table, device=dev)
+        A.reset_launch_counts()
+        _, ld = eng.train_step(eng.init_state(), small)
+        got[dev] = (float(ld["loss"]), float(eng.last_grad_norm),
+                    A.LAUNCHES["masked_attention_bwd"])
+        del eng, table
+    if got["cuda"][2] != CROSS_BWD or got["cpu"][2] != 0:
+        raise AssertionError(f"32-row CrossAtt step launches: {got}")
+    dl = abs(got["cuda"][0] - got["cpu"][0]) / abs(got["cpu"][0])
+    dg = abs(got["cuda"][1] - got["cpu"][1]) / got["cpu"][1]
+    log(f"  32-row fp32 CrossAtt step, card vs CPU: loss "
+        f"{got['cuda'][0]:.6f} vs {got['cpu'][0]:.6f} (rel {dl:.2g}), grad "
+        f"norm {got['cuda'][1]:.6f} vs {got['cpu'][1]:.6f} (rel {dg:.2g})")
+    # fp32 through five layers in another summation order: 1e-4 relative
+    if not (dl <= 1e-4 and dg <= 1e-4):
+        raise AssertionError(f"card and CPU CrossAtt steps differ: {got}")
+
+
 def phase_train_cli(ctx):
     """skip_train's CLI (production flags, --debug 1) over the small
     memmap, then export_logits serving the checkpoint it wrote."""
@@ -876,6 +1149,38 @@ def phase_train_cli(ctx):
     log(f"  export_logits --serving 1 of the trained checkpoint: "
         f"{len(served)} rows of 40 finite logits")
 
+    # the ablation CLI (default config: fp32, K3, layer remat) and its
+    # checkpoint served with --serving 1 (bf16, K3)
+    abl = ["--ablation_type", "CrossAtt"]
+    A.reset_launch_counts()
+    res = skip_train.main(common + abl + [
+        "--debug", "1", "--table_quant", "int8", "--ckpt_dir",
+        os.path.join(WORK, "train_cli_crossatt")])
+    steps = res["steps"]
+    if steps < 1 or A.LAUNCHES["masked_attention_bwd"] != CROSS_BWD * steps \
+            or A.LAUNCHES["two_block_attention"] or \
+            not all(math.isfinite(v) for v in res["test_metrics"].values()):
+        raise AssertionError(f"skip_train --ablation_type CrossAtt: {steps} "
+                             f"steps, launches {A.LAUNCHES}, metrics "
+                             f"{res['test_metrics']}")
+    log(f"  skip_train --ablation_type CrossAtt: {steps} steps, test HR@5 "
+        f"{res['test_metrics']['HR@5']:.4f}; launches {dict(A.LAUNCHES)}")
+    A.reset_launch_counts()
+    out_path = X.main(common + abl + [
+        "--serving", "1", "--splits", "test", "--work_dir", res["work_dir"],
+        "--out_dir", os.path.join(WORK, "trained_crossatt_logits")])
+    with open(out_path) as f:
+        served = json.load(f)
+    if len(served) != n_test or not all(
+            len(v) == 40 and np.isfinite(v).all() for v in served.values()) \
+            or not A.LAUNCHES["masked_attention"] or \
+            A.LAUNCHES["proj_two_block_attention"]:
+        raise AssertionError("export_logits of the CrossAtt checkpoint: "
+                             f"{len(served)} rows, launches {A.LAUNCHES}")
+    log(f"  export_logits --serving 1 --ablation_type CrossAtt: "
+        f"{len(served)} rows of 40 finite logits; launches "
+        f"{ {k: v for k, v in A.LAUNCHES.items() if v} }")
+
 
 # ---------------------------------------------------------------------------
 def main(argv=None):
@@ -904,6 +1209,7 @@ def main(argv=None):
          "default": lambda: phase_default(ctx),
          "train": lambda: phase_train(ctx),
          "train_default": lambda: phase_train_default(ctx),
+         "ablation": lambda: phase_ablation(ctx),
          "train_cli": lambda: phase_train_cli(ctx)}[name]()
         log(f"phase {name}: ok ({time.perf_counter() - t0:.1f} s)")
     log(f"all phases: {time.perf_counter() - t_all:.1f} s")

@@ -1,7 +1,9 @@
-"""Two-block jointly normalised attention: the K1 and K2 kernel wrappers,
-their backward kernels, and their plain PyTorch versions (port of
-``segmminterest_tpu/core/attention.py`` fused_two_block_attention and
-fused_proj_two_block_attention v1, forward and custom VJP).
+"""Masked attention kernel wrappers, their backward kernels and their plain
+PyTorch versions (port of ``segmminterest_tpu/core/attention.py``, forward
+and custom VJP): two-block jointly normalised attention, K1
+(fused_two_block_attention) and K2 (fused_proj_two_block_attention v1), and
+single-block masked attention, K3 (fused_masked_attention, the CrossAtt and
+SelfAtt ablations' kernel: one key block, the same order of operations).
 
 Semantics (reference order of operations, encoder.py:44-161):
 
@@ -20,8 +22,8 @@ The dropout mask is the JAX package's interpret-mode hash
 versions and the JAX kernels run with ``interpret=True`` draw the same bits:
 iota axes (row within the batch tile, query row, key column), batch tile
 ``_pick_block_b`` (8 if B % 8 == 0 else B), seed ``seed + tile index``,
-salt ``2h`` for block 1 and ``2h + 1`` for block 2, uint32 arithmetic, keep
-iff ``(h >> 8) * 2^-24 >= rate`` in fp32.
+salt ``2h`` for block 1 and ``2h + 1`` for block 2 (K3: ``h``), uint32
+arithmetic, keep iff ``(h >> 8) * 2^-24 >= rate`` in fp32.
 
 The backward recomputes the probabilities (none are saved) and follows
 ``_bwd2_kernel`` / ``_attn_group_bwd`` (attention.py:448-622): dv = p^T g
@@ -31,6 +33,10 @@ K1's gradients come back in the input dtype; K2 keeps dq..dv in fp32 and
 chains them through its projections (dx in x's dtype, dW and db summed
 over the batch in fp32, then cast to the weight's dtype as
 ``_fp_bwd_rule`` does, attention.py:1044-1046).
+
+K3's backward (``_bwd_kernel``, attention.py:156-203) is the same with one
+block: dv = p^T g, dl = p (dp - sum dp p) scale, dropout mask, pair mask,
+dq = dl k, dk = dl^T q, each gradient in its input's dtype.
 
 Each wrapper launches its CUDA kernel (``core/csrc``) for CUDA tensors and
 runs the plain version only for CPU tensors; there is no fall-back from one
@@ -51,13 +57,17 @@ from .numerics import MASK_FILL_VALUE
 # launches of each kernel, counted where the wrapper launches it (plain ints)
 LAUNCHES = {"two_block_attention": 0, "proj_two_block_attention": 0,
             "two_block_attention_bwd": 0, "proj_two_block_attention_bwd": 0,
-            "proj_two_block_attention_qkv_bwd": 0}
+            "proj_two_block_attention_qkv_bwd": 0, "masked_attention": 0,
+            "masked_attention_bwd": 0}
 
 # the most shared memory one block may use on an H100 (227 KB)
 MAX_SMEM_BYTES = 232_448
 MAX_GRID_Y = 65_535
 K2_MAX_LEN = 128
 K2_HEAD_DIMS = (16, 32, 64)
+# K3 keeps a whole key row per lane group in registers in its backward
+K3_MAX_LEN = 128
+K3_HEAD_DIMS = (16, 32, 64)
 # the backward kernels keep a whole probability row per lane group in
 # registers: every stream at most 128 long, head dim at most 64
 BWD_MAX_LEN = 128
@@ -103,9 +113,11 @@ def _mul32(a: torch.Tensor, c: int) -> torch.Tensor:
 
 
 def dropout_keep(B: int, H: int, Lq: int, Lk: int, seed: int, block: int,
-                 rate: float, device) -> torch.Tensor:
-    """(B, H, Lq, Lk) bool keep-mask of key block ``block`` (0 or 1) for
-    heads 0..H-1, the bits of ``_dropout_keep(interpret=True)``."""
+                 rate: float, device, salt_stride: int = 2) -> torch.Tensor:
+    """(B, H, Lq, Lk) bool keep-mask for heads 0..H-1, the bits of
+    ``_dropout_keep(interpret=True)`` with salt ``salt_stride * h + block``:
+    K1/K2 draw key block ``block`` (0 or 1) with stride 2, K3 its one block
+    with stride 1 and block 0 (salt ``h``, attention.py:146-148)."""
     bt = pick_block_b(B)
     ar = lambda n: torch.arange(n, dtype=torch.int64, device=device)  # noqa: E731
     b = ar(B)
@@ -113,7 +125,7 @@ def dropout_keep(B: int, H: int, Lq: int, Lk: int, seed: int, block: int,
     col = _mul32(ar(Lq), 40503)[None, None, :, None]
     key = _mul32(ar(Lk), 69069)[None, None, None, :]
     seed_val = (seed + b // bt) & _U32
-    salt = 2 * ar(H) + block
+    salt = salt_stride * ar(H) + block
     h = ((row ^ col ^ key)
          + _mul32(seed_val, 2246822519)[:, None, None, None]
          + _mul32(salt, 3266489917)[None, :, None, None]) & _U32
@@ -298,6 +310,57 @@ def proj_two_block_attention_bwd_plain(xq, x1, x2, wq1, bq1, wq2, bq2, wk1,
                              scale, rate, seed)
     dys = [t.reshape(t.shape[0], t.shape[1], -1) for t in grads]
     return _chain_grads(xq, x1, x2, ws, dys)
+
+
+def _masked_probs(q, k, mask_q, mask_k, scale, rate, seed):
+    """K3's probabilities (B, H, Lq, Lk) in fp32 (attention.py:141-150):
+    fill, dropout, scale, softmax; and the pair and keep masks."""
+    pair = _pair_mask(mask_q, mask_k)
+    logits = torch.where(pair, _logits(q, k), MASK_FILL_VALUE)
+    keep = None
+    if rate > 0:
+        B, Lq, H = q.shape[:3]
+        keep = dropout_keep(B, H, Lq, k.shape[1], seed, 0, rate, q.device,
+                            salt_stride=1)
+        div = torch.tensor(keep_divisor(rate), dtype=torch.float32,
+                           device=q.device)
+        logits = torch.where(keep, logits / div, 0.0)
+    logits = logits * scale
+    e = torch.exp(logits - logits.amax(-1, keepdim=True))
+    return e / e.sum(-1, keepdim=True), pair, keep
+
+
+def masked_attention_plain(q, k, v, mask_q, mask_k, scale: float,
+                           rate: float = 0.0, seed: int = 0):
+    """K3's plain version (``_fwd_kernel``, attention.py:126-153): q
+    (B, Lq, H, Dqk), k (B, Lk, H, Dqk), v (B, Lk, H, Dv), masks (B, L) ->
+    (B, Lq, H, Dv) in q's dtype; the probabilities are cast to v's dtype
+    before the fp32 AV product. ``rate`` > 0 applies the dropout mask of
+    ``seed``."""
+    p, _, _ = _masked_probs(q, k, mask_q, mask_k, scale, rate, seed)
+    out = torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype).float(), v.float())
+    return out.to(q.dtype)
+
+
+def masked_attention_bwd_plain(q, k, v, mask_q, mask_k, g, scale: float,
+                               rate: float = 0.0, seed: int = 0):
+    """K3b's plain version (``_bwd_kernel``, attention.py:156-203): the
+    probabilities recomputed in fp32, dv = p^T g, dp = g v^T,
+    dl = p (dp - sum dp p) scale, then the dropout mask and divisor, then the
+    pair mask; dq = dl k, dk = dl^T q. dq, dk, dv in their inputs' dtypes."""
+    p, pair, keep = _masked_probs(q, k, mask_q, mask_k, scale, rate, seed)
+    gf = g.float()
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, gf)
+    dp = torch.einsum("bqhd,bkhd->bhqk", gf, v.float())
+    dl = p * (dp - (dp * p).sum(-1, keepdim=True)) * scale
+    if keep is not None:
+        div = torch.tensor(keep_divisor(rate), dtype=torch.float32,
+                           device=g.device)
+        dl = torch.where(keep, dl / div, 0.0)
+    dl = torch.where(pair, dl, 0.0)
+    dq = torch.einsum("bhqk,bkhd->bqhd", dl, k.float())
+    dk = torch.einsum("bhqk,bqhd->bkhd", dl, q.float())
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -564,6 +627,64 @@ def _k2_backward_cuda(xq, x1, x2, ws, masks, g, num_heads, scale, rate,
     return tuple(grads)
 
 
+def _check_k3(q, k, v, mask_q, mask_k, g=None):
+    _check_cuda((q, k, v) + ((g,) if g is not None else ()), q.dtype)
+    B, Lq, H, D = q.shape
+    Lk = k.shape[1]
+    for t, L, name in ((k, Lk, "k"), (v, Lk, "v")) + (
+            ((g, Lq, "g"),) if g is not None else ()):
+        if tuple(t.shape) != (B, L, H, D):
+            raise ValueError(f"{name} must be {(B, L, H, D)}, got "
+                             f"{tuple(t.shape)} (the kernel takes Dqk = Dv)")
+    _check_mask(mask_q, B, Lq, "mask_q")
+    _check_mask(mask_k, B, Lk, "mask_k")
+    if D not in K3_HEAD_DIMS:
+        raise ValueError(f"head dim {D} unsupported: the kernel takes "
+                         f"{K3_HEAD_DIMS}")
+    if max(Lq, Lk) > K3_MAX_LEN:
+        raise ValueError(f"(Lq, Lk)={(Lq, Lk)}: the kernel takes lengths "
+                         f"<= {K3_MAX_LEN}")
+    if B > MAX_GRID_Y:
+        raise ValueError(f"batch {B} exceeds the grid limit {MAX_GRID_Y}")
+    return B, Lq, Lk, H, D
+
+
+def _k3_forward_cuda(q, k, v, mask_q, mask_k, scale, rate, seed):
+    B, Lq, Lk, H, D = _check_k3(q, k, v, mask_q, mask_k)
+    fn = _fn("masked_attention", "segmm_masked_attention_fwd", ctypes.c_int,
+             [ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+             + [ctypes.c_float] + _DROP_ARGS + [ctypes.c_void_p])
+    mq, mk = _masks_i32(mask_q, mask_k)
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        code = fn(_DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(),
+                  v.data_ptr(), mq.data_ptr(), mk.data_ptr(), out.data_ptr(),
+                  B, Lq, Lk, H, D, float(scale), *_drop_args(rate, seed),
+                  _stream_ptr(q.device))
+    _raise_on_cuda_error(code, "masked_attention")
+    LAUNCHES["masked_attention"] += 1
+    return out
+
+
+def _k3_backward_cuda(q, k, v, mask_q, mask_k, g, scale, rate, seed):
+    B, Lq, Lk, H, D = _check_k3(q, k, v, mask_q, mask_k, g)
+    fn = _fn("masked_attention_bwd", "segmm_masked_attention_bwd",
+             ctypes.c_int, [ctypes.c_int] + [ctypes.c_void_p] * 9
+             + [ctypes.c_int] * 5 + [ctypes.c_float] + _DROP_ARGS
+             + [ctypes.c_void_p])
+    mq, mk = _masks_i32(mask_q, mask_k)
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    with torch.cuda.device(q.device):
+        code = fn(_DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(),
+                  v.data_ptr(), mq.data_ptr(), mk.data_ptr(), g.data_ptr(),
+                  dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, Lq, Lk, H,
+                  D, float(scale), *_drop_args(rate, seed),
+                  _stream_ptr(q.device))
+    _raise_on_cuda_error(code, "masked_attention_bwd")
+    LAUNCHES["masked_attention_bwd"] += 1
+    return dq, dk, dv
+
+
 # ---------------------------------------------------------------------------
 # autograd
 # ---------------------------------------------------------------------------
@@ -631,6 +752,30 @@ class _ProjTwoBlockAttention(torch.autograd.Function):
         return tuple(grads) + (None,) * 7
 
 
+class _MaskedAttention(torch.autograd.Function):
+    """K3 forward and K3b backward (``_fused_attention`` custom VJP,
+    attention.py:297-321): saves q, k, v, the masks and the seed."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, mask_q, mask_k, scale, rate, seed):
+        ctx.save_for_backward(q, k, v, mask_q, mask_k)
+        ctx.hyper = (scale, rate, seed)
+        if _device_kind(q) == "cpu":
+            return masked_attention_plain(q, k, v, mask_q, mask_k, scale,
+                                          rate, seed)
+        return _k3_forward_cuda(q, k, v, mask_q, mask_k, scale, rate, seed)
+
+    @staticmethod
+    def backward(ctx, g):
+        args = ctx.saved_tensors
+        g = g.contiguous()
+        if g.device.type == "cpu":
+            grads = masked_attention_bwd_plain(*args, g, *ctx.hyper)
+        else:
+            grads = _k3_backward_cuda(*args, g, *ctx.hyper)
+        return tuple(grads) + (None,) * 5
+
+
 # ---------------------------------------------------------------------------
 # public entry points
 # ---------------------------------------------------------------------------
@@ -681,3 +826,19 @@ def fused_proj_two_block_attention(xq, x1, x2, wq1, bq1, wq2, bq2,
         xq, x1, x2, wq1, bq1, wq2, bq2, wk1, bk1, wk2, bk2, wv1, bv1, wv2,
         bv2, mask_q, mask_1, mask_2, int(num_heads), float(scale),
         _rate(dropout_rate, deterministic), int(seed))
+
+
+def fused_masked_attention(q, k, v, mask_q, mask_k, *,
+                           dropout_rate: float = 0.0, seed: int = 0,
+                           deterministic: bool = True,
+                           scale: Optional[float] = None):
+    """Masked attention of one query set over one key block (K3): q
+    (B, Lq, H, Dqk), k (B, Lk, H, Dqk), v (B, Lk, H, Dv), masks (B, L) bool
+    or int -> (B, Lq, H, Dv). ``scale`` defaults to 1/sqrt(Dv), as
+    attention.py:340-341. Differentiable (K3b); with ``deterministic=False``
+    the dropout mask of ``seed`` applies."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(v.shape[-1])
+    return _MaskedAttention.apply(q, k, v, mask_q, mask_k, float(scale),
+                                  _rate(dropout_rate, deterministic),
+                                  int(seed))

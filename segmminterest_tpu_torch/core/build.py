@@ -23,7 +23,8 @@ from typing import Dict
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "segmm_torch_kernels"
 SOURCES = ("two_block_attention", "proj_two_block_attention",
-           "two_block_attention_bwd", "proj_two_block_attention_bwd")
+           "two_block_attention_bwd", "proj_two_block_attention_bwd",
+           "masked_attention", "masked_attention_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

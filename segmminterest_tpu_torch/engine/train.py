@@ -24,7 +24,8 @@ Behavioral spec: reference MMinterest/main_for_seq_leave_earlystop_SegMM.py
   copies; ``batch_transform`` starts them in the iterator's prefetch thread.
 * Dropout: ``nn.Dropout`` draws from torch's global generator (seeded by
   ``run_training``); the attention kernels' seeds come from a CPU generator
-  seeded from ``config.seed``.
+  seeded from ``config.seed``, and the noPos ablation's position
+  permutations from another, seeded from ``config.seed + 1``.
 
 Mesh sharding (multi-GPU) is not ported yet.
 """
@@ -97,7 +98,7 @@ class InterestEngine:
         self.device = resolve_device(device)
         self.feature_mode = feature_table is not None
         self.dtype = _DTYPES[config.compute_dtype]
-        for flag in ("fuse_projections", "fuse_dual", "fuse_layer"):
+        for flag in ("fuse_dual", "fuse_layer"):
             if getattr(config, flag):
                 raise NotImplementedError(f"{flag} is not ported yet")
         if not self.feature_mode and (config.user_input_type != "id"
@@ -152,7 +153,12 @@ class InterestEngine:
             list(self.params.values()), lr=config.learning_rate,
             betas=(0.9, 0.999), eps=1e-8, weight_decay=config.weight_decay)
         self.seed_generator = torch.Generator().manual_seed(config.seed)
-        self.model.set_seed_generator(self.seed_generator)
+        # noPos's permutations: a stream of their own, as the JAX package
+        # folds 1 into its step key for them (train.py:230)
+        self.permute_generator = torch.Generator().manual_seed(
+            config.seed + 1)
+        self.model.set_seed_generator(self.seed_generator,
+                                      self.permute_generator)
         self.exposure_prob = torch.tensor(
             config.exposure_prob or [1.0] * 40, dtype=torch.float32,
             device=self.device)
@@ -176,7 +182,8 @@ class InterestEngine:
             learnable_bias=cfg.learnable_bias, use_pe=cfg.use_pe,
             ablation=cfg.ablation_type, feat_dim=feat_dim,
             fused_attention=cfg.fused_attention, fuse_qkv=cfg.fuse_qkv,
-            remat=cfg.remat, remat_scope=cfg.remat_scope)
+            remat=cfg.remat, remat_scope=cfg.remat_scope,
+            fuse_projections=cfg.fuse_projections)
         model.reset_parameters(torch.Generator().manual_seed(seed))
         return model
 

@@ -19,7 +19,13 @@ from typing import Optional
 import torch
 import torch.nn as nn
 
-from .segformerx import LayerNorm, SegFormerX
+from .segformerx import LayerNorm, MLPBlock, SegFormerX
+
+
+def _dense(lin: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+    """A flax Dense in the compute dtype: the input cast to the weight's
+    dtype first (an MLP ablation's state is fp32 in a bf16 model)."""
+    return lin(x.to(lin.weight.dtype))
 
 
 class InteractionAggregation(nn.Module):
@@ -54,7 +60,7 @@ class InteractionAggregation(nn.Module):
 
     def forward(self, x, y):
         lead = x.shape[:-1]
-        out = self.w_x(x) + self.w_y(y)
+        out = _dense(self.w_x, x) + _dense(self.w_y, y)
         if self.num_heads > 0:
             H = self.num_heads
             hx, hy = self.x_dim // H, self.y_dim // H
@@ -79,7 +85,8 @@ class SegInterestModel(nn.Module):
                  learnable_bias: bool = False, use_pe: bool = True,
                  ablation: str = "ours", feat_dim: int = 1024,
                  fused_attention: bool = False, fuse_qkv: bool = False,
-                 remat: bool = False, remat_scope: str = "layer"):
+                 remat: bool = False, remat_scope: str = "layer",
+                 fuse_projections: bool = False):
         super().__init__()
         self.user_input, self.photo_input = user_input, photo_input
         self.fusion_heads = fusion_heads
@@ -94,7 +101,8 @@ class SegInterestModel(nn.Module):
                 user_id_max=user_id_max, video_id_max=video_id_max,
                 feat_dim=feat_dim, use_pe=use_pe, ablation=ablation,
                 output_layers=[-1], fused_attention=fused_attention,
-                fuse_qkv=fuse_qkv, remat=remat, remat_scope=remat_scope)
+                fuse_qkv=fuse_qkv, remat=remat, remat_scope=remat_scope,
+                fuse_projections=fuse_projections)
 
         u1_id = -1 if user_input in ("both", "image") else n_users
         u1_len = 1 if u1_id >= 0 else max_usr_len_image
@@ -143,19 +151,24 @@ class SegInterestModel(nn.Module):
     def backbones(self):
         return [self.backbone1] + ([self.backbone2] if self.dual else [])
 
-    def set_seed_generator(self, generator: Optional[torch.Generator]):
-        """The generator the backbones draw their kernel dropout seeds from."""
+    def set_seed_generator(self, generator: Optional[torch.Generator],
+                           permute_generator: Optional[torch.Generator]
+                           = None):
+        """The generators the backbones draw their kernel dropout seeds and
+        noPos's position permutations from."""
         for bb in self.backbones():
             bb.seed_generator = generator
+            bb.permute_generator = permute_generator
 
     def fp32_param_names(self):
         """Parameters that stay fp32 whatever the compute dtype: LayerNorm
         scale and bias and the learnable positional bias, which the flax
-        model uses in fp32 (param_dtype); every other weight is used in the
-        compute dtype."""
+        model uses in fp32 (param_dtype), and the MLP ablations'
+        ``encoder_mlp``, which flax runs in fp32; every other weight is used
+        in the compute dtype."""
         names = {f"{m}.{p}" for m, mod in self.named_modules()
-                 if isinstance(mod, LayerNorm)
-                 for p, _ in mod.named_parameters(recurse=False)}
+                 if isinstance(mod, (LayerNorm, MLPBlock))
+                 for p, _ in mod.named_parameters()}
         if self.learnable_bias:
             names |= {"bias_weight", "bias_bias"}
         return names
@@ -182,18 +195,20 @@ class SegInterestModel(nn.Module):
             s1 = self.backbone1(usr1, usr_mask, vid1, vid_mask)[0][-1]
             s2 = self.backbone2(usr2, usr_mask, vid2, vid_mask)[0][-1]
             if self.fusion_heads in (-3, -2):
-                logits = self.stage_mlp1(s1 + s2).squeeze(-1)
+                logits = _dense(self.stage_mlp1, s1 + s2).squeeze(-1)
             elif self.fusion_heads == -1:
-                logits = self.stage_mlp1(torch.cat([s1, s2], -1)).squeeze(-1)
+                logits = _dense(self.stage_mlp1,
+                                torch.cat([s1, s2], -1)).squeeze(-1)
             elif self.fusion_heads == 0:
-                logits = (self.stage_mlp1(s1)
-                          + self.stage_mlp2(s2)).squeeze(-1)
+                logits = (_dense(self.stage_mlp1, s1)
+                          + _dense(self.stage_mlp2, s2)).squeeze(-1)
             else:
                 logits = self.fusion_module(s1, s2)
         else:
             usr = usr_id if self.user_input == "id" else usr_image
             vid = vid_id if self.photo_input == "id" else vid_image
-            logits = self.stage_mlp1(
+            logits = _dense(
+                self.stage_mlp1,
                 self.backbone1(usr, usr_mask, vid, vid_mask)[0][-1]
             ).squeeze(-1)
         if self.learnable_bias:

@@ -88,7 +88,7 @@ class InterestConfig:
     remat_scope: str = "layer"       # layer | attention
     fused_attention: bool = True     # two-block attention kernel (K1)
     # horizontally fuse the 12 per-stream QKV projections into 2 wide matmuls
-    # per attention; not ported yet (the port raises on it).
+    # per attention (K1 route, 'ours' path only; ignored elsewhere)
     fuse_projections: bool = False
     # run the QKV projections inside the attention kernel (K2: q/k/v never
     # touch device memory); parameter tree unchanged

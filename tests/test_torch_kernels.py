@@ -1,8 +1,9 @@
-"""K1 and K2, forward and backward (K1b, K2b and K7b), on the card against
-their plain PyTorch versions, on the same seeded inputs, at the flagship
-width (16 heads of 32, d=512) and the four (Lq, L1, L2) stream shapes of a
-both/both layer, with padded query and key rows, in fp32 and bf16, with
-dropout off and on. Each launch must add one to its kernel's count.
+"""K1, K2 and K3, forward and backward (K1b, K2b, K7b and K3b), on the card
+against their plain PyTorch versions, on the same seeded inputs, at the
+flagship width (16 heads of 32, d=512), the four (Lq, L1, L2) stream shapes
+of a both/both layer and the (Lq, Lk) shapes of the CrossAtt and SelfAtt
+ablations, with padded query and key rows, in fp32 and bf16, with dropout
+off and on. Each launch must add one to its kernel's count.
 
 These tests need a CUDA device and skip without one. The file imports
 neither JAX nor the JAX package, so it also runs where the card is, which
@@ -174,3 +175,50 @@ def test_k2_backward_kernel_matches_plain(cuda, shape, dtype, rate, v3,
             *inputs, *masks, H, SCALE, rate, 99).float(), **TOL[dtype])
     _rel_close(got, A.proj_two_block_attention_bwd_plain(
         *inputs, *masks, g, H, SCALE, rate, 99), dtype)
+
+
+# K3 (single-block masked attention of the CrossAtt / SelfAtt ablations):
+# the (Lq, Lk) launch shapes at the flagship width
+K3_SHAPES = [(40, 100), (100, 40), (40, 1), (1, 40), (40, 40)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.1], ids=["eval", "dropout"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", K3_SHAPES)
+def test_k3_kernels_match_plain(cuda, shape, dtype, rate):
+    """K3f and K3b against their plain versions, padded query and key rows;
+    each launch counts once."""
+    rng = np.random.default_rng(5)
+    B, (Lq, Lk) = 16, shape
+    q, k, v = _on(cuda, [rng.normal(size=(B, L, H, DH)).astype(np.float32)
+                         for L in (Lq, Lk, Lk)], dtype)
+    masks = _on(cuda, (_masks(rng, B, Lq, Lq > 1), _masks(rng, B, Lk, False)))
+    g = _on(cuda, [rng.normal(size=(B, Lq, H, DH)).astype(np.float32)],
+            dtype)[0]
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = dict(A.LAUNCHES)
+    out = A.fused_masked_attention(*leaves, *masks, scale=SCALE,
+                                   dropout_rate=rate, seed=99,
+                                   deterministic=rate == 0)
+    got = torch.autograd.grad(out, leaves, g)
+    assert A.LAUNCHES["masked_attention"] == before["masked_attention"] + 1
+    assert A.LAUNCHES["masked_attention_bwd"] == \
+        before["masked_attention_bwd"] + 1
+    torch.testing.assert_close(
+        out.float(), A.masked_attention_plain(
+            q, k, v, *masks, SCALE, rate, 99).float(), **TOL[dtype])
+    _rel_close(got, A.masked_attention_bwd_plain(
+        q, k, v, *masks, g, SCALE, rate, 99), dtype)
+
+
+@pytest.mark.cuda
+def test_k3_rejects_unsupported_shapes(cuda):
+    q = torch.zeros(2, 3, 2, 8, device=cuda)
+    m = torch.ones(2, 3, dtype=torch.bool, device=cuda)
+    with pytest.raises(ValueError):
+        A.fused_masked_attention(q, q, q, m, m)   # head dim 8
+    q = torch.zeros(2, 129, 2, 32, device=cuda)
+    m = torch.ones(2, 129, dtype=torch.bool, device=cuda)
+    with pytest.raises(ValueError):
+        A.fused_masked_attention(q, q, q, m, m)   # longer than 128

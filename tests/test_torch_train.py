@@ -119,6 +119,50 @@ def test_lockstep_adamw_matches_jax(data, route, modality):
     assert all(s["exp_avg"].dtype == torch.float32 for s in opt.values())
 
 
+ABLATIONS = {"CrossAtt-composed": dict(ablation_type="CrossAtt",
+                                       fused_attention=False),
+             "CrossAtt-k3": dict(ablation_type="CrossAtt",
+                                 fused_attention=True),
+             "SelfAtt-k3": dict(ablation_type="SelfAtt", fused_attention=True,
+                                fuse_qkv=True),
+             "CrossMLP": dict(ablation_type="CrossMLP", num_layers_enc=6),
+             "fuse_projections": dict(fused_attention=True,
+                                      fuse_projections=True)}
+
+
+@pytest.mark.parametrize("case", list(ABLATIONS))
+def test_lockstep_ablations_match_jax(data, case):
+    """Five AdamW steps of the ablations and of fuse_projections against
+    the JAX engine, every parameter included: the ones that reach no output
+    (CrossAtt's v2v/t2t value Denses, SelfAtt's user stream) have zero
+    gradients on both sides and move only by the decoupled weight decay."""
+    kw = dict(MODEL, user_input_type="id", photo_input_type="id",
+              **ABLATIONS[case])
+    jeng, jstate, peng, pstate, batches = _setup(data, kw)
+    dead = "backbone1.layers.0.cross_attn.t2t_proj.0.weight"
+    p0 = pstate["params"].get(dead)
+    key = jax.random.PRNGKey(0)
+    jl, pl = [], []
+    for b in batches:
+        jstate, jld = jeng.train_step(jstate, key, b)
+        pstate, pld = peng.train_step(pstate, b)
+        jl.append(float(jld["loss"]))
+        pl.append(float(pld["loss"]))
+    np.testing.assert_allclose(pl, jl, rtol=LOSS_RTOL)
+    assert len(set(jl)) == STEPS
+    want = flax_to_state_dict(jax.tree.map(np.asarray, jstate["params"]),
+                              peng.model)
+    assert set(want) == set(pstate["params"])
+    for name, p in pstate["params"].items():
+        np.testing.assert_allclose(p.detach().numpy(), want[name].numpy(),
+                                   atol=PARAM_ATOL, rtol=0, err_msg=name)
+    if case == "SelfAtt-k3":  # dead: moved by the weight decay alone
+        cfg = peng.config
+        decay = (1 - cfg.learning_rate * cfg.weight_decay) ** STEPS
+        np.testing.assert_allclose(pstate["params"][dead].detach().numpy(),
+                                   p0.numpy() * decay, rtol=1e-6)
+
+
 def test_eval_loss_dict_matches_jax(data):
     kw = dict(MODEL, user_input_type="both", photo_input_type="both",
               **ROUTES["k2"], mask_loss=True,
@@ -277,6 +321,27 @@ def test_skip_train_end_to_end_matches_jax_outputs(data):
     with open(osp.join(work, "final_results.json")) as f:
         got = json.load(f)
     jres = jax_skip_train.main(_cli_args(data, data["dir"] / "jax_ckpt"))
+    with open(osp.join(jres["work_dir"], "final_results.json")) as f:
+        want = json.load(f)
+    assert set(got) == set(want)
+    assert set(res) >= {"test_metrics", "cold_test_metrics",
+                        "hot_test_metrics", "steps"}
+    assert res["steps"] == jres["steps"] > 0
+    assert all(np.isfinite(v) for v in got.values())
+
+
+def test_skip_train_ablation_cli_matches_jax_outputs(data):
+    """``--ablation_type CrossAtt`` through both CLIs: the same output files
+    and JSON keys, and as many steps."""
+    extra = ["--ablation_type", "CrossAtt"]
+    res = skip_train.main(_cli_args(data, data["dir"] / "port_abl",
+                                    extra + ["--device", "cpu"]))
+    work = res["work_dir"]
+    assert osp.exists(osp.join(work, "ckpt-latest.pt"))
+    assert len(glob.glob(osp.join(work, "ckpt-best-*.pt"))) == 1
+    with open(osp.join(work, "final_results.json")) as f:
+        got = json.load(f)
+    jres = jax_skip_train.main(_cli_args(data, data["dir"] / "jax_abl", extra))
     with open(osp.join(jres["work_dir"], "final_results.json")) as f:
         want = json.load(f)
     assert set(got) == set(want)
