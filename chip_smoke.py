@@ -6,10 +6,11 @@ Run from the root of a checkout:  python3 chip_smoke.py
 
 Phases, each of which fails the run (non-zero exit) on any error:
   build          compile the CUDA kernels of core/csrc with nvcc for sm_90a
-  kernels        each kernel (K1f, K1b, K2f, K2b, K7b, K3f, K3b) against
-                 its plain PyTorch version on the card, at the main paths'
-                 stream shapes, fp32 and bf16, dropout off and on; times at
-                 B=1024 (K1f and K2f also with their dropout branch)
+  kernels        each kernel (K1f, K1b, K2f, K2b, K7b, K3f, K3b, K5f, K5b,
+                 K4f, K4b) against its plain PyTorch version on the card, at
+                 the main paths' stream shapes, fp32 and bf16, dropout off
+                 and on; times at B=1024 (K1f and K2f also with their
+                 dropout branch)
   serving        the flagship both/both model (d=512, 16 heads, 6 layers)
                  served with the --serving preset over a 3,920,483-row int8
                  feature table built on the card, through the exporter's
@@ -30,9 +31,16 @@ Phases, each of which fails the run (non-zero exit) on any error:
                  per forward), one step each of CrossMLP, SelfMLP, w/oAtt,
                  noPos and fuse_projections; one 32-row fp32 CrossAtt step
                  against the CPU
+  fused_variants the production training config (bf16, int8 table, no
+                 remat, B=1024) with fuse_dual (5 K5f + 10 K2f, 5 K5b + 9
+                 K2b per step) and with fuse_layer (20 K4f + 18 K4b), beside
+                 the K2 config: ms per step, interactions/s, peak device
+                 memory; each served at B=1024; the default config (fp32)
+                 with fuse_layer and remat on, which must not remat; one
+                 32-row fp32 step of each on the card against the CPU
   train_cli      skip_train's CLI over the small memmap, then export_logits
                  serving the checkpoint it wrote; the same for
-                 --ablation_type CrossAtt
+                 --ablation_type CrossAtt and for --fuse_layer 1
 The last line is {"ok": true, "device": {...}}; before it come the card's
 name and power limit (nvidia-smi) and one JSON line describing the kernels.
 It needs no network and writes only under build/ (the kernels in
@@ -80,7 +88,7 @@ DROP_RATE = 0.1                      # the model's dropout
 
 RESULT = {"kernels": {}, "launches": {}}
 ALL_PHASES = ("build", "kernels", "serving", "default", "train",
-              "train_default", "ablation", "train_cli")
+              "train_default", "ablation", "fused_variants", "train_cli")
 
 
 def log(*a):
@@ -348,20 +356,21 @@ def phase_kernels():
         del got
     plain2b = _time_ms(lambda: A.proj_two_block_attention_bwd_plain(
         *x, *ws, *m, gx, H, scale), 3)
-    # K2b: projection recompute on the bf16 tensor cores, dx and dW with
-    # fp32 operands and the attention core on the fp32 units; reads x, W,
-    # g once, writes dx, dW, db once
-    core_flops = 10.0 * B * Lq * Lk * d
-    ops2b = (proj_flops / PEAK_FLOPS[torch.bfloat16]
-             + (2 * proj_flops + core_flops) / PEAK_FLOPS[torch.float32])
+    # K2b: the recomputed projections and QK^T on the bf16 tensor cores
+    # (q and k are bf16); dx and dW and the core's dV, dP, dQ, dK with fp32
+    # operands; reads x, W, g once, writes dx, dW, db once
+    recompute = proj_flops / PEAK_FLOPS[torch.bfloat16] \
+        + 2.0 * B * Lq * Lk * d / PEAK_FLOPS[torch.bfloat16]
+    core_flops = 8.0 * B * Lq * Lk * d
+    ops2b = recompute + ((2 * proj_flops + core_flops)
+                         / PEAK_FLOPS[torch.float32])
     bytes2b = (e * (2 * B * d * (Lq + L1 + L2) + B * Lq * d + 6 * (d * d + d))
                + 4 * 6 * (d * d + d) + 4 * B * (Lq + L1 + L2))
     _record("K2b", "proj_two_block_attention_bwd (K2b)",
             "proj_two_block_attention_bwd.cu", 808, timed["K2b"][0],
             timed["K2b"][1], plain2b, bytes2b, ops2b, None)
     # K7b does the recompute and the core; dx and dW are torch.matmul
-    ops7b = (proj_flops / PEAK_FLOPS[torch.bfloat16]
-             + core_flops / PEAK_FLOPS[torch.float32])
+    ops7b = recompute + core_flops / PEAK_FLOPS[torch.float32]
     bytes7b = (e * (B * d * (Lq + L1 + L2) + B * Lq * d + 6 * (d * d + d))
                + 4 * B * d * n_rows // 2 + 4 * B * (Lq + L1 + L2))
     _record("K7b", "proj_two_block_attention_qkv_bwd (K7b)",
@@ -403,6 +412,8 @@ def phase_kernels():
         f"variant {_time_ms(lambda: k2(x, ws, m), 10):.3f})")
     del qkv, mk, x, ws, m
     _k3_kernels(A, g, dev)
+    _k5_kernels(A, g, dev)
+    _k4_kernels(A, g, dev)
     A.reset_launch_counts()
 
 
@@ -520,7 +531,7 @@ def _k3_kernels(A, g, dev):
 
 
 def _record(key, name, src, line, err, ms, plain_ms, nbytes, ops_s,
-            library_ms):
+            library_ms, tpu_file="attention.py"):
     """One kernel's entry of the kernels JSON line; the bound is the larger
     of its bytes over the memory rate and its operations over the peak
     rate of their type (ops_s: seconds at those peaks)."""
@@ -528,11 +539,270 @@ def _record(key, name, src, line, err, ms, plain_ms, nbytes, ops_s,
     RESULT["kernels"][key] = dict(
         name=name, route="cuda",
         source=f"segmminterest_tpu_torch/core/csrc/{src}",
-        replaces=f"segmminterest_tpu/core/attention.py:{line}",
+        replaces=f"segmminterest_tpu/core/{tpu_file}:{line}",
         launches=None, max_abs_err=err, ms=ms, plain_ms=plain_ms,
         bound_ms=max(by_bytes, ops_s) * 1e3,
         bound_by="bytes" if by_bytes >= ops_s else "operations",
         library_ms=library_ms)
+
+
+def _proj_weights(g, d, n, dt, dev):
+    ws = []
+    for _ in range(n):  # nn.Linear layout (out, in) + bias
+        ws += [(torch.randn(d, d, generator=g, device=dev) / math.sqrt(d)
+                ).to(dt), (0.1 * torch.randn(d, generator=g, device=dev)
+                           ).to(dt)]
+    return ws
+
+
+def _pairs(ts):
+    return [(ts[i], ts[i + 1]) for i in range(0, len(ts), 2)]
+
+
+def _proj_flops(B, d, Lq, L1, L2):
+    """The six projections of one K2-style stream (2Lq + 2L1 + 2L2 rows)."""
+    return 2.0 * B * d * d * (2 * Lq + 2 * L1 + 2 * L2)
+
+
+# K5 runs on backbone 1's stream pair: video 40 long, user 100 long
+DUAL_SHAPE = (40, 100)
+
+
+def _k5_kernels(A, g, dev):
+    """K5f and K5b (both streams of a layer in one launch) against their
+    plain versions on backbone 1's stream pair, B=64, fp32 and bf16,
+    dropout off and on; then their times at B=1024 in bf16 (the dtype of
+    the production config, which runs them)."""
+    from segmminterest_tpu_torch.core import dual_kernel as K5
+    H, d = HEADS, D_MODEL
+    scale = 1.0 / math.sqrt(d // H)
+    Lv, Lu = DUAL_SHAPE
+
+    def inputs(B, dt):
+        xv = torch.randn(B, Lv, d, generator=g, device=dev).to(dt)
+        xu = torch.randn(B, Lu, d, generator=g, device=dev).to(dt)
+        return ([xv, xu] + _proj_weights(g, d, 12, dt, dev),
+                (_masks(g, B, Lv, dev, False), _masks(g, B, Lu, dev)))
+
+    def k5(t, m, rate=0.0, seed=0):
+        return K5.fused_dual_stream_attention(
+            t[0], t[1], _pairs(t[2:14]), _pairs(t[14:26]), *m, num_heads=H,
+            scale=scale, dropout_rate=rate, seed=seed,
+            deterministic=rate == 0)
+
+    def plain(t, m, rate=0.0, seed=0):
+        return K5.dual_stream_attention_plain(t[0], t[1], t[2:14], t[14:26],
+                                              *m, H, scale, rate, seed)
+
+    def plain_bwd(t, m, gs, rate=0.0, seed=0):
+        return K5.dual_stream_attention_bwd_plain(
+            t[0], t[1], t[2:14], t[14:26], *m, *gs, H, scale, rate, seed)
+
+    worst = {}
+    for dt in (torch.float32, torch.bfloat16):
+        t, m = inputs(64, dt)
+        gs = tuple(torch.randn(64, L, d, generator=g, device=dev).to(dt)
+                   for L in (Lv, Lu))
+        errs = {}
+        for rate, seed in ((0.0, 0), (DROP_RATE, 2468013)):
+            on = "drop" if rate else "eval"
+            tag = f"{str(dt)[6:]} {DUAL_SHAPE} {on}"
+            got, want = k5(t, m, rate, seed), plain(t, m, rate, seed)
+            errs[f"K5f {on}"] = max(_check(f"K5f {tag} {s}", a, b, dt)
+                                    for s, a, b in zip("vu", got, want))
+            n = A.LAUNCHES["dual_stream_attention_bwd"]
+            grads = _grads(lambda *x: k5(x, m, rate, seed), t, gs)
+            if A.LAUNCHES["dual_stream_attention_bwd"] != n + 1:
+                raise AssertionError("K5b did not launch")
+            errs[f"K5b {on}"] = _rel_err(f"K5b {tag}", grads,
+                                         plain_bwd(t, m, gs, rate, seed),
+                                         BWD_TOL[dt])
+        for k, v in errs.items():
+            worst[k.split()[0]] = max(worst.get(k.split()[0], 0.0), v)
+        log(f"  B=64 {str(dt)[6:]} {DUAL_SHAPE}: " + ", ".join(
+            f"{k} {v:.2g}" for k, v in errs.items()))
+    torch.cuda.synchronize()
+
+    B, dt = 1024, torch.bfloat16
+    t, m = inputs(B, dt)
+    gs = tuple(torch.randn(B, L, d, generator=g, device=dev).to(dt)
+               for L in (Lv, Lu))
+    err_f = max(_check(f"K5f B=1024 {s}", a, b, dt)
+                for s, a, b in zip("vu", k5(t, m), plain(t, m)))
+    ms_f = _time_ms(lambda: k5(t, m), 10)
+    plain_f = _time_ms(lambda: plain(t, m), 3)
+    leaves = [x.detach().requires_grad_() for x in t]
+    out = k5(leaves, m)
+    got = torch.autograd.grad(out, leaves, gs, retain_graph=True)
+    err_b = _rel_err("K5b B=1024", got, plain_bwd(t, m, gs), BWD_TOL[dt])
+    del got
+    ms_b = _time_ms(lambda: torch.autograd.grad(out, leaves, gs,
+                                                retain_graph=True), 5)
+    plain_b = _time_ms(lambda: plain_bwd(t, m, gs), 2)
+    e = _elem(dt)
+    # the two streams: video (Lv, Lv, Lu), user (Lu, Lv, Lu)
+    shapes = ((Lv, Lv, Lu), (Lu, Lv, Lu))
+    proj = sum(_proj_flops(B, d, *s) for s in shapes)
+    core_f = sum(4.0 * B * s[0] * (s[1] + s[2]) * d for s in shapes)
+    rows, masks = B * d * (Lv + Lu), 4 * B * (Lv + Lu)
+    params = 12 * (d * d + d)
+    bytes_f = e * (2 * rows + params) + masks
+    bytes_b = e * (3 * rows + params) + 4 * params + masks
+    _record("K5", "dual_stream_attention_fwd (K5f)",
+            "dual_stream_attention.cu", 68,
+            max(worst["K5f"], err_f), ms_f, plain_f, bytes_f,
+            (proj + core_f) / PEAK_FLOPS[dt], None, "dual_kernel.py")
+    _record("K5b", "dual_stream_attention_bwd (K5b)",
+            "dual_stream_attention_bwd.cu", 104, max(worst["K5b"], err_b),
+            ms_b, plain_b, bytes_b, (proj + core_f / 2) / PEAK_FLOPS[dt]
+            + (2 * proj + 2 * core_f) / PEAK_FLOPS[torch.float32], None,
+            "dual_kernel.py")
+    log(f"  K5 bf16 B=1024 {DUAL_SHAPE}: K5f {ms_f:.3f} ms (plain "
+        f"{plain_f:.3f}), K5b {ms_b:.3f} ms (plain {plain_b:.3f}); max err "
+        f"K5f {err_f:.3g}, K5b {err_b:.3g}")
+    del t, m, gs, leaves, out
+    torch.cuda.empty_cache()
+
+
+def _k4_kernels(A, g, dev):
+    """K4f and K4b (a whole layer stream) against their plain versions on
+    the four stream shapes, B=64, fp32 and bf16, dropout off and on; then
+    their times at B=1024 in bf16 on the largest launch (100, 40, 100)."""
+    from segmminterest_tpu_torch.core import layer_kernel as K4
+    H, d = HEADS, D_MODEL
+    ff = d
+    scale = 1.0 / math.sqrt(d // H)
+
+    def inputs(B, Lq, L1, L2, dt, ff=d):
+        xs = [torch.randn(B, L, d, generator=g, device=dev).to(dt)
+              for L in (Lq, L1, L2)]
+
+        def dense(n_out, n_in):
+            return [(torch.randn(n_out, n_in, generator=g, device=dev)
+                     / math.sqrt(n_in)).to(dt),
+                    (0.1 * torch.randn(n_out, generator=g, device=dev)
+                     ).to(dt)]
+
+        def ln():  # each LayerNorm its own (scale, bias), fp32
+            return [1 + 0.1 * torch.randn(d, generator=g, device=dev),
+                    0.1 * torch.randn(d, generator=g, device=dev)]
+
+        ep = dense(d, d) + ln() + dense(ff, d) + dense(d, ff) + ln()
+        return (xs + _proj_weights(g, d, 6, dt, dev) + ep,
+                (_masks(g, B, Lq, dev), _masks(g, B, L1, dev, False),
+                 _masks(g, B, L2, dev)))
+
+    def k4(t, m, rate=0.0, seed=0):
+        return K4.fused_layer_stream(
+            *t[:3], _pairs(t[3:15]), t[15:25], *m, num_heads=H, scale=scale,
+            dropout_rate=rate, seed=seed, deterministic=rate == 0)
+
+    def plain(t, m, rate=0.0, seed=0):
+        return K4.layer_stream_plain(*t[:3], t[3:15], t[15:25], *m, H, scale,
+                                     rate, seed)
+
+    def plain_bwd(t, m, gx, rate=0.0, seed=0):
+        return K4.layer_stream_bwd_plain(*t[:3], t[3:15], t[15:25], *m, gx,
+                                         H, scale, rate, seed)
+
+    def check(name, got, want, dt):
+        """fp32 as the other kernels; bf16 against the largest output: a
+        y1 that rounds the other way before LN2 moves an output by an ulp
+        of y1's size, however small that output is (measured up to ~1% of
+        the largest output, a few ulps of it)."""
+        if dt == torch.float32:
+            return _check(name, got, want, dt)
+        return _rel_err(name, [got], [want], BWD_TOL[dt])
+
+    worst = {}
+    for dt in (torch.float32, torch.bfloat16):
+        for shape in STREAM_SHAPES:
+            t, m = inputs(64, *shape, dt)
+            gx = torch.randn(64, shape[0], d, generator=g, device=dev).to(dt)
+            errs = {}
+            for rate, seed in ((0.0, 0), (DROP_RATE, 1357911)):
+                on = "drop" if rate else "eval"
+                tag = f"{str(dt)[6:]} {shape} {on}"
+                errs[f"K4f {on}"] = check(f"K4f {tag}", k4(t, m, rate, seed),
+                                          plain(t, m, rate, seed), dt)
+                n = A.LAUNCHES["layer_stream_bwd"]
+                grads = _grads(lambda *x: k4(x, m, rate, seed), t, gx)
+                if A.LAUNCHES["layer_stream_bwd"] != n + 1:
+                    raise AssertionError("K4b did not launch")
+                errs[f"K4b {on}"] = _rel_err(f"K4b {tag}", grads,
+                                             plain_bwd(t, m, gx, rate, seed),
+                                             BWD_TOL[dt])
+            for k, v in errs.items():
+                worst[k.split()[0]] = max(worst.get(k.split()[0], 0.0), v)
+            log(f"  B=64 {str(dt)[6:]} {shape}: " + ", ".join(
+                f"{k} {v:.2g}" for k, v in errs.items()))
+        # an MLP narrower than d, so that the epilogue's ff and d indexing
+        # differ
+        shape, narrow = STREAM_SHAPES[0], d // 2
+        t, m = inputs(64, *shape, dt, narrow)
+        gx = torch.randn(64, shape[0], d, generator=g, device=dev).to(dt)
+        tag = f"{str(dt)[6:]} {shape} ff={narrow} drop"
+        e_f = check(f"K4f {tag}", k4(t, m, DROP_RATE, 97531),
+                    plain(t, m, DROP_RATE, 97531), dt)
+        e_b = _rel_err(f"K4b {tag}",
+                       _grads(lambda *x: k4(x, m, DROP_RATE, 97531), t, gx),
+                       plain_bwd(t, m, gx, DROP_RATE, 97531), BWD_TOL[dt])
+        worst["K4f"], worst["K4b"] = (max(worst["K4f"], e_f),
+                                      max(worst["K4b"], e_b))
+        log(f"  B=64 {tag}: K4f {e_f:.2g}, K4b {e_b:.2g}")
+    torch.cuda.synchronize()
+
+    B, dt, (Lq, L1, L2) = 1024, torch.bfloat16, STREAM_SHAPES[1]
+    t, m = inputs(B, Lq, L1, L2, dt)
+    gx = torch.randn(B, Lq, d, generator=g, device=dev).to(dt)
+    err_f = check("K4f B=1024", k4(t, m), plain(t, m), dt)
+    ms_f = _time_ms(lambda: k4(t, m), 10)
+    plain_f = _time_ms(lambda: plain(t, m), 3)
+    leaves = [x.detach().requires_grad_() for x in t]
+    out = k4(leaves, m)
+    got = torch.autograd.grad(out, leaves, gx, retain_graph=True)
+    err_b = _rel_err("K4b B=1024", got, plain_bwd(t, m, gx), BWD_TOL[dt])
+    del got
+    ms_b = _time_ms(lambda: torch.autograd.grad(out, leaves, gx,
+                                                retain_graph=True), 5)
+    plain_b = _time_ms(lambda: plain_bwd(t, m, gx), 2)
+    e = _elem(dt)
+    proj = _proj_flops(B, d, Lq, L1, L2)
+    core_f = 4.0 * B * Lq * (L1 + L2) * d
+    epi = 2.0 * B * Lq * (d * d + 2 * d * ff)      # the three Denses
+    params = 6 * (d * d + d) + d * d + 2 * d * ff + 2 * d + ff
+    rows_in, masks = B * d * (Lq + L1 + L2), 4 * B * (Lq + L1 + L2)
+    ln = 4 * 4 * d
+    bytes_f = e * (rows_in + B * Lq * d + params) + ln + masks
+    bytes_b = e * (2 * rows_in + B * Lq * d + params) + 4 * (params + 4 * d) \
+        + ln + masks
+    # K4b: the recomputed forward (projections, QK^T and PV, Denses) in the
+    # compute dtype, as K4f; then the products of the backward with fp32
+    # operands: dV, dP, dQ, dK (2 core_f), dx and dW of the projections and
+    # the epilogue's dgrad and dW
+    ops_b = ((proj + core_f + epi) / PEAK_FLOPS[dt]
+             + (2 * proj + 2 * core_f + 2 * epi) / PEAK_FLOPS[torch.float32])
+    _record("K4", "layer_stream_fwd (K4f)", "layer_stream.cu", 140,
+            max(worst["K4f"], err_f), ms_f, plain_f, bytes_f,
+            (proj + core_f + epi) / PEAK_FLOPS[dt], None, "layer_kernel.py")
+    _record("K4b", "layer_stream_bwd (K4b)", "layer_stream_bwd.cu", 178,
+            max(worst["K4b"], err_b), ms_b, plain_b, bytes_b, ops_b, None,
+            "layer_kernel.py")
+    log(f"  K4 bf16 B=1024 {(Lq, L1, L2)}: K4f {ms_f:.3f} ms (plain "
+        f"{plain_f:.3f}), K4b {ms_b:.3f} ms (plain {plain_b:.3f}); max err "
+        f"K4f {err_f:.3g}, K4b {err_b:.3g}")
+    # the other three launch shapes of a layer, timed for PERF.md
+    for shape in (STREAM_SHAPES[0],) + STREAM_SHAPES[2:]:
+        t, m = inputs(B, *shape, dt)
+        gx = torch.randn(B, shape[0], d, generator=g, device=dev).to(dt)
+        leaves = [x.detach().requires_grad_() for x in t]
+        out = k4(leaves, m)
+        log(f"  B=1024 {shape}: K4f bf16 {_time_ms(lambda: k4(t, m), 5):.3f}"
+            " ms, K4b bf16 "
+            f"{_time_ms(lambda: torch.autograd.grad(out, leaves, gx, retain_graph=True), 3):.3f}"
+            " ms")
+    del t, m, gx, leaves, out
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -1102,6 +1372,141 @@ def phase_ablation(ctx):
         raise AssertionError(f"card and CPU CrossAtt steps differ: {got}")
 
 
+# launches per flagship step of the fused variants (2 backbones x 5 run
+# layers): fuse_dual runs K5 on the feature backbone (Lv 40, Lu 100) and K2
+# on the ID backbone, whose user stream is one long (segformerx.py:366-367);
+# the last layer's user stream reaches no output, so its K2b never runs,
+# while its K5b runs with a zero user gradient. fuse_layer runs K4 on every
+# stream.
+K2_STEP = {"proj_two_block_attention": FWD_PER_STEP,
+           "proj_two_block_attention_bwd": BWD_PER_STEP}
+DUAL_STEP = {"dual_stream_attention": 5, "dual_stream_attention_bwd": 5,
+             "proj_two_block_attention": 10,
+             "proj_two_block_attention_bwd": 9}
+LAYER_STEP = {"layer_stream": FWD_PER_STEP, "layer_stream_bwd": BWD_PER_STEP}
+FUSED_STEPS = 6         # timed after 2 warm-up steps
+FUSED_KERNELS = ("proj_two_block_attention", "proj_two_block_attention_bwd",
+                 "dual_stream_attention", "dual_stream_attention_bwd",
+                 "layer_stream", "layer_stream_bwd", "two_block_attention",
+                 "two_block_attention_bwd")
+
+
+def phase_fused_variants(ctx):
+    """The production training configuration with fuse_dual and with
+    fuse_layer beside the K2 one (same batches, same card): ms per step,
+    interactions/s, peak device memory and the launch counts; each served
+    at B=1024; the default config with fuse_layer, which must not remat;
+    one 32-row fp32 step of each on the card against the CPU."""
+    from segmminterest_tpu_torch.core import attention as A
+    from segmminterest_tpu_torch.data.dataset import BatchIterator
+    from segmminterest_tpu_torch.engine.train import InterestEngine
+
+    _data(ctx)
+    reader, store = ctx["reader"], ctx["store"]
+    batches = None
+
+    def expect(counts, n, what, want):
+        _expect(counts, {k: n * want.get(k, 0) for k in FUSED_KERNELS}, what)
+
+    for name, kw, want in (("K2 (fuse_qkv)", {}, K2_STEP),
+                           ("fuse_dual", dict(fuse_dual=True), DUAL_STEP),
+                           ("fuse_layer", dict(fuse_layer=True), LAYER_STEP)):
+        cfg = _production_train_cfg(ctx["csv"], **kw)
+        engine = InterestEngine(cfg, reader.n_users, reader.n_items,
+                                feature_table=ctx["table"], device="cuda")
+        if batches is None:
+            batches = [b for _, b in zip(range(FUSED_STEPS), BatchIterator(
+                reader, reader.tables["train"], 1024, shuffle=True,
+                feature_store=store, seed=cfg.seed,
+                transform=engine.batch_transform))]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        state, times, losses, counts = _train_steps(engine, batches)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        n = len(batches)
+        expect(counts, n, f"{name} train", want)
+        steady = times[2:]
+        rows = sum(int(b["row_mask"].sum()) for b in batches[2:])
+        log(f"  {name} train (bf16, int8 table, no remat, B=1024): "
+            f"{1e3 * sum(steady) / len(steady):.1f} ms per step, "
+            f"{rows / sum(steady):.1f} interactions/s over {len(steady)} "
+            f"steps after 2 warm-up steps; peak device memory {peak:.2f} GiB"
+            f" (the 3.9M-row int8 table included); losses "
+            f"{[round(x, 4) for x in losses]}; launches per step "
+            f"{ {k: v // n for k, v in counts.items() if v} }")
+        if name == "fuse_dual":
+            RESULT["launches"]["K5"] = counts["dual_stream_attention"]
+            RESULT["launches"]["K5b"] = counts["dual_stream_attention_bwd"]
+        elif name == "fuse_layer":
+            RESULT["launches"]["K4"] = counts["layer_stream"]
+            RESULT["launches"]["K4b"] = counts["layer_stream_bwd"]
+        # served: the eval forward of a full batch already on the card
+        dev_batch = {"_dev": engine.put_batch(batches[0])}
+        A.reset_launch_counts()
+        _, logits, _ = engine.eval_step(state, dev_batch)
+        torch.cuda.synchronize()
+        fwd = {k: v for k, v in want.items() if not k.endswith("_bwd")}
+        expect(dict(A.LAUNCHES), 1, f"{name} serving", fwd)
+        if logits.shape != (1024, 40) or not torch.isfinite(logits).all():
+            raise AssertionError(f"{name} serving: logits not (1024, 40) "
+                                 "finite")
+        ms = _time_ms(lambda: engine.eval_step(state, dev_batch), 5)
+        log(f"  {name} served (bf16) B=1024: {ms:.1f} ms per batch "
+            f"({1e3 * 1024 / ms:.1f} interactions/s)")
+        del engine, state, dev_batch
+        torch.cuda.empty_cache()
+
+    # the default config (fp32, remat on) with fuse_layer: K4 saves only
+    # its inputs, so no layer is recomputed: 20 K4f per step, not 40
+    cfg = _flagship_cfg(ctx["csv"]).replace(train_batch_size=1024,
+                                            table_quant="int8",
+                                            fuse_layer=True)
+    engine = InterestEngine(cfg, reader.n_users, reader.n_items,
+                            feature_table=ctx["table"], device="cuda")
+    _, times, losses, counts = _train_steps(engine, batches[:2])
+    expect(counts, 2, "fuse_layer default config (remat on)", LAYER_STEP)
+    log(f"  fuse_layer, default config (fp32, --remat 1): {FWD_PER_STEP} K4f "
+        f"+ {BWD_PER_STEP} K4b per step, no remat; "
+        f"{1e3 * times[1]:.1f} ms for the second step; losses "
+        f"{[round(x, 4) for x in losses]}")
+    del engine
+    torch.cuda.empty_cache()
+
+    # 32 rows, fp32, dropout off: the card against the CPU's plain versions
+    small = next(iter(BatchIterator(reader, reader.tables["train"], 32,
+                                    feature_store=store, seed=7,
+                                    prefetch_size=0)))
+    cpu_table = tuple(t.cpu() for t in ctx["table"])
+    base = _flagship_cfg(ctx["csv"]).replace(train_batch_size=32,
+                                             table_quant="int8", dropout=0.0)
+    for name, kw, key in (("fuse_dual", dict(fuse_dual=True),
+                           "dual_stream_attention_bwd"),
+                          ("fuse_layer", dict(fuse_layer=True),
+                           "layer_stream_bwd")):
+        got = {}
+        for dev, table in (("cuda", ctx["table"]), ("cpu", cpu_table)):
+            eng = InterestEngine(base.replace(**kw), reader.n_users,
+                                 reader.n_items, feature_table=table,
+                                 device=dev)
+            A.reset_launch_counts()
+            _, ld = eng.train_step(eng.init_state(), small)
+            got[dev] = (float(ld["loss"]), float(eng.last_grad_norm),
+                        A.LAUNCHES[key])
+            del eng
+        if not got["cuda"][2] or got["cpu"][2]:
+            raise AssertionError(f"32-row {name} step launches: {got}")
+        dl = abs(got["cuda"][0] - got["cpu"][0]) / abs(got["cpu"][0])
+        dg = abs(got["cuda"][1] - got["cpu"][1]) / got["cpu"][1]
+        log(f"  32-row fp32 {name} step, card vs CPU: loss "
+            f"{got['cuda'][0]:.6f} vs {got['cpu'][0]:.6f} (rel {dl:.2g}), "
+            f"grad norm {got['cuda'][1]:.6f} vs {got['cpu'][1]:.6f} (rel "
+            f"{dg:.2g})")
+        # fp32 through five layers in another summation order: 1e-4
+        if not (dl <= 1e-4 and dg <= 1e-4):
+            raise AssertionError(f"card and CPU {name} steps differ: {got}")
+    del cpu_table
+
+
 def phase_train_cli(ctx):
     """skip_train's CLI (production flags, --debug 1) over the small
     memmap, then export_logits serving the checkpoint it wrote."""
@@ -1181,6 +1586,41 @@ def phase_train_cli(ctx):
         f"{len(served)} rows of 40 finite logits; launches "
         f"{ {k: v for k, v in A.LAUNCHES.items() if v} }")
 
+    # --fuse_layer 1 (default config: fp32, K4, remat off under K4), then
+    # its checkpoint served with --serving 1 --fuse_layer 1 (bf16 K4: the
+    # preset's fuse_qkv is superseded)
+    fl = ["--fuse_layer", "1"]
+    A.reset_launch_counts()
+    res = skip_train.main(common + fl + [
+        "--debug", "1", "--table_quant", "int8", "--ckpt_dir",
+        os.path.join(WORK, "train_cli_fuse_layer")])
+    steps = res["steps"]
+    if steps < 1 or A.LAUNCHES["layer_stream_bwd"] != BWD_PER_STEP * steps \
+            or A.LAUNCHES["proj_two_block_attention"] or \
+            A.LAUNCHES["two_block_attention"] or \
+            not all(math.isfinite(v) for v in res["test_metrics"].values()):
+        raise AssertionError(f"skip_train --fuse_layer 1: {steps} steps, "
+                             f"launches {A.LAUNCHES}, metrics "
+                             f"{res['test_metrics']}")
+    log(f"  skip_train --fuse_layer 1: {steps} steps, test HR@5 "
+        f"{res['test_metrics']['HR@5']:.4f}; launches "
+        f"{ {k: v for k, v in A.LAUNCHES.items() if v} }")
+    A.reset_launch_counts()
+    out_path = X.main(common + fl + [
+        "--serving", "1", "--splits", "test", "--work_dir", res["work_dir"],
+        "--out_dir", os.path.join(WORK, "trained_fuse_layer_logits")])
+    with open(out_path) as f:
+        served = json.load(f)
+    if len(served) != n_test or not all(
+            len(v) == 40 and np.isfinite(v).all() for v in served.values()) \
+            or not A.LAUNCHES["layer_stream"] or \
+            A.LAUNCHES["proj_two_block_attention"]:
+        raise AssertionError("export_logits --fuse_layer 1: "
+                             f"{len(served)} rows, launches {A.LAUNCHES}")
+    log(f"  export_logits --serving 1 --fuse_layer 1: {len(served)} rows of "
+        f"40 finite logits; launches "
+        f"{ {k: v for k, v in A.LAUNCHES.items() if v} }")
+
 
 # ---------------------------------------------------------------------------
 def main(argv=None):
@@ -1210,6 +1650,7 @@ def main(argv=None):
          "train": lambda: phase_train(ctx),
          "train_default": lambda: phase_train_default(ctx),
          "ablation": lambda: phase_ablation(ctx),
+         "fused_variants": lambda: phase_fused_variants(ctx),
          "train_cli": lambda: phase_train_cli(ctx)}[name]()
         log(f"phase {name}: ok ({time.perf_counter() - t0:.1f} s)")
     log(f"all phases: {time.perf_counter() - t_all:.1f} s")

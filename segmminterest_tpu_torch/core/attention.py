@@ -58,7 +58,9 @@ from .numerics import MASK_FILL_VALUE
 LAUNCHES = {"two_block_attention": 0, "proj_two_block_attention": 0,
             "two_block_attention_bwd": 0, "proj_two_block_attention_bwd": 0,
             "proj_two_block_attention_qkv_bwd": 0, "masked_attention": 0,
-            "masked_attention_bwd": 0}
+            "masked_attention_bwd": 0, "dual_stream_attention": 0,
+            "dual_stream_attention_bwd": 0, "layer_stream": 0,
+            "layer_stream_bwd": 0}
 
 # the most shared memory one block may use on an H100 (227 KB)
 MAX_SMEM_BYTES = 232_448
@@ -113,11 +115,14 @@ def _mul32(a: torch.Tensor, c: int) -> torch.Tensor:
 
 
 def dropout_keep(B: int, H: int, Lq: int, Lk: int, seed: int, block: int,
-                 rate: float, device, salt_stride: int = 2) -> torch.Tensor:
+                 rate: float, device, salt_stride: int = 2,
+                 head_offset: int = 0) -> torch.Tensor:
     """(B, H, Lq, Lk) bool keep-mask for heads 0..H-1, the bits of
-    ``_dropout_keep(interpret=True)`` with salt ``salt_stride * h + block``:
-    K1/K2 draw key block ``block`` (0 or 1) with stride 2, K3 its one block
-    with stride 1 and block 0 (salt ``h``, attention.py:146-148)."""
+    ``_dropout_keep(interpret=True)`` with salt
+    ``salt_stride * (head_offset + h) + block``: K1/K2 draw key block
+    ``block`` (0 or 1) with stride 2, K3 its one block with stride 1 and
+    block 0 (salt ``h``, attention.py:146-148); K5's user stream takes head
+    offset H (dual_kernel.py:100-101)."""
     bt = pick_block_b(B)
     ar = lambda n: torch.arange(n, dtype=torch.int64, device=device)  # noqa: E731
     b = ar(B)
@@ -125,7 +130,7 @@ def dropout_keep(B: int, H: int, Lq: int, Lk: int, seed: int, block: int,
     col = _mul32(ar(Lq), 40503)[None, None, :, None]
     key = _mul32(ar(Lk), 69069)[None, None, None, :]
     seed_val = (seed + b // bt) & _U32
-    salt = salt_stride * ar(H) + block
+    salt = salt_stride * (ar(H) + head_offset) + block
     h = ((row ^ col ^ key)
          + _mul32(seed_val, 2246822519)[:, None, None, None]
          + _mul32(salt, 3266489917)[None, :, None, None]) & _U32
@@ -133,6 +138,14 @@ def dropout_keep(B: int, H: int, Lq: int, Lk: int, seed: int, block: int,
     h = h ^ (h >> 13)
     u = (h >> 8).to(torch.float32) * (1.0 / (1 << 24))
     return u >= torch.tensor(rate, dtype=torch.float32, device=device)
+
+
+def feature_dropout_keep(B: int, Lq: int, d: int, seed: int, salt: int,
+                         rate: float, device) -> torch.Tensor:
+    """(B, Lq, d) bool keep-mask of one salt over (row within the batch
+    tile, query row, feature): the bits K4's epilogue draws for its three
+    dropouts with salts 2H, 2H + 1, 2H + 2 (layer_kernel.py:115-132)."""
+    return dropout_keep(B, 1, Lq, d, seed, salt, rate, device)[:, 0]
 
 
 # ---------------------------------------------------------------------------
@@ -147,13 +160,14 @@ def _pair_mask(mask_q, mask_k):
     return ((mq[:, :, None] * mk[:, None, :]) > 0)[:, None]
 
 
-def _keeps(q1, L1, L2, rate, seed):
+def _keeps(q1, L1, L2, rate, seed, head_offset=0):
     """Both blocks' keep-masks for (B, Lq, H, D) queries, or None when no
     dropout applies."""
     if rate <= 0:
         return None, None
     B, Lq, H = q1.shape[:3]
-    return tuple(dropout_keep(B, H, Lq, L, seed, blk, rate, q1.device)
+    return tuple(dropout_keep(B, H, Lq, L, seed, blk, rate, q1.device,
+                              head_offset=head_offset)
                  for blk, L in ((0, L1), (1, L2)))
 
 
@@ -182,11 +196,12 @@ def _logits(q, k):
 
 def two_block_attention_plain(q1, q2, k1, k2, v1, v2, mask_q, mask_k1,
                               mask_k2, scale: float, rate: float = 0.0,
-                              seed: int = 0):
+                              seed: int = 0, head_offset: int = 0):
     """K1's plain version: q1/q2 (B, Lq, H, D), k1/v1 (B, L1, H, D),
     k2/v2 (B, L2, H, D) -> (B, Lq, H, D) in q1's dtype. ``rate`` > 0 applies
-    the dropout mask of ``seed``."""
-    keep1, keep2 = _keeps(q1, k1.shape[1], k2.shape[1], rate, seed)
+    the dropout mask of ``seed`` (salted from head ``head_offset`` on)."""
+    keep1, keep2 = _keeps(q1, k1.shape[1], k2.shape[1], rate, seed,
+                          head_offset)
     p1, p2 = _joint_probs(_logits(q1, k1), _logits(q2, k2),
                           _pair_mask(mask_q, mask_k1),
                           _pair_mask(mask_q, mask_k2), scale, keep1, keep2,
@@ -199,12 +214,13 @@ def two_block_attention_plain(q1, q2, k1, k2, v1, v2, mask_q, mask_k1,
 
 
 def _joint_bwd_plain(q1, q2, k1, k2, v1, v2, mask_q, mask_k1, mask_k2, g,
-                     scale, rate, seed):
+                     scale, rate, seed, head_offset=0):
     """The joint-softmax backward of ``_attn_group_bwd`` (attention.py:
     448-524) on (B, L, H, D) tensors; fp32 dq1, dq2, dk1, dk2, dv1, dv2."""
     pair1 = _pair_mask(mask_q, mask_k1)
     pair2 = _pair_mask(mask_q, mask_k2)
-    keep1, keep2 = _keeps(q1, k1.shape[1], k2.shape[1], rate, seed)
+    keep1, keep2 = _keeps(q1, k1.shape[1], k2.shape[1], rate, seed,
+                          head_offset)
     p1, p2 = _joint_probs(_logits(q1, k1), _logits(q2, k2), pair1, pair2,
                           scale, keep1, keep2, keep_divisor(rate))
     gf = g.float()
@@ -263,36 +279,60 @@ def proj_two_block_attention_plain(xq, x1, x2, wq1, bq1, wq2, bq2, wk1, bk1,
                                    wk2, bk2, wv1, bv1, wv2, bv2, mask_q,
                                    mask_1, mask_2, num_heads: int,
                                    scale: float, rate: float = 0.0,
-                                   seed: int = 0):
+                                   seed: int = 0, head_offset: int = 0):
     """K2's plain version: the six projections, then K1's plain version.
     xq (B, Lq, d), x1 (B, L1, d), x2 (B, L2, d) -> (B, Lq, d)."""
     ws = (wq1, bq1, wq2, bq2, wk1, bk1, wk2, bk2, wv1, bv1, wv2, bv2)
     out = two_block_attention_plain(
         *_projections(xq, x1, x2, ws, num_heads), mask_q, mask_1, mask_2,
-        scale, rate, seed)
+        scale, rate, seed, head_offset)
     return out.reshape(xq.shape)
 
 
-def _chain_grads(xq, x1, x2, ws, dys):
+def dgrad(dy, w):
+    """dy . W for an fp32 dy and W in nn.Linear layout (out, in): the
+    gradient of x . W^T with respect to x, in fp32."""
+    return torch.matmul(dy, w.float())
+
+
+def wgrad(x, dy, w, b):
+    """dW = dy^T x (nn.Linear layout) and db = sum dy over every row, in
+    fp32, cast to the dtypes of ``w`` and ``b``."""
+    dyf = dy.reshape(-1, dy.shape[-1])
+    return ((dyf.t() @ x.reshape(-1, x.shape[-1]).float()).to(w.dtype),
+            dyf.sum(0).to(b.dtype))
+
+
+def _chain_grads(xq, x1, x2, ws, dys, dxq_add=None):
     """dx through the projections and dW, db over the whole batch, fp32
-    (attention.py:854-894 and 1720-1735); dW in nn.Linear layout."""
+    (attention.py:854-894 and 1720-1735); dW in nn.Linear layout.
+    ``dxq_add`` (fp32) joins dxq's sum before its cast, as K4's LayerNorm
+    residual gradient does (layer_kernel.py:296-297)."""
     wq1, _, wq2, _, wk1, _, wk2, _, wv1, _, wv2, _ = ws
     dq1, dq2, dk1, dk2, dv1, dv2 = dys
-    d = xq.shape[-1]
-
-    def dgrad(dy, w):
-        return torch.matmul(dy, w.float())
-
-    dxq = (dgrad(dq1, wq1) + dgrad(dq2, wq2)).to(xq.dtype)
+    dxq = dgrad(dq1, wq1) + dgrad(dq2, wq2)
+    if dxq_add is not None:
+        dxq = dxq + dxq_add
+    dxq = dxq.to(xq.dtype)
     dx1 = (dgrad(dk1, wk1) + dgrad(dv1, wv1)).to(x1.dtype)
     dx2 = (dgrad(dk2, wk2) + dgrad(dv2, wv2)).to(x2.dtype)
     dws = []
     for x, dy, i in ((xq, dq1, 0), (xq, dq2, 2), (x1, dk1, 4), (x2, dk2, 6),
                      (x1, dv1, 8), (x2, dv2, 10)):
-        dyf = dy.reshape(-1, d)
-        dws += [(dyf.t() @ x.reshape(-1, d).float()).to(ws[i].dtype),
-                dyf.sum(0).to(ws[i + 1].dtype)]
+        dws += wgrad(x, dy, ws[i], ws[i + 1])
     return (dxq, dx1, dx2, *dws)
+
+
+def proj_qkv_grads_plain(xq, x1, x2, ws, masks, g, num_heads: int,
+                         scale: float, rate: float = 0.0, seed: int = 0,
+                         head_offset: int = 0):
+    """K2b's qkv pass in plain PyTorch: the projections recomputed with
+    ``_proj``'s rounding, the core backward in fp32; fp32 dq1, dq2, dk1,
+    dk2, dv1, dv2 as (B, L, d). ``g`` may be fp32 whatever x's dtype."""
+    grads = _joint_bwd_plain(*_projections(xq, x1, x2, ws, num_heads),
+                             *masks, _heads(g, num_heads), scale, rate, seed,
+                             head_offset)
+    return [t.reshape(t.shape[0], t.shape[1], -1) for t in grads]
 
 
 def proj_two_block_attention_bwd_plain(xq, x1, x2, wq1, bq1, wq2, bq2, wk1,
@@ -305,10 +345,8 @@ def proj_two_block_attention_bwd_plain(xq, x1, x2, wq1, bq1, wq2, bq2, wk1,
     in fp32, then dxq, dx1, dx2 (x's dtype) and dW, db of the six
     projections (each cast to its weight's dtype)."""
     ws = (wq1, bq1, wq2, bq2, wk1, bk1, wk2, bk2, wv1, bv1, wv2, bv2)
-    grads = _joint_bwd_plain(*_projections(xq, x1, x2, ws, num_heads),
-                             mask_q, mask_1, mask_2, _heads(g, num_heads),
-                             scale, rate, seed)
-    dys = [t.reshape(t.shape[0], t.shape[1], -1) for t in grads]
+    dys = proj_qkv_grads_plain(xq, x1, x2, ws, (mask_q, mask_1, mask_2), g,
+                               num_heads, scale, rate, seed)
     return _chain_grads(xq, x1, x2, ws, dys)
 
 
@@ -404,6 +442,11 @@ def _fn(lib_name, symbol, restype, argtypes):
     fn.restype = restype
     fn.argtypes = argtypes
     return fn
+
+
+def _ptrs(ts):
+    """A C array of the tensors' device pointers."""
+    return (ctypes.c_void_p * len(ts))(*(t.data_ptr() for t in ts))
 
 
 _DROP_ARGS = [ctypes.c_float, ctypes.c_float, ctypes.c_uint32]
@@ -547,12 +590,11 @@ def _k2_forward_cuda(xq, x1, x2, ws, masks, num_heads, scale, rate, seed):
              + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_float]
              + _DROP_ARGS + [ctypes.c_void_p])
     mq, m1, m2 = _masks_i32(*masks)
-    ptrs = (ctypes.c_void_p * 15)(*(t.data_ptr() for t in tensors))
     out = torch.empty_like(xq)
     with torch.cuda.device(xq.device):
-        code = fn(_DTYPE_CODE[xq.dtype], ptrs, mq.data_ptr(), m1.data_ptr(),
-                  m2.data_ptr(), out.data_ptr(), B, Lq, L1, L2, d, num_heads,
-                  float(scale), *_drop_args(rate, seed),
+        code = fn(_DTYPE_CODE[xq.dtype], _ptrs(tensors), mq.data_ptr(),
+                  m1.data_ptr(), m2.data_ptr(), out.data_ptr(), B, Lq, L1, L2,
+                  d, num_heads, float(scale), *_drop_args(rate, seed),
                   _stream_ptr(xq.device))
     _raise_on_cuda_error(code, "proj_two_block_attention")
     LAUNCHES["proj_two_block_attention"] += 1
@@ -578,13 +620,11 @@ def _k2_qkv_grads_cuda(xq, x1, x2, ws, masks, g, num_heads, scale, rate,
     mq, m1, m2 = _masks_i32(*masks)
     dys = [torch.empty(B, L, d, dtype=torch.float32, device=xq.device)
            for L in (Lq, Lq, L1, L2, L1, L2)]
-    ptrs = (ctypes.c_void_p * 15)(*(t.data_ptr() for t in tensors))
-    out = (ctypes.c_void_p * 6)(*(t.data_ptr() for t in dys))
     with torch.cuda.device(xq.device):
-        code = fn(_DTYPE_CODE[xq.dtype], ptrs, mq.data_ptr(), m1.data_ptr(),
-                  m2.data_ptr(), g.data_ptr(), out, B, Lq, L1, L2, d,
-                  num_heads, float(scale), *_drop_args(rate, seed),
-                  _stream_ptr(xq.device))
+        code = fn(_DTYPE_CODE[xq.dtype], _ptrs(tensors), mq.data_ptr(),
+                  m1.data_ptr(), m2.data_ptr(), g.data_ptr(), _ptrs(dys), B,
+                  Lq, L1, L2, d, num_heads, float(scale),
+                  *_drop_args(rate, seed), _stream_ptr(xq.device))
     _raise_on_cuda_error(code, "proj_two_block_attention_qkv_bwd")
     return dys
 
@@ -612,13 +652,11 @@ def _k2_backward_cuda(xq, x1, x2, ws, masks, g, num_heads, scale, rate,
              "segmm_proj_two_block_attention_chain_bwd", ctypes.c_int,
              [ctypes.c_int] + [ctypes.POINTER(ctypes.c_void_p)] * 4
              + [ctypes.c_void_p] + [ctypes.c_int] * 6 + [ctypes.c_void_p])
-    arr = lambda ts: (ctypes.c_void_p * len(ts))(  # noqa: E731
-        *(t.data_ptr() for t in ts))
     B, Lq, L1, L2 = xq.shape[0], xq.shape[1], x1.shape[1], x2.shape[1]
     with torch.cuda.device(xq.device):
-        code = fn(_DTYPE_CODE[xq.dtype], arr((xq, x1, x2) + tuple(ws)),
-                  arr(dys), arr(dx), arr(dw + db), scratch.data_ptr(), B, Lq,
-                  L1, L2, d, K2_DW_SPLITS, _stream_ptr(xq.device))
+        code = fn(_DTYPE_CODE[xq.dtype], _ptrs((xq, x1, x2) + tuple(ws)),
+                  _ptrs(dys), _ptrs(dx), _ptrs(dw + db), scratch.data_ptr(), B,
+                  Lq, L1, L2, d, K2_DW_SPLITS, _stream_ptr(xq.device))
     _raise_on_cuda_error(code, "proj_two_block_attention_bwd (dx, dW)")
     LAUNCHES["proj_two_block_attention_bwd"] += 1
     grads = list(dx)

@@ -1,0 +1,178 @@
+// K4f: one whole SegFormerX encoder-layer stream, forward.
+//
+// Replaces the TPU kernel segmminterest_tpu/core/layer_kernel.py
+// _fl_fwd_kernel (:140), launched by _fl_call_fwd (:332) behind
+// fused_layer_stream:
+//   att = K2's projection-fused two-block attention
+//   h   = att . W_ff^T + b_ff ; dropout (salt 2H)
+//   y1  = LN1(xq + h)
+//   u   = y1 . W_m1^T + b_m1 ; g = gelu(u) ; dropout (salt 2H + 1)
+//   m   = g . W_m2^T + b_m2 ; dropout (salt 2H + 2)
+//   out = LN2(y1 + m)
+// Each Dense rounds as _proj does (fp32 dot, cast, bias added in the
+// compute dtype); the residual sums round to the compute dtype before the
+// fp32 LayerNorm (fast variance, eps 1e-12, fp32 scale and bias); a dropped
+// value divides by 1 - rate in the compute dtype (layer_kernel.py:109-137).
+//
+// Design: two launches. (1) K2f's block body (proj_attention.cuh) writes
+// att (B, Lq, d) in the compute dtype, as the TPU kernel's `satt` scratch
+// holds it (:358-364); (2) a row-tile epilogue kernel: one block of 256
+// threads per 32 rows of (B * Lq), the rows kept in shared memory through
+// the three Dense layers and both LayerNorms, the weights streamed through
+// shared memory in 128 x 32 chunks (layer_epilogue.cuh: wmma bf16 tensor
+// cores in bf16, fp32 FMAs in fp32). Only att makes a round trip through
+// device memory; h, y1, u, g and m never leave the block.
+//
+// What bounds it on an H100: operations. Per row the epilogue is
+// 2 (d^2 + 2 d ff) FLOP against ~3d input and output values; the attention
+// is K2f's. Each block re-reads the three weights from L2 (B * Lq / 32
+// times), and the fp32 route runs on the CUDA cores; more rows per block
+// and wgmma with TMA are the ways on.
+#include "layer_epilogue.cuh"
+#include "proj_attention.cuh"
+
+namespace segmm {
+
+// shared-memory layout of the forward epilogue: the A tile (att, then y1),
+// the GELU tile g, the fp32 product tile, the weight stage, the row stats
+template <typename T>
+struct EpFwdLayout {
+  size_t a, g, c, stage, stats, total;
+  __host__ __device__ EpFwdLayout(int d, int ff) {
+    const int w = d > ff ? d : ff;
+    a = 0;
+    g = a + align128(sizeof(T) * kEpFwdRows * tile_ld<T>(w));
+    c = g + align128(sizeof(T) * kEpFwdRows * tile_ld<T>(ff));
+    stage = c + align128(sizeof(float) * kEpFwdRows * (w + 4));
+    stats = stage + align128(ep_stage_bytes());
+    total = stats + 2 * sizeof(float) * kEpFwdRows;
+  }
+};
+
+template <typename T, bool kDrop>
+__global__ void __launch_bounds__(kEpThreads)
+layer_epilogue_fwd_kernel(const T* __restrict__ att, const T* __restrict__ xq, EpParams<T> ep,
+                          T* __restrict__ out, int rows, int Lq, int B, int d, int ff, int H,
+                          float rate, float epi_div, unsigned seed) {
+  constexpr int RT = kEpFwdRows;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const EpFwdLayout<T> lay(d, ff);
+  const int w = d > ff ? d : ff, lda = tile_ld<T>(w), ldg = tile_ld<T>(ff), ldc = w + 4;
+  T* sA = reinterpret_cast<T*>(smem + lay.a);
+  T* sG = reinterpret_cast<T*>(smem + lay.g);
+  float* sC = reinterpret_cast<float*>(smem + lay.c);
+  unsigned char* stage = smem + lay.stage;
+  float* mu = reinterpret_cast<float*>(smem + lay.stats);
+  float* inv = mu + RT;
+  const int r0 = blockIdx.x * RT, tid = threadIdx.x;
+  const int nrows = min(RT, rows - r0);
+  const unsigned salt0 = kEpSalt * H;
+
+  for (int i = tid; i < RT * d; i += kEpThreads) {
+    const int r = i / d, c = i - r * d;
+    sA[r * lda + c] = r < nrows ? att[(long)(r0 + r) * d + c] : from_f<T>(0.f);
+  }
+  __syncthreads();
+  // h, its dropout, the residual r1 = xq + h (rounded to T)
+  tile_gemm_tn<RT>(sA, lda, d, ep.wff, d, sC, ldc, stage);
+  for (int i = tid; i < RT * d; i += kEpThreads) {
+    const int r = i / d, c = i - r * d;
+    float v = 0.f;
+    if (r < nrows) {
+      float h = proj_epilogue<T>(sC[r * ldc + c], to_f<T>(ep.bff[c]));
+      if (kDrop)
+        h = ep_keep(rate, seed, r0 + r, Lq, B, c, salt0) ? round_to<T>(h / epi_div) : 0.f;
+      v = round_to<T>(to_f<T>(xq[(long)(r0 + r) * d + c]) + h);
+    }
+    sC[r * ldc + c] = v;
+  }
+  __syncthreads();
+  // y1 = LN1(r1) into the A tile
+  ln_stats<RT>(sC, ldc, d, mu, inv);
+  for (int i = tid; i < RT * d; i += kEpThreads) {
+    const int r = i / d, c = i - r * d;
+    sA[r * lda + c] = from_f<T>((sC[r * ldc + c] - mu[r]) * inv[r] * ep.ln1s[c] + ep.ln1b[c]);
+  }
+  __syncthreads();
+  // g = gelu(y1 . W_m1^T + b_m1), its dropout
+  tile_gemm_tn<RT>(sA, lda, d, ep.wm1, ff, sC, ldc, stage);
+  for (int i = tid; i < RT * ff; i += kEpThreads) {
+    const int r = i / ff, c = i - r * ff;
+    const float u = proj_epilogue<T>(sC[r * ldc + c], to_f<T>(ep.bm1[c]));
+    float g = round_to<T>(gelu_f32(u));
+    if (kDrop && r < nrows)
+      g = ep_keep(rate, seed, r0 + r, Lq, B, c, salt0 + 1) ? round_to<T>(g / epi_div) : 0.f;
+    sG[r * ldg + c] = from_f<T>(g);
+  }
+  __syncthreads();
+  // m = g . W_m2^T + b_m2, its dropout, r2 = y1 + m (rounded to T)
+  tile_gemm_tn<RT>(sG, ldg, ff, ep.wm2, d, sC, ldc, stage);
+  for (int i = tid; i < RT * d; i += kEpThreads) {
+    const int r = i / d, c = i - r * d;
+    float m = proj_epilogue<T>(sC[r * ldc + c], to_f<T>(ep.bm2[c]));
+    if (kDrop && r < nrows)
+      m = ep_keep(rate, seed, r0 + r, Lq, B, c, salt0 + 2) ? round_to<T>(m / epi_div) : 0.f;
+    sC[r * ldc + c] = round_to<T>(to_f<T>(sA[r * lda + c]) + m);
+  }
+  __syncthreads();
+  // out = LN2(r2)
+  ln_stats<RT>(sC, ldc, d, mu, inv);
+  for (int i = tid; i < nrows * d; i += kEpThreads) {
+    const int r = i / d, c = i - r * d;
+    out[(long)(r0 + r) * d + c] =
+        from_f<T>((sC[r * ldc + c] - mu[r]) * inv[r] * ep.ln2s[c] + ep.ln2b[c]);
+  }
+}
+
+template <typename T>
+cudaError_t launch_k4f(const void* const* p, const int* mq, const int* m1, const int* m2,
+                       void* att, void* out, int B, int Lq, int L1, int L2, int dm, int H, int ff,
+                       float scale, float rate, float keep_div, float epi_div, unsigned seed,
+                       cudaStream_t s) {
+  cudaError_t err = dispatch_proj_fwd<T>(dm / H, p, mq, m1, m2, att, B, Lq, L1, L2, dm, scale,
+                                         rate, keep_div, seed, s);
+  if (err != cudaSuccess) return err;
+  const size_t smem = EpFwdLayout<T>(dm, ff).total;
+  auto kernel = rate > 0.f ? layer_epilogue_fwd_kernel<T, true>
+                           : layer_epilogue_fwd_kernel<T, false>;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const int rows = B * Lq;
+  kernel<<<(rows + kEpFwdRows - 1) / kEpFwdRows, kEpThreads, smem, s>>>(
+      static_cast<const T*>(att), static_cast<const T*>(p[0]), ep_params<T>(p + 15),
+      static_cast<T*>(out), rows, Lq, B, dm, ff, H, rate, epi_div, seed);
+  return cudaGetLastError();
+}
+
+}  // namespace segmm
+
+// dtype: 0 = float32, 1 = bfloat16. The larger of the two launches' bytes.
+extern "C" size_t segmm_layer_stream_smem_bytes(int dtype, int Lq, int L1, int L2, int DH,
+                                                int dm, int ff) {
+  const size_t a = segmm::k2_smem_bytes(dtype == 1, Lq, L1, L2, DH);
+  const size_t e = dtype == 1 ? segmm::EpFwdLayout<__nv_bfloat16>(dm, ff).total
+                              : segmm::EpFwdLayout<float>(dm, ff).total;
+  return a > e ? a : e;
+}
+
+// ptrs: xq, x1, x2, the twelve projection parameters (as K2's), then the
+// ten epilogue parameters (w_ff (d, d), b_ff, ln1_s, ln1_b, w_m1 (ff, d),
+// b_m1, w_m2 (d, ff), b_m2, ln2_s, ln2_b; nn.Linear layout, the LayerNorm
+// ones fp32). att: (B, Lq, d) workspace in x's dtype; out (B, Lq, d).
+// DH = d / H in {16, 32, 64}, d % 32 == 0, ff % 32 == 0, d, ff <= 512,
+// lengths <= 128. keep_div = 1 - rate in fp32 (attention), epi_div = 1 -
+// rate in x's dtype (epilogue). Returns a cudaError_t (0 = launched).
+extern "C" int segmm_layer_stream_fwd(int dtype, const void* const* ptrs, const int* mq,
+                                      const int* m1, const int* m2, void* att, void* out, int B,
+                                      int Lq, int L1, int L2, int dm, int H, int ff, float scale,
+                                      float rate, float keep_div, float epi_div, unsigned seed,
+                                      void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return (int)segmm::launch_k4f<float>(ptrs, mq, m1, m2, att, out, B, Lq, L1, L2, dm, H, ff,
+                                         scale, rate, keep_div, epi_div, seed, s);
+  if (dtype == 1)
+    return (int)segmm::launch_k4f<__nv_bfloat16>(ptrs, mq, m1, m2, att, out, B, Lq, L1, L2, dm,
+                                                 H, ff, scale, rate, keep_div, epi_div, seed, s);
+  return (int)cudaErrorInvalidValue;
+}

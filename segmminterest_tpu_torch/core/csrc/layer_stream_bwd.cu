@@ -1,0 +1,394 @@
+// K4b: one whole SegFormerX encoder-layer stream, backward.
+//
+// Replaces the TPU kernel segmminterest_tpu/core/layer_kernel.py
+// _fl_bwd_kernel (:178), launched by _fl_call_bwd (:381) from the custom
+// VJP of fused_layer_stream, which saves only the layer inputs: everything
+// else is recomputed here, and the backward runs in the TPU kernel's order
+// (LN2, W_m2, GELU', W_m1, LN1, W_ff, then the attention).
+//
+// Design, seven launches:
+//  (1) att recomputed by K2f's block body (proj_attention.cuh), in the
+//      compute dtype, as the forward made it.
+//  (2) the epilogue-backward row-tile kernel, one block of 256 threads per
+//      16 rows of (B * Lq): the epilogue forward recomputed in shared memory
+//      (layer_epilogue.cuh products, the forward's roundings and dropout
+//      bits), then
+//        dr2 = LN2'(g), dm = drop(dr2), dgd = drop(dm . W_m2),
+//        du = dgd gelu'(u), dy1 = dr2 + du . W_m1, dr1 = LN1'(dy1),
+//        dh = drop(dr1), d_att = dh . W_ff
+//      with fp32 products on the CUDA cores (dy is fp32 whatever the
+//      compute dtype, as in t_chain, :246-250). It writes d_att in fp32
+//      (the TPU kernel's fp32 `sdatt` scratch, :427), dr1 (the LN1
+//      residual's gradient into xq, :296-297), what the weight gradients
+//      need (dm, du, dh fp32; y1, g in the compute dtype) and each block's
+//      column sums of g xhat2, g, dy1 xhat1, dy1 (the LayerNorm gradients).
+//  (3) those partial sums added over the blocks in order.
+//  (4) K2b's qkv pass (proj_attention.cuh) on g = d_att in fp32.
+//  (5) dxq = dq1.Wq1 + dq2.Wq2 + dr1, dx1, dx2 (chain_gemm.cuh).
+//  (6) the nine dW = dy^T x and db = sum dy (the six projections and
+//      W_ff, W_m1, W_m2) in row chunks,
+//  (7) then their sums in chunk order: no atomics, so repeated steps give
+//      the same bits.
+//
+// What bounds it on an H100: operations, K2b's plus the epilogue's (its
+// forward recompute, two dgrad products per Dense and the three dW), fp32
+// on the CUDA cores except the recomputed forward products in bf16.
+#include "chain_gemm.cuh"
+#include "layer_epilogue.cuh"
+#include "proj_attention.cuh"
+
+namespace segmm {
+
+// what the epilogue-backward kernel reads and writes besides the weights
+template <typename T>
+struct EpBwdIO {
+  const T* att;   // (rows, d), recomputed
+  const T* xq;    // (rows, d)
+  const T* g;     // (rows, d), the upstream gradient
+  T* y1;          // (rows, d)
+  T* gact;        // (rows, ff), after its dropout
+  float* datt;    // (rows, d)
+  float* dr1;     // (rows, d); holds r1 until dr1 replaces it
+  float* dm;      // (rows, d)
+  float* dh;      // (rows, d)
+  float* du;      // (rows, ff); holds u until du replaces it
+  float* part;    // (blocks, 4, d): sums of g xhat2, g, dy1 xhat1, dy1
+};
+
+// shared memory: the A tile (att in T, then the backward's fp32 operands
+// dm, du, dh), y1 (T), the fp32 product tile, r2 / dr2 (fp32), the weight
+// stage, the two LayerNorms' row stats
+template <typename T>
+struct EpBwdLayout {
+  size_t a, y1, c, r2, stage, stats, total;
+  __host__ __device__ EpBwdLayout(int d, int ff) {
+    const int w = d > ff ? d : ff;
+    const size_t at = sizeof(T) * kEpBwdRows * tile_ld<T>(w);
+    const size_t af = sizeof(float) * kEpBwdRows * (w + 4);
+    a = 0;
+    y1 = a + align128(at > af ? at : af);
+    c = y1 + align128(sizeof(T) * kEpBwdRows * tile_ld<T>(d));
+    r2 = c + align128(sizeof(float) * kEpBwdRows * (w + 4));
+    stage = r2 + align128(sizeof(float) * kEpBwdRows * (d + 4));
+    stats = stage + align128(ep_stage_bytes());
+    total = stats + 4 * sizeof(float) * kEpBwdRows;
+  }
+};
+
+template <typename T, bool kDrop>
+__global__ void __launch_bounds__(kEpThreads)
+layer_epilogue_bwd_kernel(EpBwdIO<T> io, EpParams<T> ep, int rows, int Lq, int B, int d, int ff,
+                          int H, float rate, float keep_div, float epi_div, unsigned seed) {
+  constexpr int RT = kEpBwdRows;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const EpBwdLayout<T> lay(d, ff);
+  const int w = d > ff ? d : ff, lda = tile_ld<T>(w), ldf = w + 4, ldy = tile_ld<T>(d);
+  const int ldc = w + 4, ldr = d + 4;
+  T* sA = reinterpret_cast<T*>(smem + lay.a);
+  float* sF = reinterpret_cast<float*>(smem + lay.a);  // the same region, fp32
+  T* sY = reinterpret_cast<T*>(smem + lay.y1);
+  float* sC = reinterpret_cast<float*>(smem + lay.c);
+  float* sR = reinterpret_cast<float*>(smem + lay.r2);
+  unsigned char* stage = smem + lay.stage;
+  float* mu1 = reinterpret_cast<float*>(smem + lay.stats);
+  float* inv1 = mu1 + RT;
+  float* mu2 = inv1 + RT;
+  float* inv2 = mu2 + RT;
+  const int r0 = blockIdx.x * RT, tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int nrows = min(RT, rows - r0);
+  const unsigned salt0 = kEpSalt * H;
+  const float inv_d = 1.0f / (float)d;
+
+  // ---- the epilogue forward, as layer_stream.cu computes it ----
+  for (int i = tid; i < RT * d; i += kEpThreads) {
+    const int r = i / d, c = i - r * d;
+    sA[r * lda + c] = r < nrows ? io.att[(long)(r0 + r) * d + c] : from_f<T>(0.f);
+  }
+  __syncthreads();
+  tile_gemm_tn<RT>(sA, lda, d, ep.wff, d, sC, ldc, stage);
+  for (int i = tid; i < RT * d; i += kEpThreads) {
+    const int r = i / d, c = i - r * d;
+    float v = 0.f;
+    if (r < nrows) {
+      float h = proj_epilogue<T>(sC[r * ldc + c], to_f<T>(ep.bff[c]));
+      if (kDrop)
+        h = ep_keep(rate, seed, r0 + r, Lq, B, c, salt0) ? round_to<T>(h / epi_div) : 0.f;
+      v = round_to<T>(to_f<T>(io.xq[(long)(r0 + r) * d + c]) + h);
+      io.dr1[(long)(r0 + r) * d + c] = v;  // r1, for LN1's backward
+    }
+    sC[r * ldc + c] = v;
+  }
+  __syncthreads();
+  ln_stats<RT>(sC, ldc, d, mu1, inv1);
+  for (int i = tid; i < RT * d; i += kEpThreads) {
+    const int r = i / d, c = i - r * d;
+    const T y = from_f<T>((sC[r * ldc + c] - mu1[r]) * inv1[r] * ep.ln1s[c] + ep.ln1b[c]);
+    sY[r * ldy + c] = y;
+    if (r < nrows) io.y1[(long)(r0 + r) * d + c] = y;
+  }
+  __syncthreads();
+  tile_gemm_tn<RT>(sY, ldy, d, ep.wm1, ff, sC, ldc, stage);
+  for (int i = tid; i < RT * ff; i += kEpThreads) {
+    const int r = i / ff, c = i - r * ff;
+    const float u = proj_epilogue<T>(sC[r * ldc + c], to_f<T>(ep.bm1[c]));
+    float g = round_to<T>(gelu_f32(u));
+    if (r < nrows) {
+      if (kDrop)
+        g = ep_keep(rate, seed, r0 + r, Lq, B, c, salt0 + 1) ? round_to<T>(g / epi_div) : 0.f;
+      io.du[(long)(r0 + r) * ff + c] = u;  // u, for GELU's derivative
+      io.gact[(long)(r0 + r) * ff + c] = from_f<T>(g);
+    }
+    sA[r * lda + c] = from_f<T>(g);
+  }
+  __syncthreads();
+  tile_gemm_tn<RT>(sA, lda, ff, ep.wm2, d, sC, ldc, stage);
+  for (int i = tid; i < RT * d; i += kEpThreads) {
+    const int r = i / d, c = i - r * d;
+    float m = proj_epilogue<T>(sC[r * ldc + c], to_f<T>(ep.bm2[c]));
+    if (kDrop && r < nrows)
+      m = ep_keep(rate, seed, r0 + r, Lq, B, c, salt0 + 2) ? round_to<T>(m / epi_div) : 0.f;
+    sR[r * ldr + c] = round_to<T>(to_f<T>(sY[r * ldy + c]) + m);
+  }
+  __syncthreads();
+  ln_stats<RT>(sR, ldr, d, mu2, inv2);
+
+  // ---- LN2: the block's column sums of g xhat2 and g, then dr2 ----
+  float* part = io.part + (long)blockIdx.x * 4 * d;
+  for (int c = tid; c < d; c += kEpThreads) {
+    float s0 = 0.f, s1 = 0.f;
+    for (int r = 0; r < nrows; ++r) {
+      const float gg = to_f<T>(io.g[(long)(r0 + r) * d + c]);
+      s0 = fmaf(gg, (sR[r * ldr + c] - mu2[r]) * inv2[r], s0);
+      s1 += gg;
+    }
+    part[c] = s0;
+    part[d + c] = s1;
+  }
+  __syncthreads();
+  for (int r = warp; r < RT; r += kEpWarps) {
+    float m1 = 0.f, m2 = 0.f;
+    if (r < nrows) {
+      for (int c = lane; c < d; c += 32) {
+        const float dx = to_f<T>(io.g[(long)(r0 + r) * d + c]) * ep.ln2s[c];
+        m1 += dx;
+        m2 = fmaf(dx, (sR[r * ldr + c] - mu2[r]) * inv2[r], m2);
+      }
+      m1 = warp_sum(m1) * inv_d;
+      m2 = warp_sum(m2) * inv_d;
+    }
+    for (int c = lane; c < d; c += 32) {
+      float dr2 = 0.f, dm = 0.f;
+      if (r < nrows) {
+        const float xhat = (sR[r * ldr + c] - mu2[r]) * inv2[r];
+        const float dx = to_f<T>(io.g[(long)(r0 + r) * d + c]) * ep.ln2s[c];
+        dr2 = inv2[r] * (dx - m1 - xhat * m2);
+        dm = dr2;
+        if (kDrop)
+          dm = ep_keep(rate, seed, r0 + r, Lq, B, c, salt0 + 2) ? dr2 / keep_div : 0.f;
+        io.dm[(long)(r0 + r) * d + c] = dm;
+      }
+      sR[r * ldr + c] = dr2;
+      sF[r * ldf + c] = dm;
+    }
+  }
+  __syncthreads();
+
+  // ---- W_m2, the GELU's dropout and derivative ----
+  tile_gemm_nn_f32<T, RT>(sF, ldf, d, ep.wm2, ff, sC, ldc, stage);
+  for (int i = tid; i < RT * ff; i += kEpThreads) {
+    const int r = i / ff, c = i - r * ff;
+    float du = 0.f;
+    if (r < nrows) {
+      float dg = sC[r * ldc + c];
+      if (kDrop) dg = ep_keep(rate, seed, r0 + r, Lq, B, c, salt0 + 1) ? dg / keep_div : 0.f;
+      const long o = (long)(r0 + r) * ff + c;
+      du = dg * gelu_grad_f32(io.du[o]);
+      io.du[o] = du;
+    }
+    sF[r * ldf + c] = du;
+  }
+  __syncthreads();
+
+  // ---- W_m1: dy1 = dr2 + du . W_m1 ----
+  tile_gemm_nn_f32<T, RT>(sF, ldf, ff, ep.wm1, d, sC, ldc, stage);
+  for (int i = tid; i < RT * d; i += kEpThreads) {
+    const int r = i / d, c = i - r * d;
+    sC[r * ldc + c] += sR[r * ldr + c];
+  }
+  __syncthreads();
+
+  // ---- LN1: column sums of dy1 xhat1 and dy1, then dr1 and dh ----
+  for (int c = tid; c < d; c += kEpThreads) {
+    float s2 = 0.f, s3 = 0.f;
+    for (int r = 0; r < nrows; ++r) {
+      const float dy = sC[r * ldc + c];
+      s2 = fmaf(dy, (io.dr1[(long)(r0 + r) * d + c] - mu1[r]) * inv1[r], s2);
+      s3 += dy;
+    }
+    part[2 * d + c] = s2;
+    part[3 * d + c] = s3;
+  }
+  __syncthreads();
+  for (int r = warp; r < RT; r += kEpWarps) {
+    float m1 = 0.f, m2 = 0.f;
+    if (r < nrows) {
+      for (int c = lane; c < d; c += 32) {
+        const float dx = sC[r * ldc + c] * ep.ln1s[c];
+        m1 += dx;
+        m2 = fmaf(dx, (io.dr1[(long)(r0 + r) * d + c] - mu1[r]) * inv1[r], m2);
+      }
+      m1 = warp_sum(m1) * inv_d;
+      m2 = warp_sum(m2) * inv_d;
+    }
+    for (int c = lane; c < d; c += 32) {
+      float dh = 0.f;
+      if (r < nrows) {
+        const long o = (long)(r0 + r) * d + c;
+        const float xhat = (io.dr1[o] - mu1[r]) * inv1[r];
+        const float dr1 = inv1[r] * (sC[r * ldc + c] * ep.ln1s[c] - m1 - xhat * m2);
+        io.dr1[o] = dr1;
+        dh = dr1;
+        if (kDrop) dh = ep_keep(rate, seed, r0 + r, Lq, B, c, salt0) ? dr1 / keep_div : 0.f;
+        io.dh[o] = dh;
+      }
+      sF[r * ldf + c] = dh;
+    }
+  }
+  __syncthreads();
+
+  // ---- W_ff: d_att = dh . W_ff ----
+  tile_gemm_nn_f32<T, RT>(sF, ldf, d, ep.wff, d, sC, ldc, stage);
+  for (int i = tid; i < nrows * d; i += kEpThreads) {
+    const int r = i / d, c = i - r * d;
+    io.datt[(long)(r0 + r) * d + c] = sC[r * ldc + c];
+  }
+}
+
+// out[j][c] = sum over blocks (in order) of part[blk][j][c]
+__global__ void ln_partial_sum_kernel(const float* __restrict__ part, int nblk, int d,
+                                      float* dln2s, float* dln2b, float* dln1s, float* dln1b) {
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= 4 * d) return;
+  float s = 0.f;
+  for (int b = 0; b < nblk; ++b) s += part[(long)b * 4 * d + e];
+  const int j = e / d, c = e - j * d;
+  float* out[4] = {dln2s, dln2b, dln1s, dln1b};
+  out[j][c] = s;
+}
+
+template <typename T>
+cudaError_t launch_k4b(const void* const* p, const int* mq, const int* m1, const int* m2,
+                       const void* g, float* const* work, void* const* dx, float* const* grads,
+                       float* scratch, int B, int Lq, int L1, int L2, int dm, int H, int ff,
+                       int splits, float scale, float rate, float keep_div, float epi_div,
+                       unsigned seed, cudaStream_t s) {
+  if (splits < 1 || splits > kMaxSplits) return cudaErrorInvalidValue;
+  const int rows = B * Lq, d = dm;
+  void* att = work[0];
+  // (1) att
+  cudaError_t err = dispatch_proj_fwd<T>(dm / H, p, mq, m1, m2, att, B, Lq, L1, L2, dm, scale,
+                                         rate, keep_div, seed, s);
+  if (err != cudaSuccess) return err;
+  // (2) the epilogue backward
+  EpBwdIO<T> io{static_cast<const T*>(att), static_cast<const T*>(p[0]),
+                static_cast<const T*>(g),   reinterpret_cast<T*>(work[1]),
+                reinterpret_cast<T*>(work[2]), work[3], work[4], work[5], work[6], work[7],
+                work[8]};
+  const size_t smem = EpBwdLayout<T>(d, ff).total;
+  auto kernel = rate > 0.f ? layer_epilogue_bwd_kernel<T, true>
+                           : layer_epilogue_bwd_kernel<T, false>;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const int nblk = (rows + kEpBwdRows - 1) / kEpBwdRows;
+  kernel<<<nblk, kEpThreads, smem, s>>>(io, ep_params<T>(p + 15), rows, Lq, B, d, ff, H, rate,
+                                        keep_div, epi_div, seed);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  // (3) the LayerNorm gradients
+  ln_partial_sum_kernel<<<(4 * d + 255) / 256, 256, 0, s>>>(work[8], nblk, d, grads[20],
+                                                              grads[21], grads[14], grads[15]);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  // (4) the attention's qkv pass on g = d_att (fp32)
+  float* const* dys = work + 9;
+  err = dispatch_qkv_bwd<T, float>(dm / H, p, mq, m1, m2, work[3], dys, B, Lq, L1, L2, dm, scale,
+                                   rate, keep_div, seed, s);
+  if (err != cudaSuccess) return err;
+  // (5) dxq (+ dr1), dx1, dx2
+  DxJobs<2> xj{};
+  const int L[3] = {Lq, L1, L2};
+  const int pair_dy[3][2] = {{0, 1}, {2, 4}, {3, 5}};  // dq1 dq2 | dk1 dv1 | dk2 dv2
+  const int pair_w[3][2] = {{3, 5}, {7, 11}, {9, 13}};  // Wq1 Wq2 | Wk1 Wv1 | Wk2 Wv2
+  int max_rows = 0;
+  for (int j = 0; j < 3; ++j) {
+    const float* a[2] = {dys[pair_dy[j][0]], dys[pair_dy[j][1]]};
+    const void* wp[2] = {p[pair_w[j][0]], p[pair_w[j][1]]};
+    xj.job[j] = dx_job<2>(a, wp, 2, dx[j], j == 0 ? work[4] : nullptr, B * L[j], d, d);
+    max_rows = max(max_rows, B * L[j]);
+  }
+  err = launch_dx<T, 2>(xj, 3, max_rows, d, s);
+  if (err != cudaSuccess) return err;
+  // (6) the nine weight gradients
+  DwJobs wj{};
+  ReduceJobs rj{};
+  int nj = 0, nr = 0;
+  float* part = scratch;
+  const int w_x[6] = {0, 0, 1, 2, 1, 2};  // xq xq x1 x2 x1 x2
+  for (int w = 0; w < 6; ++w) {
+    if (!add_wgrad(wj, nj, rj, nr, dys[w], p[w_x[w]], B * L[w_x[w]], d, d, splits, part,
+                   grads[w], grads[6 + w]))
+      return cudaErrorInvalidValue;
+    part += wgrad_part_floats(d, d, splits);
+  }
+  // W_ff: dh^T att; W_m1: du^T y1; W_m2: dm^T g
+  const struct { const float* dy; const void* x; int M, N, gi; } ep_w[3] = {
+      {work[6], att, d, d, 12}, {work[7], work[1], ff, d, 16}, {work[5], work[2], d, ff, 18}};
+  for (const auto& e : ep_w) {
+    if (!add_wgrad(wj, nj, rj, nr, e.dy, e.x, rows, e.M, e.N, splits, part, grads[e.gi],
+                   grads[e.gi + 1]))
+      return cudaErrorInvalidValue;
+    part += wgrad_part_floats(e.M, e.N, splits);
+  }
+  const int wmax = d > ff ? d : ff;
+  return launch_wgrads<T>(wj, nj, rj, nr, wmax, wmax, splits, s);
+}
+
+}  // namespace segmm
+
+// dtype: 0 = float32, 1 = bfloat16. The largest of the launches' bytes.
+extern "C" size_t segmm_layer_stream_bwd_smem_bytes(int dtype, int Lq, int L1, int L2, int DH,
+                                                    int dm, int ff) {
+  const size_t a = segmm::k2_smem_bytes(dtype == 1, Lq, L1, L2, DH);
+  const size_t b = segmm::k2b_smem_bytes(dtype == 1, Lq, L1, L2, DH);
+  const size_t e = dtype == 1 ? segmm::EpBwdLayout<__nv_bfloat16>(dm, ff).total
+                              : segmm::EpBwdLayout<float>(dm, ff).total;
+  return a > b ? (a > e ? a : e) : (b > e ? b : e);
+}
+
+// ptrs: as segmm_layer_stream_fwd's; g (B, Lq, d) in x's dtype. work:
+// att, y1 (B, Lq, d) and g (B, Lq, ff) in x's dtype; d_att, dr1, dm, dh
+// (B, Lq, d) and du (B, Lq, ff) fp32; the LayerNorm partials
+// (ceil(B Lq / 16), 4, d) fp32; the six fp32 dq1, dq2, dk1, dk2, dv1, dv2
+// ((B, L, d) each). dx: dxq, dx1, dx2 (x's dtype). grads (fp32): dW of the
+// six projections, their six db, then dW_ff, db_ff, dln1_s, dln1_b, dW_m1,
+// db_m1, dW_m2, db_m2, dln2_s, dln2_b. scratch: fp32, splits * (6 (d^2 + d)
+// + d^2 + 2 d ff + 2 d + ff). 1 <= splits <= 4. Returns a cudaError_t.
+extern "C" int segmm_layer_stream_bwd(int dtype, const void* const* ptrs, const int* mq,
+                                      const int* m1, const int* m2, const void* g,
+                                      float* const* work, void* const* dx, float* const* grads,
+                                      float* scratch, int B, int Lq, int L1, int L2, int dm,
+                                      int H, int ff, int splits, float scale, float rate,
+                                      float keep_div, float epi_div, unsigned seed,
+                                      void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return (int)segmm::launch_k4b<float>(ptrs, mq, m1, m2, g, work, dx, grads, scratch, B, Lq,
+                                         L1, L2, dm, H, ff, splits, scale, rate, keep_div,
+                                         epi_div, seed, s);
+  if (dtype == 1)
+    return (int)segmm::launch_k4b<__nv_bfloat16>(ptrs, mq, m1, m2, g, work, dx, grads, scratch,
+                                                 B, Lq, L1, L2, dm, H, ff, splits, scale, rate,
+                                                 keep_div, epi_div, seed, s);
+  return (int)cudaErrorInvalidValue;
+}

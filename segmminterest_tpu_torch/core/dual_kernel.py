@@ -1,0 +1,233 @@
+"""Dual-stream fused attention, K5 (port of
+``segmminterest_tpu/core/dual_kernel.py``): BOTH projection-fused
+two-block attention streams of one SegFormerX layer in one launch, forward
+(K5f) and backward (K5b); the epilogue (out-projection, FFN, LayerNorms)
+stays outside, as in the JAX package.
+
+    video stream: q1 = vid.Wq_v2v over k1 = vid.Wk_v2v (block 1)
+                  q2 = vid.Wq_t2v over k2 = usr.Wk_t2v (block 2), one softmax
+    user stream:  q1 = usr.Wq_v2t over k1 = vid.Wk_v2t
+                  q2 = usr.Wq_t2t over k2 = usr.Wk_t2t, one softmax
+
+Each stream is K2's math exactly (core/attention.py). Both streams share
+one seed; the user stream's dropout salts start at head H (``2(H + h) +
+block``, dual_kernel.py:100-101), so the two streams draw different bits.
+The backward sums the input gradients as ``_ds_bwd_kernel`` does
+(:151-160): the video input feeds the video stream's queries and block-1
+keys and values and the user stream's block-1 keys and values, the user
+input the rest.
+
+Weights in nn.Linear layout (out, in), biases (d,), 12 per stream in the
+order wq1, bq1, wq2, bq2, wk1, bk1, wk2, bk2, wv1, bv1, wv2, bv2. The
+wrapper launches the CUDA kernels (core/csrc/dual_stream_attention*.cu)
+for CUDA tensors and runs the plain versions only for CPU tensors.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Optional, Sequence
+
+import torch
+
+from . import attention as A
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
+
+def _stream_inputs(xv, xu, mask_v, mask_u):
+    """(xq, x1, x2, masks) of the video and the user stream."""
+    return ((xv, xv, xu, (mask_v, mask_v, mask_u)),
+            (xu, xv, xu, (mask_u, mask_v, mask_u)))
+
+
+def dual_stream_attention_plain(xv, xu, wsa, wsb, mask_v, mask_u,
+                                num_heads: int, scale: float,
+                                rate: float = 0.0, seed: int = 0):
+    """K5f's plain version: K2's plain version on each stream, one seed,
+    the user stream salted from head H. xv (B, Lv, d), xu (B, Lu, d),
+    wsa / wsb the 12 weights and biases of each stream -> (ov, ou)."""
+    (va, sa), (vb, sb) = [((xq, x1, x2), m) for xq, x1, x2, m
+                          in _stream_inputs(xv, xu, mask_v, mask_u)]
+    ov = A.proj_two_block_attention_plain(*va, *wsa, *sa, num_heads, scale,
+                                          rate, seed)
+    ou = A.proj_two_block_attention_plain(*vb, *wsb, *sb, num_heads, scale,
+                                          rate, seed, head_offset=num_heads)
+    return ov, ou
+
+
+def dual_stream_attention_bwd_plain(xv, xu, wsa, wsb, mask_v, mask_u, gv, gu,
+                                    num_heads: int, scale: float,
+                                    rate: float = 0.0, seed: int = 0):
+    """K5b's plain version (``_ds_bwd_kernel``, dual_kernel.py:104-180):
+    each stream's fp32 dq..dv as K2b's qkv pass computes them, then dxv and
+    dxu as sums of six products each in the kernel's order, and the 12 dW
+    and 12 db (each cast to its weight's dtype). Returns
+    (dxv, dxu, *dwa (12), *dwb (12))."""
+    (sa, sb) = _stream_inputs(xv, xu, mask_v, mask_u)
+    daq1, daq2, dak1, dak2, dav1, dav2 = A.proj_qkv_grads_plain(
+        *sa[:3], wsa, sa[3], gv, num_heads, scale, rate, seed)
+    dbq1, dbq2, dbk1, dbk2, dbv1, dbv2 = A.proj_qkv_grads_plain(
+        *sb[:3], wsb, sb[3], gu, num_heads, scale, rate, seed,
+        head_offset=num_heads)
+    dg = A.dgrad
+    dxv = (dg(daq1, wsa[0]) + dg(daq2, wsa[2]) + dg(dak1, wsa[4])
+           + dg(dav1, wsa[8]) + dg(dbk1, wsb[4]) + dg(dbv1, wsb[8]))
+    dxu = (dg(dbq1, wsb[0]) + dg(dbq2, wsb[2]) + dg(dak2, wsa[6])
+           + dg(dav2, wsa[10]) + dg(dbk2, wsb[6]) + dg(dbv2, wsb[10]))
+    grads = [dxv.to(xv.dtype), dxu.to(xu.dtype)]
+    for ws, dys, xs in ((wsa, (daq1, daq2, dak1, dak2, dav1, dav2),
+                         (xv, xv, xv, xu, xv, xu)),
+                        (wsb, (dbq1, dbq2, dbk1, dbk2, dbv1, dbv2),
+                         (xu, xu, xv, xu, xv, xu))):
+        for i, (dy, x) in enumerate(zip(dys, xs)):
+            grads += A.wgrad(x, dy, ws[2 * i], ws[2 * i + 1])
+    return tuple(grads)
+
+
+# ---------------------------------------------------------------------------
+# launching the kernels
+# ---------------------------------------------------------------------------
+
+def _check_k5(xv, xu, wsa, wsb, mask_v, mask_u, num_heads, g=(None, None)):
+    """K5 takes what K2 takes, on each of its two streams."""
+    for (xq, x1, x2, masks), ws, gq in zip(
+            _stream_inputs(xv, xu, mask_v, mask_u), (wsa, wsb), g):
+        A._check_k2((xq, x1, x2) + tuple(ws), masks, num_heads, gq)
+    B, Lv, d = xv.shape
+    return B, Lv, xu.shape[1], d, d // num_heads
+
+
+def _k5_smem_check(lib, dtype, Lv, Lu, dh):
+    smem = A._fn(lib, f"segmm_{lib}_smem_bytes", ctypes.c_size_t,
+                 [ctypes.c_int] * 4)
+    if smem(A._DTYPE_CODE[dtype], Lv, Lu, dh) > A.MAX_SMEM_BYTES:
+        raise ValueError(f"(Lv, Lu)={(Lv, Lu)} needs more shared memory "
+                         "than one block has")
+
+
+def _k5_forward_cuda(xv, xu, wsa, wsb, mask_v, mask_u, num_heads, scale,
+                     rate, seed):
+    B, Lv, Lu, d, dh = _check_k5(xv, xu, wsa, wsb, mask_v, mask_u, num_heads)
+    _k5_smem_check("dual_stream_attention", xv.dtype, Lv, Lu, dh)
+    fn = A._fn("dual_stream_attention", "segmm_dual_stream_attention_fwd",
+               ctypes.c_int, [ctypes.c_int, ctypes.POINTER(ctypes.c_void_p)]
+               + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+               + [ctypes.c_float] + A._DROP_ARGS + [ctypes.c_void_p])
+    mv, mu = A._masks_i32(mask_v, mask_u)
+    ov, ou = torch.empty_like(xv), torch.empty_like(xu)
+    with torch.cuda.device(xv.device):
+        code = fn(A._DTYPE_CODE[xv.dtype], A._ptrs((xv, xu, *wsa, *wsb)),
+                  mv.data_ptr(), mu.data_ptr(), ov.data_ptr(), ou.data_ptr(),
+                  B, Lv, Lu, d, num_heads, float(scale),
+                  *A._drop_args(rate, seed), A._stream_ptr(xv.device))
+    A._raise_on_cuda_error(code, "dual_stream_attention")
+    A.LAUNCHES["dual_stream_attention"] += 1
+    return ov, ou
+
+
+def _k5_backward_cuda(xv, xu, wsa, wsb, mask_v, mask_u, gv, gu, num_heads,
+                      scale, rate, seed):
+    """K5b: the qkv pass of both streams in one launch into an fp32
+    workspace, then the chain: dxv and dxu (six products each) and the 12
+    dW and 12 db over the batch in row chunks added in order."""
+    B, Lv, Lu, d, dh = _check_k5(xv, xu, wsa, wsb, mask_v, mask_u, num_heads,
+                                 (gv, gu))
+    _k5_smem_check("dual_stream_attention_bwd", xv.dtype, Lv, Lu, dh)
+    fn = A._fn("dual_stream_attention_bwd", "segmm_dual_stream_attention_bwd",
+               ctypes.c_int, [ctypes.c_int, ctypes.POINTER(ctypes.c_void_p)]
+               + [ctypes.c_void_p] * 4
+               + [ctypes.POINTER(ctypes.c_void_p)] * 3 + [ctypes.c_void_p]
+               + [ctypes.c_int] * 5 + [ctypes.c_float] + A._DROP_ARGS
+               + [ctypes.c_int, ctypes.c_void_p])
+    mv, mu = A._masks_i32(mask_v, mask_u)
+    dev, f32 = xv.device, torch.float32
+    # per stream: dq1, dq2 (its own length), dk1, dv1 (Lv), dk2, dv2 (Lu)
+    dys = [torch.empty(B, L, d, dtype=f32, device=dev)
+           for Lq in (Lv, Lu) for L in (Lq, Lq, Lv, Lu, Lv, Lu)]
+    dx = [torch.empty_like(xv), torch.empty_like(xu)]
+    dw = [torch.empty(d, d, dtype=f32, device=dev) for _ in range(12)]
+    db = [torch.empty(d, dtype=f32, device=dev) for _ in range(12)]
+    scratch = torch.empty(12 * A.K2_DW_SPLITS * (d * d + d), dtype=f32,
+                          device=dev)
+    gv, gu = gv.contiguous(), gu.contiguous()
+    with torch.cuda.device(dev):
+        code = fn(A._DTYPE_CODE[xv.dtype], A._ptrs((xv, xu, *wsa, *wsb)),
+                  mv.data_ptr(), mu.data_ptr(), gv.data_ptr(), gu.data_ptr(),
+                  A._ptrs(dys), A._ptrs(dx), A._ptrs(dw + db),
+                  scratch.data_ptr(),
+                  B, Lv, Lu, d, num_heads, float(scale),
+                  *A._drop_args(rate, seed), A.K2_DW_SPLITS,
+                  A._stream_ptr(dev))
+    A._raise_on_cuda_error(code, "dual_stream_attention_bwd")
+    A.LAUNCHES["dual_stream_attention_bwd"] += 1
+    ws = tuple(wsa) + tuple(wsb)
+    grads = list(dx)
+    for i in range(12):
+        grads += [dw[i].to(ws[2 * i].dtype), db[i].to(ws[2 * i + 1].dtype)]
+    return tuple(grads)
+
+
+# ---------------------------------------------------------------------------
+# autograd and the public entry point
+# ---------------------------------------------------------------------------
+
+class _DualStreamAttention(torch.autograd.Function):
+    """K5f forward and K5b backward (``_fused_dual`` custom VJP,
+    dual_kernel.py:284-315): saves the inputs, masks and seed."""
+
+    @staticmethod
+    def forward(ctx, xv, xu, *rest):
+        wsa, wsb = rest[:12], rest[12:24]
+        mask_v, mask_u, num_heads, scale, rate, seed = rest[24:]
+        ctx.save_for_backward(xv, xu, *wsa, *wsb, mask_v, mask_u)
+        ctx.hyper = (num_heads, scale, rate, seed)
+        if A._device_kind(xv) == "cpu":
+            return dual_stream_attention_plain(xv, xu, wsa, wsb, mask_v,
+                                               mask_u, num_heads, scale, rate,
+                                               seed)
+        return _k5_forward_cuda(xv, xu, wsa, wsb, mask_v, mask_u, num_heads,
+                                scale, rate, seed)
+
+    @staticmethod
+    def backward(ctx, gv, gu):
+        s = ctx.saved_tensors
+        xv, xu, wsa, wsb, mask_v, mask_u = (s[0], s[1], s[2:14], s[14:26],
+                                            s[26], s[27])
+        gv, gu = gv.contiguous(), gu.contiguous()
+        if gv.device.type == "cpu":
+            grads = dual_stream_attention_bwd_plain(
+                xv, xu, wsa, wsb, mask_v, mask_u, gv, gu, *ctx.hyper)
+        else:
+            grads = _k5_backward_cuda(xv, xu, wsa, wsb, mask_v, mask_u, gv,
+                                      gu, *ctx.hyper)
+        return tuple(grads) + (None,) * 6
+
+
+def fused_dual_stream_attention(vid, usr, qkv_vid: Sequence, qkv_usr: Sequence,
+                                vid_mask, usr_mask, *, num_heads: int,
+                                dropout_rate: float = 0.0, seed: int = 0,
+                                deterministic: bool = True,
+                                scale: Optional[float] = None):
+    """Both layer streams' projection-fused two-block attention in one
+    launch (K5). ``qkv_vid`` / ``qkv_usr``: six (weight, bias) pairs each,
+    nn.Linear layout, in block order (q1, q2, k1, k2, v1, v2); the video
+    stream's blocks are keyed by (v2v, t2v), the user stream's by (v2t,
+    t2t). vid (B, Lv, d), usr (B, Lu, d), masks (B, L) -> (vid_out, usr_out).
+    Differentiable (K5b); with ``deterministic=False`` the dropout mask of
+    ``seed`` applies to both streams."""
+    d = vid.shape[-1]
+    if d % num_heads:
+        raise ValueError(f"d={d} is not a multiple of num_heads={num_heads}")
+    if scale is None:
+        scale = 1.0 / math.sqrt(d // num_heads)
+    flat = [t for pairs in (qkv_vid, qkv_usr) for p in pairs for t in p]
+    if len(flat) != 24:
+        raise ValueError("qkv_vid and qkv_usr take six (weight, bias) pairs "
+                         "each")
+    return _DualStreamAttention.apply(
+        vid, usr, *flat, vid_mask, usr_mask, int(num_heads), float(scale),
+        A._rate(dropout_rate, deterministic), int(seed))

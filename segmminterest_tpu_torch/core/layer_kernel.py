@@ -1,0 +1,369 @@
+"""Layer-fused stream, K4 (port of ``segmminterest_tpu/core/layer_kernel.py``):
+one whole SegFormerX encoder-layer stream, forward (K4f) and backward (K4b).
+
+    att = K2's projection-fused two-block attention        (q from xq,
+          block 1 keys/values from x1, block 2 from x2, one softmax)
+    h   = att . W_ff^T + b_ff ; dropout                    (salt 2H)
+    y1  = LN1(xq + h)
+    u   = y1 . W_m1^T + b_m1 ; g = gelu(u) ; dropout       (salt 2H + 1)
+    m   = g . W_m2^T + b_m2 ; dropout                      (salt 2H + 2)
+    y2  = LN2(y1 + m)
+
+The plain versions here mirror the kernel, not the composed model path:
+the exact GELU is the Abramowitz-Stegun erf polynomial (layer_kernel.py:
+58-80), the LayerNorm takes the fast variance E[r^2] - mu^2 with eps 1e-12
+in fp32 (:83-99), each Dense rounds as ``_proj`` does (the fp32 dot cast
+to the compute dtype, then the bias added in it), and the epilogue's
+dropout masks are the attention mask's hash over (row within the batch
+tile, query row, feature) with seed ``seed + tile`` (:109-137). A dropped
+value divides by ``1 - rate`` in the compute dtype, as the JAX package's
+weakly typed scalar does (bf16(0.9) in bf16).
+
+The backward recomputes the forward from the layer inputs (only they are
+saved) and runs ``_fl_bwd_kernel``'s order (:178-307): LN2 backward, W_m2,
+the GELU derivative, W_m1, LN1 backward, W_ff, then the attention backward
+with g = d_att in fp32 and the LN1 residual gradient added into dxq.
+
+Weights in nn.Linear layout (out, in): qkv the 12 weights and biases of K2
+(wq1, bq1, ..., wv2, bv2); ep = (w_ff, b_ff, ln1_s, ln1_b, w_m1 (ff, d),
+b_m1, w_m2 (d, ff), b_m2, ln2_s, ln2_b) with the LayerNorm parameters in
+fp32 whatever the compute dtype. The wrapper launches the CUDA kernels
+(core/csrc/layer_stream*.cu) for CUDA tensors and runs the plain versions
+only for CPU tensors.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Optional, Sequence
+
+import torch
+
+from . import attention as A
+
+LN_EPS = 1e-12
+# rows of (B * Lq) one block of the epilogue-backward kernel takes
+# (kEpBwdRows, layer_epilogue.cuh); its LayerNorm-parameter partial sums are
+# one row of four d-vectors per block
+K4_BWD_ROWS = 16
+
+_ERF_P = 0.3275911
+_ERF_A = (0.254829592, -0.284496736, 1.421413741, -1.453152027, 1.061405429)
+_INV_SQRT2 = float(1.0 / math.sqrt(2.0))
+_INV_SQRT2PI = float(1.0 / math.sqrt(2.0 * math.pi))
+
+
+def erf_poly(x):
+    """erf by Abramowitz-Stegun 7.1.26 (max abs error 1.5e-7), in x's
+    dtype."""
+    ax = x.abs()
+    t = 1.0 / (1.0 + _ERF_P * ax)
+    poly = t * (_ERF_A[0] + t * (_ERF_A[1] + t * (
+        _ERF_A[2] + t * (_ERF_A[3] + t * _ERF_A[4]))))
+    e = 1.0 - poly * torch.exp(-ax * ax)
+    return torch.where(x < 0, -e, e)
+
+
+def gelu_f32(x):
+    """The kernel's exact GELU on fp32 x (layer_kernel.py:73-74)."""
+    return 0.5 * x * (1.0 + erf_poly(x * _INV_SQRT2))
+
+
+def gelu_grad_f32(x):
+    """Its derivative, cdf + x pdf (layer_kernel.py:77-80)."""
+    cdf = 0.5 * (1.0 + erf_poly(x * _INV_SQRT2))
+    pdf = torch.exp(-0.5 * x * x) * _INV_SQRT2PI
+    return cdf + x * pdf
+
+
+def layer_norm_fwd(r, s, b):
+    """fp32 LayerNorm with the fast variance: (y, xhat, inv_sigma)."""
+    mu = r.mean(-1, keepdim=True)
+    var = (r * r).mean(-1, keepdim=True) - mu * mu
+    inv = torch.rsqrt(var + LN_EPS)
+    xhat = (r - mu) * inv
+    return xhat * s.float() + b.float(), xhat, inv
+
+
+def layer_norm_bwd(dy, xhat, inv, s):
+    """d(input) of y = xhat s + b given dy (all fp32)."""
+    dxhat = dy * s.float()
+    m1 = dxhat.mean(-1, keepdim=True)
+    m2 = (dxhat * xhat).mean(-1, keepdim=True)
+    return inv * (dxhat - m1 - xhat * m2)
+
+
+def _epi_drop(x, keep, rate):
+    """keep ? x / (1 - rate) : 0 with the divisor in x's dtype."""
+    div = torch.tensor(1.0 - rate, dtype=x.dtype, device=x.device)
+    return torch.where(keep, x / div, torch.zeros_like(x))
+
+
+def epilogue_fwd(xq, att, ep, num_heads: int, rate: float = 0.0,
+                 seed: int = 0):
+    """The epilogue (layer_kernel.py:109-137) on att (B, Lq, d): y2 in fp32
+    and what the backward needs."""
+    wff, bff, ln1s, ln1b, wm1, bm1, wm2, bm2, ln2s, ln2b = ep
+    B, Lq, d = xq.shape
+    ff = wm1.shape[0]
+    keeps = [None] * 3
+    if rate > 0:
+        keeps = [A.feature_dropout_keep(B, Lq, w, seed, 2 * num_heads + i,
+                                        rate, xq.device)
+                 for i, w in enumerate((d, ff, d))]
+    h = A._proj(att, wff, bff)
+    if keeps[0] is not None:
+        h = _epi_drop(h, keeps[0], rate)
+    r1 = (xq + h).float()
+    y1f, xhat1, inv1 = layer_norm_fwd(r1, ln1s, ln1b)
+    y1 = y1f.to(xq.dtype)
+    u = A._proj(y1, wm1, bm1)
+    gact = gelu_f32(u.float()).to(xq.dtype)
+    if keeps[1] is not None:
+        gact = _epi_drop(gact, keeps[1], rate)
+    m = A._proj(gact, wm2, bm2)
+    if keeps[2] is not None:
+        m = _epi_drop(m, keeps[2], rate)
+    y2f, xhat2, inv2 = layer_norm_fwd((y1 + m).float(), ln2s, ln2b)
+    return dict(y2=y2f, keeps=keeps, xhat1=xhat1, inv1=inv1, y1=y1, u=u,
+                gact=gact, xhat2=xhat2, inv2=inv2)
+
+
+def layer_stream_plain(xq, x1, x2, qkv, ep, mask_q, mask_1, mask_2,
+                       num_heads: int, scale: float, rate: float = 0.0,
+                       seed: int = 0):
+    """K4f's plain version: K2's plain version into att (the compute
+    dtype), then the epilogue. xq (B, Lq, d), x1 (B, L1, d), x2 (B, L2, d)
+    -> (B, Lq, d) in xq's dtype."""
+    att = A.proj_two_block_attention_plain(xq, x1, x2, *qkv, mask_q, mask_1,
+                                           mask_2, num_heads, scale, rate,
+                                           seed)
+    return epilogue_fwd(xq, att, ep, num_heads, rate, seed)["y2"].to(
+        xq.dtype)
+
+
+def _col_sum(t):
+    return t.reshape(-1, t.shape[-1]).sum(0)
+
+
+def layer_stream_bwd_plain(xq, x1, x2, qkv, ep, mask_q, mask_1, mask_2, g,
+                           num_heads: int, scale: float, rate: float = 0.0,
+                           seed: int = 0):
+    """K4b's plain version (``_fl_bwd_kernel``, layer_kernel.py:178-307).
+    Returns (dxq, dx1, dx2, *dqkv (12), *dep (10)), each in its input's
+    dtype."""
+    wff, bff, ln1s, ln1b, wm1, bm1, wm2, bm2, ln2s, ln2b = ep
+    att = A.proj_two_block_attention_plain(xq, x1, x2, *qkv, mask_q, mask_1,
+                                           mask_2, num_heads, scale, rate,
+                                           seed)
+    e = epilogue_fwd(xq, att, ep, num_heads, rate, seed)
+    keep_h, keep_g, keep_m = e["keeps"]
+    div = torch.tensor(A.keep_divisor(rate), dtype=torch.float32,
+                       device=xq.device)
+    g2 = g.float()
+    dln2s, dln2b = _col_sum(g2 * e["xhat2"]), _col_sum(g2)
+    dr2 = layer_norm_bwd(g2, e["xhat2"], e["inv2"], ln2s)
+    dm = dr2 if keep_m is None else torch.where(keep_m, dr2 / div, 0.0)
+    dwm2, dbm2 = A.wgrad(e["gact"], dm, wm2, bm2)
+    dgd = A.dgrad(dm, wm2)
+    if keep_g is not None:
+        dgd = torch.where(keep_g, dgd / div, 0.0)
+    du = dgd * gelu_grad_f32(e["u"].float())
+    dwm1, dbm1 = A.wgrad(e["y1"], du, wm1, bm1)
+    dy1 = dr2 + A.dgrad(du, wm1)
+    dln1s, dln1b = _col_sum(dy1 * e["xhat1"]), _col_sum(dy1)
+    dr1 = layer_norm_bwd(dy1, e["xhat1"], e["inv1"], ln1s)
+    dh = dr1 if keep_h is None else torch.where(keep_h, dr1 / div, 0.0)
+    dwff, dbff = A.wgrad(att, dh, wff, bff)
+    datt = A.dgrad(dh, wff)
+    dys = A.proj_qkv_grads_plain(xq, x1, x2, qkv, (mask_q, mask_1, mask_2),
+                                 datt, num_heads, scale, rate, seed)
+    grads = A._chain_grads(xq, x1, x2, qkv, dys, dxq_add=dr1)
+    dep = (dwff, dbff, dln1s, dln1b, dwm1, dbm1, dwm2, dbm2, dln2s, dln2b)
+    return grads + tuple(t.to(p.dtype) for t, p in zip(dep, ep))
+
+
+# ---------------------------------------------------------------------------
+# launching the kernels
+# ---------------------------------------------------------------------------
+
+def _check_k4(xq, x1, x2, qkv, ep, masks, num_heads, g=None):
+    B, Lq, L1, L2, d, dh = A._check_k2((xq, x1, x2) + tuple(qkv), masks,
+                                       num_heads, g)
+    wff, bff, ln1s, ln1b, wm1, bm1, wm2, bm2, ln2s, ln2b = ep
+    ff = wm1.shape[0]
+    want = ((wff, (d, d)), (bff, (d,)), (wm1, (ff, d)), (bm1, (ff,)),
+            (wm2, (d, ff)), (bm2, (d,)))
+    A._check_cuda(tuple(t for t, _ in want), xq.dtype)
+    A._check_cuda((ln1s, ln1b, ln2s, ln2b), torch.float32)
+    for t, shape in want + tuple((t, (d,)) for t in (ln1s, ln1b, ln2s,
+                                                      ln2b)):
+        if tuple(t.shape) != shape:
+            raise ValueError(f"epilogue parameter must be {shape}, got "
+                             f"{tuple(t.shape)}")
+    if ff % 32:
+        raise ValueError(f"ff={ff}: the epilogue takes ff % 32 == 0")
+    if any(t.data_ptr() % 16 for t in (wff, wm1, wm2)):
+        raise ValueError("inputs must start on a 16-byte boundary")
+    return B, Lq, L1, L2, d, dh, ff
+
+
+def _epi_div(rate, dtype):
+    """1 - rate in the compute dtype, as a float (the epilogue's divisor)."""
+    return float(torch.tensor(1.0 - rate, dtype=dtype).float())
+
+
+def _k4_smem_check(lib, xq, Lq, L1, L2, dh, d, ff):
+    smem = A._fn(lib, f"segmm_{lib}_smem_bytes", ctypes.c_size_t,
+                 [ctypes.c_int] * 7)
+    if smem(A._DTYPE_CODE[xq.dtype], Lq, L1, L2, dh, d, ff) > \
+            A.MAX_SMEM_BYTES:
+        raise ValueError(f"(Lq, L1, L2, d, ff)={(Lq, L1, L2, d, ff)} needs "
+                         "more shared memory than one block has")
+
+
+def _k4_forward_cuda(xq, x1, x2, qkv, ep, masks, num_heads, scale, rate,
+                     seed):
+    """K4f: K2f's device code writes att (B, Lq, d) in the compute dtype,
+    then the row-tile epilogue kernel; two launches."""
+    B, Lq, L1, L2, d, dh, ff = _check_k4(xq, x1, x2, qkv, ep, masks,
+                                         num_heads)
+    _k4_smem_check("layer_stream", xq, Lq, L1, L2, dh, d, ff)
+    fn = A._fn("layer_stream", "segmm_layer_stream_fwd", ctypes.c_int,
+               [ctypes.c_int, ctypes.POINTER(ctypes.c_void_p)]
+               + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
+               + [ctypes.c_float] + A._DROP_ARGS[:2] + [ctypes.c_float,
+                                                        ctypes.c_uint32,
+                                                        ctypes.c_void_p])
+    mq, m1, m2 = A._masks_i32(*masks)
+    att, out = torch.empty_like(xq), torch.empty_like(xq)
+    rate, kdiv, seed = A._drop_args(rate, seed)
+    with torch.cuda.device(xq.device):
+        code = fn(A._DTYPE_CODE[xq.dtype], A._ptrs((xq, x1, x2, *qkv, *ep)),
+                  mq.data_ptr(), m1.data_ptr(), m2.data_ptr(),
+                  att.data_ptr(), out.data_ptr(), B, Lq, L1, L2, d,
+                  num_heads, ff, float(scale), rate, kdiv,
+                  _epi_div(rate, xq.dtype), seed, A._stream_ptr(xq.device))
+    A._raise_on_cuda_error(code, "layer_stream")
+    A.LAUNCHES["layer_stream"] += 1
+    return out
+
+
+def _k4_backward_cuda(xq, x1, x2, qkv, ep, masks, g, num_heads, scale, rate,
+                      seed):
+    """K4b: att recomputed by K2f's device code; the epilogue-backward
+    row-tile kernel (d_att in fp32, the LN1 residual gradient dr1, what the
+    epilogue's weight gradients need, per-block LayerNorm partial sums);
+    the epilogue's dW, db and LayerNorm gradients summed in order; then
+    K2b's qkv pass on g = d_att and its chain with dxq += dr1."""
+    B, Lq, L1, L2, d, dh, ff = _check_k4(xq, x1, x2, qkv, ep, masks,
+                                         num_heads, g)
+    _k4_smem_check("layer_stream_bwd", xq, Lq, L1, L2, dh, d, ff)
+    fn = A._fn("layer_stream_bwd", "segmm_layer_stream_bwd", ctypes.c_int,
+               [ctypes.c_int, ctypes.POINTER(ctypes.c_void_p)]
+               + [ctypes.c_void_p] * 4
+               + [ctypes.POINTER(ctypes.c_void_p)] * 3
+               + [ctypes.c_void_p] + [ctypes.c_int] * 8 + [ctypes.c_float]
+               + A._DROP_ARGS[:2] + [ctypes.c_float, ctypes.c_uint32,
+                                     ctypes.c_void_p])
+    mq, m1, m2 = A._masks_i32(*masks)
+    dev, f32, T = xq.device, torch.float32, xq.dtype
+    rows = B * Lq
+    nblk = (rows + K4_BWD_ROWS - 1) // K4_BWD_ROWS
+    # workspace: att (T), y1 (T), gact (T); d_att, dr1, dm, dh (rows, d),
+    # du (rows, ff) fp32; the LayerNorm partials (nblk, 4, d); the six fp32
+    # dq..dv of the attention backward
+    work = [torch.empty(B, Lq, w, dtype=t, device=dev) for t, w in
+            ((T, d), (T, d), (T, ff), (f32, d), (f32, d), (f32, d), (f32, d),
+             (f32, ff))]
+    work.append(torch.empty(nblk, 4, d, dtype=f32, device=dev))
+    work += [torch.empty(B, L, d, dtype=f32, device=dev)
+             for L in (Lq, Lq, L1, L2, L1, L2)]
+    dx = [torch.empty_like(x) for x in (xq, x1, x2)]
+    shapes = [(d, d)] * 6 + [(d,)] * 6 + [(d, d), (d,), (d,), (d,), (ff, d),
+                                          (ff,), (d, ff), (d,), (d,), (d,)]
+    grads = [torch.empty(s, dtype=f32, device=dev) for s in shapes]
+    # the row-chunk partials of the nine dW, db
+    splits = A.K2_DW_SPLITS
+    scratch = torch.empty(splits * (7 * (d * d + d) + 2 * d * ff + ff + d),
+                          dtype=f32, device=dev)
+    rate, kdiv, seed = A._drop_args(rate, seed)
+    with torch.cuda.device(dev):
+        code = fn(A._DTYPE_CODE[T], A._ptrs((xq, x1, x2, *qkv, *ep)),
+                  mq.data_ptr(), m1.data_ptr(), m2.data_ptr(), g.data_ptr(),
+                  A._ptrs(work), A._ptrs(dx), A._ptrs(grads),
+                  scratch.data_ptr(),
+                  B, Lq, L1, L2, d, num_heads, ff, splits,
+                  float(scale), rate, kdiv, _epi_div(rate, T), seed,
+                  A._stream_ptr(dev))
+    A._raise_on_cuda_error(code, "layer_stream_bwd")
+    A.LAUNCHES["layer_stream_bwd"] += 1
+    params = tuple(qkv[0::2]) + tuple(qkv[1::2]) + tuple(ep)
+    out = [t.to(p.dtype) for t, p in zip(grads, params)]
+    # the kernel writes dW0..dW5 then db0..db5; interleave as qkv is
+    dqkv = [t for i in range(6) for t in (out[i], out[6 + i])]
+    return tuple(dx) + tuple(dqkv) + tuple(out[12:])
+
+
+# ---------------------------------------------------------------------------
+# autograd and the public entry point
+# ---------------------------------------------------------------------------
+
+class _LayerStream(torch.autograd.Function):
+    """K4f forward and K4b backward (``_fused_layer`` custom VJP,
+    layer_kernel.py:457-489): saves only the layer inputs, parameters,
+    masks and seed; the backward recomputes the rest."""
+
+    @staticmethod
+    def forward(ctx, xq, x1, x2, *rest):
+        qkv, ep = rest[:12], rest[12:22]
+        masks = rest[22:25]
+        num_heads, scale, rate, seed = rest[25:]
+        ctx.save_for_backward(xq, x1, x2, *qkv, *ep, *masks)
+        ctx.hyper = (num_heads, scale, rate, seed)
+        if A._device_kind(xq) == "cpu":
+            return layer_stream_plain(xq, x1, x2, qkv, ep, *masks, num_heads,
+                                      scale, rate, seed)
+        return _k4_forward_cuda(xq, x1, x2, qkv, ep, masks, num_heads, scale,
+                                rate, seed)
+
+    @staticmethod
+    def backward(ctx, g):
+        s = ctx.saved_tensors
+        xq, x1, x2, qkv, ep, masks = s[0], s[1], s[2], s[3:15], s[15:25], \
+            s[25:28]
+        g = g.contiguous()
+        if g.device.type == "cpu":
+            grads = layer_stream_bwd_plain(xq, x1, x2, qkv, ep, *masks, g,
+                                           *ctx.hyper)
+        else:
+            grads = _k4_backward_cuda(xq, x1, x2, qkv, ep, masks, g,
+                                      *ctx.hyper)
+        return tuple(grads) + (None,) * 7
+
+
+def fused_layer_stream(xq, x1, x2, qkv: Sequence, ep: Sequence, mask_q,
+                       mask_1, mask_2, *, num_heads: int,
+                       dropout_rate: float = 0.0, seed: int = 0,
+                       deterministic: bool = True,
+                       scale: Optional[float] = None):
+    """One SegFormerX encoder-layer stream in one kernel (K4): ``qkv`` six
+    (weight, bias) pairs in block order (q1, q2, k1, k2, v1, v2), ``ep`` =
+    (w_ff, b_ff, ln1_s, ln1_b, w_m1, b_m1, w_m2, b_m2, ln2_s, ln2_b), all
+    weights in nn.Linear layout. xq (B, Lq, d), x1 (B, L1, d), x2 (B, L2,
+    d) -> (B, Lq, d). Differentiable (K4b, which saves only the inputs);
+    with ``deterministic=False`` the dropout masks of ``seed`` apply."""
+    d = xq.shape[-1]
+    if d % num_heads:
+        raise ValueError(f"d={d} is not a multiple of num_heads={num_heads}")
+    if scale is None:
+        scale = 1.0 / math.sqrt(d // num_heads)
+    flat = [t for p in qkv for t in p]
+    if len(flat) != 12 or len(ep) != 10:
+        raise ValueError("qkv takes six (weight, bias) pairs and ep ten "
+                         "tensors")
+    return _LayerStream.apply(xq, x1, x2, *flat, *ep, mask_q, mask_1, mask_2,
+                              int(num_heads), float(scale),
+                              A._rate(dropout_rate, deterministic),
+                              int(seed))

@@ -98,9 +98,6 @@ class InterestEngine:
         self.device = resolve_device(device)
         self.feature_mode = feature_table is not None
         self.dtype = _DTYPES[config.compute_dtype]
-        for flag in ("fuse_dual", "fuse_layer"):
-            if getattr(config, flag):
-                raise NotImplementedError(f"{flag} is not ported yet")
         if not self.feature_mode and (config.user_input_type != "id"
                                       or config.photo_input_type != "id"):
             raise ValueError(
@@ -183,7 +180,8 @@ class InterestEngine:
             ablation=cfg.ablation_type, feat_dim=feat_dim,
             fused_attention=cfg.fused_attention, fuse_qkv=cfg.fuse_qkv,
             remat=cfg.remat, remat_scope=cfg.remat_scope,
-            fuse_projections=cfg.fuse_projections)
+            fuse_projections=cfg.fuse_projections, fuse_dual=cfg.fuse_dual,
+            fuse_layer=cfg.fuse_layer)
         model.reset_parameters(torch.Generator().manual_seed(seed))
         return model
 

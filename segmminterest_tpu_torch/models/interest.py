@@ -86,7 +86,8 @@ class SegInterestModel(nn.Module):
                  ablation: str = "ours", feat_dim: int = 1024,
                  fused_attention: bool = False, fuse_qkv: bool = False,
                  remat: bool = False, remat_scope: str = "layer",
-                 fuse_projections: bool = False):
+                 fuse_projections: bool = False, fuse_dual: bool = False,
+                 fuse_layer: bool = False):
         super().__init__()
         self.user_input, self.photo_input = user_input, photo_input
         self.fusion_heads = fusion_heads
@@ -102,7 +103,8 @@ class SegInterestModel(nn.Module):
                 feat_dim=feat_dim, use_pe=use_pe, ablation=ablation,
                 output_layers=[-1], fused_attention=fused_attention,
                 fuse_qkv=fuse_qkv, remat=remat, remat_scope=remat_scope,
-                fuse_projections=fuse_projections)
+                fuse_projections=fuse_projections, fuse_dual=fuse_dual,
+                fuse_layer=fuse_layer)
 
         u1_id = -1 if user_input in ("both", "image") else n_users
         u1_len = 1 if u1_id >= 0 else max_usr_len_image

@@ -18,6 +18,11 @@ chosen by the same flags as the JAX package:
   stream inside kernel K2 (core/attention.py:fused_proj_two_block_attention,
   segformerx.py:319-397). Unlike the TPU build, single-query streams
   (the ID backbone's user stream) go through K2 as well;
+* ``fused_attention=True, fuse_dual=True``: the K2 route with both streams
+  of a layer in one launch of kernel K5
+  (core/dual_kernel.py:fused_dual_stream_attention, segformerx.py:366-380)
+  when both streams are longer than one; otherwise the two K2 calls, as the
+  JAX package decides;
 * the CrossAtt and SelfAtt ablations with ``fused_attention=True``, whatever
   ``fuse_qkv`` is: projections by ``nn.Linear``, then the single-block
   kernel K3 (core/attention.py:fused_masked_attention,
@@ -25,6 +30,17 @@ chosen by the same flags as the JAX package:
   queries over user keys, user queries over video keys), SelfAtt only the
   self streams; SelfAtt's user stream reaches no output (the layer returns
   no user state), so the port does not compute it.
+
+With ``fuse_layer`` the 'ours' path (noPos included) runs each whole layer
+stream, attention, out-projection, LayerNorm residual, GELU MLP and
+LayerNorm residual, in kernel K4 (core/layer_kernel.py:fused_layer_stream,
+segformerx.py:553-609), whatever ``fused_attention`` and
+``fuse_projections`` are; the parameters stay the composed ones (per-stream
+Denses, no ``vid_projs``). K4 saves only the layer inputs, so whole-layer
+remat is off while it runs (segformerx.py:785-803). Single-query streams go
+through K4 on the card too (the JAX package sends them to its composed
+path). Under CrossAtt and SelfAtt ``fuse_dual`` and ``fuse_layer`` change
+nothing, as there.
 
 Ablations (``ablation``, matched as the JAX package matches them:
 substrings "CrossAtt", "SelfAtt", "noPos"; whole names "CrossMLP",
@@ -40,10 +56,11 @@ the 1/sqrt(d_head) scale; dropout acts on attention logits; LayerNorm eps is
 1e-12; GELU is exact; ``output_layers=[-1]`` selects the INPUT of the last
 encoder layer, so that layer is never built (PARITY M1).
 
-Training: dropout runs inside the kernels on the K1 and K2 routes (the hash
-mask of core/attention.py, seeded per attention call as segformerx.py:
-328-333,412-416 seeds them: two int32 per layer, slot 0 for the video
-stream, slot 1 for the user stream) and through ``nn.Dropout`` elsewhere.
+Training: dropout runs inside the kernels on the K1, K2, K3, K4 and K5
+routes (the hash mask of core/attention.py, seeded per attention call as
+segformerx.py:328-333,412-416,564-569 seed them: two int32 per layer, slot
+0 for the video stream, slot 1 for the user stream; K5 takes slot 0 for
+both streams, :379) and through ``nn.Dropout`` elsewhere.
 The seeds are drawn from ``seed_generator`` before any recomputed region,
 so a remat replay sees the same ones. ``remat`` recomputes each encoder
 layer (scope 'layer') or each attention block (scope 'attention') in the
@@ -57,9 +74,8 @@ flax's LayerNorm(dtype=compute dtype) over fp32 params does
 
 Every parameter tree equals the flax model's for the same options, so that
 ``models/convert.py`` maps it leaf for leaf. The sr_ratio / patch-merge
-pyramid (reachable only through the JAX ``SegFormerX`` itself),
-``fuse_dual`` and ``fuse_layer`` are not ported yet; the port raises on
-the latter two.
+pyramid (reachable only through the JAX ``SegFormerX`` itself) is not
+ported.
 """
 
 from __future__ import annotations
@@ -75,12 +91,19 @@ from torch.utils.checkpoint import checkpoint
 from ..core.attention import (fused_masked_attention,
                               fused_proj_two_block_attention,
                               fused_two_block_attention)
+from ..core.dual_kernel import fused_dual_stream_attention
+from ..core.layer_kernel import fused_layer_stream
 from ..core.numerics import masked_attention_logits
 
 LN_EPS = 1e-12
 INIT_STD = 0.02  # encoder.py:414-423: Linear/Embedding ~ N(0, 0.02)
 NO_SEEDS = (0, 0)
 MLP_ABLATIONS = ("CrossMLP", "SelfMLP", "w/oAtt")
+
+
+def ours_path(ablation: str) -> bool:
+    """The four-stream path: neither CrossAtt nor SelfAtt in the name."""
+    return "CrossAtt" not in ablation and "SelfAtt" not in ablation
 
 
 class LayerNorm(nn.LayerNorm):
@@ -197,11 +220,13 @@ class FourStreamAttention(nn.Module):
     of all four streams (segformerx.py:258-261), or only ``vid_projs`` and
     ``usr_projs`` (``Linear(d, 6d)``) with ``fuse_projections`` on the K1
     route; ``ff_usr``, ``ff_vid``, ``ln_vid``, and ``ln_usr`` except under
-    SelfAtt."""
+    SelfAtt. ``fuse_dual`` takes the K2 route and runs both streams in one
+    K5 launch where both are longer than one."""
 
     def __init__(self, d_model: int, num_heads: int, dropout: float = 0.1,
                  fused: bool = False, fuse_qkv: bool = False,
-                 ablation: str = "ours", fuse_projections: bool = False):
+                 ablation: str = "ours", fuse_projections: bool = False,
+                 fuse_dual: bool = False):
         super().__init__()
         self.d_model = d_model
         self.num_heads = num_heads
@@ -211,7 +236,8 @@ class FourStreamAttention(nn.Module):
         self.no_usr_state = "SelfAtt" in ablation
         ours = not (self.cross or self.no_usr_state)
         self.route = ("composed" if not fused else "k3" if not ours
-                      else "k2" if fuse_qkv else "k1")
+                      else "k2" if (fuse_qkv or fuse_dual) else "k1")
+        self.fuse_dual = fuse_dual
         self.wide = self.route == "k1" and fuse_projections
         if self.wide:
             self.vid_projs = nn.Linear(d_model, 6 * d_model)
@@ -353,14 +379,25 @@ class FourStreamAttention(nn.Module):
             usr_out = None
         return vid_out.reshape(b, vid.shape[1], self.d_model), usr_out
 
+    def block_params(self, a, b):
+        """(weight, bias) of q1, q2, k1, k2, v1, v2 for block 1 = stream
+        ``a`` and block 2 = stream ``b``."""
+        pa, pb = getattr(self, f"{a}_proj"), getattr(self, f"{b}_proj")
+        return [(lin.weight, lin.bias) for j in "012"
+                for lin in (pa[j], pb[j])]
+
     def _proj_fused(self, vid, vid_mask, usr, usr_mask, seeds):
-        """All twelve QKV projections inside kernel K2
-        (segformerx.py:319-397)."""
+        """All twelve QKV projections inside kernel K2, or with
+        ``fuse_dual`` both streams in one launch of K5 when both are longer
+        than one (segformerx.py:319-397)."""
+        if self.fuse_dual and vid.shape[1] > 1 and usr.shape[1] > 1:
+            return fused_dual_stream_attention(
+                vid, usr, self.block_params("v2v", "t2v"),
+                self.block_params("v2t", "t2t"), vid_mask, usr_mask,
+                num_heads=self.num_heads, **self._attn_args(seeds[0]))
+
         def wb(a, b):
-            """q1, q2, k1, k2, v1, v2 weights and biases of streams a, b."""
-            pa, pb = getattr(self, f"{a}_proj"), getattr(self, f"{b}_proj")
-            return [t for j in "012" for lin in (pa[j], pb[j])
-                    for t in (lin.weight, lin.bias)]
+            return [t for p in self.block_params(a, b) for t in p]
 
         vid_out = fused_proj_two_block_attention(
             vid, vid, usr, *wb("v2v", "t2v"), vid_mask, vid_mask, usr_mask,
@@ -378,11 +415,17 @@ class SegFormerXLayer(nn.Module):
     def __init__(self, d_model: int, num_heads: int, ff_dim: int,
                  dropout: float = 0.1, fused: bool = False,
                  fuse_qkv: bool = False, remat_attention: bool = False,
-                 ablation: str = "ours", fuse_projections: bool = False):
+                 ablation: str = "ours", fuse_projections: bool = False,
+                 fuse_dual: bool = False, fuse_layer: bool = False):
         super().__init__()
+        # K4 on the 'ours' path, with the composed parameter tree
+        # (segformerx.py:518, :132-149)
+        self.fuse_layer = fuse_layer and ours_path(ablation)
         self.cross_attn = FourStreamAttention(
             d_model, num_heads, dropout, fused=fused, fuse_qkv=fuse_qkv,
-            ablation=ablation, fuse_projections=fuse_projections)
+            ablation=ablation,
+            fuse_projections=fuse_projections and not self.fuse_layer,
+            fuse_dual=fuse_dual)
         # no user state under SelfAtt: no user FFN or LayerNorm
         # (segformerx.py:544-550)
         with_usr = not self.cross_attn.no_usr_state
@@ -399,6 +442,9 @@ class SegFormerXLayer(nn.Module):
                 seeds: Tuple[int, int] = NO_SEEDS):
         """The new video state and the new user state (None under
         SelfAtt)."""
+        if self.fuse_layer:
+            return self._fused_layer_forward(usr_feat, usr_mask, vid_feat,
+                                             vid_mask, seeds)
         if self.remat_attention and self.training and \
                 torch.is_grad_enabled():
             vid_feat, usr_feat = _remat(self.cross_attn, vid_feat, vid_mask,
@@ -411,6 +457,31 @@ class SegFormerXLayer(nn.Module):
             usr_feat = self.ln_usr(usr_feat
                                    + self.drop(self.ff_usr(usr_feat)))
         return vid_feat, usr_feat
+
+    def _fused_layer_forward(self, usr_feat, usr_mask, vid_feat, vid_mask,
+                             seeds):
+        """Each stream of the layer in one launch of kernel K4, the stream
+        wiring of the K2 route (segformerx.py:553-609): video block 1 =
+        v2v, block 2 = t2v; user block 1 = v2t, block 2 = t2t."""
+        a = self.cross_attn
+
+        def ep(ff, ln1, mlp, ln2):
+            return (ff.weight, ff.bias, ln1.weight, ln1.bias,
+                    mlp.layers[0].weight, mlp.layers[0].bias,
+                    mlp.layers[1].weight, mlp.layers[1].bias, ln2.weight,
+                    ln2.bias)
+
+        vid_out = fused_layer_stream(
+            vid_feat, vid_feat, usr_feat, a.block_params("v2v", "t2v"),
+            ep(a.ff_vid, a.ln_vid, self.ff_vid, self.ln_vid), vid_mask,
+            vid_mask, usr_mask, num_heads=a.num_heads,
+            **a._attn_args(seeds[0]))
+        usr_out = fused_layer_stream(
+            usr_feat, vid_feat, usr_feat, a.block_params("v2t", "t2t"),
+            ep(a.ff_usr, a.ln_usr, self.ff_usr, self.ln_usr), usr_mask,
+            vid_mask, usr_mask, num_heads=a.num_heads,
+            **a._attn_args(seeds[1]))
+        return vid_out, usr_out
 
 
 class SegFormerX(nn.Module):
@@ -433,7 +504,8 @@ class SegFormerX(nn.Module):
                  output_layers: Optional[Sequence[int]] = None,
                  fused_attention: bool = False, fuse_qkv: bool = False,
                  remat: bool = False, remat_scope: str = "layer",
-                 fuse_projections: bool = False):
+                 fuse_projections: bool = False, fuse_dual: bool = False,
+                 fuse_layer: bool = False):
         super().__init__()
         if remat_scope not in ("layer", "attention"):
             raise ValueError(f"remat_scope must be 'layer' or 'attention', "
@@ -458,7 +530,12 @@ class SegFormerX(nn.Module):
         self.usr_ln = LayerNorm(d, eps=LN_EPS)
         self.drop = nn.Dropout(dropout)
         self.fused_attention = fused_attention
-        self.remat_layers = remat and remat_scope == "layer"
+        # K4 saves only the layer inputs and recomputes the rest in its
+        # backward, so whole-layer remat is off while it runs
+        # (segformerx.py:785-803)
+        self.fuse_layer = fuse_layer and ours_path(ablation)
+        self.remat_layers = (remat and remat_scope == "layer"
+                             and not self.fuse_layer)
         self.ablation = ablation
         self.no_pos = "noPos" in ablation
         # where the kernels' dropout seeds and noPos's permutations come
@@ -484,7 +561,8 @@ class SegFormerX(nn.Module):
                             fused=fused_attention, fuse_qkv=fuse_qkv,
                             remat_attention=remat and
                             remat_scope == "attention", ablation=ablation,
-                            fuse_projections=fuse_projections)
+                            fuse_projections=fuse_projections,
+                            fuse_dual=fuse_dual, fuse_layer=fuse_layer)
             for _ in range(n_run))
 
     def reset_parameters(self, generator: torch.Generator) -> None:
@@ -494,10 +572,12 @@ class SegFormerX(nn.Module):
 
     def _layer_seeds(self) -> List[Tuple[int, int]]:
         """Two kernel dropout seeds per layer in [0, 2^31 - 1), drawn on the
-        host as segformerx.py:330-331 draws them, only where the kernels
-        apply dropout (training on the K1/K2 routes)."""
+        host as segformerx.py:330-331,566-567 draw them, only where the
+        kernels apply dropout (training on the kernel routes and under
+        ``fuse_layer``)."""
         n = len(self.layers)
-        if not (self.training and self.fused_attention and self.drop.p > 0):
+        if not (self.training and (self.fused_attention or self.fuse_layer)
+                and self.drop.p > 0):
             return [NO_SEEDS] * n
         seeds = torch.randint(0, 2 ** 31 - 1, (n, 2),
                               generator=self.seed_generator)

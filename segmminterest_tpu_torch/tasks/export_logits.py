@@ -10,6 +10,11 @@ Usage:
   python -m segmminterest_tpu_torch.tasks.export_logits \
       --work_dir <dir with ckpt-*.pt> --sample_csv ... (or --path ...) \
       [--serving 1] [--memmap ... --lineid_map ...] [--device cpu]
+      [--fuse_layer 1]
+
+``--fuse_layer 1`` serves each encoder-layer stream through kernel K4; with
+``--serving 1`` it supersedes the preset's ``fuse_qkv``, as in the JAX
+package (export_logits.py:67).
 """
 
 from __future__ import annotations

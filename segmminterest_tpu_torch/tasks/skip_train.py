@@ -16,6 +16,11 @@ Mirrors reference MMinterest/main_for_seq_leave_earlystop_SegMM.py
       --memmap SegMM_feat_memmap.dat \
       --lineid_map SegMM_photoidframeid2lineid.json \
       --compute_dtype bfloat16 --fuse_qkv 1 --table_quant int8 --remat 0
+
+  # each whole encoder-layer stream in one kernel (K4); remat stays off
+  python -m segmminterest_tpu_torch.tasks.skip_train --path SegMM/ \
+      --memmap SegMM_feat_memmap.dat \
+      --lineid_map SegMM_photoidframeid2lineid.json --fuse_layer 1
 """
 
 from __future__ import annotations
@@ -111,8 +116,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="the six QKV projections of each attention inside "
                         "the two-block kernel (K2); needs --fused_attention 1")
     p.add_argument("--fuse_layer", type=int, default=int(d.fuse_layer),
-                   help="whole encoder-layer streams in one kernel each "
-                        "(not ported yet: raises)")
+                   help="each whole encoder-layer stream in one kernel "
+                        "(K4) on the 'ours' path; supersedes "
+                        "--fused_attention / --fuse_qkv there and turns "
+                        "whole-layer remat off")
     p.add_argument("--table_quant", type=str, default=d.table_quant,
                    choices=["none", "int8"],
                    help="store the device feature table int8 + per-row scale "

@@ -1,9 +1,10 @@
-"""K1, K2 and K3, forward and backward (K1b, K2b, K7b and K3b), on the card
-against their plain PyTorch versions, on the same seeded inputs, at the
-flagship width (16 heads of 32, d=512), the four (Lq, L1, L2) stream shapes
-of a both/both layer and the (Lq, Lk) shapes of the CrossAtt and SelfAtt
-ablations, with padded query and key rows, in fp32 and bf16, with dropout
-off and on. Each launch must add one to its kernel's count.
+"""K1, K2, K3, K4 and K5, forward and backward (K1b, K2b, K7b, K3b, K4b and
+K5b), on the card against their plain PyTorch versions, on the same seeded
+inputs, at the flagship width (16 heads of 32, d=512), the four (Lq, L1,
+L2) stream shapes of a both/both layer (K5: its feature backbone's stream
+pair) and the (Lq, Lk) shapes of the CrossAtt and SelfAtt ablations, with
+padded query and key rows, in fp32 and bf16, with dropout off and on. Each
+launch must add one to its kernel's count.
 
 These tests need a CUDA device and skip without one. The file imports
 neither JAX nor the JAX package, so it also runs where the card is, which
@@ -19,6 +20,8 @@ import pytest
 import torch
 
 from segmminterest_tpu_torch.core import attention as A
+from segmminterest_tpu_torch.core import dual_kernel as K5
+from segmminterest_tpu_torch.core import layer_kernel as K4
 
 SHAPES = [(40, 40, 100), (100, 40, 100), (40, 40, 1), (1, 40, 1)]
 H, DH = 16, 32
@@ -222,3 +225,91 @@ def test_k3_rejects_unsupported_shapes(cuda):
     m = torch.ones(2, 129, dtype=torch.bool, device=cuda)
     with pytest.raises(ValueError):
         A.fused_masked_attention(q, q, q, m, m)   # longer than 128
+
+
+def _proj_params(rng, d, n=6):
+    out = []
+    for _ in range(n):  # nn.Linear layout (out, in) + bias
+        out += [(rng.normal(size=(d, d)) / math.sqrt(d)).astype(np.float32),
+                (0.1 * rng.normal(size=d)).astype(np.float32)]
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.1], ids=["eval", "dropout"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("lengths", [(40, 100), (12, 9)])
+def test_k5_kernels_match_plain(cuda, lengths, dtype, rate):
+    """K5f and K5b (both streams of a layer in one launch) against their
+    plain versions; each launch counts once."""
+    rng = np.random.default_rng(6)
+    B, (Lv, Lu), d = 16, lengths, H * DH
+    xv, xu = _on(cuda, [rng.normal(size=(B, L, d)).astype(np.float32)
+                        for L in (Lv, Lu)], dtype)
+    ws = _on(cuda, _proj_params(rng, d, 12), dtype)
+    mv, mu = _on(cuda, (_masks(rng, B, Lv, False), _masks(rng, B, Lu, True)))
+    gv, gu = _on(cuda, [rng.normal(size=(B, L, d)).astype(np.float32)
+                        for L in (Lv, Lu)], dtype)
+    leaves = [t.clone().requires_grad_() for t in [xv, xu] + ws]
+    pairs = lambda ts: [(ts[i], ts[i + 1]) for i in range(0, 12, 2)]  # noqa
+    before = dict(A.LAUNCHES)
+    ov, ou = K5.fused_dual_stream_attention(
+        leaves[0], leaves[1], pairs(leaves[2:14]), pairs(leaves[14:]), mv, mu,
+        num_heads=H, scale=SCALE, dropout_rate=rate, seed=99,
+        deterministic=rate == 0)
+    got = torch.autograd.grad((ov, ou), leaves, (gv, gu))
+    assert A.LAUNCHES["dual_stream_attention"] == \
+        before["dual_stream_attention"] + 1
+    assert A.LAUNCHES["dual_stream_attention_bwd"] == \
+        before["dual_stream_attention_bwd"] + 1
+    wv, wu = K5.dual_stream_attention_plain(xv, xu, ws[:12], ws[12:], mv, mu,
+                                            H, SCALE, rate, 99)
+    torch.testing.assert_close(ov.float(), wv.float(), **TOL[dtype])
+    torch.testing.assert_close(ou.float(), wu.float(), **TOL[dtype])
+    _rel_close(got, K5.dual_stream_attention_bwd_plain(
+        xv, xu, ws[:12], ws[12:], mv, mu, gv, gu, H, SCALE, rate, 99), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.1], ids=["eval", "dropout"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,ff", [(s, H * DH) for s in SHAPES]
+                         + [(SHAPES[0], H * DH // 2)])
+def test_k4_kernels_match_plain(cuda, shape, ff, dtype, rate):
+    """K4f and K4b (a whole layer stream) against their plain versions, the
+    two LayerNorms with parameters of their own and one MLP narrower than
+    d; each launch counts once."""
+    rng = np.random.default_rng(7)
+    B, (Lq, L1, L2), d = 16, shape, H * DH
+    xs = _on(cuda, [rng.normal(size=(B, L, d)).astype(np.float32)
+                    for L in shape], dtype)
+    qkv = _on(cuda, _proj_params(rng, d), dtype)
+
+    def dense(n_out, n_in):  # nn.Linear layout (out, in) + bias
+        return _on(cuda, [
+            (rng.normal(size=(n_out, n_in)) / math.sqrt(n_in)).astype(
+                np.float32), (0.1 * rng.normal(size=n_out)).astype(np.float32)
+        ], dtype)
+
+    def ln():  # fp32 (scale, bias)
+        return _on(cuda, [(1 + 0.1 * rng.normal(size=d)).astype(np.float32),
+                          (0.1 * rng.normal(size=d)).astype(np.float32)])
+
+    ep = dense(d, d) + ln() + dense(ff, d) + dense(d, ff) + ln()
+    masks = _on(cuda, _masks_for(rng, B, *shape))
+    g = _on(cuda, [rng.normal(size=(B, Lq, d)).astype(np.float32)], dtype)[0]
+    leaves = [t.clone().requires_grad_() for t in xs + qkv + ep]
+    before = dict(A.LAUNCHES)
+    out = K4.fused_layer_stream(
+        *leaves[:3], [(leaves[3 + i], leaves[4 + i]) for i in range(0, 12, 2)],
+        leaves[15:], *masks, num_heads=H, scale=SCALE, dropout_rate=rate,
+        seed=99, deterministic=rate == 0)
+    got = torch.autograd.grad(out, leaves, g)
+    assert A.LAUNCHES["layer_stream"] == before["layer_stream"] + 1
+    assert A.LAUNCHES["layer_stream_bwd"] == before["layer_stream_bwd"] + 1
+    # against the largest output, as the gradients: in bf16 a y1 that rounds
+    # the other way before LN2 moves an output by an ulp of y1's size
+    _rel_close([out], [K4.layer_stream_plain(*xs, qkv, ep, *masks, H, SCALE,
+                                             rate, 99)], dtype)
+    _rel_close(got, K4.layer_stream_bwd_plain(*xs, qkv, ep, *masks, g, H,
+                                              SCALE, rate, 99), dtype)

@@ -131,16 +131,3 @@ def test_converter_round_trip_checks_every_shape(rng):
     with pytest.raises(KeyError):
         flax_to_state_dict(bad, tm)
 
-
-def test_unported_options_raise():
-    """fuse_dual and fuse_layer are not ported yet: the engine raises on
-    each (the ablations and fuse_projections are ported)."""
-    from segmminterest_tpu_torch.engine.train import InterestEngine
-    from segmminterest_tpu_torch.utils.config import InterestConfig
-
-    for flag in ("fuse_dual", "fuse_layer"):
-        cfg = InterestConfig(d_model=D, nhead=H, num_layers_enc=2,
-                             user_input_type="id", photo_input_type="id",
-                             **{flag: True})
-        with pytest.raises(NotImplementedError):
-            InterestEngine(cfg, n_users=20, n_items=30, device="cpu")

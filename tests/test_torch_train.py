@@ -1,7 +1,8 @@
 """The port's training engine against the JAX package's ``InterestEngine``
 on the CPU: five lock-step AdamW steps from converted params with dropout
-off, the eval loss dict, the bf16 forward, the ``skip_train`` CLI end to
-end, resume, and remat.
+off (every attention route, the ablations, fuse_dual and fuse_layer), the
+eval loss dict, the bf16 forward, the ``skip_train`` CLI end to end, resume,
+and remat.
 
 Tolerances: losses 3e-4 relative over five steps (PARITY "Cross-
 implementation verification", ROADMAP "Same weights"): the same fp32 math
@@ -161,6 +162,41 @@ def test_lockstep_ablations_match_jax(data, case):
         decay = (1 - cfg.learning_rate * cfg.weight_decay) ** STEPS
         np.testing.assert_allclose(pstate["params"][dead].detach().numpy(),
                                    p0.numpy() * decay, rtol=1e-6)
+
+
+FUSED = {"fuse_dual-both": ("both", dict(fused_attention=True,
+                                           fuse_dual=True)),
+         "fuse_layer-id": ("id", dict(fuse_layer=True)),
+         "fuse_layer-both": ("both", dict(fuse_layer=True))}
+
+
+@pytest.mark.parametrize("case", list(FUSED))
+def test_lockstep_fused_variants_match_jax(data, case):
+    """Five AdamW steps of fuse_dual (K5 on the feature backbone, K2 on
+    the ID backbone's single-query user stream) and fuse_layer (K4) against
+    the JAX engine, every parameter included."""
+    modality, flags = FUSED[case]
+    kw = dict(MODEL, user_input_type=modality, photo_input_type=modality,
+              **flags)
+    jeng, jstate, peng, pstate, batches = _setup(data, kw)
+    layer = peng.model.backbone1.layers[0]
+    assert layer.fuse_layer == ("fuse_layer" in case)
+    assert layer.cross_attn.fuse_dual == ("fuse_dual" in case)
+    key = jax.random.PRNGKey(0)
+    jl, pl = [], []
+    for b in batches:
+        jstate, jld = jeng.train_step(jstate, key, b)
+        pstate, pld = peng.train_step(pstate, b)
+        jl.append(float(jld["loss"]))
+        pl.append(float(pld["loss"]))
+    np.testing.assert_allclose(pl, jl, rtol=LOSS_RTOL)
+    assert len(set(jl)) == STEPS
+    want = flax_to_state_dict(jax.tree.map(np.asarray, jstate["params"]),
+                              peng.model)
+    assert set(want) == set(pstate["params"])
+    for name, p in pstate["params"].items():
+        np.testing.assert_allclose(p.detach().numpy(), want[name].numpy(),
+                                   atol=PARAM_ATOL, rtol=0, err_msg=name)
 
 
 def test_eval_loss_dict_matches_jax(data):
@@ -347,6 +383,25 @@ def test_skip_train_ablation_cli_matches_jax_outputs(data):
     assert set(got) == set(want)
     assert set(res) >= {"test_metrics", "cold_test_metrics",
                         "hot_test_metrics", "steps"}
+    assert res["steps"] == jres["steps"] > 0
+    assert all(np.isfinite(v) for v in got.values())
+
+
+def test_skip_train_fuse_layer_cli_matches_jax_outputs(data):
+    """``--fuse_layer 1`` through both CLIs on the CPU: the same output
+    files and JSON keys, and as many steps."""
+    extra = ["--fuse_layer", "1"]
+    res = skip_train.main(_cli_args(data, data["dir"] / "port_fl",
+                                    extra + ["--device", "cpu"]))
+    work = res["work_dir"]
+    assert osp.exists(osp.join(work, "ckpt-latest.pt"))
+    assert len(glob.glob(osp.join(work, "ckpt-best-*.pt"))) == 1
+    with open(osp.join(work, "final_results.json")) as f:
+        got = json.load(f)
+    jres = jax_skip_train.main(_cli_args(data, data["dir"] / "jax_fl", extra))
+    with open(osp.join(jres["work_dir"], "final_results.json")) as f:
+        want = json.load(f)
+    assert set(got) == set(want)
     assert res["steps"] == jres["steps"] > 0
     assert all(np.isfinite(v) for v in got.values())
 
