@@ -7,10 +7,10 @@ Run from the root of a checkout:  python3 chip_smoke.py
 Phases, each of which fails the run (non-zero exit) on any error:
   build          compile the CUDA kernels of core/csrc with nvcc for sm_90a
   kernels        each kernel (K1f, K1b, K2f, K2b, K7b, K3f, K3b, K5f, K5b,
-                 K4f, K4b) against its plain PyTorch version on the card, at
-                 the main paths' stream shapes, fp32 and bf16, dropout off
-                 and on; times at B=1024 (K1f and K2f also with their
-                 dropout branch)
+                 K4f, K4b, K6f, K6b) against its plain PyTorch version on
+                 the card, at the main paths' stream shapes, fp32 and bf16,
+                 dropout off and on; times at B=1024 (K1f and K2f also with
+                 their dropout branch; K6 in turns with K2)
   serving        the flagship both/both model (d=512, 16 heads, 6 layers)
                  served with the --serving preset over a 3,920,483-row int8
                  feature table built on the card, through the exporter's
@@ -38,6 +38,13 @@ Phases, each of which fails the run (non-zero exit) on any error:
                  memory; each served at B=1024; the default config (fp32)
                  with fuse_layer and remat on, which must not remat; one
                  32-row fp32 step of each on the card against the CPU
+  attn_v2        SEGMM_ATTN_V2's route: the production training config
+                 with K6 (K2's weight-interleaved version 2) on every
+                 fuse_qkv stream, 20 K6f + 18 K6b and no K2 per step; 3
+                 batches served at B=1024; one 32-row fp32 step against the
+                 CPU; skip_train's CLI with SEGMM_ATTN_V2=1 in its
+                 environment and export_logits --serving 1 on its
+                 checkpoint, each in a process of its own
   train_cli      skip_train's CLI over the small memmap, then export_logits
                  serving the checkpoint it wrote; the same for
                  --ablation_type CrossAtt and for --fuse_layer 1
@@ -88,7 +95,8 @@ DROP_RATE = 0.1                      # the model's dropout
 
 RESULT = {"kernels": {}, "launches": {}}
 ALL_PHASES = ("build", "kernels", "serving", "default", "train",
-              "train_default", "ablation", "fused_variants", "train_cli")
+              "train_default", "ablation", "fused_variants", "attn_v2",
+              "train_cli")
 
 
 def log(*a):
@@ -414,6 +422,9 @@ def phase_kernels():
     _k3_kernels(A, g, dev)
     _k5_kernels(A, g, dev)
     _k4_kernels(A, g, dev)
+    # K6 computes K2's function: its bound is K2's at the same shapes
+    _k6_kernels(A, g, dev, (bytes2, flops2 / PEAK_FLOPS[torch.bfloat16]),
+                (bytes2b, ops2b))
     A.reset_launch_counts()
 
 
@@ -802,6 +813,110 @@ def _k4_kernels(A, g, dev):
             f"{_time_ms(lambda: torch.autograd.grad(out, leaves, gx, retain_graph=True), 3):.3f}"
             " ms")
     del t, m, gx, leaves, out
+    torch.cuda.empty_cache()
+
+
+# K6 (version 2 of K2) is also checked where the wrapper swaps the blocks:
+# L1 unaligned, L2 a multiple of 8
+V2_SWAPPED = (12, 12, 40)
+K2_KEYS = ("proj_two_block_attention", "proj_two_block_attention_bwd")
+K6_KEYS = ("proj_two_block_attention_v2", "proj_two_block_attention_v2_bwd")
+
+
+def _k6_kernels(A, g, dev, cost_f, cost_b):
+    """K6f and K6b (version=2) against their plain versions at the four
+    stream shapes and a swapped one, B=64, fp32 and bf16, dropout off and
+    on; then their times at B=1024 in bf16 beside K2f and K2b on the same
+    inputs (in turns: K2, K6, K6, K2). cost_*: K2's (bytes, seconds at the
+    peak rates) at (40, 40, 100), B=1024."""
+    H, d = HEADS, D_MODEL
+    scale = 1.0 / math.sqrt(d // H)
+
+    def attn(x, ws, m, version, rate=0.0, seed=0):
+        return A.fused_proj_two_block_attention(
+            *x, *ws, *m, num_heads=H, scale=scale, dropout_rate=rate,
+            seed=seed, deterministic=rate == 0, version=version)
+
+    def kernel_order(x, ws, m):
+        """The plain versions take the blocks in the order K6 runs them."""
+        t = tuple(x) + tuple(ws)
+        if x[1].shape[1] % 8:
+            return A.swap_blocks(t), (m[0], m[2], m[1]), True
+        return t, m, False
+
+    def plain(x, ws, m, rate=0.0, seed=0):
+        t, mm, _ = kernel_order(x, ws, m)
+        return A.proj_two_block_attention_v2_plain(*t, *mm, H, scale, rate,
+                                                   seed)
+
+    def plain_bwd(x, ws, m, gx, rate=0.0, seed=0):
+        t, mm, swapped = kernel_order(x, ws, m)
+        grads = A.proj_two_block_attention_v2_bwd_plain(*t, *mm, gx, H, scale,
+                                                        rate, seed)
+        return A.swap_blocks(grads) if swapped else grads
+
+    worst = {}
+    for dt in (torch.float32, torch.bfloat16):
+        for shape in STREAM_SHAPES + (V2_SWAPPED,):
+            x, ws, m = _k2_inputs(g, 64, *shape, dt, dev)
+            gx = torch.randn(64, shape[0], d, generator=g, device=dev).to(dt)
+            errs = {}
+            for rate, seed in ((0.0, 0), (DROP_RATE, 8642097)):
+                on = "drop" if rate else "eval"
+                tag = f"{str(dt)[6:]} {shape} {on}"
+                n = dict(A.LAUNCHES)
+                errs[f"K6f {on}"] = _check(f"K6f {tag}",
+                                           attn(x, ws, m, 2, rate, seed),
+                                           plain(x, ws, m, rate, seed), dt)
+                grads = _grads(lambda *t: attn(t[:3], t[3:], m, 2, rate, seed),
+                               tuple(x) + tuple(ws), gx)
+                ran = {k: A.LAUNCHES[k] - n[k] for k in K2_KEYS + K6_KEYS}
+                if ran != {K2_KEYS[0]: 0, K2_KEYS[1]: 0, K6_KEYS[0]: 2,
+                           K6_KEYS[1]: 1}:
+                    raise AssertionError(f"K6 {tag}: launches {ran}")
+                errs[f"K6b {on}"] = _rel_err(f"K6b {tag}", grads,
+                                             plain_bwd(x, ws, m, gx, rate, seed),
+                                             BWD_TOL[dt])
+            for k, v in errs.items():
+                worst[k.split()[0]] = max(worst.get(k.split()[0], 0.0), v)
+            log(f"  B=64 {str(dt)[6:]} {shape}: " + ", ".join(
+                f"{k} {v:.2g}" for k, v in errs.items()))
+    torch.cuda.synchronize()
+
+    B, dt = 1024, torch.bfloat16
+    for i, shape in enumerate(STREAM_SHAPES):
+        x, ws, m = _k2_inputs(g, B, *shape, dt, dev)
+        gx = torch.randn(B, shape[0], d, generator=g, device=dev).to(dt)
+        leaves = [t.detach().requires_grad_() for t in tuple(x) + tuple(ws)]
+        outs = {v: attn(leaves[:3], leaves[3:], m, v) for v in (1, 2)}
+        ms = {}
+        for v in (1, 2, 2, 1):
+            f = _time_ms(lambda: attn(x, ws, m, v), 10 if i == 0 else 5)
+            b = _time_ms(lambda: torch.autograd.grad(
+                outs[v], leaves, gx, retain_graph=True), 5 if i == 0 else 3)
+            ms.setdefault(v, []).append((f, b))
+        (k2f, k2b), (k6f, k6b) = (
+            tuple(sum(t[j] for t in ms[v]) / 2 for j in (0, 1)) for v in (1, 2))
+        log(f"  B=1024 bf16 {shape}: K6f {k6f:.3f} ms, K6b {k6b:.3f} ms; K2f "
+            f"{k2f:.3f}, K2b {k2b:.3f} (same inputs, in turns)")
+        if i:
+            continue
+        err_f = _check("K6f B=1024", outs[2], plain(x, ws, m), dt)
+        got = torch.autograd.grad(outs[2], leaves, gx, retain_graph=True)
+        err_b = _rel_err("K6b B=1024", got, plain_bwd(x, ws, m, gx),
+                         BWD_TOL[dt])
+        del got
+        plain_f = _time_ms(lambda: plain(x, ws, m), 5)
+        plain_b = _time_ms(lambda: plain_bwd(x, ws, m, gx), 3)
+        _record("K6", "proj_two_block_attention_v2_fwd (K6f)",
+                "proj_two_block_attention_v2.cu", 1198,
+                max(worst["K6f"], err_f), k6f, plain_f, *cost_f, None)
+        _record("K6b", "proj_two_block_attention_v2_bwd (K6b)",
+                "proj_two_block_attention_v2_bwd.cu", 1253,
+                max(worst["K6b"], err_b), k6b, plain_b, *cost_b, None)
+        log(f"  K6 bf16 B=1024 {shape}: plain K6f {plain_f:.3f} ms, plain "
+            f"K6b {plain_b:.3f} ms; max err K6f {err_f:.3g}, K6b {err_b:.3g}")
+    del x, ws, m, gx, leaves, outs
     torch.cuda.empty_cache()
 
 
@@ -1507,6 +1622,184 @@ def phase_fused_variants(ctx):
     del cpu_table
 
 
+V2_STEPS = 6            # timed after 2 warm-up steps
+V2_SERVED = 3           # batches served at B=1024
+
+
+def _launches(counts, per, n):
+    """counts of K2 and K6 against `per` launches of each per step."""
+    return {k: counts[k] for k in K2_KEYS + K6_KEYS}, {
+        k: n * per.get(k, 0) for k in K2_KEYS + K6_KEYS}
+
+
+def _subprocess_json(args, env, what):
+    """Run `python -m args` from the checkout's root with `env`; its
+    stdout's last JSON object and its stderr. Logs the wall time and when
+    each of its log lines came, for where a CLI run's time goes."""
+    t0 = time.time()
+    proc = subprocess.run([sys.executable, "-m", *args], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=600)
+    if proc.returncode:
+        raise AssertionError(f"{what} exited {proc.returncode}:\n"
+                             f"{proc.stderr[-4000:]}")
+    marks = []
+    for ln in proc.stderr.splitlines():
+        try:
+            t = time.mktime(time.strptime(ln[:19], "%Y-%m-%d %H:%M:%S"))
+        except ValueError:
+            continue
+        marks.append(f"+{t - t0:.0f} s {ln[24:70]}")
+    log(f"  {what}: {time.time() - t0:.1f} s wall; log lines at "
+        + "; ".join(marks[:3] + marks[-3:]))
+    start = proc.stdout.rfind("\n{\n") + 1
+    return (json.loads(proc.stdout[start:]) if "{" in proc.stdout else None,
+            proc.stderr)
+
+
+def _logged_launches(stderr, what):
+    lines = [ln for ln in stderr.splitlines() if "kernel launches: " in ln]
+    if not lines:
+        raise AssertionError(f"{what}: no 'kernel launches' log line")
+    return json.loads(lines[-1].split("kernel launches: ", 1)[1])
+
+
+def phase_attn_v2(ctx):
+    """SEGMM_ATTN_V2's route (K6 on every fuse_qkv stream): the production
+    training configuration for V2_STEPS steps (20 K6f + 18 K6b and no K2
+    per step), V2_SERVED batches served at B=1024 (20 K6f each), one 32-row
+    fp32 step on the card against the CPU; then skip_train's CLI with
+    SEGMM_ATTN_V2=1 in its environment and export_logits --serving 1 on the
+    checkpoint it wrote, each in a process of its own."""
+    from segmminterest_tpu_torch.core import attention as A
+    from segmminterest_tpu_torch.data.dataset import BatchIterator
+    from segmminterest_tpu_torch.engine.train import InterestEngine
+
+    _data(ctx)
+    reader, store = ctx["reader"], ctx["store"]
+    per_step = {K6_KEYS[0]: FWD_PER_STEP, K6_KEYS[1]: BWD_PER_STEP}
+    A.ATTN_V2 = True
+    try:
+        cfg = _production_train_cfg(ctx["csv"])
+        engine = InterestEngine(cfg, reader.n_users, reader.n_items,
+                                feature_table=ctx["table"], device="cuda")
+        batches = [b for _, b in zip(range(V2_STEPS), BatchIterator(
+            reader, reader.tables["train"], 1024, shuffle=True,
+            feature_store=store, seed=cfg.seed,
+            transform=engine.batch_transform))]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        state, times, losses, counts = _train_steps(engine, batches)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        got, want = _launches(counts, per_step, len(batches))
+        if got != want:
+            raise AssertionError(f"v2 train: launches {got}, expected {want}")
+        RESULT["launches"]["K6b"] = counts[K6_KEYS[1]]
+        steady = times[2:]
+        rows = sum(int(b["row_mask"].sum()) for b in batches[2:])
+        log(f"  v2 production train (bf16, K6, int8 table, no remat, "
+            f"B=1024): {1e3 * sum(steady) / len(steady):.1f} ms per step, "
+            f"{rows / sum(steady):.1f} interactions/s over {len(steady)} steps"
+            f" after 2 warm-up steps; peak device memory {peak:.2f} GiB; "
+            f"losses {[round(x, 4) for x in losses]}; launches per step "
+            f"{ {k: v // len(batches) for k, v in got.items()} }")
+
+        dev_batches = [{"_dev": engine.put_batch(b)}
+                       for b in batches[:V2_SERVED]]
+        A.reset_launch_counts()
+        for b in dev_batches:
+            _, logits, _ = engine.eval_step(state, b)
+            if logits.shape != (1024, 40) or not torch.isfinite(logits).all():
+                raise AssertionError("v2 serving: logits not (1024, 40) "
+                                     "finite")
+        torch.cuda.synchronize()
+        got, want = _launches(dict(A.LAUNCHES), {K6_KEYS[0]: FWD_PER_STEP},
+                              V2_SERVED)
+        if got != want:
+            raise AssertionError(f"v2 serving: launches {got}, expected "
+                                 f"{want}")
+        RESULT["launches"]["K6"] = got[K6_KEYS[0]]
+        ms = _time_ms(lambda: [engine.eval_step(state, b)
+                               for b in dev_batches], 1, warmup=0)
+        log(f"  v2 served (bf16, K6) B=1024: {ms / V2_SERVED:.1f} ms per "
+            f"batch over {V2_SERVED} batches ({1e3 * 1024 * V2_SERVED / ms:.1f}"
+            f" interactions/s); {FWD_PER_STEP} K6f per forward")
+        del engine, state, dev_batches
+        torch.cuda.empty_cache()
+
+        # 32 rows, fp32, dropout off: K6 on the card against the CPU's plain
+        # version of it
+        small = next(iter(BatchIterator(reader, reader.tables["train"], 32,
+                                        feature_store=store, seed=7,
+                                        prefetch_size=0)))
+        one = _flagship_cfg(ctx["csv"]).replace(
+            train_batch_size=32, table_quant="int8", dropout=0.0,
+            fused_attention=True, fuse_qkv=True)
+        got = {}
+        for dev, table in (("cuda", ctx["table"]),
+                           ("cpu", tuple(t.cpu() for t in ctx["table"]))):
+            eng = InterestEngine(one, reader.n_users, reader.n_items,
+                                 feature_table=table, device=dev)
+            A.reset_launch_counts()
+            _, ld = eng.train_step(eng.init_state(), small)
+            got[dev] = (float(ld["loss"]), float(eng.last_grad_norm),
+                        A.LAUNCHES[K6_KEYS[1]], A.LAUNCHES[K2_KEYS[1]])
+            del eng, table
+        if got["cuda"][2:] != (BWD_PER_STEP, 0) or got["cpu"][2:] != (0, 0):
+            raise AssertionError(f"32-row v2 step launches: {got}")
+        dl = abs(got["cuda"][0] - got["cpu"][0]) / abs(got["cpu"][0])
+        dg = abs(got["cuda"][1] - got["cpu"][1]) / got["cpu"][1]
+        log(f"  32-row fp32 v2 step, card vs CPU: loss {got['cuda'][0]:.6f} "
+            f"vs {got['cpu'][0]:.6f} (rel {dl:.2g}), grad norm "
+            f"{got['cuda'][1]:.6f} vs {got['cpu'][1]:.6f} (rel {dg:.2g})")
+        # fp32 through five layers in another summation order: 1e-4
+        if not (dl <= 1e-4 and dg <= 1e-4):
+            raise AssertionError(f"card and CPU v2 steps differ: {got}")
+    finally:
+        A.ATTN_V2 = False
+
+    # the CLIs with the real switch, SEGMM_ATTN_V2=1 in their environment
+    memmap, lineid = _cli_files(ctx)
+    env = dict(os.environ, SEGMM_ATTN_V2="1")
+    common = ["--sample_csv", ctx["csv"], "--min_interactions", "100",
+              "--num_warmup", "80", "--memmap", memmap, "--lineid_map",
+              lineid, "--seed", "7"]
+    t0 = time.perf_counter()
+    res, err = _subprocess_json(
+        ["segmminterest_tpu_torch.tasks.skip_train"] + common + [
+            "--debug", "1", "--compute_dtype", "bfloat16", "--fuse_qkv", "1",
+            "--table_quant", "int8", "--remat", "0", "--ckpt_dir",
+            os.path.join(WORK, "train_cli_v2")], env, "skip_train (v2)")
+    launches, steps = res["kernel_launches"], res["steps"]
+    if "K2 version 2" not in err or steps < 1 or \
+            launches.get(K6_KEYS[1]) != BWD_PER_STEP * steps or \
+            any(k in launches for k in K2_KEYS) or \
+            not all(math.isfinite(v) for v in res["test_metrics"].values()):
+        raise AssertionError(f"skip_train SEGMM_ATTN_V2=1: {steps} steps, "
+                             f"launches {launches}, metrics "
+                             f"{res['test_metrics']}")
+    log(f"  skip_train CLI, SEGMM_ATTN_V2=1 ({time.perf_counter() - t0:.1f} "
+        f"s): {steps} steps, test HR@5 {res['test_metrics']['HR@5']:.4f}; "
+        f"launches {launches}")
+    out_dir = os.path.join(WORK, "trained_v2_logits")
+    _, err = _subprocess_json(
+        ["segmminterest_tpu_torch.tasks.export_logits"] + common + [
+            "--serving", "1", "--splits", "test", "--work_dir",
+            res["work_dir"], "--out_dir", out_dir], env,
+        "export_logits (v2)")
+    launches = _logged_launches(err, "export_logits (v2)")
+    with open(os.path.join(out_dir, "interest_logits.json")) as f:
+        served = json.load(f)
+    n_test = len(ctx["reader"].tables["test"])
+    if len(served) != n_test or not all(
+            len(v) == 40 and np.isfinite(v).all() for v in served.values()) \
+            or not launches.get(K6_KEYS[0]) or \
+            any(k in launches for k in K2_KEYS):
+        raise AssertionError(f"export_logits SEGMM_ATTN_V2=1: {len(served)} "
+                             f"rows of {n_test}, launches {launches}")
+    log(f"  export_logits --serving 1, SEGMM_ATTN_V2=1: {len(served)} rows of "
+        f"40 finite logits; launches {launches}")
+
+
 def phase_train_cli(ctx):
     """skip_train's CLI (production flags, --debug 1) over the small
     memmap, then export_logits serving the checkpoint it wrote."""
@@ -1633,6 +1926,11 @@ def main(argv=None):
         return 2
     sys.path.insert(0, ROOT)
     import segmminterest_tpu_torch  # noqa: F401 (fails outside a checkout)
+    from segmminterest_tpu_torch.core import attention as A
+
+    # the phases set SEGMM_ATTN_V2's switch themselves: on in attn_v2 (and
+    # in its CLIs' environment), off everywhere else
+    A.ATTN_V2 = False
 
     # fp32 comparisons in full fp32: no TF32 in matmuls or convolutions
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1651,6 +1949,7 @@ def main(argv=None):
          "train_default": lambda: phase_train_default(ctx),
          "ablation": lambda: phase_ablation(ctx),
          "fused_variants": lambda: phase_fused_variants(ctx),
+         "attn_v2": lambda: phase_attn_v2(ctx),
          "train_cli": lambda: phase_train_cli(ctx)}[name]()
         log(f"phase {name}: ok ({time.perf_counter() - t0:.1f} s)")
     log(f"all phases: {time.perf_counter() - t_all:.1f} s")

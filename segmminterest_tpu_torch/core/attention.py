@@ -38,6 +38,16 @@ K3's backward (``_bwd_kernel``, attention.py:156-203) is the same with one
 block: dv = p^T g, dl = p (dp - sum dp p) scale, dropout mask, pair mask,
 dq = dl k, dk = dl^T q, each gradient in its input's dtype.
 
+K6 is K2's version 2 (``_fp2_fwd_kernel`` / ``_fp2_bwd_kernel``,
+attention.py:1198-1372), taken under ``SEGMM_ATTN_V2=1`` or ``version=2``:
+the Q and K weights interleaved per head (``interleave_ws``), so that head h
+has one query row q_c = [q1_h | q2_h] of width 2 Dh and one key axis of
+Lk = L1 + L2 rows ([k1_h | 0] then [0 | k2_h]); one contraction, one fill,
+one dropout mask over (query, concatenated key) with salt h (K3's form),
+one softmax, one PV over Lk. The backward's weight gradients come out for
+the interleaved weights and are de-interleaved. The function is K2's; the
+mask bits and the order of the sums are not.
+
 Each wrapper launches its CUDA kernel (``core/csrc``) for CUDA tensors and
 runs the plain version only for CPU tensors; there is no fall-back from one
 to the other.
@@ -60,7 +70,8 @@ LAUNCHES = {"two_block_attention": 0, "proj_two_block_attention": 0,
             "proj_two_block_attention_qkv_bwd": 0, "masked_attention": 0,
             "masked_attention_bwd": 0, "dual_stream_attention": 0,
             "dual_stream_attention_bwd": 0, "layer_stream": 0,
-            "layer_stream_bwd": 0}
+            "layer_stream_bwd": 0, "proj_two_block_attention_v2": 0,
+            "proj_two_block_attention_v2_bwd": 0}
 
 # the most shared memory one block may use on an H100 (227 KB)
 MAX_SMEM_BYTES = 232_448
@@ -80,6 +91,9 @@ K2_DW_SPLITS = 4
 # SEGMM_ATTN_V3_BWD=1: K2's backward emits dq..dv only (K7b) and leaves dx,
 # dW and db to torch.matmul, as the JAX package's switch does (:1565)
 ATTN_V3_BWD = os.environ.get("SEGMM_ATTN_V3_BWD", "0") == "1"
+# SEGMM_ATTN_V2=1: fused_proj_two_block_attention defaults to version 2
+# (K6), as the JAX package's switch does (:51)
+ATTN_V2 = os.environ.get("SEGMM_ATTN_V2", "0") == "1"
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 DEFAULT_BLOCK_B = 8
@@ -386,6 +400,13 @@ def masked_attention_bwd_plain(q, k, v, mask_q, mask_k, g, scale: float,
     probabilities recomputed in fp32, dv = p^T g, dp = g v^T,
     dl = p (dp - sum dp p) scale, then the dropout mask and divisor, then the
     pair mask; dq = dl k, dk = dl^T q. dq, dk, dv in their inputs' dtypes."""
+    dq, dk, dv = _masked_bwd_f32(q, k, v, mask_q, mask_k, g, scale, rate,
+                                 seed)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _masked_bwd_f32(q, k, v, mask_q, mask_k, g, scale, rate, seed):
+    """The single-block backward of K3b and K6b in fp32: dq, dk, dv."""
     p, pair, keep = _masked_probs(q, k, mask_q, mask_k, scale, rate, seed)
     gf = g.float()
     dv = torch.einsum("bhqk,bqhd->bkhd", p, gf)
@@ -398,7 +419,110 @@ def masked_attention_bwd_plain(q, k, v, mask_q, mask_k, g, scale: float,
     dl = torch.where(pair, dl, 0.0)
     dq = torch.einsum("bhqk,bkhd->bqhd", dl, k.float())
     dk = torch.einsum("bhqk,bqhd->bkhd", dl, q.float())
-    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+    return dq, dk, dv
+
+
+def interleave_ws(wq1, bq1, wq2, bq2, wk1, bk1, wk2, bk2, num_heads: int):
+    """K6's interleaved Q and K parameters (``_interleave_ws``,
+    attention.py:1156-1173) in nn.Linear layout: Wq_c, Wk1_c, Wk2_c
+    (2d, d) and their (2d,) biases. Head h's rows [2h Dh, 2h Dh + Dh) of
+    Wq_c are wq1's rows of head h and the next Dh rows wq2's; Wk1_c holds
+    [wk1_h | 0] and Wk2_c [0 | wk2_h]."""
+    d = wq1.shape[0]
+    H = num_heads
+
+    def il(a, b):
+        return torch.stack([a.reshape(H, d // H, -1), b.reshape(H, d // H, -1)],
+                           1).reshape(2 * d, *a.shape[1:])
+
+    zw, zb = torch.zeros_like(wk1), torch.zeros_like(bk1)
+    return (il(wq1, wq2), il(bq1, bq2), il(wk1, zw), il(bk1, zb),
+            il(zw, wk2), il(zb, bk2))
+
+
+def deinterleave_w(dw, num_heads: int, slot: int):
+    """(2d, d) gradient of an interleaved weight -> the (d, d) gradient of
+    slot 0 or 1 (``_deinterleave_w``, attention.py:1176-1180)."""
+    d = dw.shape[1]
+    return dw.reshape(num_heads, 2, d // num_heads, d)[:, slot].reshape(d, d)
+
+
+def deinterleave_b(db, num_heads: int, slot: int):
+    """(2d,) gradient of an interleaved bias -> the (d,) gradient of slot 0
+    or 1 (``_deinterleave_b``, attention.py:1183-1186)."""
+    d = db.shape[0] // 2
+    return db.reshape(num_heads, 2, d // num_heads)[:, slot].reshape(d)
+
+
+def _v2_operands(xq, x1, x2, ws, num_heads):
+    """The interleaved parameters and K6's operands with ``_proj``'s
+    rounding: q_c (B, Lq, H, 2Dh), the concatenated keys (B, Lk, H, 2Dh)
+    and values (B, Lk, H, Dh) (attention.py:1211-1215)."""
+    wq1, bq1, wq2, bq2, wk1, bk1, wk2, bk2, wv1, bv1, wv2, bv2 = ws
+    cws = interleave_ws(wq1, bq1, wq2, bq2, wk1, bk1, wk2, bk2, num_heads)
+    wq_c, bq_c, wk1_c, bk1_c, wk2_c, bk2_c = cws
+    q = _heads(_proj(xq, wq_c, bq_c), num_heads)
+    k = _heads(torch.cat([_proj(x1, wk1_c, bk1_c), _proj(x2, wk2_c, bk2_c)],
+                         1), num_heads)
+    v = _heads(torch.cat([_proj(x1, wv1, bv1), _proj(x2, wv2, bv2)], 1),
+               num_heads)
+    return cws, q, k, v
+
+
+def proj_two_block_attention_v2_plain(xq, x1, x2, wq1, bq1, wq2, bq2, wk1,
+                                      bk1, wk2, bk2, wv1, bv1, wv2, bv2,
+                                      mask_q, mask_1, mask_2, num_heads: int,
+                                      scale: float, rate: float = 0.0,
+                                      seed: int = 0):
+    """K6f's plain version (``_fp2_fwd_kernel``, attention.py:1198-1250):
+    the interleaved projections, one (Lq, Lk) logit matrix per head, fill
+    -10000, dropout over (query, concatenated key) with salt h, scale, fp32
+    softmax, p cast to v's dtype, PV over Lk. xq (B, Lq, d), x1 (B, L1, d),
+    x2 (B, L2, d) -> (B, Lq, d)."""
+    ws = (wq1, bq1, wq2, bq2, wk1, bk1, wk2, bk2, wv1, bv1, wv2, bv2)
+    _, q, k, v = _v2_operands(xq, x1, x2, ws, num_heads)
+    out = masked_attention_plain(q, k, v, mask_q,
+                                 torch.cat([mask_1, mask_2], 1), scale, rate,
+                                 seed)
+    return out.reshape(xq.shape)
+
+
+def proj_two_block_attention_v2_bwd_plain(xq, x1, x2, wq1, bq1, wq2, bq2,
+                                          wk1, bk1, wk2, bk2, wv1, bv1, wv2,
+                                          bv2, mask_q, mask_1, mask_2, g,
+                                          num_heads: int, scale: float,
+                                          rate: float = 0.0, seed: int = 0):
+    """K6b's plain version (``_fp2_bwd_kernel``, attention.py:1253-1372,
+    and ``_fp2_bwd_rule`` :1519-1546): dq_c, the concatenated dk (both
+    halves) and dv in fp32, dx through the interleaved weights (x's dtype),
+    dW and db of the interleaved weights over the batch in fp32,
+    de-interleaved and cast to each weight's dtype. Returns K2b's fifteen
+    gradients in K2b's order."""
+    ws = (wq1, bq1, wq2, bq2, wk1, bk1, wk2, bk2, wv1, bv1, wv2, bv2)
+    H = num_heads
+    cws, q, k, v = _v2_operands(xq, x1, x2, ws, H)
+    wq_c, bq_c, wk1_c, bk1_c, wk2_c, bk2_c = cws
+    dq, dk, dv = (t.reshape(t.shape[0], t.shape[1], -1)
+                  for t in _masked_bwd_f32(q, k, v, mask_q,
+                                           torch.cat([mask_1, mask_2], 1),
+                                           _heads(g, H), scale, rate, seed))
+    L1 = x1.shape[1]
+    dk1, dk2, dv1, dv2 = dk[:, :L1], dk[:, L1:], dv[:, :L1], dv[:, L1:]
+    dxq = dgrad(dq, wq_c).to(xq.dtype)
+    dx1 = (dgrad(dk1, wk1_c) + dgrad(dv1, wv1)).to(x1.dtype)
+    dx2 = (dgrad(dk2, wk2_c) + dgrad(dv2, wv2)).to(x2.dtype)
+    # the interleaved weights' gradients are cast before they are
+    # de-interleaved: the same values as the other order
+    (dwq, dbq), (dwk1, dbk1), (dwk2, dbk2), (dwv1, dbv1), (dwv2, dbv2) = (
+        wgrad(x, dy, w, b) for x, dy, w, b in (
+            (xq, dq, wq_c, bq_c), (x1, dk1, wk1_c, bk1_c),
+            (x2, dk2, wk2_c, bk2_c), (x1, dv1, wv1, bv1), (x2, dv2, wv2, bv2)))
+    return (dxq, dx1, dx2,
+            deinterleave_w(dwq, H, 0), deinterleave_b(dbq, H, 0),
+            deinterleave_w(dwq, H, 1), deinterleave_b(dbq, H, 1),
+            deinterleave_w(dwk1, H, 0), deinterleave_b(dbk1, H, 0),
+            deinterleave_w(dwk2, H, 1), deinterleave_b(dbk2, H, 1),
+            dwv1, dbv1, dwv2, dbv2)
 
 
 # ---------------------------------------------------------------------------
@@ -665,6 +789,80 @@ def _k2_backward_cuda(xq, x1, x2, ws, masks, g, num_heads, scale, rate,
     return tuple(grads)
 
 
+def _k6_params(ws, num_heads):
+    """The kernel's ten parameters: the interleaved Wq_c, bq_c, Wk1_c,
+    bk1_c, Wk2_c, bk2_c, then wv1, bv1, wv2, bv2."""
+    return interleave_ws(*ws[:8], num_heads) + tuple(ws[8:])
+
+
+def _k6_forward_cuda(xq, x1, x2, ws, masks, num_heads, scale, rate, seed):
+    tensors = (xq, x1, x2) + tuple(ws)
+    B, Lq, L1, L2, d, dh = _check_k2(tensors, masks, num_heads)
+    _k2_smem_check("proj_two_block_attention_v2",
+                   "segmm_proj_two_block_attention_v2_smem_bytes", xq, Lq, L1,
+                   L2, dh)
+    fn = _fn("proj_two_block_attention_v2",
+             "segmm_proj_two_block_attention_v2_fwd", ctypes.c_int,
+             [ctypes.c_int, ctypes.POINTER(ctypes.c_void_p)]
+             + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_float]
+             + _DROP_ARGS + [ctypes.c_void_p])
+    mq, m1, m2 = _masks_i32(*masks)
+    ptrs = (xq, x1, x2) + _k6_params(ws, num_heads)
+    out = torch.empty_like(xq)
+    with torch.cuda.device(xq.device):
+        code = fn(_DTYPE_CODE[xq.dtype], _ptrs(ptrs), mq.data_ptr(),
+                  m1.data_ptr(), m2.data_ptr(), out.data_ptr(), B, Lq, L1, L2,
+                  d, num_heads, float(scale), *_drop_args(rate, seed),
+                  _stream_ptr(xq.device))
+    _raise_on_cuda_error(code, "proj_two_block_attention_v2")
+    LAUNCHES["proj_two_block_attention_v2"] += 1
+    return out
+
+
+def _k6_backward_cuda(xq, x1, x2, ws, masks, g, num_heads, scale, rate,
+                      seed):
+    """K6b: the qkv pass per (head, batch row) into fp32 dq_c (B, Lq, 2d)
+    and the nonzero halves of dk and dv per block, then dx and dW, db
+    through chain_gemm.cuh in K2_DW_SPLITS row chunks; dW and db of Wq_c
+    come out (2d, d) and are de-interleaved here."""
+    tensors = (xq, x1, x2) + tuple(ws)
+    B, Lq, L1, L2, d, dh = _check_k2(tensors, masks, num_heads, g)
+    _k2_smem_check("proj_two_block_attention_v2_bwd",
+                   "segmm_proj_two_block_attention_v2_bwd_smem_bytes", xq, Lq,
+                   L1, L2, dh)
+    fn = _fn("proj_two_block_attention_v2_bwd",
+             "segmm_proj_two_block_attention_v2_bwd", ctypes.c_int,
+             [ctypes.c_int, ctypes.POINTER(ctypes.c_void_p)]
+             + [ctypes.c_void_p] * 4 + [ctypes.POINTER(ctypes.c_void_p)] * 3
+             + [ctypes.c_void_p] + [ctypes.c_int] * 6 + [ctypes.c_float]
+             + _DROP_ARGS + [ctypes.c_int, ctypes.c_void_p])
+    mq, m1, m2 = _masks_i32(*masks)
+    # the chain's dx of the keys takes wk1 and wk2 as they are
+    ptrs = (xq, x1, x2) + _k6_params(ws, num_heads) + (ws[4], ws[6])
+    f32 = dict(dtype=torch.float32, device=xq.device)
+    dys = [torch.empty(B, Lq, 2 * d, **f32)] + [
+        torch.empty(B, L, d, **f32) for L in (L1, L2, L1, L2)]
+    dx = [torch.empty_like(x) for x in (xq, x1, x2)]
+    dw = [torch.empty(2 * d, d, **f32)] + [torch.empty(d, d, **f32)
+                                           for _ in range(4)]
+    db = [torch.empty(2 * d, **f32)] + [torch.empty(d, **f32)
+                                        for _ in range(4)]
+    scratch = torch.empty(K2_DW_SPLITS * 6 * (d * d + d), **f32)
+    with torch.cuda.device(xq.device):
+        code = fn(_DTYPE_CODE[xq.dtype], _ptrs(ptrs), mq.data_ptr(),
+                  m1.data_ptr(), m2.data_ptr(), g.data_ptr(), _ptrs(dys),
+                  _ptrs(dx), _ptrs(dw + db), scratch.data_ptr(), B, Lq, L1,
+                  L2, d, num_heads, float(scale), *_drop_args(rate, seed),
+                  K2_DW_SPLITS, _stream_ptr(xq.device))
+    _raise_on_cuda_error(code, "proj_two_block_attention_v2_bwd")
+    LAUNCHES["proj_two_block_attention_v2_bwd"] += 1
+    H = num_heads
+    grads = (deinterleave_w(dw[0], H, 0), deinterleave_b(db[0], H, 0),
+             deinterleave_w(dw[0], H, 1), deinterleave_b(db[0], H, 1),
+             dw[1], db[1], dw[2], db[2], dw[3], db[3], dw[4], db[4])
+    return tuple(dx) + tuple(t.to(w.dtype) for t, w in zip(grads, ws))
+
+
 def _check_k3(q, k, v, mask_q, mask_k, g=None):
     _check_cuda((q, k, v) + ((g,) if g is not None else ()), q.dtype)
     B, Lq, H, D = q.shape
@@ -760,21 +958,27 @@ class _TwoBlockAttention(torch.autograd.Function):
 
 class _ProjTwoBlockAttention(torch.autograd.Function):
     """K2 forward and K2b backward (``_fused_proj_attention`` custom VJP,
-    attention.py:1007-1051)."""
+    attention.py:1007-1051), or with ``v2`` K6 forward and K6b backward
+    (``_fused_proj_attention_v2``, :1491-1549), which take the same (d, d)
+    parameters and interleave the Q and K ones on each call, as the JAX
+    package does."""
 
     @staticmethod
     def forward(ctx, xq, x1, x2, wq1, bq1, wq2, bq2, wk1, bk1, wk2, bk2, wv1,
                 bv1, wv2, bv2, mask_q, mask_1, mask_2, num_heads, scale,
-                rate, seed):
+                rate, seed, v2):
         ws = (wq1, bq1, wq2, bq2, wk1, bk1, wk2, bk2, wv1, bv1, wv2, bv2)
         masks = (mask_q, mask_1, mask_2)
         ctx.save_for_backward(xq, x1, x2, *ws, *masks)
         ctx.hyper = (num_heads, scale, rate, seed)
+        ctx.v2 = v2
         if _device_kind(xq) == "cpu":
-            return proj_two_block_attention_plain(
-                xq, x1, x2, *ws, *masks, num_heads, scale, rate, seed)
-        return _k2_forward_cuda(xq, x1, x2, ws, masks, num_heads, scale,
-                                rate, seed)
+            plain = (proj_two_block_attention_v2_plain if v2
+                     else proj_two_block_attention_plain)
+            return plain(xq, x1, x2, *ws, *masks, num_heads, scale, rate,
+                         seed)
+        launch = _k6_forward_cuda if v2 else _k2_forward_cuda
+        return launch(xq, x1, x2, ws, masks, num_heads, scale, rate, seed)
 
     @staticmethod
     def backward(ctx, g):
@@ -783,11 +987,13 @@ class _ProjTwoBlockAttention(torch.autograd.Function):
             saved[15:]
         g = g.contiguous()
         if g.device.type == "cpu":
-            grads = proj_two_block_attention_bwd_plain(
-                xq, x1, x2, *ws, *masks, g, *ctx.hyper)
+            plain = (proj_two_block_attention_v2_bwd_plain if ctx.v2
+                     else proj_two_block_attention_bwd_plain)
+            grads = plain(xq, x1, x2, *ws, *masks, g, *ctx.hyper)
         else:
-            grads = _k2_backward_cuda(xq, x1, x2, ws, masks, g, *ctx.hyper)
-        return tuple(grads) + (None,) * 7
+            launch = _k6_backward_cuda if ctx.v2 else _k2_backward_cuda
+            grads = launch(xq, x1, x2, ws, masks, g, *ctx.hyper)
+        return tuple(grads) + (None,) * 8
 
 
 class _MaskedAttention(torch.autograd.Function):
@@ -848,22 +1054,57 @@ def fused_proj_two_block_attention(xq, x1, x2, wq1, bq1, wq2, bq2,
                                    dropout_rate: float = 0.0,
                                    seed: int = 0,
                                    deterministic: bool = True,
-                                   scale: Optional[float] = None):
+                                   scale: Optional[float] = None,
+                                   version: Optional[int] = None):
     """Two-block jointly normalised attention with the six QKV projections
     inside the kernel (K2): q1 = xq.Wq1^T + bq1 attends k1 = x1.Wk1^T + bk1,
     q2 = xq.Wq2^T + bq2 attends k2 = x2.Wk2^T + bk2, one softmax over both,
     values from x1/x2. Weights in nn.Linear layout (d, d) = (out, in),
     biases (d,). xq (B, Lq, d), x1 (B, L1, d), x2 (B, L2, d) -> (B, Lq, d).
-    Differentiable (K2b)."""
+    Differentiable (K2b).
+
+    ``version`` 1 runs K2, 2 the weight-interleaved K6; None means 2 under
+    ``SEGMM_ATTN_V2=1`` and 1 otherwise. As in the JAX package
+    (attention.py:1101-1131), version 2 needs L1 or L2 to be a multiple of
+    8: an explicit request raises where neither is, the switch's default
+    falls back to K2 there, and an unaligned L1 with an aligned L2 swaps the
+    two blocks (their weights and masks with them), which changes the
+    concatenation order, the dropout bits and the order of the sums."""
     d = xq.shape[-1]
     if d % num_heads:
         raise ValueError(f"d={d} is not a multiple of num_heads={num_heads}")
     if scale is None:
         scale = 1.0 / math.sqrt(d // num_heads)
+    L1, L2 = x1.shape[1], x2.shape[1]
+    explicit = version == 2
+    if version is None:
+        version = 2 if ATTN_V2 else 1
+    if version not in (1, 2):
+        raise ValueError(f"version must be None, 1 or 2, got {version}")
+    if version == 2 and L1 % 8 and L2 % 8:
+        if explicit:
+            raise ValueError(
+                f"version=2 requires L1 or L2 to be a multiple of 8; got "
+                f"L1={L1}, L2={L2} - use version=1 or pad a block")
+        version = 1
+    args = (xq, x1, x2, wq1, bq1, wq2, bq2, wk1, bk1, wk2, bk2, wv1, bv1,
+            wv2, bv2)
+    if version == 2 and L1 % 8:
+        args = swap_blocks(args)
+        mask_1, mask_2 = mask_2, mask_1
     return _ProjTwoBlockAttention.apply(
-        xq, x1, x2, wq1, bq1, wq2, bq2, wk1, bk1, wk2, bk2, wv1, bv1, wv2,
-        bv2, mask_q, mask_1, mask_2, int(num_heads), float(scale),
-        _rate(dropout_rate, deterministic), int(seed))
+        *args, mask_q, mask_1, mask_2, int(num_heads), float(scale),
+        _rate(dropout_rate, deterministic), int(seed), version == 2)
+
+
+_SWAP = (0, 2, 1, 5, 6, 3, 4, 9, 10, 7, 8, 13, 14, 11, 12)
+
+
+def swap_blocks(ts):
+    """xq, x1, x2 and the twelve parameters (or their gradients) with key
+    blocks 1 and 2 exchanged, as version 2 runs an unaligned L1 with an
+    aligned L2 (attention.py:1125-1131). Its own inverse."""
+    return tuple(ts[i] for i in _SWAP)
 
 
 def fused_masked_attention(q, k, v, mask_q, mask_k, *,

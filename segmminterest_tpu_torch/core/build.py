@@ -26,7 +26,8 @@ SOURCES = ("two_block_attention", "proj_two_block_attention",
            "two_block_attention_bwd", "proj_two_block_attention_bwd",
            "masked_attention", "masked_attention_bwd",
            "dual_stream_attention", "dual_stream_attention_bwd",
-           "layer_stream", "layer_stream_bwd")
+           "layer_stream", "layer_stream_bwd", "proj_two_block_attention_v2",
+           "proj_two_block_attention_v2_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -13,7 +13,8 @@
 //    products per thread, so that the fp32 route keeps full fp32 products
 //    (no TF32).
 // The projected tiles land in shared memory as fp32 with row stride
-// tile_stride(DH).
+// tile_stride(DH), or `ost` where the caller gives one (K6 lays q1 and q2
+// of a head side by side in one row of 2 DH).
 #pragma once
 
 #include <mma.h>
@@ -80,7 +81,7 @@ template <int DH>
 __device__ void project_pair_f32(const float* __restrict__ x, int L, int dm,
                                  const float* __restrict__ wa, const float* __restrict__ ba,
                                  const float* __restrict__ wb, const float* __restrict__ bb,
-                                 int h, float* stage, float* outa, float* outb) {
+                                 int h, float* stage, float* outa, float* outb, int ost) {
   constexpr int G = kK2Threads / DH;  // row groups
   constexpr int MAXR = (kK2MaxL + G - 1) / G;
   constexpr int KC = kK2Chunk;
@@ -136,8 +137,8 @@ __device__ void project_pair_f32(const float* __restrict__ x, int L, int dm,
   for (int i = 0; i < MAXR; ++i) {
     const int r = g + i * G;
     if (r < L) {
-      outa[r * tile_stride(DH) + n] = proj_epilogue<float>(acca[i], bias_a);
-      outb[r * tile_stride(DH) + n] = proj_epilogue<float>(accb[i], bias_b);
+      outa[r * ost + n] = proj_epilogue<float>(acca[i], bias_a);
+      outb[r * ost + n] = proj_epilogue<float>(accb[i], bias_b);
     }
   }
 }
@@ -154,7 +155,7 @@ __device__ void project_pair_tc(const __nv_bfloat16* __restrict__ x, int L, int 
                                 const __nv_bfloat16* __restrict__ ba,
                                 const __nv_bfloat16* __restrict__ wb,
                                 const __nv_bfloat16* __restrict__ bb, int h,
-                                unsigned char* stage, float* outa, float* outb) {
+                                unsigned char* stage, float* outa, float* outb, int ost) {
   using namespace nvcuda;
   constexpr int NT = 2 * DH / 16;  // 16-column tiles of [a | b]
   constexpr int MAXT = (kK2MaxL / 16 * NT + kK2Warps - 1) / kK2Warps;
@@ -236,22 +237,22 @@ __device__ void project_pair_tc(const __nv_bfloat16* __restrict__ x, int L, int 
     const int r = i / (2 * DH), c = i - r * (2 * DH);
     const float v = sacc[r * LDA + c];
     if (c < DH)
-      outa[r * tile_stride(DH) + c] = proj_epilogue<__nv_bfloat16>(v, to_f(ba[h * DH + c]));
+      outa[r * ost + c] = proj_epilogue<__nv_bfloat16>(v, to_f(ba[h * DH + c]));
     else
-      outb[r * tile_stride(DH) + c - DH] =
-          proj_epilogue<__nv_bfloat16>(v, to_f(bb[h * DH + c - DH]));
+      outb[r * ost + c - DH] = proj_epilogue<__nv_bfloat16>(v, to_f(bb[h * DH + c - DH]));
   }
 }
 
 template <typename T, int DH>
 __device__ __forceinline__ void project_pair(const T* x, int L, int dm, const T* wa,
                                              const T* ba, const T* wb, const T* bb, int h,
-                                             unsigned char* stage, float* outa, float* outb) {
+                                             unsigned char* stage, float* outa, float* outb,
+                                             int ost = tile_stride(DH)) {
   if constexpr (std::is_same<T, __nv_bfloat16>::value)
-    project_pair_tc<DH>(x, L, dm, wa, ba, wb, bb, h, stage, outa, outb);
+    project_pair_tc<DH>(x, L, dm, wa, ba, wb, bb, h, stage, outa, outb, ost);
   else
     project_pair_f32<DH>(x, L, dm, wa, ba, wb, bb, h, reinterpret_cast<float*>(stage), outa,
-                         outb);
+                         outb, ost);
 }
 
 }  // namespace segmm

@@ -43,6 +43,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from ..core import attention
 from ..core.numerics import dequantize_rows, l1_normalize, quantize_table_int8
 from ..data.dataset import BatchIterator
 from ..data.feature_store import FeatureStore
@@ -415,6 +416,10 @@ def run_training(config: InterestConfig, reader: SeqReader,
     engine = InterestEngine(cfg, n_users=reader.n_users,
                             n_items=reader.n_items,
                             feature_table=feature_table, device=device)
+    if cfg.fused_attention and cfg.fuse_qkv:
+        logger.info("projection-fused attention: K2 version %d "
+                    "(SEGMM_ATTN_V2=%d)", 2 if attention.ATTN_V2 else 1,
+                    int(attention.ATTN_V2))
 
     def make_iter(split, batch_size, shuffle, seed):
         return BatchIterator(reader, reader.tables[split], batch_size,
@@ -641,4 +646,13 @@ def run_training(config: InterestConfig, reader: SeqReader,
         with open(osp.join(work_dir, "final_results.json"), "w") as f:
             json.dump(result["test_metrics"], f, indent=2)
         logger.info("Test result: %s", result["test_metrics"])
+    result["kernel_launches"] = log_kernel_launches()
     return result
+
+
+def log_kernel_launches() -> Dict[str, int]:
+    """The attention kernels this process has launched so far (one count
+    per wrapper call, core/attention.py:LAUNCHES), logged as JSON."""
+    launches = {k: v for k, v in attention.LAUNCHES.items() if v}
+    logger.info("kernel launches: %s", json.dumps(launches))
+    return launches

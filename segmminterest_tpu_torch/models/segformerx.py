@@ -17,7 +17,8 @@ chosen by the same flags as the JAX package:
 * ``fused_attention=True, fuse_qkv=True``: the six projections of each
   stream inside kernel K2 (core/attention.py:fused_proj_two_block_attention,
   segformerx.py:319-397). Unlike the TPU build, single-query streams
-  (the ID backbone's user stream) go through K2 as well;
+  (the ID backbone's user stream) go through K2 as well. Under
+  ``SEGMM_ATTN_V2=1`` these calls run K6, K2's weight-interleaved version 2;
 * ``fused_attention=True, fuse_dual=True``: the K2 route with both streams
   of a layer in one launch of kernel K5
   (core/dual_kernel.py:fused_dual_stream_attention, segformerx.py:366-380)
@@ -389,7 +390,10 @@ class FourStreamAttention(nn.Module):
     def _proj_fused(self, vid, vid_mask, usr, usr_mask, seeds):
         """All twelve QKV projections inside kernel K2, or with
         ``fuse_dual`` both streams in one launch of K5 when both are longer
-        than one (segformerx.py:319-397)."""
+        than one (segformerx.py:319-397). The K2 calls follow the wrapper's
+        default version: under ``SEGMM_ATTN_V2=1`` every one of them runs K6,
+        the single-query streams included, as the JAX model does in
+        interpret mode (:355); K5 and K4 never read the switch."""
         if self.fuse_dual and vid.shape[1] > 1 and usr.shape[1] > 1:
             return fused_dual_stream_attention(
                 vid, usr, self.block_params("v2v", "t2v"),

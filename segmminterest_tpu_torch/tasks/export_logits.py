@@ -14,7 +14,9 @@ Usage:
 
 ``--fuse_layer 1`` serves each encoder-layer stream through kernel K4; with
 ``--serving 1`` it supersedes the preset's ``fuse_qkv``, as in the JAX
-package (export_logits.py:67).
+package (export_logits.py:67). ``SEGMM_ATTN_V2=1`` in the environment runs
+the preset's fuse_qkv streams through K6, the weight-interleaved version 2
+of K2. The last log line lists the attention kernels launched.
 """
 
 from __future__ import annotations
@@ -27,11 +29,12 @@ from typing import Dict, List
 
 import numpy as np
 
+from ..core import attention
 from ..data.dataset import BatchIterator
 from ..data.feature_store import FeatureStore
 from ..data.reader import SeqReader
 from ..engine.checkpoint import CheckPointer
-from ..engine.train import InterestEngine
+from ..engine.train import InterestEngine, log_kernel_launches
 from ..utils.config import InterestConfig
 from ..utils.io import dump_logits
 from .skip_train import build_parser, config_from_args
@@ -124,8 +127,9 @@ def main(argv=None):
             logger.warning("%s — using CLI flags instead", e)
     if args.serving:
         cfg = apply_serving_preset(cfg, args.latency_target_ms)
-        logger.info("serving preset: int8 table, fuse_qkv, bfloat16, "
-                    "no remat, eval batch %d", cfg.test_batch_size)
+        logger.info("serving preset: int8 table, fuse_qkv (K2 version %d), "
+                    "bfloat16, no remat, eval batch %d",
+                    2 if attention.ATTN_V2 else 1, cfg.test_batch_size)
 
     if cfg.sample_csv:
         reader = SeqReader.from_single_csv(
@@ -162,6 +166,7 @@ def main(argv=None):
     out_path = osp.join(args.out_dir, "interest_logits.json")
     dump_logits(all_logits, out_path, pth=bool(args.pth))
     logger.info("wrote %d logit rows to %s", len(all_logits), out_path)
+    log_kernel_launches()
     return out_path
 
 

@@ -17,6 +17,13 @@ Mirrors reference MMinterest/main_for_seq_leave_earlystop_SegMM.py
       --lineid_map SegMM_photoidframeid2lineid.json \
       --compute_dtype bfloat16 --fuse_qkv 1 --table_quant int8 --remat 0
 
+  # the same through the weight-interleaved version 2 of K2 (K6), which the
+  # environment selects, as in the JAX package
+  SEGMM_ATTN_V2=1 python -m segmminterest_tpu_torch.tasks.skip_train \
+      --path SegMM/ --memmap SegMM_feat_memmap.dat \
+      --lineid_map SegMM_photoidframeid2lineid.json \
+      --compute_dtype bfloat16 --fuse_qkv 1 --table_quant int8 --remat 0
+
   # each whole encoder-layer stream in one kernel (K4); remat stays off
   python -m segmminterest_tpu_torch.tasks.skip_train --path SegMM/ \
       --memmap SegMM_feat_memmap.dat \
@@ -217,7 +224,8 @@ def main(argv=None):
     print(json.dumps({k: v for k, v in result.items()
                       if k in ("test_metrics", "cold_test_metrics",
                                "hot_test_metrics", "interactions_per_sec",
-                               "steps", "work_dir")}, indent=2, default=str))
+                               "steps", "work_dir", "kernel_launches")},
+                     indent=2, default=str))
     return result
 
 

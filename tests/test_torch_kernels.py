@@ -1,8 +1,9 @@
-"""K1, K2, K3, K4 and K5, forward and backward (K1b, K2b, K7b, K3b, K4b and
-K5b), on the card against their plain PyTorch versions, on the same seeded
-inputs, at the flagship width (16 heads of 32, d=512), the four (Lq, L1,
-L2) stream shapes of a both/both layer (K5: its feature backbone's stream
-pair) and the (Lq, Lk) shapes of the CrossAtt and SelfAtt ablations, with
+"""K1, K2, K3, K4, K5 and K6, forward and backward (K1b, K2b, K7b, K3b,
+K4b, K5b and K6b), on the card against their plain PyTorch versions, on
+the same seeded inputs, at the flagship width (16 heads of 32, d=512), the
+four (Lq, L1, L2) stream shapes of a both/both layer (K5: its feature
+backbone's stream pair; K6: also a shape with its blocks swapped) and the
+(Lq, Lk) shapes of the CrossAtt and SelfAtt ablations, with
 padded query and key rows, in fp32 and bf16, with dropout off and on. Each
 launch must add one to its kernel's count.
 
@@ -178,6 +179,48 @@ def test_k2_backward_kernel_matches_plain(cuda, shape, dtype, rate, v3,
             *inputs, *masks, H, SCALE, rate, 99).float(), **TOL[dtype])
     _rel_close(got, A.proj_two_block_attention_bwd_plain(
         *inputs, *masks, g, H, SCALE, rate, 99), dtype)
+
+
+# K6 (version 2 of K2): the four stream shapes and one whose unaligned L1
+# and aligned L2 make the wrapper swap the blocks
+V2_SHAPES = SHAPES + [(12, 12, 40)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.1], ids=["eval", "dropout"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", V2_SHAPES)
+def test_k6_kernels_match_plain(cuda, shape, dtype, rate):
+    """K6f and K6b (version=2) against their plain versions, in the blocks'
+    order the wrapper runs them in; each launch counts once and K2 does not
+    launch."""
+    rng = np.random.default_rng(8)
+    B, (Lq, L1, L2), d = 16, shape, H * DH
+    inputs = _on(cuda, [rng.normal(size=(B, L, d)).astype(np.float32)
+                        for L in (Lq, L1, L2)] + _proj_params(rng, d), dtype)
+    masks = _on(cuda, _masks_for(rng, B, *shape))
+    g = _on(cuda, [rng.normal(size=(B, Lq, d)).astype(np.float32)],
+            dtype)[0]
+    leaves = [t.clone().requires_grad_() for t in inputs]
+    before = dict(A.LAUNCHES)
+    out = A.fused_proj_two_block_attention(
+        *leaves, *masks, num_heads=H, scale=SCALE, dropout_rate=rate,
+        seed=99, deterministic=rate == 0, version=2)
+    got = torch.autograd.grad(out, leaves, g)
+    for key, n in (("proj_two_block_attention_v2", 1),
+                   ("proj_two_block_attention_v2_bwd", 1),
+                   ("proj_two_block_attention", 0),
+                   ("proj_two_block_attention_bwd", 0)):
+        assert A.LAUNCHES[key] == before[key] + n, key
+    mq, m1, m2 = masks
+    if L1 % 8:  # the plain versions take the blocks in the kernel's order
+        inputs, (m1, m2) = A.swap_blocks(inputs), (m2, m1)
+    torch.testing.assert_close(
+        out.float(), A.proj_two_block_attention_v2_plain(
+            *inputs, mq, m1, m2, H, SCALE, rate, 99).float(), **TOL[dtype])
+    want = A.proj_two_block_attention_v2_bwd_plain(*inputs, mq, m1, m2, g, H,
+                                                   SCALE, rate, 99)
+    _rel_close(got, A.swap_blocks(want) if L1 % 8 else want, dtype)
 
 
 # K3 (single-block masked attention of the CrossAtt / SelfAtt ablations):

@@ -51,7 +51,8 @@ MODEL = dict(d_model=32, nhead=4, num_layers_enc=2, fusion_heads=2,
 READER = dict(min_interactions=30, num_warmup=10)
 ROUTES = {"composed": dict(fused_attention=False),
           "k1": dict(fused_attention=True, fuse_qkv=False),
-          "k2": dict(fused_attention=True, fuse_qkv=True)}
+          "k2": dict(fused_attention=True, fuse_qkv=True),
+          "k2v2": dict(fused_attention=True, fuse_qkv=True)}
 
 
 @pytest.fixture(scope="module")
@@ -95,10 +96,19 @@ def _setup(data, kw):
 
 
 @pytest.mark.parametrize("route,modality", [
-    ("composed", "id"), ("k1", "id"), ("k2", "id"), ("k2", "both")])
-def test_lockstep_adamw_matches_jax(data, route, modality):
+    ("composed", "id"), ("k1", "id"), ("k2", "id"), ("k2", "both"),
+    ("k2v2", "both")])
+def test_lockstep_adamw_matches_jax(data, route, modality, monkeypatch):
+    """``k2v2``: the port under SEGMM_ATTN_V2's switch (K6's plain version,
+    with its interleaving, block swap and de-interleaved gradients) against
+    the JAX engine, which sends fuse_qkv to its composed path on the CPU."""
     kw = dict(MODEL, user_input_type=modality, photo_input_type=modality,
               **ROUTES[route])
+    monkeypatch.setattr(A, "ATTN_V2", route == "k2v2")
+    v2_calls = []
+    plain = A.proj_two_block_attention_v2_bwd_plain
+    monkeypatch.setattr(A, "proj_two_block_attention_v2_bwd_plain",
+                        lambda *a: v2_calls.append(1) or plain(*a))
     jeng, jstate, peng, pstate, batches = _setup(data, kw)
     key = jax.random.PRNGKey(0)
     jl, pl = [], []
@@ -107,6 +117,7 @@ def test_lockstep_adamw_matches_jax(data, route, modality):
         pstate, pld = peng.train_step(pstate, b)
         jl.append(float(jld["loss"]))
         pl.append(float(pld["loss"]))
+    assert bool(v2_calls) == (route == "k2v2")
     np.testing.assert_allclose(pl, jl, rtol=LOSS_RTOL)
     assert len(set(jl)) == STEPS  # the weights moved every step
     want = flax_to_state_dict(jax.tree.map(np.asarray, jstate["params"]),
