@@ -5,12 +5,14 @@ Run from the root of a checkout:  python3 chip_smoke.py
 (`--phases build,kernels` runs a subset while developing.)
 
 Phases, each of which fails the run (non-zero exit) on any error:
-  build          compile the CUDA kernels of core/csrc with nvcc for sm_90a
+  build          compile the CUDA kernels of core/csrc with nvcc for sm_90a;
+                 count the HMMA instructions of K3's two libraries
   kernels        each kernel (K1f, K1b, K2f, K2b, K7b, K3f, K3b, K5f, K5b,
                  K4f, K4b, K6f, K6b) against its plain PyTorch version on
                  the card, at the main paths' stream shapes, fp32 and bf16,
                  dropout off and on; times at B=1024 (K1f and K2f also with
-                 their dropout branch; K6 in turns with K2)
+                 their dropout branch; K6 in turns with K2; K3 in bf16 by
+                 its device time beside SDPA's)
   serving        the flagship both/both model (d=512, 16 heads, 6 layers)
                  served with the --serving preset over a 3,920,483-row int8
                  feature table built on the card, through the exporter's
@@ -27,10 +29,12 @@ Phases, each of which fails the run (non-zero exit) on any error:
   ablation       the ablation models at the flagship width over the same
                  table: CrossAtt and SelfAtt trained in the default config
                  (fp32, K3, layer remat; 40 K3f + 18 K3b and 20 K3f + 10 K3b
-                 per step), CrossAtt served with --serving 1 (bf16, 20 K3f
-                 per forward), one step each of CrossMLP, SelfMLP, w/oAtt,
-                 noPos and fuse_projections; one 32-row fp32 CrossAtt step
-                 against the CPU
+                 per step), CrossAtt trained in the production config (bf16,
+                 no remat; 20 K3f + 18 K3b per step) and served with
+                 --serving 1 (bf16, 20 K3f per forward, K3f's share of the
+                 batch), one step each of CrossMLP, SelfMLP, w/oAtt, noPos
+                 and fuse_projections; one 32-row fp32 CrossAtt step against
+                 the CPU
   fused_variants the production training config (bf16, int8 table, no
                  remat, B=1024) with fuse_dual (5 K5f + 10 K2f, 5 K5b + 9
                  K2b per step) and with fuse_layer (20 K4f + 18 K4b), beside
@@ -74,8 +78,11 @@ D_MODEL, HEADS, FEAT_DIM = 512, 16, 1024
 PRODUCTION_ROWS = 3_920_483          # SegMM segment count (bench.py:327)
 # (Lq, L1, L2) of the four K1/K2 launches of one both/both layer
 STREAM_SHAPES = ((40, 40, 100), (100, 40, 100), (40, 40, 1), (1, 40, 1))
-# (Lq, Lk) of the K3 launches: CrossAtt's four streams, SelfAtt's video one
+# (Lq, Lk) of the K3 launches: CrossAtt's four streams, SelfAtt's video one;
+# bf16 also at the largest shape the kernel takes
 K3_SHAPES = ((40, 100), (100, 40), (40, 1), (1, 40), (40, 40))
+K3_MAX_SHAPE = (128, 128)
+K3_LIBS = ("masked_attention", "masked_attention_bwd")
 HBM_BYTES_PER_S = 3.35e12            # H100 SXM
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 # fp32: the kernels and the plain versions sum the same products in other
@@ -137,9 +144,22 @@ def phase_build():
         for line in out.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {name}: {line.strip()}")
+            elif "Compiling entry function" in line and name in K3_LIBS:
+                log(f"  ptxas {name}: {line.split('function', 1)[1].strip()}")
     for name, p in paths.items():
         log(f"  built {os.path.relpath(p, ROOT)}")
     log(f"build: {time.perf_counter() - t0:.1f} s")
+    # K3's bf16 bodies run on the tensor cores: their libraries must hold
+    # HMMA (mma.sync) instructions
+    cuobjdump = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
+    for name in K3_LIBS:
+        sass = subprocess.run([cuobjdump, "-sass", str(paths[name])],
+                              capture_output=True, text=True, timeout=300)
+        n = sum("HMMA" in ln for ln in sass.stdout.splitlines())
+        log(f"  {name}: {n} HMMA instructions (cuobjdump -sass)")
+        if sass.returncode or not n:
+            raise AssertionError(f"{name}: no HMMA instruction in its "
+                                 f"library ({sass.stderr[-400:]})")
 
 
 def _masks(g, B, L, dev, allow_empty=True):
@@ -428,17 +448,56 @@ def phase_kernels():
     A.reset_launch_counts()
 
 
+def _device_share(run, n, names):
+    """Share of device time in the kernels whose names contain one of
+    `names` over n calls of run(), and the device time per call, from a
+    torch.profiler trace; None when the trace holds no device times."""
+    prof = torch.profiler.profile(activities=[
+        torch.profiler.ProfilerActivity.CPU,
+        torch.profiler.ProfilerActivity.CUDA])
+    with prof:
+        for _ in range(n):
+            run()
+        torch.cuda.synchronize()
+    # kernel rows only: an operator's row repeats its kernels' time
+    total = part = 0.0
+    for e in prof.key_averages():
+        if "CUDA" not in str(getattr(e, "device_type", "")):
+            continue
+        t = getattr(e, "self_device_time_total", 0.0) or 0.0
+        total += t
+        if any(k in e.key for k in names):
+            part += t
+    return (part / total, total / 1e3 / n) if total > 0 else None
+
+
+def _device_ms(fn, iters, names=None):
+    """Device time per call of fn() in the kernels whose names contain one
+    of `names` (all kernels if None), from _device_share after a warm-up
+    call; None when the trace holds no device times. Unlike CUDA events
+    around the calls, it leaves out the host's time between launches, which
+    a kernel of ~0.1 ms behind a Python wrapper would otherwise be timed
+    by."""
+    fn()
+    torch.cuda.synchronize()
+    share = _device_share(fn, iters, names or ("",))
+    return None if share is None else share[0] * share[1]
+
+
 def _k3_kernels(A, g, dev):
     """K3f and K3b against their plain versions at the ablations' (Lq, Lk)
-    shapes, B=64, fp32 and bf16, dropout off and on, padded rows; then
-    their times at B=1024 on CrossAtt's video stream (40, 100)."""
+    shapes (bf16 also at K3_MAX_SHAPE, and with near-one-hot rows), B=64,
+    fp32 and bf16, dropout off and on, padded rows; then their times at
+    B=1024: fp32 on CrossAtt's video stream (40, 100), bf16 on both of its
+    feature streams, (40, 100) and (100, 40), beside SDPA's."""
     scale = 1.0 / math.sqrt(D_MODEL // HEADS)
     H, Dh = HEADS, D_MODEL // HEADS
 
-    def inputs(B, Lq, Lk, dt):
-        def r(L):
-            return torch.randn(B, L, H, Dh, generator=g, device=dev).to(dt)
-        return ((r(Lq), r(Lk), r(Lk)),
+    def inputs(B, Lq, Lk, dt, amp=1.0):
+        def r(L, a=1.0):
+            return (a * torch.randn(B, L, H, Dh, generator=g, device=dev)
+                    ).to(dt)
+        return ((r(Lq, amp), r(Lk), r(Lk)),
                 (_masks(g, B, Lq, dev), _masks(g, B, Lk, dev, False)))
 
     def k3(qkv, m, rate=0.0, seed=0):
@@ -448,13 +507,17 @@ def _k3_kernels(A, g, dev):
 
     worst = {}  # (kernel, dtype) -> largest error over the B=64 checks
     for dt in (torch.float32, torch.bfloat16):
-        for (Lq, Lk) in K3_SHAPES:
-            qkv, m = inputs(64, Lq, Lk, dt)
+        cases = [(s, 1.0) for s in K3_SHAPES]
+        if dt == torch.bfloat16:
+            # the largest shape; logits of magnitude ~50 (near-one-hot rows)
+            cases += [(K3_MAX_SHAPE, 1.0), (K3_SHAPES[0], 50.0)]
+        for (Lq, Lk), amp in cases:
+            qkv, m = inputs(64, Lq, Lk, dt, amp)
             gq = torch.randn(64, Lq, H, Dh, generator=g, device=dev).to(dt)
             errs = []
             for rate, seed in ((0.0, 0), (DROP_RATE, 7654321)):
                 on = "drop" if rate else "eval"
-                tag = f"{str(dt)[6:]} {(Lq, Lk)} {on}"
+                tag = f"{str(dt)[6:]} {(Lq, Lk)} x{amp:g} {on}"
                 errs.append(_check(f"K3f {tag}", k3(qkv, m, rate, seed),
                                    A.masked_attention_plain(
                                        *qkv, *m, scale, rate, seed), dt))
@@ -469,55 +532,78 @@ def _k3_kernels(A, g, dev):
             for name, e in (("K3f", max(errs[0], errs[2])),
                             ("K3b", max(errs[1], errs[3]))):
                 worst[name, dt] = max(worst.get((name, dt), 0.0), e)
-            log(f"  B=64 {str(dt)[6:]} {(Lq, Lk)}: K3f eval/drop "
+            log(f"  B=64 {str(dt)[6:]} {(Lq, Lk)} q x{amp:g}: K3f eval/drop "
                 f"{errs[0]:.2g}/{errs[2]:.2g}, K3b eval/drop "
                 f"{errs[1]:.2g}/{errs[3]:.2g}")
     torch.cuda.synchronize()
 
-    B, (Lq, Lk) = 1024, K3_SHAPES[0]
+    B = 1024
     sdpa = torch.nn.functional.scaled_dot_product_attention
     timed = {}
-    for dt in (torch.float32, torch.bfloat16):
-        qkv, m = inputs(B, Lq, Lk, dt)
-        gq = torch.randn(B, Lq, H, Dh, generator=g, device=dev).to(dt)
-        err_f = _check(f"K3f B=1024 {dt}", k3(qkv, m),
-                       A.masked_attention_plain(*qkv, *m, scale), dt)
-        got = _grads(lambda *t: k3(t, m), qkv, gq)
-        err_b = _rel_err(f"K3b B=1024 {dt}", got,
-                         A.masked_attention_bwd_plain(*qkv, *m, gq, scale),
-                         BWD_TOL[dt])
-        del got
-        ms_f = _time_ms(lambda: k3(qkv, m), 20)
-        plain_f = _time_ms(lambda: A.masked_attention_plain(*qkv, *m, scale),
-                           5)
-        leaves = [t.detach().requires_grad_() for t in qkv]
-        out = k3(leaves, m)
-        ms_b = _time_ms(lambda: torch.autograd.grad(out, leaves, gq,
-                                                    retain_graph=True), 10)
-        plain_b = _time_ms(lambda: A.masked_attention_bwd_plain(
-            *qkv, *m, gq, scale), 3)
-        # yardstick: SDPA over (B, H, L, D) with an additive -10000 pair mask
-        # (added after the scale, where K3 fills before it); never called by
-        # the port
-        ql, kl, vl = (t.transpose(1, 2).contiguous().requires_grad_()
-                      for t in qkv)
-        bias = torch.zeros(A._pair_mask(*m).shape, device=dev, dtype=dt
-                           ).masked_fill(~A._pair_mask(*m), -10000.0)
-        lib_f = _time_ms(lambda: sdpa(ql.detach(), kl.detach(), vl.detach(),
-                                      attn_mask=bias, scale=scale), 20)
-        lib_out = sdpa(ql, kl, vl, attn_mask=bias, scale=scale)
-        gl = gq.transpose(1, 2).contiguous()
-        lib_b = _time_ms(lambda: torch.autograd.grad(
-            lib_out, (ql, kl, vl), gl, retain_graph=True), 10)
-        timed[dt] = (err_f, err_b, ms_f, ms_b, plain_f, plain_b, lib_f, lib_b)
-        log(f"  K3 {str(dt)[6:]} B=1024 {(Lq, Lk)}: K3f {ms_f:.3f} ms (plain "
-            f"{plain_f:.3f}, sdpa {lib_f:.3f}), K3b {ms_b:.3f} ms (plain "
-            f"{plain_b:.3f}, sdpa backward {lib_b:.3f}); max err K3f "
-            f"{err_f:.3g}, K3b {err_b:.3g}")
-        del qkv, m, gq, leaves, out, ql, kl, vl, bias, lib_out, gl
+    for dt, shapes in ((torch.float32, K3_SHAPES[:1]),
+                       (torch.bfloat16, K3_SHAPES[:2])):
+        for (Lq, Lk) in shapes:
+            qkv, m = inputs(B, Lq, Lk, dt)
+            gq = torch.randn(B, Lq, H, Dh, generator=g, device=dev).to(dt)
+            err_f = _check(f"K3f B=1024 {dt} {(Lq, Lk)}", k3(qkv, m),
+                           A.masked_attention_plain(*qkv, *m, scale), dt)
+            got = _grads(lambda *t: k3(t, m), qkv, gq)
+            err_b = _rel_err(f"K3b B=1024 {dt} {(Lq, Lk)}", got,
+                             A.masked_attention_bwd_plain(*qkv, *m, gq,
+                                                          scale),
+                             BWD_TOL[dt])
+            del got
+            leaves = [t.detach().requires_grad_() for t in qkv]
+            out = k3(leaves, m)
+
+            def fwd():
+                return k3(qkv, m)
+
+            def bwd():
+                return torch.autograd.grad(out, leaves, gq,
+                                           retain_graph=True)
+            ms_f, ms_b = _time_ms(fwd, 20), _time_ms(bwd, 10)
+            plain_f = _time_ms(lambda: A.masked_attention_plain(
+                *qkv, *m, scale), 5)
+            plain_b = _time_ms(lambda: A.masked_attention_bwd_plain(
+                *qkv, *m, gq, scale), 3)
+            # yardstick: SDPA over (B, H, L, D) with an additive -10000 pair
+            # mask (added after the scale, where K3 fills before it); never
+            # called by the port
+            ql, kl, vl = (t.transpose(1, 2).contiguous().requires_grad_()
+                          for t in qkv)
+            bias = torch.zeros(A._pair_mask(*m).shape, device=dev, dtype=dt
+                               ).masked_fill(~A._pair_mask(*m), -10000.0)
+
+            def lib_fwd():
+                return sdpa(ql.detach(), kl.detach(), vl.detach(),
+                            attn_mask=bias, scale=scale)
+            lib_out = sdpa(ql, kl, vl, attn_mask=bias, scale=scale)
+            gl = gq.transpose(1, 2).contiguous()
+
+            def lib_bwd():
+                return torch.autograd.grad(lib_out, (ql, kl, vl), gl,
+                                           retain_graph=True)
+            lib_f, lib_b = _time_ms(lib_fwd, 20), _time_ms(lib_bwd, 10)
+            # the kernels' own device time, without the wrapper's host time
+            dev_f = _device_ms(fwd, 20, K3_NAMES[:1])
+            dev_b = _device_ms(bwd, 10, K3_NAMES[1:])
+            dlib_f, dlib_b = _device_ms(lib_fwd, 20), _device_ms(lib_bwd, 10)
+            timed[dt, (Lq, Lk)] = dict(
+                err_f=err_f, err_b=err_b, ms_f=ms_f, ms_b=ms_b,
+                plain_f=plain_f, plain_b=plain_b, lib_f=lib_f, lib_b=lib_b,
+                dev_f=dev_f, dev_b=dev_b, dlib_f=dlib_f, dlib_b=dlib_b)
+            log(f"  K3 {str(dt)[6:]} B=1024 {(Lq, Lk)}: K3f {ms_f:.3f} ms "
+                f"(device {_ms(dev_f)}; plain {plain_f:.3f}, sdpa "
+                f"{lib_f:.3f}, device {_ms(dlib_f)}), K3b {ms_b:.3f} ms "
+                f"(device {_ms(dev_b)}; plain {plain_b:.3f}, sdpa backward "
+                f"{lib_b:.3f}, device {_ms(dlib_b)}); max err K3f "
+                f"{err_f:.3g}, K3b {err_b:.3g}")
+            del qkv, m, gq, leaves, out, ql, kl, vl, bias, lib_out, gl
+
     # bytes: K3f reads q, k, v and writes out; K3b reads q, k, v, g and
     # writes dq, dk, dv; both read the two masks (int32)
-    def cost(dt):
+    def cost(dt, Lq, Lk):
         elems, e = B * H * Dh, _elem(dt)
         masks = 4 * B * (Lq + Lk)
         return ((e * elems * (2 * Lq + 2 * Lk) + masks,
@@ -525,20 +611,38 @@ def _k3_kernels(A, g, dev):
                 (e * elems * (3 * Lq + 4 * Lk) + masks,
                  10.0 * B * H * Lq * Lk * Dh / PEAK_FLOPS[dt]))
 
-    # the JSON line carries fp32, the dtype of the default config
-    err_f, err_b, ms_f, ms_b, plain_f, plain_b, lib_f, lib_b = \
-        timed[torch.float32]
-    (fb, fo), (bb, bo) = cost(torch.float32)
-    _record("K3", "masked_attention_fwd (K3f)", "masked_attention.cu", 126,
-            max(worst["K3f", torch.float32], err_f), ms_f, plain_f, fb, fo, lib_f)
-    _record("K3b", "masked_attention_bwd (K3b)", "masked_attention_bwd.cu",
-            156, max(worst["K3b", torch.float32], err_b), ms_b, plain_b, bb, bo, lib_b)
-    (fb, fo), (bb, bo) = cost(torch.bfloat16)
-    log(f"  K3 bounds at B=1024 {(Lq, Lk)}: fp32 K3f "
-        f"{RESULT['kernels']['K3']['bound_ms']:.3f} ms, K3b "
-        f"{RESULT['kernels']['K3b']['bound_ms']:.3f} ms; bf16 K3f "
-        f"{1e3 * max(fb / HBM_BYTES_PER_S, fo):.3f} ms, K3b "
-        f"{1e3 * max(bb / HBM_BYTES_PER_S, bo):.3f} ms")
+    # fp32 (the default config's dtype) by CUDA events around the
+    # wrapper; bf16 by the kernels' device time, beside SDPA's
+    t = timed[torch.float32, K3_SHAPES[0]]
+    (fb, fo), (bb, bo) = cost(torch.float32, *K3_SHAPES[0])
+    _record("K3", "masked_attention_fwd (K3f, fp32)", "masked_attention.cu",
+            126, max(worst["K3f", torch.float32], t["err_f"]), t["ms_f"],
+            t["plain_f"], fb, fo, t["lib_f"])
+    _record("K3b", "masked_attention_bwd (K3b, fp32)",
+            "masked_attention_bwd.cu", 156,
+            max(worst["K3b", torch.float32], t["err_b"]), t["ms_b"],
+            t["plain_b"], bb, bo, t["lib_b"])
+    t = timed[torch.bfloat16, K3_SHAPES[0]]
+    (fb, fo), (bb, bo) = cost(torch.bfloat16, *K3_SHAPES[0])
+    _record("K3 bf16", "masked_attention_fwd (K3f, bf16)",
+            "masked_attention.cu", 126,
+            max(worst["K3f", torch.bfloat16], t["err_f"]),
+            t["dev_f"] or t["ms_f"], t["plain_f"], fb, fo,
+            t["dlib_f"] or t["lib_f"])
+    _record("K3b bf16", "masked_attention_bwd (K3b, bf16)",
+            "masked_attention_bwd.cu", 156,
+            max(worst["K3b", torch.bfloat16], t["err_b"]),
+            t["dev_b"] or t["ms_b"], t["plain_b"], bb, bo,
+            t["dlib_b"] or t["lib_b"])
+    for (Lq, Lk) in K3_SHAPES[:2]:
+        (fb, fo), (bb, bo) = cost(torch.bfloat16, Lq, Lk)
+        log(f"  K3 bf16 bounds at B=1024 {(Lq, Lk)}: K3f "
+            f"{1e3 * max(fb / HBM_BYTES_PER_S, fo):.3f} ms, K3b "
+            f"{1e3 * max(bb / HBM_BYTES_PER_S, bo):.3f} ms")
+
+
+def _ms(x):
+    return "not measured" if x is None else f"{x:.3f}"
 
 
 def _record(key, name, src, line, err, ms, plain_ms, nbytes, ops_s,
@@ -1166,7 +1270,8 @@ DEFAULT_TRAIN_STEPS = 3
 FWD_PER_STEP, BWD_PER_STEP = 20, 18
 K2_NAMES = ("proj_two_block", "dx_kernel", "dw_kernel", "dw_reduce_kernel")
 K1_NAMES = ("two_block_fwd_kernel", "two_block_bwd_kernel")
-K3_NAMES = ("masked_fwd_kernel", "masked_bwd_kernel")
+# K3f and K3b, fp32 (masked_*_kernel) and bf16 (masked_*_mma_kernel)
+K3_NAMES = ("masked_fwd", "masked_bwd")
 
 
 def _production_train_cfg(csv_path, **kw):
@@ -1206,29 +1311,15 @@ def _expect(counts, want, what):
 
 
 def _kernel_share(engine, batches, names=None):
-    """Share of device time in the kernels whose names contain one of
-    `names` (default K2f + K2b) over training steps, and the device time
-    per step, from a torch.profiler trace; None when the trace holds no
-    device times."""
-    names = names or K2_NAMES
-    prof = torch.profiler.profile(activities=[
-        torch.profiler.ProfilerActivity.CPU,
-        torch.profiler.ProfilerActivity.CUDA])
+    """_device_share over training steps on `batches` (default names: K2f
+    + K2b)."""
     state = engine.init_state()
-    with prof:
-        for b in batches:
-            state, ld = engine.train_step(state, b)
-        float(ld["loss"])
-    # kernel rows only: an operator's row repeats its kernels' time
-    total = k2 = 0.0
-    for e in prof.key_averages():
-        if "CUDA" not in str(getattr(e, "device_type", "")):
-            continue
-        t = getattr(e, "self_device_time_total", 0.0) or 0.0
-        total += t
-        if any(n in e.key for n in names):
-            k2 += t
-    return (k2 / total, total / 1e3 / len(batches)) if total > 0 else None
+    todo = iter(batches)
+
+    def step():
+        nonlocal state
+        state, _ = engine.train_step(state, next(todo))
+    return _device_share(step, len(batches), names or K2_NAMES)
 
 
 def phase_train(ctx):
@@ -1421,6 +1512,23 @@ def phase_ablation(ctx):
             f"{rows / sum(times[1:]):.1f} interactions/s (steps 2-{n}); "
             f"losses {[round(x, 4) for x in losses]}; launches {counts}")
 
+    # CrossAtt in the production training config (bf16, int8 table, no
+    # remat, dropout 0.1): K3 in bf16, 20 K3f + 18 K3b per step (fuse_qkv
+    # does not apply: CrossAtt's route is K3 whatever the flag says)
+    n = ABLATION_STEPS
+    times, losses, counts = train(
+        _production_train_cfg(ctx["csv"], ablation_type="CrossAtt"), n,
+        K3_NAMES)
+    expect(counts, n, "CrossAtt production train", masked_attention=CROSS_FWD,
+           masked_attention_bwd=CROSS_BWD)
+    RESULT["launches"]["K3 bf16"] = counts["masked_attention"]
+    RESULT["launches"]["K3b bf16"] = counts["masked_attention_bwd"]
+    rows = sum(int(b["row_mask"].sum()) for b in batches[1:n])
+    log(f"  CrossAtt production train (bf16, K3, int8 table, no remat, "
+        f"B=1024): {1e3 * sum(times[1:]) / (n - 1):.1f} ms per step, "
+        f"{rows / sum(times[1:]):.1f} interactions/s (steps 2-{n}); losses "
+        f"{[round(x, 4) for x in losses]}; launches {counts}")
+
     # CrossAtt served: --serving 1 (bf16, int8 table), K3 in bf16
     cfg = X.apply_serving_preset(base.replace(ablation_type="CrossAtt"))
     engine = InterestEngine(cfg, reader.n_users, reader.n_items,
@@ -1435,9 +1543,14 @@ def phase_ablation(ctx):
     if logits.shape != (1024, 40) or not torch.isfinite(logits).all():
         raise AssertionError("CrossAtt serving: logits not (1024, 40) finite")
     ms = _time_ms(lambda: engine.eval_step(state, dev_batch), 5)
+    share = _device_share(lambda: engine.eval_step(state, dev_batch), 3,
+                          K3_NAMES[:1])
     log(f"  CrossAtt serving (--serving 1: bf16, int8, K3) latency B=1024: "
         f"{ms:.1f} ms per batch ({1e3 * 1024 / ms:.1f} interactions/s); "
-        f"{CROSS_FWD} K3f per forward")
+        f"{CROSS_FWD} K3f per forward; K3f share of device time: " + (
+            "not measured (no device times in the trace)" if share is None
+            else f"{100 * share[0]:.1f}% of {share[1]:.1f} ms device time "
+            "per batch (torch.profiler, 3 batches)"))
     del engine, state
     torch.cuda.empty_cache()
 

@@ -78,7 +78,8 @@ MAX_SMEM_BYTES = 232_448
 MAX_GRID_Y = 65_535
 K2_MAX_LEN = 128
 K2_HEAD_DIMS = (16, 32, 64)
-# K3 keeps a whole key row per lane group in registers in its backward
+# K3 keeps a whole key row in registers (fp32: per lane group in its
+# backward; bf16: a warp's 16 x Lk logit tile)
 K3_MAX_LEN = 128
 K3_HEAD_DIMS = (16, 32, 64)
 # the backward kernels keep a whole probability row per lane group in
@@ -882,6 +883,11 @@ def _check_k3(q, k, v, mask_q, mask_k, g=None):
                          f"<= {K3_MAX_LEN}")
     if B > MAX_GRID_Y:
         raise ValueError(f"batch {B} exceeds the grid limit {MAX_GRID_Y}")
+    # the bf16 kernels stage head rows by 16-byte cp.async
+    if q.dtype == torch.bfloat16 and any(
+            t.data_ptr() % 16 for t in (q, k, v) + ((g,) if g is not None
+                                                   else ())):
+        raise ValueError("bf16 inputs must start on a 16-byte boundary")
     return B, Lq, Lk, H, D
 
 

@@ -22,6 +22,7 @@
 #include <type_traits>
 
 #include "joint_attention.cuh"
+#include "mma_sync.cuh"  // cp_async16
 
 namespace segmm {
 
@@ -52,18 +53,6 @@ __host__ __device__ inline size_t k2_stage_bytes(bool tensor_cores, int Lmax, in
     return tiles > acc ? tiles : acc;
   }
   return sizeof(float) * ((size_t)Lmax * kK2Chunk + 2 * (size_t)kK2Chunk * (DH + 1));
-}
-
-// 16-byte asynchronous copy global -> shared (sm_80+); fills zeros when
-// `valid` is false, reading nothing from `src`.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  const int n = valid ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src), "r"(n));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N> __device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
 template <typename T> __device__ __forceinline__ float proj_epilogue(float acc, float bias);

@@ -45,8 +45,10 @@ logger = logging.getLogger(__name__)
 # batch size: the flagship both/both model, --serving preset, over a
 # 3,920,483-row int8 table. Card: NVIDIA H100 80GB HBM3, power limit
 # 700.00 W; measured by chip_smoke.py, phase "serving" ("latency B=...").
-SERVING_LATENCY_TABLE = ((1024, 108.9), (512, 55.7), (256, 28.8),
-                         (128, 15.2))
+# B=128 waits on the host, so it moves with the machine's CPU (31.0 ms in
+# another run of the same code).
+SERVING_LATENCY_TABLE = ((1024, 106.9), (512, 55.0), (256, 28.8),
+                         (128, 20.3))
 
 
 def apply_serving_preset(cfg: InterestConfig,

@@ -93,12 +93,14 @@ class InterestConfig:
     # run the QKV projections inside the attention kernel (K2: q/k/v never
     # touch device memory); parameter tree unchanged
     fuse_qkv: bool = False
-    # merge both per-layer stream calls into one kernel launch; not ported
-    # yet (the port raises on it); parameter tree unchanged
+    # merge both per-layer stream calls into one kernel launch (K5,
+    # core/dual_kernel.py) where both streams are longer than one; needs
+    # fused_attention; parameter tree unchanged
     fuse_dual: bool = False
     # run each whole encoder-layer stream (attention + out-proj + LN
-    # residual + GELU MLP + LN residual) in one kernel; not ported yet (the
-    # port raises on it).
+    # residual + GELU MLP + LN residual) in one kernel (K4,
+    # core/layer_kernel.py); layer remat is skipped under it, since K4 saves
+    # only its inputs; parameter tree unchanged
     fuse_layer: bool = False
     # feature-table storage: 'none' keeps the table in compute_dtype
     # (bf16 ≈ 8 GB at 3.9M rows); 'int8' stores per-row symmetric int8 + a

@@ -224,8 +224,11 @@ def test_k6_kernels_match_plain(cuda, shape, dtype, rate):
 
 
 # K3 (single-block masked attention of the CrossAtt / SelfAtt ablations):
-# the (Lq, Lk) launch shapes at the flagship width
-K3_SHAPES = [(40, 100), (100, 40), (40, 1), (1, 40), (40, 40)]
+# the (Lq, Lk) launch shapes at the flagship width, the largest shape the
+# kernel takes, and (a third entry: q's scale) near-one-hot rows, logits of
+# magnitude ~50
+K3_SHAPES = [(40, 100), (100, 40), (40, 1), (1, 40), (40, 40), (128, 128),
+             pytest.param((40, 100, 50.0), id="near_one_hot")]
 
 
 @pytest.mark.cuda
@@ -236,9 +239,10 @@ def test_k3_kernels_match_plain(cuda, shape, dtype, rate):
     """K3f and K3b against their plain versions, padded query and key rows;
     each launch counts once."""
     rng = np.random.default_rng(5)
-    B, (Lq, Lk) = 16, shape
-    q, k, v = _on(cuda, [rng.normal(size=(B, L, H, DH)).astype(np.float32)
-                         for L in (Lq, Lk, Lk)], dtype)
+    B, (Lq, Lk), amp = 16, shape[:2], (shape[2:] or (1.0,))[0]
+    q, k, v = _on(cuda, [a * rng.normal(size=(B, L, H, DH)).astype(np.float32)
+                         for a, L in ((amp, Lq), (1.0, Lk), (1.0, Lk))],
+                  dtype)
     masks = _on(cuda, (_masks(rng, B, Lq, Lq > 1), _masks(rng, B, Lk, False)))
     g = _on(cuda, [rng.normal(size=(B, Lq, H, DH)).astype(np.float32)],
             dtype)[0]
@@ -256,6 +260,32 @@ def test_k3_kernels_match_plain(cuda, shape, dtype, rate):
             q, k, v, *masks, SCALE, rate, 99).float(), **TOL[dtype])
     _rel_close(got, A.masked_attention_bwd_plain(
         q, k, v, *masks, g, SCALE, rate, 99), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.1], ids=["eval", "dropout"])
+@pytest.mark.parametrize("Lq,Lk,heads,dh", [(128, 128, 8, 64),
+                                            (12, 20, 32, 16)])
+def test_k3_bf16_head_dims(cuda, Lq, Lk, heads, dh, rate):
+    """K3's bf16 bodies at the other head dims they take, 64 (at the
+    largest shape) and 16."""
+    B = 16
+    rng = np.random.default_rng(6)
+    q, k, v, g = _on(cuda, [rng.normal(size=(B, L, heads, dh)).astype(
+        np.float32) for L in (Lq, Lk, Lk, Lq)], torch.bfloat16)
+    masks = _on(cuda, (_masks(rng, B, Lq, Lq > 1), _masks(rng, B, Lk, False)))
+    scale = 1 / math.sqrt(dh)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = A.fused_masked_attention(*leaves, *masks, scale=scale,
+                                   dropout_rate=rate, seed=17,
+                                   deterministic=rate == 0)
+    got = torch.autograd.grad(out, leaves, g)
+    torch.testing.assert_close(
+        out.float(), A.masked_attention_plain(
+            q, k, v, *masks, scale, rate, 17).float(),
+        **TOL[torch.bfloat16])
+    _rel_close(got, A.masked_attention_bwd_plain(
+        q, k, v, *masks, g, scale, rate, 17), torch.bfloat16)
 
 
 @pytest.mark.cuda

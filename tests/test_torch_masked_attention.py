@@ -178,3 +178,51 @@ def test_k3_cpu_launches_nothing_and_guards(rng):
     meta = [torch.empty(a.shape, device="meta") for a in arrays]
     with pytest.raises(ValueError):
         A.fused_masked_attention(*meta, *map(_t, masks))
+
+
+def _split_bf16(x):
+    """x = hi + lo: hi = bf16(x), lo = bf16(x - hi), both returned in fp32."""
+    hi = x.to(torch.bfloat16).float()
+    return hi, (x - hi).to(torch.bfloat16).float()
+
+
+@pytest.mark.parametrize("drop", [False, True], ids=["eval", "dropout"])
+@pytest.mark.parametrize("shape", [(40, 100), (100, 40)])
+def test_k3b_bf16_split_products_match_fp32(rng, shape, drop):
+    """K3b's bf16 body on the tensor cores takes q, k, v and g as the bf16
+    inputs they are, but p and dl are fp32: it splits each into two bf16
+    halves and sums both products in fp32, and forms dl from p's halves
+    (masked_attention_bwd.cu). The same arithmetic in torch stays within
+    1e-4 of the fp32 backward (_masked_bwd_f32) before the output cast, at
+    CrossAtt's two feature stream shapes: the ground for keeping the bf16
+    gradient tolerance that holds the kernel against its plain version."""
+    B, (Lq, Lk), D = 16, shape, 32
+    arrays, masks = _inputs(rng, B, Lq, Lk, D)
+    g = rng.normal(size=(B, Lq, H, D)).astype(np.float32)
+    # bf16 inputs, held in fp32
+    q, k, v, g = (_t(a).to(torch.bfloat16).float() for a in arrays + (g,))
+    mq, mk = map(_t, masks)
+    scale, rate = 1 / math.sqrt(D), RATE if drop else 0.0
+    want = A._masked_bwd_f32(q, k, v, mq, mk, g, scale, rate, SEED)
+
+    p, pair, keep = A._masked_probs(q, k, mq, mk, scale, rate, SEED)
+    p = sum(_split_bf16(p))
+    dp = torch.einsum("bqhd,bkhd->bhqk", g, v)
+    dl = p * (dp - (dp * p).sum(-1, keepdim=True)) * scale
+    if keep is not None:
+        dl = torch.where(keep, dl / A.keep_divisor(rate), 0.0)
+    dl = torch.where(pair, dl, 0.0)
+
+    def split_product(spec, x, y):
+        hi, lo = _split_bf16(x)
+        return torch.einsum(spec, hi, y) + torch.einsum(spec, lo, y)
+
+    got = (split_product("bhqk,bkhd->bqhd", dl, k),
+           split_product("bhqk,bqhd->bkhd", dl, q),
+           split_product("bhqk,bqhd->bkhd", p, g))
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        err = ((a - b).abs().max() / b.abs().max()).item()
+        assert err <= 1e-4, f"{name}: relative error {err:.3g}"
+    # one rounding of p and dl instead of the split misses the bar by far
+    one = torch.einsum("bhqk,bkhd->bqhd", dl.to(torch.bfloat16).float(), k)
+    assert ((one - want[0]).abs().max() / want[0].abs().max()).item() > 1e-4
