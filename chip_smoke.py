@@ -6,13 +6,16 @@ Run from the root of a checkout:  python3 chip_smoke.py
 
 Phases, each of which fails the run (non-zero exit) on any error:
   build          compile the CUDA kernels of core/csrc with nvcc for sm_90a;
-                 count the HMMA instructions of K3's two libraries
+                 count the HMMA instructions of K3's two libraries and of
+                 K1b's, and the TF32 ones of K1b's and K3b's
   kernels        each kernel (K1f, K1b, K2f, K2b, K7b, K3f, K3b, K5f, K5b,
                  K4f, K4b, K6f, K6b) against its plain PyTorch version on
                  the card, at the main paths' stream shapes, fp32 and bf16,
-                 dropout off and on; times at B=1024 (K1f and K2f also with
-                 their dropout branch; K6 in turns with K2; K3 in bf16 by
-                 its device time beside SDPA's)
+                 dropout off and on, near-one-hot rows for K1b and K3;
+                 times at B=1024 (K1f and K2f also with their dropout
+                 branch; K6 in turns with K2; K1 at the four stream shapes
+                 and K3 at (40, 100) and (100, 40) by their device time
+                 beside SDPA's)
   serving        the flagship both/both model (d=512, 16 heads, 6 layers)
                  served with the --serving preset over a 3,920,483-row int8
                  feature table built on the card, through the exporter's
@@ -25,7 +28,8 @@ Phases, each of which fails the run (non-zero exit) on any error:
                  functions: ms per step, interactions/s, 20 K2f + 18 K2b
                  launches per step; then 3 steps of the K7b route
   train_default  the default config trained (K1, fp32, layer remat): 40 K1f
-                 + 18 K1b per step; one 32-row fp32 step against the CPU
+                 + 18 K1b per step; one 32-row fp32 step against the CPU on
+                 the K2 route and one on the K1 route (18 K1b)
   ablation       the ablation models at the flagship width over the same
                  table: CrossAtt and SelfAtt trained in the default config
                  (fp32, K3, layer remat; 40 K3f + 18 K3b and 20 K3f + 10 K3b
@@ -82,9 +86,17 @@ STREAM_SHAPES = ((40, 40, 100), (100, 40, 100), (40, 40, 1), (1, 40, 1))
 # bf16 also at the largest shape the kernel takes
 K3_SHAPES = ((40, 100), (100, 40), (40, 1), (1, 40), (40, 40))
 K3_MAX_SHAPE = (128, 128)
-K3_LIBS = ("masked_attention", "masked_attention_bwd")
+# libraries with tensor-core bodies: K3's bf16 ones on bf16 mma.sync, fp32
+# K1b and K3b on TF32 mma.sync (3xTF32); phase build counts their HMMA
+# instructions, and the TF32 ones among them
+MMA_LIBS = ("masked_attention", "masked_attention_bwd",
+            "two_block_attention_bwd")
+TF32_LIBS = ("masked_attention_bwd", "two_block_attention_bwd")
 HBM_BYTES_PER_S = 3.35e12            # H100 SXM
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+# fp32 K1b and K3b run every product three times on the TF32 tensor cores
+# (495 TFLOP/s dense): their fp32 operations are priced at a third of it
+TF32X3_FLOPS = 495e12 / 3
 # fp32: the kernels and the plain versions sum the same products in other
 # orders (projections over d=512 terms, softmax over <=200 keys): ~1e-6
 # relative on O(1) outputs, 1e-4 leaves two orders of headroom.
@@ -144,21 +156,23 @@ def phase_build():
         for line in out.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {name}: {line.strip()}")
-            elif "Compiling entry function" in line and name in K3_LIBS:
+            elif "Compiling entry function" in line and name in MMA_LIBS:
                 log(f"  ptxas {name}: {line.split('function', 1)[1].strip()}")
     for name, p in paths.items():
         log(f"  built {os.path.relpath(p, ROOT)}")
     log(f"build: {time.perf_counter() - t0:.1f} s")
-    # K3's bf16 bodies run on the tensor cores: their libraries must hold
-    # HMMA (mma.sync) instructions
+    # the tensor-core bodies: their libraries must hold HMMA (mma.sync)
+    # instructions, K1b's and K3b's TF32 ones (HMMA.1688.F32.TF32)
     cuobjdump = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
-    for name in K3_LIBS:
+    for name in MMA_LIBS:
         sass = subprocess.run([cuobjdump, "-sass", str(paths[name])],
                               capture_output=True, text=True, timeout=300)
-        n = sum("HMMA" in ln for ln in sass.stdout.splitlines())
-        log(f"  {name}: {n} HMMA instructions (cuobjdump -sass)")
-        if sass.returncode or not n:
-            raise AssertionError(f"{name}: no HMMA instruction in its "
+        hmma = [ln for ln in sass.stdout.splitlines() if "HMMA" in ln]
+        tf32 = sum("TF32" in ln for ln in hmma)
+        log(f"  {name}: {len(hmma)} HMMA instructions, {tf32} of them TF32 "
+            "(cuobjdump -sass)")
+        if sass.returncode or not hmma or (name in TF32_LIBS and not tf32):
+            raise AssertionError(f"{name}: no (TF32) HMMA instruction in its "
                                  f"library ({sass.stderr[-400:]})")
 
 
@@ -286,6 +300,24 @@ def phase_kernels():
                 worst[k.split()[0]] = max(worst.get(k.split()[0], 0.0), v)
             log(f"  B=64 {tag}: " + ", ".join(f"{k} {v:.2g}"
                                               for k, v in errs.items()))
+        # K1b with near-one-hot rows: q1 and q2 x50, logits of magnitude ~50
+        qkv, m = _k1_inputs(g, 64, *STREAM_SHAPES[0], dt, dev)
+        qkv = (50 * qkv[0], 50 * qkv[1]) + qkv[2:]
+        gq = torch.randn(64, STREAM_SHAPES[0][0], H, Dh, generator=g,
+                         device=dev).to(dt)
+        errs = []
+        for rate, seed in ((0.0, 0), (DROP_RATE, 1234567)):
+            n = A.LAUNCHES["two_block_attention_bwd"]
+            got = _grads(lambda *t: k1(t, m, rate, seed), qkv, gq)
+            if A.LAUNCHES["two_block_attention_bwd"] != n + 1:
+                raise AssertionError("K1b did not launch")
+            errs.append(_rel_err(
+                f"K1b {str(dt)[6:]} near-one-hot rate {rate}", got,
+                A.two_block_attention_bwd_plain(*qkv, *m, gq, scale, rate,
+                                                seed), BWD_TOL[dt]))
+        worst["K1b"] = max(worst["K1b"], *errs)
+        log(f"  B=64 {str(dt)[6:]} {STREAM_SHAPES[0]} q x50: K1b eval/drop "
+            f"{errs[0]:.2g}/{errs[1]:.2g}")
     torch.cuda.synchronize()
 
     # the main path's largest launch: backbone1's video stream at B=1024;
@@ -294,60 +326,47 @@ def phase_kernels():
     Lk = L1 + L2
     qkv, m = _k1_inputs(g, B, Lq, L1, L2, torch.float32, dev)
     err1 = _check("K1 B=1024", k1(qkv, m), k1_plain(qkv, m), torch.float32)
-    q1, q2, kk1, kk2, v1, v2 = qkv
-    # yardstick: SDPA over the concat construction (attention.py:362-371)
-    # with an additive -10000 mask; never called by the port, and unlike K1
-    # it does not give padded query rows the uniform softmax
-    qc = torch.cat([q1, q2], -1).transpose(1, 2)
-    kc = torch.cat([torch.cat([kk1, torch.zeros_like(kk1)], -1),
-                    torch.cat([torch.zeros_like(kk2), kk2], -1)],
-                   1).transpose(1, 2)
-    vc = torch.cat([v1, v2], 1).transpose(1, 2)
-    pair = A._pair_mask(m[0], torch.cat([m[1], m[2]], 1))
-    bias = torch.zeros(pair.shape, device=dev).masked_fill(~pair, -10000.0)
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    ms1 = _time_ms(lambda: k1(qkv, m), 20)
-    plain1 = _time_ms(lambda: k1_plain(qkv, m), 5)
-    lib1 = _time_ms(lambda: sdpa(qc, kc, vc, attn_mask=bias, scale=scale),
-                    20)
-    e = _elem(torch.float32)
-    bytes1 = (e * B * H * Dh * (3 * Lq + 2 * L1 + 2 * L2)
-              + 4 * B * (Lq + L1 + L2))
-    flops1 = 4.0 * B * H * Lq * Lk * Dh
-    _record("K1", "two_block_attention_fwd (K1f)",
-            "two_block_attention.cu", 527, err1, ms1, plain1, bytes1,
-            flops1 / PEAK_FLOPS[torch.float32], lib1)
-    log(f"  K1f fp32 B=1024 {(Lq, L1, L2)}: {ms1:.3f} ms (plain "
-        f"{plain1:.3f}, sdpa {lib1:.3f}) max|err| {err1:.3g}")
-
-    # K1b, fp32, B=1024: gradients of the six inputs
     gq = torch.randn(B, Lq, H, Dh, generator=g, device=dev)
     A.reset_launch_counts()
     got = _grads(lambda *t: k1(t, m), qkv, gq)
     want = A.two_block_attention_bwd_plain(*qkv, *m, gq, scale)
     err1b = _rel_err("K1b B=1024", got, want, BWD_TOL[torch.float32])
     del got, want
-    leaves = [t.detach().requires_grad_() for t in qkv]
-    out = k1(leaves, m)
-    ms1b = _time_ms(lambda: torch.autograd.grad(out, leaves, gq,
-                                                retain_graph=True), 10)
+    plain1 = _time_ms(lambda: k1_plain(qkv, m), 5)
     plain1b = _time_ms(lambda: A.two_block_attention_bwd_plain(
         *qkv, *m, gq, scale), 3)
-    cl = [t.detach().requires_grad_() for t in (qc, kc, vc)]
-    lib_out = sdpa(*cl, attn_mask=bias, scale=scale)
-    gc = gq.transpose(1, 2)
-    lib1b = _time_ms(lambda: torch.autograd.grad(lib_out, cl, gc,
-                                                 retain_graph=True), 10)
+    del qkv, m, gq
+    # fp32 K1f and K1b by device time at the four stream shapes, beside
+    # SDPA's forward and backward on the same inputs
+    k1t = {s: _k1_device_times(A, g, dev, B, *s, scale)
+           for s in STREAM_SHAPES}
+    t = k1t[STREAM_SHAPES[0]]
+    e = _elem(torch.float32)
+    bytes1 = (e * B * H * Dh * (3 * Lq + 2 * L1 + 2 * L2)
+              + 4 * B * (Lq + L1 + L2))
+    flops1 = 4.0 * B * H * Lq * Lk * Dh
+    _record("K1", "two_block_attention_fwd (K1f)",
+            "two_block_attention.cu", 527, err1, t["k1f"], plain1, bytes1,
+            flops1 / PEAK_FLOPS[torch.float32], t["sdpa"])
+    # K1b: every product three times on the TF32 tensor cores
     bytes1b = (e * B * H * Dh * (5 * Lq + 4 * L1 + 4 * L2)
                + 4 * B * (Lq + L1 + L2))
     flops1b = 10.0 * B * H * Lq * Lk * Dh
     _record("K1b", "two_block_attention_bwd (K1b)",
-            "two_block_attention_bwd.cu", 558, err1b, ms1b, plain1b,
-            bytes1b, flops1b / PEAK_FLOPS[torch.float32], lib1b)
-    log(f"  K1b fp32 B=1024 {(Lq, L1, L2)}: {ms1b:.3f} ms (plain "
-        f"{plain1b:.3f}, sdpa backward {lib1b:.3f}) max rel err "
+            "two_block_attention_bwd.cu", 558, err1b, t["k1b"], plain1b,
+            bytes1b, flops1b / TF32X3_FLOPS, t["sdpa_bwd"])
+    log(f"  K1 fp32 B=1024 {(Lq, L1, L2)}: plain K1f {plain1:.3f} ms, plain "
+        f"K1b {plain1b:.3f} ms; max|err| K1f {err1:.3g}, max rel err K1b "
         f"{err1b:.3g}")
-    del qkv, qc, kc, vc, bias, cl, lib_out, leaves, out
+    for (sq, s1, s2), t in k1t.items():
+        b1 = (e * B * H * Dh * (5 * sq + 4 * s1 + 4 * s2)
+              + 4 * B * (sq + s1 + s2))
+        o1 = 10.0 * B * H * sq * (s1 + s2) * Dh / TF32X3_FLOPS
+        log(f"  K1 fp32 B=1024 {(sq, s1, s2)}, device ms: K1f "
+            f"{_ms(t['k1f'])} (sdpa {_ms(t['sdpa'])}), K1b {_ms(t['k1b'])} "
+            f"(sdpa backward {_ms(t['sdpa_bwd'])}; bound "
+            f"{1e3 * max(b1 / HBM_BYTES_PER_S, o1):.3f}); sdpa kernels "
+            f"{t['sdpa_kernels']}")
 
     x, ws, m = _k2_inputs(g, B, Lq, L1, L2, torch.bfloat16, dev)
     err2 = _check("K2 B=1024", k2(x, ws, m), k2_plain(x, ws, m),
@@ -412,21 +431,15 @@ def phase_kernels():
     # the other three launch shapes of a layer, timed for PERF.md
     for (Lq, L1, L2) in STREAM_SHAPES[1:]:
         x, ws, m = _k2_inputs(g, B, Lq, L1, L2, torch.bfloat16, dev)
-        qkv, mk = _k1_inputs(g, B, Lq, L1, L2, torch.float32, dev)
         gx = torch.randn(B, Lq, d, generator=g, device=dev).to(torch.bfloat16)
         leaves = [t.detach().requires_grad_()
                   for t in tuple(x) + tuple(ws)]
         out = k2(leaves[:3], leaves[3:], m)
-        k1l = [t.detach().requires_grad_() for t in qkv]
-        out1 = k1(k1l, mk)
-        g1 = torch.randn_like(out1)
         log(f"  B=1024 {(Lq, L1, L2)}: K2f bf16 "
             f"{_time_ms(lambda: k2(x, ws, m), 5):.3f} ms, K2b bf16 "
             f"{_time_ms(lambda: torch.autograd.grad(out, leaves, gx, retain_graph=True), 3):.3f}"
-            f" ms, K1f fp32 {_time_ms(lambda: k1(qkv, mk), 5):.3f} ms, K1b "
-            f"fp32 {_time_ms(lambda: torch.autograd.grad(out1, k1l, g1, retain_graph=True), 3):.3f}"
             " ms")
-        del leaves, out, k1l, out1
+        del leaves, out
 
     # the training variants of K1f and K2f (compiled with the dropout
     # branch), alone, at (40, 40, 100)
@@ -484,12 +497,88 @@ def _device_ms(fn, iters, names=None):
     return None if share is None else share[0] * share[1]
 
 
+def _device_kernels(fn, iters):
+    """Device ms per call of fn() by kernel name (torch.profiler's kernel
+    rows, after a warm-up call); {} when the trace holds no device
+    times."""
+    fn()
+    torch.cuda.synchronize()
+    prof = torch.profiler.profile(activities=[
+        torch.profiler.ProfilerActivity.CPU,
+        torch.profiler.ProfilerActivity.CUDA])
+    with prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        t = getattr(e, "self_device_time_total", 0.0) or 0.0
+        if "CUDA" in str(getattr(e, "device_type", "")) and t > 0:
+            out[e.key] = t / 1e3 / iters
+    return out
+
+
+def _sdpa_device(fn, iters):
+    """SDPA's device ms per call (every kernel of the call) and the names
+    of its kernels, the heaviest first."""
+    rows = _device_kernels(fn, iters)
+    if not rows:
+        return None, []
+    names = sorted(rows, key=rows.get, reverse=True)
+    return sum(rows.values()), [n[:80] for n in names]
+
+
+def _k1_device_times(A, g, dev, B, Lq, L1, L2, scale):
+    """fp32 K1f and K1b at one stream shape by device time (the kernels'
+    own, not the wrapper's), beside SDPA's forward and backward over the
+    concat construction (attention.py:362-371) with an additive -10000
+    mask; SDPA is never called by the port, and unlike K1 it does not give
+    padded query rows the uniform softmax."""
+    qkv, m = _k1_inputs(g, B, Lq, L1, L2, torch.float32, dev)
+    q1, q2, kk1, kk2, v1, v2 = qkv
+    gq = torch.randn(B, Lq, HEADS, D_MODEL // HEADS, generator=g, device=dev)
+    leaves = [t.detach().requires_grad_() for t in qkv]
+    out = A.fused_two_block_attention(*leaves, *m, scale=scale)
+    qc = torch.cat([q1, q2], -1).transpose(1, 2).requires_grad_()
+    kc = torch.cat([torch.cat([kk1, torch.zeros_like(kk1)], -1),
+                    torch.cat([torch.zeros_like(kk2), kk2], -1)],
+                   1).transpose(1, 2).requires_grad_()
+    vc = torch.cat([v1, v2], 1).transpose(1, 2).requires_grad_()
+    pair = A._pair_mask(m[0], torch.cat([m[1], m[2]], 1))
+    bias = torch.zeros(pair.shape, device=dev).masked_fill(~pair, -10000.0)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib_out = sdpa(qc, kc, vc, attn_mask=bias, scale=scale)
+    gc = gq.transpose(1, 2)
+
+    def sdpa_fwd():
+        return sdpa(qc.detach(), kc.detach(), vc.detach(), attn_mask=bias,
+                    scale=scale)
+
+    def sdpa_bwd():
+        return torch.autograd.grad(lib_out, (qc, kc, vc), gc,
+                                   retain_graph=True)
+
+    def k1f():
+        return A.fused_two_block_attention(*qkv, *m, scale=scale)
+
+    def k1b():
+        return torch.autograd.grad(out, leaves, gq, retain_graph=True)
+    # CUDA events around the calls where the trace holds no device times
+    ms_sdpa, _ = _sdpa_device(sdpa_fwd, 10)
+    ms_sdpa_bwd, names = _sdpa_device(sdpa_bwd, 5)
+    return dict(
+        k1f=_device_ms(k1f, 10, K1_NAMES[:1]) or _time_ms(k1f, 10),
+        k1b=_device_ms(k1b, 5, K1_NAMES[1:]) or _time_ms(k1b, 5),
+        sdpa=ms_sdpa or _time_ms(sdpa_fwd, 10),
+        sdpa_bwd=ms_sdpa_bwd or _time_ms(sdpa_bwd, 5), sdpa_kernels=names[:3])
+
+
 def _k3_kernels(A, g, dev):
     """K3f and K3b against their plain versions at the ablations' (Lq, Lk)
-    shapes (bf16 also at K3_MAX_SHAPE, and with near-one-hot rows), B=64,
-    fp32 and bf16, dropout off and on, padded rows; then their times at
-    B=1024: fp32 on CrossAtt's video stream (40, 100), bf16 on both of its
-    feature streams, (40, 100) and (100, 40), beside SDPA's."""
+    shapes, at K3_MAX_SHAPE and with near-one-hot rows, B=64, fp32 and
+    bf16, dropout off and on, padded rows; then their device times at
+    B=1024 on both of CrossAtt's feature streams, (40, 100) and (100, 40),
+    beside SDPA's."""
     scale = 1.0 / math.sqrt(D_MODEL // HEADS)
     H, Dh = HEADS, D_MODEL // HEADS
 
@@ -507,10 +596,9 @@ def _k3_kernels(A, g, dev):
 
     worst = {}  # (kernel, dtype) -> largest error over the B=64 checks
     for dt in (torch.float32, torch.bfloat16):
-        cases = [(s, 1.0) for s in K3_SHAPES]
-        if dt == torch.bfloat16:
-            # the largest shape; logits of magnitude ~50 (near-one-hot rows)
-            cases += [(K3_MAX_SHAPE, 1.0), (K3_SHAPES[0], 50.0)]
+        # and the largest shape; logits of magnitude ~50 (near-one-hot rows)
+        cases = [(s, 1.0) for s in K3_SHAPES] + [(K3_MAX_SHAPE, 1.0),
+                                                 (K3_SHAPES[0], 50.0)]
         for (Lq, Lk), amp in cases:
             qkv, m = inputs(64, Lq, Lk, dt, amp)
             gq = torch.randn(64, Lq, H, Dh, generator=g, device=dev).to(dt)
@@ -540,7 +628,7 @@ def _k3_kernels(A, g, dev):
     B = 1024
     sdpa = torch.nn.functional.scaled_dot_product_attention
     timed = {}
-    for dt, shapes in ((torch.float32, K3_SHAPES[:1]),
+    for dt, shapes in ((torch.float32, K3_SHAPES[:2]),
                        (torch.bfloat16, K3_SHAPES[:2])):
         for (Lq, Lk) in shapes:
             qkv, m = inputs(B, Lq, Lk, dt)
@@ -588,7 +676,8 @@ def _k3_kernels(A, g, dev):
             # the kernels' own device time, without the wrapper's host time
             dev_f = _device_ms(fwd, 20, K3_NAMES[:1])
             dev_b = _device_ms(bwd, 10, K3_NAMES[1:])
-            dlib_f, dlib_b = _device_ms(lib_fwd, 20), _device_ms(lib_bwd, 10)
+            dlib_f, _ = _sdpa_device(lib_fwd, 20)
+            dlib_b, names = _sdpa_device(lib_bwd, 10)
             timed[dt, (Lq, Lk)] = dict(
                 err_f=err_f, err_b=err_b, ms_f=ms_f, ms_b=ms_b,
                 plain_f=plain_f, plain_b=plain_b, lib_f=lib_f, lib_b=lib_b,
@@ -598,30 +687,34 @@ def _k3_kernels(A, g, dev):
                 f"{lib_f:.3f}, device {_ms(dlib_f)}), K3b {ms_b:.3f} ms "
                 f"(device {_ms(dev_b)}; plain {plain_b:.3f}, sdpa backward "
                 f"{lib_b:.3f}, device {_ms(dlib_b)}); max err K3f "
-                f"{err_f:.3g}, K3b {err_b:.3g}")
+                f"{err_f:.3g}, K3b {err_b:.3g}; sdpa backward kernels "
+                f"{names[:3]}")
             del qkv, m, gq, leaves, out, ql, kl, vl, bias, lib_out, gl
 
     # bytes: K3f reads q, k, v and writes out; K3b reads q, k, v, g and
-    # writes dq, dk, dv; both read the two masks (int32)
+    # writes dq, dk, dv; both read the two masks (int32). fp32 K3b runs
+    # every product three times on the TF32 tensor cores
     def cost(dt, Lq, Lk):
         elems, e = B * H * Dh, _elem(dt)
         masks = 4 * B * (Lq + Lk)
+        bwd_peak = TF32X3_FLOPS if dt == torch.float32 else PEAK_FLOPS[dt]
         return ((e * elems * (2 * Lq + 2 * Lk) + masks,
                  4.0 * B * H * Lq * Lk * Dh / PEAK_FLOPS[dt]),
                 (e * elems * (3 * Lq + 4 * Lk) + masks,
-                 10.0 * B * H * Lq * Lk * Dh / PEAK_FLOPS[dt]))
+                 10.0 * B * H * Lq * Lk * Dh / bwd_peak))
 
-    # fp32 (the default config's dtype) by CUDA events around the
-    # wrapper; bf16 by the kernels' device time, beside SDPA's
+    # both dtypes by the kernels' device time, beside SDPA's
     t = timed[torch.float32, K3_SHAPES[0]]
     (fb, fo), (bb, bo) = cost(torch.float32, *K3_SHAPES[0])
     _record("K3", "masked_attention_fwd (K3f, fp32)", "masked_attention.cu",
-            126, max(worst["K3f", torch.float32], t["err_f"]), t["ms_f"],
-            t["plain_f"], fb, fo, t["lib_f"])
+            126, max(worst["K3f", torch.float32], t["err_f"]),
+            t["dev_f"] or t["ms_f"], t["plain_f"], fb, fo,
+            t["dlib_f"] or t["lib_f"])
     _record("K3b", "masked_attention_bwd (K3b, fp32)",
             "masked_attention_bwd.cu", 156,
-            max(worst["K3b", torch.float32], t["err_b"]), t["ms_b"],
-            t["plain_b"], bb, bo, t["lib_b"])
+            max(worst["K3b", torch.float32], t["err_b"]),
+            t["dev_b"] or t["ms_b"], t["plain_b"], bb, bo,
+            t["dlib_b"] or t["lib_b"])
     t = timed[torch.bfloat16, K3_SHAPES[0]]
     (fb, fo), (bb, bo) = cost(torch.bfloat16, *K3_SHAPES[0])
     _record("K3 bf16", "masked_attention_fwd (K3f, bf16)",
@@ -634,11 +727,12 @@ def _k3_kernels(A, g, dev):
             max(worst["K3b", torch.bfloat16], t["err_b"]),
             t["dev_b"] or t["ms_b"], t["plain_b"], bb, bo,
             t["dlib_b"] or t["lib_b"])
-    for (Lq, Lk) in K3_SHAPES[:2]:
-        (fb, fo), (bb, bo) = cost(torch.bfloat16, Lq, Lk)
-        log(f"  K3 bf16 bounds at B=1024 {(Lq, Lk)}: K3f "
-            f"{1e3 * max(fb / HBM_BYTES_PER_S, fo):.3f} ms, K3b "
-            f"{1e3 * max(bb / HBM_BYTES_PER_S, bo):.3f} ms")
+    for dt in (torch.float32, torch.bfloat16):
+        for (Lq, Lk) in K3_SHAPES[:2]:
+            (fb, fo), (bb, bo) = cost(dt, Lq, Lk)
+            log(f"  K3 {str(dt)[6:]} bounds at B=1024 {(Lq, Lk)}: K3f "
+                f"{1e3 * max(fb / HBM_BYTES_PER_S, fo):.3f} ms, K3b "
+                f"{1e3 * max(bb / HBM_BYTES_PER_S, bo):.3f} ms")
 
 
 def _ms(x):
@@ -1269,8 +1363,10 @@ DEFAULT_TRAIN_STEPS = 3
 # backward never runs: 18 backward launches
 FWD_PER_STEP, BWD_PER_STEP = 20, 18
 K2_NAMES = ("proj_two_block", "dx_kernel", "dw_kernel", "dw_reduce_kernel")
-K1_NAMES = ("two_block_fwd_kernel", "two_block_bwd_kernel")
-# K3f and K3b, fp32 (masked_*_kernel) and bf16 (masked_*_mma_kernel)
+# K1f and K1b (fp32: two_block_bwd_tf32_kernel, bf16: two_block_bwd_kernel)
+K1_NAMES = ("two_block_fwd_kernel", "two_block_bwd")
+# K3f and K3b, fp32 (masked_fwd_kernel, masked_bwd_tf32_kernel) and bf16
+# (masked_*_mma_kernel)
 K3_NAMES = ("masked_fwd", "masked_bwd")
 
 
@@ -1384,7 +1480,7 @@ def phase_train(ctx):
 def phase_train_default(ctx):
     """The default configuration (K1 route, fp32, remat of each encoder
     layer) for a few steps; then one 32-row fp32 step on the card against
-    the same step on the CPU."""
+    the same step on the CPU, on the K2 route and on the K1 route."""
     from segmminterest_tpu_torch.data.dataset import BatchIterator
     from segmminterest_tpu_torch.engine.train import InterestEngine
 
@@ -1419,28 +1515,42 @@ def phase_train_default(ctx):
     del engine
     torch.cuda.empty_cache()
 
-    # 32 rows, fp32, K2 route, dropout off (nn.Dropout draws from another
-    # generator on each device): the card against the CPU's plain versions
+    # 32 rows, fp32, dropout off (nn.Dropout draws from another generator
+    # on each device): the card against the CPU's plain versions, on the K2
+    # route and on the K1 route (18 K1b on the card, none on the CPU)
+    from segmminterest_tpu_torch.core import attention as A
     small = next(iter(BatchIterator(reader, reader.tables["train"], 32,
                                     feature_store=store, seed=7,
                                     prefetch_size=0)))
-    one = cfg.replace(train_batch_size=32, dropout=0.0, fuse_qkv=True)
-    got = {}
-    for dev, table in (("cuda", ctx["table"]),
-                       ("cpu", tuple(t.cpu() for t in ctx["table"]))):
-        eng = InterestEngine(one, reader.n_users, reader.n_items,
-                             feature_table=table, device=dev)
-        _, ld = eng.train_step(eng.init_state(), small)
-        got[dev] = (float(ld["loss"]), float(eng.last_grad_norm))
-        del eng, table
-    dl = abs(got["cuda"][0] - got["cpu"][0]) / abs(got["cpu"][0])
-    dg = abs(got["cuda"][1] - got["cpu"][1]) / got["cpu"][1]
-    log(f"  32-row fp32 step, card vs CPU: loss {got['cuda'][0]:.6f} vs "
-        f"{got['cpu'][0]:.6f} (rel {dl:.2g}), grad norm {got['cuda'][1]:.6f}"
-        f" vs {got['cpu'][1]:.6f} (rel {dg:.2g})")
-    # fp32 through five layers in another summation order: 1e-4 relative
-    if not (dl <= 1e-4 and dg <= 1e-4):
-        raise AssertionError(f"card and CPU training steps differ: {got}")
+    for route, fuse_qkv, key in (
+            ("K2", True, "proj_two_block_attention_bwd"),
+            ("K1", False, "two_block_attention_bwd")):
+        one = cfg.replace(train_batch_size=32, dropout=0.0,
+                          fuse_qkv=fuse_qkv)
+        got = {}
+        for dev, table in (("cuda", ctx["table"]),
+                           ("cpu", tuple(t.cpu() for t in ctx["table"]))):
+            eng = InterestEngine(one, reader.n_users, reader.n_items,
+                                 feature_table=table, device=dev)
+            A.reset_launch_counts()
+            _, ld = eng.train_step(eng.init_state(), small)
+            got[dev] = (float(ld["loss"]), float(eng.last_grad_norm),
+                        A.LAUNCHES[key])
+            del eng, table
+        if got["cuda"][2] != BWD_PER_STEP or got["cpu"][2] != 0:
+            raise AssertionError(f"32-row {route} step launches of {key}: "
+                                 f"{got}")
+        dl = abs(got["cuda"][0] - got["cpu"][0]) / abs(got["cpu"][0])
+        dg = abs(got["cuda"][1] - got["cpu"][1]) / got["cpu"][1]
+        log(f"  32-row fp32 step, {route} route, card vs CPU: loss "
+            f"{got['cuda'][0]:.6f} vs {got['cpu'][0]:.6f} (rel {dl:.2g}), "
+            f"grad norm {got['cuda'][1]:.6f} vs {got['cpu'][1]:.6f} (rel "
+            f"{dg:.2g}); {got['cuda'][2]} {key} launches on the card")
+        # fp32 through five layers in another summation order: 1e-4
+        # relative
+        if not (dl <= 1e-4 and dg <= 1e-4):
+            raise AssertionError(f"card and CPU {route} training steps "
+                                 f"differ: {got}")
 
 
 # launches per flagship step of the ablations (2 backbones x 5 run layers):

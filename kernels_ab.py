@@ -1,18 +1,22 @@
 #!/usr/bin/env python3
-"""K3 in bf16 for the port of one checkout: the kernels' device times and
-CrossAtt's served batch, on one NVIDIA GPU.
+"""The redesigned attention kernels of one checkout's port: their device
+times and CrossAtt's served batch, on one NVIDIA GPU.
 
 Run from the root of a checkout:
 
-    python3 k3_ab.py [--root DIR]
+    python3 kernels_ab.py [--root DIR]
 
 It imports segmminterest_tpu_torch from DIR (default: this checkout), which
 builds that package's kernels under DIR/build, and prints one JSON line:
-  * K3f and K3b in bf16 at B=1024 on CrossAtt's two feature streams,
-    (Lq, Lk) = (40, 100) and (100, 40), 16 heads of 32: device ms per call
-    from torch.profiler (the kernels' own time, not the wrapper's), beside
-    SDPA's forward and backward on the same inputs with an additive -10000
-    pair mask;
+  * at B=1024, 16 heads of 32, device ms per call from torch.profiler (the
+    kernels' own time, not the wrapper's):
+      - K3f and K3b in bf16 on CrossAtt's two feature streams, (Lq, Lk) =
+        (40, 100) and (100, 40), beside SDPA's forward and backward on the
+        same inputs with an additive -10000 pair mask;
+      - K1b in fp32 at the four (Lq, L1, L2) stream shapes of a both/both
+        layer and K3b in fp32 at (40, 100) and (100, 40), with dropout off
+        and on (rate 0.1), each with its largest error relative to the
+        plain version's largest gradient;
   * CrossAtt served with --serving 1 (bf16, int8 table, K3) at B=1024 over
     the 3,920,483-row int8 table of chip_smoke.py: ms per batch with the
     batch on the card (CUDA events), and K3f's share of its device time;
@@ -35,16 +39,22 @@ import torch
 
 import chip_smoke as C
 
-SHAPES = ((40, 100), (100, 40))
+K3_SHAPES = ((40, 100), (100, 40))
 B = 1024
+SEED = 1234567
 
 
-def _kernels(A, g, dev):
+def _rel(got, want):
+    return max(((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
+               for a, b in zip(got, want))
+
+
+def _k3_bf16(A, g, dev):
     H, Dh = C.HEADS, C.D_MODEL // C.HEADS
     scale = 1.0 / math.sqrt(Dh)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     out = {}
-    for Lq, Lk in SHAPES:
+    for Lq, Lk in K3_SHAPES:
         qkv = [torch.randn(B, L, H, Dh, generator=g, device=dev).to(
             torch.bfloat16) for L in (Lq, Lk, Lk)]
         m = (C._masks(g, B, Lq, dev), C._masks(g, B, Lk, dev, False))
@@ -69,6 +79,42 @@ def _kernels(A, g, dev):
                 scale=scale), 20),
             sdpa_bwd_ms=C._device_ms(lambda: torch.autograd.grad(
                 lo, (ql, kl, vl), gl, retain_graph=True), 10))
+    return out
+
+
+def _fp32_bwd(A, g, dev):
+    """fp32 K1b and K3b through their wrappers: device ms of the backward
+    kernel and its error against the plain version."""
+    H, Dh = C.HEADS, C.D_MODEL // C.HEADS
+    scale = 1.0 / math.sqrt(Dh)
+    cases = []
+    for (Lq, L1, L2) in C.STREAM_SHAPES:
+        qkv, m = C._k1_inputs(g, B, Lq, L1, L2, torch.float32, dev)
+        cases.append((f"K1b {(Lq, L1, L2)}", qkv, m, Lq,
+                      A.fused_two_block_attention,
+                      A.two_block_attention_bwd_plain, C.K1_NAMES[1:]))
+    for (Lq, Lk) in K3_SHAPES:
+        qkv = [torch.randn(B, L, H, Dh, generator=g, device=dev)
+               for L in (Lq, Lk, Lk)]
+        m = (C._masks(g, B, Lq, dev), C._masks(g, B, Lk, dev, False))
+        cases.append((f"K3b {(Lq, Lk)}", qkv, m, Lq, A.fused_masked_attention,
+                      A.masked_attention_bwd_plain, C.K3_NAMES[1:]))
+    out = {}
+    for name, qkv, m, Lq, fused, plain, names in cases:
+        gq = torch.randn(B, Lq, H, Dh, generator=g, device=dev)
+        for rate in (0.0, C.DROP_RATE):
+            leaves = [t.detach().requires_grad_() for t in qkv]
+            o = fused(*leaves, *m, scale=scale, dropout_rate=rate, seed=SEED,
+                      deterministic=rate == 0)
+
+            def bwd(o=o, leaves=leaves, gq=gq):
+                return torch.autograd.grad(o, leaves, gq, retain_graph=True)
+            ms = C._device_ms(bwd, 5, names)
+            err = _rel(bwd(), plain(*qkv, *m, gq, scale, rate, SEED))
+            out[f"{name} rate {rate}"] = dict(ms=ms, err=err)
+            print(f"  {name} rate {rate}: {C._ms(ms)} ms, err {err:.2g}",
+                  flush=True)
+            del o, leaves
     return out
 
 
@@ -105,7 +151,7 @@ def main(argv=None):
                    help="checkout whose segmminterest_tpu_torch is measured")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
-        print("k3_ab: no CUDA device", file=sys.stderr)
+        print("kernels_ab: no CUDA device", file=sys.stderr)
         return 2
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -115,7 +161,8 @@ def main(argv=None):
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
-    res = dict(root=root, kernels=_kernels(A, g, dev), served=_served(dev))
+    res = dict(root=root, k3_bf16=_k3_bf16(A, g, dev),
+               fp32_bwd=_fp32_bwd(A, g, dev), served=_served(dev))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)

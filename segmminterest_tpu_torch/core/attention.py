@@ -78,12 +78,13 @@ MAX_SMEM_BYTES = 232_448
 MAX_GRID_Y = 65_535
 K2_MAX_LEN = 128
 K2_HEAD_DIMS = (16, 32, 64)
-# K3 keeps a whole key row in registers (fp32: per lane group in its
-# backward; bf16: a warp's 16 x Lk logit tile)
+# K3's tensor-core bodies (bf16, and fp32 K3b) keep a warp's 16 x Lk
+# logit tile in registers
 K3_MAX_LEN = 128
 K3_HEAD_DIMS = (16, 32, 64)
-# the backward kernels keep a whole probability row per lane group in
-# registers: every stream at most 128 long, head dim at most 64
+# K1b keeps a warp's logit tile over both key blocks in registers (fp32) or
+# a probability row per lane group (bf16): every stream at most 128 long,
+# head dim at most 64
 BWD_MAX_LEN = 128
 BWD_MAX_HEAD_DIM = 64
 # K2's weight gradients are summed over the batch in this many row chunks,
@@ -640,8 +641,8 @@ def _k1_backward_cuda(q1, q2, k1, k2, v1, v2, mask_q, mask_k1, mask_k2, g,
                                     True)
     smem = _fn("two_block_attention_bwd",
                "segmm_two_block_attention_bwd_smem_bytes", ctypes.c_size_t,
-               [ctypes.c_int] * 4)
-    if smem(Lq, L1, L2, D) > MAX_SMEM_BYTES:
+               [ctypes.c_int] * 5)
+    if smem(_DTYPE_CODE[q1.dtype], Lq, L1, L2, D) > MAX_SMEM_BYTES:
         raise ValueError(f"(Lq, L1, L2, D)={(Lq, L1, L2, D)} needs more "
                          "shared memory than one block has")
     fn = _fn("two_block_attention_bwd", "segmm_two_block_attention_bwd",

@@ -2,11 +2,14 @@
 
 Each source is compiled by ``nvcc`` for ``sm_90a`` into its own shared
 library with a plain C interface under ``build/segmm_torch_kernels/`` at the
-root of the checkout, and loaded with ``ctypes``. Nothing is built when this
-module is imported: the first call to :func:`load_library` builds every
-source, one ``nvcc`` process each, all started together, and later calls
-reuse the libraries whose file name carries the hash of their sources. A
-failed build raises.
+root of the checkout, and loaded with ``ctypes``. A library may have parts,
+``csrc/<name>.<part>.cu``, that hold some of its template instantiations:
+then each file is compiled to an object and the objects are linked, so that
+one long compile is cut into several that run side by side. Nothing is
+built when this module is imported: the first call to :func:`load_library`
+builds every library, one ``nvcc`` process a file, all started together,
+and later calls reuse the libraries whose file name carries the hash of
+their sources. A failed build raises.
 """
 
 from __future__ import annotations
@@ -30,6 +33,8 @@ SOURCES = ("two_block_attention", "proj_two_block_attention",
            "proj_two_block_attention_v2_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# compiling a library's parts to objects: the same without -shared
+COMPILE_FLAGS = tuple(f for f in NVCC_FLAGS if f != "-shared")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -48,32 +53,65 @@ def _nvcc() -> str:
     return found
 
 
+def _files(name: str):
+    """A library's source and its parts."""
+    return [CSRC / f"{name}.cu"] + sorted(CSRC.glob(f"{name}.*.cu"))
+
+
 def _lib_path(name: str) -> Path:
     h = hashlib.sha1()
-    for f in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
+    for f in sorted(CSRC.glob("*.cuh")) + _files(name):
         h.update(f.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
+
+
+def _start_build(name: str, out: Path):
+    """Start building ``csrc/<name>.cu`` (and its parts) into the library
+    ``out``; returns a thread and a dict that holds nvcc's exit code and
+    output once the thread has ended."""
+    res = {"code": 0, "text": ""}
+    files = _files(name)
+    inc = ("-I", str(CSRC))
+
+    def run(cmds):
+        procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for c in cmds]
+        for proc in procs:
+            res["text"] += proc.communicate()[0]
+            res["code"] = res["code"] or proc.returncode
+
+    def go():
+        if len(files) == 1:
+            run([[_nvcc(), *NVCC_FLAGS, *inc, "-o", str(out),
+                  str(files[0])]])
+            return
+        objs = [out.with_suffix(f".{i}.o") for i in range(len(files))]
+        run([[_nvcc(), *COMPILE_FLAGS, "-c", *inc, "-o", str(o),
+              str(f)] for o, f in zip(objs, files)])
+        if not res["code"]:
+            run([[_nvcc(), "-shared", "-o", str(out), *map(str, objs)]])
+        for o in objs:
+            o.unlink(missing_ok=True)
+    thread = threading.Thread(target=go)
+    thread.start()
+    return thread, res
 
 
 def build_all() -> Dict[str, Path]:
     """Compile every source whose library is missing, in parallel."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     paths = {n: _lib_path(n) for n in SOURCES}
-    todo = [n for n, p in paths.items() if not p.exists()]
-    procs = {}
-    for n in todo:
-        tmp = paths[n].with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
-               str(CSRC / f"{n}.cu")]
-        procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                     stderr=subprocess.STDOUT, text=True), tmp)
+    jobs = {n: (_start_build(n, p.with_suffix(f".{os.getpid()}.tmp")),
+                p.with_suffix(f".{os.getpid()}.tmp"))
+            for n, p in paths.items() if not p.exists()}
     failed = []
-    for n, (proc, tmp) in procs.items():
-        out, _ = proc.communicate()
-        build_log[n] = out
-        if proc.returncode != 0:
-            failed.append(f"{n}.cu (exit {proc.returncode}):\n{out}")
+    for n, ((thread, res), tmp) in jobs.items():
+        thread.join()
+        build_log[n] = res["text"]
+        if res["code"]:
+            failed.append(f"{n}.cu (exit {res['code']}):\n{res['text']}")
         else:
             os.replace(tmp, paths[n])
     if failed:

@@ -48,126 +48,34 @@
 //   Registers: dp of a 16-row tile, 4 NT floats a thread (64 at Lk > 64);
 //   ptxas's report (chip_smoke.py, phase build) shows any spill.
 //
-// fp32 (masked_bwd_kernel) keeps its CUDA-core body: K1b's with one key block, the
-// whole P in shared memory and fp32 FMAs with operands in shared memory.
-// TF32 would change its numbers; its gap to SDPA's backward (1.16x) is left
-// to a later change.
+// fp32 (tf32_attention_bwd.cuh, one key block): every product on the TF32
+// tensor cores in 3xTF32, the structure of the bf16 body with fp32 tiles of
+// row stride D + 4 over the lengths rounded up to 8, p and dl kept in fp32
+// and split into TF32 big and small halves where the bf16 body splits them
+// into bf16 hi and lo. One fp32 [query][key] buffer holds p, then dl.
+// Shared memory per block at D = 32 (tf32_bwd_smem_bytes), with the blocks
+// an H100 SM holds (ptxas, CUDA 12.8: 147 registers without dropout and
+// 153 with it at Lk > 64, 123 / 126 at Lk <= 64, no spill; D = 16 and 64,
+// the 128-key tile only: 152 / 158 and 186 / 190):
+//   (40, 100)   q/g 11.5 + k/v 30.0 + masks/keep bits 1.3 + P 17.3
+//               = 60.1 KB: 3 blocks
+//   (100, 40)   30.0 + 11.5 + 1.5 + 18.3 = 61.2 KB: 3 blocks
+//   (128, 128)  144.4 KB (D = 64: 209.9 KB): 1 block, of 8 warps
 #include "joint_attention.cuh"
 #include "masked_attention_mma.cuh"
+#include "tf32_attention_bwd.cuh"
 
 namespace segmm {
+// The fp32 body at head dims 16 and 64 is instantiated in
+// masked_attention_bwd.d16.cu and .d64.cu, compiled beside this file
+// (core/build.py), so that its longest compiles run side by side.
+extern template cudaError_t launch_tf32_bwd_nt<1, 16>(const Tf32BwdArgs<1>&, int,
+                                                          cudaStream_t);
+extern template cudaError_t launch_tf32_bwd_nt<1, 64>(const Tf32BwdArgs<1>&, int,
+                                                          cudaStream_t);
+}  // namespace segmm
 
-constexpr int kK3bThreads = 256;
-
-template <typename T, bool kDrop>
-__global__ void __launch_bounds__(kK3bThreads)
-masked_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                  const int* __restrict__ mq, const int* __restrict__ mk,
-                  const T* __restrict__ g, T* __restrict__ dq, T* __restrict__ dk,
-                  T* __restrict__ dv, int Lq, int Lk, int H, int D, float scale, float rate,
-                  float keep_div, unsigned seed) {
-  const int h = blockIdx.x, b = blockIdx.y;
-  const int ds = tile_stride(D);
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-  extern __shared__ __align__(16) float smem[];
-  float* sq = smem;
-  float* sg = sq + Lq * ds;
-  float* sk = sg + Lq * ds;
-  float* sv = sk + Lk * ds;
-  int* smq = reinterpret_cast<int*>(sv + Lk * ds);
-  int* smk = smq + Lq;
-  float* P = reinterpret_cast<float*>(smq + pad4(Lq + Lk));
-
-  load_head_rows<T>(q, sq, b, Lq, H, h, D, ds);
-  load_head_rows<T>(g, sg, b, Lq, H, h, D, ds);
-  load_head_rows<T>(k, sk, b, Lk, H, h, D, ds);
-  load_head_rows<T>(v, sv, b, Lk, H, h, D, ds);
-  for (int i = threadIdx.x; i < Lq; i += blockDim.x) smq[i] = mq[(long)b * Lq + i];
-  for (int i = threadIdx.x; i < Lk; i += blockDim.x) smk[i] = mk[(long)b * Lk + i];
-  __syncthreads();
-
-  const Dropout dr = make_dropout(rate, keep_div, seed, b, gridDim.y);
-  const unsigned salt = (unsigned)h;
-  const int lds = pad4(Lk);
-
-  // 1. probabilities in fp32 (not rounded), one warp per query row
-  for (int i = warp; i < Lq; i += nwarps) {
-    float* pr = P + (size_t)i * lds;
-    const int qi[1] = {i}, mqi[1] = {smq[i]};
-    float mx[1] = {-INFINITY};
-    block_logits<1, kDrop>(sq, sk, ds, D, smk, Lk, qi, mqi, scale, dr, salt, pr, lds, mx);
-    const float m = warp_max(mx[0]);
-    float acc = 0.f;
-    for (int j = lane; j < Lk; j += 32) {
-      const float e = expf(pr[j] - m);
-      pr[j] = e;
-      acc += e;
-    }
-    const float s = warp_sum(acc);
-    for (int j = lane; j < Lk; j += 32) pr[j] = pr[j] / s;
-  }
-  __syncthreads();
-
-  const long stride = (long)H * D;
-  const long oq = ((long)b * Lq * H + h) * D;
-  const long ok = ((long)b * Lk * H + h) * D;
-  // 2. dv = p^T g
-  rows_times_tile<T>(P, 1, lds, Lq, sg, ds, D, Lk, dv + ok, stride);
-  __syncthreads();
-
-  // 3. dl in place of p, one warp per query row; dp stays in registers
-  for (int i = warp; i < Lq; i += nwarps) {
-    float* pr = P + (size_t)i * lds;
-    const float* gi = sg + i * ds;
-    const int mqi = smq[i];
-    float dp[kBwdSlots];
-    float part = 0.f;
-#pragma unroll
-    for (int t = 0; t < kBwdSlots; ++t) {
-      const int j = lane + 32 * t;
-      dp[t] = j < Lk ? dot_rows(gi, sv + j * ds, D) : 0.f;
-      if (j < Lk) part = fmaf(dp[t], pr[j], part);
-    }
-    const float s = warp_sum(part);
-#pragma unroll
-    for (int t = 0; t < kBwdSlots; ++t) {
-      const int j = lane + 32 * t;
-      if (j < Lk) {
-        float dl = pr[j] * (dp[t] - s) * scale;
-        if (kDrop) dl = dropout_keep(dr, i, j, salt) ? dl / dr.keep_div : 0.f;
-        pr[j] = (mqi * smk[j]) > 0 ? dl : 0.f;
-      }
-    }
-  }
-  __syncthreads();
-
-  // 4. dq = dl k and 5. dk = dl^T q
-  rows_times_tile<T>(P, lds, 1, Lk, sk, ds, D, Lq, dq + oq, stride);
-  rows_times_tile<T>(P, 1, lds, Lq, sq, ds, D, Lk, dk + ok, stride);
-}
-
-inline size_t k3b_smem_bytes(int Lq, int Lk, int D) {
-  return sizeof(float) * (size_t)(2 * Lq + 2 * Lk) * tile_stride(D) +
-         sizeof(int) * (size_t)pad4(Lq + Lk) + sizeof(float) * (size_t)Lq * pad4(Lk);
-}
-
-template <typename T, bool kDrop>
-cudaError_t launch_k3b_variant(const void* q, const void* k, const void* v, const int* mq,
-                               const int* mk, const void* g, void* dq, void* dk, void* dv, int B,
-                               int Lq, int Lk, int H, int D, float scale, float rate,
-                               float keep_div, unsigned seed, cudaStream_t stream) {
-  const size_t smem = k3b_smem_bytes(Lq, Lk, D);
-  cudaError_t err = cudaFuncSetAttribute(masked_bwd_kernel<T, kDrop>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  masked_bwd_kernel<T, kDrop><<<dim3(H, B), kK3bThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), mq, mk,
-      static_cast<const T*>(g), static_cast<T*>(dq), static_cast<T*>(dk), static_cast<T*>(dv),
-      Lq, Lk, H, D, scale, rate, keep_div, seed);
-  return cudaGetLastError();
-}
+namespace segmm {
 
 // ---------------------------------------------------------------------------
 // bf16 on the tensor cores
@@ -412,7 +320,7 @@ cudaError_t launch_k3b_mma_d(const void* q, const void* k, const void* v, const 
 
 }  // namespace segmm
 
-// dtype: 0 = float32 (FMA body), 1 = bfloat16 (tensor cores). Inputs q, k,
+// dtype: 0 = float32 (3xTF32), 1 = bfloat16 (bf16 tensor cores). Inputs q, k,
 // v, the masks and g; outputs dq, dk, dv (same shapes and dtype as q, k,
 // v). Lq, Lk <= 128, D in {16, 32, 64}; bf16 pointers 16-byte aligned (the
 // wrapper checks). Returns a cudaError_t (0 = launched).
@@ -423,10 +331,12 @@ extern "C" int segmm_masked_attention_bwd(int dtype, const void* q, const void* 
                                           float keep_div, unsigned seed, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    auto launch = rate > 0.f ? segmm::launch_k3b_variant<float, true>
-                             : segmm::launch_k3b_variant<float, false>;
-    return (int)launch(q, k, v, mq, mk, g, dq, dk, dv, B, Lq, Lk, H, D, scale, rate, keep_div,
-                       seed, s);
+    using f = float;
+    const segmm::Tf32BwdArgs<1> args{
+        {static_cast<const f*>(q)}, {static_cast<const f*>(k)}, {static_cast<const f*>(v)},
+        static_cast<const f*>(g), mq, {mk}, {static_cast<f*>(dq)}, {static_cast<f*>(dk)},
+        {static_cast<f*>(dv)}, Lq, {Lk}, H, D, scale, rate, keep_div, seed};
+    return (int)segmm::launch_tf32_attention_bwd<1>(args, B, s);
   }
   if (dtype != 1) return (int)cudaErrorInvalidValue;
   auto launch = D == 16   ? segmm::launch_k3b_mma_d<16>

@@ -1,7 +1,7 @@
 // Warp-level tensor-core building blocks for sm_80+ (used on sm_90a):
-// cp.async staging, ldmatrix and mma.sync m16n8k16 in bf16 with fp32
-// accumulators, as inline PTX, so that a kernel sees every fragment's
-// coordinates.
+// cp.async staging, ldmatrix, mma.sync m16n8k16 in bf16 and m16n8k8 in TF32
+// (one product, or three for fp32 accuracy: 3xTF32) with fp32 accumulators,
+// as inline PTX, so that a kernel sees every fragment's coordinates.
 //
 // Fragment layout of mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32
 // (PTX ISA, "Matrix Fragments for mma.m16n8k16"), with g = lane / 4 and
@@ -16,6 +16,20 @@
 // The lower column of a bf16 pair sits in the lower 16 bits. The C fragments
 // of two neighbouring n8 tiles are, once rounded to bf16, the A fragment of
 // one k16 step: a[0..1] from the first tile's c, a[2..3] from the second's.
+//
+// Fragment layout of mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32
+// ("Matrix Fragments for mma.m16n8k8", .tf32), one 32-bit value a register:
+//   A (16 x 8, row major): a[0] = (row g, col t)      a[1] = (row g + 8, col t)
+//                          a[2] = (row g, col t + 4)  a[3] = (row g + 8, col t + 4)
+//   B (8 x 8, K x N):      b[0] = (row t, col g)      b[1] = (row t + 4, col g)
+//   C, D: as m16n8k16's, c[0], c[1] = (row g, cols 2t, 2t+1), c[2], c[3] =
+//     (row g + 8, cols 2t, 2t+1).
+// A holds columns t and t + 4 where C holds 2t and 2t + 1, so a C tile is
+// not an A fragment as it stands. It is one up to the order of the sum over
+// K: read k-index t as column 2t and t + 4 as 2t + 1, i.e. a = {c[0], c[2],
+// c[1], c[3]}, and take B's rows in the same order, b[0] from row 2t and
+// b[1] from row 2t + 1. No shuffle is needed; the sum runs over the same
+// eight terms in another order.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -83,6 +97,73 @@ __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
 __device__ __forceinline__ void split_bf16(float x, float& hi, float& lo) {
   hi = __bfloat162float(__float2bfloat16_rn(x));
   lo = x - hi;
+}
+
+// ---------------------------------------------------------------------------
+// TF32 and 3xTF32
+
+// x rounded to TF32 (10 explicit mantissa bits), to nearest with ties away
+// from zero (cvt.rna): the fp32 bit pattern with the low 13 bits zero.
+__device__ __forceinline__ unsigned tf32_rna(float x) {
+  unsigned r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// x = big + small + O(2^-22 |x|): big = tf32(x), small = tf32(x - big).
+__device__ __forceinline__ void split_tf32(float x, unsigned& big, unsigned& small) {
+  big = tf32_rna(x);
+  small = tf32_rna(x - __uint_as_float(big));
+}
+
+// d += a . b on the TF32 tensor cores, fp32 accumulators. Not volatile, so
+// that the compiler may interleave independent products.
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+  asm(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// One operand of a 3xTF32 product: its big and small TF32 halves.
+struct Tf32A {
+  unsigned big[4], small[4];
+};
+struct Tf32B {
+  unsigned big[2], small[2];
+};
+
+__device__ __forceinline__ Tf32A split_a(float a0, float a1, float a2, float a3) {
+  Tf32A r;
+  split_tf32(a0, r.big[0], r.small[0]);
+  split_tf32(a1, r.big[1], r.small[1]);
+  split_tf32(a2, r.big[2], r.small[2]);
+  split_tf32(a3, r.big[3], r.small[3]);
+  return r;
+}
+
+__device__ __forceinline__ Tf32B split_b(float b0, float b1) {
+  Tf32B r;
+  split_tf32(b0, r.big[0], r.small[0]);
+  split_tf32(b1, r.big[1], r.small[1]);
+  return r;
+}
+
+// d[j] += a . b[j] for j < N in 3xTF32, as CUTLASS's OpMultiplyAddFastF32:
+// big.small and small.big first, then big.big, all into one fp32
+// accumulator each (the dropped small.small term is ~2^-22 of the
+// product). Each pass runs over the N independent accumulators before the
+// next.
+template <int N>
+__device__ __forceinline__ void mma_3xtf32(float (&d)[N][4], const Tf32A& a, const Tf32B (&b)[N]) {
+#pragma unroll
+  for (int j = 0; j < N; ++j) mma_tf32(d[j], a.big, b[j].small[0], b[j].small[1]);
+#pragma unroll
+  for (int j = 0; j < N; ++j) mma_tf32(d[j], a.small, b[j].big[0], b[j].big[1]);
+#pragma unroll
+  for (int j = 0; j < N; ++j) mma_tf32(d[j], a.big, b[j].big[0], b[j].big[1]);
 }
 
 }  // namespace segmm

@@ -11,20 +11,55 @@
 // in the input dtype. Inputs (B, L, H, D) contiguous, fp32 or bf16; masks
 // int32 (B, L); g (B, Lq, H, D).
 //
-// Design: one thread block per (head, batch row), as in K1's forward. The
-// block stages its head's q1, q2, g, k1, v1, k2, v2 rows in shared memory as
-// fp32 and keeps the whole (Lq x (L1 + L2)) probability matrix there, which
-// dl then overwrites in place (at the largest stream, Lq=100, L1=40,
-// L2=100, D=32: 140 KB, one block per SM). Logits and dp split the keys over
-// the lanes; the four products give each lane one column of the head and
-// each warp four rows.
+// fp32 (the default training config's dtype): every product on the TF32
+// tensor cores in 3xTF32, as PyTorch's memory-efficient SDPA backward runs
+// its fp32 GEMMs (tf32_attention_bwd.cuh has the design and the numerics).
+// One block per (head, batch row); the keys of both blocks on one axis
+// [k1 | k2], block 2 from column pad8(L1); q1, q2, g, k1, v1, k2, v2 staged
+// by cp.async as fp32 tiles of row stride D + 4 (D rounded up to 16, 32 or
+// 64) over their lengths rounded up to 8, one fp32 [query][key] buffer that
+// holds p, then dl. Shared memory per block at D = 32
+// (tf32_bwd_smem_bytes), with the blocks an H100 SM holds by shared memory
+// and by registers (ptxas, CUDA 12.8, phase build of chip_smoke.py: 253
+// registers without dropout and 255 with it at (40 | 100) keys, no spill;
+// 123 / 128 at (40 | 1), 24 bytes of spill with dropout; more than 144
+// keys, and D = 16 or 64 (the 256-key tile only), spill at 255):
+//   (40, 40, 100)   q/g 17.3 + k/v 41.5 + masks/keep bits 1.9 + P 23.7
+//                   = 84.3 KB: 2 blocks of 4 warps
+//   (100, 40, 100)  44.9 + 41.5 + 3.7 + 61.6 = 151.6 KB: 1 block, of 8
+//                   warps, as only one block fits
+//   (40, 40, 1)     17.3 + 13.8 + 0.7 + 8.3 = 40.2 KB: 4 blocks (registers)
+//   (1, 40, 1)      3.5 + 13.8 + 0.4 + 1.7 = 19.3 KB: 4 blocks (registers)
+// At D = 64 the largest stream takes 228.4 KB, within the 227 KB of one
+// block. The body takes fewer shapes than the CUDA-core fp32 body it
+// replaced (rows padded to 8, D to 16 / 32 / 64, where that one kept Lq
+// rows of D + 4): the wrapper raises for the rest (PERF.md lists them).
+// A 16-row query tile at Lq = 1 does 16 rows' products for one (15/16 of
+// pass 1's tensor-core work wasted; its rows draw no dropout bits); the
+// shape's time is in PERF.md.
+//
+// bf16 (not on a path the training configs time: bf16 training takes K2)
+// keeps the CUDA-core body of joint_attention.cuh: the seven tiles staged
+// as fp32, the whole (Lq x (L1 + L2)) probability matrix in shared memory,
+// overwritten in place by dl, fp32 FMAs with operands in shared memory.
 //
 // What bounds it on an H100: device memory. It reads q1, q2, k1, v1, k2,
-// v2 and g once and writes six gradients (about 1.6 GB in fp32 at B=1024,
-// (40, 40, 100)), against ~10 Lq (L1 + L2) D FLOP per (row, head) (29 GFLOP),
-// which the card would finish sooner on its fp32 units. This first version
-// waits on its fp32 FMAs with every operand in shared memory instead.
+// v2 and g once and writes six gradients (1.6 GB in fp32 at B=1024,
+// (40, 40, 100): 0.476 ms at 3.35 TB/s), against ~10 Lq (L1 + L2) D FLOP
+// per (row, head), 29 GFLOP, three times over in 3xTF32: 0.18 ms at a third
+// of the 495 TFLOP/s TF32 peak.
 #include "joint_attention.cuh"
+#include "tf32_attention_bwd.cuh"
+
+namespace segmm {
+// The fp32 body at head dims up to 16 and from 36 to 64 is instantiated
+// in two_block_attention_bwd.d16.cu and .d64.cu, compiled beside this file
+// (core/build.py), so that its longest compiles run side by side.
+extern template cudaError_t launch_tf32_bwd_nt<2, 16>(const Tf32BwdArgs<2>&, int,
+                                                          cudaStream_t);
+extern template cudaError_t launch_tf32_bwd_nt<2, 64>(const Tf32BwdArgs<2>&, int,
+                                                          cudaStream_t);
+}  // namespace segmm
 
 namespace segmm {
 
@@ -76,8 +111,10 @@ two_block_bwd_kernel(const T* __restrict__ q1, const T* __restrict__ q2,
                                 dv1 + o1, dv2 + o2, stride);
 }
 
-inline size_t k1b_smem_bytes(int Lq, int L1, int L2, int D) {
-  return bwd_core_bytes(Lq, L1, L2, D);
+inline size_t k1b_smem_bytes(int dtype, int Lq, int L1, int L2, int D) {
+  const int L[2] = {L1, L2};
+  return dtype == 0 ? tf32_bwd_smem_bytes(2, Lq, L, D)
+                    : bwd_core_bytes(Lq, L1, L2, D);
 }
 
 template <typename T, bool kDrop>
@@ -85,7 +122,7 @@ cudaError_t launch_k1b_variant(const void* const* in, const int* mq, const int* 
                                const int* mk2, const void* g, void* const* out, int B, int Lq,
                                int L1, int L2, int H, int D, float scale, float rate,
                                float keep_div, unsigned seed, cudaStream_t stream) {
-  const size_t smem = k1b_smem_bytes(Lq, L1, L2, D);
+  const size_t smem = k1b_smem_bytes(1, Lq, L1, L2, D);
   cudaError_t err = cudaFuncSetAttribute(two_block_bwd_kernel<T, kDrop>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
@@ -110,13 +147,16 @@ cudaError_t launch_k1b(const void* const* in, const int* mq, const int* mk1, con
 
 }  // namespace segmm
 
-extern "C" size_t segmm_two_block_attention_bwd_smem_bytes(int Lq, int L1, int L2, int D) {
-  return segmm::k1b_smem_bytes(Lq, L1, L2, D);
+// dtype as below
+extern "C" size_t segmm_two_block_attention_bwd_smem_bytes(int dtype, int Lq, int L1, int L2,
+                                                           int D) {
+  return segmm::k1b_smem_bytes(dtype, Lq, L1, L2, D);
 }
 
-// dtype: 0 = float32, 1 = bfloat16. Inputs q1, q2, k1, k2, v1, v2, then
-// the masks and g; outputs dq1, dq2, dk1, dk2, dv1, dv2 (same shapes and
-// dtype as the inputs). Every length <= 128, D % 4 == 0 and D <= 64.
+// dtype: 0 = float32 (3xTF32 body), 1 = bfloat16 (FMA body). Inputs q1, q2,
+// k1, k2, v1, v2, then the masks and g; outputs dq1, dq2, dk1, dk2, dv1,
+// dv2 (same shapes and dtype as the inputs). Every length <= 128,
+// D % 4 == 0 and D <= 64.
 // Returns a cudaError_t (0 = launched).
 extern "C" int segmm_two_block_attention_bwd(
     int dtype, const void* q1, const void* q2, const void* k1, const void* k2,
@@ -127,9 +167,15 @@ extern "C" int segmm_two_block_attention_bwd(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const void* in[6] = {q1, q2, k1, k2, v1, v2};
   void* out[6] = {dq1, dq2, dk1, dk2, dv1, dv2};
-  if (dtype == 0)
-    return (int)segmm::launch_k1b<float>(in, mq, mk1, mk2, g, out, B, Lq, L1, L2, H, D, scale,
-                                         rate, keep_div, seed, s);
+  if (dtype == 0) {
+    const float* const* a = reinterpret_cast<const float* const*>(in);
+    float* const* o = reinterpret_cast<float* const*>(out);
+    const segmm::Tf32BwdArgs<2> args{{a[0], a[1]}, {a[2], a[3]}, {a[4], a[5]},
+                                     static_cast<const float*>(g), mq, {mk1, mk2},
+                                     {o[0], o[1]}, {o[2], o[3]}, {o[4], o[5]}, Lq, {L1, L2}, H, D,
+                                     scale, rate, keep_div, seed};
+    return (int)segmm::launch_tf32_attention_bwd<2>(args, B, s);
+  }
   if (dtype == 1)
     return (int)segmm::launch_k1b<__nv_bfloat16>(in, mq, mk1, mk2, g, out, B, Lq, L1, L2, H,
                                                  D, scale, rate, keep_div, seed, s);

@@ -1,0 +1,52 @@
+"""The kernel build's file list (``core/build.py``): every CUDA source under
+``core/csrc`` is compiled into exactly one library, a library's parts
+(``<name>.<part>.cu``) into their own library, and the name of a built
+library changes with any file it is compiled from. Nothing here runs nvcc."""
+
+import pathlib
+
+import pytest
+
+from segmminterest_tpu_torch.core import build
+
+CU_FILES = sorted(p.name for p in build.CSRC.glob("*.cu"))
+
+
+@pytest.mark.parametrize("name", CU_FILES)
+def test_every_source_belongs_to_one_library(name):
+    owners = [lib for lib in build.SOURCES
+              if name in {f.name for f in build._files(lib)}]
+    assert len(owners) == 1, f"{name} is compiled into {owners}"
+
+
+@pytest.mark.parametrize("lib", build.SOURCES)
+def test_library_files_start_with_its_source(lib):
+    files = build._files(lib)
+    assert files[0] == build.CSRC / f"{lib}.cu" and files[0].exists()
+    # a part's name is the library's, one more dotted word, then .cu
+    for part in files[1:]:
+        assert part.name.startswith(f"{lib}.") and part.name.count(".") == 2
+
+
+def test_fp32_backward_libraries_have_their_head_dim_parts():
+    for lib in ("two_block_attention_bwd", "masked_attention_bwd"):
+        assert [f.name for f in build._files(lib)[1:]] == [
+            f"{lib}.d16.cu", f"{lib}.d64.cu"]
+
+
+def test_library_name_follows_its_parts(tmp_path, monkeypatch):
+    """Editing a part renames the library, so a stale build is not
+    loaded."""
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for f in build.CSRC.glob("*.cuh"):
+        (csrc / f.name).write_bytes(f.read_bytes())
+    lib = "two_block_attention_bwd"
+    for f in build._files(lib):
+        (csrc / f.name).write_bytes(f.read_bytes())
+    monkeypatch.setattr(build, "CSRC", csrc)
+    before = build._lib_path(lib)
+    part = csrc / f"{lib}.d64.cu"
+    part.write_text(part.read_text() + "\n")
+    assert build._lib_path(lib) != before
+    assert pathlib.Path(build._lib_path(lib)).name.startswith(f"lib{lib}-")

@@ -1,6 +1,6 @@
-"""Import guard: the port and chip_smoke.py import torch, never JAX or the
-JAX package — the machine with the card has neither, nor pandas,
-scikit-learn, flax or optax."""
+"""Import guard: the port and its scripts for the card (chip_smoke.py,
+kernels_ab.py) import torch, never JAX or the JAX package — the machine
+with the card has neither, nor pandas, scikit-learn, flax or optax."""
 
 import ast
 import pathlib
@@ -9,8 +9,8 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "flax", "optax", "pandas", "sklearn", "segmminterest_tpu")
-FILES = sorted((ROOT / "segmminterest_tpu_torch").rglob("*.py")) + \
-    [ROOT / "chip_smoke.py"]
+FILES = sorted((ROOT / "segmminterest_tpu_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py", ROOT / "kernels_ab.py"]
 
 
 def _imports(path):

@@ -113,18 +113,25 @@ def _rel_close(got, want, dtype):
         assert err <= BWD_TOL[dtype], f"output {i}: relative error {err:.3g}"
 
 
+# K1b: the stream shapes and (a fourth entry: q's scale) near-one-hot rows,
+# logits of magnitude ~50
+K1_BWD_SHAPES = SHAPES + [pytest.param((40, 40, 100, 50.0),
+                                       id="near_one_hot")]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("rate", [0.0, 0.1], ids=["eval", "dropout"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("shape", K1_BWD_SHAPES)
 def test_k1_backward_kernel_matches_plain(cuda, shape, dtype, rate):
     """K1f with dropout and K1b against their plain versions; each launch
     counts once."""
     rng = np.random.default_rng(3)
-    B, (Lq, L1, L2) = 16, shape
-    qkv = _on(cuda, [rng.normal(size=(B, L, H, DH)).astype(np.float32)
-                     for L in (Lq, Lq, L1, L2, L1, L2)], dtype)
-    masks = _on(cuda, _masks_for(rng, B, *shape))
+    B, (Lq, L1, L2), amp = 16, shape[:3], (shape[3:] or (1.0,))[0]
+    qkv = _on(cuda, [a * rng.normal(size=(B, L, H, DH)).astype(np.float32)
+                     for a, L in ((amp, Lq), (amp, Lq), (1.0, L1), (1.0, L2),
+                                  (1.0, L1), (1.0, L2))], dtype)
+    masks = _on(cuda, _masks_for(rng, B, Lq, L1, L2))
     g = _on(cuda, [rng.normal(size=(B, Lq, H, DH)).astype(np.float32)],
             dtype)[0]
     leaves = [t.clone().requires_grad_() for t in qkv]
@@ -286,6 +293,60 @@ def test_k3_bf16_head_dims(cuda, Lq, Lk, heads, dh, rate):
         **TOL[torch.bfloat16])
     _rel_close(got, A.masked_attention_bwd_plain(
         q, k, v, *masks, g, scale, rate, 17), torch.bfloat16)
+
+
+# fp32 K1b and K3b at head dims 64 and 16 (off the flagship's 32: their
+# largest register tile only), and K1b at head dims 64 and 32 at the largest
+# stream shapes its shared memory takes: (kernel, lengths, heads, head dim)
+FP32_BWD_HEAD_DIMS = [("K1b", (100, 40, 100), 8, 64),
+                      ("K1b", (40, 40, 100), 32, 16),
+                      ("K1b", (128, 100, 100), 16, 32),
+                      ("K3b", (128, 128), 8, 64), ("K3b", (12, 20), 32, 16)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.1], ids=["eval", "dropout"])
+@pytest.mark.parametrize("kernel,lengths,heads,dh", FP32_BWD_HEAD_DIMS)
+def test_fp32_backward_head_dims(cuda, kernel, lengths, heads, dh, rate):
+    """fp32 K1b and K3b (3xTF32) against their plain versions at the other
+    head dims they take; each launch counts once."""
+    B, scale = 16, 1 / math.sqrt(dh)
+    rng = np.random.default_rng(7)
+    Lq = lengths[0]
+    if kernel == "K1b":
+        L = (Lq, Lq, lengths[1], lengths[2], lengths[1], lengths[2])
+        masks = _on(cuda, _masks_for(rng, B, *lengths))
+        fused, plain = (A.fused_two_block_attention,
+                        A.two_block_attention_bwd_plain)
+        lib = "two_block_attention_bwd"
+    else:
+        L = (Lq, lengths[1], lengths[1])
+        masks = _on(cuda, (_masks(rng, B, Lq, Lq > 1),
+                           _masks(rng, B, lengths[1], False)))
+        fused, plain = A.fused_masked_attention, A.masked_attention_bwd_plain
+        lib = "masked_attention_bwd"
+    x = _on(cuda, [rng.normal(size=(B, n, heads, dh)).astype(np.float32)
+                   for n in L + (Lq,)])
+    inputs, g = x[:-1], x[-1]
+    leaves = [t.clone().requires_grad_() for t in inputs]
+    out = fused(*leaves, *masks, scale=scale, dropout_rate=rate, seed=23,
+                deterministic=rate == 0)
+    before = A.LAUNCHES[lib]
+    got = torch.autograd.grad(out, leaves, g)
+    assert A.LAUNCHES[lib] == before + 1
+    _rel_close(got, plain(*inputs, *masks, g, scale, rate, 23),
+               torch.float32)
+
+
+@pytest.mark.cuda
+def test_k1b_rejects_shapes_past_shared_memory(cuda):
+    """fp32 K1b raises where its tiles and P do not fit one block's shared
+    memory, rather than launching."""
+    B, H, D, L = 2, 2, 64, 128
+    t = torch.zeros(B, L, H, D, device=cuda)
+    m = torch.ones(B, L, dtype=torch.bool, device=cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        A._k1_backward_cuda(t, t, t, t, t, t, m, m, m, t, 0.125, 0.0, 0)
 
 
 @pytest.mark.cuda

@@ -226,3 +226,57 @@ def test_k3b_bf16_split_products_match_fp32(rng, shape, drop):
     # one rounding of p and dl instead of the split misses the bar by far
     one = torch.einsum("bhqk,bkhd->bqhd", dl.to(torch.bfloat16).float(), k)
     assert ((one - want[0]).abs().max() / want[0].abs().max()).item() > 1e-4
+
+
+def _tf32(x):
+    """x rounded to TF32 as cvt.rna.tf32.f32 does: to nearest on the fp32
+    bits, ties away from zero, the low 13 mantissa bits cleared."""
+    u = x.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    r = (u + 0x1000) & 0xFFFFE000
+    return torch.where(r >= 2**31, r - 2**32, r).to(torch.int32).view(
+        torch.float32)
+
+
+def _tf32_einsum(passes):
+    """torch.einsum of two operands on the TF32 tensor cores: one product of
+    the rounded operands, or (3 passes, 3xTF32) big = tf32(x) and small =
+    tf32(x - big), big.small + small.big + big.big."""
+    plain = torch.einsum
+
+    def einsum(spec, a, b):
+        a_big, b_big = _tf32(a), _tf32(b)
+        if passes == 1:
+            return plain(spec, a_big, b_big)
+        return (plain(spec, a_big, _tf32(b - b_big))
+                + plain(spec, _tf32(a - a_big), b_big)
+                + plain(spec, a_big, b_big))
+    return einsum
+
+
+@pytest.mark.parametrize("drop", [False, True], ids=["eval", "dropout"])
+@pytest.mark.parametrize("shape", [(40, 100), (100, 40)])
+def test_k3b_3xtf32_products_match_fp32(rng, shape, drop, monkeypatch):
+    """fp32 K3b runs every product (q k^T, g v^T, p^T g, dl k, dl^T q) on
+    the TF32 tensor cores in 3xTF32 (tf32_attention_bwd.cuh). The fp32
+    backward (_masked_bwd_f32) with each product so formed stays within
+    1e-5 of itself in fp32 at CrossAtt's two feature stream shapes, while
+    one TF32 rounding of the operands misses 1e-4: the reason for three
+    passes, and the ground for holding the kernel to its plain version at
+    1e-4."""
+    B, (Lq, Lk), D = 16, shape, 32
+    arrays, masks = _inputs(rng, B, Lq, Lk, D)
+    g = rng.normal(size=(B, Lq, H, D)).astype(np.float32)
+    args = (*map(_t, arrays + masks + (g,)), 1 / math.sqrt(D),
+            RATE if drop else 0.0, SEED)
+    want = A._masked_bwd_f32(*args)
+    monkeypatch.setattr(torch, "einsum", _tf32_einsum(3))
+    got = A._masked_bwd_f32(*args)
+    monkeypatch.setattr(torch, "einsum", _tf32_einsum(1))
+    one = A._masked_bwd_f32(*args)
+    monkeypatch.undo()
+
+    def rel(a, b):
+        return ((a - b).abs().max() / b.abs().max()).item()
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert rel(a, b) <= 1e-5, f"{name}: relative error {rel(a, b):.3g}"
+    assert max(rel(a, b) for a, b in zip(one, want)) > 1e-4
