@@ -5,17 +5,21 @@ Run from the root of a checkout:  python3 chip_smoke.py
 (`--phases build,kernels` runs a subset while developing.)
 
 Phases, each of which fails the run (non-zero exit) on any error:
-  build          compile the CUDA kernels of core/csrc with nvcc for sm_90a;
-                 count the HMMA instructions of K3's two libraries and of
-                 K1b's, and the TF32 ones of K1b's and K3b's
+  build          compile the CUDA kernels of core/csrc with nvcc for sm_90a
+                 (seconds per library); count the HMMA instructions of the
+                 libraries of K1f, K1b, K3f and K3b, and the TF32 ones
+                 among them
   kernels        each kernel (K1f, K1b, K2f, K2b, K7b, K3f, K3b, K5f, K5b,
                  K4f, K4b, K6f, K6b) against its plain PyTorch version on
                  the card, at the main paths' stream shapes, fp32 and bf16,
-                 dropout off and on, near-one-hot rows for K1b and K3;
-                 times at B=1024 (K1f and K2f also with their dropout
-                 branch; K6 in turns with K2; K1 at the four stream shapes
-                 and K3 at (40, 100) and (100, 40) by their device time
-                 beside SDPA's)
+                 dropout off and on, near-one-hot rows for K1b and K3,
+                 fp32 K1f also at head dim 128 (its CUDA-core body); fp32
+                 K1b's and K3b's outputs on fixed inputs bit for bit those
+                 of the tree that introduced their bodies (a SHA-256);
+                 times at B=1024 (K2f also with its dropout branch; K6 in
+                 turns with K2; fp32 K1 at the four stream shapes and K3 at
+                 (40, 100) and (100, 40) by their device time, the forwards
+                 with dropout off and on, beside SDPA's)
   serving        the flagship both/both model (d=512, 16 heads, 6 layers)
                  served with the --serving preset over a 3,920,483-row int8
                  feature table built on the card, through the exporter's
@@ -65,6 +69,7 @@ build/segmm_torch_kernels/, its data and checkpoints in build/chip_smoke/).
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import math
 import os
@@ -87,15 +92,15 @@ STREAM_SHAPES = ((40, 40, 100), (100, 40, 100), (40, 40, 1), (1, 40, 1))
 K3_SHAPES = ((40, 100), (100, 40), (40, 1), (1, 40), (40, 40))
 K3_MAX_SHAPE = (128, 128)
 # libraries with tensor-core bodies: K3's bf16 ones on bf16 mma.sync, fp32
-# K1b and K3b on TF32 mma.sync (3xTF32); phase build counts their HMMA
-# instructions, and the TF32 ones among them
-MMA_LIBS = ("masked_attention", "masked_attention_bwd",
-            "two_block_attention_bwd")
-TF32_LIBS = ("masked_attention_bwd", "two_block_attention_bwd")
+# K1f, K1b, K3f and K3b on TF32 mma.sync (3xTF32); phase build counts their
+# HMMA instructions, and the TF32 ones among them, which each must hold
+MMA_LIBS = ("two_block_attention", "masked_attention",
+            "masked_attention_bwd", "two_block_attention_bwd")
 HBM_BYTES_PER_S = 3.35e12            # H100 SXM
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
-# fp32 K1b and K3b run every product three times on the TF32 tensor cores
-# (495 TFLOP/s dense): their fp32 operations are priced at a third of it
+# fp32 K1f, K1b, K3f and K3b run every product three times on the TF32
+# tensor cores (495 TFLOP/s dense): their fp32 operations are priced at a
+# third of it
 TF32X3_FLOPS = 495e12 / 3
 # fp32: the kernels and the plain versions sum the same products in other
 # orders (projections over d=512 terms, softmax over <=200 keys): ~1e-6
@@ -159,10 +164,12 @@ def phase_build():
             elif "Compiling entry function" in line and name in MMA_LIBS:
                 log(f"  ptxas {name}: {line.split('function', 1)[1].strip()}")
     for name, p in paths.items():
-        log(f"  built {os.path.relpath(p, ROOT)}")
+        log(f"  built {os.path.relpath(p, ROOT)} in "
+            f"{build.build_seconds.get(name, 0.0):.1f} s")
     log(f"build: {time.perf_counter() - t0:.1f} s")
     # the tensor-core bodies: their libraries must hold HMMA (mma.sync)
-    # instructions, K1b's and K3b's TF32 ones (HMMA.1688.F32.TF32)
+    # instructions, among them TF32 ones (HMMA.1688.F32.TF32) for the fp32
+    # bodies
     cuobjdump = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
     for name in MMA_LIBS:
         sass = subprocess.run([cuobjdump, "-sass", str(paths[name])],
@@ -171,8 +178,8 @@ def phase_build():
         tf32 = sum("TF32" in ln for ln in hmma)
         log(f"  {name}: {len(hmma)} HMMA instructions, {tf32} of them TF32 "
             "(cuobjdump -sass)")
-        if sass.returncode or not hmma or (name in TF32_LIBS and not tf32):
-            raise AssertionError(f"{name}: no (TF32) HMMA instruction in its "
+        if sass.returncode or not tf32:
+            raise AssertionError(f"{name}: no TF32 HMMA instruction in its "
                                  f"library ({sass.stderr[-400:]})")
 
 
@@ -232,6 +239,50 @@ def _grads(fn, inputs, g):
     out = fn(*leaves)
     diff = [t for t in leaves if t.requires_grad]
     return torch.autograd.grad(out, diff, g)
+
+
+# fp32 K1b's and K3b's outputs on fp32_bwd_digest's inputs as the 3xTF32
+# backward bodies that first shipped them write them on an H100 (nvcc 12.9,
+# torch 2.11 + CUDA 12.8), hashed: a change to those bodies that moves any
+# bit shows here
+FP32_BWD_SHA256 = ("713c465dc5591c10e04205c7e2729eafbeeb799b7859bac9ed55dcb1"
+                   "9abada3f")
+
+
+def fp32_bwd_digest(A, dev):
+    """SHA-256 of the gradients fp32 K1b and K3b write on fixed inputs
+    (numpy seed 0, B=64, 16 heads of 32, padded rows, dropout off and on) at
+    (40, 40, 100) and (1, 40, 1), and (40, 100) and (100, 40): equal on two
+    trees whose backward bodies compute bit for bit the same."""
+    rng = np.random.default_rng(0)
+    B, Dh = 64, D_MODEL // HEADS
+    h = hashlib.sha256()
+
+    def on(a):
+        return torch.from_numpy(a).to(dev)
+
+    def masks(*lengths):
+        out = []
+        for L in lengths:
+            n = rng.integers(1, L + 1, size=B)
+            n[0] = 0 if L > 1 else n[0]  # a fully padded row
+            out.append(on(np.arange(L)[None, :] < n[:, None]))
+        return out
+    cases = [(A.fused_two_block_attention, (Lq, Lq, L1, L2, L1, L2),
+              masks(Lq, L1, L2), Lq)
+             for Lq, L1, L2 in (STREAM_SHAPES[0], STREAM_SHAPES[3])]
+    cases += [(A.fused_masked_attention, (Lq, Lk, Lk), masks(Lq, Lk), Lq)
+              for Lq, Lk in K3_SHAPES[:2]]
+    for fused, lengths, m, Lq in cases:
+        x = [on(rng.standard_normal((B, L, HEADS, Dh), np.float32))
+             for L in lengths + (Lq,)]
+        for rate in (0.0, DROP_RATE):
+            leaves = [t.detach().requires_grad_() for t in x[:-1]]
+            out = fused(*leaves, *m, dropout_rate=rate, seed=77,
+                        deterministic=rate == 0)
+            for grad in torch.autograd.grad(out, leaves, x[-1]):
+                h.update(grad.cpu().numpy().tobytes())
+    return h.hexdigest()
 
 
 def phase_kernels():
@@ -319,6 +370,25 @@ def phase_kernels():
         log(f"  B=64 {str(dt)[6:]} {STREAM_SHAPES[0]} q x50: K1b eval/drop "
             f"{errs[0]:.2g}/{errs[1]:.2g}")
     torch.cuda.synchronize()
+    # fp32 K1f past its tensor-core body's templates: head dim 128 (4 heads
+    # at d_model 512) runs the CUDA-core body by the wrapper's shape rule
+    (Lq, L1, L2), heads = STREAM_SHAPES[0], 4
+    body = A.k1_forward_body(torch.float32, Lq, L1, L2, d // heads)
+    if body != "cuda_core":
+        raise AssertionError(f"K1f at head dim {d // heads}: body {body}")
+    qkv = [torch.randn(64, L, heads, d // heads, generator=g, device=dev)
+           for L in (Lq, Lq, L1, L2, L1, L2)]
+    m = (_masks(g, 64, Lq, dev), _masks(g, 64, L1, dev, False),
+         _masks(g, 64, L2, dev))
+    errs = [_check(f"K1f fp32 head dim {d // heads} rate {rate}",
+                   A.fused_two_block_attention(
+                       *qkv, *m, dropout_rate=rate, seed=3,
+                       deterministic=rate == 0),
+                   A.two_block_attention_plain(
+                       *qkv, *m, 1 / math.sqrt(d // heads), rate, 3),
+                   torch.float32) for rate in (0.0, DROP_RATE)]
+    log(f"  B=64 fp32 {(Lq, L1, L2)} {heads} heads of {d // heads}: K1f "
+        f"({body} body) eval/drop {errs[0]:.2g}/{errs[1]:.2g}")
 
     # the main path's largest launch: backbone1's video stream at B=1024;
     # K1 in fp32 (default config), K2 in bf16 (serving preset)
@@ -345,10 +415,10 @@ def phase_kernels():
     bytes1 = (e * B * H * Dh * (3 * Lq + 2 * L1 + 2 * L2)
               + 4 * B * (Lq + L1 + L2))
     flops1 = 4.0 * B * H * Lq * Lk * Dh
+    # fp32 K1f, K1b: every product three times on the TF32 tensor cores
     _record("K1", "two_block_attention_fwd (K1f)",
             "two_block_attention.cu", 527, err1, t["k1f"], plain1, bytes1,
-            flops1 / PEAK_FLOPS[torch.float32], t["sdpa"])
-    # K1b: every product three times on the TF32 tensor cores
+            flops1 / TF32X3_FLOPS, t["sdpa"])
     bytes1b = (e * B * H * Dh * (5 * Lq + 4 * L1 + 4 * L2)
                + 4 * B * (Lq + L1 + L2))
     flops1b = 10.0 * B * H * Lq * Lk * Dh
@@ -359,12 +429,16 @@ def phase_kernels():
         f"K1b {plain1b:.3f} ms; max|err| K1f {err1:.3g}, max rel err K1b "
         f"{err1b:.3g}")
     for (sq, s1, s2), t in k1t.items():
-        b1 = (e * B * H * Dh * (5 * sq + 4 * s1 + 4 * s2)
-              + 4 * B * (sq + s1 + s2))
+        rows = B * (sq + s1 + s2)
+        bf = e * B * H * Dh * (3 * sq + 2 * s1 + 2 * s2) + 4 * rows
+        of = 4.0 * B * H * sq * (s1 + s2) * Dh / TF32X3_FLOPS
+        b1 = e * B * H * Dh * (5 * sq + 4 * s1 + 4 * s2) + 4 * rows
         o1 = 10.0 * B * H * sq * (s1 + s2) * Dh / TF32X3_FLOPS
         log(f"  K1 fp32 B=1024 {(sq, s1, s2)}, device ms: K1f "
-            f"{_ms(t['k1f'])} (sdpa {_ms(t['sdpa'])}), K1b {_ms(t['k1b'])} "
-            f"(sdpa backward {_ms(t['sdpa_bwd'])}; bound "
+            f"{_ms(t['k1f'])}, dropout {_ms(t['k1f_drop'])} (sdpa "
+            f"{_ms(t['sdpa'])}; bound "
+            f"{1e3 * max(bf / HBM_BYTES_PER_S, of):.3f}), K1b "
+            f"{_ms(t['k1b'])} (sdpa backward {_ms(t['sdpa_bwd'])}; bound "
             f"{1e3 * max(b1 / HBM_BYTES_PER_S, o1):.3f}); sdpa kernels "
             f"{t['sdpa_kernels']}")
 
@@ -441,23 +515,25 @@ def phase_kernels():
             " ms")
         del leaves, out
 
-    # the training variants of K1f and K2f (compiled with the dropout
-    # branch), alone, at (40, 40, 100)
+    # K2f's training variant (compiled with the dropout branch), alone, at
+    # (40, 40, 100)
     (Lq, L1, L2) = STREAM_SHAPES[0]
-    qkv, mk = _k1_inputs(g, B, Lq, L1, L2, torch.float32, dev)
     x, ws, m = _k2_inputs(g, B, Lq, L1, L2, torch.bfloat16, dev)
-    log(f"  dropout variants, B=1024 {(Lq, L1, L2)}, rate {DROP_RATE}: K1f "
-        f"fp32 {_time_ms(lambda: k1(qkv, mk, DROP_RATE, 5), 20):.3f} ms "
-        f"(eval variant {_time_ms(lambda: k1(qkv, mk), 20):.3f}), K2f bf16 "
-        f"{_time_ms(lambda: k2(x, ws, m, DROP_RATE, 5), 10):.3f} ms (eval "
-        f"variant {_time_ms(lambda: k2(x, ws, m), 10):.3f})")
-    del qkv, mk, x, ws, m
+    log(f"  dropout variant, B=1024 {(Lq, L1, L2)}, rate {DROP_RATE}: K2f "
+        f"bf16 {_time_ms(lambda: k2(x, ws, m, DROP_RATE, 5), 10):.3f} ms "
+        f"(eval variant {_time_ms(lambda: k2(x, ws, m), 10):.3f})")
+    del x, ws, m
     _k3_kernels(A, g, dev)
     _k5_kernels(A, g, dev)
     _k4_kernels(A, g, dev)
     # K6 computes K2's function: its bound is K2's at the same shapes
     _k6_kernels(A, g, dev, (bytes2, flops2 / PEAK_FLOPS[torch.bfloat16]),
                 (bytes2b, ops2b))
+    digest = fp32_bwd_digest(A, dev)
+    log(f"  fp32 K1b + K3b outputs, SHA-256: {digest}")
+    if digest != FP32_BWD_SHA256:
+        raise AssertionError("fp32 K1b / K3b outputs differ from those of "
+                             f"their bodies' tree ({FP32_BWD_SHA256})")
     A.reset_launch_counts()
 
 
@@ -529,11 +605,11 @@ def _sdpa_device(fn, iters):
 
 
 def _k1_device_times(A, g, dev, B, Lq, L1, L2, scale):
-    """fp32 K1f and K1b at one stream shape by device time (the kernels'
-    own, not the wrapper's), beside SDPA's forward and backward over the
-    concat construction (attention.py:362-371) with an additive -10000
-    mask; SDPA is never called by the port, and unlike K1 it does not give
-    padded query rows the uniform softmax."""
+    """fp32 K1f (dropout off and on) and K1b at one stream shape by device
+    time (the kernels' own, not the wrapper's), beside SDPA's forward and
+    backward over the concat construction (attention.py:362-371) with an
+    additive -10000 mask; SDPA is never called by the port, and unlike K1
+    it does not give padded query rows the uniform softmax."""
     qkv, m = _k1_inputs(g, B, Lq, L1, L2, torch.float32, dev)
     q1, q2, kk1, kk2, v1, v2 = qkv
     gq = torch.randn(B, Lq, HEADS, D_MODEL // HEADS, generator=g, device=dev)
@@ -561,6 +637,11 @@ def _k1_device_times(A, g, dev, B, Lq, L1, L2, scale):
     def k1f():
         return A.fused_two_block_attention(*qkv, *m, scale=scale)
 
+    def k1f_drop():
+        return A.fused_two_block_attention(*qkv, *m, scale=scale,
+                                           dropout_rate=DROP_RATE, seed=5,
+                                           deterministic=False)
+
     def k1b():
         return torch.autograd.grad(out, leaves, gq, retain_graph=True)
     # CUDA events around the calls where the trace holds no device times
@@ -568,6 +649,8 @@ def _k1_device_times(A, g, dev, B, Lq, L1, L2, scale):
     ms_sdpa_bwd, names = _sdpa_device(sdpa_bwd, 5)
     return dict(
         k1f=_device_ms(k1f, 10, K1_NAMES[:1]) or _time_ms(k1f, 10),
+        k1f_drop=_device_ms(k1f_drop, 10, K1_NAMES[:1])
+        or _time_ms(k1f_drop, 10),
         k1b=_device_ms(k1b, 5, K1_NAMES[1:]) or _time_ms(k1b, 5),
         sdpa=ms_sdpa or _time_ms(sdpa_fwd, 10),
         sdpa_bwd=ms_sdpa_bwd or _time_ms(sdpa_bwd, 5), sdpa_kernels=names[:3])
@@ -675,15 +758,18 @@ def _k3_kernels(A, g, dev):
             lib_f, lib_b = _time_ms(lib_fwd, 20), _time_ms(lib_bwd, 10)
             # the kernels' own device time, without the wrapper's host time
             dev_f = _device_ms(fwd, 20, K3_NAMES[:1])
+            dev_fd = _device_ms(lambda: k3(qkv, m, DROP_RATE, 5), 20,
+                                K3_NAMES[:1])
             dev_b = _device_ms(bwd, 10, K3_NAMES[1:])
             dlib_f, _ = _sdpa_device(lib_fwd, 20)
             dlib_b, names = _sdpa_device(lib_bwd, 10)
             timed[dt, (Lq, Lk)] = dict(
                 err_f=err_f, err_b=err_b, ms_f=ms_f, ms_b=ms_b,
                 plain_f=plain_f, plain_b=plain_b, lib_f=lib_f, lib_b=lib_b,
-                dev_f=dev_f, dev_b=dev_b, dlib_f=dlib_f, dlib_b=dlib_b)
+                dev_f=dev_f, dev_fd=dev_fd, dev_b=dev_b, dlib_f=dlib_f, dlib_b=dlib_b)
             log(f"  K3 {str(dt)[6:]} B=1024 {(Lq, Lk)}: K3f {ms_f:.3f} ms "
-                f"(device {_ms(dev_f)}; plain {plain_f:.3f}, sdpa "
+                f"(device {_ms(dev_f)}, dropout {_ms(dev_fd)}; plain "
+                f"{plain_f:.3f}, sdpa "
                 f"{lib_f:.3f}, device {_ms(dlib_f)}), K3b {ms_b:.3f} ms "
                 f"(device {_ms(dev_b)}; plain {plain_b:.3f}, sdpa backward "
                 f"{lib_b:.3f}, device {_ms(dlib_b)}); max err K3f "
@@ -692,16 +778,16 @@ def _k3_kernels(A, g, dev):
             del qkv, m, gq, leaves, out, ql, kl, vl, bias, lib_out, gl
 
     # bytes: K3f reads q, k, v and writes out; K3b reads q, k, v, g and
-    # writes dq, dk, dv; both read the two masks (int32). fp32 K3b runs
-    # every product three times on the TF32 tensor cores
+    # writes dq, dk, dv; both read the two masks (int32). fp32 K3f and K3b
+    # run every product three times on the TF32 tensor cores
     def cost(dt, Lq, Lk):
         elems, e = B * H * Dh, _elem(dt)
         masks = 4 * B * (Lq + Lk)
-        bwd_peak = TF32X3_FLOPS if dt == torch.float32 else PEAK_FLOPS[dt]
+        peak = TF32X3_FLOPS if dt == torch.float32 else PEAK_FLOPS[dt]
         return ((e * elems * (2 * Lq + 2 * Lk) + masks,
-                 4.0 * B * H * Lq * Lk * Dh / PEAK_FLOPS[dt]),
+                 4.0 * B * H * Lq * Lk * Dh / peak),
                 (e * elems * (3 * Lq + 4 * Lk) + masks,
-                 10.0 * B * H * Lq * Lk * Dh / bwd_peak))
+                 10.0 * B * H * Lq * Lk * Dh / peak))
 
     # both dtypes by the kernels' device time, beside SDPA's
     t = timed[torch.float32, K3_SHAPES[0]]
@@ -1312,6 +1398,14 @@ def phase_default(ctx):
         raise AssertionError(f"default config: launches {launches}, "
                              f"expected K1 = 20 x {len(batches)}")
     RESULT["launches"]["K1"] = launches["two_block_attention"]
+    # a B=1024 batch of the default config served, the batch on the card
+    dev_batch = {"_dev": k1_eng.put_batch(batches[0])}
+    ms = _time_ms(lambda: k1_eng.eval_step(k1_state, dev_batch), 5)
+    share = _device_share(lambda: k1_eng.eval_step(k1_state, dev_batch), 3,
+                          K1_NAMES[:1])
+    log(f"  default config served (fp32, K1, B=1024): {ms:.1f} ms a batch"
+        + ("" if share is None else f", device {share[1]:.1f} ms, K1f "
+           f"{100 * share[0]:.1f}% of it"))
 
     k2_eng, k2_state = engine_for("cuda", ctx["table"],
                                   fused_attention=True, fuse_qkv=True)
@@ -1364,9 +1458,8 @@ DEFAULT_TRAIN_STEPS = 3
 FWD_PER_STEP, BWD_PER_STEP = 20, 18
 K2_NAMES = ("proj_two_block", "dx_kernel", "dw_kernel", "dw_reduce_kernel")
 # K1f and K1b (fp32: two_block_bwd_tf32_kernel, bf16: two_block_bwd_kernel)
-K1_NAMES = ("two_block_fwd_kernel", "two_block_bwd")
-# K3f and K3b, fp32 (masked_fwd_kernel, masked_bwd_tf32_kernel) and bf16
-# (masked_*_mma_kernel)
+K1_NAMES = ("two_block_fwd", "two_block_bwd")
+# K3f and K3b, fp32 (masked_*_tf32_kernel) and bf16 (masked_*_mma_kernel)
 K3_NAMES = ("masked_fwd", "masked_bwd")
 
 

@@ -78,10 +78,15 @@ MAX_SMEM_BYTES = 232_448
 MAX_GRID_Y = 65_535
 K2_MAX_LEN = 128
 K2_HEAD_DIMS = (16, 32, 64)
-# K3's tensor-core bodies (bf16, and fp32 K3b) keep a warp's 16 x Lk
-# logit tile in registers
+# K3's tensor-core bodies (both directions, fp32 and bf16) keep a warp's
+# 16 x Lk logit tile in registers
 K3_MAX_LEN = 128
 K3_HEAD_DIMS = (16, 32, 64)
+# fp32 K1f's tensor-core body (csrc/tf32_attention.cuh) keeps a warp's
+# logit tile over both key blocks in registers: head dims D % 4 == 0 up to
+# 64, a key axis pad8(L1) + pad8(L2) of at most 256 (k1_forward_body)
+K1_TF32_MAX_HEAD_DIM = 64
+K1_TF32_MAX_KEYS = 256
 # K1b keeps a warp's logit tile over both key blocks in registers (fp32) or
 # a probability row per lane group (bf16): every stream at most 128 long,
 # head dim at most 64
@@ -608,24 +613,56 @@ def _check_k1(tensors, masks, bwd):
     return B, Lq, L1, L2, H, D
 
 
+def _pad8(n: int) -> int:
+    return (n + 7) // 8 * 8
+
+
+def k1_tf32_smem_bytes(Lq: int, L1: int, L2: int, D: int) -> int:
+    """Shared memory of one block of fp32 K1f's tensor-core body
+    (``tf32_fwd_smem_bytes``): q1 and q2 over pad8(Lq) rows, k and v of each
+    block over pad8(L) rows, fp32 rows of D rounded up to 16, 32 or 64 plus
+    4; the three masks over the same rows."""
+    dp = 16 if D <= 16 else 32 if D <= 32 else 64
+    rows = (_pad8(Lq), _pad8(L1), _pad8(L2))
+    return 4 * (2 * sum(rows) * (dp + 4) + sum(rows))
+
+
+def k1_forward_body(dtype, Lq: int, L1: int, L2: int, D: int) -> str:
+    """Which body K1f runs at a shape: ``"tf32"``, the fp32 tensor-core body
+    (3xTF32), for fp32 with D % 4 == 0, D <= 64, a key axis pad8(L1) +
+    pad8(L2) within its largest register tile (256) and its tiles within
+    one block's shared memory; else ``"cuda_core"`` (every bf16 shape, and
+    fp32 past the rule: D = 128, longer key axes), which raises where its
+    own shared memory does not fit. The choice is made here, by the shape,
+    and never on a failure."""
+    if (dtype == torch.float32 and D % 4 == 0
+            and D <= K1_TF32_MAX_HEAD_DIM
+            and _pad8(L1) + _pad8(L2) <= K1_TF32_MAX_KEYS
+            and k1_tf32_smem_bytes(Lq, L1, L2, D) <= MAX_SMEM_BYTES):
+        return "tf32"
+    return "cuda_core"
+
+
 def _k1_forward_cuda(q1, q2, k1, k2, v1, v2, mask_q, mask_k1, mask_k2,
                      scale, rate, seed):
     tensors = (q1, q2, k1, k2, v1, v2)
     B, Lq, L1, L2, H, D = _check_k1(tensors, (mask_q, mask_k1, mask_k2),
                                     False)
+    tf32 = int(k1_forward_body(q1.dtype, Lq, L1, L2, D) == "tf32")
     smem = _fn("two_block_attention", "segmm_two_block_attention_smem_bytes",
-               ctypes.c_size_t, [ctypes.c_int] * 4)
-    if smem(Lq, L1, L2, D) > MAX_SMEM_BYTES:
+               ctypes.c_size_t, [ctypes.c_int] * 5)
+    if smem(tf32, Lq, L1, L2, D) > MAX_SMEM_BYTES:
         raise ValueError(f"(Lq, L1, L2, D)={(Lq, L1, L2, D)} needs more "
                          "shared memory than one block has")
     fn = _fn("two_block_attention", "segmm_two_block_attention_fwd",
-             ctypes.c_int, [ctypes.c_int] + [ctypes.c_void_p] * 10
+             ctypes.c_int, [ctypes.c_int] * 2 + [ctypes.c_void_p] * 10
              + [ctypes.c_int] * 6 + [ctypes.c_float] + _DROP_ARGS
              + [ctypes.c_void_p])
     mq, mk1, mk2 = _masks_i32(mask_q, mask_k1, mask_k2)
     out = torch.empty_like(q1)
     with torch.cuda.device(q1.device):
-        code = fn(_DTYPE_CODE[q1.dtype], *(t.data_ptr() for t in tensors),
+        code = fn(_DTYPE_CODE[q1.dtype], tf32,
+                  *(t.data_ptr() for t in tensors),
                   mq.data_ptr(), mk1.data_ptr(), mk2.data_ptr(),
                   out.data_ptr(), B, Lq, L1, L2, H, D, float(scale),
                   *_drop_args(rate, seed), _stream_ptr(q1.device))

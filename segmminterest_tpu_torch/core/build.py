@@ -20,6 +20,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 from typing import Dict
 
@@ -38,9 +39,10 @@ COMPILE_FLAGS = tuple(f for f in NVCC_FLAGS if f != "-shared")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
-# what the last build printed (ptxas register / shared-memory report), for
-# chip_smoke.py to show
+# what the last build printed (ptxas register / shared-memory report) and
+# how long each library took, for chip_smoke.py to show
 build_log: Dict[str, str] = {}
+build_seconds: Dict[str, float] = {}
 
 
 def _nvcc() -> str:
@@ -68,9 +70,9 @@ def _lib_path(name: str) -> Path:
 
 def _start_build(name: str, out: Path):
     """Start building ``csrc/<name>.cu`` (and its parts) into the library
-    ``out``; returns a thread and a dict that holds nvcc's exit code and
-    output once the thread has ended."""
-    res = {"code": 0, "text": ""}
+    ``out``; returns a thread and a dict that holds nvcc's exit code, its
+    output and the seconds it took once the thread has ended."""
+    res = {"code": 0, "text": "", "seconds": 0.0}
     files = _files(name)
     inc = ("-I", str(CSRC))
 
@@ -83,6 +85,11 @@ def _start_build(name: str, out: Path):
             res["code"] = res["code"] or proc.returncode
 
     def go():
+        t0 = time.perf_counter()
+        compile_and_link()
+        res["seconds"] = time.perf_counter() - t0
+
+    def compile_and_link():
         if len(files) == 1:
             run([[_nvcc(), *NVCC_FLAGS, *inc, "-o", str(out),
                   str(files[0])]])
@@ -110,6 +117,7 @@ def build_all() -> Dict[str, Path]:
     for n, ((thread, res), tmp) in jobs.items():
         thread.join()
         build_log[n] = res["text"]
+        build_seconds[n] = res["seconds"]
         if res["code"]:
             failed.append(f"{n}.cu (exit {res['code']}):\n{res['text']}")
         else:

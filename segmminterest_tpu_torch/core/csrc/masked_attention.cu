@@ -13,8 +13,9 @@
 //
 // What bounds it on an H100: device memory. q, k and v are read once and
 // the output written once (0.30 GB in bf16 at B=1024, (Lq, Lk) = (40, 100),
-// 16 heads of 32: 0.088 ms at 3.35 TB/s) against 4 Lq Lk D FLOP per (row,
-// head) (8.4 GFLOP: 0.008 ms on the bf16 tensor cores).
+// 16 heads of 32: 0.088 ms at 3.35 TB/s; 0.59 GB, 0.175 ms in fp32) against
+// 4 Lq Lk D FLOP per (row, head) (8.4 GFLOP: 0.008 ms on the bf16 tensor
+// cores, 0.051 ms at a third of the TF32 peak).
 //
 // bf16 (masked_fwd_mma_kernel): the products on the tensor cores.
 //   * One block per (head, batch row), one warp per 16-row query tile (at
@@ -41,108 +42,18 @@
 //   Templates: D in {16, 32, 64}; NT, the n8 key tiles kept in registers
 //   (2, 4, 8 or 16 by Lk), so that short key rows do not pay 64 registers.
 //
-// fp32 (masked_fwd_kernel) keeps its CUDA-core body: K1f's with one key block, fp32
-// FMAs with their operands in shared memory. TF32 tensor cores would change
-// its numbers against the fp32 plain version; its gap to SDPA (1.09x) is
-// left to a later change.
-#include "joint_attention.cuh"
+// fp32 (masked_fwd_tf32_kernel, tf32_attention.cuh with one key block): on
+// the TF32 tensor cores in 3xTF32, K1f's fp32 body over one key block: a
+// warp per 16-row query tile, fp32 tiles of row stride D + 4 over the
+// lengths rounded up to 8 staged by cp.async, S and the softmax in
+// registers, out = p v with p's C tiles as the A operand. Shared memory at
+// D = 32 (tf32_fwd_smem_bytes): 36.3 KB at (40, 100), 27.1 KB at (100, 40),
+// 56.3 KB at (128, 128) (105.5 KB at D = 64). It takes every shape the
+// wrapper accepts (D in {16, 32, 64}, lengths <= 128: at most 16 key tiles).
 #include "masked_attention_mma.cuh"
+#include "tf32_attention.cuh"
 
 namespace segmm {
-
-constexpr int kK3Threads = 256;
-constexpr int kK3Rows = 1;  // query rows per warp at a time, as K1f
-
-template <typename T, bool kDrop>
-__global__ void __launch_bounds__(kK3Threads)
-masked_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                  const T* __restrict__ v, const int* __restrict__ mq,
-                  const int* __restrict__ mk, T* __restrict__ out, int Lq, int Lk, int H,
-                  int D, float scale, float rate, float keep_div, unsigned seed) {
-  const int h = blockIdx.x, b = blockIdx.y;
-  const int ds = tile_stride(D);
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-  extern __shared__ __align__(16) float smem[];
-  float* sq = smem;
-  float* sk = sq + Lq * ds;
-  float* sv = sk + Lk * ds;
-  int* smq = reinterpret_cast<int*>(sv + Lk * ds);
-  int* smk = smq + Lq;
-  float* pbuf = reinterpret_cast<float*>(smq + pad4(Lq + Lk));
-
-  load_head_rows<T>(q, sq, b, Lq, H, h, D, ds);
-  load_head_rows<T>(k, sk, b, Lk, H, h, D, ds);
-  load_head_rows<T>(v, sv, b, Lk, H, h, D, ds);
-  for (int i = threadIdx.x; i < Lq; i += blockDim.x) smq[i] = mq[(long)b * Lq + i];
-  for (int i = threadIdx.x; i < Lk; i += blockDim.x) smk[i] = mk[(long)b * Lk + i];
-  __syncthreads();
-
-  const Dropout dr = make_dropout(rate, keep_div, seed, b, gridDim.y);
-  const int lds = pad4(Lk);
-  float* p = pbuf + (size_t)warp * kK3Rows * lds;
-  T* o = out + ((long)b * Lq * H + h) * D;
-  const long ostride = (long)H * D;
-  for (int q0 = warp * kK3Rows; q0 < Lq; q0 += nwarps * kK3Rows) {
-    // rows past Lq repeat the last row and are not written
-    int qr[kK3Rows], mqr[kK3Rows];
-    float mx[kK3Rows];
-#pragma unroll
-    for (int r = 0; r < kK3Rows; ++r) {
-      qr[r] = min(q0 + r, Lq - 1);
-      mqr[r] = smq[qr[r]];
-      mx[r] = -INFINITY;
-    }
-    block_logits<kK3Rows, kDrop>(sq, sk, ds, D, smk, Lk, qr, mqr, scale, dr, (unsigned)h, p,
-                                 lds, mx);
-#pragma unroll
-    for (int r = 0; r < kK3Rows; ++r) {
-      const float m = warp_max(mx[r]);
-      float* pr = p + r * lds;
-      float acc = 0.f;
-      for (int j = lane; j < Lk; j += 32) {
-        const float e = expf(pr[j] - m);
-        pr[j] = e;
-        acc += e;
-      }
-      const float s = warp_sum(acc);
-      for (int j = lane; j < Lk; j += 32) pr[j] = round_to<T>(pr[j] / s);
-    }
-    __syncwarp();
-    for (int d = lane; d < D; d += 32) {
-      float a[kK3Rows];
-#pragma unroll
-      for (int r = 0; r < kK3Rows; ++r) a[r] = 0.f;
-      block_av<kK3Rows>(p, lds, sv, ds, Lk, d, a);
-#pragma unroll
-      for (int r = 0; r < kK3Rows; ++r)
-        if (q0 + r < Lq) o[(long)(q0 + r) * ostride + d] = from_f<T>(a[r]);
-    }
-    __syncwarp();
-  }
-}
-
-inline size_t k3_smem_bytes(int Lq, int Lk, int D) {
-  return sizeof(float) * (size_t)(Lq + 2 * Lk) * tile_stride(D) +
-         sizeof(int) * (size_t)pad4(Lq + Lk) +
-         sizeof(float) * (size_t)(kK3Threads / 32) * kK3Rows * pad4(Lk);
-}
-
-template <typename T, bool kDrop>
-cudaError_t launch_k3_variant(const void* q, const void* k, const void* v, const int* mq,
-                              const int* mk, void* out, int B, int Lq, int Lk, int H, int D,
-                              float scale, float rate, float keep_div, unsigned seed,
-                              cudaStream_t stream) {
-  const size_t smem = k3_smem_bytes(Lq, Lk, D);
-  cudaError_t err = cudaFuncSetAttribute(masked_fwd_kernel<T, kDrop>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  masked_fwd_kernel<T, kDrop><<<dim3(H, B), kK3Threads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), mq, mk,
-      static_cast<T*>(out), Lq, Lk, H, D, scale, rate, keep_div, seed);
-  return cudaGetLastError();
-}
 
 // ---------------------------------------------------------------------------
 // bf16 on the tensor cores
@@ -228,7 +139,7 @@ cudaError_t launch_k3_mma_d(const void* q, const void* k, const void* v, const i
 
 }  // namespace segmm
 
-// dtype: 0 = float32 (FMA body), 1 = bfloat16 (tensor cores). rate > 0
+// dtype: 0 = float32 (3xTF32), 1 = bfloat16 (bf16 tensor cores). rate > 0
 // applies the dropout mask of `seed` (keep_div = 1 - rate in fp32). Lq, Lk
 // <= 128, D in {16, 32, 64}; bf16 pointers 16-byte aligned (the wrapper
 // checks). Returns a cudaError_t (0 = launched).
@@ -239,9 +150,11 @@ extern "C" int segmm_masked_attention_fwd(int dtype, const void* q, const void* 
                                           void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    auto launch = rate > 0.f ? segmm::launch_k3_variant<float, true>
-                             : segmm::launch_k3_variant<float, false>;
-    return (int)launch(q, k, v, mq, mk, out, B, Lq, Lk, H, D, scale, rate, keep_div, seed, s);
+    using f = const float*;
+    const segmm::Tf32FwdArgs<1> args{{static_cast<f>(q)}, {static_cast<f>(k)},
+                                     {static_cast<f>(v)}, mq, {mk}, static_cast<float*>(out),
+                                     Lq, {Lk}, H, D, scale, rate, keep_div, seed};
+    return (int)segmm::launch_tf32_attention_fwd<1>(args, B, s);
   }
   if (dtype != 1) return (int)cudaErrorInvalidValue;
   auto launch = D == 16   ? segmm::launch_k3_mma_d<16>

@@ -48,7 +48,7 @@
 //   Registers: dp of a 16-row tile, 4 NT floats a thread (64 at Lk > 64);
 //   ptxas's report (chip_smoke.py, phase build) shows any spill.
 //
-// fp32 (tf32_attention_bwd.cuh, one key block): every product on the TF32
+// fp32 (tf32_attention.cuh, one key block): every product on the TF32
 // tensor cores in 3xTF32, the structure of the bf16 body with fp32 tiles of
 // row stride D + 4 over the lengths rounded up to 8, p and dl kept in fp32
 // and split into TF32 big and small halves where the bf16 body splits them
@@ -63,7 +63,7 @@
 //   (128, 128)  144.4 KB (D = 64: 209.9 KB): 1 block, of 8 warps
 #include "joint_attention.cuh"
 #include "masked_attention_mma.cuh"
-#include "tf32_attention_bwd.cuh"
+#include "tf32_attention.cuh"
 
 namespace segmm {
 // The fp32 body at head dims 16 and 64 is instantiated in

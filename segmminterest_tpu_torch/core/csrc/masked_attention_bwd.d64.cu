@@ -1,7 +1,7 @@
-// K3b's fp32 body (tf32_attention_bwd.cuh) at head dims from 36 to 64, its
+// K3b's fp32 body (tf32_attention.cuh) at head dims from 36 to 64, its
 // largest register tile only (launch_tf32_bwd_nt): a part
 // of the library of masked_attention_bwd.cu, compiled beside it (core/build.py).
-#include "tf32_attention_bwd.cuh"
+#include "tf32_attention.cuh"
 
 namespace segmm {
 template cudaError_t launch_tf32_bwd_nt<1, 64>(const Tf32BwdArgs<1>&, int, cudaStream_t);

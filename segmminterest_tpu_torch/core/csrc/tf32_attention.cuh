@@ -1,60 +1,73 @@
-// The fp32 backward of the masked attention kernels on the TF32 tensor
-// cores in 3xTF32: K1b over two key blocks under one softmax
-// (two_block_attention_bwd.cu) and K3b over one (masked_attention_bwd.cu).
+// The fp32 masked attention kernels on the TF32 tensor cores in 3xTF32,
+// both directions: K1f / K1b over two key blocks under one softmax
+// (two_block_attention.cu, two_block_attention_bwd.cu) and K3f / K3b over
+// one (masked_attention.cu, masked_attention_bwd.cu).
 //
-// Function (attention.py _attn_group_bwd :448 / _bwd_kernel :156): the
-// probabilities recomputed in fp32 from q, k and the masks (fill -10000
-// before the scale, the dropout keep bits of salt 2h / 2h + 1 per block, or
-// h for one block, with the key counted within its block), one softmax over
-// every key of every block, then
+// Function. The probabilities in fp32 from q, k and the masks (attention.py
+// _fwd2_kernel :527 / _fwd_kernel :126): l = q k^T, fill -10000 where
+// mq x mk is 0 (before the scale), in training keep ? l / (1 - rate) : 0
+// with the keep bits of salt 2h / 2h + 1 per block (h for one block) and
+// the key counted within its block, x scale, one softmax over every key of
+// every block. The forward writes out = sum over blocks of p v. The
+// backward (_attn_group_bwd :448 / _bwd_kernel :156) recomputes p, then
 //   dv = p^T g,  dp = g v^T,  s = sum dp p (all blocks),  dl = p (dp - s) scale,
 //   dropout mask and divisor, pair mask,  dq = dl k,  dk = dl^T q,
 // each gradient in fp32.
 //
-// Numerics. Every product (q k^T, g v^T, dl k, p^T g, dl^T q) runs on
+// Numerics. Every product (q k^T, p v; g v^T, dl k, p^T g, dl^T q) runs on
 // mma.sync m16n8k8 in TF32 three times: each fp32 operand x is split into
 // big = tf32(x) and small = tf32(x - big) (cvt.rna), and big.small +
 // small.big + big.big go into one fp32 accumulator (mma_sync.cuh). That
 // leaves each product ~2^-21 from the fp32 one, where one TF32 rounding
-// leaves ~2^-11; tests/test_torch_attention_bwd.py and
-// tests/test_torch_masked_attention.py emulate the arithmetic on the CPU and
-// hold it within 1e-5 of the fp32 backward. p and dl stay fp32 throughout.
+// leaves ~2^-11; tests/test_torch_attention_fwd.py,
+// tests/test_torch_attention_bwd.py and tests/test_torch_masked_attention.py
+// emulate the arithmetic on the CPU and hold it within 1e-5 of the fp32
+// plain versions. p and dl stay fp32 throughout; l / (1 - rate) is l times
+// the reciprocal (within an ulp), the softmax's 1 / sum likewise.
 //
 // Geometry of one (batch row, head). The keys of the blocks lie on one axis,
 // block b from column c0[b] (c0[0] = 0, c0[1] = pad8(L1)) over pad8(L_b)
 // columns, so that each n8 tile of the axis belongs to one block. A warp
-// owns 16 query rows in pass 1 and 16 keys of one block in pass 2.
+// owns 16 query rows (the forward, and the backward's pass 1) or 16 keys of
+// one block (the backward's pass 2).
 //   * Tiles in shared memory, fp32 rows of LD = DP + 4 floats (DP: D rounded
 //     up to 16, 32 or 64; columns past D and rows past L are zero): q of
-//     each block and g over pad8(Lq) rows, k and v of each block over
+//     each block (and g) over pad8(Lq) rows, k and v of each block over
 //     pad8(L_b) rows (a 16-row query tile whose upper 8 rows lie past
 //     pad8(Lq) reads them as 0). LD = 4 mod 8 words makes the fragment reads
 //     conflict-free in both directions: (row g, col t) reads hit bank
 //     4g + t (+ const), and reads of rows 2t and 2t + 1 at column g (the B
-//     fragments of dq, dv and dk, see mma_sync.cuh for the order of the sum)
-//     hit 8t + g and 8t + 4 + g.
-//   * P, [query][key] fp32 of pad8(Lq) rows and row stride ldp = nk + 4
-//     (nk = the sum of pad8(L_b), also 4 mod 8): pass 2 reads rows 2t,
-//     2t + 1 at columns g, g + 8 (conflict-free as above); pass 1 writes and
-//     reads float2 at (row g, cols 2t, 2t + 1).
-// Pass 1, per 16-row query tile: S = q k^T in registers (n8 tiles of the key
-// axis), the softmax in registers (quad shuffles), p and its dropout keep
-// bits (a word a lane and 8 key tiles) to shared memory. Pass 2, per 16 keys
-// of a block: dv = p^T g. Pass 1 again: dp = g v^T in registers, sum dp p
-// from P, dl in dp's registers and over p in P, dq = dl k straight from the
-// registers. Pass 2 again: dk = dl^T q. Three block barriers and one
-// Lq x Lk buffer: p and dl in two buffers (one pass of each) took more time
-// at every stream shape and leave no room for K1b at (100, 40, 100); the
-// numbers are in PERF.md.
+//     fragments of p v, dq, dv and dk, see mma_sync.cuh for the order of the
+//     sum) hit 8t + g and 8t + 4 + g.
+//   * Forward, per 16-row query tile: S = q k^T in registers (n8 tiles of
+//     the key axis), the softmax in registers (quad shuffles), out = p v
+//     with p's C tiles as the A fragments (no P buffer), the output through
+//     the tile's own q rows in shared memory and out in 16-byte stores. No
+//     barrier after the staging.
+//   * Backward: P, [query][key] fp32 of pad8(Lq) rows and row stride
+//     ldp = nk + 4 (nk = the sum of pad8(L_b), also 4 mod 8): pass 2 reads
+//     rows 2t, 2t + 1 at columns g, g + 8 (conflict-free as above); pass 1
+//     writes and reads float2 at (row g, cols 2t, 2t + 1).
+// Backward pass 1, per 16-row query tile: the forward's S and softmax, p and
+// its dropout keep bits (a word a lane and 8 key tiles) to shared memory.
+// Pass 2, per 16 keys of a block: dv = p^T g. Pass 1 again: dp = g v^T in
+// registers, sum dp p from P, dl in dp's registers and over p in P,
+// dq = dl k straight from the registers. Pass 2 again: dk = dl^T q. Three
+// block barriers and one Lq x Lk buffer: p and dl in two buffers (one pass
+// of each) took more time at every stream shape and leave no room for K1b
+// at (100, 40, 100); the numbers are in PERF.md.
 //
 // Every key row's dk and dv is written, 0 where no query reaches it; keys
 // past L_b get p = 0 and take no part in the max or the sum; masked keys
 // inside L_b keep -10000; a fully padded query row is the uniform softmax
-// over the keys; query rows past Lq get p = dl = 0. Each block owns its
-// (b, h) gradients: no atomics, the same order of every sum on every run.
+// over the keys; query rows past Lq get p = dl = 0 and are not written.
+// Each block owns its (b, h) outputs: no atomics, the same order of every
+// sum on every run.
 #pragma once
 
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "joint_attention.cuh"
 #include "mma_sync.cuh"
@@ -70,7 +83,7 @@ constexpr int kSmBytes = 233472;  // an H100 SM's shared memory, 1 KB a block re
 template <int N> __host__ __device__ inline int round_up(int n) { return (n + N - 1) / N * N; }
 
 // the head dim as the kernels tile it (0: unsupported)
-__host__ __device__ inline int tf32_bwd_dp(int D) {
+__host__ __device__ inline int tf32_dp(int D) {
   return D % 4 ? 0 : D <= 16 ? 16 : D <= 32 ? 32 : D <= 64 ? 64 : 0;
 }
 
@@ -100,7 +113,7 @@ __host__ __device__ inline int tf32_keep_words(int Lq, int nk) {
 // q, g (pad8(Lq) rows) and k, v (pad8(L_b) rows) tiles, the masks, the keep
 // words and P.
 __host__ __device__ inline size_t tf32_bwd_smem_bytes(int NB, int Lq, const int* L, int D) {
-  const int LD = tf32_bwd_dp(D) + 4, mq8 = round_up<8>(Lq);
+  const int LD = tf32_dp(D) + 4, mq8 = round_up<8>(Lq);
   const Tf32KeyAxis ax = tf32_key_axis(NB, L);
   size_t floats = (size_t)(NB + 1) * mq8 * LD + (size_t)mq8 * ax.ldp;
   for (int b = 0; b < NB; ++b) floats += 2 * (size_t)round_up<8>(L[b]) * LD;
@@ -282,12 +295,57 @@ template <int NB> struct Tf32Blocks {
   __device__ __forceinline__ unsigned salt_of(int b) const { return b ? salt[NB - 1] : salt[0]; }
 };
 
+// k and v of each block at `at` (pad8(L_b) rows each) and the blocks'
+// geometry and salts; returns the first float past them. Only issues the
+// copies.
+template <int DP, int NB>
+__device__ __forceinline__ float* tf32_stage_keys(const float* const (&k)[NB],
+                                                  const float* const (&v)[NB],
+                                                  const int (&L)[NB], const Tf32KeyAxis& ax,
+                                                  int b, int H, int h, int D, float* at,
+                                                  const float* (&sk)[NB], const float* (&sv)[NB],
+                                                  Tf32Blocks<NB>& bk) {
+  constexpr int LD = DP + 4;
+#pragma unroll
+  for (int i = 0; i < NB; ++i) {
+    const int rows = round_up<8>(L[i]);
+    tf32_stage<DP>(k[i], at, b, L[i], rows, H, h, D);
+    sk[i] = at;
+    at += rows * LD;
+    tf32_stage<DP>(v[i], at, b, L[i], rows, H, h, D);
+    sv[i] = at;
+    at += rows * LD;
+    bk.L[i] = L[i];
+    bk.n0[i] = ax.c0[i] / 8;
+    bk.n1[i] = bk.n0[i] + rows / 8;
+    bk.salt[i] = NB == 1 ? (unsigned)h : 2u * h + i;
+  }
+  return at;
+}
+
+// The query mask (pad8(Lq) entries) at smq, then each block's key mask
+// (pad8(L_b)); returns the first int past them. Only issues the copies.
+template <int NB>
+__device__ __forceinline__ int* tf32_stage_masks(const int* mq, const int* const (&mk)[NB], int b,
+                                                 int Lq, int* smq, Tf32Blocks<NB>& bk) {
+  tf32_stage_mask(mq, smq, b, Lq, round_up<8>(Lq));
+  int* at = smq + round_up<8>(Lq);
+#pragma unroll
+  for (int i = 0; i < NB; ++i) {
+    tf32_stage_mask(mk[i], at, b, bk.L[i], round_up<8>(bk.L[i]));
+    bk.mk[i] = at;
+    at += round_up<8>(bk.L[i]);
+  }
+  return at;
+}
+
+
 // The logit tile s -> probabilities in fp32 over the whole key axis: fill
 // -10000 where mq x mk is 0, in training keep ? l / (1 - rate) : 0 (each
 // block's salt, key within its block), x scale, one softmax; columns past
 // their block's length get p = 0 and take no part in the max or the sum.
 // Rows past Lq are zeroed (and draw no dropout bits). Keep bits go to
-// keep[n / 8] bit 4 (n % 8) + c.
+// keep[n / 8] bit 4 (n % 8) + c (the forward drops them).
 template <int NT, int NB, bool kDrop>
 __device__ __forceinline__ void tf32_probs(float (&s)[NT][4], unsigned (&keep)[(NT + 7) / 8],
                                            const Tf32Blocks<NB>& bk, int nt, const int* smq,
@@ -497,31 +555,10 @@ __device__ __forceinline__ void tf32_attention_bwd(const Tf32BwdArgs<NB>& a) {
   tf32_stage<DP>(a.g, sg, b, Lq, mq8, a.H, h, D);
   at += mq8 * LD;
   Tf32Blocks<NB> bk;
-#pragma unroll
-  for (int i = 0; i < NB; ++i) {
-    const int rows = round_up<8>(a.L[i]);
-    tf32_stage<DP>(a.k[i], at, b, a.L[i], rows, a.H, h, D);
-    sk[i] = at;
-    at += rows * LD;
-    tf32_stage<DP>(a.v[i], at, b, a.L[i], rows, a.H, h, D);
-    sv[i] = at;
-    at += rows * LD;
-    bk.L[i] = a.L[i];
-    bk.n0[i] = ax.c0[i] / 8;
-    bk.n1[i] = bk.n0[i] + rows / 8;
-    bk.salt[i] = NB == 1 ? (unsigned)h : 2u * h + i;
-  }
-  int* smq = reinterpret_cast<int*>(at);
-  tf32_stage_mask(a.mq, smq, b, Lq, mq8);
-  int* mkat = smq + mq8;
-#pragma unroll
-  for (int i = 0; i < NB; ++i) {
-    tf32_stage_mask(a.mk[i], mkat, b, a.L[i], round_up<8>(a.L[i]));
-    bk.mk[i] = mkat;
-    mkat += round_up<8>(a.L[i]);
-  }
-  // the keep words, then P
-  unsigned* KW = reinterpret_cast<unsigned*>(mkat);
+  int* smq = reinterpret_cast<int*>(tf32_stage_keys<DP, NB>(a.k, a.v, a.L, ax, b, a.H, h, D, at,
+                                                            sk, sv, bk));
+  // the masks, the keep words, then P
+  unsigned* KW = reinterpret_cast<unsigned*>(tf32_stage_masks<NB>(a.mq, a.mk, b, Lq, smq, bk));
   const int kwords = (ax.nk + 63) / 64;
   float* P = reinterpret_cast<float*>(KW + tf32_keep_words(Lq, ax.nk));
   cp_async_commit();
@@ -601,6 +638,25 @@ constexpr auto tf32_bwd_kernel() {
     return masked_bwd_tf32_kernel<DP, NT, kDrop>;
 }
 
+// The register tile, in n8 tiles of the key axis, that each body is
+// instantiated for; calls launch(std::integral_constant<int, NT>()) with the
+// least NT >= nt. At D <= 32 (the flagship's 32): one block of at most 128
+// keys (K3) in 4 / 8 / 16, two (K1: pad8(L1) + pad8(L2) <= 256) in
+// 6 / 18 / 32, so that the flagship's streams, (40 | 100) and (40 | 1)
+// keys, fill their register tiles exactly. Head dims 16 and 64 lie on no
+// path the configurations time: the largest tile only (16 / 32), which
+// keeps nvcc's time down. A key axis past the largest tile is refused.
+template <int NB, int DP, class Launch>
+cudaError_t tf32_with_nt(int nt, Launch&& launch) {
+  constexpr int kMost = NB == 1 ? 16 : 32;
+  if constexpr (DP == 32) {
+    if (nt <= (NB == 1 ? 4 : 6)) return launch(std::integral_constant<int, NB == 1 ? 4 : 6>());
+    if (nt <= (NB == 1 ? 8 : 18)) return launch(std::integral_constant<int, NB == 1 ? 8 : 18>());
+  }
+  if (nt <= kMost) return launch(std::integral_constant<int, kMost>());
+  return cudaErrorInvalidValue;
+}
+
 template <int DP, int NT, int NB>
 cudaError_t launch_tf32_bwd(const Tf32BwdArgs<NB>& a, int B, cudaStream_t stream) {
   auto kern = a.rate > 0.f ? tf32_bwd_kernel<DP, NT, NB, true>()
@@ -619,30 +675,172 @@ cudaError_t launch_tf32_bwd(const Tf32BwdArgs<NB>& a, int B, cudaStream_t stream
   return cudaGetLastError();
 }
 
-// The instantiation for the key axis's n8 tiles. At D <= 32 (the
-// flagship's 32): K3b (one block of at most 128 keys) in 4 / 8 / 16, K1b
-// (pad8(L1) + pad8(L2) <= 256) in 6 / 18 / 32, so that the flagship's
-// streams, (40 | 100) and (40 | 1) keys, fill their register tiles exactly.
-// Head dims 16 and 64 lie on no path the configurations time: the largest
-// tile only (16 / 32), which keeps nvcc's time down.
 template <int NB, int DP>
 cudaError_t launch_tf32_bwd_nt(const Tf32BwdArgs<NB>& a, int B, cudaStream_t s) {
-  const int nt = tf32_key_axis(NB, a.L).nk / 8;
-  constexpr int kMost = NB == 1 ? 16 : 32;
-  if constexpr (DP == 32) {
-    if (nt <= (NB == 1 ? 4 : 6)) return launch_tf32_bwd<DP, NB == 1 ? 4 : 6, NB>(a, B, s);
-    if (nt <= (NB == 1 ? 8 : 18)) return launch_tf32_bwd<DP, NB == 1 ? 8 : 18, NB>(a, B, s);
-  }
-  if (nt <= kMost) return launch_tf32_bwd<DP, kMost, NB>(a, B, s);
-  return cudaErrorInvalidValue;
+  return tf32_with_nt<NB, DP>(tf32_key_axis(NB, a.L).nk / 8, [&](auto nt) {
+    return launch_tf32_bwd<DP, decltype(nt)::value, NB>(a, B, s);
+  });
 }
 
 template <int NB>
 cudaError_t launch_tf32_attention_bwd(const Tf32BwdArgs<NB>& a, int B, cudaStream_t s) {
-  switch (tf32_bwd_dp(a.D)) {
+  switch (tf32_dp(a.D)) {
     case 16: return launch_tf32_bwd_nt<NB, 16>(a, B, s);
     case 32: return launch_tf32_bwd_nt<NB, 32>(a, B, s);
     case 64: return launch_tf32_bwd_nt<NB, 64>(a, B, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+
+// ---------------------------------------------------------------------------
+// Forward: K1f (NB = 2) and K3f (NB = 1)
+
+// a warp per 16-row query tile, at most four
+constexpr int kTf32FwdWarps = 4;
+
+template <int NB> struct Tf32FwdArgs {
+  const float* q[NB];
+  const float* k[NB];
+  const float* v[NB];
+  const int* mq;
+  const int* mk[NB];
+  float* out;
+  int Lq, L[NB], H, D;
+  float scale, rate, keep_div;
+  unsigned seed;
+};
+
+// q of each block (pad8(Lq) rows), k and v (pad8(L_b) rows) and the masks.
+__host__ __device__ inline size_t tf32_fwd_smem_bytes(int NB, int Lq, const int* L, int D) {
+  const int LD = tf32_dp(D) + 4, mq8 = round_up<8>(Lq);
+  size_t floats = (size_t)NB * mq8 * LD, ints = mq8;
+  for (int b = 0; b < NB; ++b) {
+    floats += 2 * (size_t)round_up<8>(L[b]) * LD;
+    ints += round_up<8>(L[b]);
+  }
+  return sizeof(float) * floats + sizeof(int) * ints;
+}
+
+template <int DP, int NT, int NB, bool kDrop>
+__device__ __forceinline__ void tf32_attention_fwd(const Tf32FwdArgs<NB>& a) {
+  constexpr int LD = DP + 4;
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int Lq = a.Lq, D = a.D, mq8 = round_up<8>(Lq);
+  const Tf32KeyAxis ax = tf32_key_axis(NB, a.L);
+  const int nt = ax.nk / 8;
+
+  extern __shared__ __align__(16) float tf32_smem[];
+  const float* sq[NB];
+  const float* sk[NB];
+  const float* sv[NB];
+  float* at = tf32_smem;
+#pragma unroll
+  for (int i = 0; i < NB; ++i) {
+    tf32_stage<DP>(a.q[i], at, b, Lq, mq8, a.H, h, D);
+    sq[i] = at;
+    at += mq8 * LD;
+  }
+  Tf32Blocks<NB> bk;
+  int* smq = reinterpret_cast<int*>(tf32_stage_keys<DP, NB>(a.k, a.v, a.L, ax, b, a.H, h, D, at,
+                                                            sk, sv, bk));
+  tf32_stage_masks<NB>(a.mq, a.mk, b, Lq, smq, bk);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+
+  const Dropout dr = make_dropout(a.rate, a.keep_div, a.seed, b, gridDim.y);
+  // the tile's q rows of block 1, read by this warp alone, hold its output
+  // on the way out
+  float* so = tf32_smem;
+  for (int q0 = warp * 16; q0 < Lq; q0 += nwarps * 16) {
+    float s[NT][4];
+#pragma unroll
+    for (int n = 0; n < NT; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+#pragma unroll
+    for (int i = 0; i < NB; ++i)
+      tf32_rows_times_rowsT<DP, NT>(sq[i], q0, mq8, sk[i], bk.n0[i], bk.n1[i], s);
+    unsigned keep[(NT + 7) / 8];  // the backward's
+    tf32_probs<NT, NB, kDrop>(s, keep, bk, nt, smq, q0, Lq, a.scale, dr);
+    float o[DP / 8][4];
+    tf32_zero<DP>(o);
+#pragma unroll
+    for (int i = 0; i < NB; ++i) tf32_regs_times_rows<DP, NT>(s, bk.n0[i], bk.n1[i], sv[i], o);
+    __syncwarp();  // every lane has read its q rows
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = q0 + g + 8 * r;
+      if (row < mq8) {
+#pragma unroll
+        for (int dn = 0; dn < DP / 8; ++dn)
+          *reinterpret_cast<float2*>(so + row * LD + 8 * dn + 2 * t) =
+              make_float2(o[dn][2 * r], o[dn][2 * r + 1]);
+      }
+    }
+    __syncwarp();
+    const int chunks = D / 4;  // 16-byte chunks of an output row
+    for (int c = lane; c < 16 * chunks; c += 32) {
+      const int r = c / chunks, kc = c - r * chunks, i = q0 + r;
+      if (i < Lq)
+        *reinterpret_cast<float4*>(a.out + (((long)b * Lq + i) * a.H + h) * D + 4 * kc) =
+            *reinterpret_cast<const float4*>(so + i * LD + 4 * kc);
+    }
+  }
+}
+
+// The kernels, named for the profiler's rows: K1f's and K3f's.
+template <int DP, int NT, bool kDrop>
+__global__ void __launch_bounds__(32 * kTf32FwdWarps)
+two_block_fwd_tf32_kernel(const Tf32FwdArgs<2> a) {
+  tf32_attention_fwd<DP, NT, 2, kDrop>(a);
+}
+
+template <int DP, int NT, bool kDrop>
+__global__ void __launch_bounds__(32 * kTf32FwdWarps)
+masked_fwd_tf32_kernel(const Tf32FwdArgs<1> a) {
+  tf32_attention_fwd<DP, NT, 1, kDrop>(a);
+}
+
+template <int DP, int NT, int NB, bool kDrop>
+constexpr auto tf32_fwd_kernel() {
+  if constexpr (NB == 2)
+    return two_block_fwd_tf32_kernel<DP, NT, kDrop>;
+  else
+    return masked_fwd_tf32_kernel<DP, NT, kDrop>;
+}
+
+template <int DP, int NT, int NB>
+cudaError_t launch_tf32_fwd(const Tf32FwdArgs<NB>& a, int B, cudaStream_t stream) {
+  auto kern = a.rate > 0.f ? tf32_fwd_kernel<DP, NT, NB, true>()
+                           : tf32_fwd_kernel<DP, NT, NB, false>();
+  const size_t smem = tf32_fwd_smem_bytes(NB, a.Lq, a.L, a.D);
+  cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const int tiles = (a.Lq + 15) / 16;  // Lq = 1 runs one warp, and no warp idles
+  const int warps = tiles < kTf32FwdWarps ? tiles : kTf32FwdWarps;
+  kern<<<dim3(a.H, B), 32 * warps, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+template <int NB, int DP>
+cudaError_t launch_tf32_fwd_nt(const Tf32FwdArgs<NB>& a, int B, cudaStream_t s) {
+  return tf32_with_nt<NB, DP>(tf32_key_axis(NB, a.L).nk / 8, [&](auto nt) {
+    return launch_tf32_fwd<DP, decltype(nt)::value, NB>(a, B, s);
+  });
+}
+
+// Refuses (cudaErrorInvalidValue) a head dim past 64 or not a multiple of
+// 4 and a key axis past the largest register tile; the wrapper chooses the
+// shapes it sends here (core/attention.py).
+template <int NB>
+cudaError_t launch_tf32_attention_fwd(const Tf32FwdArgs<NB>& a, int B, cudaStream_t s) {
+  switch (tf32_dp(a.D)) {
+    case 16: return launch_tf32_fwd_nt<NB, 16>(a, B, s);
+    case 32: return launch_tf32_fwd_nt<NB, 32>(a, B, s);
+    case 64: return launch_tf32_fwd_nt<NB, 64>(a, B, s);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -9,20 +9,49 @@
 //   softmax over [l1 | l2] in fp32; out = p1.v1 + p2.v2.
 // Inputs (B, L, H, D) contiguous, fp32 or bf16; masks int32 (B, L).
 //
-// Design: one thread block per (head, batch row). The block stages its
-// head's q1, q2, k1, v1, k2, v2 rows in shared memory as fp32 (at the
-// largest stream, Lq=100, L1=40, L2=100, D=32: 69 KB), then each warp takes
-// one query row at a time: lanes split the keys for the logits, the
-// whole row's softmax stays in shared memory (Lk <= 200, so no online
-// softmax), and lanes split the head dimension for the AV products. The
-// logits and probabilities never reach device memory.
+// fp32 (the default config's dtype): on the TF32 tensor cores in 3xTF32,
+// as PyTorch's memory-efficient SDPA forward runs its fp32 GEMMs
+// (tf32_attention.cuh has the design and the numerics). One block per
+// (head, batch row), a warp per 16-row query tile (at most four); the keys
+// of both blocks on one axis [k1 | k2], block 2 from column pad8(L1); q1,
+// q2, k1, v1, k2, v2 staged by cp.async as fp32 tiles of row stride D + 4
+// (D rounded up to 16, 32 or 64) over their lengths rounded up to 8; S, the
+// softmax over both blocks and p in registers, out = p1 v1 + p2 v2 on the
+// tensor cores with p's C tiles as the A operand, out in 16-byte stores.
+// Shared memory per block at D = 32 (tf32_fwd_smem_bytes): (40, 40, 100)
+// 53.7 KB, (100, 40, 100) 72.4 KB, (40, 40, 1) 25.7 KB, (1, 40, 1) 16.4 KB.
+// Registers (ptxas, nvcc 12.9, chip_smoke.py phase build): 168 without
+// dropout and 217 with it at 18 key tiles ((40 | 100) keys), 96 / 119 at
+// 6, no spill; the 256-key tile and head dims 16 and 64 (their largest
+// tile only) take 247-255 and spill with dropout (D = 64 also without),
+// off the model's streams.
+// Dropout costs the two-block body most: 3 blocks an SM fit at (40, 40,
+// 100) where 4 do without it, and each key tile picks its block's salt and
+// key offset at run time before it hashes.
+//
+// The shape rule (core/attention.py k1_forward_body, tested on the CPU):
+// the tensor-core body takes head dims D % 4 == 0 up to 64 and key axes
+// pad8(L1) + pad8(L2) <= 256 (its largest register tile) where its tiles
+// fit one block's shared memory: every stream of the model's
+// configurations at head dims up to 64. The wrapper sends every other fp32
+// shape (D = 128 under --nhead 4 at d_model 512, longer key axes) to the
+// CUDA-core body below, by that rule and never on a failure; a body that
+// does not build or launch raises.
+//
+// bf16, and fp32 outside the rule: the CUDA-core body of joint_attention.cuh.
+// The block stages its head's q1, q2, k1, v1, k2, v2 rows in shared memory
+// as fp32, then each warp takes one query row at a time: lanes split the
+// keys for the logits, the whole row's softmax stays in shared memory, and
+// lanes split the head dimension for the AV products. Its fp32 FMAs, with
+// all operands in shared memory, are what it waits on.
 //
 // What bounds it on an H100: device memory. Every q/k/v value is read once
-// and the output written once; the arithmetic is ~2*Lq*(L1+L2)*D*2 FLOP per
-// (row, head), far below the bytes-to-FLOP balance of the card, so the
-// kernel's floor is its bytes over 3.35 TB/s. The core's fp32 FMAs, with
-// all operands in shared memory, are what this version actually waits on.
+// and the output written once (0.84 GB in fp32 at B=1024, (40, 40, 100), 16
+// heads of 32: 0.251 ms at 3.35 TB/s); the arithmetic is ~4 Lq (L1 + L2) D
+// FLOP per (row, head), 11.7 GFLOP there, three times over in 3xTF32: 0.071
+// ms at a third of the 495 TFLOP/s TF32 peak.
 #include "joint_attention.cuh"
+#include "tf32_attention.cuh"
 
 namespace segmm {
 
@@ -104,18 +133,34 @@ cudaError_t launch_k1(const void* q1, const void* q2, const void* k1, const void
 
 }  // namespace segmm
 
-extern "C" size_t segmm_two_block_attention_smem_bytes(int Lq, int L1, int L2, int D) {
-  return segmm::k1_smem_bytes(Lq, L1, L2, D);
+// Shared memory of a block of each body: the CUDA-core one, and (tf32 = 1)
+// the fp32 tensor-core one.
+extern "C" size_t segmm_two_block_attention_smem_bytes(int tf32, int Lq, int L1, int L2, int D) {
+  const int L[2] = {L1, L2};
+  return tf32 ? segmm::tf32_fwd_smem_bytes(2, Lq, L, D) : segmm::k1_smem_bytes(Lq, L1, L2, D);
 }
 
-// dtype: 0 = float32, 1 = bfloat16. rate > 0 applies the dropout mask of
-// `seed` (keep_div = 1 - rate in fp32). Returns a cudaError_t (0 = launched).
+// dtype: 0 = float32, 1 = bfloat16. tf32 = 1 runs the fp32 tensor-core body
+// (refused outside its templates: D % 4 == 0 up to 64, pad8(L1) + pad8(L2)
+// <= 256), 0 the CUDA-core body. rate > 0 applies the dropout mask of
+// `seed` (keep_div = 1 - rate in fp32). Returns a cudaError_t (0 =
+// launched).
 extern "C" int segmm_two_block_attention_fwd(
-    int dtype, const void* q1, const void* q2, const void* k1, const void* k2,
+    int dtype, int tf32, const void* q1, const void* q2, const void* k1, const void* k2,
     const void* v1, const void* v2, const int* mq, const int* mk1, const int* mk2,
     void* out, int B, int Lq, int L1, int L2, int H, int D, float scale, float rate,
     float keep_div, unsigned seed, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (tf32) {
+    if (dtype != 0) return (int)cudaErrorInvalidValue;
+    using f = const float*;
+    const segmm::Tf32FwdArgs<2> args{{static_cast<f>(q1), static_cast<f>(q2)},
+                                     {static_cast<f>(k1), static_cast<f>(k2)},
+                                     {static_cast<f>(v1), static_cast<f>(v2)},
+                                     mq, {mk1, mk2}, static_cast<float*>(out), Lq, {L1, L2}, H,
+                                     D, scale, rate, keep_div, seed};
+    return (int)segmm::launch_tf32_attention_fwd<2>(args, B, s);
+  }
   if (dtype == 0)
     return (int)segmm::launch_k1<float>(q1, q2, k1, k2, v1, v2, mq, mk1, mk2, out,
                                         B, Lq, L1, L2, H, D, scale, rate, keep_div, seed, s);

@@ -13,7 +13,7 @@
 //
 // fp32 (the default training config's dtype): every product on the TF32
 // tensor cores in 3xTF32, as PyTorch's memory-efficient SDPA backward runs
-// its fp32 GEMMs (tf32_attention_bwd.cuh has the design and the numerics).
+// its fp32 GEMMs (tf32_attention.cuh has the design and the numerics).
 // One block per (head, batch row); the keys of both blocks on one axis
 // [k1 | k2], block 2 from column pad8(L1); q1, q2, g, k1, v1, k2, v2 staged
 // by cp.async as fp32 tiles of row stride D + 4 (D rounded up to 16, 32 or
@@ -49,7 +49,7 @@
 // per (row, head), 29 GFLOP, three times over in 3xTF32: 0.18 ms at a third
 // of the 495 TFLOP/s TF32 peak.
 #include "joint_attention.cuh"
-#include "tf32_attention_bwd.cuh"
+#include "tf32_attention.cuh"
 
 namespace segmm {
 // The fp32 body at head dims up to 16 and from 36 to 64 is instantiated

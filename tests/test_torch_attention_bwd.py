@@ -242,7 +242,7 @@ def _tf32_einsum(passes):
                                    (40, 40, 1), (1, 40, 1)])
 def test_k1b_3xtf32_products_match_fp32(rng, shape, drop, monkeypatch):
     """fp32 K1b runs every product (q k^T, g v^T, p^T g, dl k, dl^T q) on
-    the TF32 tensor cores in 3xTF32 (tf32_attention_bwd.cuh). The fp32
+    the TF32 tensor cores in 3xTF32 (tf32_attention.cuh). The fp32
     backward with each product so formed stays within 1e-5 of itself in
     fp32 at the four stream shapes of a both/both layer, while one TF32
     rounding of the operands misses 1e-4: the reason for three passes, and

@@ -14,6 +14,7 @@ has no JAX (the shared conftest imports it, hence ``--noconftest``):
     python -m pytest tests/test_torch_kernels.py --noconftest -q
 """
 
+import ctypes
 import math
 
 import numpy as np
@@ -336,6 +337,65 @@ def test_fp32_backward_head_dims(cuda, kernel, lengths, heads, dh, rate):
     assert A.LAUNCHES[lib] == before + 1
     _rel_close(got, plain(*inputs, *masks, g, scale, rate, 23),
                torch.float32)
+
+
+# fp32 K1f and K3f on the TF32 tensor cores (3xTF32) at head dims 16, 32
+# and 64, Lq = 1 and the largest shapes, each batch row 0 with a fully
+# padded query row; K1f also at head dim 128, which its shape rule sends to
+# the CUDA-core body: (kernel, lengths, heads, head dim, body)
+FP32_FWD_CASES = [("K1f", (40, 40, 100), 32, 16, "tf32"),
+                  ("K1f", (100, 40, 100), 16, 32, "tf32"),
+                  ("K1f", (1, 40, 1), 16, 32, "tf32"),
+                  ("K1f", (40, 40, 1), 16, 32, "tf32"),
+                  ("K1f", (100, 40, 100), 8, 64, "tf32"),
+                  ("K1f", (128, 128, 128), 8, 64, "tf32"),
+                  ("K1f", (40, 40, 100), 4, 128, "cuda_core"),
+                  ("K3f", (40, 100), 32, 16, "tf32"),
+                  ("K3f", (1, 40), 16, 32, "tf32"),
+                  ("K3f", (128, 128), 8, 64, "tf32")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.1], ids=["eval", "dropout"])
+@pytest.mark.parametrize("kernel,lengths,heads,dh,body", FP32_FWD_CASES)
+def test_fp32_forward_bodies(cuda, kernel, lengths, heads, dh, body, rate):
+    """fp32 K1f and K3f against their plain versions at 1e-4 on the body
+    the wrapper chooses; each launch counts once."""
+    B, scale = 16, 1 / math.sqrt(dh)
+    rng = np.random.default_rng(8)
+    Lq = lengths[0]
+    if kernel == "K1f":
+        assert A.k1_forward_body(torch.float32, *lengths, dh) == body
+        L = (Lq, Lq, lengths[1], lengths[2], lengths[1], lengths[2])
+        masks = _on(cuda, _masks_for(rng, B, *lengths))
+        fused, plain = A.fused_two_block_attention, A.two_block_attention_plain
+        lib = "two_block_attention"
+    else:
+        L = (Lq, lengths[1], lengths[1])
+        masks = _on(cuda, (_masks(rng, B, Lq, True),
+                           _masks(rng, B, lengths[1], False)))
+        fused, plain = A.fused_masked_attention, A.masked_attention_plain
+        lib = "masked_attention"
+    inputs = _on(cuda, [rng.normal(size=(B, n, heads, dh)).astype(np.float32)
+                        for n in L])
+    before = A.LAUNCHES[lib]
+    got = fused(*inputs, *masks, scale=scale, dropout_rate=rate, seed=31,
+                deterministic=rate == 0)
+    assert A.LAUNCHES[lib] == before + 1
+    torch.testing.assert_close(got, plain(*inputs, *masks, scale, rate, 31),
+                               **TOL[torch.float32])
+
+
+@pytest.mark.cuda
+def test_k1f_tf32_shared_memory_matches_the_rule(cuda):
+    """The C body's shared memory (tf32_fwd_smem_bytes) is the wrapper's
+    Python formula, which the shape rule reads."""
+    smem = A._fn("two_block_attention", "segmm_two_block_attention_smem_bytes",
+                 ctypes.c_size_t, [ctypes.c_int] * 5)
+    for shape in ((40, 40, 100), (100, 40, 100), (1, 40, 1), (300, 128, 128),
+                  (7, 13, 250)):
+        for D in (4, 16, 20, 32, 36, 64):
+            assert smem(1, *shape, D) == A.k1_tf32_smem_bytes(*shape, D)
 
 
 @pytest.mark.cuda

@@ -257,7 +257,7 @@ def _tf32_einsum(passes):
 @pytest.mark.parametrize("shape", [(40, 100), (100, 40)])
 def test_k3b_3xtf32_products_match_fp32(rng, shape, drop, monkeypatch):
     """fp32 K3b runs every product (q k^T, g v^T, p^T g, dl k, dl^T q) on
-    the TF32 tensor cores in 3xTF32 (tf32_attention_bwd.cuh). The fp32
+    the TF32 tensor cores in 3xTF32 (tf32_attention.cuh). The fp32
     backward (_masked_bwd_f32) with each product so formed stays within
     1e-5 of itself in fp32 at CrossAtt's two feature stream shapes, while
     one TF32 rounding of the operands misses 1e-4: the reason for three
