@@ -8,7 +8,7 @@ Phases, each of which fails the run (non-zero exit) on any error:
   build          compile the CUDA kernels of core/csrc with nvcc for sm_90a
                  (seconds per library); count the HMMA instructions of the
                  libraries of K1f, K1b, K3f and K3b, and the TF32 ones
-                 among them
+                 among them, and the BF16 ones of K2f's and K2b's
   kernels        each kernel (K1f, K1b, K2f, K2b, K7b, K3f, K3b, K5f, K5b,
                  K4f, K4b, K6f, K6b) against its plain PyTorch version on
                  the card, at the main paths' stream shapes, fp32 and bf16,
@@ -16,8 +16,10 @@ Phases, each of which fails the run (non-zero exit) on any error:
                  fp32 K1f also at head dim 128 (its CUDA-core body); fp32
                  K1b's and K3b's outputs on fixed inputs bit for bit those
                  of the tree that introduced their bodies (a SHA-256);
-                 times at B=1024 (K2f also with its dropout branch; K6 in
-                 turns with K2; fp32 K1 at the four stream shapes and K3 at
+                 bf16 K2b's dW and db bit-equal across two calls; times at
+                 B=1024 (K2f and K2b at the four stream shapes kernel by
+                 kernel by device time, dropout off and on; K6 in turns
+                 with K2; fp32 K1 at the four stream shapes and K3 at
                  (40, 100) and (100, 40) by their device time, the forwards
                  with dropout off and on, beside SDPA's)
   serving        the flagship both/both model (d=512, 16 heads, 6 layers)
@@ -96,6 +98,9 @@ K3_MAX_SHAPE = (128, 128)
 # HMMA instructions, and the TF32 ones among them, which each must hold
 MMA_LIBS = ("two_block_attention", "masked_attention",
             "masked_attention_bwd", "two_block_attention_bwd")
+# bf16 K2f and K2b run their projections, core and chain on bf16 mma.sync:
+# their libraries must hold bf16 HMMA instructions (HMMA.16816.F32.BF16)
+BF16_MMA_LIBS = ("proj_two_block_attention", "proj_two_block_attention_bwd")
 HBM_BYTES_PER_S = 3.35e12            # H100 SXM
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 # fp32 K1f, K1b, K3f and K3b run every product three times on the TF32
@@ -171,16 +176,18 @@ def phase_build():
     # instructions, among them TF32 ones (HMMA.1688.F32.TF32) for the fp32
     # bodies
     cuobjdump = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
-    for name in MMA_LIBS:
+    for name in MMA_LIBS + BF16_MMA_LIBS:
         sass = subprocess.run([cuobjdump, "-sass", str(paths[name])],
                               capture_output=True, text=True, timeout=300)
         hmma = [ln for ln in sass.stdout.splitlines() if "HMMA" in ln]
         tf32 = sum("TF32" in ln for ln in hmma)
-        log(f"  {name}: {len(hmma)} HMMA instructions, {tf32} of them TF32 "
-            "(cuobjdump -sass)")
-        if sass.returncode or not tf32:
-            raise AssertionError(f"{name}: no TF32 HMMA instruction in its "
-                                 f"library ({sass.stderr[-400:]})")
+        bf16 = sum("BF16" in ln for ln in hmma)
+        log(f"  {name}: {len(hmma)} HMMA instructions, {tf32} of them TF32, "
+            f"{bf16} BF16 (cuobjdump -sass)")
+        kind, n = ("BF16", bf16) if name in BF16_MMA_LIBS else ("TF32", tf32)
+        if sass.returncode or not n:
+            raise AssertionError(f"{name}: no {kind} HMMA instruction in "
+                                 f"its library ({sass.stderr[-400:]})")
 
 
 def _masks(g, B, L, dev, allow_empty=True):
@@ -445,7 +452,8 @@ def phase_kernels():
     x, ws, m = _k2_inputs(g, B, Lq, L1, L2, torch.bfloat16, dev)
     err2 = _check("K2 B=1024", k2(x, ws, m), k2_plain(x, ws, m),
                   torch.bfloat16)
-    ms2 = _time_ms(lambda: k2(x, ws, m), 10)
+    ms2 = _device_ms(lambda: k2(x, ws, m), 10, K2_NAMES) \
+        or _time_ms(lambda: k2(x, ws, m), 10)
     plain2 = _time_ms(lambda: k2_plain(x, ws, m), 5)
     e = _elem(torch.bfloat16)
     n_rows = 2 * Lq + 2 * L1 + 2 * L2     # rows through the six projections
@@ -465,70 +473,92 @@ def phase_kernels():
     want = A.proj_two_block_attention_bwd_plain(*x, *ws, *m, gx, H, scale)
     leaves = [t.detach().requires_grad_() for t in inputs]
     out = k2(leaves[:3], leaves[3:], m)
+
+    def k2b():
+        return torch.autograd.grad(out, leaves, gx, retain_graph=True)
     timed = {}
     for v3, name in ((False, "K2b"), (True, "K7b")):
         A.ATTN_V3_BWD = v3
-        got = torch.autograd.grad(out, leaves, gx, retain_graph=True)
+        got = k2b()
+        # K2b's own kernels; K7b's are its qkv pass (its dx and dW are
+        # torch.matmul)
+        names = K2_NAMES if not v3 else K2_NAMES[:2]
         timed[name] = (_rel_err(f"{name} B=1024", got, want,
                                 BWD_TOL[torch.bfloat16]),
-                       _time_ms(lambda: torch.autograd.grad(
-                           out, leaves, gx, retain_graph=True), 5))
+                       _device_ms(k2b, 5, names) or _time_ms(k2b, 5))
+        if not v3:
+            # dW and db are summed in row chunks added in order: a second
+            # call gives the same bits
+            again = k2b()
+            if not all(torch.equal(a, b) for a, b in zip(got[3:], again[3:])):
+                raise AssertionError("K2b: dW or db differ between two calls")
+            log("  K2b B=1024: dW and db bit-equal across two calls")
+            del again
         A.ATTN_V3_BWD = False
         del got
     plain2b = _time_ms(lambda: A.proj_two_block_attention_bwd_plain(
         *x, *ws, *m, gx, H, scale), 3)
-    # K2b: the recomputed projections and QK^T on the bf16 tensor cores
-    # (q and k are bf16); dx and dW and the core's dV, dP, dQ, dK with fp32
-    # operands; reads x, W, g once, writes dx, dW, db once
-    recompute = proj_flops / PEAK_FLOPS[torch.bfloat16] \
-        + 2.0 * B * Lq * Lk * d / PEAK_FLOPS[torch.bfloat16]
-    core_flops = 8.0 * B * Lq * Lk * d
-    ops2b = recompute + ((2 * proj_flops + core_flops)
-                         / PEAK_FLOPS[torch.float32])
+    # K2b: the recomputed projections and QK^T on the bf16 tensor cores (q
+    # and k are bf16); the core's dV = p^T g, dQ = dl k and dK = dl^T q
+    # with p and dl as bf16 hi + lo halves (two products each), dP = g v^T
+    # one; dx and dW with dy in three bf16 parts (three products each): all
+    # at the bf16 tensor-core rate (989 TFLOP/s). Reads x, W, g once,
+    # writes dx, dW, db once.
+    recompute = proj_flops + 2.0 * B * Lq * Lk * d
+    core_flops = 7 * 2.0 * B * Lq * Lk * d
+    ops2b = (recompute + core_flops + 3 * 2 * proj_flops) \
+        / PEAK_FLOPS[torch.bfloat16]
     bytes2b = (e * (2 * B * d * (Lq + L1 + L2) + B * Lq * d + 6 * (d * d + d))
                + 4 * 6 * (d * d + d) + 4 * B * (Lq + L1 + L2))
     _record("K2b", "proj_two_block_attention_bwd (K2b)",
             "proj_two_block_attention_bwd.cu", 808, timed["K2b"][0],
             timed["K2b"][1], plain2b, bytes2b, ops2b, None)
     # K7b does the recompute and the core; dx and dW are torch.matmul
-    ops7b = recompute + core_flops / PEAK_FLOPS[torch.float32]
+    ops7b = (recompute + core_flops) / PEAK_FLOPS[torch.bfloat16]
     bytes7b = (e * (B * d * (Lq + L1 + L2) + B * Lq * d + 6 * (d * d + d))
                + 4 * B * d * n_rows // 2 + 4 * B * (Lq + L1 + L2))
     _record("K7b", "proj_two_block_attention_qkv_bwd (K7b)",
             "proj_two_block_attention_bwd.cu", 1568, timed["K7b"][0],
             timed["K7b"][1], plain2b, bytes7b, ops7b, None)
     log(f"  K2b bf16 B=1024 {(Lq, L1, L2)}: {timed['K2b'][1]:.3f} ms, K7b "
-        f"path (qkv pass + torch.matmul) {timed['K7b'][1]:.3f} ms (plain "
-        f"{plain2b:.3f}); max rel err K2b {timed['K2b'][0]:.3g}, K7b "
-        f"{timed['K7b'][0]:.3g}")
+        f"(qkv pass) {timed['K7b'][1]:.3f} ms (plain {plain2b:.3f}); max "
+        f"rel err K2b {timed['K2b'][0]:.3g}, K7b {timed['K7b'][0]:.3g}")
     del leaves, out, want
-    # the other three launch shapes of a layer, timed for PERF.md
-    for (Lq, L1, L2) in STREAM_SHAPES[1:]:
-        x, ws, m = _k2_inputs(g, B, Lq, L1, L2, torch.bfloat16, dev)
-        gx = torch.randn(B, Lq, d, generator=g, device=dev).to(torch.bfloat16)
+    # every launch shape of a layer, kernel by kernel, by device time:
+    # K2f's projections and core, K2b's qkv pass and chain
+    for (sq, s1, s2) in STREAM_SHAPES:
+        x, ws, m = _k2_inputs(g, B, sq, s1, s2, torch.bfloat16, dev)
+        gx = torch.randn(B, sq, d, generator=g, device=dev).to(torch.bfloat16)
         leaves = [t.detach().requires_grad_()
                   for t in tuple(x) + tuple(ws)]
-        out = k2(leaves[:3], leaves[3:], m)
-        log(f"  B=1024 {(Lq, L1, L2)}: K2f bf16 "
-            f"{_time_ms(lambda: k2(x, ws, m), 5):.3f} ms, K2b bf16 "
-            f"{_time_ms(lambda: torch.autograd.grad(out, leaves, gx, retain_graph=True), 3):.3f}"
-            " ms")
-        del leaves, out
+        for rate in (0.0, DROP_RATE):
+            out = k2(leaves[:3], leaves[3:], m, rate, 5)
+            rows = {}
+            for what, fn, n in (
+                    ("K2f", lambda: k2(x, ws, m, rate, 5), 10),
+                    ("K2b", lambda: torch.autograd.grad(
+                        out, leaves, gx, retain_graph=True), 5)):
+                ks = {k.split("(")[0].split("<")[0][-40:]: v
+                      for k, v in _device_kernels(fn, n).items()
+                      if any(nm in k for nm in K2_NAMES)}
+                rows[what] = (sum(ks.values()), ks)
+            log(f"  B=1024 {(sq, s1, s2)} rate {rate}, device ms: K2f "
+                f"{rows['K2f'][0]:.3f} {rows['K2f'][1]}, K2b "
+                f"{rows['K2b'][0]:.3f} {rows['K2b'][1]}")
+            del out
+        del leaves, x, ws, m, gx
 
-    # K2f's training variant (compiled with the dropout branch), alone, at
-    # (40, 40, 100)
-    (Lq, L1, L2) = STREAM_SHAPES[0]
-    x, ws, m = _k2_inputs(g, B, Lq, L1, L2, torch.bfloat16, dev)
-    log(f"  dropout variant, B=1024 {(Lq, L1, L2)}, rate {DROP_RATE}: K2f "
-        f"bf16 {_time_ms(lambda: k2(x, ws, m, DROP_RATE, 5), 10):.3f} ms "
-        f"(eval variant {_time_ms(lambda: k2(x, ws, m), 10):.3f})")
-    del x, ws, m
     _k3_kernels(A, g, dev)
     _k5_kernels(A, g, dev)
     _k4_kernels(A, g, dev)
-    # K6 computes K2's function: its bound is K2's at the same shapes
+    # K6 computes K2's function with the CUDA-core bodies' arithmetic: K2f's
+    # bound, and K2b's bytes with the recompute in bf16 and the core's and
+    # the chain's products with fp32 operands (67 TFLOP/s)
+    ops6b = (recompute / PEAK_FLOPS[torch.bfloat16]
+             + (2 * proj_flops + 8.0 * B * Lq * Lk * d)
+             / PEAK_FLOPS[torch.float32])
     _k6_kernels(A, g, dev, (bytes2, flops2 / PEAK_FLOPS[torch.bfloat16]),
-                (bytes2b, ops2b))
+                (bytes2b, ops6b))
     digest = fp32_bwd_digest(A, dev)
     log(f"  fp32 K1b + K3b outputs, SHA-256: {digest}")
     if digest != FP32_BWD_SHA256:
@@ -1456,7 +1486,11 @@ DEFAULT_TRAIN_STEPS = 3
 # streams forward; the last layer's user stream reaches no output, so its
 # backward never runs: 18 backward launches
 FWD_PER_STEP, BWD_PER_STEP = 20, 18
-K2_NAMES = ("proj_two_block", "dx_kernel", "dw_kernel", "dw_reduce_kernel")
+# K2f and K2b: bf16 (qkv_gemm_kernel, proj_two_block_core_*, chain_dx_kernel,
+# chain_dw_kernel, chain_dw_reduce_kernel) and fp32 (proj_two_block_*,
+# dx_kernel, dw_kernel, dw_reduce_kernel)
+K2_NAMES = ("proj_two_block", "qkv_gemm", "dx_kernel", "dw_kernel",
+            "dw_reduce_kernel")
 # K1f and K1b (fp32: two_block_bwd_tf32_kernel, bf16: two_block_bwd_kernel)
 K1_NAMES = ("two_block_fwd", "two_block_bwd")
 # K3f and K3b, fp32 (masked_*_tf32_kernel) and bf16 (masked_*_mma_kernel)

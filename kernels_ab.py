@@ -26,7 +26,20 @@ builds that package's kernels under DIR/build, and prints one JSON line:
     3,920,483-row int8 table of chip_smoke.py: ms per batch with the batch
     on the card (CUDA events), device ms per batch and K3f's / K1f's share
     of it;
+  * K2f, K2b and K7b in bf16 at B=1024 at the four stream shapes, dropout
+    off and on, by device time: the whole call and each of its kernels
+    (K2b: the qkv pass, dx, dW and their sum; K7b: the qkv pass, beside the
+    call with its torch.matmul products), each with its error against the
+    plain version; whether two K2b calls give bit-equal dW and db; and PR
+    the projection stage of K2f's per-(head, batch row) body alone
+    (kernels_ab_proj_stage.cu, built
+    against the checkout's core/csrc where it has projection.cuh);
+  * the main path end to end (`e2e`): production training, fuse_dual and
+    SEGMM_ATTN_V2 at B=1024 (ms and device ms per step, peak memory) and
+    the serving preset (device latency at B = 1024 / 512 / 256 / 128,
+    interactions/s over the test split);
   * the card's name and power limit (nvidia-smi).
+`--parts` picks some of these (default: all).
 To compare two checkouts, run it on each in turns in one call on one card:
 A, B, B, A. The measuring code is this file's and chip_smoke.py's whatever
 DIR is, so only the port under test differs.
@@ -35,17 +48,21 @@ DIR is, so only the port under test differs.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import math
 import os
 import subprocess
 import sys
+import time
 
 import torch
 
 import chip_smoke as C
 
 K3_SHAPES = ((40, 100), (100, 40))
+PARTS = ("k2_bf16", "e2e", "k3_bf16", "fp32_fwd", "fp32_bwd",
+         "fp32_bwd_sha256", "served")
 B = 1024
 SEED = 1234567
 
@@ -85,6 +102,217 @@ def _k3_bf16(A, g, dev):
                 scale=scale), 20),
             sdpa_bwd_ms=C._device_ms(lambda: torch.autograd.grad(
                 lo, (ql, kl, vl), gl, retain_graph=True), 10))
+    return out
+
+
+def _short(name):
+    """A profiler kernel row's name without its template arguments."""
+    name = name.split("(")[0].split("<")[0]
+    return name.replace("void ", "").replace("segmm::", "")[:60]
+
+
+def _breakdown(fn, iters):
+    """Device ms per call of fn() by kernel (short names, summed)."""
+    out = {}
+    for k, v in C._device_kernels(fn, iters).items():
+        out[_short(k)] = out.get(_short(k), 0.0) + v
+    return out
+
+
+def _old_proj_stage(root):
+    """The projection stage of K2f's per-(head, batch row) body alone, built
+    from the checkout's
+    projection.cuh (None where the checkout has none)."""
+    csrc = os.path.join(root, "segmminterest_tpu_torch", "core", "csrc")
+    if not os.path.exists(os.path.join(csrc, "projection.cuh")):
+        return None
+    from segmminterest_tpu_torch.core import build
+    out_dir = os.path.join(root, "build", "kernels_ab")
+    os.makedirs(out_dir, exist_ok=True)
+    lib = os.path.join(out_dir, "libk2_proj_stage.so")
+    src = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                       "kernels_ab_proj_stage.cu")
+    if not os.path.exists(lib):
+        subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-I", csrc, "-o",
+                        lib, src], check=True, capture_output=True,
+                       timeout=600)
+    fn = ctypes.CDLL(lib).k2_proj_stage
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.POINTER(ctypes.c_void_p), ctypes.c_void_p]
+                   + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+    return fn
+
+
+def _k2_bf16(A, g, dev, root):
+    """K2f, K2b and K7b in bf16 at B=1024, by device time per kernel."""
+    H, d = C.HEADS, C.D_MODEL
+    scale = 1.0 / math.sqrt(d // H)
+    stage = _old_proj_stage(root)
+    out = {}
+    for (Lq, L1, L2) in C.STREAM_SHAPES:
+        x, ws, m = C._k2_inputs(g, B, Lq, L1, L2, torch.bfloat16, dev)
+        gx = torch.randn(B, Lq, d, generator=g, device=dev).to(torch.bfloat16)
+        row = {}
+        if stage is not None:
+            sink = torch.empty(B * H, device=dev)
+            ptrs = (ctypes.c_void_p * 15)(*(t.data_ptr() for t in
+                                            tuple(x) + tuple(ws)))
+
+            def proj():
+                code = stage(ptrs, sink.data_ptr(), B, Lq, L1, L2, d, H,
+                             ctypes.c_void_p(
+                                 torch.cuda.current_stream().cuda_stream))
+                if code:
+                    raise RuntimeError(f"k2_proj_stage: CUDA error {code}")
+            row["k2f_old_proj_stage_ms"] = C._device_ms(proj, 10)
+            row["k2f_old_proj_stage_events_ms"] = C._time_ms(proj, 10)
+        for rate in (0.0, C.DROP_RATE):
+            def fwd(rate=rate, t=None):
+                a = t if t is not None else tuple(x) + tuple(ws)
+                return A.fused_proj_two_block_attention(
+                    *a, *m, num_heads=H, scale=scale, dropout_rate=rate,
+                    seed=SEED, deterministic=rate == 0)
+            kf = _breakdown(fwd, 10)
+            kf_events = C._time_ms(fwd, 10)
+            err_f = _rel([fwd()], [A.proj_two_block_attention_plain(
+                *x, *ws, *m, H, scale, rate, SEED)])
+            leaves = [t.detach().requires_grad_()
+                      for t in tuple(x) + tuple(ws)]
+            o = fwd(rate, leaves)
+            want = A.proj_two_block_attention_bwd_plain(
+                *x, *ws, *m, gx, H, scale, rate, SEED)
+
+            def bwd(o=o, leaves=leaves):
+                return torch.autograd.grad(o, leaves, gx, retain_graph=True)
+            kb = _breakdown(bwd, 5)
+            kb_events = C._time_ms(bwd, 5)
+            first, second = bwd(), bwd()
+            same = all(torch.equal(a, b) for a, b in zip(first[3:],
+                                                         second[3:]))
+            err_b = _rel(first, want)
+            del first, second
+            A.ATTN_V3_BWD = True
+            try:
+                k7 = _breakdown(bwd, 5)
+                err_7 = _rel(bwd(), want)
+            finally:
+                A.ATTN_V3_BWD = False
+            del o, leaves, want
+
+            def ours(rows):
+                return sum(v for k, v in rows.items()
+                           if any(n in k for n in C.K2_NAMES))
+            tag = f"rate {rate}"
+            row[tag] = dict(
+                k2f_ms=ours(kf), k2f_events_ms=kf_events, k2f_kernels=kf,
+                k2f_err=err_f, k2b_ms=ours(kb), k2b_events_ms=kb_events,
+                k2b_kernels=kb, k2b_err=err_b,
+                k2b_dw_db_bit_equal=same, k7b_ms=ours(k7),
+                k7b_call_ms=sum(k7.values()), k7b_kernels=k7, k7b_err=err_7)
+            print(f"  K2 {(Lq, L1, L2)} {tag}: K2f {C._ms(ours(kf))} ms "
+                  f"(events {kf_events:.3f}; err {err_f:.2g}), K2b "
+                  f"{C._ms(ours(kb))} ms (events {kb_events:.3f}; err "
+                  f"{err_b:.2g}, dW/db bit-equal {same}), K7b "
+                  f"{C._ms(ours(k7))} ms (call {sum(k7.values()):.3f}); "
+                  f"K2f {kf}; K2b {kb}", flush=True)
+        if "k2f_old_proj_stage_ms" in row:
+            print(f"  K2 {(Lq, L1, L2)}: the per-(head, batch row) "
+                  "projection stage alone "
+                  f"{C._ms(row['k2f_old_proj_stage_ms'])} ms (CUDA events "
+                  f"{row['k2f_old_proj_stage_events_ms']:.3f})", flush=True)
+        out[f"{Lq}x{L1}x{L2}"] = row
+        del x, ws, m, gx
+    return out
+
+
+E2E_STEPS = 6  # timed after 2 warm-up steps
+
+
+def _e2e(A):
+    """The main path end to end at B=1024 over the 3.9M-row int8 table:
+    production training (bf16, K2), fuse_dual and SEGMM_ATTN_V2 (K6): ms
+    per step on the host's clock, device ms per step and K2's share of it
+    (torch.profiler, 2 steps), peak device memory; then the serving preset:
+    device latency per batch at B = 1024 / 512 / 256 / 128 (CUDA events,
+    batch on the card), device ms per B=1024 batch and K2f's share, and
+    interactions/s over the test split with the host pipeline."""
+    from segmminterest_tpu_torch.data.dataset import BatchIterator
+    from segmminterest_tpu_torch.engine.train import InterestEngine
+    from segmminterest_tpu_torch.tasks import export_logits as X
+
+    ctx = C._data({})
+    reader, store = ctx["reader"], ctx["store"]
+    out, batches = {}, None
+    for name, kw, v2 in (("production", {}, False),
+                         ("fuse_dual", dict(fuse_dual=True), False),
+                         ("attn_v2", {}, True)):
+        A.ATTN_V2 = v2
+        try:
+            cfg = C._production_train_cfg(ctx["csv"], **kw)
+            engine = InterestEngine(cfg, reader.n_users, reader.n_items,
+                                    feature_table=ctx["table"],
+                                    device="cuda")
+            if batches is None:
+                batches = [b for _, b in zip(range(E2E_STEPS + 2),
+                                             BatchIterator(
+                    reader, reader.tables["train"], 1024, shuffle=True,
+                    feature_store=store, seed=cfg.seed,
+                    transform=engine.batch_transform))]
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _, times, losses, counts = C._train_steps(engine, batches)
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            share = C._kernel_share(engine, batches[:2])
+        finally:
+            A.ATTN_V2 = False
+        steady = times[2:]
+        rows = sum(int(b["row_mask"].sum()) for b in batches[2:])
+        out[name] = dict(
+            ms_per_step=1e3 * sum(steady) / len(steady),
+            interactions_per_s=rows / sum(steady),
+            device_ms_per_step=None if share is None else share[1],
+            k2_share=None if share is None else share[0], peak_gib=peak,
+            losses=losses, launches_per_step={
+                k: v // len(batches) for k, v in counts.items() if v})
+        print(f"  {name} train: {out[name]['ms_per_step']:.1f} ms per step, "
+              f"device {C._ms(out[name]['device_ms_per_step'])} ms, peak "
+              f"{peak:.2f} GiB, launches {out[name]['launches_per_step']}",
+              flush=True)
+        del engine
+        torch.cuda.empty_cache()
+
+    cfg = X.apply_serving_preset(C._flagship_cfg(ctx["csv"]))
+    engine = InterestEngine(cfg, reader.n_users, reader.n_items,
+                            feature_table=ctx["table"], device="cuda")
+    state = engine.init_state()
+    latency, full = {}, None
+    for bs in (1024, 512, 256, 128):
+        batch = next(iter(BatchIterator(
+            reader, reader.tables["train"], bs, feature_store=store,
+            seed=cfg.seed, prefetch_size=0)))
+        dev_batch = {"_dev": engine.put_batch(batch)}
+        full = full or dev_batch
+        latency[bs] = C._time_ms(lambda: engine.eval_step(state, dev_batch),
+                                 5)
+    share = C._device_share(lambda: engine.eval_step(state, full), 3,
+                            C.K2_NAMES)
+    it = BatchIterator(reader, reader.tables["test"], cfg.test_batch_size,
+                       shuffle=False, feature_store=store, seed=cfg.seed,
+                       transform=engine.batch_transform)
+    X.export_split_logits(engine, state, it)  # warm: the iterator's tables
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits = X.export_split_logits(engine, state, it)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    out["serving"] = dict(
+        latency_ms=latency,
+        device_ms_b1024=None if share is None else share[1],
+        k2f_share=None if share is None else share[0],
+        interactions_per_s=len(logits) / wall)
+    print(f"  served: latency {latency} ms, device "
+          f"{C._ms(out['serving']['device_ms_b1024'])} ms at B=1024, "
+          f"{len(logits) / wall:.1f} interactions/s", flush=True)
     return out
 
 
@@ -219,6 +447,8 @@ def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--root", default=C.ROOT,
                    help="checkout whose segmminterest_tpu_torch is measured")
+    p.add_argument("--parts", default=",".join(PARTS),
+                   help="comma-separated subset of " + ",".join(PARTS))
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("kernels_ab: no CUDA device", file=sys.stderr)
@@ -231,9 +461,19 @@ def main(argv=None):
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
-    res = dict(root=root, k3_bf16=_k3_bf16(A, g, dev),
-               fp32_fwd=_fp32_fwd(A, g, dev), fp32_bwd=_fp32_bwd(A, g, dev),
-               fp32_bwd_sha256=C.fp32_bwd_digest(A, dev), served=_served(dev))
+    parts = {
+        "k2_bf16": lambda: _k2_bf16(A, g, dev, root),
+        "e2e": lambda: _e2e(A),
+        "k3_bf16": lambda: _k3_bf16(A, g, dev),
+        "fp32_fwd": lambda: _fp32_fwd(A, g, dev),
+        "fp32_bwd": lambda: _fp32_bwd(A, g, dev),
+        "fp32_bwd_sha256": lambda: C.fp32_bwd_digest(A, dev),
+        "served": lambda: _served(dev)}
+    res = dict(root=root)
+    for name in args.parts.split(","):
+        if name not in parts:
+            raise SystemExit(f"unknown part {name!r}; parts: {PARTS}")
+        res[name] = parts[name]()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)

@@ -92,9 +92,15 @@ K1_TF32_MAX_KEYS = 256
 # head dim at most 64
 BWD_MAX_LEN = 128
 BWD_MAX_HEAD_DIM = 64
-# K2's weight gradients are summed over the batch in this many row chunks,
-# then the chunks are added in order (deterministic, no atomics)
+# the CUDA-core chain (chain_gemm.cuh: fp32 K2b, K4b, K5b, K6b) sums the
+# weight gradients over the batch in this many row chunks, then adds the
+# chunks in order (deterministic, no atomics)
 K2_DW_SPLITS = 4
+# bf16 K2b's: the six weights' rows in chunks of k2_dw_chunk rows, about
+# this many chunks in all, added in chunk order; its kernel's table holds
+# K2_DW_MAX_CHUNKS (kMaxDwChunks), which the rule cannot exceed
+K2_DW_CHUNKS = 40
+K2_DW_MAX_CHUNKS = 96
 # SEGMM_ATTN_V3_BWD=1: K2's backward emits dq..dv only (K7b) and leaves dx,
 # dW and db to torch.matmul, as the JAX package's switch does (:1565)
 ATTN_V3_BWD = os.environ.get("SEGMM_ATTN_V3_BWD", "0") == "1"
@@ -735,6 +741,61 @@ def _check_k2(tensors, masks, num_heads, g=None):
     return B, Lq, L1, L2, d, dh
 
 
+def k2_body(dtype) -> str:
+    """Which bodies K2f and K2b run: ``"mma"`` for bf16 (the projections as
+    one tensor-core GEMM into a bf16 workspace, the two-block core on
+    mma.sync, the chain's dx and dW on the tensor cores at fp32 accuracy),
+    ``"cuda_core"`` for fp32 (the per-(head, batch row) CUDA-core bodies).
+    By dtype, never on a failure."""
+    return "mma" if dtype == torch.bfloat16 else "cuda_core"
+
+
+def _pad16(n: int) -> int:
+    return (n + 15) // 16 * 16
+
+
+def k2_mma_smem_bytes(Lq: int, L1: int, L2: int, D: int,
+                      backward: bool) -> int:
+    """Shared memory of one block of bf16 K2's core
+    (``k2_core_fwd_smem_bytes`` / ``k2_core_bwd_smem_bytes``,
+    csrc/two_block_mma.cuh): bf16 tiles of row stride D + 8, q1 and q2 (and
+    g) over pad16(Lq) rows, k and v over the key axis pad16(pad8(L1) + L2);
+    the query and key masks; the dropout keep words (the forward's four
+    warps', the backward's 16-row query tiles'); the backward's hi / lo
+    planes of its [query][key] buffer (row stride the key axis + 8)."""
+    mq16, nk16 = _pad16(Lq), _pad16(_pad8(L1) + L2)
+    keep_words = (nk16 // 8 + 7) // 8 * 32  # a 16-row tile's or warp's
+    tiles = (3 if backward else 2) * mq16 + 2 * nk16
+    n = 2 * tiles * (D + 8) + 4 * (mq16 + nk16)
+    if backward:
+        return n + 4 * (mq16 // 16) * keep_words + 2 * 2 * mq16 * (nk16 + 8)
+    return n + 4 * 4 * keep_words
+
+
+def k2_workspace(xq, x1, x2):
+    """bf16 K2's transient projections: per source a (B, L, 2d) bf16
+    tensor, the first weight's d columns then the second's (q1 | q2,
+    k1 | v1, k2 | v2)."""
+    return [torch.empty(x.shape[0], x.shape[1], 2 * x.shape[2],
+                        dtype=torch.bfloat16, device=x.device)
+            for x in (xq, x1, x2)]
+
+
+def k2_dw_chunk(B: int, Lq: int, L1: int, L2: int) -> int:
+    """Rows per chunk of bf16 K2b's weight gradients: about K2_DW_CHUNKS
+    chunks over the six weights' B (2 Lq + 2 L1 + 2 L2) rows, a multiple of
+    the products' 32-row step. Each weight's chunks are summed in order, so
+    that a shape always sums in the same order."""
+    rows = B * 2 * (Lq + L1 + L2)
+    chunk = -(-rows // K2_DW_CHUNKS)
+    return max(32, -(-chunk // 32) * 32)
+
+
+def k2_dw_chunks(B: int, Lq: int, L1: int, L2: int, chunk: int):
+    """Chunks of each weight (q1 q2 k1 k2 v1 v2) at `chunk` rows."""
+    return [-(-B * L // chunk) for L in (Lq, Lq, L1, L2, L1, L2)]
+
+
 def _k2_smem_check(lib, symbol, xq, Lq, L1, L2, dh):
     smem = _fn(lib, symbol, ctypes.c_size_t, [ctypes.c_int] * 5)
     if smem(_DTYPE_CODE[xq.dtype], Lq, L1, L2, dh) > MAX_SMEM_BYTES:
@@ -750,15 +811,17 @@ def _k2_forward_cuda(xq, x1, x2, ws, masks, num_heads, scale, rate, seed):
                    L2, dh)
     fn = _fn("proj_two_block_attention", "segmm_proj_two_block_attention_fwd",
              ctypes.c_int, [ctypes.c_int, ctypes.POINTER(ctypes.c_void_p)]
-             + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_float]
-             + _DROP_ARGS + [ctypes.c_void_p])
+             + [ctypes.c_void_p] * 4 + [ctypes.POINTER(ctypes.c_void_p)]
+             + [ctypes.c_int] * 6 + [ctypes.c_float] + _DROP_ARGS
+             + [ctypes.c_void_p])
     mq, m1, m2 = _masks_i32(*masks)
     out = torch.empty_like(xq)
+    work = k2_workspace(xq, x1, x2) if k2_body(xq.dtype) == "mma" else []
     with torch.cuda.device(xq.device):
         code = fn(_DTYPE_CODE[xq.dtype], _ptrs(tensors), mq.data_ptr(),
-                  m1.data_ptr(), m2.data_ptr(), out.data_ptr(), B, Lq, L1, L2,
-                  d, num_heads, float(scale), *_drop_args(rate, seed),
-                  _stream_ptr(xq.device))
+                  m1.data_ptr(), m2.data_ptr(), out.data_ptr(), _ptrs(work),
+                  B, Lq, L1, L2, d, num_heads, float(scale),
+                  *_drop_args(rate, seed), _stream_ptr(xq.device))
     _raise_on_cuda_error(code, "proj_two_block_attention")
     LAUNCHES["proj_two_block_attention"] += 1
     return out
@@ -777,16 +840,17 @@ def _k2_qkv_grads_cuda(xq, x1, x2, ws, masks, g, num_heads, scale, rate,
     fn = _fn("proj_two_block_attention_bwd",
              "segmm_proj_two_block_attention_qkv_bwd", ctypes.c_int,
              [ctypes.c_int, ctypes.POINTER(ctypes.c_void_p)]
-             + [ctypes.c_void_p] * 4 + [ctypes.POINTER(ctypes.c_void_p)]
+             + [ctypes.c_void_p] * 4 + [ctypes.POINTER(ctypes.c_void_p)] * 2
              + [ctypes.c_int] * 6 + [ctypes.c_float] + _DROP_ARGS
              + [ctypes.c_void_p])
     mq, m1, m2 = _masks_i32(*masks)
     dys = [torch.empty(B, L, d, dtype=torch.float32, device=xq.device)
            for L in (Lq, Lq, L1, L2, L1, L2)]
+    work = k2_workspace(xq, x1, x2) if k2_body(xq.dtype) == "mma" else []
     with torch.cuda.device(xq.device):
         code = fn(_DTYPE_CODE[xq.dtype], _ptrs(tensors), mq.data_ptr(),
-                  m1.data_ptr(), m2.data_ptr(), g.data_ptr(), _ptrs(dys), B,
-                  Lq, L1, L2, d, num_heads, float(scale),
+                  m1.data_ptr(), m2.data_ptr(), g.data_ptr(), _ptrs(dys),
+                  _ptrs(work), B, Lq, L1, L2, d, num_heads, float(scale),
                   *_drop_args(rate, seed), _stream_ptr(xq.device))
     _raise_on_cuda_error(code, "proj_two_block_attention_qkv_bwd")
     return dys
@@ -804,22 +868,27 @@ def _k2_backward_cuda(xq, x1, x2, ws, masks, g, num_heads, scale, rate,
         LAUNCHES["proj_two_block_attention_qkv_bwd"] += 1
         return _chain_grads(xq, x1, x2, ws, dys)
     d = xq.shape[-1]
+    B, Lq, L1, L2 = xq.shape[0], xq.shape[1], x1.shape[1], x2.shape[1]
     dx = [torch.empty_like(x) for x in (xq, x1, x2)]
     dw = [torch.empty(d, d, dtype=torch.float32, device=xq.device)
           for _ in range(6)]
     db = [torch.empty(d, dtype=torch.float32, device=xq.device)
           for _ in range(6)]
-    scratch = torch.empty(6 * K2_DW_SPLITS * (d * d + d),
-                          dtype=torch.float32, device=xq.device)
+    if k2_body(xq.dtype) == "mma":
+        chunk = k2_dw_chunk(B, Lq, L1, L2)
+        parts = sum(k2_dw_chunks(B, Lq, L1, L2, chunk))
+    else:
+        chunk, parts = 0, 6 * K2_DW_SPLITS
+    scratch = torch.empty(parts * (d * d + d), dtype=torch.float32,
+                          device=xq.device)
     fn = _fn("proj_two_block_attention_bwd",
              "segmm_proj_two_block_attention_chain_bwd", ctypes.c_int,
              [ctypes.c_int] + [ctypes.POINTER(ctypes.c_void_p)] * 4
-             + [ctypes.c_void_p] + [ctypes.c_int] * 6 + [ctypes.c_void_p])
-    B, Lq, L1, L2 = xq.shape[0], xq.shape[1], x1.shape[1], x2.shape[1]
+             + [ctypes.c_void_p] + [ctypes.c_int] * 7 + [ctypes.c_void_p])
     with torch.cuda.device(xq.device):
         code = fn(_DTYPE_CODE[xq.dtype], _ptrs((xq, x1, x2) + tuple(ws)),
                   _ptrs(dys), _ptrs(dx), _ptrs(dw + db), scratch.data_ptr(), B,
-                  Lq, L1, L2, d, K2_DW_SPLITS, _stream_ptr(xq.device))
+                  Lq, L1, L2, d, K2_DW_SPLITS, chunk, _stream_ptr(xq.device))
     _raise_on_cuda_error(code, "proj_two_block_attention_bwd (dx, dW)")
     LAUNCHES["proj_two_block_attention_bwd"] += 1
     grads = list(dx)

@@ -80,59 +80,6 @@ namespace segmm {
 // ---------------------------------------------------------------------------
 // bf16 on the tensor cores
 
-// x's hi and lo halves into two bf16 [query][key] tiles of row stride ldp:
-// rows q0 .. q0 + 16, keys [0, 16 nk16).
-template <int NT>
-__device__ __forceinline__ void k3b_store_split(const float (&x)[NT][4], int q0, int nk16,
-                                                __nv_bfloat16* hi, __nv_bfloat16* lo, int ldp) {
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int n = 0; n < NT; ++n) {
-    if (n / 2 < nk16) {
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        float h0, l0, h1, l1;
-        split_bf16(x[n][2 * r], h0, l0);
-        split_bf16(x[n][2 * r + 1], h1, l1);
-        const int at = (q0 + g + 8 * r) * ldp + n * 8 + 2 * t;
-        *reinterpret_cast<unsigned*>(hi + at) = pack_bf16(h0, h1);
-        *reinterpret_cast<unsigned*>(lo + at) = pack_bf16(l0, l1);
-      }
-    }
-  }
-}
-
-// acc[dn] += X^T . S over the queries for keys k0 .. k0 + 16: X given by
-// its two halves, bf16 [query][key] tiles of row stride ldp, S a
-// [query][d] tile; nq16 query tiles.
-template <int D>
-__device__ __forceinline__ void k3b_colsT_times_rows(const __nv_bfloat16* xh,
-                                                     const __nv_bfloat16* xl, int ldp, int k0,
-                                                     int nq16, const __nv_bfloat16* st,
-                                                     float (&acc)[D / 8][4]) {
-  constexpr int LD = D + 8;
-  const int lane = threadIdx.x & 31;
-  for (int ki = 0; ki < nq16; ++ki) {
-    // matrices (transposed): keys k0.. and k0+8.. of queries 16ki.., then
-    // of queries 16ki+8..
-    const int at = (16 * ki + (lane & 7) + ((lane >> 4) << 3)) * ldp + k0 + ((lane >> 3) & 1) * 8;
-    unsigned ah[4], al[4];
-    ldsm_x4_t(ah, xh + at);
-    ldsm_x4_t(al, xl + at);
-#pragma unroll
-    for (int dn = 0; dn < D / 8; dn += 2) {
-      unsigned bb[4];
-      ldsm_x4_t(bb, st + (16 * ki + (lane & 7) + ((lane >> 3) & 1) * 8) * LD + dn * 8 +
-                        (lane >> 4) * 8);
-      mma_bf16(acc[dn], ah, bb[0], bb[1]);
-      mma_bf16(acc[dn + 1], ah, bb[2], bb[3]);
-      mma_bf16(acc[dn], al, bb[0], bb[1]);
-      mma_bf16(acc[dn + 1], al, bb[2], bb[3]);
-    }
-  }
-}
-
 // Rows r0 + g and r0 + g + 8 (those < L) of a 16 x D accumulator tile, as
 // bf16 pairs, to dst + row * stride.
 template <int D>
@@ -150,15 +97,6 @@ __device__ __forceinline__ void k3b_write_rows(const float (&acc)[D / 8][4], int
             pack_bf16(acc[dn][2 * r], acc[dn][2 * r + 1]);
     }
   }
-}
-
-// x = hi + lo at (row, key) and (row, key + 1) of two bf16 tiles of row
-// stride ldp.
-__device__ __forceinline__ float2 k3b_load_split(const __nv_bfloat16* hi,
-                                                 const __nv_bfloat16* lo, int at) {
-  const float2 h = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(hi + at));
-  const float2 l = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(lo + at));
-  return make_float2(h.x + l.x, h.y + l.y);
 }
 
 // Shared-memory bytes of the four [query][key] halves (p and dl).

@@ -3,60 +3,70 @@
 // Replaces the TPU kernel segmminterest_tpu/core/attention.py _fp_fwd_kernel
 // (:776), launched by _fp_call_fwd (:897) behind
 // fused_proj_two_block_attention v1 (:1054), with its head loop
-// _attn_group_fwd (:399). It is K1 with the six q/k/v projections computed
-// inside the kernel:
+// _attn_group_fwd (:399). It is K1 with the six q/k/v projections:
 //   q1 = xq.Wq1 + bq1, q2 = xq.Wq2 + bq2   (query source xq, (B, Lq, d))
 //   k1 = x1.Wk1 + bk1, v1 = x1.Wv1 + bv1   (key block 1, (B, L1, d))
 //   k2 = x2.Wk2 + bk2, v2 = x2.Wv2 + bv2   (key block 2, (B, L2, d))
-// then the joint softmax core of joint_attention.cuh; out (B, Lq, d).
-// Weights arrive in nn.Linear layout (out, in), biases (d,). Rounding as on
-// the TPU (_proj, :769-773): the fp32 dot is cast to the input type and the
-// bias is then added in that type.
+// then the joint softmax core; out (B, Lq, d). Weights arrive in nn.Linear
+// layout (out, in), biases (d,). Rounding as on the TPU (_proj, :769-773):
+// the fp32 dot is cast to the input type and the bias is then added in that
+// type.
 //
-// Design: one thread block (256 threads, 8 warps) per (head, batch row).
-// For its head the block computes the DH columns of each projection, two
-// projections that share a source at a time, walking d in tiles staged in
-// shared memory (projection.cuh: wmma tensor cores in bf16, CUDA cores in
-// fp32). The projected tiles stay in shared memory as fp32 for the
-// attention core; q, k and v never reach device memory. In training the
-// core applies the dropout mask of joint_attention.cuh.
+// What bounds it on an H100: operations. The projections are 193 GFLOP at
+// B=1024, (40, 40, 100), d = 512, against ~0.57 GB that they must move
+// (0.2 ms on the bf16 tensor cores); the attention core adds 29 GFLOP.
 //
-// What bounds it on an H100: operations. Per (row, head) the projections
-// are 2*(2Lq + 2L1 + 2L2)*d*DH FLOP against ~(Lq + L1 + L2)*d input values,
-// well above the card's bytes-to-FLOP balance, so the floor is the bf16
-// tensor-core rate. This design is held back by what it re-reads instead:
-// every head re-reads its batch row's x, and every batch row re-reads the
-// head's weight slice, from L2 (about 6 GB of L2 reads per launch at
-// B=1024, Lq=40, L1=40, L2=100), and the attention core runs as fp32 FMAs
-// whose operands all come from shared memory. Several heads or batch rows
-// per block, wgmma with TMA, and tensor-core logits and AV products are the
-// ways past that.
-// The block body (proj_fwd_block) lives in proj_attention.cuh, shared with
-// K5 and K4.
+// bf16: two launches on the tensor cores.
+//  (1) qkv_gemm_kernel (proj_gemm.cuh): the six projections as one grouped
+//      GEMM, x_s . [Wa_s; Wb_s]^T for each source, with _proj's rounding,
+//      into a transient bf16 workspace (B, L, 2d) per source (~0.38 GB at
+//      (40, 40, 100)): each x and W tile is read once per 128 x 128 output
+//      tile, where the per-(head, batch row) body re-read a batch row's x for every head and a
+//      head's weights for every batch row from L2 (~6 GB a launch).
+//  (2) proj_two_block_core_fwd_kernel (two_block_mma.cuh): one block per
+//      (head, batch row) stages its head's q1, q2, k, v rows by cp.async
+//      and runs S, the softmax and p v on mma.sync m16n8k16, both key
+//      blocks on one axis.
+// fp32: the CUDA-core body, one block (256 threads) per (head, batch row): the
+// head's DH columns of the six projections on the CUDA cores in fp32 into
+// shared memory (projection.cuh), then joint_attention.cuh's core; q, k and
+// v never reach device memory. The wrapper picks the body by dtype.
+// proj_fwd_block, that block body, lives in proj_attention.cuh, shared
+// with K5 and K4.
 #include "proj_attention.cuh"
+#include "proj_gemm.cuh"
+#include "two_block_mma.cuh"
 
-// dtype: 0 = float32, 1 = bfloat16.
+// dtype: 0 = float32 (the CUDA-core body), 1 = bfloat16 (the core's block; the
+// projection GEMM's is fixed, qkv_gemm_smem_bytes).
 extern "C" size_t segmm_proj_two_block_attention_smem_bytes(int dtype, int Lq, int L1, int L2,
                                                             int DH) {
-  return segmm::k2_smem_bytes(dtype == 1, Lq, L1, L2, DH);
+  if (dtype == 1) return segmm::k2_core_fwd_smem_bytes(Lq, L1, L2, DH);
+  return segmm::k2_smem_bytes(false, Lq, L1, L2, DH);
 }
 
 // ptrs: xq, x1, x2, wq1, bq1, wq2, bq2, wk1, bk1, wk2, bk2, wv1, bv1, wv2, bv2
 // (device pointers, 16-byte aligned). dtype: 0 = float32, 1 = bfloat16.
-// DH in {16, 32, 64}, d % 32 == 0, every length <= 128. rate > 0 applies
-// the dropout mask of `seed` (keep_div = 1 - rate in fp32). Returns a
-// cudaError_t (0 = launched).
+// ws (bf16 only): the projections' outputs, (B, Lq, 2d), (B, L1, 2d),
+// (B, L2, 2d) bf16. DH in {16, 32, 64}, d % 32 == 0, every length <= 128.
+// rate > 0 applies the dropout mask of `seed` (keep_div = 1 - rate in
+// fp32). Returns a cudaError_t (0 = launched).
 extern "C" int segmm_proj_two_block_attention_fwd(
     int dtype, const void* const* ptrs, const int* mq, const int* mk1, const int* mk2,
-    void* out, int B, int Lq, int L1, int L2, int dm, int H, float scale, float rate,
-    float keep_div, unsigned seed, void* stream) {
+    void* out, void* const* ws, int B, int Lq, int L1, int L2, int dm, int H, float scale,
+    float rate, float keep_div, unsigned seed, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int DH = dm / H;
+  if (dtype == 1) {
+    cudaError_t err = segmm::launch_k2_projections(ptrs, ws, B, Lq, L1, L2, dm, s);
+    if (err != cudaSuccess) return (int)err;
+    segmm::K2CoreArgs a = segmm::k2_core_args(ws, mq, mk1, mk2, Lq, L1, L2, H, scale, rate,
+                                              keep_div, seed);
+    a.out = static_cast<__nv_bfloat16*>(out);
+    return (int)segmm::launch_k2_core<false>(a, DH, B, s);
+  }
   if (dtype == 0)
     return (int)segmm::dispatch_proj_fwd<float>(DH, ptrs, mq, mk1, mk2, out, B, Lq, L1, L2, dm,
                                                 scale, rate, keep_div, seed, s);
-  if (dtype == 1)
-    return (int)segmm::dispatch_proj_fwd<__nv_bfloat16>(DH, ptrs, mq, mk1, mk2, out, B, Lq, L1,
-                                                        L2, dm, scale, rate, keep_div, seed, s);
   return (int)cudaErrorInvalidValue;
 }

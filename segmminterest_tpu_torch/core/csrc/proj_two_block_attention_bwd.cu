@@ -5,35 +5,46 @@
 // (:808), launched by _fp_call_bwd (:943) from the custom VJP of
 // fused_proj_two_block_attention v1 (:1007-1051), and, through its first
 // pass alone, _fp3_bwd_kernel (:1568, K7b, behind SEGMM_ATTN_V3_BWD=1).
-// Three passes, all written here:
-//  (a) qkv pass, one thread block per (head, batch row): recompute the six
-//      projections with _proj's rounding (projection.cuh), then the joint
-//      softmax backward of joint_attention.cuh (probabilities recomputed in
-//      fp32, the dropout mask from the seed), and write dq1, dq2, dk1, dk2,
-//      dv1, dv2 as fp32 (B, L, d) to a workspace (~1 GB at B=1024,
-//      (100, 40, 100)). On the TPU they stayed in VMEM; here the batch rows
-//      run in parallel, so the sums over the batch below need them all.
+// Three passes:
+//  (a) qkv pass: recompute the six projections with _proj's rounding, then
+//      the joint softmax backward (probabilities recomputed in fp32, the
+//      dropout mask from the seed), and write dq1, dq2, dk1, dk2, dv1, dv2
+//      as fp32 (B, L, d) (~0.75 GB at B=1024, (40, 40, 100)). On the TPU
+//      they stayed in VMEM; here the batch rows run in parallel, so the sums
+//      over the batch below need them all.
 //  (b) dx, as :858-868 computes it: dxq = dq1.Wq1 + dq2.Wq2,
 //      dx1 = dk1.Wk1 + dv1.Wv1, dx2 = dk2.Wk2 + dv2.Wv2 (W in nn.Linear
 //      layout (out, in)), fp32 products, one output cast to x's dtype.
 //  (c) dW = dy^T x and db = sum dy over the whole batch in fp32 (:870-894).
-//      The TPU carried the sums across its sequential grid; here each
-//      128x128 tile of each dW is summed by K2_DW_SPLITS blocks over
-//      consecutive row chunks, and a last pass adds the chunks in order: no
-//      atomics, so repeated steps give the same bits.
-// (b) and (c) are one tiled fp32 product kernel (128x128 tiles, 8x8 outputs
-// per thread, operands through double-buffered shared memory).
+//      The TPU carried the sums across its sequential grid; here the rows
+//      are cut into chunks summed by blocks of their own, and a last pass
+//      adds the chunks in order: no atomics, so repeated steps give the same
+//      bits.
 //
 // What bounds it on an H100: operations. At B=1024, (40, 40, 100), d=512:
 // the projection recompute is 193 GFLOP on the bf16 tensor cores (0.2 ms),
-// dx and dW are 2 x 193 GFLOP with fp32 operands (5.8 ms at 67 TFLOP/s),
-// the attention core 29 GFLOP. This first version runs dx and dW on the
-// CUDA cores well below that rate; bf16 dx/dW with wgmma are the way on.
-// Pass (a)'s block body (proj_qkv_bwd_block) lives in proj_attention.cuh
-// and the tiled products of (b) and (c) in chain_gemm.cuh, shared with K5b
-// and K4b.
+// dx and dW are 2 x 193 GFLOP at fp32 accuracy, the attention core 29
+// GFLOP.
+//
+// bf16, on the tensor cores:
+//  (a) K2f's projection GEMM (proj_gemm.cuh) into a bf16 workspace, then
+//      proj_two_block_core_bwd_kernel (two_block_mma.cuh): one block per
+//      (head, batch row), mma.sync m16n8k16 with p and dl as bf16 hi / lo
+//      halves;
+//  (b), (c) chain_dx_kernel, chain_dw_kernel and chain_dw_reduce_kernel
+//      (proj_gemm.cuh): dy split into three bf16 parts as its tiles are
+//      read (x and W are bf16 values), three products into one fp32
+//      accumulator: the fp32 products on the bf16 tensor cores. dW's row
+//      chunks are `chunk` rows each (the wrapper's k2_dw_chunk rule).
+// fp32, the CUDA-core body: (a) one thread block per (head, batch row)
+// (proj_qkv_bwd_block, proj_attention.cuh: projections and core on the CUDA
+// cores), (b) and (c) 128x128 tiles of 8x8 fp32 FMAs per thread
+// (chain_gemm.cuh, shared with K5b and K4b), dW in `splits` row chunks.
+// The wrapper picks the bodies by dtype.
 #include "chain_gemm.cuh"
 #include "proj_attention.cuh"
+#include "proj_gemm.cuh"
+#include "two_block_mma.cuh"
 
 namespace segmm {
 
@@ -70,48 +81,81 @@ cudaError_t launch_chain(const void* const* in, float* const* dys, void* const* 
   return launch_wgrads<T>(wj, nj, rj, nr, d, d, splits, stream);
 }
 
+// bf16: dx and dW, db on the tensor cores (proj_gemm.cuh), dW in row chunks
+// of `chunk` rows.
+inline cudaError_t launch_chain_mma(const void* const* in, float* const* dys, void* const* dx,
+                                    float* const* dwdb, float* scratch, int B, int Lq, int L1,
+                                    int L2, int d, int chunk, cudaStream_t stream) {
+  using bf = __nv_bfloat16;
+  const bf* const* t = reinterpret_cast<const bf* const*>(in);
+  // (b) pairs: dq1 dq2 | dk1 dv1 | dk2 dv2 with Wq1 Wq2 | Wk1 Wv1 | Wk2 Wv2
+  const float* const dyx[6] = {dys[0], dys[1], dys[2], dys[4], dys[3], dys[5]};
+  const bf* const wx[6] = {t[3], t[5], t[7], t[11], t[9], t[13]};
+  bf* const out[3] = {static_cast<bf*>(dx[0]), static_cast<bf*>(dx[1]), static_cast<bf*>(dx[2])};
+  const int Mx[3] = {B * Lq, B * L1, B * L2};
+  cudaError_t err = launch_chain_dx(dyx, wx, out, Mx, d, stream);
+  if (err != cudaSuccess) return err;
+  // (c) w = q1 q2 k1 k2 v1 v2 over xq xq x1 x2 x1 x2
+  const float* const dyw[6] = {dys[0], dys[1], dys[2], dys[3], dys[4], dys[5]};
+  const bf* const xw[6] = {t[0], t[0], t[1], t[2], t[1], t[2]};
+  const int Mw[6] = {B * Lq, B * Lq, B * L1, B * L2, B * L1, B * L2};
+  float* const dw[6] = {dwdb[0], dwdb[1], dwdb[2], dwdb[3], dwdb[4], dwdb[5]};
+  float* const db[6] = {dwdb[6], dwdb[7], dwdb[8], dwdb[9], dwdb[10], dwdb[11]};
+  return launch_chain_dw(dyw, xw, Mw, d, chunk, scratch, dw, db, stream);
+}
+
 }  // namespace segmm
 
-// dtype: 0 = float32, 1 = bfloat16.
+// dtype: 0 = float32 (the CUDA-core qkv pass), 1 = bfloat16 (the core's block).
 extern "C" size_t segmm_proj_two_block_attention_bwd_smem_bytes(int dtype, int Lq, int L1, int L2,
                                                                 int DH) {
-  return segmm::k2b_smem_bytes(dtype == 1, Lq, L1, L2, DH);
+  if (dtype == 1) return segmm::k2_core_bwd_smem_bytes(Lq, L1, L2, DH);
+  return segmm::k2b_smem_bytes(false, Lq, L1, L2, DH);
 }
 
 // Pass (a) (K7b alone). ptrs: xq, x1, x2, wq1, bq1, wq2, bq2, wk1, bk1, wk2,
 // bk2, wv1, bv1, wv2, bv2 (16-byte aligned); g (B, Lq, d); out: fp32
-// dq1, dq2, dk1, dk2, dv1, dv2, each (B, L, d). DH in {16, 32, 64},
-// d % 32 == 0, every length <= 128. Returns a cudaError_t (0 = launched).
+// dq1, dq2, dk1, dk2, dv1, dv2, each (B, L, d); ws (bf16 only): the
+// projections' workspace, as K2f's. DH in {16, 32, 64}, d % 32 == 0, every
+// length <= 128. Returns a cudaError_t (0 = launched).
 extern "C" int segmm_proj_two_block_attention_qkv_bwd(
     int dtype, const void* const* ptrs, const int* mq, const int* mk1, const int* mk2,
-    const void* g, float* const* out, int B, int Lq, int L1, int L2, int dm, int H, float scale,
-    float rate, float keep_div, unsigned seed, void* stream) {
+    const void* g, float* const* out, void* const* ws, int B, int Lq, int L1, int L2, int dm,
+    int H, float scale, float rate, float keep_div, unsigned seed, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int DH = dm / H;
+  if (dtype == 1) {
+    cudaError_t err = segmm::launch_k2_projections(ptrs, ws, B, Lq, L1, L2, dm, s);
+    if (err != cudaSuccess) return (int)err;
+    segmm::K2CoreArgs a = segmm::k2_core_args(ws, mq, mk1, mk2, Lq, L1, L2, H, scale, rate,
+                                              keep_div, seed);
+    a.g = static_cast<const __nv_bfloat16*>(g);
+    for (int i = 0; i < 6; ++i) a.dy[i] = out[i];
+    return (int)segmm::launch_k2_core<true>(a, DH, B, s);
+  }
   if (dtype == 0)
     return (int)segmm::dispatch_qkv_bwd<float, float>(
         DH, ptrs, mq, mk1, mk2, static_cast<const float*>(g), out, B, Lq, L1, L2, dm, scale,
         rate, keep_div, seed, s);
-  if (dtype == 1)
-    return (int)segmm::dispatch_qkv_bwd<__nv_bfloat16, __nv_bfloat16>(
-        DH, ptrs, mq, mk1, mk2, static_cast<const __nv_bfloat16*>(g), out, B, Lq, L1, L2, dm,
-        scale, rate, keep_div, seed, s);
   return (int)cudaErrorInvalidValue;
 }
 
 // Passes (b) and (c). ptrs as above; dys: the six fp32 outputs of pass (a);
 // dx: dxq, dx1, dx2 (x's dtype); dwdb: fp32 dWq1 dWq2 dWk1 dWk2 dWv1 dWv2
-// ((d, d), nn.Linear layout) then the six db (d); scratch: fp32,
-// 6 * splits * (d * d + d). 1 <= splits <= 4. Returns a cudaError_t.
+// ((d, d), nn.Linear layout) then the six db (d); scratch (fp32 values):
+// 6 * splits * (d * d + d) for fp32 (1 <= splits <= 4), the sum over the
+// six weights of dw_chunks(rows, chunk) * (d * d + d) for bf16 (chunk %
+// 32 == 0). Returns a cudaError_t.
 extern "C" int segmm_proj_two_block_attention_chain_bwd(
     int dtype, const void* const* ptrs, float* const* dys, void* const* dx, float* const* dwdb,
-    float* scratch, int B, int Lq, int L1, int L2, int dm, int splits, void* stream) {
+    float* scratch, int B, int Lq, int L1, int L2, int dm, int splits, int chunk,
+    void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return (int)segmm::launch_chain<float>(ptrs, dys, dx, dwdb, scratch, B, Lq, L1, L2, dm,
                                            splits, s);
   if (dtype == 1)
-    return (int)segmm::launch_chain<__nv_bfloat16>(ptrs, dys, dx, dwdb, scratch, B, Lq, L1, L2,
-                                                   dm, splits, s);
+    return (int)segmm::launch_chain_mma(ptrs, dys, dx, dwdb, scratch, B, Lq, L1, L2, dm, chunk,
+                                        s);
   return (int)cudaErrorInvalidValue;
 }

@@ -1,0 +1,638 @@
+// The two-block joint-softmax core of K2 in bf16 on the tensor cores, both
+// directions (proj_two_block_attention*.cu), over the bf16 q/k/v that
+// qkv_gemm_kernel (proj_gemm.cuh) writes: xq's (B, Lq, 2d) rows hold q1 |
+// q2, x1's k1 | v1 and x2's k2 | v2, head h at columns h D and d + h D.
+//
+// Function (attention.py _fp_fwd_kernel :776 / _fp_bwd_kernel :808 after
+// their projections, with _joint_probs :374 and _attn_group_bwd :448):
+//   l = q1 k1^T | q2 k2^T, fill -10000 where mq x mk is 0 (before the
+//   scale), in training keep ? l / (1 - rate) : 0 with the keep bits of
+//   salt 2h (block 1) / 2h + 1 (block 2), the key counted within its block,
+//   x scale, one fp32 softmax over both blocks;
+//   forward: p rounded to bf16, out = p1 v1 + p2 v2 in fp32, cast;
+//   backward: p recomputed in fp32, dv = p^T g, dp = g v^T,
+//   s = sum dp p over both blocks, dl = p (dp - s) scale, dropout mask and
+//   divisor, pair mask, dq_b = dl_b k_b, dk_b = dl_b^T q_b, each in fp32.
+// A fully padded query row keeps its -10000 logits: the uniform softmax of
+// a constant over L1 + L2 keys, as on the TPU.
+//
+// Numerics. q, k, v and g are bf16 values, so every product with them as
+// both operands (S, dp) is exact-input bf16 mma.sync m16n8k16 with fp32
+// accumulators; the forward's p is rounded to bf16 before p v, as the JAX
+// kernel does. The backward keeps p and dl at fp32 accuracy as bf16 hi and
+// lo halves, both through the tensor cores into one accumulator (~2^-17
+// relative), as K3b's bf16 body does (masked_attention_bwd.cu).
+//
+// Geometry of one (batch row, head), a block of its own (no atomics, the
+// same order of every sum on every run):
+//   * both key blocks on one axis: block 1 at columns [0, L1) of a span of
+//     c1 = pad8(L1), block 2 from c1, nk16 = pad16(c1 + L2) columns, so
+//     that each n8 tile belongs to one block; k and v as one [key][d] tile
+//     each, zero past each block's length;
+//   * bf16 tiles of row stride D + 8 (masked_attention_mma.cuh), staged by
+//     cp.async 16 bytes a thread; q1, q2 (and g) over pad16(Lq) rows;
+//   * a warp per 16-row query tile: S in registers (q1 or q2 as the A
+//     fragment by the n8 tile's block), the softmax in registers (quad
+//     shuffles), p's C tiles as p v's A fragments;
+//   * the backward as tf32_attention.cuh's, with one [query][key] buffer
+//     (bf16 hi and lo planes) for p, then dl: pass 1 p and its keep bits;
+//     pass 2 (a warp per 16 keys) dv = p^T g; pass 1 again dp, dl over p,
+//     dq_b from dl's registers masked to block b's tiles; pass 2 again
+//     dk = dl^T q_b, a 16-key tile across the block boundary taking q1 for
+//     its first 8 keys and q2 for the rest.
+// What bounds it on an H100: device memory. The forward reads q, k, v
+// (0.38 GB at B=1024, (40, 40, 100), 16 heads of 32) and writes out (0.04
+// GB): ~0.13 ms at 3.35 TB/s; the backward also reads g and writes six fp32
+// gradients (0.75 GB).
+#pragma once
+
+#include "masked_attention_mma.cuh"
+
+namespace segmm {
+
+constexpr int kK2MmaWarps = 4;     // a block's warps, or
+constexpr int kK2MmaWarpsMax = 8;  // where one block fills an SM
+constexpr size_t kK2SmBytes = 233472;  // an H100 SM's shared memory, 1 KB a block reserved
+
+__host__ __device__ inline int k2_c1(int L1) { return (L1 + 7) & ~7; }
+__host__ __device__ inline int k2_keys16(int L1, int L2) { return pad16(k2_c1(L1) + L2); }
+
+// The operands of one launch: the projections' bf16 outputs (row stride
+// 2 d), the masks, and the output (forward) or g and the six fp32
+// gradients (backward: dq1 dq2 dk1 dk2 dv1 dv2 as (B, L, d)).
+struct K2CoreArgs {
+  const __nv_bfloat16* q;   // (B, Lq, 2d): q1 | q2
+  const __nv_bfloat16* kv1; // (B, L1, 2d): k1 | v1
+  const __nv_bfloat16* kv2; // (B, L2, 2d): k2 | v2
+  const int *mq, *mk1, *mk2;
+  __nv_bfloat16* out;       // forward: (B, Lq, d)
+  const __nv_bfloat16* g;   // backward: (B, Lq, d)
+  float* dy[6];
+  int Lq, L1, L2, H;
+  float scale, rate, keep_div;
+  unsigned seed;
+};
+
+// 32-bit keep words a lane holds per 16-row query tile (4 bits an n8 tile)
+__host__ __device__ inline int k2_keep_words(int nk16) { return (nk16 / 8 + 7) / 8; }
+
+__host__ __device__ inline size_t k2_core_fwd_smem_bytes(int Lq, int L1, int L2, int D) {
+  const int mq16 = pad16(Lq), nk16 = k2_keys16(L1, L2);
+  return sizeof(__nv_bfloat16) * (size_t)(2 * mq16 + 2 * nk16) * (D + 8) +
+         sizeof(int) * (size_t)(mq16 + nk16) +
+         sizeof(unsigned) * (size_t)kK2MmaWarps * k2_keep_words(nk16) * 32;
+}
+
+__host__ __device__ inline size_t k2_core_bwd_smem_bytes(int Lq, int L1, int L2, int D) {
+  const int mq16 = pad16(Lq), nk16 = k2_keys16(L1, L2);
+  return sizeof(__nv_bfloat16) * (size_t)(3 * mq16 + 2 * nk16) * (D + 8) +
+         sizeof(int) * (size_t)(mq16 + nk16) +
+         sizeof(unsigned) * (size_t)(mq16 / 16) * k2_keep_words(nk16) * 32 +
+         sizeof(__nv_bfloat16) * 2 * (size_t)mq16 * (nk16 + 8);
+}
+
+// Rows [0, L) of batch row b of a (B, L, rs) bf16 tensor, columns
+// [col, col + D), into a tile of `rows` rows of ld D + 8; zeros past L.
+// Only issues the copies.
+template <int D>
+__device__ __forceinline__ void k2_stage(const __nv_bfloat16* __restrict__ src, long rs, int col,
+                                         __nv_bfloat16* dst, int b, int L, int rows) {
+  constexpr int kChunks = D / 8;
+  for (int c = threadIdx.x; c < rows * kChunks; c += blockDim.x) {
+    const int r = c / kChunks, k = c - r * kChunks;
+    const bool ok = r < L;
+    cp_async16(dst + r * (D + 8) + k * 8, ok ? src + ((long)b * L + r) * rs + col + k * 8 : src,
+               ok);
+  }
+}
+
+__device__ __forceinline__ void k2_stage_mask(const int* __restrict__ src, int* dst, int b, int L,
+                                              int rows) {
+  for (int i = threadIdx.x; i < rows; i += blockDim.x)
+    cp_async4(dst + i, i < L ? src + (long)b * L + i : src, i < L);
+}
+
+// The staged operands of one (batch row, head).
+struct K2Tiles {
+  __nv_bfloat16 *q1, *q2, *g, *k, *v;
+  int *mq, *mk;
+  int c1, nk16;
+};
+
+// Stages q1, q2 (and g), k and v of both blocks on one axis and the masks
+// (the key mask on the same axis, 0 past each block's length) at `smem`;
+// returns the first byte past them. Waits for the copies; the caller
+// synchronises the block.
+template <int D>
+__device__ __forceinline__ unsigned char* k2_load(const K2CoreArgs& a, unsigned char* smem,
+                                                  bool with_g, K2Tiles& t) {
+  constexpr int LD = D + 8;
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int dm = a.H * D;
+  const long rs = 2L * dm;
+  const int mq16 = pad16(a.Lq);
+  t.c1 = k2_c1(a.L1);
+  t.nk16 = k2_keys16(a.L1, a.L2);
+  __nv_bfloat16* at = reinterpret_cast<__nv_bfloat16*>(smem);
+  t.q1 = at;
+  t.q2 = t.q1 + mq16 * LD;
+  t.g = with_g ? t.q2 + mq16 * LD : nullptr;
+  t.k = t.q2 + (with_g ? 2 : 1) * mq16 * LD;
+  t.v = t.k + t.nk16 * LD;
+  t.mq = reinterpret_cast<int*>(t.v + t.nk16 * LD);
+  t.mk = t.mq + mq16;
+  k2_stage<D>(a.q, rs, h * D, t.q1, b, a.Lq, mq16);
+  k2_stage<D>(a.q, rs, dm + h * D, t.q2, b, a.Lq, mq16);
+  if (with_g) k2_stage<D>(a.g, dm, h * D, t.g, b, a.Lq, mq16);
+  k2_stage<D>(a.kv1, rs, h * D, t.k, b, a.L1, t.c1);
+  k2_stage<D>(a.kv2, rs, h * D, t.k + t.c1 * LD, b, a.L2, t.nk16 - t.c1);
+  k2_stage<D>(a.kv1, rs, dm + h * D, t.v, b, a.L1, t.c1);
+  k2_stage<D>(a.kv2, rs, dm + h * D, t.v + t.c1 * LD, b, a.L2, t.nk16 - t.c1);
+  k2_stage_mask(a.mq, t.mq, b, a.Lq, mq16);
+  k2_stage_mask(a.mk1, t.mk, b, a.L1, t.c1);
+  k2_stage_mask(a.mk2, t.mk + t.c1, b, a.L2, t.nk16 - t.c1);
+  cp_async_commit();
+  cp_async_wait<0>();
+  return reinterpret_cast<unsigned char*>(t.mk + t.nk16);
+}
+
+// acc[n] += q_b[q0 .. q0 + 16) . k[8n .. 8n + 8)^T over D for the n8 tiles
+// of nkc 16-key chunks, q_b = q1 for the tiles of block 1 (n < c1 / 8),
+// q2 for block 2's.
+template <int D, int NT>
+__device__ __forceinline__ void k2_logits(const __nv_bfloat16* sq1, const __nv_bfloat16* sq2,
+                                          int q0, const __nv_bfloat16* sk, int c1, int nkc,
+                                          float (&acc)[NT][4]) {
+  constexpr int LD = D + 8;
+  const int lane = threadIdx.x & 31;
+  const int nb1 = c1 / 8;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    unsigned a1[4], a2[4];
+    const int at = (q0 + (lane & 15)) * LD + kk * 16 + (lane >> 4) * 8;
+    ldsm_x4(a1, sq1 + at);
+    ldsm_x4(a2, sq2 + at);
+#pragma unroll
+    for (int n = 0; n < NT; n += 2) {
+      if (n / 2 < nkc) {
+        unsigned bb[4];
+        ldsm_x4(bb, sk + (n * 8 + (lane & 7) + ((lane >> 4) << 3)) * LD + kk * 16 +
+                        ((lane >> 3) & 1) * 8);
+        unsigned a[4], c[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          a[i] = n < nb1 ? a1[i] : a2[i];
+          c[i] = n + 1 < nb1 ? a1[i] : a2[i];
+        }
+        mma_bf16(acc[n], a, bb[0], bb[1]);
+        mma_bf16(acc[n + 1], c, bb[2], bb[3]);
+      }
+    }
+  }
+}
+
+// Key j of the axis: its block's length, its index within the block, its
+// dropout salt.
+struct K2Key {
+  int len, j;
+  unsigned salt;
+};
+__device__ __forceinline__ K2Key k2_key(int j, int c1, int L1, int L2, int h) {
+  const bool second = j >= c1;
+  return K2Key{second ? L2 : L1, second ? j - c1 : j, 2u * h + (second ? 1u : 0u)};
+}
+
+// The dropout keep bits of this lane's elements of query tile q0 (n8 tile
+// n, element c: word n / 8, bit 4 (n % 8) + c; 0 past each block's length)
+// into kw[w * 32], w < kwords. The hash sits in the code eight times, not
+// once an element of the logit tile: unrolled over every element (in
+// k2_probs) it made the backward core ~2x slower than without dropout,
+// and a trivial hash in its place was as slow, so the cost was the code's
+// size, not the hash's arithmetic. The forward, a smaller kernel, was
+// ~15% faster fully unrolled; one way for both is kept.
+__device__ __forceinline__ void k2_keep_bits(unsigned* kw, int kwords, int q0, int c1, int L1,
+                                             int L2, int nkc, Dropout dr, int h) {
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll 1
+  for (int w = 0; w < kwords; ++w) {
+    unsigned word = 0u;
+#pragma unroll 8
+    for (int e = 0; e < 32; ++e) {
+      const int n = 8 * w + (e >> 2), c = e & 3;
+      if (n >= 2 * nkc) break;
+      const K2Key key = k2_key(n * 8 + 2 * t + (c & 1), c1, L1, L2, h);
+      if (key.j < key.len && dropout_keep(dr, q0 + g + 8 * (c >> 1), key.j, key.salt))
+        word |= 1u << e;
+    }
+    kw[w * 32] = word;
+  }
+}
+
+// The logit tile s -> probabilities in fp32 over both blocks (fill, the
+// keep bits of k2_keep_bits, scale, one softmax; keys past their block's
+// length get p = 0 and take no part in the max or the sum).
+template <int NT, bool kDrop>
+__device__ __forceinline__ void k2_probs(float (&s)[NT][4], const unsigned (&keep)[(NT + 7) / 8],
+                                         const int* smq, const int* smk, int q0, int c1, int L1,
+                                         int L2, int nkc, float scale, Dropout dr, int h) {
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int rows[2] = {q0 + g, q0 + g + 8};
+  const int mqr[2] = {smq[rows[0]], smq[rows[1]]};
+  const float inv_keep = 1.f / dr.keep_div;
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int n = 0; n < NT; ++n) {
+    if (n / 2 < nkc) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int r = c >> 1, j = n * 8 + 2 * t + (c & 1);
+        const K2Key key = k2_key(j, c1, L1, L2, h);
+        float l = -INFINITY;
+        if (key.j < key.len) {
+          l = (mqr[r] * smk[j]) > 0 ? s[n][c] : kMaskFill;
+          if (kDrop) l = (keep[n / 8] >> (4 * (n % 8) + c)) & 1u ? l * inv_keep : 0.f;
+          l *= scale;
+        }
+        s[n][c] = l;
+        mx[r] = fmaxf(mx[r], l);
+      }
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+  }
+  float sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int n = 0; n < NT; ++n) {
+    if (n / 2 < nkc) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const float e = expf(s[n][c] - mx[c >> 1]);
+        s[n][c] = e;
+        sum[c >> 1] += e;
+      }
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
+    sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
+    sum[r] = 1.f / sum[r];
+  }
+#pragma unroll
+  for (int n = 0; n < NT; ++n) {
+    if (n / 2 < nkc) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) s[n][c] *= sum[c >> 1];
+    }
+  }
+}
+
+// acc[dn] += X . S over the keys of the n8 tiles t0 <= n < t1: X (16 query
+// rows x 8 NT keys) in registers, as bf16 hi + lo halves, the other tiles
+// as 0; S a [key][d] tile.
+template <int D, int NT>
+__device__ __forceinline__ void k2_regs_times_rows(const float (&x)[NT][4], int t0, int t1,
+                                                   int nkc, const __nv_bfloat16* st,
+                                                   float (&acc)[D / 8][4]) {
+  constexpr int LD = D + 8;
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int kj = 0; kj < NT / 2; ++kj) {
+    const bool on0 = 2 * kj >= t0 && 2 * kj < t1, on1 = 2 * kj + 1 >= t0 && 2 * kj + 1 < t1;
+    if (kj < nkc && (on0 || on1)) {
+      float h[8], l[8];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        split_bf16(on0 ? x[2 * kj][c] : 0.f, h[c], l[c]);
+        split_bf16(on1 ? x[2 * kj + 1][c] : 0.f, h[4 + c], l[4 + c]);
+      }
+      unsigned hi[4], lo[4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        hi[r] = pack_bf16(h[2 * r], h[2 * r + 1]);
+        lo[r] = pack_bf16(l[2 * r], l[2 * r + 1]);
+      }
+#pragma unroll
+      for (int dn = 0; dn < D / 8; dn += 2) {
+        unsigned bb[4];
+        ldsm_x4_t(bb, st + (16 * kj + (lane & 7) + ((lane >> 3) & 1) * 8) * LD + dn * 8 +
+                          (lane >> 4) * 8);
+        mma_bf16(acc[dn], hi, bb[0], bb[1]);
+        mma_bf16(acc[dn + 1], hi, bb[2], bb[3]);
+        mma_bf16(acc[dn], lo, bb[0], bb[1]);
+        mma_bf16(acc[dn + 1], lo, bb[2], bb[3]);
+      }
+    }
+  }
+}
+
+template <int D> __device__ __forceinline__ void k2_zero(float (&acc)[D / 8][4]) {
+#pragma unroll
+  for (int dn = 0; dn < D / 8; ++dn) acc[dn][0] = acc[dn][1] = acc[dn][2] = acc[dn][3] = 0.f;
+}
+
+// Row `row` (< L) of a 16 x D accumulator tile (its half r) in fp32 to dst
+// (D contiguous floats).
+template <int D>
+__device__ __forceinline__ void k2_write_row(const float (&acc)[D / 8][4], int r, float* dst) {
+  const int t = threadIdx.x & 3;
+#pragma unroll
+  for (int dn = 0; dn < D / 8; ++dn)
+    *reinterpret_cast<float2*>(dst + dn * 8 + 2 * t) =
+        make_float2(acc[dn][2 * r], acc[dn][2 * r + 1]);
+}
+
+// Query rows q0 + g, q0 + g + 8 (those < Lq) of head h of batch row b.
+template <int D>
+__device__ __forceinline__ void k2_write_q_rows(const float (&acc)[D / 8][4], int q0, int Lq,
+                                                int H, float* dst) {
+  const int g = (threadIdx.x & 31) >> 2, h = blockIdx.x, b = blockIdx.y;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int i = q0 + g + 8 * r;
+    if (i < Lq) k2_write_row<D>(acc, r, dst + (((long)b * Lq + i) * H + h) * D);
+  }
+}
+
+// Key rows k0 + g, k0 + g + 8 of the axis, each to its block's gradient
+// (d1 for block 1, d2 for block 2), those within their block's length.
+template <int D>
+__device__ __forceinline__ void k2_write_key_rows(const float (&acc)[D / 8][4], int k0, int c1,
+                                                  int L1, int L2, int H, float* d1, float* d2) {
+  const int g = (threadIdx.x & 31) >> 2, h = blockIdx.x, b = blockIdx.y;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int j = k0 + g + 8 * r;
+    const bool second = j >= c1;
+    const int jj = second ? j - c1 : j, L = second ? L2 : L1;
+    if (jj < L)
+      k2_write_row<D>(acc, r, (second ? d2 : d1) + (((long)b * L + jj) * H + h) * D);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Forward: one block per (head, batch row), a warp per 16-row query tile.
+template <int D, int NT, bool kDrop>
+__global__ void __launch_bounds__(32 * kK2MmaWarps)
+proj_two_block_core_fwd_kernel(const __grid_constant__ K2CoreArgs a) {
+  constexpr int LD = D + 8;
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  extern __shared__ __align__(16) unsigned char k2f_smem[];
+  K2Tiles st;
+  const int kwords = k2_keep_words(k2_keys16(a.L1, a.L2));
+  // the warp's keep words after the masks
+  unsigned* kw = reinterpret_cast<unsigned*>(k2_load<D>(a, k2f_smem, false, st)) +
+                 warp * kwords * 32 + lane;
+  __syncthreads();
+  const int nkc = st.nk16 / 16;
+  const Dropout dr = make_dropout(a.rate, a.keep_div, a.seed, b, gridDim.y);
+  for (int q0 = warp * 16; q0 < a.Lq; q0 += nwarps * 16) {
+    float s[NT][4];
+#pragma unroll
+    for (int n = 0; n < NT; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+    k2_logits<D, NT>(st.q1, st.q2, q0, st.k, st.c1, nkc, s);
+    unsigned keep[(NT + 7) / 8] = {};
+    if (kDrop) {
+      k2_keep_bits(kw, kwords, q0, st.c1, a.L1, a.L2, nkc, dr, h);
+#pragma unroll
+      for (int w = 0; w < (NT + 7) / 8; ++w)
+        if (w < kwords) keep[w] = kw[w * 32];
+    }
+    k2_probs<NT, kDrop>(s, keep, st.mq, st.mk, q0, st.c1, a.L1, a.L2, nkc, a.scale, dr, h);
+    float o[D / 8][4];
+    k2_zero<D>(o);
+    k3_regs_times_rows<D, NT, false>(s, nkc, st.v, o);
+    // the tile's q1 rows, read by this warp alone, hold its output on the
+    // way out
+    __syncwarp();
+#pragma unroll
+    for (int dn = 0; dn < D / 8; ++dn) {
+      *reinterpret_cast<unsigned*>(st.q1 + (q0 + g) * LD + dn * 8 + 2 * t) =
+          pack_bf16(o[dn][0], o[dn][1]);
+      *reinterpret_cast<unsigned*>(st.q1 + (q0 + g + 8) * LD + dn * 8 + 2 * t) =
+          pack_bf16(o[dn][2], o[dn][3]);
+    }
+    __syncwarp();
+    for (int c = lane; c < 16 * (D / 8); c += 32) {
+      const int r = c / (D / 8), kc = c - r * (D / 8);
+      const int i = q0 + r;
+      if (i < a.Lq)
+        *reinterpret_cast<uint4*>(a.out + (((long)b * a.Lq + i) * a.H + h) * D + kc * 8) =
+            *reinterpret_cast<const uint4*>(st.q1 + i * LD + kc * 8);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Backward: one block per (head, batch row); passes as the file's head says.
+template <int D, int NT, bool kDrop>
+__global__ void __launch_bounds__(32 * kK2MmaWarpsMax)
+proj_two_block_core_bwd_kernel(const __grid_constant__ K2CoreArgs a) {
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
+  const int gi = lane >> 2, ti = lane & 3;
+  extern __shared__ __align__(16) unsigned char k2b_smem[];
+  K2Tiles st;
+  unsigned* KW = reinterpret_cast<unsigned*>(k2_load<D>(a, k2b_smem, true, st));
+  const int Lq = a.Lq, L1 = a.L1, L2 = a.L2, c1 = st.c1;
+  const int mq16 = pad16(Lq), nkc = st.nk16 / 16, nq16 = mq16 / 16, nb1 = c1 / 8;
+  const int kwords = k2_keep_words(st.nk16);
+  const int ldp = st.nk16 + 8;
+  __nv_bfloat16* ph = reinterpret_cast<__nv_bfloat16*>(KW + nq16 * kwords * 32);
+  __nv_bfloat16* pl = ph + mq16 * ldp;
+  __syncthreads();
+  const Dropout dr = make_dropout(a.rate, a.keep_div, a.seed, b, gridDim.y);
+  const float inv_keep = 1.f / dr.keep_div;
+
+  // pass 1: p (rows past Lq zero) and its keep bits
+  for (int q0 = warp * 16; q0 < Lq; q0 += nwarps * 16) {
+    float p[NT][4];
+#pragma unroll
+    for (int n = 0; n < NT; ++n) p[n][0] = p[n][1] = p[n][2] = p[n][3] = 0.f;
+    k2_logits<D, NT>(st.q1, st.q2, q0, st.k, c1, nkc, p);
+    unsigned keep[(NT + 7) / 8] = {};
+    if (kDrop) {
+      unsigned* kw = KW + (q0 / 16) * kwords * 32 + lane;
+      k2_keep_bits(kw, kwords, q0, c1, L1, L2, nkc, dr, h);
+#pragma unroll
+      for (int w = 0; w < (NT + 7) / 8; ++w)
+        if (w < kwords) keep[w] = kw[w * 32];
+    }
+    k2_probs<NT, kDrop>(p, keep, st.mq, st.mk, q0, c1, L1, L2, nkc, a.scale, dr, h);
+    const bool live[2] = {q0 + gi < Lq, q0 + gi + 8 < Lq};
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        if (!live[c >> 1]) p[n][c] = 0.f;
+    k3b_store_split<NT>(p, q0, nkc, ph, pl, ldp);
+  }
+  __syncthreads();
+
+  // pass 2: dv = p^T g
+  for (int k0 = warp * 16; k0 < st.nk16; k0 += nwarps * 16) {
+    float acc[D / 8][4];
+    k2_zero<D>(acc);
+    k3b_colsT_times_rows<D>(ph, pl, ldp, k0, nq16, st.g, acc);
+    k2_write_key_rows<D>(acc, k0, c1, L1, L2, a.H, a.dy[4], a.dy[5]);
+  }
+  __syncthreads();
+
+  // pass 1 again: dp = g v^T, dl over p, dq1 and dq2
+  for (int q0 = warp * 16; q0 < Lq; q0 += nwarps * 16) {
+    unsigned keep[(NT + 7) / 8] = {};
+    if (kDrop) {
+#pragma unroll
+      for (int w = 0; w < (NT + 7) / 8; ++w)
+        if (w < kwords) keep[w] = KW[((q0 / 16) * kwords + w) * 32 + lane];
+    }
+    float dp[NT][4];
+#pragma unroll
+    for (int n = 0; n < NT; ++n) dp[n][0] = dp[n][1] = dp[n][2] = dp[n][3] = 0.f;
+    k3_rows_times_rowsT<D, NT>(st.g, q0, st.v, nkc, dp);
+    float sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      if (n / 2 < nkc) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const float2 pv = k3b_load_split(ph, pl, (q0 + gi + 8 * r) * ldp + n * 8 + 2 * ti);
+          sum[r] = fmaf(dp[n][2 * r], pv.x, sum[r]);
+          sum[r] = fmaf(dp[n][2 * r + 1], pv.y, sum[r]);
+        }
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
+      sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
+    }
+    // dl in place of dp; p is 0 past each block's length and past Lq, and
+    // the pair mask is 0 there too
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      if (n / 2 < nkc) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int i = q0 + gi + 8 * r;
+          const float2 pv = k3b_load_split(ph, pl, i * ldp + n * 8 + 2 * ti);
+          const float pr[2] = {pv.x, pv.y};
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int c = 2 * r + e, j = n * 8 + 2 * ti + e;
+            float dl = pr[e] * (dp[n][c] - sum[r]) * a.scale;
+            if (kDrop) dl = (keep[n / 8] >> (4 * (n % 8) + c)) & 1u ? dl * inv_keep : 0.f;
+            dp[n][c] = (st.mq[i] * st.mk[j]) > 0 ? dl : 0.f;
+          }
+        }
+      }
+    }
+    __syncwarp();  // every lane has read its p before any overwrites it
+    k3b_store_split<NT>(dp, q0, nkc, ph, pl, ldp);
+    float acc[D / 8][4];
+    k2_zero<D>(acc);
+    k2_regs_times_rows<D, NT>(dp, 0, nb1, nkc, st.k, acc);
+    k2_write_q_rows<D>(acc, q0, Lq, a.H, a.dy[0]);
+    k2_zero<D>(acc);
+    k2_regs_times_rows<D, NT>(dp, nb1, 2 * nkc, nkc, st.k, acc);
+    k2_write_q_rows<D>(acc, q0, Lq, a.H, a.dy[1]);
+  }
+  __syncthreads();
+
+  // pass 2 again: dk = dl^T q1 (block 1's keys), dl^T q2 (block 2's)
+  for (int k0 = warp * 16; k0 < st.nk16; k0 += nwarps * 16) {
+    const bool lo2 = k0 >= c1, hi2 = k0 + 8 >= c1;  // its halves in block 2
+    float acc[D / 8][4];
+    k2_zero<D>(acc);
+    if (!lo2 || !hi2) k3b_colsT_times_rows<D>(ph, pl, ldp, k0, nq16, st.q1, acc, !lo2, !hi2);
+    if (lo2 || hi2) k3b_colsT_times_rows<D>(ph, pl, ldp, k0, nq16, st.q2, acc, lo2, hi2);
+    k2_write_key_rows<D>(acc, k0, c1, L1, L2, a.H, a.dy[2], a.dy[3]);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Host side
+
+// A launch's arguments over the projections' outputs ws (xq's, x1's, x2's);
+// the caller sets out, or g and dy.
+inline K2CoreArgs k2_core_args(void* const* ws, const int* mq, const int* mk1, const int* mk2,
+                               int Lq, int L1, int L2, int H, float scale, float rate,
+                               float keep_div, unsigned seed) {
+  K2CoreArgs a{};
+  a.q = static_cast<const __nv_bfloat16*>(ws[0]);
+  a.kv1 = static_cast<const __nv_bfloat16*>(ws[1]);
+  a.kv2 = static_cast<const __nv_bfloat16*>(ws[2]);
+  a.mq = mq;
+  a.mk1 = mk1;
+  a.mk2 = mk2;
+  a.Lq = Lq;
+  a.L1 = L1;
+  a.L2 = L2;
+  a.H = H;
+  a.scale = scale;
+  a.rate = rate;
+  a.keep_div = keep_div;
+  a.seed = seed;
+  return a;
+}
+
+// n8 key tiles the templates hold in registers (2 x the 16-key chunks)
+template <int D, bool kBwd, int NT>
+cudaError_t launch_k2_core_nt(const K2CoreArgs& a, int B, cudaStream_t stream) {
+  size_t smem;
+  void (*kern)(K2CoreArgs);
+  if constexpr (kBwd) {
+    smem = k2_core_bwd_smem_bytes(a.Lq, a.L1, a.L2, D);
+    kern = a.rate > 0.f ? proj_two_block_core_bwd_kernel<D, NT, true>
+                        : proj_two_block_core_bwd_kernel<D, NT, false>;
+  } else {
+    smem = k2_core_fwd_smem_bytes(a.Lq, a.L1, a.L2, D);
+    kern = a.rate > 0.f ? proj_two_block_core_fwd_kernel<D, NT, true>
+                        : proj_two_block_core_fwd_kernel<D, NT, false>;
+  }
+  cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  // a warp per query tile (forward), or per query or key tile (backward):
+  // at most four, eight where one block fills an SM
+  const int qt = pad16(a.Lq) / 16, kt = k2_keys16(a.L1, a.L2) / 16;
+  int tiles = kBwd ? (qt > kt ? qt : kt) : qt;
+  int cap = kK2MmaWarps;
+  if (kBwd && 2 * (smem + 1024) > kK2SmBytes) cap = kK2MmaWarpsMax;
+  const int warps = tiles < cap ? tiles : cap;
+  kern<<<dim3(a.H, B), 32 * warps, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+template <int D, bool kBwd>
+cudaError_t launch_k2_core_d(const K2CoreArgs& a, int B, cudaStream_t stream) {
+  const int nkc = k2_keys16(a.L1, a.L2) / 16;
+  auto launch = nkc <= 3    ? launch_k2_core_nt<D, kBwd, 6>
+                : nkc <= 6  ? launch_k2_core_nt<D, kBwd, 12>
+                : nkc <= 9  ? launch_k2_core_nt<D, kBwd, 18>
+                : nkc <= 12 ? launch_k2_core_nt<D, kBwd, 24>
+                            : launch_k2_core_nt<D, kBwd, 32>;
+  return launch(a, B, stream);
+}
+
+// K2's core in either direction for head dim D (16, 32, 64); lengths up to
+// 128 each (at most 16 key chunks).
+template <bool kBwd>
+cudaError_t launch_k2_core(const K2CoreArgs& a, int D, int B, cudaStream_t stream) {
+  if (a.Lq > 128 || a.L1 > 128 || a.L2 > 128) return cudaErrorInvalidValue;
+  switch (D) {
+    case 16: return launch_k2_core_d<16, kBwd>(a, B, stream);
+    case 32: return launch_k2_core_d<32, kBwd>(a, B, stream);
+    case 64: return launch_k2_core_d<64, kBwd>(a, B, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace segmm

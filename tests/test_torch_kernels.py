@@ -189,6 +189,89 @@ def test_k2_backward_kernel_matches_plain(cuda, shape, dtype, rate, v3,
         *inputs, *masks, g, H, SCALE, rate, 99), dtype)
 
 
+# bf16 K2's tensor-core bodies (k2_body "mma"): lengths up to K2_MAX_LEN,
+# block 2 starting mid 16-key tile (L1 = 40, 5, 128 + 8 alignment) and on
+# one (L1 = 9), and (a fourth entry: the query weights' scale) near-one-hot
+# rows, logits of magnitude ~50; mask_q's row 0 fully padded throughout
+K2_MMA_SHAPES = [(128, 40, 128), (40, 128, 128), (128, 128, 1), (7, 5, 13),
+                 (3, 9, 128), pytest.param((40, 40, 100, 50.0),
+                                           id="near_one_hot")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.1], ids=["eval", "dropout"])
+@pytest.mark.parametrize("dh", [16, 32, 64])
+@pytest.mark.parametrize("shape", K2_MMA_SHAPES)
+def test_k2_mma_bodies_match_plain(cuda, shape, dh, rate):
+    """bf16 K2f and K2b at head dims 16, 32 and 64 (d = 256) against their
+    plain versions; each launch counts once."""
+    rng = np.random.default_rng(9)
+    B, (Lq, L1, L2), amp = 8, shape[:3], (shape[3:] or (1.0,))[0]
+    d, heads = 256, 256 // dh
+    arrays = ([rng.normal(size=(B, L, d)).astype(np.float32)
+               for L in (Lq, L1, L2)] + _proj_params(rng, d))
+    arrays[3] = amp * arrays[3]  # wq1
+    arrays[5] = amp * arrays[5]  # wq2
+    inputs = _on(cuda, arrays, torch.bfloat16)
+    masks = _on(cuda, _masks_for(rng, B, Lq, L1, L2))
+    g = _on(cuda, [rng.normal(size=(B, Lq, d)).astype(np.float32)],
+            torch.bfloat16)[0]
+    leaves = [t.clone().requires_grad_() for t in inputs]
+    before = dict(A.LAUNCHES)
+    scale = 1 / math.sqrt(dh)
+    out = A.fused_proj_two_block_attention(
+        *leaves, *masks, num_heads=heads, scale=scale, dropout_rate=rate,
+        seed=17, deterministic=rate == 0)
+    got = torch.autograd.grad(out, leaves, g)
+    for key in ("proj_two_block_attention", "proj_two_block_attention_bwd"):
+        assert A.LAUNCHES[key] == before[key] + 1, key
+    torch.testing.assert_close(
+        out.float(), A.proj_two_block_attention_plain(
+            *inputs, *masks, heads, scale, rate, 17).float(),
+        **TOL[torch.bfloat16])
+    _rel_close(got, A.proj_two_block_attention_bwd_plain(
+        *inputs, *masks, g, heads, scale, rate, 17), torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.1], ids=["eval", "dropout"])
+def test_k2b_weight_grads_bit_equal_across_calls(cuda, rate):
+    """bf16 K2b sums dW and db in row chunks added in order, without
+    atomics: two calls on the same inputs give the same bits."""
+    rng = np.random.default_rng(10)
+    B, (Lq, L1, L2), d = 64, SHAPES[0], H * DH
+    inputs = _on(cuda, [rng.normal(size=(B, L, d)).astype(np.float32)
+                        for L in (Lq, L1, L2)] + _proj_params(rng, d),
+                 torch.bfloat16)
+    masks = _on(cuda, _masks_for(rng, B, Lq, L1, L2))
+    g = _on(cuda, [rng.normal(size=(B, Lq, d)).astype(np.float32)],
+            torch.bfloat16)[0]
+    leaves = [t.clone().requires_grad_() for t in inputs]
+    out = A.fused_proj_two_block_attention(
+        *leaves, *masks, num_heads=H, scale=SCALE, dropout_rate=rate,
+        seed=5, deterministic=rate == 0)
+    first = torch.autograd.grad(out, leaves, g, retain_graph=True)
+    second = torch.autograd.grad(out, leaves, g)
+    for i, (a, b) in enumerate(zip(first, second)):
+        assert torch.equal(a, b), f"gradient {i} differs between calls"
+
+
+@pytest.mark.cuda
+def test_k2_mma_shared_memory_matches_the_rule(cuda):
+    """The bf16 core's shared memory (k2_core_fwd_smem_bytes,
+    k2_core_bwd_smem_bytes) is the wrapper's Python formula."""
+    for lib, symbol, bwd in (
+            ("proj_two_block_attention",
+             "segmm_proj_two_block_attention_smem_bytes", False),
+            ("proj_two_block_attention_bwd",
+             "segmm_proj_two_block_attention_bwd_smem_bytes", True)):
+        smem = A._fn(lib, symbol, ctypes.c_size_t, [ctypes.c_int] * 5)
+        for shape in SHAPES + [(128, 128, 128), (7, 5, 13), (3, 9, 128)]:
+            for dh in (16, 32, 64):
+                assert smem(1, *shape, dh) == A.k2_mma_smem_bytes(*shape, dh,
+                                                                  bwd)
+
+
 # K6 (version 2 of K2): the four stream shapes and one whose unaligned L1
 # and aligned L2 make the wrapper swap the blocks
 V2_SHAPES = SHAPES + [(12, 12, 40)]
