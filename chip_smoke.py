@@ -8,7 +8,8 @@ Phases, each of which fails the run (non-zero exit) on any error:
   build          compile the CUDA kernels of core/csrc with nvcc for sm_90a
                  (seconds per library); count the HMMA instructions of the
                  libraries of K1f, K1b, K3f and K3b, and the TF32 ones
-                 among them, and the BF16 ones of K2f's and K2b's
+                 among them, and the BF16 ones of K2f's, K2b's, K4f's and
+                 K4b's
   kernels        each kernel (K1f, K1b, K2f, K2b, K7b, K3f, K3b, K5f, K5b,
                  K4f, K4b, K6f, K6b) against its plain PyTorch version on
                  the card, at the main paths' stream shapes, fp32 and bf16,
@@ -16,12 +17,16 @@ Phases, each of which fails the run (non-zero exit) on any error:
                  fp32 K1f also at head dim 128 (its CUDA-core body); fp32
                  K1b's and K3b's outputs on fixed inputs bit for bit those
                  of the tree that introduced their bodies (a SHA-256);
-                 bf16 K2b's dW and db bit-equal across two calls; times at
+                 bf16 K2b's and K4b's dW and db bit-equal across two calls;
+                 bf16 K4 on its tensor-core bodies and fp32 K4 on its
+                 CUDA-core ones (by the kernels' names in a profiler
+                 trace); times at
                  B=1024 (K2f and K2b at the four stream shapes kernel by
-                 kernel by device time, dropout off and on; K6 in turns
-                 with K2; fp32 K1 at the four stream shapes and K3 at
-                 (40, 100) and (100, 40) by their device time, the forwards
-                 with dropout off and on, beside SDPA's)
+                 kernel by device time, dropout off and on; K4f and K4b at
+                 the four by device time; K6 in turns with K2; fp32 K1 at
+                 the four stream shapes and K3 at (40, 100) and (100, 40)
+                 by their device time, the forwards with dropout off and
+                 on, beside SDPA's)
   serving        the flagship both/both model (d=512, 16 heads, 6 layers)
                  served with the --serving preset over a 3,920,483-row int8
                  feature table built on the card, through the exporter's
@@ -98,9 +103,11 @@ K3_MAX_SHAPE = (128, 128)
 # HMMA instructions, and the TF32 ones among them, which each must hold
 MMA_LIBS = ("two_block_attention", "masked_attention",
             "masked_attention_bwd", "two_block_attention_bwd")
-# bf16 K2f and K2b run their projections, core and chain on bf16 mma.sync:
-# their libraries must hold bf16 HMMA instructions (HMMA.16816.F32.BF16)
-BF16_MMA_LIBS = ("proj_two_block_attention", "proj_two_block_attention_bwd")
+# bf16 K2f and K2b, and K4f and K4b, run their projections, core, chain
+# (and epilogue) on bf16 mma.sync: their libraries must hold bf16 HMMA
+# instructions (HMMA.16816.F32.BF16)
+BF16_MMA_LIBS = ("proj_two_block_attention", "proj_two_block_attention_bwd",
+                 "layer_stream", "layer_stream_bwd")
 HBM_BYTES_PER_S = 3.35e12            # H100 SXM
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 # fp32 K1f, K1b, K3f and K3b run every product three times on the TF32
@@ -316,6 +323,7 @@ def phase_kernels():
         return A.proj_two_block_attention_plain(*x, *ws, *m, H, scale, rate,
                                                 seed)
 
+    _k4_bodies(dev)
     worst = {}
     for dt in (torch.float32, torch.bfloat16):
         for (Lq, L1, L2) in STREAM_SHAPES:
@@ -989,6 +997,68 @@ def _k5_kernels(A, g, dev):
     torch.cuda.empty_cache()
 
 
+def _k4_inputs(g, B, Lq, L1, L2, dt, dev, ff=D_MODEL):
+    """K4's inputs at the flagship width: xq, x1, x2, the twelve projection
+    parameters, the ten epilogue ones (each LayerNorm its own fp32 scale
+    and bias), and the three masks."""
+    d = D_MODEL
+    xs = [torch.randn(B, L, d, generator=g, device=dev).to(dt)
+          for L in (Lq, L1, L2)]
+
+    def dense(n_out, n_in):
+        return [(torch.randn(n_out, n_in, generator=g, device=dev)
+                 / math.sqrt(n_in)).to(dt),
+                (0.1 * torch.randn(n_out, generator=g, device=dev)).to(dt)]
+
+    def ln():
+        return [1 + 0.1 * torch.randn(d, generator=g, device=dev),
+                0.1 * torch.randn(d, generator=g, device=dev)]
+
+    ep = dense(d, d) + ln() + dense(ff, d) + dense(d, ff) + ln()
+    return (xs + _proj_weights(g, d, 6, dt, dev) + ep,
+            (_masks(g, B, Lq, dev), _masks(g, B, L1, dev, False),
+             _masks(g, B, L2, dev)))
+
+
+def _k4_bodies(dev):
+    """Which bodies K4f and K4b ran, by the kernels' names in a profiler
+    trace of a forward and backward: bf16 the tensor-core ones (k4_body
+    "mma"), fp32 the CUDA-core ones. Runs first in phase kernels: later in
+    the phase, after many traces, the profiler has returned traces with no
+    kernel rows. Its inputs come from a generator of its own, so that the
+    phase's other checks draw what they drew before it."""
+    from segmminterest_tpu_torch.core import layer_kernel as K4
+    H, d = HEADS, D_MODEL
+    g = torch.Generator(device=dev).manual_seed(1)
+    for dt, want, refuse in (
+            (torch.bfloat16, ("qkv_gemm", "proj_two_block_core_fwd",
+                              "proj_two_block_core_bwd",
+                              "layer_epilogue_fwd_mma",
+                              "layer_epilogue_bwd_mma", "chain_dx",
+                              "chain_dw"), ()),
+            (torch.float32, ("proj_two_block_fwd_kernel",
+                             "proj_two_block_qkv_bwd_kernel",
+                             "layer_epilogue_fwd_kernel",
+                             "layer_epilogue_bwd_kernel"), ("_mma",))):
+        t, m = _k4_inputs(g, 64, *STREAM_SHAPES[0], dt, dev)
+        gx = torch.randn(64, STREAM_SHAPES[0][0], d, generator=g,
+                         device=dev).to(dt)
+
+        def step():
+            return _grads(lambda *x: K4.fused_layer_stream(
+                *x[:3], _pairs(x[3:15]), x[15:25], *m, num_heads=H,
+                dropout_rate=DROP_RATE, seed=3, deterministic=False), t, gx)
+        names = " ".join(_device_kernels(step, 3))
+        missing = [n for n in want if n not in names]
+        if missing or any(n in names for n in refuse) or \
+                K4.k4_body(dt) != ("mma" if dt == torch.bfloat16
+                                   else "cuda_core"):
+            raise AssertionError(f"K4 {dt}: body {K4.k4_body(dt)}, kernels "
+                                 f"{names[:600]} (missing {missing})")
+        log(f"  K4 {str(dt)[6:]}: {K4.k4_body(dt)} body, kernels "
+            f"{', '.join(want)}")
+
+
 def _k4_kernels(A, g, dev):
     """K4f and K4b (a whole layer stream) against their plain versions on
     the four stream shapes, B=64, fp32 and bf16, dropout off and on; then
@@ -999,23 +1069,7 @@ def _k4_kernels(A, g, dev):
     scale = 1.0 / math.sqrt(d // H)
 
     def inputs(B, Lq, L1, L2, dt, ff=d):
-        xs = [torch.randn(B, L, d, generator=g, device=dev).to(dt)
-              for L in (Lq, L1, L2)]
-
-        def dense(n_out, n_in):
-            return [(torch.randn(n_out, n_in, generator=g, device=dev)
-                     / math.sqrt(n_in)).to(dt),
-                    (0.1 * torch.randn(n_out, generator=g, device=dev)
-                     ).to(dt)]
-
-        def ln():  # each LayerNorm its own (scale, bias), fp32
-            return [1 + 0.1 * torch.randn(d, generator=g, device=dev),
-                    0.1 * torch.randn(d, generator=g, device=dev)]
-
-        ep = dense(d, d) + ln() + dense(ff, d) + dense(d, ff) + ln()
-        return (xs + _proj_weights(g, d, 6, dt, dev) + ep,
-                (_masks(g, B, Lq, dev), _masks(g, B, L1, dev, False),
-                 _masks(g, B, L2, dev)))
+        return _k4_inputs(g, B, Lq, L1, L2, dt, dev, ff)
 
     def k4(t, m, rate=0.0, seed=0):
         return K4.fused_layer_stream(
@@ -1081,19 +1135,30 @@ def _k4_kernels(A, g, dev):
     t, m = inputs(B, Lq, L1, L2, dt)
     gx = torch.randn(B, Lq, d, generator=g, device=dev).to(dt)
     err_f = check("K4f B=1024", k4(t, m), plain(t, m), dt)
-    ms_f = _time_ms(lambda: k4(t, m), 10)
+    ms_f = _device_ms(lambda: k4(t, m), 10, K4_NAMES) \
+        or _time_ms(lambda: k4(t, m), 10)
     plain_f = _time_ms(lambda: plain(t, m), 3)
     leaves = [x.detach().requires_grad_() for x in t]
     out = k4(leaves, m)
-    got = torch.autograd.grad(out, leaves, gx, retain_graph=True)
+
+    def k4b():
+        return torch.autograd.grad(out, leaves, gx, retain_graph=True)
+    got = k4b()
     err_b = _rel_err("K4b B=1024", got, plain_bwd(t, m, gx), BWD_TOL[dt])
-    del got
-    ms_b = _time_ms(lambda: torch.autograd.grad(out, leaves, gx,
-                                                retain_graph=True), 5)
+    # dW, db and the LayerNorm gradients are sums in ordered row chunks: a
+    # second call gives the same bits
+    again = k4b()
+    if not all(torch.equal(a, b) for a, b in zip(got[3:], again[3:])):
+        raise AssertionError("K4b: dW, db or the LayerNorm gradients differ "
+                             "between two calls")
+    log("  K4b B=1024: dW, db and the LayerNorm gradients bit-equal across "
+        "two calls")
+    del got, again
+    ms_b = _device_ms(k4b, 5, K4_NAMES) or _time_ms(k4b, 5)
     plain_b = _time_ms(lambda: plain_bwd(t, m, gx), 2)
     e = _elem(dt)
     proj = _proj_flops(B, d, Lq, L1, L2)
-    core_f = 4.0 * B * Lq * (L1 + L2) * d
+    core_f = 4.0 * B * Lq * (L1 + L2) * d          # QK^T and PV
     epi = 2.0 * B * Lq * (d * d + 2 * d * ff)      # the three Denses
     params = 6 * (d * d + d) + d * d + 2 * d * ff + 2 * d + ff
     rows_in, masks = B * d * (Lq + L1 + L2), 4 * B * (Lq + L1 + L2)
@@ -1101,12 +1166,14 @@ def _k4_kernels(A, g, dev):
     bytes_f = e * (rows_in + B * Lq * d + params) + ln + masks
     bytes_b = e * (2 * rows_in + B * Lq * d + params) + 4 * (params + 4 * d) \
         + ln + masks
-    # K4b: the recomputed forward (projections, QK^T and PV, Denses) in the
-    # compute dtype, as K4f; then the products of the backward with fp32
-    # operands: dV, dP, dQ, dK (2 core_f), dx and dW of the projections and
-    # the epilogue's dgrad and dW
-    ops_b = ((proj + core_f + epi) / PEAK_FLOPS[dt]
-             + (2 * proj + 2 * core_f + 2 * epi) / PEAK_FLOPS[torch.float32])
+    # K4b as its bf16 bodies run it, all at the bf16 rate: the recomputed
+    # forward (projections, QK^T and PV, the three Denses) once; the core's
+    # dV = p^T g with p and g (d_att, fp32) in two parts each (four
+    # products), dP = g v^T (two), dQ and dK with dl in two (two each), ten
+    # products of core_f / 2; the chain's dx and dW of the projections and
+    # the epilogue's dgrad and dW with their fp32 operand in three parts
+    ops_b = (proj + core_f + epi + 5 * core_f + 3 * 2 * proj + 3 * 2 * epi) \
+        / PEAK_FLOPS[dt]
     _record("K4", "layer_stream_fwd (K4f)", "layer_stream.cu", 140,
             max(worst["K4f"], err_f), ms_f, plain_f, bytes_f,
             (proj + core_f + epi) / PEAK_FLOPS[dt], None, "layer_kernel.py")
@@ -1116,17 +1183,20 @@ def _k4_kernels(A, g, dev):
     log(f"  K4 bf16 B=1024 {(Lq, L1, L2)}: K4f {ms_f:.3f} ms (plain "
         f"{plain_f:.3f}), K4b {ms_b:.3f} ms (plain {plain_b:.3f}); max err "
         f"K4f {err_f:.3g}, K4b {err_b:.3g}")
-    # the other three launch shapes of a layer, timed for PERF.md
+    del leaves, out
+    # the other three launch shapes of a layer, by device time
     for shape in (STREAM_SHAPES[0],) + STREAM_SHAPES[2:]:
         t, m = inputs(B, *shape, dt)
         gx = torch.randn(B, shape[0], d, generator=g, device=dev).to(dt)
         leaves = [x.detach().requires_grad_() for x in t]
         out = k4(leaves, m)
-        log(f"  B=1024 {shape}: K4f bf16 {_time_ms(lambda: k4(t, m), 5):.3f}"
-            " ms, K4b bf16 "
-            f"{_time_ms(lambda: torch.autograd.grad(out, leaves, gx, retain_graph=True), 3):.3f}"
-            " ms")
-    del t, m, gx, leaves, out
+        ms_f = _device_ms(lambda: k4(t, m), 5, K4_NAMES)
+        ms_b = _device_ms(lambda: torch.autograd.grad(
+            out, leaves, gx, retain_graph=True), 3, K4_NAMES)
+        log(f"  B=1024 {shape}, device ms: K4f bf16 {_ms(ms_f)}, K4b bf16 "
+            f"{_ms(ms_b)}")
+        del leaves, out
+    del t, m, gx
     torch.cuda.empty_cache()
 
 
@@ -1491,6 +1561,10 @@ FWD_PER_STEP, BWD_PER_STEP = 20, 18
 # dx_kernel, dw_kernel, dw_reduce_kernel)
 K2_NAMES = ("proj_two_block", "qkv_gemm", "dx_kernel", "dw_kernel",
             "dw_reduce_kernel")
+# K4f and K4b: K2's kernels (their bf16 attention) and the epilogue's,
+# bf16 (layer_epilogue_*_mma_kernel) and fp32 (layer_epilogue_*_kernel),
+# with ln_partial_sum_kernel
+K4_NAMES = K2_NAMES + ("layer_epilogue", "ln_partial_sum")
 # K1f and K1b (fp32: two_block_bwd_tf32_kernel, bf16: two_block_bwd_kernel)
 K1_NAMES = ("two_block_fwd", "two_block_bwd")
 # K3f and K3b, fp32 (masked_*_tf32_kernel) and bf16 (masked_*_mma_kernel)

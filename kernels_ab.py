@@ -34,10 +34,16 @@ builds that package's kernels under DIR/build, and prints one JSON line:
     the projection stage of K2f's per-(head, batch row) body alone
     (kernels_ab_proj_stage.cu, built
     against the checkout's core/csrc where it has projection.cuh);
-  * the main path end to end (`e2e`): production training, fuse_dual and
-    SEGMM_ATTN_V2 at B=1024 (ms and device ms per step, peak memory) and
-    the serving preset (device latency at B = 1024 / 512 / 256 / 128,
-    interactions/s over the test split);
+  * K4f and K4b (`k4_bf16`, the whole-layer kernels of --fuse_layer 1) in
+    bf16 at B=1024 at the four stream shapes, dropout off and on, by device
+    time: the whole call and each of its kernels, each with its error
+    against the plain version, and whether two K4b calls give bit-equal dW
+    and db;
+  * the main path end to end (`e2e`): production training, fuse_dual,
+    SEGMM_ATTN_V2 and fuse_layer at B=1024 (ms and device ms per step,
+    peak memory), the serving preset (device latency at B = 1024 / 512 /
+    256 / 128, interactions/s over the test split) and fuse_layer served
+    (device latency at B=1024);
   * the card's name and power limit (nvidia-smi).
 `--parts` picks some of these (default: all).
 To compare two checkouts, run it on each in turns in one call on one card:
@@ -61,7 +67,7 @@ import torch
 import chip_smoke as C
 
 K3_SHAPES = ((40, 100), (100, 40))
-PARTS = ("k2_bf16", "e2e", "k3_bf16", "fp32_fwd", "fp32_bwd",
+PARTS = ("k2_bf16", "k4_bf16", "e2e", "k3_bf16", "fp32_fwd", "fp32_bwd",
          "fp32_bwd_sha256", "served")
 B = 1024
 SEED = 1234567
@@ -225,17 +231,73 @@ def _k2_bf16(A, g, dev, root):
     return out
 
 
+def _k4_bf16(g, dev):
+    """K4f and K4b in bf16 at B=1024, by device time per kernel."""
+    from segmminterest_tpu_torch.core import layer_kernel as K4
+    H, d = C.HEADS, C.D_MODEL
+    scale = 1.0 / math.sqrt(d // H)
+    out = {}
+    for (Lq, L1, L2) in C.STREAM_SHAPES:
+        t, m = C._k4_inputs(g, B, Lq, L1, L2, torch.bfloat16, dev)
+        gx = torch.randn(B, Lq, d, generator=g, device=dev).to(torch.bfloat16)
+        row = {}
+        for rate in (0.0, C.DROP_RATE):
+            def fwd(rate=rate, a=None):
+                a = t if a is None else a
+                return K4.fused_layer_stream(
+                    *a[:3], C._pairs(a[3:15]), a[15:25], *m, num_heads=H,
+                    scale=scale, dropout_rate=rate, seed=SEED,
+                    deterministic=rate == 0)
+            kf = _breakdown(fwd, 10)
+            kf_events = C._time_ms(fwd, 10)
+            err_f = _rel([fwd()], [K4.layer_stream_plain(
+                *t[:3], t[3:15], t[15:25], *m, H, scale, rate, SEED)])
+            leaves = [x.detach().requires_grad_() for x in t]
+            o = fwd(rate, leaves)
+
+            def bwd(o=o, leaves=leaves):
+                return torch.autograd.grad(o, leaves, gx, retain_graph=True)
+            kb = _breakdown(bwd, 5)
+            kb_events = C._time_ms(bwd, 5)
+            first, second = bwd(), bwd()
+            same = all(torch.equal(a, b) for a, b in zip(first[3:],
+                                                         second[3:]))
+            del second
+            err_b = _rel(first, K4.layer_stream_bwd_plain(
+                *t[:3], t[3:15], t[15:25], *m, gx, H, scale, rate, SEED))
+            del first, o, leaves
+
+            def ours(rows):
+                return sum(v for k, v in rows.items()
+                           if any(n in k for n in C.K4_NAMES))
+            tag = f"rate {rate}"
+            row[tag] = dict(
+                k4f_ms=ours(kf), k4f_events_ms=kf_events, k4f_kernels=kf,
+                k4f_err=err_f, k4b_ms=ours(kb), k4b_events_ms=kb_events,
+                k4b_kernels=kb, k4b_err=err_b, k4b_dw_db_bit_equal=same)
+            print(f"  K4 {(Lq, L1, L2)} {tag}: K4f {C._ms(ours(kf))} ms "
+                  f"(events {kf_events:.3f}; err {err_f:.2g}), K4b "
+                  f"{C._ms(ours(kb))} ms (events {kb_events:.3f}; err "
+                  f"{err_b:.2g}, dW/db bit-equal {same}); K4f {kf}; K4b "
+                  f"{kb}", flush=True)
+        out[f"{Lq}x{L1}x{L2}"] = row
+        del t, m, gx
+        torch.cuda.empty_cache()
+    return out
+
+
 E2E_STEPS = 6  # timed after 2 warm-up steps
 
 
 def _e2e(A):
     """The main path end to end at B=1024 over the 3.9M-row int8 table:
-    production training (bf16, K2), fuse_dual and SEGMM_ATTN_V2 (K6): ms
-    per step on the host's clock, device ms per step and K2's share of it
-    (torch.profiler, 2 steps), peak device memory; then the serving preset:
-    device latency per batch at B = 1024 / 512 / 256 / 128 (CUDA events,
-    batch on the card), device ms per B=1024 batch and K2f's share, and
-    interactions/s over the test split with the host pipeline."""
+    production training (bf16, K2), fuse_dual, SEGMM_ATTN_V2 (K6) and
+    fuse_layer (K4): ms per step on the host's clock, device ms per step
+    and K2's (K4's) share of it (torch.profiler, 2 steps), peak device
+    memory; then the serving preset: device latency per batch at B = 1024 /
+    512 / 256 / 128 (CUDA events, batch on the card), device ms per B=1024
+    batch and K2f's share, and interactions/s over the test split with the
+    host pipeline; fuse_layer served: device latency per B=1024 batch."""
     from segmminterest_tpu_torch.data.dataset import BatchIterator
     from segmminterest_tpu_torch.engine.train import InterestEngine
     from segmminterest_tpu_torch.tasks import export_logits as X
@@ -245,7 +307,8 @@ def _e2e(A):
     out, batches = {}, None
     for name, kw, v2 in (("production", {}, False),
                          ("fuse_dual", dict(fuse_dual=True), False),
-                         ("attn_v2", {}, True)):
+                         ("attn_v2", {}, True),
+                         ("fuse_layer", dict(fuse_layer=True), False)):
         A.ATTN_V2 = v2
         try:
             cfg = C._production_train_cfg(ctx["csv"], **kw)
@@ -262,7 +325,9 @@ def _e2e(A):
             torch.cuda.reset_peak_memory_stats()
             _, times, losses, counts = C._train_steps(engine, batches)
             peak = torch.cuda.max_memory_allocated() / 2 ** 30
-            share = C._kernel_share(engine, batches[:2])
+            share = C._kernel_share(
+                engine, batches[:2],
+                C.K4_NAMES if name == "fuse_layer" else None)
         finally:
             A.ATTN_V2 = False
         steady = times[2:]
@@ -313,6 +378,20 @@ def _e2e(A):
     print(f"  served: latency {latency} ms, device "
           f"{C._ms(out['serving']['device_ms_b1024'])} ms at B=1024, "
           f"{len(logits) / wall:.1f} interactions/s", flush=True)
+    del engine, state
+    cfg = X.apply_serving_preset(C._flagship_cfg(ctx["csv"])).replace(
+        fuse_layer=True)
+    engine = InterestEngine(cfg, reader.n_users, reader.n_items,
+                            feature_table=ctx["table"], device="cuda")
+    state = engine.init_state()
+    share = C._device_share(lambda: engine.eval_step(state, full), 3,
+                            C.K4_NAMES)
+    out["fuse_layer_served"] = dict(
+        latency_ms_b1024=C._time_ms(lambda: engine.eval_step(state, full),
+                                    5),
+        device_ms_b1024=None if share is None else share[1],
+        k4f_share=None if share is None else share[0])
+    print(f"  fuse_layer served: {out['fuse_layer_served']}", flush=True)
     return out
 
 
@@ -463,6 +542,7 @@ def main(argv=None):
     g = torch.Generator(device=dev).manual_seed(0)
     parts = {
         "k2_bf16": lambda: _k2_bf16(A, g, dev, root),
+        "k4_bf16": lambda: _k4_bf16(g, dev),
         "e2e": lambda: _e2e(A),
         "k3_bf16": lambda: _k3_bf16(A, g, dev),
         "fp32_fwd": lambda: _fp32_fwd(A, g, dev),

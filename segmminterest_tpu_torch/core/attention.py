@@ -755,17 +755,19 @@ def _pad16(n: int) -> int:
 
 
 def k2_mma_smem_bytes(Lq: int, L1: int, L2: int, D: int,
-                      backward: bool) -> int:
+                      backward: bool, g_fp32: bool = False) -> int:
     """Shared memory of one block of bf16 K2's core
     (``k2_core_fwd_smem_bytes`` / ``k2_core_bwd_smem_bytes``,
     csrc/two_block_mma.cuh): bf16 tiles of row stride D + 8, q1 and q2 (and
-    g) over pad16(Lq) rows, k and v over the key axis pad16(pad8(L1) + L2);
-    the query and key masks; the dropout keep words (the forward's four
-    warps', the backward's 16-row query tiles'); the backward's hi / lo
-    planes of its [query][key] buffer (row stride the key axis + 8)."""
+    g, or with ``g_fp32`` g's two bf16 halves: K4b's d_att) over pad16(Lq)
+    rows, k and v over the key axis pad16(pad8(L1) + L2); the query and key
+    masks; the dropout keep words (the forward's four warps', the
+    backward's 16-row query tiles'); the backward's hi / lo planes of its
+    [query][key] buffer (row stride the key axis + 8)."""
     mq16, nk16 = _pad16(Lq), _pad16(_pad8(L1) + L2)
     keep_words = (nk16 // 8 + 7) // 8 * 32  # a 16-row tile's or warp's
-    tiles = (3 if backward else 2) * mq16 + 2 * nk16
+    g_tiles = (2 if g_fp32 else 1) if backward else 0
+    tiles = (2 + g_tiles) * mq16 + 2 * nk16
     n = 2 * tiles * (D + 8) + 4 * (mq16 + nk16)
     if backward:
         return n + 4 * (mq16 // 16) * keep_words + 2 * 2 * mq16 * (nk16 + 8)

@@ -1,14 +1,14 @@
 // Device code of K4's epilogue (layer_stream.cu, layer_stream_bwd.cu): the
-// row-tile products, the exact GELU of the TPU kernel, the fast-variance
-// LayerNorm and the epilogue's dropout masks.
+// exact GELU of the TPU kernel, the epilogue's dropout masks and
+// parameters (both bodies), and fp32 K4's row-tile products and
+// fast-variance LayerNorm (bf16 K4's are layer_mma.cuh's).
 //
-// A block owns RT rows of the (B * Lq, d) stream and keeps them in shared
-// memory across the epilogue's three Dense layers; the weights stream
-// through shared memory in (128 output columns) x (32 deep) chunks:
+// fp32: a block owns RT rows of the (B * Lq, d) stream and keeps them in
+// shared memory across the epilogue's three Dense layers; the weights
+// stream through shared memory in (128 output columns) x (32 deep) chunks:
 //  * tile_gemm_tn: C (RT, N) = A (RT, K) . W^T, W (N, K) nn.Linear layout,
-//    A in the compute dtype: wmma bf16 tensor cores (fp32 accumulators) in
-//    bf16, fp32 FMAs on the CUDA cores in fp32 (no TF32). The forward's
-//    products (layer_kernel.py _proj: fp32 dot, cast, then the bias).
+//    fp32 FMAs on the CUDA cores (no TF32). The forward's products
+//    (layer_kernel.py _proj: fp32 dot, then the bias).
 //  * tile_gemm_nn_f32: C (RT, N) = A (RT, K) . W, A fp32, W (K, N) widened
 //    to fp32, fp32 FMAs. The backward's products dy . W (t_chain, :246-250),
 //    whose dy is fp32 whatever the compute dtype.
@@ -29,7 +29,7 @@ constexpr float kLnEps = 1e-12f;  // models/segformerx.py LN_EPS
 constexpr int kEpSalt = 2;        // the epilogue's salts: 2H, 2H + 1, 2H + 2
 
 // Row stride (elements) of a shared tile `w` wide: bf16 tiles a multiple of
-// 8 (wmma), fp32 tiles a multiple of 4 (float4); padded off the banks.
+// 8, fp32 tiles a multiple of 4 (float4); padded off the banks.
 template <typename T> __host__ __device__ constexpr int tile_ld(int w) {
   return std::is_same<T, float>::value ? w + 4 : w + 8;
 }
@@ -38,10 +38,9 @@ __host__ __device__ inline size_t align128(size_t n) { return (n + 127) & ~size_
 
 // Bytes of the weight-chunk stage of the products.
 __host__ __device__ inline size_t ep_stage_bytes() {
-  const size_t tc = 2 * sizeof(__nv_bfloat16) * kEpPanel * kTcLd;  // two bf16 chunks
-  const size_t tn = sizeof(float) * kEpK * (kEpPanel + 1);          // fp32, transposed
-  const size_t nn = sizeof(float) * kEpK * (kEpPanel + 4);          // fp32, as is
-  return tc > tn ? (tc > nn ? tc : nn) : (tn > nn ? tn : nn);
+  const size_t tn = sizeof(float) * kEpK * (kEpPanel + 1);  // transposed
+  const size_t nn = sizeof(float) * kEpK * (kEpPanel + 4);  // as is
+  return tn > nn ? tn : nn;
 }
 
 // the ten epilogue parameters: w_ff, b_ff, ln1_s, ln1_b, w_m1, b_m1, w_m2,
@@ -104,72 +103,6 @@ __device__ __forceinline__ bool ep_keep(float rate, unsigned seed, int row, int 
 
 // ---------------------------------------------------------------------------
 // products
-
-// bf16: wmma 16x16x16 tiles, RT / 16 row tiles x (128 / 16) column tiles
-// per panel over 8 warps; the weight chunks arrive by cp.async into two
-// buffers. Needs K % 32 == 0, N % 16 == 0, 16-byte aligned weight rows.
-template <int RT>
-__device__ void tile_gemm_tn(const __nv_bfloat16* sA, int lda, int K,
-                             const __nv_bfloat16* __restrict__ W, int N, float* sC, int ldc,
-                             unsigned char* stage) {
-  using namespace nvcuda;
-  constexpr int MT = RT / 16;
-  constexpr int MAXT = (MT * (kEpPanel / 16) + kEpWarps - 1) / kEpWarps;
-  const int tid = threadIdx.x, warp = tid >> 5;
-  __nv_bfloat16* buf[2] = {reinterpret_cast<__nv_bfloat16*>(stage),
-                           reinterpret_cast<__nv_bfloat16*>(stage) + kEpPanel * kTcLd};
-  for (int n0 = 0; n0 < N; n0 += kEpPanel) {
-    const int pw = min(kEpPanel, N - n0), nt_n = pw / 16, tiles = MT * nt_n;
-    auto issue = [&](__nv_bfloat16* dst, int k0) {
-      for (int i = tid; i < pw * (kEpK / 8); i += kEpThreads) {
-        const int r = i / (kEpK / 8), c = (i - r * (kEpK / 8)) * 8;
-        cp_async16(dst + r * kTcLd + c, W + (long)(n0 + r) * K + k0 + c, true);
-      }
-      cp_async_commit();
-    };
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[MAXT];
-#pragma unroll
-    for (int i = 0; i < MAXT; ++i) wmma::fill_fragment(acc[i], 0.f);
-    __syncthreads();  // the stage is free
-    issue(buf[0], 0);
-    for (int k0 = 0, it = 0; k0 < K; k0 += kEpK, ++it) {
-      if (k0 + kEpK < K) {
-        issue(buf[(it + 1) & 1], k0 + kEpK);
-        cp_async_wait<1>();
-      } else {
-        cp_async_wait<0>();
-      }
-      __syncthreads();
-      const __nv_bfloat16* sw = buf[it & 1];
-#pragma unroll
-      for (int kk = 0; kk < kEpK; kk += 16) {
-#pragma unroll
-        for (int i = 0; i < MAXT; ++i) {
-          const int t = warp + i * kEpWarps;
-          if (t < tiles) {
-            const int mt = t / nt_n, nt = t - mt * nt_n;
-            wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> af;
-            wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> bf;
-            wmma::load_matrix_sync(af, sA + mt * 16 * lda + k0 + kk, lda);
-            wmma::load_matrix_sync(bf, sw + nt * 16 * kTcLd + kk, kTcLd);
-            wmma::mma_sync(acc[i], af, bf, acc[i]);
-          }
-        }
-      }
-      __syncthreads();  // buffer it & 1 is consumed before it is refilled
-    }
-#pragma unroll
-    for (int i = 0; i < MAXT; ++i) {
-      const int t = warp + i * kEpWarps;
-      if (t < tiles) {
-        const int mt = t / nt_n, nt = t - mt * nt_n;
-        wmma::store_matrix_sync(sC + mt * 16 * ldc + n0 + nt * 16, acc[i], ldc,
-                                wmma::mem_row_major);
-      }
-    }
-  }
-  __syncthreads();
-}
 
 // fp32: thread (column n of the panel, row group g) sums RT / 2 rows; the
 // weight chunk is staged transposed ([k][n], stride 129: conflict-free

@@ -14,22 +14,29 @@
 // fp32 LayerNorm (fast variance, eps 1e-12, fp32 scale and bias); a dropped
 // value divides by 1 - rate in the compute dtype (layer_kernel.py:109-137).
 //
-// Design: two launches. (1) K2f's block body (proj_attention.cuh) writes
-// att (B, Lq, d) in the compute dtype, as the TPU kernel's `satt` scratch
-// holds it (:358-364); (2) a row-tile epilogue kernel: one block of 256
-// threads per 32 rows of (B * Lq), the rows kept in shared memory through
-// the three Dense layers and both LayerNorms, the weights streamed through
-// shared memory in 128 x 32 chunks (layer_epilogue.cuh: wmma bf16 tensor
-// cores in bf16, fp32 FMAs in fp32). Only att makes a round trip through
-// device memory; h, y1, u, g and m never leave the block.
+// bf16, three launches on the tensor cores: (1) K2f's projection GEMM
+// (proj_gemm.cuh) into a transient bf16 workspace, (2) K2f's two-block
+// core (two_block_mma.cuh) writes att (B, Lq, d) in bf16, as the TPU
+// kernel's `satt` scratch holds it (:358-364), (3) the epilogue
+// (layer_mma.cuh): a block of 8 warps per 64 rows of (B * Lq) runs the
+// three Dense layers on mma.sync with full rows in its registers, y1 and g
+// through device memory.
+// fp32, two launches: (1) K2f's CUDA-core block body (proj_attention.cuh)
+// writes att; (2) a row-tile epilogue kernel: one block of 256 threads per
+// 32 rows, the rows kept in shared memory through the three Dense layers
+// and both LayerNorms, the weights streamed through shared memory in
+// 128 x 32 chunks, fp32 FMAs on the CUDA cores (layer_epilogue.cuh).
+// The wrapper picks the body by dtype.
 //
 // What bounds it on an H100: operations. Per row the epilogue is
 // 2 (d^2 + 2 d ff) FLOP against ~3d input and output values; the attention
-// is K2f's. Each block re-reads the three weights from L2 (B * Lq / 32
-// times), and the fp32 route runs on the CUDA cores; more rows per block
-// and wgmma with TMA are the ways on.
+// is K2f's. Each bf16 epilogue block reads the three weights from L2 once
+// (B * Lq / 64 times in all); wgmma with TMA and weights shared across a
+// cluster are the ways on.
 #include "layer_epilogue.cuh"
+#include "layer_mma.cuh"
 #include "proj_attention.cuh"
+#include "two_block_mma.cuh"
 
 namespace segmm {
 
@@ -129,6 +136,7 @@ cudaError_t launch_k4f(const void* const* p, const int* mq, const int* m1, const
                        void* att, void* out, int B, int Lq, int L1, int L2, int dm, int H, int ff,
                        float scale, float rate, float keep_div, float epi_div, unsigned seed,
                        cudaStream_t s) {
+  // fp32: the CUDA-core bodies
   cudaError_t err = dispatch_proj_fwd<T>(dm / H, p, mq, m1, m2, att, B, Lq, L1, L2, dm, scale,
                                          rate, keep_div, seed, s);
   if (err != cudaSuccess) return err;
@@ -144,35 +152,72 @@ cudaError_t launch_k4f(const void* const* p, const int* mq, const int* m1, const
   return cudaGetLastError();
 }
 
+inline cudaError_t launch_layer_epilogue_fwd_mma(const LmFwdArgs& a, cudaStream_t s) {
+  if (!lm_takes(a.d, a.ff)) return cudaErrorInvalidValue;
+  auto kernel = a.rate > 0.f ? layer_epilogue_fwd_mma_kernel<true>
+                             : layer_epilogue_fwd_mma_kernel<false>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)kLmFwdSmemBytes);
+  if (err != cudaSuccess) return err;
+  if (a.rows > 0) kernel<<<lm_blocks(a.rows), kLmThreads, kLmFwdSmemBytes, s>>>(a);
+  return cudaGetLastError();
+}
+
+// bf16: work = att, y1 (B, Lq, d), gact (B, Lq, ff), then K2's projection
+// workspace (three (B, L, 2d) tensors).
+inline cudaError_t launch_k4f_mma(const void* const* p, const int* mq, const int* m1,
+                                  const int* m2, void* const* work, void* out, int B, int Lq,
+                                  int L1, int L2, int dm, int H, int ff, float scale, float rate,
+                                  float keep_div, float epi_div, unsigned seed, cudaStream_t s) {
+  if (!lm_takes(dm, ff)) return cudaErrorInvalidValue;
+  cudaError_t err = launch_k2_projections(p, work + 3, B, Lq, L1, L2, dm, s);
+  if (err != cudaSuccess) return err;
+  K2CoreArgs a = k2_core_args(work + 3, mq, m1, m2, Lq, L1, L2, H, scale, rate, keep_div, seed);
+  a.out = static_cast<bf16*>(work[0]);
+  err = launch_k2_core<false>(a, dm / H, B, s);
+  if (err != cudaSuccess) return err;
+  const LmFwdArgs e{static_cast<const bf16*>(work[0]), static_cast<const bf16*>(p[0]),
+                    static_cast<bf16*>(work[1]), static_cast<bf16*>(work[2]),
+                    static_cast<bf16*>(out), ep_params<bf16>(p + 15), B * Lq, Lq, B, dm, ff, H,
+                    rate, epi_div, seed};
+  return launch_layer_epilogue_fwd_mma(e, s);
+}
+
 }  // namespace segmm
 
-// dtype: 0 = float32, 1 = bfloat16. The larger of the two launches' bytes.
+// dtype: 0 = float32, 1 = bfloat16. The largest of the launches' bytes
+// (the projection GEMM's are fixed and smaller).
 extern "C" size_t segmm_layer_stream_smem_bytes(int dtype, int Lq, int L1, int L2, int DH,
                                                 int dm, int ff) {
-  const size_t a = segmm::k2_smem_bytes(dtype == 1, Lq, L1, L2, DH);
-  const size_t e = dtype == 1 ? segmm::EpFwdLayout<__nv_bfloat16>(dm, ff).total
-                              : segmm::EpFwdLayout<float>(dm, ff).total;
+  if (dtype == 1) {
+    const size_t a = segmm::k2_core_fwd_smem_bytes(Lq, L1, L2, DH);
+    return a > segmm::kLmFwdSmemBytes ? a : segmm::kLmFwdSmemBytes;
+  }
+  const size_t a = segmm::k2_smem_bytes(false, Lq, L1, L2, DH);
+  const size_t e = segmm::EpFwdLayout<float>(dm, ff).total;
   return a > e ? a : e;
 }
 
 // ptrs: xq, x1, x2, the twelve projection parameters (as K2's), then the
 // ten epilogue parameters (w_ff (d, d), b_ff, ln1_s, ln1_b, w_m1 (ff, d),
 // b_m1, w_m2 (d, ff), b_m2, ln2_s, ln2_b; nn.Linear layout, the LayerNorm
-// ones fp32). att: (B, Lq, d) workspace in x's dtype; out (B, Lq, d).
-// DH = d / H in {16, 32, 64}, d % 32 == 0, ff % 32 == 0, d, ff <= 512,
-// lengths <= 128. keep_div = 1 - rate in fp32 (attention), epi_div = 1 -
-// rate in x's dtype (epilogue). Returns a cudaError_t (0 = launched).
+// ones fp32). work: fp32, att (B, Lq, d); bf16, att, y1 (B, Lq, d), gact
+// (B, Lq, ff) and the projections' (B, Lq, 2d), (B, L1, 2d), (B, L2, 2d).
+// out (B, Lq, d). DH = d / H in {16, 32, 64}, d % 32 == 0, ff % 32 == 0,
+// d, ff <= 512, lengths <= 128. keep_div = 1 - rate in fp32 (attention),
+// epi_div = 1 - rate in x's dtype (epilogue). Returns a cudaError_t (0 =
+// launched).
 extern "C" int segmm_layer_stream_fwd(int dtype, const void* const* ptrs, const int* mq,
-                                      const int* m1, const int* m2, void* att, void* out, int B,
-                                      int Lq, int L1, int L2, int dm, int H, int ff, float scale,
-                                      float rate, float keep_div, float epi_div, unsigned seed,
-                                      void* stream) {
+                                      const int* m1, const int* m2, void* const* work, void* out,
+                                      int B, int Lq, int L1, int L2, int dm, int H, int ff,
+                                      float scale, float rate, float keep_div, float epi_div,
+                                      unsigned seed, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return (int)segmm::launch_k4f<float>(ptrs, mq, m1, m2, att, out, B, Lq, L1, L2, dm, H, ff,
-                                         scale, rate, keep_div, epi_div, seed, s);
+    return (int)segmm::launch_k4f<float>(ptrs, mq, m1, m2, work[0], out, B, Lq, L1, L2, dm, H,
+                                         ff, scale, rate, keep_div, epi_div, seed, s);
   if (dtype == 1)
-    return (int)segmm::launch_k4f<__nv_bfloat16>(ptrs, mq, m1, m2, att, out, B, Lq, L1, L2, dm,
-                                                 H, ff, scale, rate, keep_div, epi_div, seed, s);
+    return (int)segmm::launch_k4f_mma(ptrs, mq, m1, m2, work, out, B, Lq, L1, L2, dm, H, ff,
+                                      scale, rate, keep_div, epi_div, seed, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -6,9 +6,26 @@
 // else is recomputed here, and the backward runs in the TPU kernel's order
 // (LN2, W_m2, GELU', W_m1, LN1, W_ff, then the attention).
 //
-// Design, seven launches:
-//  (1) att recomputed by K2f's block body (proj_attention.cuh), in the
-//      compute dtype, as the forward made it.
+// bf16, eight launches, every product on the tensor cores:
+//  (1), (2) att recomputed by K2f's projection GEMM (into a transient bf16
+//      workspace that (5) reads again) and two-block core, as K4f makes it.
+//  (3) the epilogue backward (layer_mma.cuh): a block of 8 warps per 64
+//      rows of (B * Lq) recomputes the epilogue forward on mma.sync, then
+//      runs LN2', W_m2, GELU', W_m1, LN1' and W_ff with its dgrad products'
+//      fp32 operand in three bf16 parts, full rows in its registers; it
+//      writes what (4)-(8) read, as the fp32 kernel below does.
+//  (4) the LayerNorm gradients, its blocks' column sums added in order.
+//  (5) K2b's core (two_block_mma.cuh) on g = d_att in fp32, which (3)
+//      writes as bf16 hi and lo halves (the TPU kernel keeps its `sdatt`
+//      fp32, :427).
+//  (6) dxq = dq1.Wq1 + dq2.Wq2 + dr1, dx1, dx2 (proj_gemm.cuh chain, dy in
+//      three bf16 parts, dr1 added before the one cast).
+//  (7), (8) the nine dW = dy^T x, db = sum dy in row chunks of `chunk`
+//      rows (the wrapper's k4_dw_chunk rule), then their sums in chunk
+//      order.
+// fp32, seven launches on the CUDA cores:
+//  (1) att recomputed by K2f's block body (proj_attention.cuh), as the
+//      forward made it.
 //  (2) the epilogue-backward row-tile kernel, one block of 256 threads per
 //      16 rows of (B * Lq): the epilogue forward recomputed in shared memory
 //      (layer_epilogue.cuh products, the forward's roundings and dropout
@@ -31,11 +48,15 @@
 //      the same bits.
 //
 // What bounds it on an H100: operations, K2b's plus the epilogue's (its
-// forward recompute, two dgrad products per Dense and the three dW), fp32
-// on the CUDA cores except the recomputed forward products in bf16.
+// forward recompute, a dgrad product per Dense and the three dW): in bf16
+// the recompute at the bf16 rate, the core's products with p, dl and g in
+// two bf16 parts, the chain's and the epilogue's dgrad and dW in three.
 #include "chain_gemm.cuh"
 #include "layer_epilogue.cuh"
+#include "layer_mma.cuh"
 #include "proj_attention.cuh"
+#include "proj_gemm.cuh"
+#include "two_block_mma.cuh"
 
 namespace segmm {
 
@@ -354,32 +375,112 @@ cudaError_t launch_k4b(const void* const* p, const int* mq, const int* m1, const
   return launch_wgrads<T>(wj, nj, rj, nr, wmax, wmax, splits, s);
 }
 
+inline cudaError_t launch_layer_epilogue_bwd_mma(const LmBwdArgs& a, cudaStream_t s) {
+  if (!lm_takes(a.f.d, a.f.ff)) return cudaErrorInvalidValue;
+  auto kernel = a.f.rate > 0.f ? layer_epilogue_bwd_mma_kernel<true>
+                               : layer_epilogue_bwd_mma_kernel<false>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)kLmBwdSmemBytes);
+  if (err != cudaSuccess) return err;
+  if (a.f.rows > 0) kernel<<<lm_blocks(a.f.rows), kLmThreads, kLmBwdSmemBytes, s>>>(a);
+  return cudaGetLastError();
+}
+
+// bf16: work as launch_k4b's, the partials (lm_blocks(B Lq), 4, d), then
+// K2's projection workspace (three (B, L, 2d) tensors) at work[15..17].
+inline cudaError_t launch_k4b_mma(const void* const* p, const int* mq, const int* m1,
+                                  const int* m2, const void* g, float* const* work,
+                                  void* const* dx, float* const* grads, float* scratch, int B,
+                                  int Lq, int L1, int L2, int dm, int H, int ff, int chunk,
+                                  float scale, float rate, float keep_div, float epi_div,
+                                  unsigned seed, cudaStream_t s) {
+  if (!lm_takes(dm, ff)) return cudaErrorInvalidValue;
+  const int rows = B * Lq, d = dm;
+  void* const ws[3] = {work[15], work[16], work[17]};
+  bf16* att = reinterpret_cast<bf16*>(work[0]);
+  // (1), (2) att
+  cudaError_t err = launch_k2_projections(p, ws, B, Lq, L1, L2, dm, s);
+  if (err != cudaSuccess) return err;
+  K2CoreArgs a = k2_core_args(ws, mq, m1, m2, Lq, L1, L2, H, scale, rate, keep_div, seed);
+  a.out = att;
+  err = launch_k2_core<false>(a, dm / H, B, s);
+  if (err != cudaSuccess) return err;
+  // (3) the epilogue backward
+  LmBwdArgs e{};
+  e.f = LmFwdArgs{att, static_cast<const bf16*>(p[0]), reinterpret_cast<bf16*>(work[1]),
+                  reinterpret_cast<bf16*>(work[2]), nullptr, ep_params<bf16>(p + 15), rows, Lq,
+                  B, d, ff, H, rate, epi_div, seed};
+  e.g = static_cast<const bf16*>(g);
+  // d_att's fp32 buffer holds its two bf16 halves
+  e.datt_hi = reinterpret_cast<bf16*>(work[3]);
+  e.datt_lo = e.datt_hi + (long)rows * d;
+  e.r1 = work[4];
+  e.dm = work[5];
+  e.dh = work[6];
+  e.u = work[7];
+  e.part = work[8];
+  e.keep_div = keep_div;
+  err = launch_layer_epilogue_bwd_mma(e, s);
+  if (err != cudaSuccess) return err;
+  // (4) the LayerNorm gradients
+  if (rows > 0) {
+    ln_partial_sum_kernel<<<(4 * d + 255) / 256, 256, 0, s>>>(
+        work[8], lm_blocks(rows), d, grads[20], grads[21], grads[14], grads[15]);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  // (5) the attention's core backward on g = d_att (fp32, as two halves)
+  a.g = e.datt_hi;
+  a.glo = e.datt_lo;
+  for (int i = 0; i < 6; ++i) a.dy[i] = work[9 + i];
+  err = launch_k2_core<true, true>(a, dm / H, B, s);
+  if (err != cudaSuccess) return err;
+  // (6)-(8) dx (dxq + dr1) and the nine dW, db: W_ff dh^T att, W_m1 du^T y1,
+  // W_m2 dm^T g
+  const DwWeight extra[3] = {
+      {work[6], att, rows, d, d, grads[12], grads[13]},
+      {work[7], reinterpret_cast<const bf16*>(work[1]), rows, ff, d, grads[16], grads[17]},
+      {work[5], reinterpret_cast<const bf16*>(work[2]), rows, d, ff, grads[18], grads[19]}};
+  return launch_k2_chain(p, work + 9, dx, grads, work[4], extra, 3, B, Lq, L1, L2, d, chunk,
+                         scratch, s);
+}
+
 }  // namespace segmm
 
 // dtype: 0 = float32, 1 = bfloat16. The largest of the launches' bytes.
 extern "C" size_t segmm_layer_stream_bwd_smem_bytes(int dtype, int Lq, int L1, int L2, int DH,
                                                     int dm, int ff) {
-  const size_t a = segmm::k2_smem_bytes(dtype == 1, Lq, L1, L2, DH);
-  const size_t b = segmm::k2b_smem_bytes(dtype == 1, Lq, L1, L2, DH);
-  const size_t e = dtype == 1 ? segmm::EpBwdLayout<__nv_bfloat16>(dm, ff).total
-                              : segmm::EpBwdLayout<float>(dm, ff).total;
+  size_t a, b, e;
+  if (dtype == 1) {
+    a = segmm::k2_core_fwd_smem_bytes(Lq, L1, L2, DH);
+    b = segmm::k2_core_bwd_smem_bytes(Lq, L1, L2, DH, true);
+    e = segmm::kLmBwdSmemBytes;
+  } else {
+    a = segmm::k2_smem_bytes(false, Lq, L1, L2, DH);
+    b = segmm::k2b_smem_bytes(false, Lq, L1, L2, DH);
+    e = segmm::EpBwdLayout<float>(dm, ff).total;
+  }
   return a > b ? (a > e ? a : e) : (b > e ? b : e);
 }
 
 // ptrs: as segmm_layer_stream_fwd's; g (B, Lq, d) in x's dtype. work:
 // att, y1 (B, Lq, d) and g (B, Lq, ff) in x's dtype; d_att, dr1, dm, dh
-// (B, Lq, d) and du (B, Lq, ff) fp32; the LayerNorm partials
-// (ceil(B Lq / 16), 4, d) fp32; the six fp32 dq1, dq2, dk1, dk2, dv1, dv2
-// ((B, L, d) each). dx: dxq, dx1, dx2 (x's dtype). grads (fp32): dW of the
-// six projections, their six db, then dW_ff, db_ff, dln1_s, dln1_b, dW_m1,
-// db_m1, dW_m2, db_m2, dln2_s, dln2_b. scratch: fp32, splits * (6 (d^2 + d)
-// + d^2 + 2 d ff + 2 d + ff). 1 <= splits <= 4. Returns a cudaError_t.
+// (B, Lq, d) and du (B, Lq, ff) fp32; the LayerNorm partials (blocks, 4,
+// d) fp32, blocks = ceil(B Lq / 16) (fp32) or ceil(B Lq / 64) (bf16); the
+// six fp32 dq1, dq2, dk1, dk2, dv1, dv2 ((B, L, d) each); bf16 only, the
+// projections' (B, Lq, 2d), (B, L1, 2d), (B, L2, 2d) bf16. dx: dxq, dx1,
+// dx2 (x's dtype). grads (fp32): dW of the six projections, their six db,
+// then dW_ff, db_ff, dln1_s, dln1_b, dW_m1, db_m1, dW_m2, db_m2, dln2_s,
+// dln2_b. scratch: fp32; fp32, splits * (6 (d^2 + d) + d^2 + 2 d ff + 2 d
+// + ff) with 1 <= splits <= 4; bf16, the sum over the nine weights of
+// dw_chunks(rows, chunk) * (Mo Ni + Mo) with chunk % 32 == 0. Returns a
+// cudaError_t.
 extern "C" int segmm_layer_stream_bwd(int dtype, const void* const* ptrs, const int* mq,
                                       const int* m1, const int* m2, const void* g,
                                       float* const* work, void* const* dx, float* const* grads,
                                       float* scratch, int B, int Lq, int L1, int L2, int dm,
-                                      int H, int ff, int splits, float scale, float rate,
-                                      float keep_div, float epi_div, unsigned seed,
+                                      int H, int ff, int splits, int chunk, float scale,
+                                      float rate, float keep_div, float epi_div, unsigned seed,
                                       void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
@@ -387,8 +488,8 @@ extern "C" int segmm_layer_stream_bwd(int dtype, const void* const* ptrs, const 
                                          L1, L2, dm, H, ff, splits, scale, rate, keep_div,
                                          epi_div, seed, s);
   if (dtype == 1)
-    return (int)segmm::launch_k4b<__nv_bfloat16>(ptrs, mq, m1, m2, g, work, dx, grads, scratch,
-                                                 B, Lq, L1, L2, dm, H, ff, splits, scale, rate,
-                                                 keep_div, epi_div, seed, s);
+    return (int)segmm::launch_k4b_mma(ptrs, mq, m1, m2, g, work, dx, grads, scratch, B, Lq, L1,
+                                      L2, dm, H, ff, chunk, scale, rate, keep_div, epi_div, seed,
+                                      s);
   return (int)cudaErrorInvalidValue;
 }

@@ -1,5 +1,6 @@
 // The tensor-core GEMMs of the projection-fused kernels in bf16 (K2f and
-// K2b, proj_two_block_attention*.cu), on mma.sync m16n8k16 with fp32
+// K2b, proj_two_block_attention*.cu; K4f and K4b's attention,
+// layer_stream*.cu), on mma.sync m16n8k16 with fp32
 // accumulators (mma_sync.cuh gives the fragment layout), operands staged
 // by cp.async through a ring of shared-memory tiles:
 //  * qkv_gemm_kernel, the projections: for each source s (xq, x1, x2),
@@ -9,12 +10,15 @@
 //    (out, in) is already the [n][k] operand mma.sync's B wants. The bf16
 //    outputs (B, L_s, 2d) -- Wa's d columns, then Wb's -- are the
 //    attention cores' q1|q2, k1|v1 and k2|v2.
-//  * chain_dx_kernel: dx_s = dy_a . W_a + dy_b . W_b, one output cast to
-//    bf16 (attention.py:858-868), K = 2d.
+//  * chain_dx_kernel: dx_s = dy_a . W_a + dy_b . W_b (+ K4b's LN1 residual
+//    gradient for xq, in fp32), one output cast to bf16 (attention.py
+//    :858-868, layer_kernel.py:296-297), K = 2d.
 //  * chain_dw_kernel and chain_dw_reduce_kernel: dW = dy^T x and
-//    db = sum dy over every row (:870-894), each weight's rows cut into
-//    chunks of `chunk` rows whose partial sums the reduction adds in chunk
-//    order: no atomics, the same bits on every call.
+//    db = sum dy over every row (:870-894) for up to nine weights of any
+//    (out, in) shape (K2b's six projections; K4b's with W_ff, W_m1 and
+//    W_m2 too), each weight's rows cut into chunks of `chunk` rows whose
+//    partial sums the reduction adds in chunk order: no atomics, the same
+//    bits on every call.
 // The chain's products keep fp32 accuracy on the bf16 tensor cores: dy
 // (fp32) is split, as its tile is read, into three bf16 parts, hi =
 // bf16(dy), mid = bf16(dy - hi), lo = bf16(dy - hi - mid), which sum to dy
@@ -135,9 +139,9 @@ __device__ __forceinline__ void gm_mma3(float (&acc)[NJ][4], const Split3A& a,
 // op.compute(stage, acc) multiplies a landed stage into the warp's tile.
 // Ends with every copy landed and a block barrier, so that the caller may
 // reuse the stages.
-template <class Op>
+template <class Op, class Acc>
 __device__ __forceinline__ void gm_mainloop(const Op& op, int nsteps, unsigned char* smem,
-                                            GmAcc<Op::kBN>& acc) {
+                                            Acc& acc) {
   constexpr int S = Op::kStages;
 #pragma unroll
   for (int s = 0; s < S - 1; ++s) {
@@ -157,7 +161,7 @@ __device__ __forceinline__ void gm_mainloop(const Op& op, int nsteps, unsigned c
 }
 
 // The block's bf16 output tile: the warps' accumulators, each through
-// f(value, column) (column within the tile), into shared memory, then out
+// f(value, row, column) (within the tile), into shared memory, then out
 // in 16-byte stores to dst rows m0 + r < M, columns n0 + c < N (row stride
 // ldd). N % 8 == 0.
 template <int BN, class F>
@@ -176,7 +180,7 @@ __device__ __forceinline__ void gm_store_bf16(const GmAcc<BN>& acc, F f, unsigne
       for (int r = 0; r < 2; ++r) {
         const int row = wm * 64 + i * 16 + g + 8 * r, col = wn * (BN / 4) + j * 8 + 2 * t;
         *reinterpret_cast<unsigned*>(so + row * LD + col) =
-            pack_bf16(f(acc[i][j][2 * r], col), f(acc[i][j][2 * r + 1], col + 1));
+            pack_bf16(f(acc[i][j][2 * r], row, col), f(acc[i][j][2 * r + 1], row, col + 1));
       }
   __syncthreads();
   for (int c = threadIdx.x; c < kGmBM * (BN / 8); c += kGmThreads) {
@@ -282,7 +286,7 @@ __global__ void __launch_bounds__(kGmThreads, kQkvMinBlocks)
   const bf16* bb = job.bias[1];
   gm_store_bf16<kQkvBN>(
       acc,
-      [&](float v, int col) {
+      [&](float v, int, int col) {
         const int n = n0 + col;
         const float bias = n < d ? __bfloat162float(ba[n])
                                  : n < N ? __bfloat162float(bb[n - d]) : 0.f;
@@ -292,11 +296,12 @@ __global__ void __launch_bounds__(kGmThreads, kQkvMinBlocks)
 }
 
 // ---------------------------------------------------------------------------
-// dx = dy_a . W_a + dy_b . W_b
+// dx = dy_a . W_a + dy_b . W_b (+ add, fp32, before the one cast)
 
 struct ChainDxJob {
   const float* dy[2];
   const bf16* w[2];
+  const float* add;  // (M, d) or null
   bf16* out;
   int M;
   int tile0;
@@ -358,6 +363,8 @@ struct ChainDxOp {
   }
 };
 
+// kAdd: jobs may carry an addend (K4b); K2b's launch has none.
+template <bool kAdd>
 __global__ void __launch_bounds__(kGmThreads, kChainMinBlocks)
     chain_dx_kernel(const __grid_constant__ ChainDxJobs jobs) {
   extern __shared__ __align__(128) unsigned char gm_smem[];
@@ -372,56 +379,65 @@ __global__ void __launch_bounds__(kGmThreads, kChainMinBlocks)
   GmAcc<kChainBN> acc;
   gm_zero<kChainBN>(acc);
   gm_mainloop(op, 2 * (d / kGmBK), gm_smem, acc);
-  gm_store_bf16<kChainBN>(acc, [](float v, int) { return v; }, gm_smem, job.out, d, m0, n0,
-                          job.M, d);
+  gm_store_bf16<kChainBN>(
+      acc,
+      [&](float v, int row, int col) {
+        const int m = m0 + row, n = n0 + col;
+        return kAdd && job.add && m < job.M && n < d ? v + job.add[(long)m * d + n] : v;
+      },
+      gm_smem, job.out, d, m0, n0, job.M, d);
 }
 
 // ---------------------------------------------------------------------------
 // dW = dy^T x and db = sum dy, in row chunks
 
-// One (weight, row chunk): its partial dW (d, d) and db (d).
-struct ChainDwJob {
+// One weight: dW (Mo, Ni) = dy^T x and db (Mo) = sum dy over M rows (dy
+// (M, Mo) fp32, x (M, Ni) bf16, both row-major), in `count` chunks of the
+// launch's `chunk` rows whose partial sums sit at part (count * Mo * Ni)
+// and db_part (count * Mo); its chunks are jobs first .. first + count - 1.
+struct ChainDwW {
   const float* dy;
   const bf16* x;
-  float* part;     // d * d floats
-  float* db_part;  // d floats
-  int r0, r1;      // the chunk's rows
+  float* part;
+  float* db_part;
+  float* dw;
+  float* db;
+  int M, Mo, Ni, first, count;
 };
+constexpr int kMaxDwWeights = 9;
 constexpr int kMaxDwChunks = 96;
 struct ChainDwJobs {
-  ChainDwJob job[kMaxDwChunks];
-  int d;
+  ChainDwW w[kMaxDwWeights];
+  unsigned char job_w[kMaxDwChunks];  // each (weight, chunk) job's weight
+  int chunk, nw;
 };
 
 struct ChainDwOp {
   static constexpr int kBN = kChainBN, kStages = kChainStages;
   static constexpr int kStageBytes =
       kGmBK * kGmLdKM * (int)sizeof(float) + kGmBK * gm_ld_kn(kBN) * (int)sizeof(bf16);
-  const ChainDwJob* job;
-  int d, m0, n0;
-  bool with_db;
+  const ChainDwW* w;
+  int r0, r1, m0, n0;
 
   __device__ __forceinline__ void issue(unsigned char* st, int step) const {
     float* sa = reinterpret_cast<float*>(st);
     bf16* sb = reinterpret_cast<bf16*>(sa + kGmBK * kGmLdKM);
-    const int k0 = job->r0 + step * kGmBK;
+    const int k0 = r0 + step * kGmBK;
     // A: dy rows k0.., columns m0.. (32 chunks of 4 floats a row)
     for (int c = threadIdx.x; c < kGmBK * (kGmBM / 4); c += kGmThreads) {
       const int r = c / (kGmBM / 4), m = (c - r * (kGmBM / 4)) * 4;
-      const bool ok = k0 + r < job->r1 && m0 + m < d;
-      cp_async16(sa + r * kGmLdKM + m, ok ? job->dy + (long)(k0 + r) * d + m0 + m : job->dy, ok);
+      const bool ok = k0 + r < r1 && m0 + m < w->Mo;
+      cp_async16(sa + r * kGmLdKM + m, ok ? w->dy + (long)(k0 + r) * w->Mo + m0 + m : w->dy, ok);
     }
     // B: x rows k0.., columns n0..
     for (int c = threadIdx.x; c < kGmBK * (kBN / 8); c += kGmThreads) {
       const int r = c / (kBN / 8), n = (c - r * (kBN / 8)) * 8;
-      const bool ok = k0 + r < job->r1 && n0 + n < d;
-      cp_async16(sb + r * gm_ld_kn(kBN) + n, ok ? job->x + (long)(k0 + r) * d + n0 + n : job->x,
+      const bool ok = k0 + r < r1 && n0 + n < w->Ni;
+      cp_async16(sb + r * gm_ld_kn(kBN) + n, ok ? w->x + (long)(k0 + r) * w->Ni + n0 + n : w->x,
                  ok);
     }
   }
 
-  // also sums the tile's dy columns over its rows, in row order, into
-  // colsum (threads < 128, with_db only)
   __device__ __forceinline__ void compute(const unsigned char* st, GmAcc<kBN>& acc) const {
     const float* sa = reinterpret_cast<const float*>(st);
     const bf16* sb = reinterpret_cast<const bf16*>(sa + kGmBK * kGmLdKM);
@@ -449,6 +465,8 @@ struct ChainDwOp {
     }
   }
 
+  // the tile's dy columns summed over its rows, in row order, into colsum
+  // (threads < 128)
   __device__ __forceinline__ void column_sums(const unsigned char* st, float& colsum) const {
     const float* sa = reinterpret_cast<const float*>(st);
 #pragma unroll 8
@@ -466,23 +484,28 @@ struct ChainDwDbOp : ChainDwOp {
   }
 };
 
-// blockIdx.y: the job; blockIdx.x: the (m, n) tile of its d x d.
+// blockIdx.y: the (weight, chunk) job; blockIdx.x: the (m, n) tile of its
+// Mo x Ni (blocks past the weight's tiles return at once).
 __global__ void __launch_bounds__(kGmThreads, kChainMinBlocks)
     chain_dw_kernel(const __grid_constant__ ChainDwJobs jobs) {
   extern __shared__ __align__(128) unsigned char gm_smem[];
-  const ChainDwJob& job = jobs.job[blockIdx.y];
-  const int d = jobs.d;
-  const int nt = (d + kChainBN - 1) / kChainBN;
+  const ChainDwW& w = jobs.w[jobs.job_w[blockIdx.y]];
+  const int c = blockIdx.y - w.first;
+  const int nt = (w.Ni + kChainBN - 1) / kChainBN, mt = (w.Mo + kGmBM - 1) / kGmBM;
+  if ((int)blockIdx.x >= mt * nt) return;
   const int m0 = (blockIdx.x / nt) * kGmBM, n0 = (blockIdx.x % nt) * kChainBN;
-  const int nsteps = (job.r1 - job.r0 + kGmBK - 1) / kGmBK;
+  const int r0 = c * jobs.chunk, r1 = min(r0 + jobs.chunk, w.M);
+  const int nsteps = (r1 - r0 + kGmBK - 1) / kGmBK;
+  float* part = w.part + (long)c * w.Mo * w.Ni;
   GmAcc<kChainBN> acc;
   gm_zero<kChainBN>(acc);
   float colsum = 0.f;
   if (n0 == 0) {
-    gm_mainloop(ChainDwDbOp{{&job, d, m0, n0, true}, &colsum}, nsteps, gm_smem, acc);
-    if (threadIdx.x < kGmBM && m0 + threadIdx.x < d) job.db_part[m0 + threadIdx.x] = colsum;
+    gm_mainloop(ChainDwDbOp{{&w, r0, r1, m0, n0}, &colsum}, nsteps, gm_smem, acc);
+    if (threadIdx.x < kGmBM && m0 + (int)threadIdx.x < w.Mo)
+      w.db_part[(long)c * w.Mo + m0 + threadIdx.x] = colsum;
   } else {
-    gm_mainloop(ChainDwOp{&job, d, m0, n0, false}, nsteps, gm_smem, acc);
+    gm_mainloop(ChainDwOp{&w, r0, r1, m0, n0}, nsteps, gm_smem, acc);
   }
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3, wm = warp >> 2, wn = warp & 3;
@@ -494,30 +517,17 @@ __global__ void __launch_bounds__(kGmThreads, kChainMinBlocks)
       for (int r = 0; r < 2; ++r) {
         const int m = m0 + wm * 64 + i * 16 + g + 8 * r,
                   n = n0 + wn * (kChainBN / 4) + j * 8 + 2 * t;
-        if (m < d && n < d)
-          *reinterpret_cast<float2*>(job.part + (long)m * d + n) =
+        if (m < w.Mo && n < w.Ni)
+          *reinterpret_cast<float2*>(part + (long)m * w.Ni + n) =
               make_float2(acc[i][j][2 * r], acc[i][j][2 * r + 1]);
       }
 }
 
-// Each weight's chunks are jobs first .. first + count - 1 of the dW
-// launch; the reduction adds them in that order.
-struct ChainDwSum {
-  const float* part;     // count * d * d
-  const float* db_part;  // count * d
-  float* dw;
-  float* db;
-  int count;
-};
-struct ChainDwSums {
-  ChainDwSum w[6];
-  int d;
-};
-
-__global__ void chain_dw_reduce_kernel(const __grid_constant__ ChainDwSums sums) {
-  const ChainDwSum& s = sums.w[blockIdx.y];
-  const long dd = (long)sums.d * sums.d;
-  for (long e = blockIdx.x * (long)blockDim.x + threadIdx.x; e < dd + sums.d;
+// blockIdx.y: the weight; its chunks' partial sums added in chunk order.
+__global__ void chain_dw_reduce_kernel(const __grid_constant__ ChainDwJobs jobs) {
+  const ChainDwW& s = jobs.w[blockIdx.y];
+  const long dd = (long)s.Mo * s.Ni;
+  for (long e = blockIdx.x * (long)blockDim.x + threadIdx.x; e < dd + s.Mo;
        e += (long)gridDim.x * blockDim.x) {
     float acc = 0.f;
     if (e < dd) {
@@ -525,7 +535,7 @@ __global__ void chain_dw_reduce_kernel(const __grid_constant__ ChainDwSums sums)
       s.dw[e] = acc;
     } else {
       const long f = e - dd;
-      for (int c = 0; c < s.count; ++c) acc += s.db_part[c * (long)sums.d + f];
+      for (int c = 0; c < s.count; ++c) acc += s.db_part[c * (long)s.Mo + f];
       s.db[f] = acc;
     }
   }
@@ -579,71 +589,110 @@ inline cudaError_t launch_k2_projections(const void* const* p, void* const* ws, 
   return launch_qkv_gemm(x, w, bias, out, M, d, stream);
 }
 
-// Host side: dx of the three sources, dx_s = dy[2s] . w[2s] + dy[2s+1] . w[2s+1].
+// Host side: dx of the three sources, dx_s = dy[2s] . w[2s] + dy[2s+1] . w[2s+1],
+// dx_0 with add0 (M[0] x d fp32) added before its cast where given.
 inline cudaError_t launch_chain_dx(const float* const (&dy)[6], const bf16* const (&w)[6],
                                    bf16* const (&dx)[3], const int (&M)[3], int d,
-                                   cudaStream_t stream) {
+                                   const float* add0, cudaStream_t stream) {
   ChainDxJobs jobs{};
   jobs.d = d;
   int tiles = 0;
   for (int s = 0; s < 3; ++s) {
     if (M[s] <= 0) continue;
     ChainDxJob& j = jobs.job[jobs.njobs++];
-    j = ChainDxJob{{dy[2 * s], dy[2 * s + 1]}, {w[2 * s], w[2 * s + 1]}, dx[s], M[s], tiles};
+    j = ChainDxJob{{dy[2 * s], dy[2 * s + 1]}, {w[2 * s], w[2 * s + 1]}, s ? nullptr : add0,
+                   dx[s], M[s], tiles};
     tiles += ((M[s] + kGmBM - 1) / kGmBM) * ((d + kChainBN - 1) / kChainBN);
   }
   if (!tiles) return cudaSuccess;
   const size_t smem = gm_smem_bytes<ChainDxOp>();
-  cudaError_t err = cudaFuncSetAttribute(chain_dx_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  auto kernel = add0 ? chain_dx_kernel<true> : chain_dx_kernel<false>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  chain_dx_kernel<<<tiles, kGmThreads, smem, stream>>>(jobs);
+  kernel<<<tiles, kGmThreads, smem, stream>>>(jobs);
   return cudaGetLastError();
 }
 
 // Chunks of `chunk` rows over M rows.
 __host__ __device__ inline int dw_chunks(int M, int chunk) { return (M + chunk - 1) / chunk; }
 
-// Host side: dW[w] = dy[w]^T x[w] and db[w] = sum dy[w] over M[w] rows for
-// six weights, each in dw_chunks(M[w], chunk) row chunks whose partials go
-// to `scratch` (sum over w of dw_chunks * (d * d + d) floats) and are then
-// added in chunk order.
-inline cudaError_t launch_chain_dw(const float* const (&dy)[6], const bf16* const (&x)[6],
-                                   const int (&M)[6], int d, int chunk, float* scratch,
-                                   float* const (&dw)[6], float* const (&db)[6],
+// One weight of launch_chain_dw: dW (Mo, Ni) = dy^T x, db = sum dy over M
+// rows (dy (M, Mo) fp32, x (M, Ni) bf16).
+struct DwWeight {
+  const float* dy;
+  const bf16* x;
+  int M, Mo, Ni;
+  float* dw;
+  float* db;
+};
+
+// Host side: dW and db of nw <= kMaxDwWeights weights, each in
+// dw_chunks(M, chunk) row chunks whose partials go to `scratch` (sum over
+// the weights of dw_chunks * (Mo * Ni + Mo) floats) and are then added in
+// chunk order. Mo % 4 == 0, Ni % 8 == 0.
+inline cudaError_t launch_chain_dw(const DwWeight* ws, int nw, int chunk, float* scratch,
                                    cudaStream_t stream) {
-  if (chunk <= 0 || chunk % kGmBK) return cudaErrorInvalidValue;
+  if (chunk <= 0 || chunk % kGmBK || nw > kMaxDwWeights) return cudaErrorInvalidValue;
   ChainDwJobs jobs{};
-  jobs.d = d;
-  ChainDwSums sums{};
-  sums.d = d;
-  int nj = 0;
-  const long dd = (long)d * d;
-  for (int w = 0; w < 6; ++w) {
-    const int count = dw_chunks(M[w], chunk);
+  jobs.chunk = chunk;
+  jobs.nw = nw;
+  int nj = 0, tiles = 0;
+  for (int w = 0; w < nw; ++w) {
+    const DwWeight& in = ws[w];
+    if (in.Mo % 4 || in.Ni % 8) return cudaErrorInvalidValue;
+    const int count = dw_chunks(in.M, chunk);
     if (nj + count > kMaxDwChunks) return cudaErrorInvalidValue;
-    float* part = scratch;
-    float* db_part = scratch + count * dd;
-    scratch += count * (dd + d);
-    sums.w[w] = ChainDwSum{part, db_part, dw[w], db[w], count};
-    for (int c = 0; c < count; ++c) {
-      const int r0 = c * chunk, r1 = r0 + chunk < M[w] ? r0 + chunk : M[w];
-      jobs.job[nj++] = ChainDwJob{dy[w], x[w], part + c * dd, db_part + (long)c * d, r0, r1};
-    }
+    const long dd = (long)in.Mo * in.Ni;
+    jobs.w[w] = ChainDwW{in.dy, in.x, scratch, scratch + count * dd, in.dw, in.db,
+                         in.M, in.Mo, in.Ni, nj, count};
+    scratch += count * (dd + in.Mo);
+    for (int c = 0; c < count; ++c) jobs.job_w[nj++] = (unsigned char)w;
+    const int t = ((in.Mo + kGmBM - 1) / kGmBM) * ((in.Ni + kChainBN - 1) / kChainBN);
+    tiles = t > tiles ? t : tiles;
   }
   const size_t smem = gm_smem_bytes<ChainDwOp>();
   cudaError_t err = cudaFuncSetAttribute(chain_dw_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const int nt = (d + kChainBN - 1) / kChainBN;
   if (nj) {
-    chain_dw_kernel<<<dim3(nt * ((d + kGmBM - 1) / kGmBM), nj), kGmThreads, smem, stream>>>(
-        jobs);
+    chain_dw_kernel<<<dim3(tiles, nj), kGmThreads, smem, stream>>>(jobs);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
-  chain_dw_reduce_kernel<<<dim3(64, 6), 256, 0, stream>>>(sums);
+  chain_dw_reduce_kernel<<<dim3(64, nw), 256, 0, stream>>>(jobs);
   return cudaGetLastError();
+}
+
+// Host side: K2's chain in bf16 (K2b, and K4b's attention). in: xq, x1,
+// x2, then wq1, bq1, wq2, bq2, wk1, bk1, wk2, bk2, wv1, bv1, wv2, bv2 (bf16);
+// dys: fp32 dq1 dq2 dk1 dk2 dv1 dv2 ((B, L, d) each). dx: dxq, dx1, dx2
+// (bf16), dxq with dxq_add (fp32, (B, Lq, d)) added before its cast where
+// given; dwdb: fp32 dW of q1 q2 k1 k2 v1 v2 ((d, d), nn.Linear layout),
+// then their db. `extra` weights (K4b's epilogue) join the dW launch.
+inline cudaError_t launch_k2_chain(const void* const* in, const float* const* dys,
+                                   void* const* dx, float* const* dwdb, const float* dxq_add,
+                                   const DwWeight* extra, int nextra, int B, int Lq, int L1,
+                                   int L2, int d, int chunk, float* scratch,
+                                   cudaStream_t stream) {
+  const bf16* const* t = reinterpret_cast<const bf16* const*>(in);
+  // dx pairs: dq1 dq2 | dk1 dv1 | dk2 dv2 with Wq1 Wq2 | Wk1 Wv1 | Wk2 Wv2
+  const float* const dyx[6] = {dys[0], dys[1], dys[2], dys[4], dys[3], dys[5]};
+  const bf16* const wx[6] = {t[3], t[5], t[7], t[11], t[9], t[13]};
+  bf16* const out[3] = {static_cast<bf16*>(dx[0]), static_cast<bf16*>(dx[1]),
+                        static_cast<bf16*>(dx[2])};
+  const int Mx[3] = {B * Lq, B * L1, B * L2};
+  cudaError_t err = launch_chain_dx(dyx, wx, out, Mx, d, dxq_add, stream);
+  if (err != cudaSuccess) return err;
+  // dW: q1 q2 k1 k2 v1 v2 over xq xq x1 x2 x1 x2, then the extra weights
+  if (nextra < 0 || 6 + nextra > kMaxDwWeights) return cudaErrorInvalidValue;
+  DwWeight ws[kMaxDwWeights];
+  const int src[6] = {0, 0, 1, 2, 1, 2};
+  const int len[6] = {Lq, Lq, L1, L2, L1, L2};
+  for (int w = 0; w < 6; ++w)
+    ws[w] = DwWeight{dys[w], t[src[w]], B * len[w], d, d, dwdb[w], dwdb[6 + w]};
+  for (int w = 0; w < nextra; ++w) ws[6 + w] = extra[w];
+  return launch_chain_dw(ws, 6 + nextra, chunk, scratch, stream);
 }
 
 }  // namespace segmm

@@ -81,29 +81,6 @@ cudaError_t launch_chain(const void* const* in, float* const* dys, void* const* 
   return launch_wgrads<T>(wj, nj, rj, nr, d, d, splits, stream);
 }
 
-// bf16: dx and dW, db on the tensor cores (proj_gemm.cuh), dW in row chunks
-// of `chunk` rows.
-inline cudaError_t launch_chain_mma(const void* const* in, float* const* dys, void* const* dx,
-                                    float* const* dwdb, float* scratch, int B, int Lq, int L1,
-                                    int L2, int d, int chunk, cudaStream_t stream) {
-  using bf = __nv_bfloat16;
-  const bf* const* t = reinterpret_cast<const bf* const*>(in);
-  // (b) pairs: dq1 dq2 | dk1 dv1 | dk2 dv2 with Wq1 Wq2 | Wk1 Wv1 | Wk2 Wv2
-  const float* const dyx[6] = {dys[0], dys[1], dys[2], dys[4], dys[3], dys[5]};
-  const bf* const wx[6] = {t[3], t[5], t[7], t[11], t[9], t[13]};
-  bf* const out[3] = {static_cast<bf*>(dx[0]), static_cast<bf*>(dx[1]), static_cast<bf*>(dx[2])};
-  const int Mx[3] = {B * Lq, B * L1, B * L2};
-  cudaError_t err = launch_chain_dx(dyx, wx, out, Mx, d, stream);
-  if (err != cudaSuccess) return err;
-  // (c) w = q1 q2 k1 k2 v1 v2 over xq xq x1 x2 x1 x2
-  const float* const dyw[6] = {dys[0], dys[1], dys[2], dys[3], dys[4], dys[5]};
-  const bf* const xw[6] = {t[0], t[0], t[1], t[2], t[1], t[2]};
-  const int Mw[6] = {B * Lq, B * Lq, B * L1, B * L2, B * L1, B * L2};
-  float* const dw[6] = {dwdb[0], dwdb[1], dwdb[2], dwdb[3], dwdb[4], dwdb[5]};
-  float* const db[6] = {dwdb[6], dwdb[7], dwdb[8], dwdb[9], dwdb[10], dwdb[11]};
-  return launch_chain_dw(dyw, xw, Mw, d, chunk, scratch, dw, db, stream);
-}
-
 }  // namespace segmm
 
 // dtype: 0 = float32 (the CUDA-core qkv pass), 1 = bfloat16 (the core's block).
@@ -155,7 +132,7 @@ extern "C" int segmm_proj_two_block_attention_chain_bwd(
     return (int)segmm::launch_chain<float>(ptrs, dys, dx, dwdb, scratch, B, Lq, L1, L2, dm,
                                            splits, s);
   if (dtype == 1)
-    return (int)segmm::launch_chain_mma(ptrs, dys, dx, dwdb, scratch, B, Lq, L1, L2, dm, chunk,
-                                        s);
+    return (int)segmm::launch_k2_chain(ptrs, dys, dx, dwdb, nullptr, nullptr, 0, B, Lq, L1, L2,
+                                       dm, chunk, scratch, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -21,7 +21,10 @@
 // accumulators; the forward's p is rounded to bf16 before p v, as the JAX
 // kernel does. The backward keeps p and dl at fp32 accuracy as bf16 hi and
 // lo halves, both through the tensor cores into one accumulator (~2^-17
-// relative), as K3b's bf16 body does (masked_attention_bwd.cu).
+// relative), as K3b's bf16 body does (masked_attention_bwd.cu). K4b's
+// g (d_att) is fp32, as the TPU kernel keeps it (layer_kernel.py:427):
+// staged as bf16 hi and lo halves too, each product with g (dv, dp) takes
+// both.
 //
 // Geometry of one (batch row, head), a block of its own (no atomics, the
 // same order of every sum on every run):
@@ -59,7 +62,9 @@ __host__ __device__ inline int k2_keys16(int L1, int L2) { return pad16(k2_c1(L1
 
 // The operands of one launch: the projections' bf16 outputs (row stride
 // 2 d), the masks, and the output (forward) or g and the six fp32
-// gradients (backward: dq1 dq2 dk1 dk2 dv1 dv2 as (B, L, d)).
+// gradients (backward: dq1 dq2 dk1 dk2 dv1 dv2 as (B, L, d)). g is bf16
+// (K2b), or an fp32 g given as bf16 hi and lo halves (K4b's d_att: g and
+// glo), as the core keeps p and dl.
 struct K2CoreArgs {
   const __nv_bfloat16* q;   // (B, Lq, 2d): q1 | q2
   const __nv_bfloat16* kv1; // (B, L1, 2d): k1 | v1
@@ -67,6 +72,7 @@ struct K2CoreArgs {
   const int *mq, *mk1, *mk2;
   __nv_bfloat16* out;       // forward: (B, Lq, d)
   const __nv_bfloat16* g;   // backward: (B, Lq, d)
+  const __nv_bfloat16* glo; // backward with an fp32 g: its lo half, (B, Lq, d)
   float* dy[6];
   int Lq, L1, L2, H;
   float scale, rate, keep_div;
@@ -83,9 +89,10 @@ __host__ __device__ inline size_t k2_core_fwd_smem_bytes(int Lq, int L1, int L2,
          sizeof(unsigned) * (size_t)kK2MmaWarps * k2_keep_words(nk16) * 32;
 }
 
-__host__ __device__ inline size_t k2_core_bwd_smem_bytes(int Lq, int L1, int L2, int D) {
+__host__ __device__ inline size_t k2_core_bwd_smem_bytes(int Lq, int L1, int L2, int D,
+                                                         bool glo = false) {
   const int mq16 = pad16(Lq), nk16 = k2_keys16(L1, L2);
-  return sizeof(__nv_bfloat16) * (size_t)(3 * mq16 + 2 * nk16) * (D + 8) +
+  return sizeof(__nv_bfloat16) * (size_t)((glo ? 4 : 3) * mq16 + 2 * nk16) * (D + 8) +
          sizeof(int) * (size_t)(mq16 + nk16) +
          sizeof(unsigned) * (size_t)(mq16 / 16) * k2_keep_words(nk16) * 32 +
          sizeof(__nv_bfloat16) * 2 * (size_t)mq16 * (nk16 + 8);
@@ -112,20 +119,21 @@ __device__ __forceinline__ void k2_stage_mask(const int* __restrict__ src, int* 
     cp_async4(dst + i, i < L ? src + (long)b * L + i : src, i < L);
 }
 
-// The staged operands of one (batch row, head).
+// The staged operands of one (batch row, head); with a.glo, g's lo half in
+// glo.
 struct K2Tiles {
-  __nv_bfloat16 *q1, *q2, *g, *k, *v;
+  __nv_bfloat16 *q1, *q2, *g, *glo, *k, *v;
   int *mq, *mk;
   int c1, nk16;
 };
 
-// Stages q1, q2 (and g), k and v of both blocks on one axis and the masks
-// (the key mask on the same axis, 0 past each block's length) at `smem`;
-// returns the first byte past them. Waits for the copies; the caller
-// synchronises the block.
+// Stages q1, q2 (and g, with its lo half where given), k and v of both
+// blocks on one axis and the masks (the key mask on the same axis, 0 past
+// each block's length) at `smem`; returns the first byte past them. Waits
+// for the copies; the caller synchronises the block.
 template <int D>
 __device__ __forceinline__ unsigned char* k2_load(const K2CoreArgs& a, unsigned char* smem,
-                                                  bool with_g, K2Tiles& t) {
+                                                  bool with_g, K2Tiles& t, bool glo = false) {
   constexpr int LD = D + 8;
   const int h = blockIdx.x, b = blockIdx.y;
   const int dm = a.H * D;
@@ -137,13 +145,15 @@ __device__ __forceinline__ unsigned char* k2_load(const K2CoreArgs& a, unsigned 
   t.q1 = at;
   t.q2 = t.q1 + mq16 * LD;
   t.g = with_g ? t.q2 + mq16 * LD : nullptr;
-  t.k = t.q2 + (with_g ? 2 : 1) * mq16 * LD;
+  t.glo = with_g && glo ? t.g + mq16 * LD : nullptr;
+  t.k = t.q2 + (1 + (with_g ? 1 : 0) + (t.glo ? 1 : 0)) * mq16 * LD;
   t.v = t.k + t.nk16 * LD;
   t.mq = reinterpret_cast<int*>(t.v + t.nk16 * LD);
   t.mk = t.mq + mq16;
   k2_stage<D>(a.q, rs, h * D, t.q1, b, a.Lq, mq16);
   k2_stage<D>(a.q, rs, dm + h * D, t.q2, b, a.Lq, mq16);
   if (with_g) k2_stage<D>(a.g, dm, h * D, t.g, b, a.Lq, mq16);
+  if (t.glo) k2_stage<D>(a.glo, dm, h * D, t.glo, b, a.Lq, mq16);
   k2_stage<D>(a.kv1, rs, h * D, t.k, b, a.L1, t.c1);
   k2_stage<D>(a.kv2, rs, h * D, t.k + t.c1 * LD, b, a.L2, t.nk16 - t.c1);
   k2_stage<D>(a.kv1, rs, dm + h * D, t.v, b, a.L1, t.c1);
@@ -432,7 +442,9 @@ proj_two_block_core_fwd_kernel(const __grid_constant__ K2CoreArgs a) {
 
 // ---------------------------------------------------------------------------
 // Backward: one block per (head, batch row); passes as the file's head says.
-template <int D, int NT, bool kDrop>
+// kG32: g is fp32, given as bf16 hi and lo halves (a.g, a.glo), and the
+// products with g (dv, dp) take both halves into one accumulator.
+template <int D, int NT, bool kDrop, bool kG32>
 __global__ void __launch_bounds__(32 * kK2MmaWarpsMax)
 proj_two_block_core_bwd_kernel(const __grid_constant__ K2CoreArgs a) {
   const int h = blockIdx.x, b = blockIdx.y;
@@ -440,7 +452,7 @@ proj_two_block_core_bwd_kernel(const __grid_constant__ K2CoreArgs a) {
   const int gi = lane >> 2, ti = lane & 3;
   extern __shared__ __align__(16) unsigned char k2b_smem[];
   K2Tiles st;
-  unsigned* KW = reinterpret_cast<unsigned*>(k2_load<D>(a, k2b_smem, true, st));
+  unsigned* KW = reinterpret_cast<unsigned*>(k2_load<D>(a, k2b_smem, true, st, kG32));
   const int Lq = a.Lq, L1 = a.L1, L2 = a.L2, c1 = st.c1;
   const int mq16 = pad16(Lq), nkc = st.nk16 / 16, nq16 = mq16 / 16, nb1 = c1 / 8;
   const int kwords = k2_keep_words(st.nk16);
@@ -481,6 +493,7 @@ proj_two_block_core_bwd_kernel(const __grid_constant__ K2CoreArgs a) {
     float acc[D / 8][4];
     k2_zero<D>(acc);
     k3b_colsT_times_rows<D>(ph, pl, ldp, k0, nq16, st.g, acc);
+    if (kG32) k3b_colsT_times_rows<D>(ph, pl, ldp, k0, nq16, st.glo, acc);
     k2_write_key_rows<D>(acc, k0, c1, L1, L2, a.H, a.dy[4], a.dy[5]);
   }
   __syncthreads();
@@ -497,6 +510,7 @@ proj_two_block_core_bwd_kernel(const __grid_constant__ K2CoreArgs a) {
 #pragma unroll
     for (int n = 0; n < NT; ++n) dp[n][0] = dp[n][1] = dp[n][2] = dp[n][3] = 0.f;
     k3_rows_times_rowsT<D, NT>(st.g, q0, st.v, nkc, dp);
+    if (kG32) k3_rows_times_rowsT<D, NT>(st.glo, q0, st.v, nkc, dp);
     float sum[2] = {0.f, 0.f};
 #pragma unroll
     for (int n = 0; n < NT; ++n) {
@@ -584,14 +598,14 @@ inline K2CoreArgs k2_core_args(void* const* ws, const int* mq, const int* mk1, c
 }
 
 // n8 key tiles the templates hold in registers (2 x the 16-key chunks)
-template <int D, bool kBwd, int NT>
+template <int D, bool kBwd, bool kG32, int NT>
 cudaError_t launch_k2_core_nt(const K2CoreArgs& a, int B, cudaStream_t stream) {
   size_t smem;
   void (*kern)(K2CoreArgs);
   if constexpr (kBwd) {
-    smem = k2_core_bwd_smem_bytes(a.Lq, a.L1, a.L2, D);
-    kern = a.rate > 0.f ? proj_two_block_core_bwd_kernel<D, NT, true>
-                        : proj_two_block_core_bwd_kernel<D, NT, false>;
+    smem = k2_core_bwd_smem_bytes(a.Lq, a.L1, a.L2, D, kG32);
+    kern = a.rate > 0.f ? proj_two_block_core_bwd_kernel<D, NT, true, kG32>
+                        : proj_two_block_core_bwd_kernel<D, NT, false, kG32>;
   } else {
     smem = k2_core_fwd_smem_bytes(a.Lq, a.L1, a.L2, D);
     kern = a.rate > 0.f ? proj_two_block_core_fwd_kernel<D, NT, true>
@@ -611,26 +625,27 @@ cudaError_t launch_k2_core_nt(const K2CoreArgs& a, int B, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <int D, bool kBwd>
+template <int D, bool kBwd, bool kG32>
 cudaError_t launch_k2_core_d(const K2CoreArgs& a, int B, cudaStream_t stream) {
   const int nkc = k2_keys16(a.L1, a.L2) / 16;
-  auto launch = nkc <= 3    ? launch_k2_core_nt<D, kBwd, 6>
-                : nkc <= 6  ? launch_k2_core_nt<D, kBwd, 12>
-                : nkc <= 9  ? launch_k2_core_nt<D, kBwd, 18>
-                : nkc <= 12 ? launch_k2_core_nt<D, kBwd, 24>
-                            : launch_k2_core_nt<D, kBwd, 32>;
+  auto launch = nkc <= 3    ? launch_k2_core_nt<D, kBwd, kG32, 6>
+                : nkc <= 6  ? launch_k2_core_nt<D, kBwd, kG32, 12>
+                : nkc <= 9  ? launch_k2_core_nt<D, kBwd, kG32, 18>
+                : nkc <= 12 ? launch_k2_core_nt<D, kBwd, kG32, 24>
+                            : launch_k2_core_nt<D, kBwd, kG32, 32>;
   return launch(a, B, stream);
 }
 
 // K2's core in either direction for head dim D (16, 32, 64); lengths up to
-// 128 each (at most 16 key chunks).
-template <bool kBwd>
+// 128 each (at most 16 key chunks). kG32 (backward): g is fp32, as a.g
+// and a.glo.
+template <bool kBwd, bool kG32 = false>
 cudaError_t launch_k2_core(const K2CoreArgs& a, int D, int B, cudaStream_t stream) {
   if (a.Lq > 128 || a.L1 > 128 || a.L2 > 128) return cudaErrorInvalidValue;
   switch (D) {
-    case 16: return launch_k2_core_d<16, kBwd>(a, B, stream);
-    case 32: return launch_k2_core_d<32, kBwd>(a, B, stream);
-    case 64: return launch_k2_core_d<64, kBwd>(a, B, stream);
+    case 16: return launch_k2_core_d<16, kBwd, kG32>(a, B, stream);
+    case 32: return launch_k2_core_d<32, kBwd, kG32>(a, B, stream);
+    case 64: return launch_k2_core_d<64, kBwd, kG32>(a, B, stream);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -29,7 +29,10 @@ Weights in nn.Linear layout (out, in): qkv the 12 weights and biases of K2
 b_m1, w_m2 (d, ff), b_m2, ln2_s, ln2_b) with the LayerNorm parameters in
 fp32 whatever the compute dtype. The wrapper launches the CUDA kernels
 (core/csrc/layer_stream*.cu) for CUDA tensors and runs the plain versions
-only for CPU tensors.
+only for CPU tensors. bf16 runs the tensor-core bodies (K2's projection
+GEMM and two-block core, the epilogue on mma.sync over 64-row blocks, K2's
+three-part chain for dx and the nine dW), fp32 the CUDA-core bodies
+(``k4_body``).
 """
 
 from __future__ import annotations
@@ -43,10 +46,17 @@ import torch
 from . import attention as A
 
 LN_EPS = 1e-12
-# rows of (B * Lq) one block of the epilogue-backward kernel takes
-# (kEpBwdRows, layer_epilogue.cuh); its LayerNorm-parameter partial sums are
-# one row of four d-vectors per block
+# rows of (B * Lq) one block of the epilogue-backward kernel takes, fp32
+# (kEpBwdRows, layer_epilogue.cuh) and bf16 (kLmRows, layer_mma.cuh); its
+# LayerNorm-parameter partial sums are one row of four d-vectors per block
 K4_BWD_ROWS = 16
+K4_MMA_ROWS = 64
+# the bf16 epilogue holds a block's full rows of d and of ff in registers
+K4_MMA_MAX_WIDTH = 512
+# bf16 K4b's nine weights' rows in chunks of k4_dw_chunk rows, about this
+# many chunks in all, added in chunk order (K2's kernel, whose table holds
+# attention.K2_DW_MAX_CHUNKS)
+K4_DW_CHUNKS = 48
 
 _ERF_P = 0.3275911
 _ERF_A = (0.254829592, -0.284496736, 1.421413741, -1.453152027, 1.061405429)
@@ -188,6 +198,61 @@ def layer_stream_bwd_plain(xq, x1, x2, qkv, ep, mask_q, mask_1, mask_2, g,
 # launching the kernels
 # ---------------------------------------------------------------------------
 
+def k4_body(dtype) -> str:
+    """Which bodies K4f and K4b run: ``"mma"`` for bf16 (K2's projection
+    GEMM and two-block core, the epilogue on mma.sync, the chain's dx and
+    the nine dW in three bf16 parts), ``"cuda_core"`` for fp32 (the
+    per-(head, batch row) attention and row-tile epilogue on the CUDA
+    cores). By dtype, never on a failure."""
+    return "mma" if dtype == torch.bfloat16 else "cuda_core"
+
+
+def k4_dw_rows(B: int, Lq: int, L1: int, L2: int):
+    """Rows of each of bf16 K4b's nine weight gradients: the six
+    projections (q1 q2 k1 k2 v1 v2), then W_ff, W_m1, W_m2."""
+    return [B * L for L in (Lq, Lq, L1, L2, L1, L2, Lq, Lq, Lq)]
+
+
+def k4_dw_chunk(B: int, Lq: int, L1: int, L2: int) -> int:
+    """Rows per chunk of bf16 K4b's weight gradients: about K4_DW_CHUNKS
+    chunks over the nine weights' rows, a multiple of the products' 32-row
+    step, each weight's chunks summed in order (as ``k2_dw_chunk``)."""
+    rows = sum(k4_dw_rows(B, Lq, L1, L2))
+    chunk = -(-rows // K4_DW_CHUNKS)
+    return max(32, -(-chunk // 32) * 32)
+
+
+def k4_dw_chunks(B: int, Lq: int, L1: int, L2: int, chunk: int):
+    """Chunks of each of the nine weights at `chunk` rows."""
+    return [-(-M // chunk) for M in k4_dw_rows(B, Lq, L1, L2)]
+
+
+def k4_dw_shapes(d: int, ff: int):
+    """(out, in) of the nine weights, in k4_dw_rows' order."""
+    return [(d, d)] * 7 + [(ff, d), (d, ff)]
+
+
+# the bf16 epilogue's shared memory (layer_mma.cuh): a ring of three
+# stages, each the larger of (64 + 512) rows x 40 bf16 (forward products)
+# and 64 x 40 fp32 + 32 x 520 bf16 (backward products); the seven fp32
+# bias and LayerNorm vectors of 512; the backward's LN1 statistics and
+# three 64 x 40 bf16 planes
+_LM_STAGE = max((64 + 512) * 40 * 2, 64 * 40 * 4 + 32 * 520 * 2)
+_LM_FWD_SMEM = 3 * _LM_STAGE + 4 * 7 * 512
+_LM_BWD_SMEM = _LM_FWD_SMEM + 4 * 2 * 64 + 3 * 2 * 64 * 40
+
+
+def k4_mma_smem_bytes(Lq: int, L1: int, L2: int, D: int,
+                      backward: bool) -> int:
+    """Shared memory of bf16 K4's largest block: K2's core (forward; the
+    backward's with g in fp32, two bf16 halves) or the epilogue's."""
+    core = A.k2_mma_smem_bytes(Lq, L1, L2, D, False)
+    if backward:
+        core = max(core, A.k2_mma_smem_bytes(Lq, L1, L2, D, True,
+                                             g_fp32=True))
+    return max(core, _LM_BWD_SMEM if backward else _LM_FWD_SMEM)
+
+
 def _check_k4(xq, x1, x2, qkv, ep, masks, num_heads, g=None):
     B, Lq, L1, L2, d, dh = A._check_k2((xq, x1, x2) + tuple(qkv), masks,
                                        num_heads, g)
@@ -204,6 +269,9 @@ def _check_k4(xq, x1, x2, qkv, ep, masks, num_heads, g=None):
                              f"{tuple(t.shape)}")
     if ff % 32:
         raise ValueError(f"ff={ff}: the epilogue takes ff % 32 == 0")
+    if k4_body(xq.dtype) == "mma" and max(d, ff) > K4_MMA_MAX_WIDTH:
+        raise ValueError(f"(d, ff)={(d, ff)}: the bf16 epilogue takes widths "
+                         f"<= {K4_MMA_MAX_WIDTH}")
     if any(t.data_ptr() % 16 for t in (wff, wm1, wm2)):
         raise ValueError("inputs must start on a 16-byte boundary")
     return B, Lq, L1, L2, d, dh, ff
@@ -225,24 +293,31 @@ def _k4_smem_check(lib, xq, Lq, L1, L2, dh, d, ff):
 
 def _k4_forward_cuda(xq, x1, x2, qkv, ep, masks, num_heads, scale, rate,
                      seed):
-    """K4f: K2f's device code writes att (B, Lq, d) in the compute dtype,
-    then the row-tile epilogue kernel; two launches."""
+    """K4f: att (B, Lq, d) in the compute dtype, then the epilogue. bf16:
+    K2f's projection GEMM and core, then the tensor-core epilogue (y1 and g
+    through transient (B, Lq, ·) tensors); three launches. fp32: K2f's
+    CUDA-core body, then the row-tile epilogue; two launches."""
     B, Lq, L1, L2, d, dh, ff = _check_k4(xq, x1, x2, qkv, ep, masks,
                                          num_heads)
     _k4_smem_check("layer_stream", xq, Lq, L1, L2, dh, d, ff)
     fn = A._fn("layer_stream", "segmm_layer_stream_fwd", ctypes.c_int,
                [ctypes.c_int, ctypes.POINTER(ctypes.c_void_p)]
-               + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
-               + [ctypes.c_float] + A._DROP_ARGS[:2] + [ctypes.c_float,
-                                                        ctypes.c_uint32,
-                                                        ctypes.c_void_p])
+               + [ctypes.c_void_p] * 3 + [ctypes.POINTER(ctypes.c_void_p),
+                                          ctypes.c_void_p]
+               + [ctypes.c_int] * 7 + [ctypes.c_float] + A._DROP_ARGS[:2]
+               + [ctypes.c_float, ctypes.c_uint32, ctypes.c_void_p])
     mq, m1, m2 = A._masks_i32(*masks)
-    att, out = torch.empty_like(xq), torch.empty_like(xq)
+    out = torch.empty_like(xq)
+    work = [torch.empty_like(xq)]  # att
+    if k4_body(xq.dtype) == "mma":
+        work += [torch.empty_like(xq),
+                 torch.empty(B, Lq, ff, dtype=xq.dtype, device=xq.device)]
+        work += A.k2_workspace(xq, x1, x2)
     rate, kdiv, seed = A._drop_args(rate, seed)
     with torch.cuda.device(xq.device):
         code = fn(A._DTYPE_CODE[xq.dtype], A._ptrs((xq, x1, x2, *qkv, *ep)),
                   mq.data_ptr(), m1.data_ptr(), m2.data_ptr(),
-                  att.data_ptr(), out.data_ptr(), B, Lq, L1, L2, d,
+                  A._ptrs(work), out.data_ptr(), B, Lq, L1, L2, d,
                   num_heads, ff, float(scale), rate, kdiv,
                   _epi_div(rate, xq.dtype), seed, A._stream_ptr(xq.device))
     A._raise_on_cuda_error(code, "layer_stream")
@@ -252,11 +327,14 @@ def _k4_forward_cuda(xq, x1, x2, qkv, ep, masks, num_heads, scale, rate,
 
 def _k4_backward_cuda(xq, x1, x2, qkv, ep, masks, g, num_heads, scale, rate,
                       seed):
-    """K4b: att recomputed by K2f's device code; the epilogue-backward
+    """K4b: att recomputed as K4f makes it; the epilogue-backward
     row-tile kernel (d_att in fp32, the LN1 residual gradient dr1, what the
     epilogue's weight gradients need, per-block LayerNorm partial sums);
-    the epilogue's dW, db and LayerNorm gradients summed in order; then
-    K2b's qkv pass on g = d_att and its chain with dxq += dr1."""
+    the LayerNorm gradients summed in order; then K2b's qkv pass on g =
+    d_att and its chain with dxq += dr1 and the epilogue's three dW, db.
+    bf16: the tensor-core bodies, dW in k4_dw_chunk row chunks (eight
+    launches); fp32: the CUDA-core bodies, dW in K2_DW_SPLITS chunks
+    (seven)."""
     B, Lq, L1, L2, d, dh, ff = _check_k4(xq, x1, x2, qkv, ep, masks,
                                          num_heads, g)
     _k4_smem_check("layer_stream_bwd", xq, Lq, L1, L2, dh, d, ff)
@@ -264,37 +342,48 @@ def _k4_backward_cuda(xq, x1, x2, qkv, ep, masks, g, num_heads, scale, rate,
                [ctypes.c_int, ctypes.POINTER(ctypes.c_void_p)]
                + [ctypes.c_void_p] * 4
                + [ctypes.POINTER(ctypes.c_void_p)] * 3
-               + [ctypes.c_void_p] + [ctypes.c_int] * 8 + [ctypes.c_float]
+               + [ctypes.c_void_p] + [ctypes.c_int] * 9 + [ctypes.c_float]
                + A._DROP_ARGS[:2] + [ctypes.c_float, ctypes.c_uint32,
                                      ctypes.c_void_p])
     mq, m1, m2 = A._masks_i32(*masks)
     dev, f32, T = xq.device, torch.float32, xq.dtype
+    mma = k4_body(T) == "mma"
     rows = B * Lq
-    nblk = (rows + K4_BWD_ROWS - 1) // K4_BWD_ROWS
-    # workspace: att (T), y1 (T), gact (T); d_att, dr1, dm, dh (rows, d),
-    # du (rows, ff) fp32; the LayerNorm partials (nblk, 4, d); the six fp32
-    # dq..dv of the attention backward
+    rows_per_block = K4_MMA_ROWS if mma else K4_BWD_ROWS
+    nblk = (rows + rows_per_block - 1) // rows_per_block
+    # workspace: att (T), y1 (T), gact (T); d_att (bf16: its hi and lo
+    # halves in the same bytes), dr1, dm, dh (rows, d), du (rows, ff) fp32;
+    # the LayerNorm partials (nblk, 4, d); the six fp32 dq..dv of the
+    # attention backward; bf16, K2's projection workspace
     work = [torch.empty(B, Lq, w, dtype=t, device=dev) for t, w in
             ((T, d), (T, d), (T, ff), (f32, d), (f32, d), (f32, d), (f32, d),
              (f32, ff))]
     work.append(torch.empty(nblk, 4, d, dtype=f32, device=dev))
     work += [torch.empty(B, L, d, dtype=f32, device=dev)
              for L in (Lq, Lq, L1, L2, L1, L2)]
+    if mma:
+        work += A.k2_workspace(xq, x1, x2)
     dx = [torch.empty_like(x) for x in (xq, x1, x2)]
     shapes = [(d, d)] * 6 + [(d,)] * 6 + [(d, d), (d,), (d,), (d,), (ff, d),
                                           (ff,), (d, ff), (d,), (d,), (d,)]
     grads = [torch.empty(s, dtype=f32, device=dev) for s in shapes]
     # the row-chunk partials of the nine dW, db
     splits = A.K2_DW_SPLITS
-    scratch = torch.empty(splits * (7 * (d * d + d) + 2 * d * ff + ff + d),
-                          dtype=f32, device=dev)
+    if mma:
+        chunk = k4_dw_chunk(B, Lq, L1, L2)
+        parts = sum(n * (o * i + o) for n, (o, i) in zip(
+            k4_dw_chunks(B, Lq, L1, L2, chunk), k4_dw_shapes(d, ff)))
+    else:
+        chunk = 0
+        parts = splits * (7 * (d * d + d) + 2 * d * ff + ff + d)
+    scratch = torch.empty(parts, dtype=f32, device=dev)
     rate, kdiv, seed = A._drop_args(rate, seed)
     with torch.cuda.device(dev):
         code = fn(A._DTYPE_CODE[T], A._ptrs((xq, x1, x2, *qkv, *ep)),
                   mq.data_ptr(), m1.data_ptr(), m2.data_ptr(), g.data_ptr(),
                   A._ptrs(work), A._ptrs(dx), A._ptrs(grads),
                   scratch.data_ptr(),
-                  B, Lq, L1, L2, d, num_heads, ff, splits,
+                  B, Lq, L1, L2, d, num_heads, ff, splits, chunk,
                   float(scale), rate, kdiv, _epi_div(rate, T), seed,
                   A._stream_ptr(dev))
     A._raise_on_cuda_error(code, "layer_stream_bwd")

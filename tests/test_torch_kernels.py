@@ -558,29 +558,10 @@ def test_k4_kernels_match_plain(cuda, shape, ff, dtype, rate):
     d; each launch counts once."""
     rng = np.random.default_rng(7)
     B, (Lq, L1, L2), d = 16, shape, H * DH
-    xs = _on(cuda, [rng.normal(size=(B, L, d)).astype(np.float32)
-                    for L in shape], dtype)
-    qkv = _on(cuda, _proj_params(rng, d), dtype)
-
-    def dense(n_out, n_in):  # nn.Linear layout (out, in) + bias
-        return _on(cuda, [
-            (rng.normal(size=(n_out, n_in)) / math.sqrt(n_in)).astype(
-                np.float32), (0.1 * rng.normal(size=n_out)).astype(np.float32)
-        ], dtype)
-
-    def ln():  # fp32 (scale, bias)
-        return _on(cuda, [(1 + 0.1 * rng.normal(size=d)).astype(np.float32),
-                          (0.1 * rng.normal(size=d)).astype(np.float32)])
-
-    ep = dense(d, d) + ln() + dense(ff, d) + dense(d, ff) + ln()
-    masks = _on(cuda, _masks_for(rng, B, *shape))
-    g = _on(cuda, [rng.normal(size=(B, Lq, d)).astype(np.float32)], dtype)[0]
+    xs, qkv, ep, masks, g = _k4_inputs(cuda, rng, B, shape, d, ff, dtype)
     leaves = [t.clone().requires_grad_() for t in xs + qkv + ep]
     before = dict(A.LAUNCHES)
-    out = K4.fused_layer_stream(
-        *leaves[:3], [(leaves[3 + i], leaves[4 + i]) for i in range(0, 12, 2)],
-        leaves[15:], *masks, num_heads=H, scale=SCALE, dropout_rate=rate,
-        seed=99, deterministic=rate == 0)
+    out = _k4_call(leaves, masks, H, rate)
     got = torch.autograd.grad(out, leaves, g)
     assert A.LAUNCHES["layer_stream"] == before["layer_stream"] + 1
     assert A.LAUNCHES["layer_stream_bwd"] == before["layer_stream_bwd"] + 1
@@ -590,3 +571,60 @@ def test_k4_kernels_match_plain(cuda, shape, ff, dtype, rate):
                                              rate, 99)], dtype)
     _rel_close(got, K4.layer_stream_bwd_plain(*xs, qkv, ep, *masks, g, H,
                                               SCALE, rate, 99), dtype)
+
+
+def _k4_inputs(dev, rng, B, shape, d, ff, dtype):
+    """xq, x1, x2; the twelve projection parameters; the ten epilogue ones
+    (nn.Linear layout, the LayerNorms' fp32); the masks; the upstream
+    gradient."""
+    xs = _on(dev, [rng.normal(size=(B, L, d)).astype(np.float32)
+                   for L in shape], dtype)
+    qkv = _on(dev, _proj_params(rng, d), dtype)
+
+    def dense(n_out, n_in):  # nn.Linear layout (out, in) + bias
+        return _on(dev, [
+            (rng.normal(size=(n_out, n_in)) / math.sqrt(n_in)).astype(
+                np.float32), (0.1 * rng.normal(size=n_out)).astype(np.float32)
+        ], dtype)
+
+    def ln():  # fp32 (scale, bias)
+        return _on(dev, [(1 + 0.1 * rng.normal(size=d)).astype(np.float32),
+                         (0.1 * rng.normal(size=d)).astype(np.float32)])
+
+    ep = dense(d, d) + ln() + dense(ff, d) + dense(d, ff) + ln()
+    masks = _on(dev, _masks_for(rng, B, *shape))
+    g = _on(dev, [rng.normal(size=(B, shape[0], d)).astype(np.float32)],
+            dtype)[0]
+    return xs, qkv, ep, masks, g
+
+
+def _k4_call(t, masks, heads, rate):
+    return K4.fused_layer_stream(
+        *t[:3], [(t[3 + i], t[4 + i]) for i in range(0, 12, 2)], t[15:],
+        *masks, num_heads=heads, scale=SCALE, dropout_rate=rate, seed=99,
+        deterministic=rate == 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.1], ids=["eval", "dropout"])
+@pytest.mark.parametrize("shape,heads", [(SHAPES[1], 8), (SHAPES[2], 4)])
+def test_k4_bf16_narrow_model_and_repeatable_grads(cuda, shape, heads,
+                                                   rate):
+    """bf16 K4's tensor-core bodies at d = 256 and 128, narrower than the
+    epilogue's 512 columns (the warps past d hold no column), 24 batch rows
+    (the last 64-row block part empty), against the plain versions; two
+    K4b calls give bit-equal gradients (dW, db and the LayerNorm gradients
+    are sums in ordered row chunks)."""
+    assert K4.k4_body(torch.bfloat16) == "mma"
+    rng = np.random.default_rng(11)
+    B, d, dtype = 24, heads * DH, torch.bfloat16
+    xs, qkv, ep, masks, g = _k4_inputs(cuda, rng, B, shape, d, d, dtype)
+    leaves = [t.clone().requires_grad_() for t in xs + qkv + ep]
+    out = _k4_call(leaves, masks, heads, rate)
+    got = torch.autograd.grad(out, leaves, g, retain_graph=True)
+    again = torch.autograd.grad(out, leaves, g)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    _rel_close([out], [K4.layer_stream_plain(*xs, qkv, ep, *masks, heads,
+                                             SCALE, rate, 99)], dtype)
+    _rel_close(got, K4.layer_stream_bwd_plain(*xs, qkv, ep, *masks, g,
+                                              heads, SCALE, rate, 99), dtype)
