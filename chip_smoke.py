@@ -8,8 +8,8 @@ Phases, each of which fails the run (non-zero exit) on any error:
   build          compile the CUDA kernels of core/csrc with nvcc for sm_90a
                  (seconds per library); count the HMMA instructions of the
                  libraries of K1f, K1b, K3f and K3b, and the TF32 ones
-                 among them, and the BF16 ones of K2f's, K2b's, K4f's and
-                 K4b's
+                 among them, and the BF16 ones of K2f's, K2b's, K4f's,
+                 K4b's, K5b's and K6b's
   kernels        each kernel (K1f, K1b, K2f, K2b, K7b, K3f, K3b, K5f, K5b,
                  K4f, K4b, K6f, K6b) against its plain PyTorch version on
                  the card, at the main paths' stream shapes, fp32 and bf16,
@@ -17,13 +17,15 @@ Phases, each of which fails the run (non-zero exit) on any error:
                  fp32 K1f also at head dim 128 (its CUDA-core body); fp32
                  K1b's and K3b's outputs on fixed inputs bit for bit those
                  of the tree that introduced their bodies (a SHA-256);
-                 bf16 K2b's and K4b's dW and db bit-equal across two calls;
-                 bf16 K4 on its tensor-core bodies and fp32 K4 on its
-                 CUDA-core ones (by the kernels' names in a profiler
-                 trace); times at
-                 B=1024 (K2f and K2b at the four stream shapes kernel by
-                 kernel by device time, dropout off and on; K4f and K4b at
-                 the four by device time; K6 in turns with K2; fp32 K1 at
+                 bf16 K2b's, K4b's, K5b's and K6b's dW and db bit-equal
+                 across two calls; bf16 K4, K5b and K6b on their
+                 tensor-core bodies and fp32 on their CUDA-core ones (by
+                 the kernels' names in a profiler trace); K3 on
+                 near-one-hot rows in 8 seeded draws of their own; times
+                 at B=1024 (K2f and K2b at the four stream shapes kernel
+                 by kernel by device time, dropout off and on; K4f and K4b
+                 at the four by device time; K6 in turns with K2 by device
+                 time; K5b by device time; fp32 K1 at
                  the four stream shapes and K3 at (40, 100) and (100, 40)
                  by their device time, the forwards with dropout off and
                  on, beside SDPA's)
@@ -103,11 +105,12 @@ K3_MAX_SHAPE = (128, 128)
 # HMMA instructions, and the TF32 ones among them, which each must hold
 MMA_LIBS = ("two_block_attention", "masked_attention",
             "masked_attention_bwd", "two_block_attention_bwd")
-# bf16 K2f and K2b, and K4f and K4b, run their projections, core, chain
-# (and epilogue) on bf16 mma.sync: their libraries must hold bf16 HMMA
-# instructions (HMMA.16816.F32.BF16)
+# bf16 K2f and K2b, K4f and K4b, K6b and K5b run their projections, core,
+# chain (and epilogue) on bf16 mma.sync: their libraries must hold bf16
+# HMMA instructions (HMMA.16816.F32.BF16)
 BF16_MMA_LIBS = ("proj_two_block_attention", "proj_two_block_attention_bwd",
-                 "layer_stream", "layer_stream_bwd")
+                 "layer_stream", "layer_stream_bwd",
+                 "proj_two_block_attention_v2_bwd", "dual_stream_attention_bwd")
 HBM_BYTES_PER_S = 3.35e12            # H100 SXM
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 # fp32 K1f, K1b, K3f and K3b run every product three times on the TF32
@@ -324,6 +327,7 @@ def phase_kernels():
                                                 seed)
 
     _k4_bodies(dev)
+    _k6_k5_bodies(dev)
     worst = {}
     for dt in (torch.float32, torch.bfloat16):
         for (Lq, L1, L2) in STREAM_SHAPES:
@@ -514,10 +518,7 @@ def phase_kernels():
     # writes dx, dW, db once.
     recompute = proj_flops + 2.0 * B * Lq * Lk * d
     core_flops = 7 * 2.0 * B * Lq * Lk * d
-    ops2b = (recompute + core_flops + 3 * 2 * proj_flops) \
-        / PEAK_FLOPS[torch.bfloat16]
-    bytes2b = (e * (2 * B * d * (Lq + L1 + L2) + B * Lq * d + 6 * (d * d + d))
-               + 4 * 6 * (d * d + d) + 4 * B * (Lq + L1 + L2))
+    bytes2b, ops2b = k2b_cost(B, Lq, L1, L2)
     _record("K2b", "proj_two_block_attention_bwd (K2b)",
             "proj_two_block_attention_bwd.cu", 808, timed["K2b"][0],
             timed["K2b"][1], plain2b, bytes2b, ops2b, None)
@@ -559,14 +560,10 @@ def phase_kernels():
     _k3_kernels(A, g, dev)
     _k5_kernels(A, g, dev)
     _k4_kernels(A, g, dev)
-    # K6 computes K2's function with the CUDA-core bodies' arithmetic: K2f's
-    # bound, and K2b's bytes with the recompute in bf16 and the core's and
-    # the chain's products with fp32 operands (67 TFLOP/s)
-    ops6b = (recompute / PEAK_FLOPS[torch.bfloat16]
-             + (2 * proj_flops + 8.0 * B * Lq * Lk * d)
-             / PEAK_FLOPS[torch.float32])
+    # K6 computes K2's function: K2f's bound, and K2b's, as bf16 K6b runs on
+    # K2b's bodies
     _k6_kernels(A, g, dev, (bytes2, flops2 / PEAK_FLOPS[torch.bfloat16]),
-                (bytes2b, ops6b))
+                (bytes2b, ops2b))
     digest = fp32_bwd_digest(A, dev)
     log(f"  fp32 K1b + K3b outputs, SHA-256: {digest}")
     if digest != FP32_BWD_SHA256:
@@ -717,9 +714,9 @@ def _k3_kernels(A, g, dev):
 
     worst = {}  # (kernel, dtype) -> largest error over the B=64 checks
     for dt in (torch.float32, torch.bfloat16):
-        # and the largest shape; logits of magnitude ~50 (near-one-hot rows)
-        cases = [(s, 1.0) for s in K3_SHAPES] + [(K3_MAX_SHAPE, 1.0),
-                                                 (K3_SHAPES[0], 50.0)]
+        # and the largest shape; near-one-hot rows below, in draws of their
+        # own
+        cases = [(s, 1.0) for s in K3_SHAPES] + [(K3_MAX_SHAPE, 1.0)]
         for (Lq, Lk), amp in cases:
             qkv, m = inputs(64, Lq, Lk, dt, amp)
             gq = torch.randn(64, Lq, H, Dh, generator=g, device=dev).to(dt)
@@ -744,6 +741,11 @@ def _k3_kernels(A, g, dev):
             log(f"  B=64 {str(dt)[6:]} {(Lq, Lk)} q x{amp:g}: K3f eval/drop "
                 f"{errs[0]:.2g}/{errs[2]:.2g}, K3b eval/drop "
                 f"{errs[1]:.2g}/{errs[3]:.2g}")
+        rows = k3_onehot(A, dev, dt)
+        for name in ("K3f", "K3b"):
+            worst[name, dt] = max(worst[name, dt],
+                                  max(r[name] for r in rows))
+        k3_onehot_hold(rows, dt)
     torch.cuda.synchronize()
 
     B = 1024
@@ -859,6 +861,105 @@ def _k3_kernels(A, g, dev):
                 f"{1e3 * max(bb / HBM_BYTES_PER_S, bo):.3f} ms")
 
 
+# near-one-hot rows: K3's q scaled by 50 (logits ~50) at (40, 100), B=64,
+# in ONEHOT_DRAWS draws of inputs, each from a generator of its own seeded
+# ONEHOT_SEED + i, so that no other check moves them. There the fp32 plain
+# version is itself ~7e-5 off the exact value (the logits' rounding, ~50 x
+# an fp32 ulp, grows through exp), so fp32 K3f is held against the function
+# in fp64 at TOL[float32]; bf16 K3f against its plain version at TOL[bf16].
+ONEHOT_AMP, ONEHOT_DRAWS, ONEHOT_SEED = 50.0, 32, 5000
+
+
+def _masked_f64(A, q, k, v, mask_q, mask_k, scale, rate, seed):
+    """K3f's function in fp64 (the plain version's order of operations):
+    the exact value both fp32 computations approximate."""
+    pair = A._pair_mask(mask_q, mask_k)
+    l = torch.einsum("bqhd,bkhd->bhqk", q.double(), k.double())
+    l = torch.where(pair, l, -10000.0)
+    if rate > 0:
+        B, Lq, H = q.shape[:3]
+        keep = A.dropout_keep(B, H, Lq, k.shape[1], seed, 0, rate, q.device,
+                              salt_stride=1)
+        l = torch.where(keep, l / (1.0 - rate), 0.0)
+    p = torch.softmax(l * scale, -1)
+    return torch.einsum("bhqk,bkhd->bqhd", p, v.double())
+
+
+def k3_onehot(A, dev, dt):
+    """K3f's and K3b's errors against their plain versions on near-one-hot
+    rows, dropout off and on, one row a (draw, rate): K3f's largest |err|
+    and whether every element is within TOL (`K3f ok`), K3b's largest error
+    relative to each gradient's largest value, and the largest |err| of
+    K3f and of the plain version against the function in fp64 (`K3f
+    exact`, `plain exact`) with whether every element of K3f is within TOL
+    of it (`K3f exact ok`). Holds nothing itself."""
+    (Lq, Lk), B, H, Dh = K3_SHAPES[0], 64, HEADS, D_MODEL // HEADS
+    scale = 1.0 / math.sqrt(Dh)
+    atol, rtol = TOL[dt]
+    rows = []
+    for i in range(ONEHOT_DRAWS):
+        g = torch.Generator(device=dev).manual_seed(ONEHOT_SEED + i)
+
+        def r(L, a=1.0):
+            return (a * torch.randn(B, L, H, Dh, generator=g, device=dev)
+                    ).to(dt)
+        qkv = (r(Lq, ONEHOT_AMP), r(Lk), r(Lk))
+        m = (_masks(g, B, Lq, dev), _masks(g, B, Lk, dev, False))
+        gq = r(Lq)
+        for rate, seed in ((0.0, 0), (DROP_RATE, 7654321)):
+            def k3(*t):
+                return A.fused_masked_attention(
+                    *t, *m, scale=scale, dropout_rate=rate, seed=seed,
+                    deterministic=rate == 0)
+            got = k3(*qkv).float()
+            want = A.masked_attention_plain(*qkv, *m, scale, rate,
+                                            seed).float()
+            exact = _masked_f64(A, *qkv, *m, scale, rate, seed)
+
+            def within(ref):
+                return bool(torch.isfinite(got).all() and not (
+                    (got - ref).abs() > atol + rtol * ref.abs()).any())
+            err = (got - want).abs()
+            gb = _grads(k3, qkv, gq)
+            wb = A.masked_attention_bwd_plain(*qkv, *m, gq, scale, rate, seed)
+            rel = max(((a.float() - b.float()).abs().max()
+                       / b.float().abs().max().clamp_min(1e-30)).item()
+                      for a, b in zip(gb, wb))
+            rows.append({"draw": i, "rate": rate, "K3f": err.max().item(),
+                         "K3f ok": within(want), "K3b": rel,
+                         "K3f exact": (got - exact).abs().max().item(),
+                         "K3f exact ok": within(exact),
+                         "plain exact": (want - exact).abs().max().item()})
+    return rows
+
+
+def k3_onehot_hold(rows, dt):
+    """Log the near-one-hot draws and their worst errors; fail where a draw
+    is past TOL (K3f: fp32 against the function in fp64, bf16 against the
+    plain version) or BWD_TOL (K3b)."""
+    tag = f"{str(dt)[6:]} {K3_SHAPES[0]} q x{ONEHOT_AMP:g}"
+    log(f"  B=64 {tag}, {len(rows) // 2} draws, dropout off and on: worst "
+        f"K3f {max(r['K3f'] for r in rows):.3g} against the plain version "
+        f"({sum(not r['K3f ok'] for r in rows)} of {len(rows)} past TOL), "
+        f"K3b {max(r['K3b'] for r in rows):.3g}; against fp64: K3f "
+        f"{max(r['K3f exact'] for r in rows):.3g} "
+        f"({sum(not r['K3f exact ok'] for r in rows)} past TOL), the plain "
+        f"version {max(r['plain exact'] for r in rows):.3g}")
+    fp32 = dt == torch.float32
+    for r in rows:
+        if not r["K3f exact ok" if fp32 else "K3f ok"]:
+            raise AssertionError(
+                f"K3f {tag} draw {r['draw']} rate {r['rate']}: kernel "
+                f"disagrees with " + ("the function in fp64" if fp32 else
+                                     "its plain version") + " (max |err| "
+                f"{r['K3f exact' if fp32 else 'K3f']:.3g}, tolerance "
+                f"{TOL[dt]})")
+        if r["K3b"] > BWD_TOL[dt]:
+            raise AssertionError(
+                f"K3b {tag} draw {r['draw']} rate {r['rate']}: max relative "
+                f"err {r['K3b']:.3g} > {BWD_TOL[dt]}")
+
+
 def _ms(x):
     return "not measured" if x is None else f"{x:.3f}"
 
@@ -895,6 +996,37 @@ def _pairs(ts):
 def _proj_flops(B, d, Lq, L1, L2):
     """The six projections of one K2-style stream (2Lq + 2L1 + 2L2 rows)."""
     return 2.0 * B * d * d * (2 * Lq + 2 * L1 + 2 * L2)
+
+
+def k2b_ops(B, Lq, L1, L2, d=D_MODEL):
+    """bf16 K2b's operations at one stream shape, as its bodies run them:
+    the recomputed projections and q k^T once; the core's dv = p^T g,
+    dq = dl k and dk = dl^T q with p and dl as bf16 hi + lo halves (two
+    products each), dp = g v^T once; dx and dW with dy in three bf16 parts
+    (three products each). All at the bf16 tensor-core rate."""
+    proj, qk = _proj_flops(B, d, Lq, L1, L2), 2.0 * B * Lq * (L1 + L2) * d
+    return proj + qk + 7 * qk + 3 * 2 * proj
+
+
+def k2b_cost(B, Lq, L1, L2, d=D_MODEL):
+    """bf16 K2b's bound at one stream shape: (bytes, seconds at the bf16
+    rate). Reads x, W and g once; writes dx, fp32 dW and db once."""
+    e = _elem(torch.bfloat16)
+    nbytes = (e * (2 * B * d * (Lq + L1 + L2) + B * Lq * d + 6 * (d * d + d))
+              + 4 * 6 * (d * d + d) + 4 * B * (Lq + L1 + L2))
+    return nbytes, k2b_ops(B, Lq, L1, L2, d) / PEAK_FLOPS[torch.bfloat16]
+
+
+def k5b_cost(B, Lv, Lu, d=D_MODEL):
+    """bf16 K5b's bound on one stream pair: (bytes, seconds at the bf16
+    rate): K2b's operations on the video stream (Lv, Lv, Lu) and the user
+    stream (Lu, Lv, Lu); xv, xu, gv, gu and the 12 projections read once,
+    dxv, dxu and the fp32 dW and db written once."""
+    e = _elem(torch.bfloat16)
+    rows, params = B * d * (Lv + Lu), 12 * (d * d + d)
+    nbytes = e * (3 * rows + params) + 4 * params + 4 * B * (Lv + Lu)
+    ops = k2b_ops(B, Lv, Lv, Lu, d) + k2b_ops(B, Lu, Lv, Lu, d)
+    return nbytes, ops / PEAK_FLOPS[torch.bfloat16]
 
 
 # K5 runs on backbone 1's stream pair: video 40 long, user 100 long
@@ -968,9 +1100,18 @@ def _k5_kernels(A, g, dev):
     out = k5(leaves, m)
     got = torch.autograd.grad(out, leaves, gs, retain_graph=True)
     err_b = _rel_err("K5b B=1024", got, plain_bwd(t, m, gs), BWD_TOL[dt])
-    del got
-    ms_b = _time_ms(lambda: torch.autograd.grad(out, leaves, gs,
-                                                retain_graph=True), 5)
+
+    def k5b():
+        return torch.autograd.grad(out, leaves, gs, retain_graph=True)
+    # dW and db are summed in row chunks added in order: a second call
+    # gives the same bits
+    again = k5b()
+    if not all(torch.equal(a, b) for a, b in zip(got[2:], again[2:])):
+        raise AssertionError("K5b: dW or db differ between two calls")
+    log("  K5b B=1024: dW and db bit-equal across two calls")
+    del got, again
+    dev_b = _device_ms(k5b, 5, K5_NAMES)
+    ms_b = dev_b or _time_ms(k5b, 5)
     plain_b = _time_ms(lambda: plain_bwd(t, m, gs), 2)
     e = _elem(dt)
     # the two streams: video (Lv, Lv, Lu), user (Lu, Lv, Lu)
@@ -980,19 +1121,18 @@ def _k5_kernels(A, g, dev):
     rows, masks = B * d * (Lv + Lu), 4 * B * (Lv + Lu)
     params = 12 * (d * d + d)
     bytes_f = e * (2 * rows + params) + masks
-    bytes_b = e * (3 * rows + params) + 4 * params + masks
     _record("K5", "dual_stream_attention_fwd (K5f)",
             "dual_stream_attention.cu", 68,
             max(worst["K5f"], err_f), ms_f, plain_f, bytes_f,
             (proj + core_f) / PEAK_FLOPS[dt], None, "dual_kernel.py")
+    # bf16 K5b runs on K2b's bodies: K2b's pricing on both streams
     _record("K5b", "dual_stream_attention_bwd (K5b)",
             "dual_stream_attention_bwd.cu", 104, max(worst["K5b"], err_b),
-            ms_b, plain_b, bytes_b, (proj + core_f / 2) / PEAK_FLOPS[dt]
-            + (2 * proj + 2 * core_f) / PEAK_FLOPS[torch.float32], None,
-            "dual_kernel.py")
+            ms_b, plain_b, *k5b_cost(B, Lv, Lu), None, "dual_kernel.py")
     log(f"  K5 bf16 B=1024 {DUAL_SHAPE}: K5f {ms_f:.3f} ms (plain "
-        f"{plain_f:.3f}), K5b {ms_b:.3f} ms (plain {plain_b:.3f}); max err "
-        f"K5f {err_f:.3g}, K5b {err_b:.3g}")
+        f"{plain_f:.3f}), K5b {ms_b:.3f} ms (device {_ms(dev_b)}; plain "
+        f"{plain_b:.3f}; bound {RESULT['kernels']['K5b']['bound_ms']:.3f}); "
+        f"max err K5f {err_f:.3g}, K5b {err_b:.3g}")
     del t, m, gs, leaves, out
     torch.cuda.empty_cache()
 
@@ -1057,6 +1197,61 @@ def _k4_bodies(dev):
                                  f"{names[:600]} (missing {missing})")
         log(f"  K4 {str(dt)[6:]}: {K4.k4_body(dt)} body, kernels "
             f"{', '.join(want)}")
+
+
+def _k6_k5_bodies(dev):
+    """Which bodies K6b and K5b ran, by the kernels' names in a profiler
+    trace of their backward alone: bf16 K2b's tensor-core ones (k6_body /
+    k5_body "mma"; K5b's two cores in dual_stream_core_bwd_kernel), fp32
+    their first CUDA-core ones. A generator of its own, as
+    _k4_bodies."""
+    from segmminterest_tpu_torch.core import attention as A
+    from segmminterest_tpu_torch.core import dual_kernel as K5
+    H, d = HEADS, D_MODEL
+    scale = 1.0 / math.sqrt(d // H)
+    g = torch.Generator(device=dev).manual_seed(2)
+    mma = ("qkv_gemm", "chain_dx", "chain_dw")
+    for dt in (torch.bfloat16, torch.float32):
+        bf16 = dt == torch.bfloat16
+        x, ws, m = _k2_inputs(g, 64, *STREAM_SHAPES[0], dt, dev)
+        leaves = [t.detach().requires_grad_() for t in tuple(x) + tuple(ws)]
+        out = A.fused_proj_two_block_attention(
+            *leaves, *m, num_heads=H, scale=scale, dropout_rate=DROP_RATE,
+            seed=3, deterministic=False, version=2)
+        gx = torch.randn_like(out)
+        k6 = " ".join(_device_kernels(lambda: torch.autograd.grad(
+            out, leaves, gx, retain_graph=True), 2))
+        Lv, Lu = DUAL_SHAPE
+        xs = [torch.randn(64, L, d, generator=g, device=dev).to(dt)
+              for L in (Lv, Lu)]
+        leaves = [t.detach().requires_grad_()
+                  for t in xs + _proj_weights(g, d, 12, dt, dev)]
+        mv, mu = _masks(g, 64, Lv, dev, False), _masks(g, 64, Lu, dev)
+        outs = K5.fused_dual_stream_attention(
+            leaves[0], leaves[1], _pairs(leaves[2:14]), _pairs(leaves[14:]),
+            mv, mu, num_heads=H, scale=scale, dropout_rate=DROP_RATE, seed=3,
+            deterministic=False)
+        gs = [torch.randn_like(o) for o in outs]
+        k5 = " ".join(_device_kernels(lambda: torch.autograd.grad(
+            outs, leaves, gs, retain_graph=True), 2))
+        for name, names, body, want, refuse in (
+                ("K6b", k6, A.k6_body(dt),
+                 mma + ("proj_two_block_core_bwd",) if bf16
+                 else ("proj_v2_qkv_bwd", "dx_kernel", "dw_kernel"),
+                 ("proj_v2_qkv_bwd",) if bf16 else mma + ("core_bwd",)),
+                ("K5b", k5, K5.k5_body(dt),
+                 mma + ("dual_stream_core_bwd",) if bf16
+                 else ("dual_stream_qkv_bwd", "dx_kernel", "dw_kernel"),
+                 ("dual_stream_qkv_bwd",) if bf16
+                 else mma + ("core_bwd",))):
+            missing = [n for n in want if n not in names]
+            if missing or any(n in names for n in refuse) or \
+                    body != ("mma" if bf16 else "cuda_core"):
+                raise AssertionError(f"{name} {dt}: body {body}, kernels "
+                                     f"{names[:600]} (missing {missing})")
+            log(f"  {name} {str(dt)[6:]}: {body} body, kernels "
+                f"{', '.join(want)}")
+        del out, outs, leaves, x, ws, xs
 
 
 def _k4_kernels(A, g, dev):
@@ -1274,22 +1469,42 @@ def _k6_kernels(A, g, dev, cost_f, cost_b):
         leaves = [t.detach().requires_grad_() for t in tuple(x) + tuple(ws)]
         outs = {v: attn(leaves[:3], leaves[3:], m, v) for v in (1, 2)}
         ms = {}
+        # by device time (the kernels' rows of a profiler trace; CUDA
+        # events where the trace holds none), in turns: K2, K6, K6, K2
         for v in (1, 2, 2, 1):
-            f = _time_ms(lambda: attn(x, ws, m, v), 10 if i == 0 else 5)
-            b = _time_ms(lambda: torch.autograd.grad(
-                outs[v], leaves, gx, retain_graph=True), 5 if i == 0 else 3)
+            names = K2_NAMES if v == 1 else K6_NAMES
+
+            def fwd():
+                return attn(x, ws, m, v)
+
+            def bwd():
+                return torch.autograd.grad(outs[v], leaves, gx,
+                                           retain_graph=True)
+            f = _device_ms(fwd, 10 if i == 0 else 5, names) \
+                or _time_ms(fwd, 10 if i == 0 else 5)
+            b = _device_ms(bwd, 5 if i == 0 else 3, names) \
+                or _time_ms(bwd, 5 if i == 0 else 3)
             ms.setdefault(v, []).append((f, b))
         (k2f, k2b), (k6f, k6b) = (
             tuple(sum(t[j] for t in ms[v]) / 2 for j in (0, 1)) for v in (1, 2))
-        log(f"  B=1024 bf16 {shape}: K6f {k6f:.3f} ms, K6b {k6b:.3f} ms; K2f "
-            f"{k2f:.3f}, K2b {k2b:.3f} (same inputs, in turns)")
+        bound = 1e3 * max(k2b_cost(B, *shape)[0] / HBM_BYTES_PER_S,
+                          k2b_cost(B, *shape)[1])
+        log(f"  B=1024 bf16 {shape}, device ms: K6f {k6f:.3f}, K6b "
+            f"{k6b:.3f} (bound {bound:.3f}); K2f {k2f:.3f}, K2b {k2b:.3f} "
+            "(same inputs, in turns)")
         if i:
             continue
         err_f = _check("K6f B=1024", outs[2], plain(x, ws, m), dt)
         got = torch.autograd.grad(outs[2], leaves, gx, retain_graph=True)
         err_b = _rel_err("K6b B=1024", got, plain_bwd(x, ws, m, gx),
                          BWD_TOL[dt])
-        del got
+        # dW and db are summed in row chunks added in order: a second call
+        # gives the same bits
+        again = torch.autograd.grad(outs[2], leaves, gx, retain_graph=True)
+        if not all(torch.equal(a, b) for a, b in zip(got[3:], again[3:])):
+            raise AssertionError("K6b: dW or db differ between two calls")
+        log("  K6b B=1024: dW and db bit-equal across two calls")
+        del got, again
         plain_f = _time_ms(lambda: plain(x, ws, m), 5)
         plain_b = _time_ms(lambda: plain_bwd(x, ws, m, gx), 3)
         _record("K6", "proj_two_block_attention_v2_fwd (K6f)",
@@ -1385,6 +1600,9 @@ def _cli_files(ctx):
     return memmap, lineid_path
 
 
+SERVING_CALLS = 25      # calls in the one timed window of each batch size
+
+
 def phase_serving(ctx):
     from segmminterest_tpu_torch.core import attention as A
     from segmminterest_tpu_torch.data.dataset import BatchIterator
@@ -1437,13 +1655,16 @@ def phase_serving(ctx):
         f"{1e3 * wall / n_batches:.1f} ms per batch (host pipeline included,"
         f" iterator set-up excluded); launches {launches}")
 
-    # device latency per batch size (a full batch already on the card)
+    # device latency per batch size (a full batch already on the card):
+    # the mean of all calls in one window of SERVING_CALLS, host stalls
+    # included (batches of 256 and fewer wait on the host)
     for bs in (1024, 512, 256, 128):
         batch = next(iter(BatchIterator(
             reader, reader.tables["train"], bs, feature_store=store,
             seed=cfg.seed, prefetch_size=0)))
         dev_batch = {"_dev": engine.put_batch(batch)}
-        ms = _time_ms(lambda: engine.eval_step(state, dev_batch), 5)
+        ms = _time_ms(lambda: engine.eval_step(state, dev_batch),
+                      SERVING_CALLS)
         log(f"  latency B={bs}: {ms:.1f} ms per batch "
             f"({1e3 * bs / ms:.1f} interactions/s)")
 
@@ -1565,6 +1786,12 @@ K2_NAMES = ("proj_two_block", "qkv_gemm", "dx_kernel", "dw_kernel",
 # bf16 (layer_epilogue_*_mma_kernel) and fp32 (layer_epilogue_*_kernel),
 # with ln_partial_sum_kernel
 K4_NAMES = K2_NAMES + ("layer_epilogue", "ln_partial_sum")
+# K5b (bf16: qkv_gemm_kernel, dual_stream_core_bwd_kernel, chain_dx_kernel,
+# chain_dw_kernel, chain_dw_reduce_kernel; fp32: dual_stream_qkv_bwd_kernel,
+# dx_kernel, dw_kernel, dw_reduce_kernel) and K6 (K6f: proj_v2_fwd_kernel;
+# bf16 K6b K2b's kernels, fp32 K6b proj_v2_qkv_bwd_kernel and the chain's)
+K5_NAMES = K2_NAMES + ("dual_stream",)
+K6_NAMES = K2_NAMES + ("proj_v2",)
 # K1f and K1b (fp32: two_block_bwd_tf32_kernel, bf16: two_block_bwd_kernel)
 K1_NAMES = ("two_block_fwd", "two_block_bwd")
 # K3f and K3b, fp32 (masked_*_tf32_kernel) and bf16 (masked_*_mma_kernel)

@@ -39,11 +39,23 @@ builds that package's kernels under DIR/build, and prints one JSON line:
     time: the whole call and each of its kernels, each with its error
     against the plain version, and whether two K4b calls give bit-equal dW
     and db;
+  * K6b and K5b (`k6_bf16`, `k5_bf16`: SEGMM_ATTN_V2's backward at the
+    four stream shapes, fuse_dual's on backbone 1's stream pair) in bf16
+    at B=1024, dropout off and on, by device time: the whole call and each
+    of its kernels, with K6f / K5f beside them, each with its error against
+    the plain version, whether two calls give bit-equal dW and db, and the
+    bound of chip_smoke.py's pricing;
+  * the bodies no other part times (`untimed`): bf16 K1f and K1b, fp32
+    K2f and K2b, fp32 K4f and K4b at B=1024 at the four stream shapes,
+    dropout off, by device time, beside their bounds;
   * the main path end to end (`e2e`): production training, fuse_dual,
     SEGMM_ATTN_V2 and fuse_layer at B=1024 (ms and device ms per step,
     peak memory), the serving preset (device latency at B = 1024 / 512 /
     256 / 128, interactions/s over the test split) and fuse_layer served
     (device latency at B=1024);
+  * fp32 and bf16 K3f and K3b on near-one-hot rows (`k3_onehot`: q x 50
+    at (40, 100), B=64, ONEHOT_DRAWS seeded draws, dropout off and on),
+    every draw's error against the plain version;
   * the card's name and power limit (nvidia-smi).
 `--parts` picks some of these (default: all).
 To compare two checkouts, run it on each in turns in one call on one card:
@@ -67,8 +79,9 @@ import torch
 import chip_smoke as C
 
 K3_SHAPES = ((40, 100), (100, 40))
-PARTS = ("k2_bf16", "k4_bf16", "e2e", "k3_bf16", "fp32_fwd", "fp32_bwd",
-         "fp32_bwd_sha256", "served")
+PARTS = ("k2_bf16", "k4_bf16", "k6_bf16", "k5_bf16", "e2e", "k3_bf16",
+         "fp32_fwd", "fp32_bwd", "fp32_bwd_sha256", "served", "k3_onehot",
+         "untimed")
 B = 1024
 SEED = 1234567
 
@@ -283,6 +296,202 @@ def _k4_bf16(g, dev):
         out[f"{Lq}x{L1}x{L2}"] = row
         del t, m, gx
         torch.cuda.empty_cache()
+    return out
+
+
+def _grad_calls(fwd, leaves, gs):
+    """The output of fwd(leaves) and a function that runs its backward
+    once more."""
+    out = fwd(leaves)
+
+    def bwd():
+        return torch.autograd.grad(out, leaves, gs, retain_graph=True)
+    return out, bwd
+
+
+def _k6_bf16(A, g, dev):
+    """K6f and K6b (version=2) in bf16 at B=1024, by device time per
+    kernel."""
+    H, d = C.HEADS, C.D_MODEL
+    scale = 1.0 / math.sqrt(d // H)
+    out = {}
+    for (Lq, L1, L2) in C.STREAM_SHAPES:
+        x, ws, m = C._k2_inputs(g, B, Lq, L1, L2, torch.bfloat16, dev)
+        gx = torch.randn(B, Lq, d, generator=g, device=dev).to(torch.bfloat16)
+        row = dict(bound_k6b_ms=1e3 * max(
+            C.k2b_cost(B, Lq, L1, L2)[0] / C.HBM_BYTES_PER_S,
+            C.k2b_cost(B, Lq, L1, L2)[1]))
+        for rate in (0.0, C.DROP_RATE):
+            def fwd(t, rate=rate):
+                return A.fused_proj_two_block_attention(
+                    *t, *m, num_heads=H, scale=scale, dropout_rate=rate,
+                    seed=SEED, deterministic=rate == 0, version=2)
+            t = tuple(x) + tuple(ws)
+            kf = _breakdown(lambda: fwd(t), 10)
+            leaves = [a.detach().requires_grad_() for a in t]
+            o, bwd = _grad_calls(fwd, leaves, gx)
+            kb = _breakdown(bwd, 5)
+            kb_events = C._time_ms(bwd, 5)
+            first, second = bwd(), bwd()
+            same = all(torch.equal(a, b) for a, b in zip(first[3:],
+                                                         second[3:]))
+            err_b = _rel(first, A.proj_two_block_attention_v2_bwd_plain(
+                *x, *ws, *m, gx, H, scale, rate, SEED))
+            del first, second, o, leaves
+
+            def ours(rows):
+                return sum(v for k, v in rows.items()
+                           if any(n in k for n in C.K6_NAMES))
+            tag = f"rate {rate}"
+            row[tag] = dict(k6f_ms=ours(kf), k6f_kernels=kf,
+                            k6b_ms=ours(kb), k6b_events_ms=kb_events,
+                            k6b_kernels=kb, k6b_err=err_b,
+                            k6b_dw_db_bit_equal=same)
+            print(f"  K6 {(Lq, L1, L2)} {tag}: K6f {C._ms(ours(kf))} ms, "
+                  f"K6b {C._ms(ours(kb))} ms (events {kb_events:.3f}; err "
+                  f"{err_b:.2g}, dW/db bit-equal {same}; bound "
+                  f"{row['bound_k6b_ms']:.3f}); K6b {kb}", flush=True)
+        out[f"{Lq}x{L1}x{L2}"] = row
+        del x, ws, m, gx
+        torch.cuda.empty_cache()
+    return out
+
+
+def _k5_bf16(g, dev):
+    """K5f and K5b in bf16 at B=1024 on backbone 1's stream pair, by device
+    time per kernel."""
+    from segmminterest_tpu_torch.core import dual_kernel as K5
+    H, d = C.HEADS, C.D_MODEL
+    scale = 1.0 / math.sqrt(d // H)
+    Lv, Lu = C.DUAL_SHAPE
+    xs = [torch.randn(B, L, d, generator=g, device=dev).to(torch.bfloat16)
+          for L in (Lv, Lu)]
+    ws = C._proj_weights(g, d, 12, torch.bfloat16, dev)
+    mv, mu = C._masks(g, B, Lv, dev, False), C._masks(g, B, Lu, dev)
+    gs = [torch.randn(B, L, d, generator=g, device=dev).to(torch.bfloat16)
+          for L in (Lv, Lu)]
+    out = dict(bound_k5b_ms=1e3 * max(
+        C.k5b_cost(B, Lv, Lu)[0] / C.HBM_BYTES_PER_S,
+        C.k5b_cost(B, Lv, Lu)[1]))
+    for rate in (0.0, C.DROP_RATE):
+        def fwd(t, rate=rate):
+            return K5.fused_dual_stream_attention(
+                t[0], t[1], C._pairs(t[2:14]), C._pairs(t[14:]), mv, mu,
+                num_heads=H, scale=scale, dropout_rate=rate, seed=SEED,
+                deterministic=rate == 0)
+        t = xs + ws
+        kf = _breakdown(lambda: fwd(t), 10)
+        leaves = [a.detach().requires_grad_() for a in t]
+        o, bwd = _grad_calls(fwd, leaves, gs)
+        kb = _breakdown(bwd, 5)
+        kb_events = C._time_ms(bwd, 5)
+        first, second = bwd(), bwd()
+        same = all(torch.equal(a, b) for a, b in zip(first[2:], second[2:]))
+        err_b = _rel(first, K5.dual_stream_attention_bwd_plain(
+            *xs, ws[:12], ws[12:], mv, mu, *gs, H, scale, rate, SEED))
+        del first, second, o, leaves
+
+        def ours(rows):
+            return sum(v for k, v in rows.items()
+                       if any(n in k for n in C.K5_NAMES))
+        tag = f"rate {rate}"
+        out[tag] = dict(k5f_ms=ours(kf), k5f_kernels=kf, k5b_ms=ours(kb),
+                        k5b_events_ms=kb_events, k5b_kernels=kb,
+                        k5b_err=err_b, k5b_dw_db_bit_equal=same)
+        print(f"  K5 {C.DUAL_SHAPE} {tag}: K5f {C._ms(ours(kf))} ms, K5b "
+              f"{C._ms(ours(kb))} ms (events {kb_events:.3f}; err "
+              f"{err_b:.2g}, dW/db bit-equal {same}; bound "
+              f"{out['bound_k5b_ms']:.3f}); K5b {kb}", flush=True)
+    return out
+
+
+def _untimed(A, g, dev):
+    """bf16 K1f and K1b, fp32 K2f and K2b, fp32 K4f and K4b at B=1024 at
+    the four stream shapes, dropout off, by device time, beside their
+    bounds: bytes read and written once over the memory rate, operations
+    over the rate of the bodies' type (bf16 989 TFLOP/s; fp32 products at
+    the 3xTF32 rate, 495 / 3, the fastest fp32-accurate products the port
+    runs)."""
+    from segmminterest_tpu_torch.core import layer_kernel as K4
+    H, d = C.HEADS, C.D_MODEL
+    Dh = d // H
+    scale = 1.0 / math.sqrt(Dh)
+    f32, bf = torch.float32, torch.bfloat16
+    out = {}
+
+    def bound(nbytes, ops, rate):
+        return 1e3 * max(nbytes / C.HBM_BYTES_PER_S, ops / rate)
+
+    for (Lq, L1, L2) in C.STREAM_SHAPES:
+        row, Lk = {}, L1 + L2
+        masks = 4 * B * (Lq + L1 + L2)
+        # bf16 K1: q1 q2 k1 k2 v1 v2 (and g) read, out (dq..dv) written
+        qkv, m = C._k1_inputs(g, B, Lq, L1, L2, bf, dev)
+        gq = torch.randn(B, Lq, H, Dh, generator=g, device=dev).to(bf)
+        e, elems = 2, B * H * Dh
+        row["k1f_bf16_ms"] = C._device_ms(lambda: A.fused_two_block_attention(
+            *qkv, *m, scale=scale), 10, C.K1_NAMES)
+        leaves = [t.detach().requires_grad_() for t in qkv]
+        o = A.fused_two_block_attention(*leaves, *m, scale=scale)
+        row["k1b_bf16_ms"] = C._device_ms(lambda: torch.autograd.grad(
+            o, leaves, gq, retain_graph=True), 5, C.K1_NAMES)
+        row["k1f_bf16_bound_ms"] = bound(
+            e * elems * (3 * Lq + 2 * Lk) + masks, 4.0 * elems * Lq * Lk,
+            C.PEAK_FLOPS[bf])
+        row["k1b_bf16_bound_ms"] = bound(
+            e * elems * (5 * Lq + 4 * Lk) + masks, 10.0 * elems * Lq * Lk,
+            C.PEAK_FLOPS[bf])
+        del qkv, leaves, o, gq
+        # fp32 K2: x, W (and g) read; out (dx, dW, db) written; the
+        # projections, q k^T, p v forward; the recompute, the core's four
+        # products and the chain's two backward
+        x, ws, m = C._k2_inputs(g, B, Lq, L1, L2, f32, dev)
+        gx = torch.randn(B, Lq, d, generator=g, device=dev)
+        proj, qk = C._proj_flops(B, d, Lq, L1, L2), 2.0 * B * Lq * Lk * d
+        params = 4 * 6 * (d * d + d)
+        row["k2f_fp32_ms"] = C._device_ms(
+            lambda: A.fused_proj_two_block_attention(
+                *x, *ws, *m, num_heads=H, scale=scale), 5, C.K2_NAMES)
+        leaves = [t.detach().requires_grad_() for t in tuple(x) + tuple(ws)]
+        o = A.fused_proj_two_block_attention(*leaves, *m, num_heads=H,
+                                             scale=scale)
+        row["k2b_fp32_ms"] = C._device_ms(lambda: torch.autograd.grad(
+            o, leaves, gx, retain_graph=True), 3, C.K2_NAMES)
+        row["k2f_fp32_bound_ms"] = bound(
+            4 * B * d * (2 * Lq + L1 + L2) + params + masks, proj + 2 * qk,
+            C.TF32X3_FLOPS)
+        row["k2b_fp32_bound_ms"] = bound(
+            4 * B * d * (3 * Lq + 2 * L1 + 2 * L2) + 2 * params + masks,
+            proj + 5 * qk + 2 * proj, C.TF32X3_FLOPS)
+        del x, ws, leaves, o, gx
+        # fp32 K4: K2's work plus the epilogue's three Denses (ff = d)
+        # forward; backward the attention recomputed (projections, q k^T,
+        # p v), the core's four products, the chain's two, the Denses'
+        # recompute, dgrad and dW
+        t, m = C._k4_inputs(g, B, Lq, L1, L2, f32, dev)
+        gx = torch.randn(B, Lq, d, generator=g, device=dev)
+
+        def k4(a):
+            return K4.fused_layer_stream(*a[:3], C._pairs(a[3:15]), a[15:25],
+                                         *m, num_heads=H, scale=scale)
+        epi = 3 * 2.0 * B * Lq * d * d
+        ep_params = 4 * (3 * (d * d + d) + 4 * d)
+        row["k4f_fp32_ms"] = C._device_ms(lambda: k4(t), 5, C.K4_NAMES)
+        leaves = [a.detach().requires_grad_() for a in t]
+        o = k4(leaves)
+        row["k4b_fp32_ms"] = C._device_ms(lambda: torch.autograd.grad(
+            o, leaves, gx, retain_graph=True), 3, C.K4_NAMES)
+        row["k4f_fp32_bound_ms"] = bound(
+            4 * B * d * (2 * Lq + L1 + L2) + params + ep_params + masks,
+            proj + 2 * qk + epi, C.TF32X3_FLOPS)
+        row["k4b_fp32_bound_ms"] = bound(
+            4 * B * d * (3 * Lq + 2 * L1 + 2 * L2) + 2 * (params + ep_params)
+            + masks, proj + 6 * qk + 2 * proj + 3 * epi, C.TF32X3_FLOPS)
+        del t, leaves, o, gx
+        torch.cuda.empty_cache()
+        out[f"{Lq}x{L1}x{L2}"] = row
+        print(f"  untimed {(Lq, L1, L2)}: " + ", ".join(
+            f"{k} {C._ms(v)}" for k, v in row.items()), flush=True)
     return out
 
 
@@ -522,6 +731,28 @@ def _served(dev):
     return out
 
 
+def _k3_onehot(A, dev):
+    """fp32 and bf16 K3f and K3b on chip_smoke.k3_onehot's near-one-hot
+    rows over its ONEHOT_DRAWS draws: every draw's errors and the worst."""
+    out = {}
+    for dt in (torch.float32, torch.bfloat16):
+        rows = C.k3_onehot(A, dev, dt)
+        r = out[str(dt)[6:]] = dict(
+            rows=rows, worst_k3f=max(r["K3f"] for r in rows),
+            worst_k3b=max(r["K3b"] for r in rows),
+            all_k3f_ok=all(r["K3f ok"] for r in rows),
+            all_k3f_exact_ok=all(r["K3f exact ok"] for r in rows),
+            worst_k3f_exact=max(r["K3f exact"] for r in rows),
+            worst_plain_exact=max(r["plain exact"] for r in rows))
+        print(f"  K3 near-one-hot {str(dt)[6:]}: worst K3f "
+              f"{r['worst_k3f']:.3g} (all within TOL {r['all_k3f_ok']}), "
+              f"worst K3b {r['worst_k3b']:.3g}; against fp64 K3f "
+              f"{r['worst_k3f_exact']:.3g} (all within TOL "
+              f"{r['all_k3f_exact_ok']}), plain "
+              f"{r['worst_plain_exact']:.3g}", flush=True)
+    return out
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--root", default=C.ROOT,
@@ -543,12 +774,16 @@ def main(argv=None):
     parts = {
         "k2_bf16": lambda: _k2_bf16(A, g, dev, root),
         "k4_bf16": lambda: _k4_bf16(g, dev),
+        "k6_bf16": lambda: _k6_bf16(A, g, dev),
+        "k5_bf16": lambda: _k5_bf16(g, dev),
+        "untimed": lambda: _untimed(A, g, dev),
         "e2e": lambda: _e2e(A),
         "k3_bf16": lambda: _k3_bf16(A, g, dev),
         "fp32_fwd": lambda: _fp32_fwd(A, g, dev),
         "fp32_bwd": lambda: _fp32_bwd(A, g, dev),
         "fp32_bwd_sha256": lambda: C.fp32_bwd_digest(A, dev),
-        "served": lambda: _served(dev)}
+        "served": lambda: _served(dev),
+        "k3_onehot": lambda: _k3_onehot(A, dev)}
     res = dict(root=root)
     for name in args.parts.split(","):
         if name not in parts:

@@ -46,7 +46,9 @@ Lk = L1 + L2 rows ([k1_h | 0] then [0 | k2_h]); one contraction, one fill,
 one dropout mask over (query, concatenated key) with salt h (K3's form),
 one softmax, one PV over Lk. The backward's weight gradients come out for
 the interleaved weights and are de-interleaved. The function is K2's; the
-mask bits and the order of the sums are not.
+mask bits and the order of the sums are not. So bf16 K6b runs K2b's
+bodies on the (d, d) weights as they are, its core hashing each key on the
+concatenated axis with salt h (``k6_body``).
 
 Each wrapper launches its CUDA kernel (``core/csrc``) for CUDA tensors and
 runs the plain version only for CPU tensors; there is no fall-back from one
@@ -241,13 +243,15 @@ def two_block_attention_plain(q1, q2, k1, k2, v1, v2, mask_q, mask_k1,
 
 
 def _joint_bwd_plain(q1, q2, k1, k2, v1, v2, mask_q, mask_k1, mask_k2, g,
-                     scale, rate, seed, head_offset=0):
+                     scale, rate, seed, head_offset=0, keeps=None):
     """The joint-softmax backward of ``_attn_group_bwd`` (attention.py:
-    448-524) on (B, L, H, D) tensors; fp32 dq1, dq2, dk1, dk2, dv1, dv2."""
+    448-524) on (B, L, H, D) tensors; fp32 dq1, dq2, dk1, dk2, dv1, dv2.
+    ``keeps``: both blocks' keep-masks in place of K2's (K6's, drawn over
+    the concatenated keys, when K6b runs on K2b's core)."""
     pair1 = _pair_mask(mask_q, mask_k1)
     pair2 = _pair_mask(mask_q, mask_k2)
-    keep1, keep2 = _keeps(q1, k1.shape[1], k2.shape[1], rate, seed,
-                          head_offset)
+    keep1, keep2 = keeps if keeps is not None else _keeps(
+        q1, k1.shape[1], k2.shape[1], rate, seed, head_offset)
     p1, p2 = _joint_probs(_logits(q1, k1), _logits(q2, k2), pair1, pair2,
                           scale, keep1, keep2, keep_divisor(rate))
     gf = g.float()
@@ -899,6 +903,15 @@ def _k2_backward_cuda(xq, x1, x2, ws, masks, g, num_heads, scale, rate,
     return tuple(grads)
 
 
+def k6_body(dtype) -> str:
+    """Which body K6b runs: ``"mma"`` for bf16 (K2b's projection GEMM, its
+    core with K6's dropout keys and its three-part chain, on the (d, d)
+    weights in K2's layout), ``"cuda_core"`` for fp32 (the first per-(head,
+    batch row) qkv pass over the interleaved weights and the CUDA-core
+    chain). By dtype, never on a failure. K6f keeps its first bodies."""
+    return "mma" if dtype == torch.bfloat16 else "cuda_core"
+
+
 def _k6_params(ws, num_heads):
     """The kernel's ten parameters: the interleaved Wq_c, bq_c, Wk1_c,
     bk1_c, Wk2_c, bk2_c, then wv1, bv1, wv2, bv2."""
@@ -931,15 +944,20 @@ def _k6_forward_cuda(xq, x1, x2, ws, masks, num_heads, scale, rate, seed):
 
 def _k6_backward_cuda(xq, x1, x2, ws, masks, g, num_heads, scale, rate,
                       seed):
-    """K6b: the qkv pass per (head, batch row) into fp32 dq_c (B, Lq, 2d)
-    and the nonzero halves of dk and dv per block, then dx and dW, db
-    through chain_gemm.cuh in K2_DW_SPLITS row chunks; dW and db of Wq_c
-    come out (2d, d) and are de-interleaved here."""
+    """K6b. bf16 (``k6_body``): K2b's five launches on the weights as they
+    are, K6's dropout keys in the core; the gradients in K2's layout. fp32:
+    the qkv pass per (head, batch row) into fp32 dq_c (B, Lq, 2d) and the
+    nonzero halves of dk and dv per block, then dx and dW, db through
+    chain_gemm.cuh in K2_DW_SPLITS row chunks; dW and db of Wq_c come out
+    (2d, d) and are de-interleaved here."""
     tensors = (xq, x1, x2) + tuple(ws)
     B, Lq, L1, L2, d, dh = _check_k2(tensors, masks, num_heads, g)
     _k2_smem_check("proj_two_block_attention_v2_bwd",
                    "segmm_proj_two_block_attention_v2_bwd_smem_bytes", xq, Lq,
                    L1, L2, dh)
+    if k6_body(xq.dtype) == "mma":
+        return _k6_backward_mma(xq, x1, x2, ws, masks, g, num_heads, scale,
+                                rate, seed)
     fn = _fn("proj_two_block_attention_v2_bwd",
              "segmm_proj_two_block_attention_v2_bwd", ctypes.c_int,
              [ctypes.c_int, ctypes.POINTER(ctypes.c_void_p)]
@@ -971,6 +989,42 @@ def _k6_backward_cuda(xq, x1, x2, ws, masks, g, num_heads, scale, rate,
              deinterleave_w(dw[0], H, 1), deinterleave_b(db[0], H, 1),
              dw[1], db[1], dw[2], db[2], dw[3], db[3], dw[4], db[4])
     return tuple(dx) + tuple(t.to(w.dtype) for t, w in zip(grads, ws))
+
+
+def _k6_backward_mma(xq, x1, x2, ws, masks, g, num_heads, scale, rate,
+                     seed):
+    """bf16 K6b: the projection GEMM into K2's workspace, K2b's core with
+    K6's dropout keys, K2b's chain (dW in k2_dw_chunk rows)."""
+    B, Lq, d = xq.shape
+    L1, L2 = x1.shape[1], x2.shape[1]
+    f32 = dict(dtype=torch.float32, device=xq.device)
+    dys = [torch.empty(B, L, d, **f32) for L in (Lq, Lq, L1, L2, L1, L2)]
+    dx = [torch.empty_like(x) for x in (xq, x1, x2)]
+    dw = [torch.empty(d, d, **f32) for _ in range(6)]
+    db = [torch.empty(d, **f32) for _ in range(6)]
+    chunk = k2_dw_chunk(B, Lq, L1, L2)
+    scratch = torch.empty(sum(k2_dw_chunks(B, Lq, L1, L2, chunk))
+                          * (d * d + d), **f32)
+    work = k2_workspace(xq, x1, x2)
+    fn = _fn("proj_two_block_attention_v2_bwd",
+             "segmm_proj_two_block_attention_v2_bwd_mma", ctypes.c_int,
+             [ctypes.POINTER(ctypes.c_void_p)] + [ctypes.c_void_p] * 4
+             + [ctypes.POINTER(ctypes.c_void_p)] * 4 + [ctypes.c_void_p]
+             + [ctypes.c_int] * 6 + [ctypes.c_float] + _DROP_ARGS
+             + [ctypes.c_int, ctypes.c_void_p])
+    mq, m1, m2 = _masks_i32(*masks)
+    with torch.cuda.device(xq.device):
+        code = fn(_ptrs((xq, x1, x2) + tuple(ws)), mq.data_ptr(),
+                  m1.data_ptr(), m2.data_ptr(), g.data_ptr(), _ptrs(dys),
+                  _ptrs(work), _ptrs(dx), _ptrs(dw + db), scratch.data_ptr(),
+                  B, Lq, L1, L2, d, num_heads, float(scale),
+                  *_drop_args(rate, seed), chunk, _stream_ptr(xq.device))
+    _raise_on_cuda_error(code, "proj_two_block_attention_v2_bwd")
+    LAUNCHES["proj_two_block_attention_v2_bwd"] += 1
+    grads = list(dx)
+    for i in range(6):
+        grads += [dw[i].to(ws[2 * i].dtype), db[i].to(ws[2 * i + 1].dtype)]
+    return tuple(grads)
 
 
 def _check_k3(q, k, v, mask_q, mask_k, g=None):

@@ -1,10 +1,10 @@
-// The tiled fp32 products of the backward kernels' chains (K2b, K5b, K4b):
+// The tiled fp32 products of the fp32 backward kernels' chains (K2b, K4b,
+// K5b, K6b; their bf16 bodies run proj_gemm.cuh's):
 // dx = sum of dy . W over up to kMaxPairs (dy, W) pairs, and dW = dy^T x,
 // db = sum dy over every row, summed in row chunks and then in chunk order
 // (no atomics, so repeated steps give the same bits).
 //
-// C[m][n] = sum_k A(m, k) B(k, n), A fp32, B of type TB (x or W in the
-// compute dtype, widened to fp32):
+// C[m][n] = sum_k A(m, k) B(k, n), A and B fp32 (B: x or W):
 //   A_COL = false: A(m, k) = a[m * lda + k]   (dx: a = dy, (M, K) rows)
 //   A_COL = true:  A(m, k) = a[k * lda + m]   (dW: a = dy, A = dy^T)
 //   B(k, n) = b[k * ldb + n]                  (dx: W (out, in); dW: x)
@@ -34,13 +34,6 @@ struct GemmJob {
 
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
-}
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  const __nv_bfloat162 lo = *reinterpret_cast<const __nv_bfloat162*>(&u.x);
-  const __nv_bfloat162 hi = *reinterpret_cast<const __nv_bfloat162*>(&u.y);
-  const float2 a = __bfloat1622float2(lo), b = __bfloat1622float2(hi);
-  return make_float4(a.x, a.y, b.x, b.y);
 }
 
 // One 128x128 tile of C. Each thread owns 8x8 outputs (rows ty*4 + {0..3}

@@ -2,7 +2,26 @@
 //
 // Replaces the TPU kernel segmminterest_tpu/core/dual_kernel.py
 // _ds_bwd_kernel (:104), launched by _ds_call_bwd (:230) from the custom
-// VJP of fused_dual_stream_attention. Two passes, as K2b's:
+// VJP of fused_dual_stream_attention. Each stream is K2b's math; the user
+// stream's dropout salts count from head H (:100-101).
+//
+// bf16, on K2b's tensor-core pieces, five launches:
+//  (1) both streams' projections as one grouped GEMM of six sources
+//      (proj_gemm.cuh qkv_gemm_kernel): the video stream's xv -> q1|q2,
+//      xv -> k1|v1, xu -> k2|v2 and the user stream's xu -> q1|q2,
+//      xv -> k1|v1, xu -> k2|v2, into six transient bf16 (B, L, 2d)
+//      tensors;
+//  (2) both streams' core backward in one launch (two_block_mma.cuh
+//      dual_stream_core_bwd_kernel, grid z = 2, the user stream's salts
+//      from head H) into twelve fp32 (B, L, d) gradients;
+//  (3) dxv and dxu, each one fp32 accumulator over its six products in
+//      :151-160's order, cast once (chain_dx_kernel over six pairs, dy in
+//      three bf16 parts);
+//  (4), (5) the 12 dW = dy^T x and db = sum dy in row chunks of `chunk`
+//      rows (the wrapper's k5_dw_chunk rule), then their sums in chunk
+//      order: no atomics, the same bits on every call.
+//
+// fp32, the first, CUDA-core body. Two passes, as K2b's:
 //  (a) qkv pass of BOTH streams in one launch, grid (H, B, 2): K2b's block
 //      body (proj_attention.cuh:proj_qkv_bwd_block) on each stream, the
 //      user stream salted from head H; twelve fp32 (B, L, d) workspaces
@@ -15,11 +34,14 @@
 //      added in order (deterministic, no atomics).
 // Four launches in all: the qkv pass, dx, dW partials, their sum.
 //
-// What bounds it on an H100: operations, as K2b's (twice the work): the
-// projection recompute on the bf16 tensor cores, dx and dW with fp32
-// operands on the CUDA cores, the attention core in fp32.
+// What bounds it on an H100: operations, as K2b's (twice the work): in
+// bf16 the projection recompute at the bf16 rate, the cores' products with
+// p and dl in two bf16 parts, dx and dW in three. The wrapper picks the
+// bodies by dtype (k5_body).
 #include "chain_gemm.cuh"
 #include "proj_attention.cuh"
+#include "proj_gemm.cuh"
+#include "two_block_mma.cuh"
 
 namespace segmm {
 
@@ -117,11 +139,78 @@ cudaError_t launch_k5b(const void* const* p, const int* mv, const int* mu, const
   return launch_wgrads<T>(wj, nj, rj, nr, dm, dm, splits, s);
 }
 
+// bf16 K5b on K2b's pieces (the file's head). p: xv, xu, then the video
+// stream's 12 parameters and the user stream's (bf16); ws: the six
+// projections' workspaces in the order of the GEMM's sources.
+inline cudaError_t launch_k5b_mma(const void* const* p, const int* mv, const int* mu,
+                                  const void* gv, const void* gu, float* const* dys,
+                                  void* const* ws, void* const* dx, float* const* dwdb,
+                                  float* scratch, int B, int Lv, int Lu, int d, int H, float scale,
+                                  float rate, float keep_div, unsigned seed, int chunk,
+                                  cudaStream_t s) {
+  const bf16* const* t = reinterpret_cast<const bf16* const*>(p);
+  // (1) per stream (a at 2, u at 14): q1|q2 of its queries, k1|v1 of xv,
+  // k2|v2 of xu
+  const bf16* x[6] = {t[0], t[0], t[1], t[1], t[0], t[1]};
+  const bf16* w[12];
+  const bf16* bias[12];
+  bf16* out[6];
+  for (int st = 0; st < 2; ++st) {
+    const int o = 2 + 12 * st;
+    const int pair[3][2] = {{0, 2}, {4, 8}, {6, 10}};  // q1 q2 | k1 v1 | k2 v2
+    for (int j = 0; j < 3; ++j)
+      for (int k = 0; k < 2; ++k) {
+        w[2 * (3 * st + j) + k] = t[o + pair[j][k]];
+        bias[2 * (3 * st + j) + k] = t[o + pair[j][k] + 1];
+      }
+  }
+  for (int i = 0; i < 6; ++i) out[i] = static_cast<bf16*>(ws[i]);
+  const int M[6] = {B * Lv, B * Lv, B * Lu, B * Lu, B * Lv, B * Lu};
+  cudaError_t err = launch_qkv_gemm(x, w, bias, out, M, 6, d, s);
+  if (err != cudaSuccess) return err;
+  // (2) the two cores: video queries (Lv) and user queries (Lu) over the
+  // key blocks (Lv, Lu)
+  K2CoreArgs a = k2_core_args(ws, mv, mv, mu, Lv, Lv, Lu, H, scale, rate, keep_div, seed);
+  K2CoreArgs u = k2_core_args(ws + 3, mu, mv, mu, Lu, Lv, Lu, H, scale, rate, keep_div, seed);
+  a.g = static_cast<const bf16*>(gv);
+  u.g = static_cast<const bf16*>(gu);
+  for (int i = 0; i < 6; ++i) {
+    a.dy[i] = dys[i];
+    u.dy[i] = dys[6 + i];
+  }
+  err = launch_dual_core_bwd(a, u, d / H, B, s);
+  if (err != cudaSuccess) return err;
+  // (3) dxv, dxu over their six pairs (dual_kernel.py:151-160); W of
+  // projection i of the video stream is t[2 + 2i], of the user stream
+  // t[14 + 2i] (i: q1 q2 k1 k2 v1 v2)
+  const float* dyx[12] = {dys[0], dys[1], dys[2], dys[4], dys[8], dys[10],
+                          dys[6], dys[7], dys[3], dys[5], dys[9], dys[11]};
+  const bf16* wx[12] = {t[2],  t[4],  t[6], t[10], t[18], t[22],
+                        t[14], t[16], t[8], t[12], t[20], t[24]};
+  bf16* dxo[2] = {static_cast<bf16*>(dx[0]), static_cast<bf16*>(dx[1])};
+  const int Mx[2] = {B * Lv, B * Lu};
+  err = launch_chain_dx<6>(dyx, wx, dxo, Mx, 2, d, nullptr, s);
+  if (err != cudaSuccess) return err;
+  // (4), (5) the 12 dW, db: the video stream's q1 q2 k1 k2 v1 v2 from xv
+  // xv xv xu xv xu, the user stream's from xu xu xv xu xv xu
+  const int src[12] = {0, 0, 0, 1, 0, 1, 1, 1, 0, 1, 0, 1};
+  DwWeight dws[12];
+  for (int i = 0; i < 12; ++i)
+    dws[i] = DwWeight{dys[i], t[src[i]], B * (src[i] ? Lu : Lv), d, d, dwdb[i], dwdb[12 + i]};
+  return launch_chain_dw(dws, 12, chunk, scratch, s);
+}
+
 }  // namespace segmm
 
-// dtype: 0 = float32, 1 = bfloat16.
+// dtype: 0 = float32 (the CUDA-core qkv pass), 1 = bfloat16 (K2b's core
+// block, the larger of the two streams').
 extern "C" size_t segmm_dual_stream_attention_bwd_smem_bytes(int dtype, int Lv, int Lu, int DH) {
-  return segmm::k5b_smem_bytes(dtype == 1, Lv, Lu, DH);
+  if (dtype == 1) {
+    const size_t v = segmm::k2_core_bwd_smem_bytes(Lv, Lv, Lu, DH),
+                 u = segmm::k2_core_bwd_smem_bytes(Lu, Lv, Lu, DH);
+    return v > u ? v : u;
+  }
+  return segmm::k5b_smem_bytes(false, Lv, Lu, DH);
 }
 
 // ptrs: as segmm_dual_stream_attention_fwd's (xv, xu, 12 + 12 parameters);
@@ -130,7 +219,8 @@ extern "C" size_t segmm_dual_stream_attention_bwd_smem_bytes(int dtype, int Lv, 
 // (B, L, d)); dx: dxv, dxu (x's dtype); dwdb: the 12 fp32 dW ((d, d),
 // nn.Linear layout; video stream's q1 q2 k1 k2 v1 v2, then the user
 // stream's) then the 12 db; scratch: fp32, 12 * splits * (d * d + d).
-// 1 <= splits <= 4. Returns a cudaError_t (0 = launched).
+// 1 <= splits <= 4. float32 only (dtype 0). Returns a cudaError_t (0 =
+// launched).
 extern "C" int segmm_dual_stream_attention_bwd(int dtype, const void* const* ptrs, const int* mv,
                                                const int* mu, const void* gv, const void* gu,
                                                float* const* dys, void* const* dx,
@@ -142,9 +232,22 @@ extern "C" int segmm_dual_stream_attention_bwd(int dtype, const void* const* ptr
   if (dtype == 0)
     return (int)segmm::launch_k5b<float>(ptrs, mv, mu, gv, gu, dys, dx, dwdb, scratch, B, Lv, Lu,
                                          dm, H, scale, rate, keep_div, seed, splits, s);
-  if (dtype == 1)
-    return (int)segmm::launch_k5b<__nv_bfloat16>(ptrs, mv, mu, gv, gu, dys, dx, dwdb, scratch, B,
-                                                 Lv, Lu, dm, H, scale, rate, keep_div, seed,
-                                                 splits, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// bf16 K5b on K2b's pieces. ptrs, gv, gu, dys, dx, dwdb: as above, in bf16;
+// ws: six bf16 workspaces, (B, Lv, 2d), (B, Lv, 2d), (B, Lu, 2d) of the
+// video stream (q1|q2, k1|v1, k2|v2), then (B, Lu, 2d), (B, Lv, 2d),
+// (B, Lu, 2d) of the user stream; scratch (fp32): the sum over the 12
+// weights of dw_chunks(rows, chunk) * (d * d + d), chunk % 32 == 0, at most
+// 96 chunks in all. DH in {16, 32, 64}, d % 32 == 0, Lv and Lu <= 128.
+// Five launches. Returns a cudaError_t (0 = launched).
+extern "C" int segmm_dual_stream_attention_bwd_mma(
+    const void* const* ptrs, const int* mv, const int* mu, const void* gv, const void* gu,
+    float* const* dys, void* const* ws, void* const* dx, float* const* dwdb, float* scratch,
+    int B, int Lv, int Lu, int dm, int H, float scale, float rate, float keep_div, unsigned seed,
+    int chunk, void* stream) {
+  return (int)segmm::launch_k5b_mma(ptrs, mv, mu, gv, gu, dys, ws, dx, dwdb, scratch, B, Lv, Lu,
+                                    dm, H, scale, rate, keep_div, seed, chunk,
+                                    static_cast<cudaStream_t>(stream));
 }

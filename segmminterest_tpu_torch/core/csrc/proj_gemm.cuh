@@ -3,7 +3,8 @@
 // layer_stream*.cu), on mma.sync m16n8k16 with fp32
 // accumulators (mma_sync.cuh gives the fragment layout), operands staged
 // by cp.async through a ring of shared-memory tiles:
-//  * qkv_gemm_kernel, the projections: for each source s (xq, x1, x2),
+//  * qkv_gemm_kernel, the projections: for each source s (xq, x1, x2; K5b's
+//    six, three a stream),
 //    out_s = x_s . [Wa_s; Wb_s]^T with _proj's rounding (attention.py
 //    :769-773: the fp32 dot cast to bf16, then the bias added in bf16), one
 //    grouped GEMM of M = B L_s rows, N = 2d, K = d. W in nn.Linear layout
@@ -12,13 +13,14 @@
 //    attention cores' q1|q2, k1|v1 and k2|v2.
 //  * chain_dx_kernel: dx_s = dy_a . W_a + dy_b . W_b (+ K4b's LN1 residual
 //    gradient for xq, in fp32), one output cast to bf16 (attention.py
-//    :858-868, layer_kernel.py:296-297), K = 2d.
+//    :858-868, layer_kernel.py:296-297), K = 2d; K5b's dxv and dxu over
+//    six pairs each (dual_kernel.py:151-160), K = 6d.
 //  * chain_dw_kernel and chain_dw_reduce_kernel: dW = dy^T x and
-//    db = sum dy over every row (:870-894) for up to nine weights of any
+//    db = sum dy over every row (:870-894) for up to twelve weights of any
 //    (out, in) shape (K2b's six projections; K4b's with W_ff, W_m1 and
-//    W_m2 too), each weight's rows cut into chunks of `chunk` rows whose
-//    partial sums the reduction adds in chunk order: no atomics, the same
-//    bits on every call.
+//    W_m2 too; K5b's twelve), each weight's rows cut into chunks of
+//    `chunk` rows whose partial sums the reduction adds in chunk order: no
+//    atomics, the same bits on every call.
 // The chain's products keep fp32 accuracy on the bf16 tensor cores: dy
 // (fp32) is split, as its tile is read, into three bf16 parts, hi =
 // bf16(dy), mid = bf16(dy - hi), lo = bf16(dy - hi - mid), which sum to dy
@@ -203,8 +205,9 @@ struct QkvJob {
   int M;
   int tile0;  // the job's first block
 };
+constexpr int kMaxQkvJobs = 6;
 struct QkvJobs {
-  QkvJob job[3];
+  QkvJob job[kMaxQkvJobs];
   int njobs, d;
 };
 
@@ -296,33 +299,40 @@ __global__ void __launch_bounds__(kGmThreads, kQkvMinBlocks)
 }
 
 // ---------------------------------------------------------------------------
-// dx = dy_a . W_a + dy_b . W_b (+ add, fp32, before the one cast)
+// dx = dy_a . W_a + dy_b . W_b (+ add, fp32, before the one cast); NP pairs
+// in all (2, or K5b's 6), summed in their order into one accumulator
 
-struct ChainDxJob {
-  const float* dy[2];
-  const bf16* w[2];
+template <int NP>
+struct ChainDxJobT {
+  const float* dy[NP];
+  const bf16* w[NP];
   const float* add;  // (M, d) or null
   bf16* out;
   int M;
   int tile0;
 };
-struct ChainDxJobs {
-  ChainDxJob job[3];
+template <int NP>
+struct ChainDxJobsT {
+  ChainDxJobT<NP> job[3];
   int njobs, d;
 };
+using ChainDxJob = ChainDxJobT<2>;
+using ChainDxJobs = ChainDxJobsT<2>;
 
-struct ChainDxOp {
+template <int NP>
+struct ChainDxOpT {
   static constexpr int kBN = kChainBN, kStages = kChainStages;
   static constexpr int kStageBytes =
       kGmBM * kGmLdMK * (int)sizeof(float) + kGmBK * gm_ld_kn(kBN) * (int)sizeof(bf16);
-  const ChainDxJob* job;
+  const ChainDxJobT<NP>* job;
   int d, m0, n0;
 
   __device__ __forceinline__ void issue(unsigned char* st, int step) const {
     float* sa = reinterpret_cast<float*>(st);
     bf16* sb = reinterpret_cast<bf16*>(sa + kGmBM * kGmLdMK);
     const int ksteps = d / kGmBK;
-    const int p = step >= ksteps;  // pair a, then pair b
+    // pair a, then pair b (and on)
+    const int p = NP == 2 ? (int)(step >= ksteps) : step / ksteps;
     const int k0 = (step - p * ksteps) * kGmBK;
     const float* dy = job->dy[p];
     const bf16* w = job->w[p];
@@ -363,22 +373,25 @@ struct ChainDxOp {
   }
 };
 
-// kAdd: jobs may carry an addend (K4b); K2b's launch has none.
-template <bool kAdd>
+using ChainDxOp = ChainDxOpT<2>;
+
+// kAdd: jobs may carry an addend (K4b); K2b's launch has none. NP: pairs a
+// job (2; K5b's 6).
+template <bool kAdd, int NP = 2>
 __global__ void __launch_bounds__(kGmThreads, kChainMinBlocks)
-    chain_dx_kernel(const __grid_constant__ ChainDxJobs jobs) {
+    chain_dx_kernel(const __grid_constant__ ChainDxJobsT<NP> jobs) {
   extern __shared__ __align__(128) unsigned char gm_smem[];
   int j = 0;
   while (j + 1 < jobs.njobs && (int)blockIdx.x >= jobs.job[j + 1].tile0) ++j;
-  const ChainDxJob& job = jobs.job[j];
+  const ChainDxJobT<NP>& job = jobs.job[j];
   const int d = jobs.d;
   const int nt = (d + kChainBN - 1) / kChainBN;
   const int tile = blockIdx.x - job.tile0;
   const int m0 = (tile / nt) * kGmBM, n0 = (tile % nt) * kChainBN;
-  ChainDxOp op{&job, d, m0, n0};
+  ChainDxOpT<NP> op{&job, d, m0, n0};
   GmAcc<kChainBN> acc;
   gm_zero<kChainBN>(acc);
-  gm_mainloop(op, 2 * (d / kGmBK), gm_smem, acc);
+  gm_mainloop(op, NP * (d / kGmBK), gm_smem, acc);
   gm_store_bf16<kChainBN>(
       acc,
       [&](float v, int row, int col) {
@@ -404,7 +417,7 @@ struct ChainDwW {
   float* db;
   int M, Mo, Ni, first, count;
 };
-constexpr int kMaxDwWeights = 9;
+constexpr int kMaxDwWeights = 12;
 constexpr int kMaxDwChunks = 96;
 struct ChainDwJobs {
   ChainDwW w[kMaxDwWeights];
@@ -548,17 +561,17 @@ template <class Op> inline size_t gm_smem_bytes() {
   return pipe > out ? pipe : out;
 }
 
-// Host side: the projections of the three sources into (B, L, 2d) bf16
-// outputs. x[s], w[2s], w[2s + 1]: the source and its weight pair (xq with
-// Wq1, Wq2; x1 with Wk1, Wv1; x2 with Wk2, Wv2).
-inline cudaError_t launch_qkv_gemm(const bf16* const (&x)[3], const bf16* const (&w)[6],
-                                   const bf16* const (&bias)[6], bf16* const (&out)[3],
-                                   const int (&M)[3], int d, cudaStream_t stream) {
-  if (d % kGmBK || d % 8) return cudaErrorInvalidValue;
+// Host side: the projections of n <= kMaxQkvJobs sources into (B, L, 2d)
+// bf16 outputs. x[s], w[2s], w[2s + 1]: the source and its weight pair (K2:
+// xq with Wq1, Wq2; x1 with Wk1, Wv1; x2 with Wk2, Wv2).
+inline cudaError_t launch_qkv_gemm(const bf16* const* x, const bf16* const* w,
+                                   const bf16* const* bias, bf16* const* out, const int* M, int n,
+                                   int d, cudaStream_t stream) {
+  if (d % kGmBK || d % 8 || n > kMaxQkvJobs) return cudaErrorInvalidValue;
   QkvJobs jobs{};
   jobs.d = d;
   int tiles = 0;
-  for (int s = 0; s < 3; ++s) {
+  for (int s = 0; s < n; ++s) {
     if (M[s] <= 0) continue;
     QkvJob& j = jobs.job[jobs.njobs++];
     j = QkvJob{x[s], {w[2 * s], w[2 * s + 1]}, {bias[2 * s], bias[2 * s + 1]}, out[s], M[s],
@@ -586,27 +599,36 @@ inline cudaError_t launch_k2_projections(const void* const* p, void* const* ws, 
   bf16* const out[3] = {static_cast<bf16*>(ws[0]), static_cast<bf16*>(ws[1]),
                         static_cast<bf16*>(ws[2])};
   const int M[3] = {B * Lq, B * L1, B * L2};
-  return launch_qkv_gemm(x, w, bias, out, M, d, stream);
+  return launch_qkv_gemm(x, w, bias, out, M, 3, d, stream);
 }
 
-// Host side: dx of the three sources, dx_s = dy[2s] . w[2s] + dy[2s+1] . w[2s+1],
-// dx_0 with add0 (M[0] x d fp32) added before its cast where given.
-inline cudaError_t launch_chain_dx(const float* const (&dy)[6], const bf16* const (&w)[6],
-                                   bf16* const (&dx)[3], const int (&M)[3], int d,
-                                   const float* add0, cudaStream_t stream) {
-  ChainDxJobs jobs{};
+// Host side: dx of n <= 3 sources over NP pairs each, dx_s = dy[NP s] .
+// w[NP s] + ... + dy[NP s + NP - 1] . w[NP s + NP - 1] in that order, dx_0
+// with add0 (M[0] x d fp32) added before its cast where given.
+template <int NP>
+inline cudaError_t launch_chain_dx(const float* const* dy, const bf16* const* w, bf16* const* dx,
+                                   const int* M, int n, int d, const float* add0,
+                                   cudaStream_t stream) {
+  if (n > 3) return cudaErrorInvalidValue;
+  ChainDxJobsT<NP> jobs{};
   jobs.d = d;
   int tiles = 0;
-  for (int s = 0; s < 3; ++s) {
+  for (int s = 0; s < n; ++s) {
     if (M[s] <= 0) continue;
-    ChainDxJob& j = jobs.job[jobs.njobs++];
-    j = ChainDxJob{{dy[2 * s], dy[2 * s + 1]}, {w[2 * s], w[2 * s + 1]}, s ? nullptr : add0,
-                   dx[s], M[s], tiles};
+    ChainDxJobT<NP>& j = jobs.job[jobs.njobs++];
+    for (int p = 0; p < NP; ++p) {
+      j.dy[p] = dy[NP * s + p];
+      j.w[p] = w[NP * s + p];
+    }
+    j.add = s ? nullptr : add0;
+    j.out = dx[s];
+    j.M = M[s];
+    j.tile0 = tiles;
     tiles += ((M[s] + kGmBM - 1) / kGmBM) * ((d + kChainBN - 1) / kChainBN);
   }
   if (!tiles) return cudaSuccess;
-  const size_t smem = gm_smem_bytes<ChainDxOp>();
-  auto kernel = add0 ? chain_dx_kernel<true> : chain_dx_kernel<false>;
+  const size_t smem = gm_smem_bytes<ChainDxOpT<NP>>();
+  auto kernel = add0 ? chain_dx_kernel<true, NP> : chain_dx_kernel<false, NP>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -682,7 +704,7 @@ inline cudaError_t launch_k2_chain(const void* const* in, const float* const* dy
   bf16* const out[3] = {static_cast<bf16*>(dx[0]), static_cast<bf16*>(dx[1]),
                         static_cast<bf16*>(dx[2])};
   const int Mx[3] = {B * Lq, B * L1, B * L2};
-  cudaError_t err = launch_chain_dx(dyx, wx, out, Mx, d, dxq_add, stream);
+  cudaError_t err = launch_chain_dx<2>(dyx, wx, out, Mx, 3, d, dxq_add, stream);
   if (err != cudaSuccess) return err;
   // dW: q1 q2 k1 k2 v1 v2 over xq xq x1 x2 x1 x2, then the extra weights
   if (nextra < 0 || 6 + nextra > kMaxDwWeights) return cudaErrorInvalidValue;

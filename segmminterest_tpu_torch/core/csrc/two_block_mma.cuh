@@ -201,25 +201,38 @@ __device__ __forceinline__ void k2_logits(const __nv_bfloat16* sq1, const __nv_b
   }
 }
 
-// Key j of the axis: its block's length, its index within the block, its
-// dropout salt.
+// How the dropout hash counts a key: kBlockKeys, K2's (and K4's, K5's):
+// salt 2h for block 1 and 2h + 1 for block 2, the key counted within its
+// block (attention.py:791-796); kConcatKeys, K6's: one key axis of L1 + L2
+// keys, salt h, block 2's key j at L1 + j (attention.py:1236-1239). Only
+// k2_key reads it: K2's instances compile as they did without it.
+enum K2Keys : int { kBlockKeys = 0, kConcatKeys = 1 };
+
+// Key j of the axis: its block's length, its index within the block, the
+// index and salt its dropout bit is hashed with.
 struct K2Key {
-  int len, j;
+  int len, j, hj;
   unsigned salt;
 };
+template <int kKeys = kBlockKeys>
 __device__ __forceinline__ K2Key k2_key(int j, int c1, int L1, int L2, int h) {
   const bool second = j >= c1;
-  return K2Key{second ? L2 : L1, second ? j - c1 : j, 2u * h + (second ? 1u : 0u)};
+  const int jj = second ? j - c1 : j;
+  if (kKeys == kConcatKeys)
+    return K2Key{second ? L2 : L1, jj, second ? L1 + jj : jj, (unsigned)h};
+  return K2Key{second ? L2 : L1, jj, jj, 2u * h + (second ? 1u : 0u)};
 }
 
 // The dropout keep bits of this lane's elements of query tile q0 (n8 tile
 // n, element c: word n / 8, bit 4 (n % 8) + c; 0 past each block's length)
-// into kw[w * 32], w < kwords. The hash sits in the code eight times, not
+// into kw[w * 32], w < kwords; h is the salt's head (K5's user stream
+// counts from H). The hash sits in the code eight times, not
 // once an element of the logit tile: unrolled over every element (in
 // k2_probs) it made the backward core ~2x slower than without dropout,
 // and a trivial hash in its place was as slow, so the cost was the code's
 // size, not the hash's arithmetic. The forward, a smaller kernel, was
 // ~15% faster fully unrolled; one way for both is kept.
+template <int kKeys = kBlockKeys>
 __device__ __forceinline__ void k2_keep_bits(unsigned* kw, int kwords, int q0, int c1, int L1,
                                              int L2, int nkc, Dropout dr, int h) {
   const int lane = threadIdx.x & 31;
@@ -231,8 +244,8 @@ __device__ __forceinline__ void k2_keep_bits(unsigned* kw, int kwords, int q0, i
     for (int e = 0; e < 32; ++e) {
       const int n = 8 * w + (e >> 2), c = e & 3;
       if (n >= 2 * nkc) break;
-      const K2Key key = k2_key(n * 8 + 2 * t + (c & 1), c1, L1, L2, h);
-      if (key.j < key.len && dropout_keep(dr, q0 + g + 8 * (c >> 1), key.j, key.salt))
+      const K2Key key = k2_key<kKeys>(n * 8 + 2 * t + (c & 1), c1, L1, L2, h);
+      if (key.j < key.len && dropout_keep(dr, q0 + g + 8 * (c >> 1), key.hj, key.salt))
         word |= 1u << e;
     }
     kw[w * 32] = word;
@@ -443,11 +456,12 @@ proj_two_block_core_fwd_kernel(const __grid_constant__ K2CoreArgs a) {
 // ---------------------------------------------------------------------------
 // Backward: one block per (head, batch row); passes as the file's head says.
 // kG32: g is fp32, given as bf16 hi and lo halves (a.g, a.glo), and the
-// products with g (dv, dp) take both halves into one accumulator.
-template <int D, int NT, bool kDrop, bool kG32>
-__global__ void __launch_bounds__(32 * kK2MmaWarpsMax)
-proj_two_block_core_bwd_kernel(const __grid_constant__ K2CoreArgs a) {
-  const int h = blockIdx.x, b = blockIdx.y;
+// products with g (dv, dp) take both halves into one accumulator. kKeys:
+// how the dropout hash counts the keys (K2Keys). sh: the head the dropout
+// salts count from (blockIdx.x, or K5's user stream's H + blockIdx.x).
+template <int D, int NT, bool kDrop, bool kG32, int kKeys>
+__device__ __forceinline__ void k2_core_bwd(const K2CoreArgs& a, int sh) {
+  const int b = blockIdx.y;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
   const int gi = lane >> 2, ti = lane & 3;
   extern __shared__ __align__(16) unsigned char k2b_smem[];
@@ -472,12 +486,12 @@ proj_two_block_core_bwd_kernel(const __grid_constant__ K2CoreArgs a) {
     unsigned keep[(NT + 7) / 8] = {};
     if (kDrop) {
       unsigned* kw = KW + (q0 / 16) * kwords * 32 + lane;
-      k2_keep_bits(kw, kwords, q0, c1, L1, L2, nkc, dr, h);
+      k2_keep_bits<kKeys>(kw, kwords, q0, c1, L1, L2, nkc, dr, sh);
 #pragma unroll
       for (int w = 0; w < (NT + 7) / 8; ++w)
         if (w < kwords) keep[w] = kw[w * 32];
     }
-    k2_probs<NT, kDrop>(p, keep, st.mq, st.mk, q0, c1, L1, L2, nkc, a.scale, dr, h);
+    k2_probs<NT, kDrop>(p, keep, st.mq, st.mk, q0, c1, L1, L2, nkc, a.scale, dr, sh);
     const bool live[2] = {q0 + gi < Lq, q0 + gi + 8 < Lq};
 #pragma unroll
     for (int n = 0; n < NT; ++n)
@@ -571,6 +585,24 @@ proj_two_block_core_bwd_kernel(const __grid_constant__ K2CoreArgs a) {
   }
 }
 
+template <int D, int NT, bool kDrop, bool kG32, int kKeys>
+__global__ void __launch_bounds__(32 * kK2MmaWarpsMax)
+proj_two_block_core_bwd_kernel(const __grid_constant__ K2CoreArgs a) {
+  k2_core_bwd<D, NT, kDrop, kG32, kKeys>(a, blockIdx.x);
+}
+
+// K5b's core: both streams of a layer in one launch, grid z = 2 (z = 0 the
+// video stream a, z = 1 the user stream u, whose dropout salts count from
+// head H: 2 (H + h) + block, dual_kernel.py:100-101). The streams share
+// their key axis (L1 = Lv, L2 = Lu) and differ in Lq.
+template <int D, int NT, bool kDrop>
+__global__ void __launch_bounds__(32 * kK2MmaWarpsMax)
+dual_stream_core_bwd_kernel(const __grid_constant__ K2CoreArgs a,
+                            const __grid_constant__ K2CoreArgs u) {
+  const bool user = blockIdx.z != 0;
+  k2_core_bwd<D, NT, kDrop, false, kBlockKeys>(user ? u : a, blockIdx.x + (user ? a.H : 0));
+}
+
 // ---------------------------------------------------------------------------
 // Host side
 
@@ -597,15 +629,22 @@ inline K2CoreArgs k2_core_args(void* const* ws, const int* mq, const int* mk1, c
   return a;
 }
 
+// A backward block's warps: one per query or key tile, at most four, eight
+// where one block fills an SM.
+inline int k2_bwd_warps(int tiles, size_t smem) {
+  const int cap = 2 * (smem + 1024) > kK2SmBytes ? kK2MmaWarpsMax : kK2MmaWarps;
+  return tiles < cap ? tiles : cap;
+}
+
 // n8 key tiles the templates hold in registers (2 x the 16-key chunks)
-template <int D, bool kBwd, bool kG32, int NT>
+template <int D, bool kBwd, bool kG32, int kKeys, int NT>
 cudaError_t launch_k2_core_nt(const K2CoreArgs& a, int B, cudaStream_t stream) {
   size_t smem;
   void (*kern)(K2CoreArgs);
   if constexpr (kBwd) {
     smem = k2_core_bwd_smem_bytes(a.Lq, a.L1, a.L2, D, kG32);
-    kern = a.rate > 0.f ? proj_two_block_core_bwd_kernel<D, NT, true, kG32>
-                        : proj_two_block_core_bwd_kernel<D, NT, false, kG32>;
+    kern = a.rate > 0.f ? proj_two_block_core_bwd_kernel<D, NT, true, kG32, kKeys>
+                        : proj_two_block_core_bwd_kernel<D, NT, false, kG32, kKeys>;
   } else {
     smem = k2_core_fwd_smem_bytes(a.Lq, a.L1, a.L2, D);
     kern = a.rate > 0.f ? proj_two_block_core_fwd_kernel<D, NT, true>
@@ -617,35 +656,79 @@ cudaError_t launch_k2_core_nt(const K2CoreArgs& a, int B, cudaStream_t stream) {
   // a warp per query tile (forward), or per query or key tile (backward):
   // at most four, eight where one block fills an SM
   const int qt = pad16(a.Lq) / 16, kt = k2_keys16(a.L1, a.L2) / 16;
-  int tiles = kBwd ? (qt > kt ? qt : kt) : qt;
-  int cap = kK2MmaWarps;
-  if (kBwd && 2 * (smem + 1024) > kK2SmBytes) cap = kK2MmaWarpsMax;
-  const int warps = tiles < cap ? tiles : cap;
+  const int warps = kBwd ? k2_bwd_warps(qt > kt ? qt : kt, smem)
+                         : (qt < kK2MmaWarps ? qt : kK2MmaWarps);
   kern<<<dim3(a.H, B), 32 * warps, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
-template <int D, bool kBwd, bool kG32>
+template <int D, bool kBwd, bool kG32, int kKeys>
 cudaError_t launch_k2_core_d(const K2CoreArgs& a, int B, cudaStream_t stream) {
   const int nkc = k2_keys16(a.L1, a.L2) / 16;
-  auto launch = nkc <= 3    ? launch_k2_core_nt<D, kBwd, kG32, 6>
-                : nkc <= 6  ? launch_k2_core_nt<D, kBwd, kG32, 12>
-                : nkc <= 9  ? launch_k2_core_nt<D, kBwd, kG32, 18>
-                : nkc <= 12 ? launch_k2_core_nt<D, kBwd, kG32, 24>
-                            : launch_k2_core_nt<D, kBwd, kG32, 32>;
+  auto launch = nkc <= 3    ? launch_k2_core_nt<D, kBwd, kG32, kKeys, 6>
+                : nkc <= 6  ? launch_k2_core_nt<D, kBwd, kG32, kKeys, 12>
+                : nkc <= 9  ? launch_k2_core_nt<D, kBwd, kG32, kKeys, 18>
+                : nkc <= 12 ? launch_k2_core_nt<D, kBwd, kG32, kKeys, 24>
+                            : launch_k2_core_nt<D, kBwd, kG32, kKeys, 32>;
   return launch(a, B, stream);
 }
 
 // K2's core in either direction for head dim D (16, 32, 64); lengths up to
 // 128 each (at most 16 key chunks). kG32 (backward): g is fp32, as a.g
-// and a.glo.
-template <bool kBwd, bool kG32 = false>
+// and a.glo. kKeys (backward): the dropout's key indexing, K2Keys.
+template <bool kBwd, bool kG32 = false, int kKeys = kBlockKeys>
 cudaError_t launch_k2_core(const K2CoreArgs& a, int D, int B, cudaStream_t stream) {
   if (a.Lq > 128 || a.L1 > 128 || a.L2 > 128) return cudaErrorInvalidValue;
   switch (D) {
-    case 16: return launch_k2_core_d<16, kBwd, kG32>(a, B, stream);
-    case 32: return launch_k2_core_d<32, kBwd, kG32>(a, B, stream);
-    case 64: return launch_k2_core_d<64, kBwd, kG32>(a, B, stream);
+    case 16: return launch_k2_core_d<16, kBwd, kG32, kKeys>(a, B, stream);
+    case 32: return launch_k2_core_d<32, kBwd, kG32, kKeys>(a, B, stream);
+    case 64: return launch_k2_core_d<64, kBwd, kG32, kKeys>(a, B, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// K5b's two streams, a (video) and u (user), on one key axis.
+template <int D, int NT>
+cudaError_t launch_dual_core_bwd_nt(const K2CoreArgs& a, const K2CoreArgs& u, int B,
+                                    cudaStream_t stream) {
+  const size_t sa = k2_core_bwd_smem_bytes(a.Lq, a.L1, a.L2, D),
+               su = k2_core_bwd_smem_bytes(u.Lq, u.L1, u.L2, D);
+  const size_t smem = sa > su ? sa : su;
+  auto kern = a.rate > 0.f ? dual_stream_core_bwd_kernel<D, NT, true>
+                           : dual_stream_core_bwd_kernel<D, NT, false>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const int lq = a.Lq > u.Lq ? a.Lq : u.Lq;
+  const int qt = pad16(lq) / 16, kt = k2_keys16(a.L1, a.L2) / 16;
+  kern<<<dim3(a.H, B, 2), 32 * k2_bwd_warps(qt > kt ? qt : kt, smem), smem, stream>>>(a, u);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_dual_core_bwd_d(const K2CoreArgs& a, const K2CoreArgs& u, int B,
+                                   cudaStream_t stream) {
+  const int nkc = k2_keys16(a.L1, a.L2) / 16;
+  auto launch = nkc <= 3    ? launch_dual_core_bwd_nt<D, 6>
+                : nkc <= 6  ? launch_dual_core_bwd_nt<D, 12>
+                : nkc <= 9  ? launch_dual_core_bwd_nt<D, 18>
+                : nkc <= 12 ? launch_dual_core_bwd_nt<D, 24>
+                            : launch_dual_core_bwd_nt<D, 32>;
+  return launch(a, u, B, stream);
+}
+
+// K5b's core backward for head dim D (16, 32, 64): the video stream a
+// (Lq = L1) and the user stream u (Lq = L2) over the same key blocks,
+// lengths up to 128 each.
+inline cudaError_t launch_dual_core_bwd(const K2CoreArgs& a, const K2CoreArgs& u, int D, int B,
+                                        cudaStream_t stream) {
+  if (a.Lq > 128 || u.Lq > 128 || a.L1 > 128 || a.L2 > 128 || a.L1 != u.L1 || a.L2 != u.L2 ||
+      a.H != u.H)
+    return cudaErrorInvalidValue;
+  switch (D) {
+    case 16: return launch_dual_core_bwd_d<16>(a, u, B, stream);
+    case 32: return launch_dual_core_bwd_d<32>(a, u, B, stream);
+    case 64: return launch_dual_core_bwd_d<64>(a, u, B, stream);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -17,6 +17,10 @@ The backward sums the input gradients as ``_ds_bwd_kernel`` does
 keys and values and the user stream's block-1 keys and values, the user
 input the rest.
 
+bf16 K5b runs on K2b's tensor-core pieces (``k5_body``): both streams'
+six projections as one grouped GEMM, both cores in one launch, dxv and dxu
+each over its six products, the 12 dW in ``k5_dw_chunk`` row chunks.
+
 Weights in nn.Linear layout (out, in), biases (d,), 12 per stream in the
 order wq1, bq1, wq2, bq2, wk1, bk1, wk2, bk2, wv1, bv1, wv2, bv2. The
 wrapper launches the CUDA kernels (core/csrc/dual_stream_attention*.cu)
@@ -32,6 +36,11 @@ from typing import Optional, Sequence
 import torch
 
 from . import attention as A
+
+# bf16 K5b's weight gradients: the 12 weights' rows in chunks of
+# k5_dw_chunk rows, about this many chunks in all (its dW kernel's table
+# holds A.K2_DW_MAX_CHUNKS)
+K5_DW_CHUNKS = 48
 
 
 # ---------------------------------------------------------------------------
@@ -101,6 +110,45 @@ def _check_k5(xv, xu, wsa, wsb, mask_v, mask_u, num_heads, g=(None, None)):
     return B, Lv, xu.shape[1], d, d // num_heads
 
 
+def k5_body(dtype) -> str:
+    """Which body K5b runs: ``"mma"`` for bf16 (K2b's projection GEMM over
+    both streams' six sources, both cores in one tensor-core launch, the
+    chain's dx over six pairs and the 12 dW in three bf16 parts),
+    ``"cuda_core"`` for fp32 (the first bodies). By dtype, never on a failure.
+    K5f keeps its first bodies."""
+    return "mma" if dtype == torch.bfloat16 else "cuda_core"
+
+
+def k5_dw_rows(B: int, Lv: int, Lu: int):
+    """Rows of each of bf16 K5b's 12 weight gradients: the video stream's
+    q1 q2 k1 k2 v1 v2 (from xv xv xv xu xv xu), then the user stream's
+    (from xu xu xv xu xv xu)."""
+    return [B * L for L in (Lv, Lv, Lv, Lu, Lv, Lu, Lu, Lu, Lv, Lu, Lv, Lu)]
+
+
+def k5_dw_chunk(B: int, Lv: int, Lu: int) -> int:
+    """Rows per chunk of bf16 K5b's weight gradients: about K5_DW_CHUNKS
+    chunks over the 12 weights' rows, a multiple of the products' 32-row
+    step, each weight's chunks summed in order (as ``k2_dw_chunk``)."""
+    rows = sum(k5_dw_rows(B, Lv, Lu))
+    chunk = -(-rows // K5_DW_CHUNKS)
+    return max(32, -(-chunk // 32) * 32)
+
+
+def k5_dw_chunks(B: int, Lv: int, Lu: int, chunk: int):
+    """Chunks of each of the 12 weights at `chunk` rows."""
+    return [-(-M // chunk) for M in k5_dw_rows(B, Lv, Lu)]
+
+
+def k5_workspace(xv, xu):
+    """bf16 K5b's transient projections, (B, L, 2d) each: the video
+    stream's q1|q2 (xv), k1|v1 (xv), k2|v2 (xu), then the user stream's
+    q1|q2 (xu), k1|v1 (xv), k2|v2 (xu)."""
+    B, _, d = xv.shape
+    return [torch.empty(B, x.shape[1], 2 * d, dtype=torch.bfloat16,
+                        device=x.device) for x in (xv, xv, xu, xu, xv, xu)]
+
+
 def _k5_smem_check(lib, dtype, Lv, Lu, dh):
     smem = A._fn(lib, f"segmm_{lib}_smem_bytes", ctypes.c_size_t,
                  [ctypes.c_int] * 4)
@@ -137,6 +185,9 @@ def _k5_backward_cuda(xv, xu, wsa, wsb, mask_v, mask_u, gv, gu, num_heads,
     B, Lv, Lu, d, dh = _check_k5(xv, xu, wsa, wsb, mask_v, mask_u, num_heads,
                                  (gv, gu))
     _k5_smem_check("dual_stream_attention_bwd", xv.dtype, Lv, Lu, dh)
+    if k5_body(xv.dtype) == "mma":
+        return _k5_backward_mma(xv, xu, wsa, wsb, mask_v, mask_u, gv, gu,
+                                num_heads, scale, rate, seed)
     fn = A._fn("dual_stream_attention_bwd", "segmm_dual_stream_attention_bwd",
                ctypes.c_int, [ctypes.c_int, ctypes.POINTER(ctypes.c_void_p)]
                + [ctypes.c_void_p] * 4
@@ -162,6 +213,47 @@ def _k5_backward_cuda(xv, xu, wsa, wsb, mask_v, mask_u, gv, gu, num_heads,
                   B, Lv, Lu, d, num_heads, float(scale),
                   *A._drop_args(rate, seed), A.K2_DW_SPLITS,
                   A._stream_ptr(dev))
+    A._raise_on_cuda_error(code, "dual_stream_attention_bwd")
+    A.LAUNCHES["dual_stream_attention_bwd"] += 1
+    ws = tuple(wsa) + tuple(wsb)
+    grads = list(dx)
+    for i in range(12):
+        grads += [dw[i].to(ws[2 * i].dtype), db[i].to(ws[2 * i + 1].dtype)]
+    return tuple(grads)
+
+
+def _k5_backward_mma(xv, xu, wsa, wsb, mask_v, mask_u, gv, gu, num_heads,
+                     scale, rate, seed):
+    """bf16 K5b: the six projections, both cores, dx and the 12 dW, db
+    (csrc/dual_stream_attention_bwd.cu, five launches)."""
+    B, Lv, d = xv.shape
+    Lu = xu.shape[1]
+    f32 = dict(dtype=torch.float32, device=xv.device)
+    dys = [torch.empty(B, L, d, **f32)
+           for Lq in (Lv, Lu) for L in (Lq, Lq, Lv, Lu, Lv, Lu)]
+    dx = [torch.empty_like(xv), torch.empty_like(xu)]
+    dw = [torch.empty(d, d, **f32) for _ in range(12)]
+    db = [torch.empty(d, **f32) for _ in range(12)]
+    chunk = k5_dw_chunk(B, Lv, Lu)
+    nchunks = sum(k5_dw_chunks(B, Lv, Lu, chunk))
+    if nchunks > A.K2_DW_MAX_CHUNKS:
+        raise ValueError(f"{nchunks} dW chunks exceed the kernel's "
+                         f"{A.K2_DW_MAX_CHUNKS}")
+    scratch = torch.empty(nchunks * (d * d + d), **f32)
+    work = k5_workspace(xv, xu)
+    fn = A._fn("dual_stream_attention_bwd",
+               "segmm_dual_stream_attention_bwd_mma", ctypes.c_int,
+               [ctypes.POINTER(ctypes.c_void_p)] + [ctypes.c_void_p] * 4
+               + [ctypes.POINTER(ctypes.c_void_p)] * 4 + [ctypes.c_void_p]
+               + [ctypes.c_int] * 5 + [ctypes.c_float] + A._DROP_ARGS
+               + [ctypes.c_int, ctypes.c_void_p])
+    mv, mu = A._masks_i32(mask_v, mask_u)
+    with torch.cuda.device(xv.device):
+        code = fn(A._ptrs((xv, xu, *wsa, *wsb)), mv.data_ptr(),
+                  mu.data_ptr(), gv.data_ptr(), gu.data_ptr(), A._ptrs(dys),
+                  A._ptrs(work), A._ptrs(dx), A._ptrs(dw + db),
+                  scratch.data_ptr(), B, Lv, Lu, d, num_heads, float(scale),
+                  *A._drop_args(rate, seed), chunk, A._stream_ptr(xv.device))
     A._raise_on_cuda_error(code, "dual_stream_attention_bwd")
     A.LAUNCHES["dual_stream_attention_bwd"] += 1
     ws = tuple(wsa) + tuple(wsb)

@@ -44,11 +44,13 @@ logger = logging.getLogger(__name__)
 # measured serving latency (ms per batch, batch already on the card) by
 # batch size: the flagship both/both model, --serving preset, over a
 # 3,920,483-row int8 table. Card: NVIDIA H100 80GB HBM3, power limit
-# 700.00 W; measured by chip_smoke.py, phase "serving" ("latency B=...").
-# B=128 waits on the host, so it moves with the machine's CPU (31.0 ms in
-# another run of the same code).
-SERVING_LATENCY_TABLE = ((1024, 106.9), (512, 55.0), (256, 28.8),
-                         (128, 20.3))
+# 700.00 W; measured by chip_smoke.py, phase "serving" ("latency B=...",
+# the mean of all calls in one window of 25, host stalls included), in its
+# run of 2026-10-17 from a git archive of the tree that set these values.
+# B <= 256 wait on the host, so they move with the machine's CPU (B=256
+# read 24.0 ms over one window of five calls of the same code).
+SERVING_LATENCY_TABLE = ((1024, 39.9), (512, 21.0), (256, 20.7),
+                         (128, 20.5))
 
 
 def apply_serving_preset(cfg: InterestConfig,

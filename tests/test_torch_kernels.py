@@ -314,6 +314,133 @@ def test_k6_kernels_match_plain(cuda, shape, dtype, rate):
     _rel_close(got, A.swap_blocks(want) if L1 % 8 else want, dtype)
 
 
+# bf16 K6b on K2b's bodies: lengths up to 128, head dims 16, 32 and 64
+# (d = 256), blocks aligned or not (the key indexing of K6's dropout over
+# the padded axis)
+K6_MMA_SHAPES = [(40, 40, 100), (7, 128, 5), (12, 13, 9), (128, 16, 128),
+                 (1, 40, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.1], ids=["eval", "dropout"])
+@pytest.mark.parametrize("dh", [16, 32, 64])
+@pytest.mark.parametrize("shape", K6_MMA_SHAPES)
+def test_k6b_mma_body_matches_plain(cuda, shape, dh, rate):
+    """bf16 K6b (K2b's projection GEMM, core with K6's dropout keys, chain)
+    through its wrapper, blocks in the order given (an unaligned L1
+    included, which the entry point would swap), against
+    proj_two_block_attention_v2_bwd_plain; it counts once and launches no
+    K2b."""
+    assert A.k6_body(torch.bfloat16) == "mma"
+    assert A.k6_body(torch.float32) == "cuda_core"
+    rng = np.random.default_rng(12)
+    B, (Lq, L1, L2), d = 8, shape, 256
+    heads, scale = d // dh, 1 / math.sqrt(dh)
+    inputs = _on(cuda, [rng.normal(size=(B, L, d)).astype(np.float32)
+                        for L in (Lq, L1, L2)] + _proj_params(rng, d),
+                 torch.bfloat16)
+    masks = _on(cuda, _masks_for(rng, B, Lq, L1, L2))
+    g = _on(cuda, [rng.normal(size=(B, Lq, d)).astype(np.float32)],
+            torch.bfloat16)[0]
+    before = dict(A.LAUNCHES)
+    got = A._k6_backward_cuda(*inputs[:3], inputs[3:], masks, g, heads,
+                              scale, rate, 31)
+    assert A.LAUNCHES["proj_two_block_attention_v2_bwd"] == \
+        before["proj_two_block_attention_v2_bwd"] + 1
+    assert A.LAUNCHES["proj_two_block_attention_bwd"] == \
+        before["proj_two_block_attention_bwd"]
+    _rel_close(got, A.proj_two_block_attention_v2_bwd_plain(
+        *inputs, *masks, g, heads, scale, rate, 31), torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.1], ids=["eval", "dropout"])
+def test_k6b_and_k5b_weight_grads_bit_equal_across_calls(cuda, rate):
+    """bf16 K6b and K5b sum dW and db in row chunks added in order, without
+    atomics: two calls on the same inputs give the same bits."""
+    rng = np.random.default_rng(13)
+    B, (Lq, L1, L2), d = 64, SHAPES[0], H * DH
+    inputs = _on(cuda, [rng.normal(size=(B, L, d)).astype(np.float32)
+                        for L in (Lq, L1, L2)] + _proj_params(rng, d),
+                 torch.bfloat16)
+    masks = _on(cuda, _masks_for(rng, B, Lq, L1, L2))
+    g = _on(cuda, [rng.normal(size=(B, Lq, d)).astype(np.float32)],
+            torch.bfloat16)[0]
+    leaves = [t.clone().requires_grad_() for t in inputs]
+    out = A.fused_proj_two_block_attention(
+        *leaves, *masks, num_heads=H, scale=SCALE, dropout_rate=rate,
+        seed=5, deterministic=rate == 0, version=2)
+    first = torch.autograd.grad(out, leaves, g, retain_graph=True)
+    second = torch.autograd.grad(out, leaves, g)
+    for i, (a, b) in enumerate(zip(first, second)):
+        assert torch.equal(a, b), f"K6b gradient {i} differs between calls"
+    Lv, Lu = 40, 100
+    xv, xu = _on(cuda, [rng.normal(size=(B, L, d)).astype(np.float32)
+                        for L in (Lv, Lu)], torch.bfloat16)
+    ws = _on(cuda, _proj_params(rng, d, 12), torch.bfloat16)
+    mv, mu = _on(cuda, (_masks(rng, B, Lv, False), _masks(rng, B, Lu, True)))
+    gs = _on(cuda, [rng.normal(size=(B, L, d)).astype(np.float32)
+                    for L in (Lv, Lu)], torch.bfloat16)
+    leaves = [t.clone().requires_grad_() for t in [xv, xu] + ws]
+    pairs = lambda ts: [(ts[i], ts[i + 1]) for i in range(0, 12, 2)]  # noqa
+    out = K5.fused_dual_stream_attention(
+        leaves[0], leaves[1], pairs(leaves[2:14]), pairs(leaves[14:]), mv, mu,
+        num_heads=H, scale=SCALE, dropout_rate=rate, seed=5,
+        deterministic=rate == 0)
+    first = torch.autograd.grad(out, leaves, gs, retain_graph=True)
+    second = torch.autograd.grad(out, leaves, gs)
+    for i, (a, b) in enumerate(zip(first, second)):
+        assert torch.equal(a, b), f"K5b gradient {i} differs between calls"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.1], ids=["eval", "dropout"])
+@pytest.mark.parametrize("dh", [16, 64])
+@pytest.mark.parametrize("lengths", [(40, 100), (100, 40), (128, 7)])
+def test_k5b_mma_body_matches_plain(cuda, lengths, dh, rate):
+    """bf16 K5b (both streams' projections in one grouped GEMM, both cores
+    in one launch, dx over six pairs, 12 dW in row chunks) at head dims 16
+    and 64 (d = 256) against dual_stream_attention_bwd_plain."""
+    assert K5.k5_body(torch.bfloat16) == "mma"
+    assert K5.k5_body(torch.float32) == "cuda_core"
+    rng = np.random.default_rng(14)
+    B, (Lv, Lu), d = 8, lengths, 256
+    heads, scale = d // dh, 1 / math.sqrt(dh)
+    xv, xu = _on(cuda, [rng.normal(size=(B, L, d)).astype(np.float32)
+                        for L in (Lv, Lu)], torch.bfloat16)
+    ws = _on(cuda, _proj_params(rng, d, 12), torch.bfloat16)
+    mv, mu = _on(cuda, (_masks(rng, B, Lv, False), _masks(rng, B, Lu, True)))
+    gv, gu = _on(cuda, [rng.normal(size=(B, L, d)).astype(np.float32)
+                        for L in (Lv, Lu)], torch.bfloat16)
+    before = A.LAUNCHES["dual_stream_attention_bwd"]
+    got = K5._k5_backward_cuda(xv, xu, ws[:12], ws[12:], mv, mu, gv, gu,
+                               heads, scale, rate, 23)
+    assert A.LAUNCHES["dual_stream_attention_bwd"] == before + 1
+    _rel_close(got, K5.dual_stream_attention_bwd_plain(
+        xv, xu, ws[:12], ws[12:], mv, mu, gv, gu, heads, scale, rate, 23),
+        torch.bfloat16)
+
+
+@pytest.mark.cuda
+def test_k5b_and_k6b_shared_memory_match_the_rule(cuda):
+    """bf16 K6b's and K5b's core blocks take K2b's shared memory (K5b the
+    larger of its two streams')."""
+    smem6 = A._fn("proj_two_block_attention_v2_bwd",
+                  "segmm_proj_two_block_attention_v2_bwd_smem_bytes",
+                  ctypes.c_size_t, [ctypes.c_int] * 5)
+    smem5 = A._fn("dual_stream_attention_bwd",
+                  "segmm_dual_stream_attention_bwd_smem_bytes",
+                  ctypes.c_size_t, [ctypes.c_int] * 4)
+    for dh in (16, 32, 64):
+        for shape in SHAPES + [(128, 128, 128), (7, 5, 13)]:
+            assert smem6(1, *shape, dh) == A.k2_mma_smem_bytes(*shape, dh,
+                                                               True)
+        for Lv, Lu in ((40, 100), (128, 7)):
+            assert smem5(1, Lv, Lu, dh) == max(
+                A.k2_mma_smem_bytes(Lv, Lv, Lu, dh, True),
+                A.k2_mma_smem_bytes(Lu, Lv, Lu, dh, True))
+
+
 # K3 (single-block masked attention of the CrossAtt / SelfAtt ablations):
 # the (Lq, Lk) launch shapes at the flagship width, the largest shape the
 # kernel takes, and (a third entry: q's scale) near-one-hot rows, logits of
