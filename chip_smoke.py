@@ -14,13 +14,15 @@ Phases, each of which fails the run (non-zero exit) on any error:
                  K4f, K4b, K6f, K6b) against its plain PyTorch version on
                  the card, at the main paths' stream shapes, fp32 and bf16,
                  dropout off and on, near-one-hot rows for K1b and K3,
-                 fp32 K1f also at head dim 128 (its CUDA-core body); fp32
+                 every kernel also at head dims 48, 96 and 128 (d_model
+                 768 / 16 and 8 heads, 512 / 4) in fp32 and bf16, and
+                 timed at 4 heads of 128 (the `<K> D128` entries); fp32
                  K1b's and K3b's outputs on fixed inputs bit for bit those
                  of the tree that introduced their bodies (a SHA-256);
                  bf16 K2b's, K4b's, K5b's and K6b's dW and db bit-equal
-                 across two calls; bf16 K4, K5b and K6b on their
-                 tensor-core bodies and fp32 on their CUDA-core ones (by
-                 the kernels' names in a profiler trace); K3 on
+                 across two calls; bf16 K4, K5 and K6 on their
+                 tensor-core bodies and fp32 on K2's fp32 route (by the
+                 kernels' names in a profiler trace); K3 on
                  near-one-hot rows in 8 seeded draws of their own; times
                  at B=1024 (K2f and K2b at the four stream shapes kernel
                  by kernel by device time, dropout off and on; K4f and K4b
@@ -66,6 +68,10 @@ Phases, each of which fails the run (non-zero exit) on any error:
                  CPU; skip_train's CLI with SEGMM_ATTN_V2=1 in its
                  environment and export_logits --serving 1 on its
                  checkpoint, each in a process of its own
+  wide           one training step per route at 4 heads of 128 (skip_train
+                 --nhead 4 at d_model 512, B=256): the default config's K1
+                 and CrossAtt's K3 (fp32), the production config's K2, K6,
+                 K5 and K4 (bf16), each with its launches nonzero
   train_cli      skip_train's CLI over the small memmap, then export_logits
                  serving the checkpoint it wrote; the same for
                  --ablation_type CrossAtt and for --fuse_layer 1
@@ -135,7 +141,7 @@ DROP_RATE = 0.1                      # the model's dropout
 RESULT = {"kernels": {}, "launches": {}}
 ALL_PHASES = ("build", "kernels", "serving", "default", "train",
               "train_default", "ablation", "fused_variants", "attn_v2",
-              "train_cli")
+              "wide", "train_cli")
 
 
 def log(*a):
@@ -185,10 +191,17 @@ def phase_build():
     # the tensor-core bodies: their libraries must hold HMMA (mma.sync)
     # instructions, among them TF32 ones (HMMA.1688.F32.TF32) for the fp32
     # bodies
+    # (the libraries disassembled side by side, one process each)
     cuobjdump = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
-    for name in MMA_LIBS + BF16_MMA_LIBS:
-        sass = subprocess.run([cuobjdump, "-sass", str(paths[name])],
-                              capture_output=True, text=True, timeout=300)
+    names = MMA_LIBS + BF16_MMA_LIBS
+    procs = {name: subprocess.Popen([cuobjdump, "-sass", str(paths[name])],
+                                    stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True)
+             for name in names}
+    for name in names:
+        out, err = procs[name].communicate(timeout=300)
+        sass = subprocess.CompletedProcess(procs[name].args,
+                                           procs[name].returncode, out, err)
         hmma = [ln for ln in sass.stdout.splitlines() if "HMMA" in ln]
         tf32 = sum("TF32" in ln for ln in hmma)
         bf16 = sum("BF16" in ln for ln in hmma)
@@ -206,18 +219,16 @@ def _masks(g, B, L, dev, allow_empty=True):
     return torch.arange(L, device=dev)[None, :] < n[:, None]
 
 
-def _k1_inputs(g, B, Lq, L1, L2, dt, dev):
+def _k1_inputs(g, B, Lq, L1, L2, dt, dev, heads=HEADS, d=D_MODEL):
     def r(L):
-        return torch.randn(B, L, HEADS, D_MODEL // HEADS, generator=g,
+        return torch.randn(B, L, heads, d // heads, generator=g,
                            device=dev).to(dt)
     return ((r(Lq), r(Lq), r(L1), r(L2), r(L1), r(L2)),
             (_masks(g, B, Lq, dev), _masks(g, B, L1, dev, False),
              _masks(g, B, L2, dev)))
 
 
-def _k2_inputs(g, B, Lq, L1, L2, dt, dev):
-    d = D_MODEL
-
+def _k2_inputs(g, B, Lq, L1, L2, dt, dev, d=D_MODEL):
     def x(L):
         return torch.randn(B, L, d, generator=g, device=dev).to(dt)
     ws = []
@@ -389,26 +400,6 @@ def phase_kernels():
         log(f"  B=64 {str(dt)[6:]} {STREAM_SHAPES[0]} q x50: K1b eval/drop "
             f"{errs[0]:.2g}/{errs[1]:.2g}")
     torch.cuda.synchronize()
-    # fp32 K1f past its tensor-core body's templates: head dim 128 (4 heads
-    # at d_model 512) runs the CUDA-core body by the wrapper's shape rule
-    (Lq, L1, L2), heads = STREAM_SHAPES[0], 4
-    body = A.k1_forward_body(torch.float32, Lq, L1, L2, d // heads)
-    if body != "cuda_core":
-        raise AssertionError(f"K1f at head dim {d // heads}: body {body}")
-    qkv = [torch.randn(64, L, heads, d // heads, generator=g, device=dev)
-           for L in (Lq, Lq, L1, L2, L1, L2)]
-    m = (_masks(g, 64, Lq, dev), _masks(g, 64, L1, dev, False),
-         _masks(g, 64, L2, dev))
-    errs = [_check(f"K1f fp32 head dim {d // heads} rate {rate}",
-                   A.fused_two_block_attention(
-                       *qkv, *m, dropout_rate=rate, seed=3,
-                       deterministic=rate == 0),
-                   A.two_block_attention_plain(
-                       *qkv, *m, 1 / math.sqrt(d // heads), rate, 3),
-                   torch.float32) for rate in (0.0, DROP_RATE)]
-    log(f"  B=64 fp32 {(Lq, L1, L2)} {heads} heads of {d // heads}: K1f "
-        f"({body} body) eval/drop {errs[0]:.2g}/{errs[1]:.2g}")
-
     # the main path's largest launch: backbone1's video stream at B=1024;
     # K1 in fp32 (default config), K2 in bf16 (serving preset)
     B, (Lq, L1, L2) = 1024, STREAM_SHAPES[0]
@@ -564,12 +555,341 @@ def phase_kernels():
     # K2b's bodies
     _k6_kernels(A, g, dev, (bytes2, flops2 / PEAK_FLOPS[torch.bfloat16]),
                 (bytes2b, ops2b))
+    _wide_kernels(A, dev)
     digest = fp32_bwd_digest(A, dev)
     log(f"  fp32 K1b + K3b outputs, SHA-256: {digest}")
     if digest != FP32_BWD_SHA256:
         raise AssertionError("fp32 K1b / K3b outputs differ from those of "
                              f"their bodies' tree ({FP32_BWD_SHA256})")
     A.reset_launch_counts()
+
+
+# ---------------------------------------------------------------------------
+# Head dims past the flagship's 32: d_model 768 with 16 and 8 heads (48, 96)
+# and d_model 512 with 4 (128, skip_train --nhead 4)
+WIDE_D = {48: 768, 96: 768, 128: 512}
+WIDE_HEADS = 4  # the JSON line's widened entries: 4 heads of 128 at d 512
+
+
+def _wide_kernels(A, dev):
+    """Every kernel at head dims 48, 96 and 128 against its plain version,
+    B=16, fp32 and bf16, dropout off and on, each call counting its launch:
+    K1, K2 and K6 at the four stream shapes, K3 at CrossAtt's two and
+    (100, 100), K5 on backbone 1's stream pair, K4 at (40, 40, 100) and
+    (100, 40, 100) (bf16 also at d = ff = 768). Then at 4 heads of 128 and
+    B=1024 the widened bodies' device times for the kernels JSON line
+    (`_wide_timed`)."""
+    from segmminterest_tpu_torch.core import dual_kernel as K5
+    from segmminterest_tpu_torch.core import layer_kernel as K4
+    g = torch.Generator(device=dev).manual_seed(12)
+    Bw = 16
+    worst = {}
+
+    def ran(before, keys):
+        for k in keys:
+            if A.LAUNCHES[k] != before[k] + 1:
+                raise AssertionError(f"{k} did not launch once")
+
+    def note(name, dh, dt, err):
+        key = (name, dh, str(dt)[6:])
+        worst[key] = max(worst.get(key, 0.0), err)
+
+    for dh, d in WIDE_D.items():
+        H, scale = d // dh, 1.0 / math.sqrt(dh)
+        for dt in (torch.float32, torch.bfloat16):
+            for rate, seed in ((0.0, 0), (DROP_RATE, 2357)):
+                tag = f"{str(dt)[6:]} head dim {dh} rate {rate}"
+                for shape in STREAM_SHAPES:
+                    qkv, m = _k1_inputs(g, Bw, *shape, dt, dev, H, d)
+                    gq = torch.randn(Bw, shape[0], H, dh, generator=g,
+                                     device=dev).to(dt)
+                    before = dict(A.LAUNCHES)
+                    out = A.fused_two_block_attention(
+                        *qkv, *m, scale=scale, dropout_rate=rate, seed=seed,
+                        deterministic=rate == 0)
+                    got = _grads(lambda *t: A.fused_two_block_attention(
+                        *t, *m, scale=scale, dropout_rate=rate, seed=seed,
+                        deterministic=rate == 0), qkv, gq)
+                    ran(before, ("two_block_attention_bwd",))
+                    note("K1f", dh, dt, _check(
+                        f"K1f {tag} {shape}", out,
+                        A.two_block_attention_plain(*qkv, *m, scale, rate,
+                                                    seed), dt))
+                    note("K1b", dh, dt, _rel_err(
+                        f"K1b {tag} {shape}", got,
+                        A.two_block_attention_bwd_plain(
+                            *qkv, *m, gq, scale, rate, seed), BWD_TOL[dt]))
+                    x, ws, mx = _k2_inputs(g, Bw, *shape, dt, dev, d)
+                    gx = torch.randn(Bw, shape[0], d, generator=g,
+                                     device=dev).to(dt)
+                    for v, name, plain, plain_b, keys in (
+                            (1, "K2", A.proj_two_block_attention_plain,
+                             A.proj_two_block_attention_bwd_plain, K2_KEYS),
+                            (2, "K6", A.proj_two_block_attention_v2_plain,
+                             A.proj_two_block_attention_v2_bwd_plain,
+                             K6_KEYS)):
+                        def k2(*t):
+                            return A.fused_proj_two_block_attention(
+                                *t, *mx, num_heads=H, scale=scale,
+                                dropout_rate=rate, seed=seed,
+                                deterministic=rate == 0, version=v)
+                        before = dict(A.LAUNCHES)
+                        out = k2(*x, *ws)
+                        got = _grads(k2, tuple(x) + tuple(ws), gx)
+                        ran(before, keys[1:])
+                        note(f"{name}f", dh, dt, _check(
+                            f"{name}f {tag} {shape}", out,
+                            plain(*x, *ws, *mx, H, scale, rate, seed), dt))
+                        note(f"{name}b", dh, dt, _rel_err(
+                            f"{name}b {tag} {shape}", got, plain_b(
+                                *x, *ws, *mx, gx, H, scale, rate, seed),
+                            BWD_TOL[dt]))
+                for Lq, Lk in K3_SHAPES[:2] + ((100, 100),):
+                    q, k, v, gq = (torch.randn(Bw, L, H, dh, generator=g,
+                                               device=dev).to(dt)
+                                   for L in (Lq, Lk, Lk, Lq))
+                    m = (_masks(g, Bw, Lq, dev), _masks(g, Bw, Lk, dev,
+                                                        False))
+
+                    def k3(*t):
+                        return A.fused_masked_attention(
+                            *t, *m, scale=scale, dropout_rate=rate,
+                            seed=seed, deterministic=rate == 0)
+                    before = dict(A.LAUNCHES)
+                    out = k3(q, k, v)
+                    got = _grads(k3, (q, k, v), gq)
+                    ran(before, ("masked_attention_bwd",))
+                    note("K3f", dh, dt, _check(
+                        f"K3f {tag} {(Lq, Lk)}", out, A.masked_attention_plain(
+                            q, k, v, *m, scale, rate, seed), dt))
+                    note("K3b", dh, dt, _rel_err(
+                        f"K3b {tag} {(Lq, Lk)}", got,
+                        A.masked_attention_bwd_plain(q, k, v, *m, gq, scale,
+                                                     rate, seed),
+                        BWD_TOL[dt]))
+                Lv, Lu = DUAL_SHAPE
+                t = [torch.randn(Bw, L, d, generator=g, device=dev).to(dt)
+                     for L in (Lv, Lu)] + _proj_weights(g, d, 12, dt, dev)
+                m = (_masks(g, Bw, Lv, dev, False), _masks(g, Bw, Lu, dev))
+                gs = tuple(torch.randn(Bw, L, d, generator=g, device=dev
+                                       ).to(dt) for L in (Lv, Lu))
+
+                def k5(*x):
+                    return K5.fused_dual_stream_attention(
+                        x[0], x[1], _pairs(x[2:14]), _pairs(x[14:26]), *m,
+                        num_heads=H, scale=scale, dropout_rate=rate,
+                        seed=seed, deterministic=rate == 0)
+                before = dict(A.LAUNCHES)
+                outs = k5(*t)
+                got = _grads(k5, t, gs)
+                ran(before, ("dual_stream_attention_bwd",))
+                want = K5.dual_stream_attention_plain(
+                    t[0], t[1], t[2:14], t[14:26], *m, H, scale, rate, seed)
+                note("K5f", dh, dt, max(_check(f"K5f {tag}", a, b, dt)
+                                        for a, b in zip(outs, want)))
+                note("K5b", dh, dt, _rel_err(
+                    f"K5b {tag}", got, K5.dual_stream_attention_bwd_plain(
+                        t[0], t[1], t[2:14], t[14:26], *m, *gs, H, scale,
+                        rate, seed), BWD_TOL[dt]))
+                # K4 at d = ff = 512 (dh 128) and 768 (48, 96); fp32 at
+                # d 384 past 512, where its row-tile epilogue fits
+                d4 = d if dt == torch.bfloat16 or d <= 512 else 384
+                for shape in STREAM_SHAPES[:2]:
+                    t, m = _k4_inputs(g, Bw, *shape, dt, dev, ff=d4, d=d4)
+                    gx = torch.randn(Bw, shape[0], d4, generator=g,
+                                     device=dev).to(dt)
+
+                    def k4(*x):
+                        return K4.fused_layer_stream(
+                            *x[:3], _pairs(x[3:15]), x[15:], *m,
+                            num_heads=d4 // dh, scale=scale,
+                            dropout_rate=rate, seed=seed,
+                            deterministic=rate == 0)
+                    before = dict(A.LAUNCHES)
+                    out = k4(*t)
+                    got = _grads(k4, t, gx)
+                    ran(before, ("layer_stream_bwd",))
+                    note("K4f", dh, dt, _rel_err(
+                        f"K4f {tag} {shape}", [out], [K4.layer_stream_plain(
+                            *t[:3], t[3:15], t[15:], *m, d4 // dh, scale,
+                            rate, seed)], BWD_TOL[dt]))
+                    note("K4b", dh, dt, _rel_err(
+                        f"K4b {tag} {shape}", got, K4.layer_stream_bwd_plain(
+                            *t[:3], t[3:15], t[15:], *m, gx, d4 // dh,
+                            scale, rate, seed), BWD_TOL[dt]))
+        torch.cuda.synchronize()
+        log(f"  B={Bw} head dim {dh} (d {d}, {H} heads), fp32 / bf16, "
+            "dropout off and on, worst: " + ", ".join(
+                f"{n} {worst[n, dh, 'float32']:.2g} / "
+                f"{worst[n, dh, 'bfloat16']:.2g}"
+                for n in ("K1f", "K1b", "K2f", "K2b", "K6f", "K6b", "K3f",
+                          "K3b", "K5f", "K5b", "K4f", "K4b")
+                if (n, dh, "float32") in worst))
+    _wide_timed(A, g, dev, worst)
+
+
+def _wide_timed(A, g, dev, worst):
+    """The widened bodies at 4 heads of 128 (d 512) and B=1024 by device
+    time, at the shapes of the flagship's entries (K1, K2 and K6 at
+    (40, 40, 100), K4 at (100, 40, 100), K3 at (40, 100), K5 on its stream
+    pair), in the dtype of the configuration that runs each (K1 and K3
+    fp32, the others bf16), beside their plain versions (and K1's and K3's
+    beside SDPA's). Each bound is the flagship entry's, priced at the same
+    shape: bytes and operations depend on d, not on how it is cut into
+    heads. The entries' launches come from phase wide."""
+    from segmminterest_tpu_torch.core import dual_kernel as K5
+    from segmminterest_tpu_torch.core import layer_kernel as K4
+    B, H, d = 1024, WIDE_HEADS, D_MODEL
+    dh, scale = d // H, 1.0 / math.sqrt(d // H)
+    (Lq, L1, L2) = STREAM_SHAPES[0]
+    tag = f"{H} heads of {dh}"
+
+    def record(key, flag, name, src, line, err, ms, plain_ms, lib):
+        RESULT["kernels"][key] = dict(RESULT["kernels"][flag], name=name,
+                                      max_abs_err=err, ms=ms,
+                                      plain_ms=plain_ms, library_ms=lib)
+        RESULT["kernels"][key]["source"] = \
+            f"segmminterest_tpu_torch/core/csrc/{src}"
+        log(f"  {key} B=1024: {_ms(ms)} ms (plain {plain_ms:.3f}, library "
+            f"{_ms(lib)}, bound {RESULT['kernels'][key]['bound_ms']:.3f})")
+
+    # K1, fp32
+    t = _k1_device_times(A, g, dev, B, Lq, L1, L2, scale, H)
+    qkv, m = _k1_inputs(g, B, Lq, L1, L2, torch.float32, dev, H)
+    gq = torch.randn(B, Lq, H, dh, generator=g, device=dev)
+    plain_f = _time_ms(lambda: A.two_block_attention_plain(*qkv, *m, scale),
+                       3)
+    plain_b = _time_ms(lambda: A.two_block_attention_bwd_plain(
+        *qkv, *m, gq, scale), 2)
+    del qkv, m, gq
+    record("K1 D128", "K1", "two_block_attention_fwd (K1f, 4 heads of 128)",
+           "two_block_attention.cu", 527, worst["K1f", 128, "float32"],
+           t["k1f"], plain_f, t["sdpa"])
+    record("K1b D128", "K1b", "two_block_attention_bwd (K1b, 4 heads of 128)",
+           "two_block_attention_bwd.cu", 558, worst["K1b", 128, "float32"],
+           t["k1b"], plain_b, t["sdpa_bwd"])
+    # K3, fp32, beside SDPA's
+    Lq3, Lk3 = K3_SHAPES[0]
+    q, k, v, gq = (torch.randn(B, L, H, dh, generator=g, device=dev)
+                   for L in (Lq3, Lk3, Lk3, Lq3))
+    m = (_masks(g, B, Lq3, dev), _masks(g, B, Lk3, dev, False))
+    leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+    out = A.fused_masked_attention(*leaves, *m, scale=scale)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    ql, kl, vl = (x.transpose(1, 2).contiguous().requires_grad_()
+                  for x in (q, k, v))
+    bias = torch.zeros(A._pair_mask(*m).shape, device=dev).masked_fill(
+        ~A._pair_mask(*m), -10000.0)
+    lib_out = sdpa(ql, kl, vl, attn_mask=bias, scale=scale)
+    gl = gq.transpose(1, 2).contiguous()
+    lib_f, _ = _sdpa_device(lambda: sdpa(ql.detach(), kl.detach(), vl.detach(),
+                                         attn_mask=bias, scale=scale), 10)
+    lib_b, _ = _sdpa_device(lambda: torch.autograd.grad(
+        lib_out, (ql, kl, vl), gl, retain_graph=True), 5)
+    ms_f = _device_ms(lambda: A.fused_masked_attention(q, k, v, *m,
+                                                       scale=scale), 10,
+                      K3_NAMES[:1])
+    ms_b = _device_ms(lambda: torch.autograd.grad(out, leaves, gq,
+                                                  retain_graph=True), 5,
+                      K3_NAMES[1:])
+    plain_f = _time_ms(lambda: A.masked_attention_plain(q, k, v, *m, scale), 3)
+    plain_b = _time_ms(lambda: A.masked_attention_bwd_plain(
+        q, k, v, *m, gq, scale), 2)
+    record("K3 D128", "K3", "masked_attention_fwd (K3f, fp32, 4 heads of "
+           "128)", "masked_attention.cu", 126, worst["K3f", 128, "float32"],
+           ms_f, plain_f, lib_f)
+    record("K3b D128", "K3b", "masked_attention_bwd (K3b, fp32, 4 heads of "
+           "128)", "masked_attention_bwd.cu", 156,
+           worst["K3b", 128, "float32"], ms_b, plain_b, lib_b)
+    del q, k, v, gq, leaves, out, ql, kl, vl, bias, lib_out, gl
+    # K2 and K6, bf16
+    dt = torch.bfloat16
+    x, ws, m = _k2_inputs(g, B, Lq, L1, L2, dt, dev)
+    gx = torch.randn(B, Lq, d, generator=g, device=dev).to(dt)
+    for v, key, names, src, lines, plain, plain_bwd in (
+            (1, "K2", K2_NAMES, "proj_two_block_attention", (776, 808),
+             A.proj_two_block_attention_plain,
+             A.proj_two_block_attention_bwd_plain),
+            (2, "K6", K6_NAMES, "proj_two_block_attention_v2", (1198, 1253),
+             A.proj_two_block_attention_v2_plain,
+             A.proj_two_block_attention_v2_bwd_plain)):
+        def fwd(*t):
+            return A.fused_proj_two_block_attention(
+                *t, *m, num_heads=H, scale=scale, version=v)
+        leaves = [a.detach().requires_grad_() for a in tuple(x) + tuple(ws)]
+        out = fwd(*leaves)
+        ms_f = _device_ms(lambda: fwd(*x, *ws), 10, names)
+        ms_b = _device_ms(lambda: torch.autograd.grad(
+            out, leaves, gx, retain_graph=True), 5, names)
+        plain_f = _time_ms(lambda: plain(*x, *ws, *m, H, scale), 3)
+        plain_b = _time_ms(lambda: plain_bwd(*x, *ws, *m, gx, H, scale), 2)
+        record(f"{key} D128", key, f"{src}_fwd ({key}f, bf16, {tag})",
+               f"{src}.cu", lines[0], worst[f"{key}f", 128, "bfloat16"], ms_f,
+               plain_f, None)
+        record(f"{key}b D128", f"{key}b", f"{src}_bwd ({key}b, bf16, {tag})",
+               f"{src}_bwd.cu", lines[1], worst[f"{key}b", 128, "bfloat16"],
+               ms_b, plain_b, None)
+        del leaves, out
+    del x, ws, m, gx
+    # K4, bf16, at the flagship K4 entry's shape
+    t, m = _k4_inputs(g, B, *STREAM_SHAPES[1], dt, dev)
+    gx = torch.randn(B, STREAM_SHAPES[1][0], d, generator=g,
+                     device=dev).to(dt)
+
+    def k4(*x):
+        return K4.fused_layer_stream(*x[:3], _pairs(x[3:15]), x[15:], *m,
+                                     num_heads=H, scale=scale)
+    leaves = [a.detach().requires_grad_() for a in t]
+    out = k4(*leaves)
+    ms_f = _device_ms(lambda: k4(*t), 5, K4_NAMES)
+    ms_b = _device_ms(lambda: torch.autograd.grad(out, leaves, gx,
+                                                  retain_graph=True), 3,
+                      K4_NAMES)
+    plain_f = _time_ms(lambda: K4.layer_stream_plain(
+        *t[:3], t[3:15], t[15:], *m, H, scale), 2)
+    plain_b = _time_ms(lambda: K4.layer_stream_bwd_plain(
+        *t[:3], t[3:15], t[15:], *m, gx, H, scale), 2)
+    record("K4 D128", "K4", f"layer_stream_fwd (K4f, bf16, {tag})",
+           "layer_stream.cu", 140, worst["K4f", 128, "bfloat16"], ms_f,
+           plain_f, None)
+    record("K4b D128", "K4b", f"layer_stream_bwd (K4b, bf16, {tag})",
+           "layer_stream_bwd.cu", 178, worst["K4b", 128, "bfloat16"], ms_b,
+           plain_b, None)
+    for e in ("K4 D128", "K4b D128"):
+        RESULT["kernels"][e]["replaces"] = \
+            RESULT["kernels"][e]["replaces"].replace("attention.py",
+                                                     "layer_kernel.py")
+    del t, m, gx, leaves, out
+    # K5, bf16
+    Lv, Lu = DUAL_SHAPE
+    t = [torch.randn(B, L, d, generator=g, device=dev).to(dt)
+         for L in (Lv, Lu)] + _proj_weights(g, d, 12, dt, dev)
+    m = (_masks(g, B, Lv, dev, False), _masks(g, B, Lu, dev))
+    gs = tuple(torch.randn(B, L, d, generator=g, device=dev).to(dt)
+               for L in (Lv, Lu))
+
+    def k5(*x):
+        return K5.fused_dual_stream_attention(
+            x[0], x[1], _pairs(x[2:14]), _pairs(x[14:26]), *m, num_heads=H,
+            scale=scale)
+    leaves = [a.detach().requires_grad_() for a in t]
+    outs = k5(*leaves)
+    ms_f = _device_ms(lambda: k5(*t), 5, K5_NAMES)
+    ms_b = _device_ms(lambda: torch.autograd.grad(outs, leaves, gs,
+                                                  retain_graph=True), 3,
+                      K5_NAMES)
+    plain_f = _time_ms(lambda: K5.dual_stream_attention_plain(
+        t[0], t[1], t[2:14], t[14:26], *m, H, scale), 2)
+    plain_b = _time_ms(lambda: K5.dual_stream_attention_bwd_plain(
+        t[0], t[1], t[2:14], t[14:26], *m, *gs, H, scale), 2)
+    record("K5 D128", "K5", f"dual_stream_attention_fwd (K5f, bf16, {tag})",
+           "dual_stream_attention.cu", 68, worst["K5f", 128, "bfloat16"],
+           ms_f, plain_f, None)
+    record("K5b D128", "K5b", f"dual_stream_attention_bwd (K5b, bf16, {tag})",
+           "dual_stream_attention_bwd.cu", 104, worst["K5b", 128, "bfloat16"],
+           ms_b, plain_b, None)
+    del t, m, gs, leaves, outs
+    torch.cuda.empty_cache()
 
 
 def _device_share(run, n, names):
@@ -639,15 +959,18 @@ def _sdpa_device(fn, iters):
     return sum(rows.values()), [n[:80] for n in names]
 
 
-def _k1_device_times(A, g, dev, B, Lq, L1, L2, scale):
-    """fp32 K1f (dropout off and on) and K1b at one stream shape by device
-    time (the kernels' own, not the wrapper's), beside SDPA's forward and
-    backward over the concat construction (attention.py:362-371) with an
-    additive -10000 mask; SDPA is never called by the port, and unlike K1
-    it does not give padded query rows the uniform softmax."""
-    qkv, m = _k1_inputs(g, B, Lq, L1, L2, torch.float32, dev)
+def _k1_device_times(A, g, dev, B, Lq, L1, L2, scale, heads=HEADS,
+                     dt=torch.float32):
+    """K1f (fp32 by default; dropout off and on) and K1b at one stream
+    shape by device time (the kernels' own, not the wrapper's), beside
+    SDPA's forward and backward over the concat construction
+    (attention.py:362-371) with an additive -10000 mask; SDPA is never
+    called by the port, and unlike K1 it does not give padded query rows
+    the uniform softmax."""
+    qkv, m = _k1_inputs(g, B, Lq, L1, L2, dt, dev, heads)
     q1, q2, kk1, kk2, v1, v2 = qkv
-    gq = torch.randn(B, Lq, HEADS, D_MODEL // HEADS, generator=g, device=dev)
+    gq = torch.randn(B, Lq, heads, D_MODEL // heads, generator=g,
+                     device=dev).to(dt)
     leaves = [t.detach().requires_grad_() for t in qkv]
     out = A.fused_two_block_attention(*leaves, *m, scale=scale)
     qc = torch.cat([q1, q2], -1).transpose(1, 2).requires_grad_()
@@ -656,7 +979,8 @@ def _k1_device_times(A, g, dev, B, Lq, L1, L2, scale):
                    1).transpose(1, 2).requires_grad_()
     vc = torch.cat([v1, v2], 1).transpose(1, 2).requires_grad_()
     pair = A._pair_mask(m[0], torch.cat([m[1], m[2]], 1))
-    bias = torch.zeros(pair.shape, device=dev).masked_fill(~pair, -10000.0)
+    bias = torch.zeros(pair.shape, device=dev, dtype=dt).masked_fill(
+        ~pair, -10000.0)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     lib_out = sdpa(qc, kc, vc, attn_mask=bias, scale=scale)
     gc = gq.transpose(1, 2)
@@ -1094,7 +1418,9 @@ def _k5_kernels(A, g, dev):
                for L in (Lv, Lu))
     err_f = max(_check(f"K5f B=1024 {s}", a, b, dt)
                 for s, a, b in zip("vu", k5(t, m), plain(t, m)))
-    ms_f = _time_ms(lambda: k5(t, m), 10)
+    # by device time (CUDA events where the trace holds none), as K5b
+    ms_f = _device_ms(lambda: k5(t, m), 10, K5_NAMES) \
+        or _time_ms(lambda: k5(t, m), 10)
     plain_f = _time_ms(lambda: plain(t, m), 3)
     leaves = [x.detach().requires_grad_() for x in t]
     out = k5(leaves, m)
@@ -1137,11 +1463,10 @@ def _k5_kernels(A, g, dev):
     torch.cuda.empty_cache()
 
 
-def _k4_inputs(g, B, Lq, L1, L2, dt, dev, ff=D_MODEL):
-    """K4's inputs at the flagship width: xq, x1, x2, the twelve projection
-    parameters, the ten epilogue ones (each LayerNorm its own fp32 scale
-    and bias), and the three masks."""
-    d = D_MODEL
+def _k4_inputs(g, B, Lq, L1, L2, dt, dev, ff=D_MODEL, d=D_MODEL):
+    """K4's inputs (at the flagship width by default): xq, x1, x2, the
+    twelve projection parameters, the ten epilogue ones (each LayerNorm its
+    own fp32 scale and bias), and the three masks."""
     xs = [torch.randn(B, L, d, generator=g, device=dev).to(dt)
           for L in (Lq, L1, L2)]
 
@@ -1163,7 +1488,9 @@ def _k4_inputs(g, B, Lq, L1, L2, dt, dev, ff=D_MODEL):
 def _k4_bodies(dev):
     """Which bodies K4f and K4b ran, by the kernels' names in a profiler
     trace of a forward and backward: bf16 the tensor-core ones (k4_body
-    "mma"), fp32 the CUDA-core ones. Runs first in phase kernels: later in
+    "mma"), fp32 K2's fp32 route (the pair projections and K1's 3xTF32
+    core) around the CUDA-core epilogue and chain (k4_body "tf32"). Runs
+    first in phase kernels: later in
     the phase, after many traces, the profiler has returned traces with no
     kernel rows. Its inputs come from a generator of its own, so that the
     phase's other checks draw what they drew before it."""
@@ -1176,10 +1503,11 @@ def _k4_bodies(dev):
                               "layer_epilogue_fwd_mma",
                               "layer_epilogue_bwd_mma", "chain_dx",
                               "chain_dw"), ()),
-            (torch.float32, ("proj_two_block_fwd_kernel",
-                             "proj_two_block_qkv_bwd_kernel",
+            (torch.float32, ("proj_pairs_f32", "two_block_fwd_tf32",
+                             "two_block_bwd_tf32",
                              "layer_epilogue_fwd_kernel",
-                             "layer_epilogue_bwd_kernel"), ("_mma",))):
+                             "layer_epilogue_bwd_kernel", "dx_kernel",
+                             "dw_kernel"), ("_mma", "qkv_gemm", "chain_d"))):
         t, m = _k4_inputs(g, 64, *STREAM_SHAPES[0], dt, dev)
         gx = torch.randn(64, STREAM_SHAPES[0][0], d, generator=g,
                          device=dev).to(dt)
@@ -1192,7 +1520,7 @@ def _k4_bodies(dev):
         missing = [n for n in want if n not in names]
         if missing or any(n in names for n in refuse) or \
                 K4.k4_body(dt) != ("mma" if dt == torch.bfloat16
-                                   else "cuda_core"):
+                                   else "tf32"):
             raise AssertionError(f"K4 {dt}: body {K4.k4_body(dt)}, kernels "
                                  f"{names[:600]} (missing {missing})")
         log(f"  K4 {str(dt)[6:]}: {K4.k4_body(dt)} body, kernels "
@@ -1200,17 +1528,20 @@ def _k4_bodies(dev):
 
 
 def _k6_k5_bodies(dev):
-    """Which bodies K6b and K5b ran, by the kernels' names in a profiler
-    trace of their backward alone: bf16 K2b's tensor-core ones (k6_body /
-    k5_body "mma"; K5b's two cores in dual_stream_core_bwd_kernel), fp32
-    their first CUDA-core ones. A generator of its own, as
-    _k4_bodies."""
+    """Which bodies K6 and K5 ran, by the kernels' names in profiler traces
+    of their forward and of their backward alone: bf16 K2's tensor-core
+    ones (k6_body / k5_body "mma"; K5's two cores in
+    dual_stream_core_fwd_kernel and dual_stream_core_bwd_kernel), fp32
+    K2's fp32 route (the pair projections and K1's 3xTF32 core; k6_body /
+    k5_body "tf32") and, backward, the CUDA-core chain. A generator of its
+    own, as _k4_bodies."""
     from segmminterest_tpu_torch.core import attention as A
     from segmminterest_tpu_torch.core import dual_kernel as K5
     H, d = HEADS, D_MODEL
     scale = 1.0 / math.sqrt(d // H)
     g = torch.Generator(device=dev).manual_seed(2)
     mma = ("qkv_gemm", "chain_dx", "chain_dw")
+    tf32 = ("proj_pairs_f32", "two_block_fwd_tf32")
     for dt in (torch.bfloat16, torch.float32):
         bf16 = dt == torch.bfloat16
         x, ws, m = _k2_inputs(g, 64, *STREAM_SHAPES[0], dt, dev)
@@ -1221,6 +1552,9 @@ def _k6_k5_bodies(dev):
         gx = torch.randn_like(out)
         k6 = " ".join(_device_kernels(lambda: torch.autograd.grad(
             out, leaves, gx, retain_graph=True), 2))
+        k6f = " ".join(_device_kernels(
+            lambda: A.fused_proj_two_block_attention(
+                *x, *ws, *m, num_heads=H, scale=scale, version=2), 2))
         Lv, Lu = DUAL_SHAPE
         xs = [torch.randn(64, L, d, generator=g, device=dev).to(dt)
               for L in (Lv, Lu)]
@@ -1234,19 +1568,29 @@ def _k6_k5_bodies(dev):
         gs = [torch.randn_like(o) for o in outs]
         k5 = " ".join(_device_kernels(lambda: torch.autograd.grad(
             outs, leaves, gs, retain_graph=True), 2))
+        k5f = " ".join(_device_kernels(lambda: K5.fused_dual_stream_attention(
+            xs[0], xs[1], _pairs(leaves[2:14]), _pairs(leaves[14:]), mv, mu,
+            num_heads=H, scale=scale), 2))
         for name, names, body, want, refuse in (
+                ("K6f", k6f, A.k6_body(dt),
+                 ("qkv_gemm", "proj_two_block_core_fwd") if bf16 else tf32,
+                 ("tf32",) if bf16 else ("qkv_gemm", "core_fwd")),
+                ("K5f", k5f, K5.k5_body(dt),
+                 ("qkv_gemm", "dual_stream_core_fwd") if bf16 else tf32,
+                 ("tf32",) if bf16 else ("qkv_gemm", "core_fwd")),
                 ("K6b", k6, A.k6_body(dt),
                  mma + ("proj_two_block_core_bwd",) if bf16
-                 else ("proj_v2_qkv_bwd", "dx_kernel", "dw_kernel"),
-                 ("proj_v2_qkv_bwd",) if bf16 else mma + ("core_bwd",)),
+                 else ("proj_pairs_f32", "two_block_bwd_tf32", "dx_kernel",
+                       "dw_kernel"),
+                 ("tf32",) if bf16 else mma + ("core_bwd",)),
                 ("K5b", k5, K5.k5_body(dt),
                  mma + ("dual_stream_core_bwd",) if bf16
-                 else ("dual_stream_qkv_bwd", "dx_kernel", "dw_kernel"),
-                 ("dual_stream_qkv_bwd",) if bf16
-                 else mma + ("core_bwd",))):
+                 else ("proj_pairs_f32", "two_block_bwd_tf32", "dx_kernel",
+                       "dw_kernel"),
+                 ("tf32",) if bf16 else mma + ("core_bwd",))):
             missing = [n for n in want if n not in names]
             if missing or any(n in names for n in refuse) or \
-                    body != ("mma" if bf16 else "cuda_core"):
+                    body != ("mma" if bf16 else "tf32"):
                 raise AssertionError(f"{name} {dt}: body {body}, kernels "
                                      f"{names[:600]} (missing {missing})")
             log(f"  {name} {str(dt)[6:]}: {body} body, kernels "
@@ -1778,24 +2122,25 @@ DEFAULT_TRAIN_STEPS = 3
 # backward never runs: 18 backward launches
 FWD_PER_STEP, BWD_PER_STEP = 20, 18
 # K2f and K2b: bf16 (qkv_gemm_kernel, proj_two_block_core_*, chain_dx_kernel,
-# chain_dw_kernel, chain_dw_reduce_kernel) and fp32 (proj_two_block_*,
-# dx_kernel, dw_kernel, dw_reduce_kernel)
+# chain_dw_kernel, chain_dw_reduce_kernel) and fp32 (k2_body "tf32": the
+# projections, K1's 3xTF32 core with its query windows summed, and the
+# CUDA-core chain's dx_kernel, dw_kernel, dw_reduce_kernel)
 K2_NAMES = ("proj_two_block", "qkv_gemm", "dx_kernel", "dw_kernel",
-            "dw_reduce_kernel")
-# K4f and K4b: K2's kernels (their bf16 attention) and the epilogue's,
-# bf16 (layer_epilogue_*_mma_kernel) and fp32 (layer_epilogue_*_kernel),
-# with ln_partial_sum_kernel
+            "dw_reduce_kernel", "proj_pairs_f32", "two_block_fwd_tf32",
+            "two_block_bwd_tf32", "tf32_sum_windows")
+# K4f and K4b: K2's kernels (their attention) and the epilogue's, bf16
+# (layer_epilogue_*_mma_kernel) and fp32 (layer_epilogue_*_kernel), with
+# ln_partial_sum_kernel
 K4_NAMES = K2_NAMES + ("layer_epilogue", "ln_partial_sum")
-# K5b (bf16: qkv_gemm_kernel, dual_stream_core_bwd_kernel, chain_dx_kernel,
-# chain_dw_kernel, chain_dw_reduce_kernel; fp32: dual_stream_qkv_bwd_kernel,
-# dx_kernel, dw_kernel, dw_reduce_kernel) and K6 (K6f: proj_v2_fwd_kernel;
-# bf16 K6b K2b's kernels, fp32 K6b proj_v2_qkv_bwd_kernel and the chain's)
+# K5 (bf16: qkv_gemm_kernel, dual_stream_core_*_kernel, chain_dx_kernel,
+# chain_dw_kernel, chain_dw_reduce_kernel; fp32: K2's) and K6 (K2's
+# kernels, its cores with K6's keys)
 K5_NAMES = K2_NAMES + ("dual_stream",)
-K6_NAMES = K2_NAMES + ("proj_v2",)
+K6_NAMES = K2_NAMES
 # K1f and K1b (fp32: two_block_bwd_tf32_kernel, bf16: two_block_bwd_kernel)
-K1_NAMES = ("two_block_fwd", "two_block_bwd")
+K1_NAMES = ("two_block_fwd", "two_block_bwd", "tf32_sum_windows")
 # K3f and K3b, fp32 (masked_*_tf32_kernel) and bf16 (masked_*_mma_kernel)
-K3_NAMES = ("masked_fwd", "masked_bwd")
+K3_NAMES = ("masked_fwd", "masked_bwd", "tf32_sum_windows")
 
 
 def _production_train_cfg(csv_path, **kw):
@@ -2451,6 +2796,62 @@ def phase_attn_v2(ctx):
         f"40 finite logits; launches {launches}")
 
 
+# skip_train --nhead 4 (4 heads of 128 at d_model 512): one training step
+# per route at B=256 over the flagship's table; the route's kernels (the
+# entries "<K> D128" of the kernels JSON line) must launch
+WIDE_ROUTES = (
+    ("K1", "default", {}, ("two_block_attention", "two_block_attention_bwd")),
+    ("K3", "default", dict(ablation_type="CrossAtt"),
+     ("masked_attention", "masked_attention_bwd")),
+    ("K2", "production", {},
+     ("proj_two_block_attention", "proj_two_block_attention_bwd")),
+    ("K6", "production", {}, K6_KEYS),
+    ("K5", "production", dict(fuse_dual=True),
+     ("dual_stream_attention", "dual_stream_attention_bwd")),
+    ("K4", "production", dict(fuse_layer=True),
+     ("layer_stream", "layer_stream_bwd")))
+
+
+def phase_wide(ctx):
+    """One training step per attention route at 4 heads of 128 (skip_train
+    --nhead 4 at d_model 512), B=256: the default config (fp32, K1; K3
+    under CrossAtt) and the production config (bf16, K2; K6 under
+    SEGMM_ATTN_V2's switch, K5 under fuse_dual, K4 under fuse_layer), each
+    with its kernels' launch counts nonzero and a finite loss."""
+    from segmminterest_tpu_torch.core import attention as A
+    from segmminterest_tpu_torch.data.dataset import BatchIterator
+    from segmminterest_tpu_torch.engine.train import InterestEngine
+
+    _data(ctx)
+    reader, store = ctx["reader"], ctx["store"]
+    for key, base, kw, keys in WIDE_ROUTES:
+        cfg = (_flagship_cfg(ctx["csv"]).replace(table_quant="int8")
+               if base == "default" else _production_train_cfg(ctx["csv"]))
+        cfg = cfg.replace(nhead=WIDE_HEADS, train_batch_size=256, **kw)
+        A.ATTN_V2 = key == "K6"
+        try:
+            engine = InterestEngine(cfg, reader.n_users, reader.n_items,
+                                    feature_table=ctx["table"], device="cuda")
+            batch = next(iter(BatchIterator(
+                reader, reader.tables["train"], 256, shuffle=True,
+                feature_store=store, seed=cfg.seed,
+                transform=engine.batch_transform)))
+            _, times, losses, counts = _train_steps(engine, [batch])
+        finally:
+            A.ATTN_V2 = False
+        if not all(counts[k] for k in keys):
+            raise AssertionError(f"{key} at {WIDE_HEADS} heads: launches "
+                                 f"{counts}")
+        RESULT["launches"][f"{key} D128"] = counts[keys[0]]
+        RESULT["launches"][f"{key}b D128"] = counts[keys[1]]
+        log(f"  {key} route, {cfg.compute_dtype}, {WIDE_HEADS} heads of "
+            f"{cfg.d_model // WIDE_HEADS}, B=256: loss {losses[0]:.4f}, "
+            f"{1e3 * times[0]:.0f} ms (first step); launches "
+            f"{ {k: counts[k] for k in keys} }")
+        del engine
+        torch.cuda.empty_cache()
+
+
 def phase_train_cli(ctx):
     """skip_train's CLI (production flags, --debug 1) over the small
     memmap, then export_logits serving the checkpoint it wrote."""
@@ -2601,6 +3002,7 @@ def main(argv=None):
          "ablation": lambda: phase_ablation(ctx),
          "fused_variants": lambda: phase_fused_variants(ctx),
          "attn_v2": lambda: phase_attn_v2(ctx),
+         "wide": lambda: phase_wide(ctx),
          "train_cli": lambda: phase_train_cli(ctx)}[name]()
         log(f"phase {name}: ok ({time.perf_counter() - t0:.1f} s)")
     log(f"all phases: {time.perf_counter() - t_all:.1f} s")

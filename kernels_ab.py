@@ -47,12 +47,29 @@ builds that package's kernels under DIR/build, and prints one JSON line:
     bound of chip_smoke.py's pricing;
   * the bodies no other part times (`untimed`): bf16 K1f and K1b, fp32
     K2f and K2b, fp32 K4f and K4b at B=1024 at the four stream shapes,
-    dropout off, by device time, beside their bounds;
+    dropout off, by device time, beside their bounds (bf16 K1 also beside
+    its plain version and SDPA's bf16 forward and backward);
   * the main path end to end (`e2e`): production training, fuse_dual,
     SEGMM_ATTN_V2 and fuse_layer at B=1024 (ms and device ms per step,
     peak memory), the serving preset (device latency at B = 1024 / 512 /
     256 / 128, interactions/s over the test split) and fuse_layer served
     (device latency at B=1024);
+  * every kernel at 4 heads of 128 (`wide`: d_model 512, skip_train
+    --nhead 4) at B=1024, fp32 and bf16, dropout off, by device time, each
+    with its bound at its own shape and dtype (_wide_bounds: bytes and
+    operations depend on d, not on its heads) and its error against the
+    plain version: K1, K2 and K6
+    at the four stream shapes, K3 at (40, 100) and (100, 40), K5 on its
+    stream pair, K4 at (40, 40, 100) and (100, 40, 100); a checkout whose
+    kernels take no head dim 128 reports the error it raises;
+  * fp32 K2, K6, K4 and K5 at 16 heads of 32 on the bodies the checkout
+    picks (`fp32_routes`; since the fp32 route of k2_body, the pair
+    projections, K1's 3xTF32 core, the CUDA-core chain and epilogue, in
+    the parent the per-(head, batch row) CUDA-core bodies), each beside its
+    bound and its error against the plain version;
+  * the fp32 training configurations on the 3xTF32 bodies (`fp32_train`:
+    the default, K1, and CrossAtt, K3) at B=1024: ms and device ms per
+    step, the kernels' share;
   * fp32 and bf16 K3f and K3b on near-one-hot rows (`k3_onehot`: q x 50
     at (40, 100), B=64, ONEHOT_DRAWS seeded draws, dropout off and on),
     every draw's error against the plain version;
@@ -81,7 +98,7 @@ import chip_smoke as C
 K3_SHAPES = ((40, 100), (100, 40))
 PARTS = ("k2_bf16", "k4_bf16", "k6_bf16", "k5_bf16", "e2e", "k3_bf16",
          "fp32_fwd", "fp32_bwd", "fp32_bwd_sha256", "served", "k3_onehot",
-         "untimed")
+         "untimed", "wide", "fp32_routes", "fp32_train")
 B = 1024
 SEED = 1234567
 
@@ -435,6 +452,13 @@ def _untimed(A, g, dev):
         o = A.fused_two_block_attention(*leaves, *m, scale=scale)
         row["k1b_bf16_ms"] = C._device_ms(lambda: torch.autograd.grad(
             o, leaves, gq, retain_graph=True), 5, C.K1_NAMES)
+        row["k1f_bf16_plain_ms"] = C._time_ms(
+            lambda: A.two_block_attention_plain(*qkv, *m, scale), 3)
+        row["k1b_bf16_plain_ms"] = C._time_ms(
+            lambda: A.two_block_attention_bwd_plain(*qkv, *m, gq, scale), 2)
+        lib = C._k1_device_times(A, g, dev, B, Lq, L1, L2, scale, dt=bf)
+        row["k1f_bf16_sdpa_ms"] = lib["sdpa"]
+        row["k1b_bf16_sdpa_ms"] = lib["sdpa_bwd"]
         row["k1f_bf16_bound_ms"] = bound(
             e * elems * (3 * Lq + 2 * Lk) + masks, 4.0 * elems * Lq * Lk,
             C.PEAK_FLOPS[bf])
@@ -731,6 +755,303 @@ def _served(dev):
     return out
 
 
+def _wide_bounds(kernel, dt, shape, d):
+    """(fwd, bwd) bound ms of one kernel at one shape, B=1024, width d:
+    bytes read and written once over the memory rate, operations over the
+    rate of the bodies' type (bf16 989 TFLOP/s; fp32 at the 3xTF32 rate, as
+    _untimed prices fp32). K1, K3, bf16 K2f, K4 and K5f as chip_smoke.py's
+    entries price them, bf16 K2b, K6b and K5b by its k2b_cost / k5b_cost,
+    fp32 K2, K6 and K4 as _untimed does; fp32 K5 as fp32 K2 on both
+    streams. Bytes and operations depend on d, not on how it is cut into
+    heads."""
+    e, f32 = C._elem(dt), dt == torch.float32
+    rate = C.TF32X3_FLOPS if f32 else C.PEAK_FLOPS[dt]
+
+    def ms(nbytes, ops):
+        return 1e3 * max(nbytes / C.HBM_BYTES_PER_S, ops / rate)
+
+    def ms_cost(cost):  # (bytes, seconds at the bf16 rate)
+        return 1e3 * max(cost[0] / C.HBM_BYTES_PER_S, cost[1])
+
+    if kernel == "K3":
+        Lq, Lk = shape
+        masks, core = 4 * B * (Lq + Lk), 2.0 * B * Lq * Lk * d
+        return (ms(e * B * d * (2 * Lq + 2 * Lk) + masks, 2 * core),
+                ms(e * B * d * (3 * Lq + 4 * Lk) + masks, 5 * core))
+    if kernel == "K5":
+        Lv, Lu = shape
+        streams = ((Lv, Lv, Lu), (Lu, Lv, Lu))
+        rows, masks = B * d * (Lv + Lu), 4 * B * (Lv + Lu)
+        params = 12 * (d * d + d)
+        proj = sum(C._proj_flops(B, d, *s) for s in streams)
+        qk = sum(2.0 * B * s[0] * (s[1] + s[2]) * d for s in streams)
+        fwd = ms(e * (2 * rows + params) + masks, proj + 2 * qk)
+        if not f32:
+            return fwd, ms_cost(C.k5b_cost(B, Lv, Lu, d))
+        return fwd, ms(4 * (3 * rows + params) + 4 * params + masks,
+                       3 * proj + 5 * qk)
+    Lq, L1, L2 = shape
+    Lk, masks = L1 + L2, 4 * B * (Lq + L1 + L2)
+    qk = 2.0 * B * Lq * Lk * d
+    if kernel == "K1":
+        return (ms(e * B * d * (3 * Lq + 2 * Lk) + masks, 2 * qk),
+                ms(e * B * d * (5 * Lq + 4 * Lk) + masks, 5 * qk))
+    proj = C._proj_flops(B, d, Lq, L1, L2)
+    if kernel in ("K2", "K6"):
+        if not f32:
+            return (ms(e * (B * d * (2 * Lq + L1 + L2) + 6 * (d * d + d))
+                       + masks, proj + 2 * qk),
+                    ms_cost(C.k2b_cost(B, Lq, L1, L2, d)))
+        params = 4 * 6 * (d * d + d)
+        return (ms(4 * B * d * (2 * Lq + L1 + L2) + params + masks,
+                   proj + 2 * qk),
+                ms(4 * B * d * (3 * Lq + 2 * L1 + 2 * L2) + 2 * params
+                   + masks, 3 * proj + 5 * qk))
+    assert kernel == "K4", kernel
+    epi = 3 * 2.0 * B * Lq * d * d  # the three Denses, ff = d
+    if f32:
+        params = 4 * 6 * (d * d + d)
+        ep_params = 4 * (3 * (d * d + d) + 4 * d)
+        return (ms(4 * B * d * (2 * Lq + L1 + L2) + params + ep_params
+                   + masks, proj + 2 * qk + epi),
+                ms(4 * B * d * (3 * Lq + 2 * L1 + 2 * L2)
+                   + 2 * (params + ep_params) + masks,
+                   3 * proj + 6 * qk + 3 * epi))
+    params = 6 * (d * d + d) + 3 * d * d + 3 * d
+    rows_in, ln = B * d * (Lq + L1 + L2), 4 * 4 * d
+    return (ms(e * (rows_in + B * Lq * d + params) + ln + masks,
+               proj + 2 * qk + epi),
+            ms(e * (2 * rows_in + B * Lq * d + params) + 4 * (params + 4 * d)
+               + ln + masks, 7 * proj + 12 * qk + 7 * epi))
+
+
+def _wide(A, g, dev):
+    """Every kernel at 4 heads of 128 (d 512) at B=1024 by device time."""
+    from segmminterest_tpu_torch.core import dual_kernel as K5
+    from segmminterest_tpu_torch.core import layer_kernel as K4
+    H, d = 4, C.D_MODEL
+    dh, scale = d // H, 1.0 / math.sqrt(d // H)
+    out = {}
+
+    def timed(key, fwd, leaves, gs, names, want_f, want_b, bounds=None):
+        try:
+            o = fwd(*leaves)
+            ms_f = C._device_ms(lambda: fwd(*[x.detach() for x in leaves]),
+                                5, names)
+            ms_b = C._device_ms(lambda: torch.autograd.grad(
+                o, leaves, gs, retain_graph=True), 3, names)
+            got = torch.autograd.grad(o, leaves, gs, retain_graph=True)
+            os_ = o if isinstance(o, tuple) else (o,)
+            wf = want_f() if callable(want_f) else want_f
+            wf = wf if isinstance(wf, tuple) else (wf,)
+            row = dict(fwd_ms=ms_f, bwd_ms=ms_b, err_f=_rel(os_, wf),
+                       err_b=_rel(got, want_b()))
+            if bounds:
+                row.update(bound_fwd_ms=bounds[0], bound_bwd_ms=bounds[1])
+        except (ValueError, RuntimeError) as e:  # a tree that refuses 128
+            row = dict(error=str(e)[:200])
+        out[key] = row
+        print(f"  wide {key}: {row}", flush=True)
+
+    for dt in (torch.float32, torch.bfloat16):
+        tdt = str(dt)[6:]
+        for shape in C.STREAM_SHAPES:
+            qkv, m = C._k1_inputs(g, B, *shape, dt, dev, H)
+            gq = torch.randn(B, shape[0], H, dh, generator=g, device=dev
+                             ).to(dt)
+            leaves = [x.detach().requires_grad_() for x in qkv]
+            timed(f"K1 {tdt} {shape}", lambda *t: A.fused_two_block_attention(
+                *t, *m, scale=scale), leaves, gq, C.K1_NAMES,
+                lambda: A.two_block_attention_plain(*qkv, *m, scale),
+                lambda: A.two_block_attention_bwd_plain(*qkv, *m, gq, scale),
+                _wide_bounds("K1", dt, shape, d))
+            del qkv, leaves, gq
+            x, ws, m = C._k2_inputs(g, B, *shape, dt, dev)
+            gx = torch.randn(B, shape[0], d, generator=g, device=dev).to(dt)
+            leaves = [t.detach().requires_grad_()
+                      for t in tuple(x) + tuple(ws)]
+            for v, names, plain, plain_b in (
+                    (1, C.K2_NAMES, A.proj_two_block_attention_plain,
+                     A.proj_two_block_attention_bwd_plain),
+                    (2, C.K6_NAMES, A.proj_two_block_attention_v2_plain,
+                     A.proj_two_block_attention_v2_bwd_plain)):
+                timed(f"K{2 if v == 1 else 6} {tdt} {shape}",
+                      lambda *t, v=v: A.fused_proj_two_block_attention(
+                          *t, *m, num_heads=H, scale=scale, version=v),
+                      leaves, gx, names,
+                      lambda plain=plain: plain(*x, *ws, *m, H, scale),
+                      lambda plain_b=plain_b: plain_b(*x, *ws, *m, gx, H,
+                                                      scale),
+                      _wide_bounds("K2", dt, shape, d))
+            del x, ws, leaves, gx
+            torch.cuda.empty_cache()
+        for Lq, Lk in K3_SHAPES:
+            q, k, v, gq = (torch.randn(B, L, H, dh, generator=g, device=dev
+                                       ).to(dt) for L in (Lq, Lk, Lk, Lq))
+            m = (C._masks(g, B, Lq, dev), C._masks(g, B, Lk, dev, False))
+            leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+            timed(f"K3 {tdt} {(Lq, Lk)}", lambda *t: A.fused_masked_attention(
+                *t, *m, scale=scale), leaves, gq, C.K3_NAMES,
+                lambda: A.masked_attention_plain(q, k, v, *m, scale),
+                lambda: A.masked_attention_bwd_plain(q, k, v, *m, gq, scale),
+                _wide_bounds("K3", dt, (Lq, Lk), d))
+            del q, k, v, gq, leaves
+        Lv, Lu = C.DUAL_SHAPE
+        t = [torch.randn(B, L, d, generator=g, device=dev).to(dt)
+             for L in (Lv, Lu)] + C._proj_weights(g, d, 12, dt, dev)
+        m = (C._masks(g, B, Lv, dev, False), C._masks(g, B, Lu, dev))
+        gs = tuple(torch.randn(B, L, d, generator=g, device=dev).to(dt)
+                   for L in (Lv, Lu))
+        leaves = [x.detach().requires_grad_() for x in t]
+        timed(f"K5 {tdt} {C.DUAL_SHAPE}",
+              lambda *x: K5.fused_dual_stream_attention(
+                  x[0], x[1], C._pairs(x[2:14]), C._pairs(x[14:26]), *m,
+                  num_heads=H, scale=scale), leaves, gs, C.K5_NAMES,
+              lambda: K5.dual_stream_attention_plain(
+                  t[0], t[1], t[2:14], t[14:26], *m, H, scale),
+              lambda: K5.dual_stream_attention_bwd_plain(
+                  t[0], t[1], t[2:14], t[14:26], *m, *gs, H, scale),
+              _wide_bounds("K5", dt, C.DUAL_SHAPE, d))
+        del t, gs, leaves
+        for shape in C.STREAM_SHAPES[:2]:
+            t, m = C._k4_inputs(g, B, *shape, dt, dev)
+            gx = torch.randn(B, shape[0], d, generator=g, device=dev).to(dt)
+            leaves = [x.detach().requires_grad_() for x in t]
+            timed(f"K4 {tdt} {shape}", lambda *x: K4.fused_layer_stream(
+                *x[:3], C._pairs(x[3:15]), x[15:], *m, num_heads=H,
+                scale=scale), leaves, gx, C.K4_NAMES,
+                lambda: K4.layer_stream_plain(*t[:3], t[3:15], t[15:], *m, H,
+                                              scale),
+                lambda: K4.layer_stream_bwd_plain(*t[:3], t[3:15], t[15:],
+                                                  *m, gx, H, scale),
+                _wide_bounds("K4", dt, shape, d))
+            del t, gx, leaves
+            torch.cuda.empty_cache()
+    return out
+
+
+def _fp32_routes(A, g, dev):
+    """fp32 K2, K6, K4 and K5 at 16 heads of 32 (d 512), B=1024, dropout
+    off, through their wrappers, on the bodies the checkout picks: device
+    ms per call (every kernel of the call), the error against the plain
+    version, and each kernel's bound (_wide_bounds). Run on two checkouts
+    in turns to compare their fp32 bodies."""
+    from segmminterest_tpu_torch.core import dual_kernel as K5
+    from segmminterest_tpu_torch.core import layer_kernel as K4
+    H, d = C.HEADS, C.D_MODEL
+    scale = 1.0 / math.sqrt(d // H)
+    f32 = torch.float32
+    out = {}
+
+    def run(key, fwd, leaves, gs, want_f, want_b, bounds):
+        row = dict(bound_fwd_ms=bounds[0], bound_bwd_ms=bounds[1])
+        try:
+            o = fwd(*leaves)
+            row["fwd_ms"] = C._device_ms(
+                lambda: fwd(*[x.detach() for x in leaves]), 5)
+            row["bwd_ms"] = C._device_ms(lambda: torch.autograd.grad(
+                o, leaves, gs, retain_graph=True), 3)
+            got = torch.autograd.grad(o, leaves, gs)
+            os_ = o if isinstance(o, tuple) else (o,)
+            row.update(err_f=_rel(os_, want_f()), err_b=_rel(got, want_b()))
+            del o
+        except (ValueError, RuntimeError) as e:
+            row["error"] = str(e)[:200]
+        out[key] = row
+        print(f"  fp32_routes {key}: {row}", flush=True)
+
+    for shape in C.STREAM_SHAPES:
+        x, ws, m = C._k2_inputs(g, B, *shape, f32, dev)
+        gx = torch.randn(B, shape[0], d, generator=g, device=dev)
+        leaves = [t.detach().requires_grad_() for t in tuple(x) + tuple(ws)]
+        for v, plain, plain_b in (
+                (1, A.proj_two_block_attention_plain,
+                 A.proj_two_block_attention_bwd_plain),
+                (2, A.proj_two_block_attention_v2_plain,
+                 A.proj_two_block_attention_v2_bwd_plain)):
+            run(f"K{2 if v == 1 else 6} {shape}",
+                lambda *t, v=v: A.fused_proj_two_block_attention(
+                    *t, *m, num_heads=H, scale=scale, version=v),
+                leaves, gx, lambda plain=plain: (plain(*x, *ws, *m, H,
+                                                       scale),),
+                lambda plain_b=plain_b: plain_b(*x, *ws, *m, gx, H, scale),
+                _wide_bounds("K2", f32, shape, d))
+        del x, ws, leaves, gx
+        t, m = C._k4_inputs(g, B, *shape, f32, dev)
+        gx = torch.randn(B, shape[0], d, generator=g, device=dev)
+        leaves = [a.detach().requires_grad_() for a in t]
+        run(f"K4 {shape}", lambda *a: K4.fused_layer_stream(
+            *a[:3], C._pairs(a[3:15]), a[15:], *m, num_heads=H,
+            scale=scale), leaves, gx,
+            lambda: (K4.layer_stream_plain(*t[:3], t[3:15], t[15:], *m, H,
+                                           scale),),
+            lambda: K4.layer_stream_bwd_plain(*t[:3], t[3:15], t[15:], *m,
+                                              gx, H, scale),
+            _wide_bounds("K4", f32, shape, d))
+        del t, gx, leaves
+        torch.cuda.empty_cache()
+    Lv, Lu = C.DUAL_SHAPE
+    t = [torch.randn(B, L, d, generator=g, device=dev) for L in (Lv, Lu)] \
+        + C._proj_weights(g, d, 12, f32, dev)
+    m = (C._masks(g, B, Lv, dev, False), C._masks(g, B, Lu, dev))
+    gs = tuple(torch.randn(B, L, d, generator=g, device=dev)
+               for L in (Lv, Lu))
+    leaves = [x.detach().requires_grad_() for x in t]
+    run(f"K5 {C.DUAL_SHAPE}", lambda *x: K5.fused_dual_stream_attention(
+        x[0], x[1], C._pairs(x[2:14]), C._pairs(x[14:26]), *m, num_heads=H,
+        scale=scale), leaves, gs,
+        lambda: K5.dual_stream_attention_plain(t[0], t[1], t[2:14],
+                                               t[14:26], *m, H, scale),
+        lambda: K5.dual_stream_attention_bwd_plain(
+            t[0], t[1], t[2:14], t[14:26], *m, *gs, H, scale),
+        _wide_bounds("K5", f32, C.DUAL_SHAPE, d))
+    return out
+
+
+FP32_TRAIN_STEPS = 6  # timed after 2 warm-up steps
+
+
+def _fp32_train():
+    """The two fp32 training configurations on the 3xTF32 bodies at
+    B=1024 over the 3.9M-row int8 table: the default (K1, layer remat) and
+    CrossAtt (K3, layer remat), dropout 0.1: ms per step on the host's
+    clock, device ms per step and K1's (K3's) share of it (torch.profiler,
+    2 steps)."""
+    from segmminterest_tpu_torch.data.dataset import BatchIterator
+    from segmminterest_tpu_torch.engine.train import InterestEngine
+
+    ctx = C._data({})
+    reader, store = ctx["reader"], ctx["store"]
+    base = C._flagship_cfg(ctx["csv"]).replace(train_batch_size=1024,
+                                               table_quant="int8")
+    out, batches = {}, None
+    for name, cfg, names in (
+            ("default", base, C.K1_NAMES),
+            ("crossatt", base.replace(ablation_type="CrossAtt"),
+             C.K3_NAMES)):
+        engine = InterestEngine(cfg, reader.n_users, reader.n_items,
+                                feature_table=ctx["table"], device="cuda")
+        if batches is None:
+            batches = [b for _, b in zip(range(FP32_TRAIN_STEPS + 2),
+                                         BatchIterator(
+                reader, reader.tables["train"], 1024, shuffle=True,
+                feature_store=store, seed=cfg.seed,
+                transform=engine.batch_transform))]
+        _, times, losses, counts = C._train_steps(engine, batches)
+        share = C._kernel_share(engine, batches[:2], names)
+        steady = times[2:]
+        out[name] = dict(
+            ms_per_step=1e3 * sum(steady) / len(steady),
+            device_ms_per_step=None if share is None else share[1],
+            kernel_share=None if share is None else share[0],
+            losses=losses, launches_per_step={
+                k: v // len(batches) for k, v in counts.items() if v})
+        print(f"  fp32 {name} train: {out[name]}", flush=True)
+        del engine
+        torch.cuda.empty_cache()
+    return out
+
+
 def _k3_onehot(A, dev):
     """fp32 and bf16 K3f and K3b on chip_smoke.k3_onehot's near-one-hot
     rows over its ONEHOT_DRAWS draws: every draw's errors and the worst."""
@@ -783,7 +1104,10 @@ def main(argv=None):
         "fp32_bwd": lambda: _fp32_bwd(A, g, dev),
         "fp32_bwd_sha256": lambda: C.fp32_bwd_digest(A, dev),
         "served": lambda: _served(dev),
-        "k3_onehot": lambda: _k3_onehot(A, dev)}
+        "k3_onehot": lambda: _k3_onehot(A, dev),
+        "wide": lambda: _wide(A, g, dev),
+        "fp32_routes": lambda: _fp32_routes(A, g, dev),
+        "fp32_train": _fp32_train}
     res = dict(root=root)
     for name in args.parts.split(","):
         if name not in parts:

@@ -46,9 +46,20 @@ Lk = L1 + L2 rows ([k1_h | 0] then [0 | k2_h]); one contraction, one fill,
 one dropout mask over (query, concatenated key) with salt h (K3's form),
 one softmax, one PV over Lk. The backward's weight gradients come out for
 the interleaved weights and are de-interleaved. The function is K2's; the
-mask bits and the order of the sums are not. So bf16 K6b runs K2b's
-bodies on the (d, d) weights as they are, its core hashing each key on the
-concatenated axis with salt h (``k6_body``).
+mask bits and the order of the sums are not. So K6f and K6b run K2f's and
+K2b's bodies on the (d, d) weights as they are, their cores hashing each
+key on the concatenated axis with salt h (``k6_body``).
+
+fp32 K2, K4, K5 and K6 run one route at every head dim (``k2_body``
+"tf32"): the six projections on the CUDA cores (``_project_pairs_f32``),
+then K1's 3xTF32 tensor-core body over them, and in the backward K2b's
+CUDA-core chain; it beat the first per-(head, batch row) CUDA-core bodies
+at every stream shape.
+
+Every kernel takes head dims 16, 32, 48, 64, 96 and 128; each kernel's
+limits, and the body it runs at a shape, live in one function that its
+wrapper's check calls (``k1_body``, ``k2_body`` through ``_check_k2``,
+``k3_takes``; K4's, K5's and K6's through K2's).
 
 Each wrapper launches its CUDA kernel (``core/csrc``) for CUDA tensors and
 runs the plain version only for CPU tensors; there is no fall-back from one
@@ -79,21 +90,28 @@ LAUNCHES = {"two_block_attention": 0, "proj_two_block_attention": 0,
 MAX_SMEM_BYTES = 232_448
 MAX_GRID_Y = 65_535
 K2_MAX_LEN = 128
-K2_HEAD_DIMS = (16, 32, 64)
+# the head dims of the bf16 two-block core (csrc/two_block_mma.cuh:
+# m16n8k16 steps over D, n8 tiles of D in pairs), K2's, K4's, K5's and K6's
+# bf16 bodies; past 64 its backward stages its operands in turns
+K2_HEAD_DIMS = (16, 32, 48, 64, 96, 128)
+# past 16, 32 and 64 the bf16 core's register tile is 18 n8 tiles: a key
+# axis pad16(pad8(L1) + L2) of at most 144 (kK2WideKeys16)
+K2_WIDE_KEYS = 144
 # K3's tensor-core bodies (both directions, fp32 and bf16) keep a warp's
 # 16 x Lk logit tile in registers
 K3_MAX_LEN = 128
-K3_HEAD_DIMS = (16, 32, 64)
-# fp32 K1f's tensor-core body (csrc/tf32_attention.cuh) keeps a warp's
-# logit tile over both key blocks in registers: head dims D % 4 == 0 up to
-# 64, a key axis pad8(L1) + pad8(L2) of at most 256 (k1_forward_body)
-K1_TF32_MAX_HEAD_DIM = 64
+K3_HEAD_DIMS = (16, 32, 48, 64, 96, 128)
+# the fp32 tensor-core bodies of K1 and K3 (csrc/tf32_attention.cuh) keep a
+# warp's logit tile over the key axis in registers: head dims D % 4 == 0 up
+# to 128, a key axis pad8(L1) + pad8(L2) of at most 256 (K1) or pad8(Lk)
+# of 128 (K3); where one block's tiles exceed its shared memory, the
+# queries in windows of blocks of their own (tf32_windows)
+K1_TF32_MAX_HEAD_DIM = 128
 K1_TF32_MAX_KEYS = 256
-# K1b keeps a warp's logit tile over both key blocks in registers (fp32) or
-# a probability row per lane group (bf16): every stream at most 128 long,
-# head dim at most 64
+# past head dim 64, K1's register tile is 18 n8 tiles: 144 keys
+K1_TF32_WIDE_KEYS = 144
+# K1b takes streams at most 128 long
 BWD_MAX_LEN = 128
-BWD_MAX_HEAD_DIM = 64
 # the CUDA-core chain (chain_gemm.cuh: fp32 K2b, K4b, K5b, K6b) sums the
 # weight gradients over the batch in this many row chunks, then adds the
 # chunks in order (deterministic, no atomics)
@@ -598,6 +616,8 @@ def _drop_args(rate, seed):
 
 
 def _check_k1(tensors, masks, bwd):
+    """K1's shapes and its body at them (``k1_body``, which raises where no
+    body takes them)."""
     q1, q2, k1, k2, v1, v2 = tensors[:6]
     _check_cuda(tensors, q1.dtype)
     B, Lq, H, D = q1.shape
@@ -611,101 +631,220 @@ def _check_k1(tensors, masks, bwd):
     for m, L, name in zip(masks, (Lq, L1, L2), ("mask_q", "mask_k1",
                                                   "mask_k2")):
         _check_mask(m, B, L, name)
-    if D % 4:
-        raise ValueError(f"head dim {D} unsupported: the kernel reads q and k "
-                         "four values at a time (D % 4 == 0)")
-    if bwd and (max(Lq, L1, L2) > BWD_MAX_LEN or D > BWD_MAX_HEAD_DIM):
-        raise ValueError(f"(Lq, L1, L2, D)={(Lq, L1, L2, D)}: the backward "
-                         f"takes lengths <= {BWD_MAX_LEN} and head dims <= "
-                         f"{BWD_MAX_HEAD_DIM}")
     if B > MAX_GRID_Y:
         raise ValueError(f"batch {B} exceeds the grid limit {MAX_GRID_Y}")
-    return B, Lq, L1, L2, H, D
+    body = k1_body(q1.dtype, Lq, L1, L2, D, bwd)
+    return B, Lq, L1, L2, H, D, body
 
 
 def _pad8(n: int) -> int:
     return (n + 7) // 8 * 8
 
 
-def k1_tf32_smem_bytes(Lq: int, L1: int, L2: int, D: int) -> int:
-    """Shared memory of one block of fp32 K1f's tensor-core body
-    (``tf32_fwd_smem_bytes``): q1 and q2 over pad8(Lq) rows, k and v of each
-    block over pad8(L) rows, fp32 rows of D rounded up to 16, 32 or 64 plus
-    4; the three masks over the same rows."""
-    dp = 16 if D <= 16 else 32 if D <= 32 else 64
-    rows = (_pad8(Lq), _pad8(L1), _pad8(L2))
-    return 4 * (2 * sum(rows) * (dp + 4) + sum(rows))
+def _pad4(n: int) -> int:
+    return (n + 3) // 4 * 4
 
 
-def k1_forward_body(dtype, Lq: int, L1: int, L2: int, D: int) -> str:
-    """Which body K1f runs at a shape: ``"tf32"``, the fp32 tensor-core body
-    (3xTF32), for fp32 with D % 4 == 0, D <= 64, a key axis pad8(L1) +
-    pad8(L2) within its largest register tile (256) and its tiles within
-    one block's shared memory; else ``"cuda_core"`` (every bf16 shape, and
-    fp32 past the rule: D = 128, longer key axes), which raises where its
-    own shared memory does not fit. The choice is made here, by the shape,
-    and never on a failure."""
-    if (dtype == torch.float32 and D % 4 == 0
-            and D <= K1_TF32_MAX_HEAD_DIM
-            and _pad8(L1) + _pad8(L2) <= K1_TF32_MAX_KEYS
-            and k1_tf32_smem_bytes(Lq, L1, L2, D) <= MAX_SMEM_BYTES):
+def _tf32_dp(D: int) -> int:
+    """The head dim as the fp32 tensor-core bodies tile it (``tf32_dp``)."""
+    return next(dp for dp in (16, 32, 64, 96, 128) if D <= dp)
+
+
+def tf32_smem_bytes(Lq: int, Ls, D: int, backward: bool) -> int:
+    """Shared memory of one block of the fp32 tensor-core body over the key
+    blocks of lengths ``Ls`` (``tf32_fwd_smem_bytes`` /
+    ``tf32_bwd_smem_bytes``, csrc/tf32_attention.cuh): fp32 rows of the
+    tiled head dim plus 4, q of each block (and g) over pad8(Lq) rows, k and
+    v of each over pad8(L); the masks; the backward's keep words and its
+    [query][key] buffer of row stride nk + 4."""
+    ld, mq8 = _tf32_dp(D) + 4, _pad8(Lq)
+    nk = sum(_pad8(L) for L in Ls)
+    kv = 2 * nk * ld
+    if not backward:
+        return 4 * (len(Ls) * mq8 * ld + kv + mq8 + nk)
+    keep = (Lq + 15) // 16 * ((nk + 63) // 64) * 32
+    return 4 * ((len(Ls) + 1) * mq8 * ld + mq8 * (nk + 4) + kv
+                + mq8 + nk + keep)
+
+
+def tf32_window(Lq: int, Ls, D: int, backward: bool) -> int:
+    """Query rows of one block of the fp32 tensor-core body
+    (``tf32_fwd_window`` / ``tf32_bwd_window``): all Lq where one block's
+    tiles fit, else the most rows, a multiple of 16, that fit; 0 where none
+    does. The body then runs ceil(Lq / rows) blocks a (head, batch row), and
+    its backward sums dk and dv over them in order."""
+    if tf32_smem_bytes(Lq, Ls, D, backward) <= MAX_SMEM_BYTES:
+        return Lq
+    for w in range((Lq - 1) // 16 * 16, 0, -16):
+        if tf32_smem_bytes(w, Ls, D, backward) <= MAX_SMEM_BYTES:
+            return w
+    return 0
+
+
+def tf32_windows(Lq: int, Ls, D: int, backward: bool) -> int:
+    """Blocks a (head, batch row) of the fp32 tensor-core body (0: no
+    window fits)."""
+    w = tf32_window(Lq, Ls, D, backward)
+    return -(-Lq // w) if w else 0
+
+
+def k1_cuda_core_smem_bytes(Lq: int, L1: int, L2: int, D: int,
+                            backward: bool) -> int:
+    """Shared memory of one block of K1's CUDA-core bodies
+    (``k1_smem_bytes`` / ``bwd_core_bytes``, csrc/joint_attention.cuh):
+    fp32 tiles of row stride D + 4 (q1, q2 (and g) over Lq rows, k and v of
+    each block), the masks, and the forward's probability row a warp (8
+    warps) or the backward's whole (Lq x (pad4(L1) + pad4(L2))) matrix."""
+    row = _pad4(L1) + _pad4(L2)
+    tiles = (3 if backward else 2) * Lq + 2 * L1 + 2 * L2
+    extra = Lq * row if backward else 8 * row
+    return 4 * (tiles * (D + 4) + _pad4(Lq + L1 + L2) + extra)
+
+
+def k1_body(dtype, Lq: int, L1: int, L2: int, D: int,
+            backward: bool = False) -> str:
+    """Which body K1f (or, with ``backward``, K1b) runs at a shape, or a
+    ValueError where none takes it. The choice is made here, by the shape,
+    and never on a failure:
+
+    * ``"tf32"``: the fp32 tensor-core body (3xTF32, csrc/tf32_attention.
+      cuh), for fp32 with D % 4 == 0 up to 128 and a key axis pad8(L1) +
+      pad8(L2) of at most 256 (144 past head dim 64), in query windows
+      where one block's tiles exceed shared memory;
+    * ``"cuda_core"``: the CUDA-core body (csrc/joint_attention.cuh), for
+      bf16 where its tiles fit one block (D % 4 == 0), and for fp32 K1f
+      past the tensor-core body's key axis;
+    * ``"tf32_bf16"``: bf16 past the CUDA-core body's shared memory (head
+      dims 96 and 128 at the flagship's streams): the fp32 tensor-core
+      body on fp32 copies of the inputs, p rounded to bf16 before p v as
+      the bf16 function rounds it, the outputs rounded to bf16.
+    """
+    if D % 4:
+        raise ValueError(f"head dim {D} unsupported: the kernels read q and "
+                         "k four values at a time (D % 4 == 0)")
+    if backward and max(Lq, L1, L2) > BWD_MAX_LEN:
+        raise ValueError(f"(Lq, L1, L2)={(Lq, L1, L2)}: the backward takes "
+                         f"lengths <= {BWD_MAX_LEN}")
+    keys = K1_TF32_MAX_KEYS if D <= 64 else K1_TF32_WIDE_KEYS
+    tf32 = (D <= K1_TF32_MAX_HEAD_DIM and _pad8(L1) + _pad8(L2) <= keys
+            and tf32_window(Lq, (L1, L2), D, backward) > 0)
+    if dtype == torch.float32 and tf32:
         return "tf32"
-    return "cuda_core"
+    if (dtype == torch.bfloat16 or not backward) and \
+            k1_cuda_core_smem_bytes(Lq, L1, L2, D, backward) <= MAX_SMEM_BYTES:
+        return "cuda_core"
+    if dtype == torch.bfloat16 and tf32:
+        return "tf32_bf16"
+    raise ValueError(f"(Lq, L1, L2, D)={(Lq, L1, L2, D)}: no body of K1"
+                     f"{'b' if backward else 'f'} takes this shape in "
+                     f"{dtype}: past head dim {K1_TF32_MAX_HEAD_DIM} or a "
+                     f"key axis of {K1_TF32_MAX_KEYS} ({K1_TF32_WIDE_KEYS} "
+                     "past head dim 64), or no query window fits one "
+                     "block's shared memory")
+
+
+def _convert(src, dtype):
+    """``src`` copied to ``dtype`` (fp32 <-> bf16) by the port's conversion
+    kernel (csrc/two_block_attention.cu), on src's stream."""
+    fn = _fn("two_block_attention", "segmm_convert", ctypes.c_int,
+             [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_long,
+              ctypes.c_void_p])
+    dst = torch.empty(src.shape, dtype=dtype, device=src.device)
+    with torch.cuda.device(src.device):
+        code = fn(int(dtype == torch.bfloat16), src.data_ptr(),
+                  dst.data_ptr(), src.numel(), _stream_ptr(src.device))
+    _raise_on_cuda_error(code, "convert")
+    return dst
+
+
+def _k1_fwd_launch(dtype, tf32, tensors, masks, scale, rate, seed,
+                   salt_h0=0, concat=False):
+    """One launch of K1f's C entry on (B, L, H, D) q1..v2: ``dtype`` the
+    function's (bf16 with ``tf32``: the fp32 body on fp32 copies), the
+    dropout salts from head ``salt_h0``, K6's key axis with ``concat``."""
+    q1, k1, k2 = tensors[0], tensors[2], tensors[3]
+    B, Lq, H, D = q1.shape
+    fn = _fn("two_block_attention", "segmm_two_block_attention_fwd",
+             ctypes.c_int, [ctypes.c_int] * 2 + [ctypes.c_void_p] * 10
+             + [ctypes.c_int] * 6 + [ctypes.c_float] + _DROP_ARGS
+             + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+    mq, mk1, mk2 = _masks_i32(*masks)
+    out = torch.empty_like(q1)
+    with torch.cuda.device(q1.device):
+        code = fn(_DTYPE_CODE[dtype], int(tf32),
+                  *(t.data_ptr() for t in tensors),
+                  mq.data_ptr(), mk1.data_ptr(), mk2.data_ptr(),
+                  out.data_ptr(), B, Lq, k1.shape[1], k2.shape[1], H, D,
+                  float(scale), *_drop_args(rate, seed), int(salt_h0),
+                  int(concat), _stream_ptr(q1.device))
+    _raise_on_cuda_error(code, "two_block_attention")
+    return out
 
 
 def _k1_forward_cuda(q1, q2, k1, k2, v1, v2, mask_q, mask_k1, mask_k2,
                      scale, rate, seed):
     tensors = (q1, q2, k1, k2, v1, v2)
-    B, Lq, L1, L2, H, D = _check_k1(tensors, (mask_q, mask_k1, mask_k2),
-                                    False)
-    tf32 = int(k1_forward_body(q1.dtype, Lq, L1, L2, D) == "tf32")
-    smem = _fn("two_block_attention", "segmm_two_block_attention_smem_bytes",
-               ctypes.c_size_t, [ctypes.c_int] * 5)
-    if smem(tf32, Lq, L1, L2, D) > MAX_SMEM_BYTES:
-        raise ValueError(f"(Lq, L1, L2, D)={(Lq, L1, L2, D)} needs more "
-                         "shared memory than one block has")
-    fn = _fn("two_block_attention", "segmm_two_block_attention_fwd",
-             ctypes.c_int, [ctypes.c_int] * 2 + [ctypes.c_void_p] * 10
-             + [ctypes.c_int] * 6 + [ctypes.c_float] + _DROP_ARGS
-             + [ctypes.c_void_p])
-    mq, mk1, mk2 = _masks_i32(mask_q, mask_k1, mask_k2)
-    out = torch.empty_like(q1)
-    with torch.cuda.device(q1.device):
-        code = fn(_DTYPE_CODE[q1.dtype], tf32,
-                  *(t.data_ptr() for t in tensors),
-                  mq.data_ptr(), mk1.data_ptr(), mk2.data_ptr(),
-                  out.data_ptr(), B, Lq, L1, L2, H, D, float(scale),
-                  *_drop_args(rate, seed), _stream_ptr(q1.device))
-    _raise_on_cuda_error(code, "two_block_attention")
+    body = _check_k1(tensors, (mask_q, mask_k1, mask_k2), False)[-1]
+    if body == "tf32_bf16":
+        tensors = tuple(_convert(t, torch.float32) for t in tensors)
+    out = _k1_fwd_launch(q1.dtype, body != "cuda_core", tensors,
+                         (mask_q, mask_k1, mask_k2), scale, rate, seed)
     LAUNCHES["two_block_attention"] += 1
-    return out
+    return _convert(out, q1.dtype) if body == "tf32_bf16" else out
+
+
+def tf32_part_scratch(windows: int, B: int, Ls, H: int, D: int, device):
+    """The fp32 tensor-core backward's part slots: windows - 1 of them,
+    each dk and dv of every key block (``tf32_part_floats``), or None for
+    one window."""
+    if windows <= 1:
+        return None
+    return torch.empty((windows - 1) * 2 * B * sum(Ls) * H * D,
+                       dtype=torch.float32, device=device)
+
+
+def _k1_bwd_launch(dtype, tensors, masks, scale, rate, seed, salt_h0=0,
+                   concat=False):
+    """One launch of K1b's C entry on (B, L, H, D) q1..v2 and g: ``dtype``
+    picks the body (fp32: the tensor-core one, whose query windows get their
+    part slots here), the rest as ``_k1_fwd_launch``. Returns dq1, dq2,
+    dk1, dk2, dv1, dv2 in the inputs' dtype."""
+    q1, k1, k2 = tensors[0], tensors[2], tensors[3]
+    B, Lq, H, D = q1.shape
+    L1, L2 = k1.shape[1], k2.shape[1]
+    fn = _fn("two_block_attention_bwd", "segmm_two_block_attention_bwd",
+             ctypes.c_int, [ctypes.c_int] + [ctypes.c_void_p] * 16
+             + [ctypes.c_int] * 6 + [ctypes.c_float] + _DROP_ARGS
+             + [ctypes.c_void_p] + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+    mq, mk1, mk2 = _masks_i32(*masks)
+    grads = [torch.empty_like(t) for t in tensors[:6]]
+    part = None
+    if dtype == torch.float32:
+        part = tf32_part_scratch(tf32_windows(Lq, (L1, L2), D, True), B,
+                                 (L1, L2), H, D, q1.device)
+    with torch.cuda.device(q1.device):
+        code = fn(_DTYPE_CODE[dtype], *(t.data_ptr() for t in tensors[:6]),
+                  mq.data_ptr(), mk1.data_ptr(), mk2.data_ptr(),
+                  tensors[6].data_ptr(), *(t.data_ptr() for t in grads), B,
+                  Lq, L1, L2, H, D, float(scale), *_drop_args(rate, seed),
+                  part.data_ptr() if part is not None else None,
+                  int(salt_h0), int(concat), _stream_ptr(q1.device))
+    _raise_on_cuda_error(code, "two_block_attention_bwd")
+    return grads
 
 
 def _k1_backward_cuda(q1, q2, k1, k2, v1, v2, mask_q, mask_k1, mask_k2, g,
                       scale, rate, seed):
     tensors = (q1, q2, k1, k2, v1, v2, g)
-    B, Lq, L1, L2, H, D = _check_k1(tensors, (mask_q, mask_k1, mask_k2),
-                                    True)
-    smem = _fn("two_block_attention_bwd",
-               "segmm_two_block_attention_bwd_smem_bytes", ctypes.c_size_t,
-               [ctypes.c_int] * 5)
-    if smem(_DTYPE_CODE[q1.dtype], Lq, L1, L2, D) > MAX_SMEM_BYTES:
-        raise ValueError(f"(Lq, L1, L2, D)={(Lq, L1, L2, D)} needs more "
-                         "shared memory than one block has")
-    fn = _fn("two_block_attention_bwd", "segmm_two_block_attention_bwd",
-             ctypes.c_int, [ctypes.c_int] + [ctypes.c_void_p] * 16
-             + [ctypes.c_int] * 6 + [ctypes.c_float] + _DROP_ARGS
-             + [ctypes.c_void_p])
-    mq, mk1, mk2 = _masks_i32(mask_q, mask_k1, mask_k2)
-    grads = [torch.empty_like(t) for t in tensors[:6]]
-    with torch.cuda.device(q1.device):
-        code = fn(_DTYPE_CODE[q1.dtype], *(t.data_ptr() for t in tensors[:6]),
-                  mq.data_ptr(), mk1.data_ptr(), mk2.data_ptr(), g.data_ptr(),
-                  *(t.data_ptr() for t in grads), B, Lq, L1, L2, H, D,
-                  float(scale), *_drop_args(rate, seed),
-                  _stream_ptr(q1.device))
-    _raise_on_cuda_error(code, "two_block_attention_bwd")
+    body = _check_k1(tensors, (mask_q, mask_k1, mask_k2), True)[-1]
+    if body == "tf32_bf16":
+        tensors = tuple(_convert(t, torch.float32) for t in tensors)
+    grads = _k1_bwd_launch(q1.dtype if body == "cuda_core" else torch.float32,
+                           tensors, (mask_q, mask_k1, mask_k2), scale, rate,
+                           seed)
     LAUNCHES["two_block_attention_bwd"] += 1
+    if body == "tf32_bf16":
+        grads = [_convert(t, q1.dtype) for t in grads]
     return tuple(grads)
 
 
@@ -734,6 +873,13 @@ def _check_k2(tensors, masks, num_heads, g=None):
     if dh not in K2_HEAD_DIMS or d % 32:
         raise ValueError(f"head dim {dh} (d={d}) unsupported: the kernel "
                          f"takes head dims {K2_HEAD_DIMS} and d % 32 == 0")
+    body = k2_body(xq.dtype)
+    if body == "tf32":  # K1's rule holds its core's limits
+        k1_body(torch.float32, Lq, L1, L2, dh, g is not None)
+    if body == "mma" and dh not in (16, 32, 64) and \
+            _pad16(_pad8(L1) + L2) > K2_WIDE_KEYS:
+        raise ValueError(f"(L1, L2)={(L1, L2)}: at head dim {dh} the bf16 "
+                         f"core takes a key axis of at most {K2_WIDE_KEYS}")
     if max(Lq, L1, L2) > K2_MAX_LEN:
         raise ValueError(f"stream lengths {(Lq, L1, L2)} exceed "
                          f"{K2_MAX_LEN}")
@@ -746,16 +892,78 @@ def _check_k2(tensors, masks, num_heads, g=None):
 
 
 def k2_body(dtype) -> str:
-    """Which bodies K2f and K2b run: ``"mma"`` for bf16 (the projections as
-    one tensor-core GEMM into a bf16 workspace, the two-block core on
-    mma.sync, the chain's dx and dW on the tensor cores at fp32 accuracy),
-    ``"cuda_core"`` for fp32 (the per-(head, batch row) CUDA-core bodies).
-    By dtype, never on a failure."""
-    return "mma" if dtype == torch.bfloat16 else "cuda_core"
+    """Which bodies K2f and K2b run (and K4's, K5's and K6's attention): by
+    dtype, never on a failure.
+
+    * ``"mma"`` for bf16: the projections as one tensor-core GEMM into a
+      bf16 workspace, the two-block core on mma.sync, the chain's dx and dW
+      on the tensor cores at fp32 accuracy;
+    * ``"tf32"`` for fp32: the six projections on the CUDA cores
+      (``segmm_project_pairs_f32``) into fp32 (B, L, d) workspaces, then
+      K1's fp32 tensor-core body over them (3xTF32, in query windows where
+      one block's tiles exceed shared memory, K1's rule ``k1_body`` holding
+      its limits); the backward then K2b's CUDA-core chain."""
+    return "mma" if dtype == torch.bfloat16 else "tf32"
+
+
+def _project_pairs_f32(pairs):
+    """The fp32 projections of the "tf32" bodies, ``_proj``'s rounding:
+    pairs of (x (B, L, d), wa, ba, wb, bb) -> x . Wa^T + ba and
+    x . Wb^T + bb, fp32 (B, L, d) each, one launch for all pairs."""
+    xs = [p[0] for p in pairs]
+    B, d = xs[0].shape[0], xs[0].shape[2]
+    fn = _fn("two_block_attention", "segmm_project_pairs_f32", ctypes.c_int,
+             [ctypes.POINTER(ctypes.c_void_p)] * 3
+             + [ctypes.POINTER(ctypes.c_int)] + [ctypes.c_int] * 3
+             + [ctypes.c_void_p])
+    outs = [torch.empty_like(x) for x in xs for _ in range(2)]
+    lens = (ctypes.c_int * len(xs))(*(x.shape[1] for x in xs))
+    with torch.cuda.device(xs[0].device):
+        code = fn(_ptrs(xs), _ptrs([t for p in pairs for t in p[1:]]),
+                  _ptrs(outs), lens, len(xs), B, d,
+                  _stream_ptr(xs[0].device))
+    _raise_on_cuda_error(code, "project_pairs_f32")
+    return outs
+
+
+def _k2_tf32_operands(xq, x1, x2, ws, num_heads):
+    """The "tf32" bodies' q1, q2, k1, k2, v1, v2 as (B, L, H, D) fp32."""
+    wq1, bq1, wq2, bq2, wk1, bk1, wk2, bk2, wv1, bv1, wv2, bv2 = ws
+    q1, q2, k1, v1, k2, v2 = _project_pairs_f32(
+        [(xq, wq1, bq1, wq2, bq2), (x1, wk1, bk1, wv1, bv1),
+         (x2, wk2, bk2, wv2, bv2)])
+    return [_heads(t, num_heads) for t in (q1, q2, k1, k2, v1, v2)]
+
+
+def _k2_tf32_forward(xq, x1, x2, ws, masks, num_heads, scale, rate, seed,
+                     salt_h0=0, concat=False):
+    """fp32 K2f (k2_body "tf32"): the projections, then K1f's tensor-core
+    body; salts from head ``salt_h0`` (K5's user stream), K6's keys with
+    ``concat``."""
+    out = _k1_fwd_launch(torch.float32, True,
+                         _k2_tf32_operands(xq, x1, x2, ws, num_heads), masks,
+                         scale, rate, seed, salt_h0, concat)
+    return out.reshape(xq.shape)
+
+
+def _k2_tf32_qkv_grads(xq, x1, x2, ws, masks, g, num_heads, scale, rate,
+                       seed, salt_h0=0, concat=False):
+    """fp32 K2b's qkv pass: the projections recomputed, K1b's tensor-core
+    body on g (fp32, as K4b's d_att is too); fp32 dq1, dq2, dk1, dk2, dv1,
+    dv2 as (B, L, d)."""
+    grads = _k1_bwd_launch(
+        torch.float32, _k2_tf32_operands(xq, x1, x2, ws, num_heads)
+        + [_heads(g, num_heads)], masks, scale, rate, seed, salt_h0, concat)
+    return [t.reshape(t.shape[0], t.shape[1], -1) for t in grads]
 
 
 def _pad16(n: int) -> int:
     return (n + 15) // 16 * 16
+
+
+# past this head dim bf16 K2's backward core stages q1, q2 and k, then g
+# and v in their place, then q1 and q2 in v's and k's (kK2RestageD)
+K2_RESTAGE_D = 64
 
 
 def k2_mma_smem_bytes(Lq: int, L1: int, L2: int, D: int,
@@ -764,14 +972,19 @@ def k2_mma_smem_bytes(Lq: int, L1: int, L2: int, D: int,
     (``k2_core_fwd_smem_bytes`` / ``k2_core_bwd_smem_bytes``,
     csrc/two_block_mma.cuh): bf16 tiles of row stride D + 8, q1 and q2 (and
     g, or with ``g_fp32`` g's two bf16 halves: K4b's d_att) over pad16(Lq)
-    rows, k and v over the key axis pad16(pad8(L1) + L2); the query and key
-    masks; the dropout keep words (the forward's four warps', the
-    backward's 16-row query tiles'); the backward's hi / lo planes of its
-    [query][key] buffer (row stride the key axis + 8)."""
+    rows, k and v over the key axis pad16(pad8(L1) + L2), all at once or,
+    in the backward past K2_RESTAGE_D, in turns over two regions of
+    max(pad16(Lq), key axis) rows and one (two with g_fp32) of pad16(Lq);
+    the query and key masks; the dropout keep words (the forward's four
+    warps', the backward's 16-row query tiles'); the backward's hi / lo
+    planes of its [query][key] buffer (row stride the key axis + 8)."""
     mq16, nk16 = _pad16(Lq), _pad16(_pad8(L1) + L2)
     keep_words = (nk16 // 8 + 7) // 8 * 32  # a 16-row tile's or warp's
     g_tiles = (2 if g_fp32 else 1) if backward else 0
-    tiles = (2 + g_tiles) * mq16 + 2 * nk16
+    if backward and D > K2_RESTAGE_D:
+        tiles = 2 * max(mq16, nk16) + g_tiles * mq16
+    else:
+        tiles = (2 + g_tiles) * mq16 + 2 * nk16
     n = 2 * tiles * (D + 8) + 4 * (mq16 + nk16)
     if backward:
         return n + 4 * (mq16 // 16) * keep_words + 2 * 2 * mq16 * (nk16 + 8)
@@ -812,6 +1025,10 @@ def _k2_smem_check(lib, symbol, xq, Lq, L1, L2, dh):
 def _k2_forward_cuda(xq, x1, x2, ws, masks, num_heads, scale, rate, seed):
     tensors = (xq, x1, x2) + tuple(ws)
     B, Lq, L1, L2, d, dh = _check_k2(tensors, masks, num_heads)
+    if k2_body(xq.dtype) == "tf32":
+        LAUNCHES["proj_two_block_attention"] += 1
+        return _k2_tf32_forward(xq, x1, x2, ws, masks, num_heads, scale,
+                                rate, seed)
     _k2_smem_check("proj_two_block_attention",
                    "segmm_proj_two_block_attention_smem_bytes", xq, Lq, L1,
                    L2, dh)
@@ -822,7 +1039,7 @@ def _k2_forward_cuda(xq, x1, x2, ws, masks, num_heads, scale, rate, seed):
              + [ctypes.c_void_p])
     mq, m1, m2 = _masks_i32(*masks)
     out = torch.empty_like(xq)
-    work = k2_workspace(xq, x1, x2) if k2_body(xq.dtype) == "mma" else []
+    work = k2_workspace(xq, x1, x2)
     with torch.cuda.device(xq.device):
         code = fn(_DTYPE_CODE[xq.dtype], _ptrs(tensors), mq.data_ptr(),
                   m1.data_ptr(), m2.data_ptr(), out.data_ptr(), _ptrs(work),
@@ -840,6 +1057,9 @@ def _k2_qkv_grads_cuda(xq, x1, x2, ws, masks, g, num_heads, scale, rate,
     (B, L, d). Alone it is K7b (``_fp3_bwd_kernel``)."""
     tensors = (xq, x1, x2) + tuple(ws)
     B, Lq, L1, L2, d, dh = _check_k2(tensors, masks, num_heads, g)
+    if k2_body(xq.dtype) == "tf32":
+        return _k2_tf32_qkv_grads(xq, x1, x2, ws, masks, g, num_heads, scale,
+                                  rate, seed)
     _k2_smem_check("proj_two_block_attention_bwd",
                    "segmm_proj_two_block_attention_bwd_smem_bytes", xq, Lq,
                    L1, L2, dh)
@@ -852,7 +1072,7 @@ def _k2_qkv_grads_cuda(xq, x1, x2, ws, masks, g, num_heads, scale, rate,
     mq, m1, m2 = _masks_i32(*masks)
     dys = [torch.empty(B, L, d, dtype=torch.float32, device=xq.device)
            for L in (Lq, Lq, L1, L2, L1, L2)]
-    work = k2_workspace(xq, x1, x2) if k2_body(xq.dtype) == "mma" else []
+    work = k2_workspace(xq, x1, x2)
     with torch.cuda.device(xq.device):
         code = fn(_DTYPE_CODE[xq.dtype], _ptrs(tensors), mq.data_ptr(),
                   m1.data_ptr(), m2.data_ptr(), g.data_ptr(), _ptrs(dys),
@@ -873,6 +1093,14 @@ def _k2_backward_cuda(xq, x1, x2, ws, masks, g, num_heads, scale, rate,
     if ATTN_V3_BWD:
         LAUNCHES["proj_two_block_attention_qkv_bwd"] += 1
         return _chain_grads(xq, x1, x2, ws, dys)
+    return _k2_chain(xq, x1, x2, ws, dys, "proj_two_block_attention_bwd")
+
+
+def _k2_chain(xq, x1, x2, ws, dys, counter):
+    """K2b's chain on fp32 dq1..dv2 (B, L, d): dx through the projections
+    and the six dW, db over the batch, on the body of x's dtype (bf16: the
+    tensor cores, dW in k2_dw_chunk row chunks; fp32: the CUDA cores in
+    K2_DW_SPLITS chunks); ``counter`` counts the launch."""
     d = xq.shape[-1]
     B, Lq, L1, L2 = xq.shape[0], xq.shape[1], x1.shape[1], x2.shape[1]
     dx = [torch.empty_like(x) for x in (xq, x1, x2)]
@@ -896,7 +1124,7 @@ def _k2_backward_cuda(xq, x1, x2, ws, masks, g, num_heads, scale, rate,
                   _ptrs(dys), _ptrs(dx), _ptrs(dw + db), scratch.data_ptr(), B,
                   Lq, L1, L2, d, K2_DW_SPLITS, chunk, _stream_ptr(xq.device))
     _raise_on_cuda_error(code, "proj_two_block_attention_bwd (dx, dW)")
-    LAUNCHES["proj_two_block_attention_bwd"] += 1
+    LAUNCHES[counter] += 1
     grads = list(dx)
     for i in range(6):
         grads += [dw[i].to(ws[2 * i].dtype), db[i].to(ws[2 * i + 1].dtype)]
@@ -904,39 +1132,47 @@ def _k2_backward_cuda(xq, x1, x2, ws, masks, g, num_heads, scale, rate,
 
 
 def k6_body(dtype) -> str:
-    """Which body K6b runs: ``"mma"`` for bf16 (K2b's projection GEMM, its
-    core with K6's dropout keys and its three-part chain, on the (d, d)
-    weights in K2's layout), ``"cuda_core"`` for fp32 (the first per-(head,
-    batch row) qkv pass over the interleaved weights and the CUDA-core
-    chain). By dtype, never on a failure. K6f keeps its first bodies."""
-    return "mma" if dtype == torch.bfloat16 else "cuda_core"
-
-
-def _k6_params(ws, num_heads):
-    """The kernel's ten parameters: the interleaved Wq_c, bq_c, Wk1_c,
-    bk1_c, Wk2_c, bk2_c, then wv1, bv1, wv2, bv2."""
-    return interleave_ws(*ws[:8], num_heads) + tuple(ws[8:])
+    """Which bodies K6f and K6b run, by dtype, never on a failure: K2's
+    (``k2_body``) on the (d, d) weights in K2's layout, with K6's dropout
+    keys (one key axis of L1 + L2 keys, salt h): ``"mma"`` for bf16 (K2's
+    projection GEMM and its core, forward and backward, and K2b's
+    three-part chain), ``"tf32"`` for fp32 (K2's fp32 route, then K2b's
+    CUDA-core chain)."""
+    return k2_body(dtype)
 
 
 def _k6_forward_cuda(xq, x1, x2, ws, masks, num_heads, scale, rate, seed):
     tensors = (xq, x1, x2) + tuple(ws)
     B, Lq, L1, L2, d, dh = _check_k2(tensors, masks, num_heads)
+    if k6_body(xq.dtype) == "tf32":
+        LAUNCHES["proj_two_block_attention_v2"] += 1
+        return _k2_tf32_forward(xq, x1, x2, ws, masks, num_heads, scale,
+                                rate, seed, concat=True)
     _k2_smem_check("proj_two_block_attention_v2",
                    "segmm_proj_two_block_attention_v2_smem_bytes", xq, Lq, L1,
                    L2, dh)
+    return _k6_forward_mma(xq, x1, x2, ws, masks, num_heads, scale, rate,
+                           seed)
+
+
+def _k6_forward_mma(xq, x1, x2, ws, masks, num_heads, scale, rate, seed):
+    """bf16 K6f: K2f's projection GEMM into K2's workspace on the (d, d)
+    weights as they are, then K2f's core with K6's dropout keys."""
+    B, Lq, d = xq.shape
+    L1, L2 = x1.shape[1], x2.shape[1]
     fn = _fn("proj_two_block_attention_v2",
-             "segmm_proj_two_block_attention_v2_fwd", ctypes.c_int,
-             [ctypes.c_int, ctypes.POINTER(ctypes.c_void_p)]
-             + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_float]
-             + _DROP_ARGS + [ctypes.c_void_p])
+             "segmm_proj_two_block_attention_v2_fwd_mma", ctypes.c_int,
+             [ctypes.POINTER(ctypes.c_void_p)] + [ctypes.c_void_p] * 4
+             + [ctypes.POINTER(ctypes.c_void_p)] + [ctypes.c_int] * 6
+             + [ctypes.c_float] + _DROP_ARGS + [ctypes.c_void_p])
     mq, m1, m2 = _masks_i32(*masks)
-    ptrs = (xq, x1, x2) + _k6_params(ws, num_heads)
     out = torch.empty_like(xq)
+    work = k2_workspace(xq, x1, x2)
     with torch.cuda.device(xq.device):
-        code = fn(_DTYPE_CODE[xq.dtype], _ptrs(ptrs), mq.data_ptr(),
-                  m1.data_ptr(), m2.data_ptr(), out.data_ptr(), B, Lq, L1, L2,
-                  d, num_heads, float(scale), *_drop_args(rate, seed),
-                  _stream_ptr(xq.device))
+        code = fn(_ptrs((xq, x1, x2) + tuple(ws)), mq.data_ptr(),
+                  m1.data_ptr(), m2.data_ptr(), out.data_ptr(), _ptrs(work),
+                  B, Lq, L1, L2, d, num_heads, float(scale),
+                  *_drop_args(rate, seed), _stream_ptr(xq.device))
     _raise_on_cuda_error(code, "proj_two_block_attention_v2")
     LAUNCHES["proj_two_block_attention_v2"] += 1
     return out
@@ -944,51 +1180,21 @@ def _k6_forward_cuda(xq, x1, x2, ws, masks, num_heads, scale, rate, seed):
 
 def _k6_backward_cuda(xq, x1, x2, ws, masks, g, num_heads, scale, rate,
                       seed):
-    """K6b. bf16 (``k6_body``): K2b's five launches on the weights as they
-    are, K6's dropout keys in the core; the gradients in K2's layout. fp32:
-    the qkv pass per (head, batch row) into fp32 dq_c (B, Lq, 2d) and the
-    nonzero halves of dk and dv per block, then dx and dW, db through
-    chain_gemm.cuh in K2_DW_SPLITS row chunks; dW and db of Wq_c come out
-    (2d, d) and are de-interleaved here."""
+    """K6b (``k6_body``), the gradients in K2's layout. bf16: K2b's five
+    launches on the weights as they are, K6's dropout keys in the core.
+    fp32: K2b's fp32 route with K6's keys, then K2b's CUDA-core chain."""
     tensors = (xq, x1, x2) + tuple(ws)
     B, Lq, L1, L2, d, dh = _check_k2(tensors, masks, num_heads, g)
+    if k6_body(xq.dtype) == "tf32":
+        dys = _k2_tf32_qkv_grads(xq, x1, x2, ws, masks, g, num_heads, scale,
+                                 rate, seed, concat=True)
+        return _k2_chain(xq, x1, x2, ws, dys,
+                         "proj_two_block_attention_v2_bwd")
     _k2_smem_check("proj_two_block_attention_v2_bwd",
                    "segmm_proj_two_block_attention_v2_bwd_smem_bytes", xq, Lq,
                    L1, L2, dh)
-    if k6_body(xq.dtype) == "mma":
-        return _k6_backward_mma(xq, x1, x2, ws, masks, g, num_heads, scale,
-                                rate, seed)
-    fn = _fn("proj_two_block_attention_v2_bwd",
-             "segmm_proj_two_block_attention_v2_bwd", ctypes.c_int,
-             [ctypes.c_int, ctypes.POINTER(ctypes.c_void_p)]
-             + [ctypes.c_void_p] * 4 + [ctypes.POINTER(ctypes.c_void_p)] * 3
-             + [ctypes.c_void_p] + [ctypes.c_int] * 6 + [ctypes.c_float]
-             + _DROP_ARGS + [ctypes.c_int, ctypes.c_void_p])
-    mq, m1, m2 = _masks_i32(*masks)
-    # the chain's dx of the keys takes wk1 and wk2 as they are
-    ptrs = (xq, x1, x2) + _k6_params(ws, num_heads) + (ws[4], ws[6])
-    f32 = dict(dtype=torch.float32, device=xq.device)
-    dys = [torch.empty(B, Lq, 2 * d, **f32)] + [
-        torch.empty(B, L, d, **f32) for L in (L1, L2, L1, L2)]
-    dx = [torch.empty_like(x) for x in (xq, x1, x2)]
-    dw = [torch.empty(2 * d, d, **f32)] + [torch.empty(d, d, **f32)
-                                           for _ in range(4)]
-    db = [torch.empty(2 * d, **f32)] + [torch.empty(d, **f32)
-                                        for _ in range(4)]
-    scratch = torch.empty(K2_DW_SPLITS * 6 * (d * d + d), **f32)
-    with torch.cuda.device(xq.device):
-        code = fn(_DTYPE_CODE[xq.dtype], _ptrs(ptrs), mq.data_ptr(),
-                  m1.data_ptr(), m2.data_ptr(), g.data_ptr(), _ptrs(dys),
-                  _ptrs(dx), _ptrs(dw + db), scratch.data_ptr(), B, Lq, L1,
-                  L2, d, num_heads, float(scale), *_drop_args(rate, seed),
-                  K2_DW_SPLITS, _stream_ptr(xq.device))
-    _raise_on_cuda_error(code, "proj_two_block_attention_v2_bwd")
-    LAUNCHES["proj_two_block_attention_v2_bwd"] += 1
-    H = num_heads
-    grads = (deinterleave_w(dw[0], H, 0), deinterleave_b(db[0], H, 0),
-             deinterleave_w(dw[0], H, 1), deinterleave_b(db[0], H, 1),
-             dw[1], db[1], dw[2], db[2], dw[3], db[3], dw[4], db[4])
-    return tuple(dx) + tuple(t.to(w.dtype) for t, w in zip(grads, ws))
+    return _k6_backward_mma(xq, x1, x2, ws, masks, g, num_heads, scale,
+                            rate, seed)
 
 
 def _k6_backward_mma(xq, x1, x2, ws, masks, g, num_heads, scale, rate,
@@ -1027,6 +1233,35 @@ def _k6_backward_mma(xq, x1, x2, ws, masks, g, num_heads, scale, rate,
     return tuple(grads)
 
 
+def k3_mma_smem_bytes(Lq: int, Lk: int, D: int, backward: bool) -> int:
+    """Shared memory of one block of bf16 K3 (``k3_stage_bytes`` and, in
+    the backward, ``k3b_split_bytes``, csrc/masked_attention_mma.cuh): bf16
+    tiles of row stride D + 8, q (and g) over pad16(Lq) rows, k and v over
+    pad16(Lk); the masks; the backward's four [query][key] halves (p and
+    dl) of row stride pad16(Lk) + 8."""
+    mq16, mk16 = _pad16(Lq), _pad16(Lk)
+    n = 2 * ((2 if backward else 1) * mq16 + 2 * mk16) * (D + 8) \
+        + 4 * (mq16 + mk16)
+    return n + (2 * 4 * mq16 * (mk16 + 8) if backward else 0)
+
+
+def k3_takes(dtype, Lq: int, Lk: int, D: int, backward: bool) -> None:
+    """K3's shape rule, both bodies (bf16 on mma.sync, fp32 in 3xTF32 with
+    its query windows); raises a ValueError at a shape it does not take."""
+    if D not in K3_HEAD_DIMS:
+        raise ValueError(f"head dim {D} unsupported: the kernel takes "
+                         f"{K3_HEAD_DIMS}")
+    if max(Lq, Lk) > K3_MAX_LEN:
+        raise ValueError(f"(Lq, Lk)={(Lq, Lk)}: the kernel takes lengths "
+                         f"<= {K3_MAX_LEN}")
+    fits = (k3_mma_smem_bytes(Lq, Lk, D, backward) <= MAX_SMEM_BYTES
+            if dtype == torch.bfloat16
+            else tf32_window(Lq, (Lk,), D, backward) > 0)
+    if not fits:
+        raise ValueError(f"(Lq, Lk, D)={(Lq, Lk, D)} needs more shared "
+                         "memory than one block has")
+
+
 def _check_k3(q, k, v, mask_q, mask_k, g=None):
     _check_cuda((q, k, v) + ((g,) if g is not None else ()), q.dtype)
     B, Lq, H, D = q.shape
@@ -1038,12 +1273,7 @@ def _check_k3(q, k, v, mask_q, mask_k, g=None):
                              f"{tuple(t.shape)} (the kernel takes Dqk = Dv)")
     _check_mask(mask_q, B, Lq, "mask_q")
     _check_mask(mask_k, B, Lk, "mask_k")
-    if D not in K3_HEAD_DIMS:
-        raise ValueError(f"head dim {D} unsupported: the kernel takes "
-                         f"{K3_HEAD_DIMS}")
-    if max(Lq, Lk) > K3_MAX_LEN:
-        raise ValueError(f"(Lq, Lk)={(Lq, Lk)}: the kernel takes lengths "
-                         f"<= {K3_MAX_LEN}")
+    k3_takes(q.dtype, Lq, Lk, D, g is not None)
     if B > MAX_GRID_Y:
         raise ValueError(f"batch {B} exceeds the grid limit {MAX_GRID_Y}")
     # the bf16 kernels stage head rows by 16-byte cp.async
@@ -1076,14 +1306,18 @@ def _k3_backward_cuda(q, k, v, mask_q, mask_k, g, scale, rate, seed):
     fn = _fn("masked_attention_bwd", "segmm_masked_attention_bwd",
              ctypes.c_int, [ctypes.c_int] + [ctypes.c_void_p] * 9
              + [ctypes.c_int] * 5 + [ctypes.c_float] + _DROP_ARGS
-             + [ctypes.c_void_p])
+             + [ctypes.c_void_p] * 2)
     mq, mk = _masks_i32(mask_q, mask_k)
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    part = (tf32_part_scratch(tf32_windows(Lq, (Lk,), D, True), B, (Lk,), H,
+                              D, q.device)
+            if q.dtype == torch.float32 else None)
     with torch.cuda.device(q.device):
         code = fn(_DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(),
                   v.data_ptr(), mq.data_ptr(), mk.data_ptr(), g.data_ptr(),
                   dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, Lq, Lk, H,
                   D, float(scale), *_drop_args(rate, seed),
+                  part.data_ptr() if part is not None else None,
                   _stream_ptr(q.device))
     _raise_on_cuda_error(code, "masked_attention_bwd")
     LAUNCHES["masked_attention_bwd"] += 1

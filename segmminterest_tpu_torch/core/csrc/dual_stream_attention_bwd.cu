@@ -21,97 +21,33 @@
 //      rows (the wrapper's k5_dw_chunk rule), then their sums in chunk
 //      order: no atomics, the same bits on every call.
 //
-// fp32, the first, CUDA-core body. Two passes, as K2b's:
-//  (a) qkv pass of BOTH streams in one launch, grid (H, B, 2): K2b's block
-//      body (proj_attention.cuh:proj_qkv_bwd_block) on each stream, the
-//      user stream salted from head H; twelve fp32 (B, L, d) workspaces
-//      (each stream's dq1, dq2, dk1, dk2, dv1, dv2).
-//  (b) the chain (chain_gemm.cuh): dxv and dxu as sums of six products
-//      each, as :151-160 sums them (the video input feeds the video
-//      stream's queries and block-1 keys and values and the user stream's
-//      block-1 keys and values; the user input the rest), then the 12 fp32
-//      dW = dy^T x and db = sum dy over the batch in K5_DW_SPLITS row chunks
-//      added in order (deterministic, no atomics).
-// Four launches in all: the qkv pass, dx, dW partials, their sum.
+// fp32: each stream's qkv pass is the wrapper's (K2b's fp32 route: the
+// projections recomputed, K1b's 3xTF32 core, the user stream salted from
+// head H; core/dual_kernel.py) into twelve fp32 (B, L, d) workspaces; here
+// the chain (chain_gemm.cuh): dxv and dxu as sums of six products each, as
+// :151-160 sums them (the video input feeds the video stream's queries and
+// block-1 keys and values and the user stream's block-1 keys and values;
+// the user input the rest), then the 12 fp32 dW = dy^T x and db = sum dy
+// over the batch in K5_DW_SPLITS row chunks added in order
+// (deterministic, no atomics): three launches.
 //
 // What bounds it on an H100: operations, as K2b's (twice the work): in
 // bf16 the projection recompute at the bf16 rate, the cores' products with
 // p and dl in two bf16 parts, dx and dW in three. The wrapper picks the
 // bodies by dtype (k5_body).
 #include "chain_gemm.cuh"
-#include "proj_attention.cuh"
 #include "proj_gemm.cuh"
 #include "two_block_mma.cuh"
 
 namespace segmm {
 
+// fp32: dxv, dxu and the 12 dW, db from the twelve dq1..dv2 in dys.
 template <typename T>
-struct DualBwdArgs {
-  const T* xv;
-  const T* xu;
-  ProjWeights<T> wa, wb;
-  const int* mv;
-  const int* mu;
-  const T* gv;
-  const T* gu;
-  float* d[12];  // video stream dq1 dq2 dk1 dk2 dv1 dv2, then the user stream's
-};
-
-template <typename T, int DH, bool kDrop>
-__global__ void __launch_bounds__(kK2Threads)
-dual_stream_qkv_bwd_kernel(DualBwdArgs<T> a, int Lv, int Lu, int dm, float scale, float rate,
-                           float keep_div, unsigned seed) {
-  const int h = blockIdx.x, b = blockIdx.y;
-  const Dropout dr = make_dropout(rate, keep_div, seed, b, gridDim.y);
-  if (blockIdx.z == 0)
-    proj_qkv_bwd_block<T, T, DH, kDrop>(a.xv, a.xv, a.xu, a.wa, a.mv, a.mv, a.mu, a.gv, a.d[0],
-                                        a.d[1], a.d[2], a.d[3], a.d[4], a.d[5], Lv, Lv, Lu, dm,
-                                        scale, dr, h, h, b);
-  else
-    proj_qkv_bwd_block<T, T, DH, kDrop>(a.xu, a.xv, a.xu, a.wb, a.mu, a.mv, a.mu, a.gu, a.d[6],
-                                        a.d[7], a.d[8], a.d[9], a.d[10], a.d[11], Lu, Lv, Lu,
-                                        dm, scale, dr, h, gridDim.x + h, b);
-}
-
-inline size_t k5b_smem_bytes(bool tc, int Lv, int Lu, int DH) {
-  const size_t v = k2b_smem_bytes(tc, Lv, Lv, Lu, DH), u = k2b_smem_bytes(tc, Lu, Lv, Lu, DH);
-  return v > u ? v : u;
-}
-
-template <typename T, int DH>
-cudaError_t launch_k5b_qkv(const DualBwdArgs<T>& a, int B, int Lv, int Lu, int dm, float scale,
-                           float rate, float keep_div, unsigned seed, cudaStream_t stream) {
-  const size_t smem = k5b_smem_bytes(std::is_same<T, __nv_bfloat16>::value, Lv, Lu, DH);
-  auto kernel = rate > 0.f ? dual_stream_qkv_bwd_kernel<T, DH, true>
-                           : dual_stream_qkv_bwd_kernel<T, DH, false>;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-  if (err != cudaSuccess) return err;
-  kernel<<<dim3(dm / DH, B, 2), kK2Threads, smem, stream>>>(a, Lv, Lu, dm, scale, rate,
-                                                            keep_div, seed);
-  return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t launch_k5b(const void* const* p, const int* mv, const int* mu, const void* gv,
-                       const void* gu, float* const* dys, void* const* dx, float* const* dwdb,
-                       float* scratch, int B, int Lv, int Lu, int dm, int H, float scale,
-                       float rate, float keep_div, unsigned seed, int splits,
-                       cudaStream_t s) {
+cudaError_t launch_k5b_chain(const void* const* p, float* const* dys, void* const* dx,
+                             float* const* dwdb, float* scratch, int B, int Lv, int Lu, int dm,
+                             int splits, cudaStream_t s) {
   if (splits < 1 || splits > kMaxSplits) return cudaErrorInvalidValue;
-  DualBwdArgs<T> a{static_cast<const T*>(p[0]), static_cast<const T*>(p[1]),
-                   proj_weights<T>(p + 2), proj_weights<T>(p + 14), mv, mu,
-                   static_cast<const T*>(gv), static_cast<const T*>(gu), {}};
-  for (int i = 0; i < 12; ++i) a.d[i] = dys[i];
   cudaError_t err;
-  switch (dm / H) {
-    case 16: err = launch_k5b_qkv<T, 16>(a, B, Lv, Lu, dm, scale, rate, keep_div, seed, s); break;
-    case 32: err = launch_k5b_qkv<T, 32>(a, B, Lv, Lu, dm, scale, rate, keep_div, seed, s); break;
-    case 64: err = launch_k5b_qkv<T, 64>(a, B, Lv, Lu, dm, scale, rate, keep_div, seed, s); break;
-    default: return cudaErrorInvalidValue;
-  }
-  if (err != cudaSuccess) return err;
-
   // dxv and dxu (dual_kernel.py:153-160); W of projection i of stream a is
   // p[2 + 2i], of stream b p[14 + 2i] (i: q1 q2 k1 k2 v1 v2)
   DxJobs<6> xj{};
@@ -149,24 +85,8 @@ inline cudaError_t launch_k5b_mma(const void* const* p, const int* mv, const int
                                   float rate, float keep_div, unsigned seed, int chunk,
                                   cudaStream_t s) {
   const bf16* const* t = reinterpret_cast<const bf16* const*>(p);
-  // (1) per stream (a at 2, u at 14): q1|q2 of its queries, k1|v1 of xv,
-  // k2|v2 of xu
-  const bf16* x[6] = {t[0], t[0], t[1], t[1], t[0], t[1]};
-  const bf16* w[12];
-  const bf16* bias[12];
-  bf16* out[6];
-  for (int st = 0; st < 2; ++st) {
-    const int o = 2 + 12 * st;
-    const int pair[3][2] = {{0, 2}, {4, 8}, {6, 10}};  // q1 q2 | k1 v1 | k2 v2
-    for (int j = 0; j < 3; ++j)
-      for (int k = 0; k < 2; ++k) {
-        w[2 * (3 * st + j) + k] = t[o + pair[j][k]];
-        bias[2 * (3 * st + j) + k] = t[o + pair[j][k] + 1];
-      }
-  }
-  for (int i = 0; i < 6; ++i) out[i] = static_cast<bf16*>(ws[i]);
-  const int M[6] = {B * Lv, B * Lv, B * Lu, B * Lu, B * Lv, B * Lu};
-  cudaError_t err = launch_qkv_gemm(x, w, bias, out, M, 6, d, s);
+  // (1) both streams' six projections (launch_k5_projections)
+  cudaError_t err = launch_k5_projections(p, ws, B, Lv, Lu, d, s);
   if (err != cudaSuccess) return err;
   // (2) the two cores: video queries (Lv) and user queries (Lu) over the
   // key blocks (Lv, Lu)
@@ -178,7 +98,7 @@ inline cudaError_t launch_k5b_mma(const void* const* p, const int* mv, const int
     a.dy[i] = dys[i];
     u.dy[i] = dys[6 + i];
   }
-  err = launch_dual_core_bwd(a, u, d / H, B, s);
+  err = launch_dual_core<true>(a, u, d / H, B, s);
   if (err != cudaSuccess) return err;
   // (3) dxv, dxu over their six pairs (dual_kernel.py:151-160); W of
   // projection i of the video stream is t[2 + 2i], of the user stream
@@ -202,45 +122,38 @@ inline cudaError_t launch_k5b_mma(const void* const* p, const int* mv, const int
 
 }  // namespace segmm
 
-// dtype: 0 = float32 (the CUDA-core qkv pass), 1 = bfloat16 (K2b's core
-// block, the larger of the two streams').
+// dtype: 1 = bfloat16 (K2b's core block, the larger of the two streams');
+// any other dtype has no block here (0 bytes).
 extern "C" size_t segmm_dual_stream_attention_bwd_smem_bytes(int dtype, int Lv, int Lu, int DH) {
-  if (dtype == 1) {
-    const size_t v = segmm::k2_core_bwd_smem_bytes(Lv, Lv, Lu, DH),
-                 u = segmm::k2_core_bwd_smem_bytes(Lu, Lv, Lu, DH);
-    return v > u ? v : u;
-  }
-  return segmm::k5b_smem_bytes(false, Lv, Lu, DH);
+  if (dtype != 1) return 0;
+  const size_t v = segmm::k2_core_bwd_smem_bytes(Lv, Lv, Lu, DH),
+               u = segmm::k2_core_bwd_smem_bytes(Lu, Lv, Lu, DH);
+  return v > u ? v : u;
 }
 
-// ptrs: as segmm_dual_stream_attention_fwd's (xv, xu, 12 + 12 parameters);
-// gv (B, Lv, d), gu (B, Lu, d) in x's dtype; dys: 12 fp32 workspaces (the
-// video stream's dq1 dq2 dk1 dk2 dv1 dv2, then the user stream's, each
-// (B, L, d)); dx: dxv, dxu (x's dtype); dwdb: the 12 fp32 dW ((d, d),
-// nn.Linear layout; video stream's q1 q2 k1 k2 v1 v2, then the user
+// fp32 K5b's chain. ptrs: xv, xu, then the video stream's wq1, bq1, wq2,
+// bq2, wk1, bk1, wk2, bk2, wv1, bv1, wv2, bv2, then the user stream's (26
+// device pointers, 16-byte aligned); dys: 12 fp32 workspaces (the video
+// stream's dq1 dq2 dk1 dk2 dv1 dv2, then the user stream's, each (B, L,
+// d)), the wrapper's qkv passes; dx: dxv, dxu; dwdb: the 12 fp32 dW ((d,
+// d), nn.Linear layout; video stream's q1 q2 k1 k2 v1 v2, then the user
 // stream's) then the 12 db; scratch: fp32, 12 * splits * (d * d + d).
-// 1 <= splits <= 4. float32 only (dtype 0). Returns a cudaError_t (0 =
-// launched).
-extern "C" int segmm_dual_stream_attention_bwd(int dtype, const void* const* ptrs, const int* mv,
-                                               const int* mu, const void* gv, const void* gu,
-                                               float* const* dys, void* const* dx,
-                                               float* const* dwdb, float* scratch, int B, int Lv,
-                                               int Lu, int dm, int H, float scale, float rate,
-                                               float keep_div, unsigned seed, int splits,
-                                               void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return (int)segmm::launch_k5b<float>(ptrs, mv, mu, gv, gu, dys, dx, dwdb, scratch, B, Lv, Lu,
-                                         dm, H, scale, rate, keep_div, seed, splits, s);
-  return (int)cudaErrorInvalidValue;
+// 1 <= splits <= 4. Returns a cudaError_t (0 = launched).
+extern "C" int segmm_dual_stream_attention_chain_bwd(const void* const* ptrs, float* const* dys,
+                                                     void* const* dx, float* const* dwdb,
+                                                     float* scratch, int B, int Lv, int Lu,
+                                                     int dm, int splits, void* stream) {
+  return (int)segmm::launch_k5b_chain<float>(ptrs, dys, dx, dwdb, scratch, B, Lv, Lu, dm, splits,
+                                             static_cast<cudaStream_t>(stream));
 }
 
-// bf16 K5b on K2b's pieces. ptrs, gv, gu, dys, dx, dwdb: as above, in bf16;
+// bf16 K5b on K2b's pieces. ptrs: as segmm_dual_stream_attention_chain_bwd's,
+// in bf16; gv (B, Lv, d), gu (B, Lu, d); dys, dx, dwdb: as there, in bf16;
 // ws: six bf16 workspaces, (B, Lv, 2d), (B, Lv, 2d), (B, Lu, 2d) of the
 // video stream (q1|q2, k1|v1, k2|v2), then (B, Lu, 2d), (B, Lv, 2d),
 // (B, Lu, 2d) of the user stream; scratch (fp32): the sum over the 12
 // weights of dw_chunks(rows, chunk) * (d * d + d), chunk % 32 == 0, at most
-// 96 chunks in all. DH in {16, 32, 64}, d % 32 == 0, Lv and Lu <= 128.
+// 96 chunks in all. DH in SEGMM_K2_HEAD_DIMS, d % 32 == 0, Lv and Lu <= 128.
 // Five launches. Returns a cudaError_t (0 = launched).
 extern "C" int segmm_dual_stream_attention_bwd_mma(
     const void* const* ptrs, const int* mv, const int* mu, const void* gv, const void* gu,

@@ -18,11 +18,13 @@
 // (proj_gemm.cuh) into a transient bf16 workspace, (2) K2f's two-block
 // core (two_block_mma.cuh) writes att (B, Lq, d) in bf16, as the TPU
 // kernel's `satt` scratch holds it (:358-364), (3) the epilogue
-// (layer_mma.cuh): a block of 8 warps per 64 rows of (B * Lq) runs the
+// (layer_mma.cuh): a block of 16 warps per 64 rows of (B * Lq) (32 rows
+// where d or ff passes 512, up to 768) runs the
 // three Dense layers on mma.sync with full rows in its registers, y1 and g
 // through device memory.
-// fp32, two launches: (1) K2f's CUDA-core block body (proj_attention.cuh)
-// writes att; (2) a row-tile epilogue kernel: one block of 256 threads per
+// fp32: att comes from the wrapper (K2f's fp32 route: the projections and
+// K1f's 3xTF32 core, core/attention.py); here a row-tile epilogue kernel,
+// one block of 256 threads per
 // 32 rows, the rows kept in shared memory through the three Dense layers
 // and both LayerNorms, the weights streamed through shared memory in
 // 128 x 32 chunks, fp32 FMAs on the CUDA cores (layer_epilogue.cuh).
@@ -35,7 +37,6 @@
 // cluster are the ways on.
 #include "layer_epilogue.cuh"
 #include "layer_mma.cuh"
-#include "proj_attention.cuh"
 #include "two_block_mma.cuh"
 
 namespace segmm {
@@ -131,19 +132,16 @@ layer_epilogue_fwd_kernel(const T* __restrict__ att, const T* __restrict__ xq, E
   }
 }
 
+// The fp32 epilogue on att (the wrapper's).
 template <typename T>
-cudaError_t launch_k4f(const void* const* p, const int* mq, const int* m1, const int* m2,
-                       void* att, void* out, int B, int Lq, int L1, int L2, int dm, int H, int ff,
-                       float scale, float rate, float keep_div, float epi_div, unsigned seed,
-                       cudaStream_t s) {
-  // fp32: the CUDA-core bodies
-  cudaError_t err = dispatch_proj_fwd<T>(dm / H, p, mq, m1, m2, att, B, Lq, L1, L2, dm, scale,
-                                         rate, keep_div, seed, s);
-  if (err != cudaSuccess) return err;
+cudaError_t launch_k4f_epilogue(const void* const* p, const void* att, void* out, int B, int Lq,
+                                int dm, int H, int ff, float rate, float epi_div, unsigned seed,
+                                cudaStream_t s) {
   const size_t smem = EpFwdLayout<T>(dm, ff).total;
   auto kernel = rate > 0.f ? layer_epilogue_fwd_kernel<T, true>
                            : layer_epilogue_fwd_kernel<T, false>;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const int rows = B * Lq;
   kernel<<<(rows + kEpFwdRows - 1) / kEpFwdRows, kEpThreads, smem, s>>>(
@@ -154,12 +152,12 @@ cudaError_t launch_k4f(const void* const* p, const int* mq, const int* m1, const
 
 inline cudaError_t launch_layer_epilogue_fwd_mma(const LmFwdArgs& a, cudaStream_t s) {
   if (!lm_takes(a.d, a.ff)) return cudaErrorInvalidValue;
-  auto kernel = a.rate > 0.f ? layer_epilogue_fwd_mma_kernel<true>
-                             : layer_epilogue_fwd_mma_kernel<false>;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)kLmFwdSmemBytes);
+  auto kernel = lm_fwd_kernel(a.d, a.ff, a.rate > 0.f);
+  const size_t smem = lm_fwd_smem_bytes(a.d, a.ff);
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  if (a.rows > 0) kernel<<<lm_blocks(a.rows), kLmThreads, kLmFwdSmemBytes, s>>>(a);
+  if (a.rows > 0) kernel<<<lm_blocks(a.rows, a.d, a.ff), kLmThreads, smem, s>>>(a);
   return cudaGetLastError();
 }
 
@@ -185,28 +183,28 @@ inline cudaError_t launch_k4f_mma(const void* const* p, const int* mq, const int
 
 }  // namespace segmm
 
-// dtype: 0 = float32, 1 = bfloat16. The largest of the launches' bytes
-// (the projection GEMM's are fixed and smaller).
+// dtype: 0 = float32 (the epilogue's block), 1 = bfloat16 (the largest of
+// the launches' bytes; the projection GEMM's are fixed and smaller).
 extern "C" size_t segmm_layer_stream_smem_bytes(int dtype, int Lq, int L1, int L2, int DH,
                                                 int dm, int ff) {
   if (dtype == 1) {
     const size_t a = segmm::k2_core_fwd_smem_bytes(Lq, L1, L2, DH);
-    return a > segmm::kLmFwdSmemBytes ? a : segmm::kLmFwdSmemBytes;
+    const size_t e = segmm::lm_fwd_smem_bytes(dm, ff);
+    return a > e ? a : e;
   }
-  const size_t a = segmm::k2_smem_bytes(false, Lq, L1, L2, DH);
-  const size_t e = segmm::EpFwdLayout<float>(dm, ff).total;
-  return a > e ? a : e;
+  return segmm::EpFwdLayout<float>(dm, ff).total;
 }
 
 // ptrs: xq, x1, x2, the twelve projection parameters (as K2's), then the
 // ten epilogue parameters (w_ff (d, d), b_ff, ln1_s, ln1_b, w_m1 (ff, d),
 // b_m1, w_m2 (d, ff), b_m2, ln2_s, ln2_b; nn.Linear layout, the LayerNorm
-// ones fp32). work: fp32, att (B, Lq, d); bf16, att, y1 (B, Lq, d), gact
-// (B, Lq, ff) and the projections' (B, Lq, 2d), (B, L1, 2d), (B, L2, 2d).
-// out (B, Lq, d). DH = d / H in {16, 32, 64}, d % 32 == 0, ff % 32 == 0,
-// d, ff <= 512, lengths <= 128. keep_div = 1 - rate in fp32 (attention),
-// epi_div = 1 - rate in x's dtype (epilogue). Returns a cudaError_t (0 =
-// launched).
+// ones fp32). work: fp32, att (B, Lq, d), computed by the wrapper, which
+// the epilogue alone reads; bf16, att, y1 (B, Lq, d), gact (B, Lq, ff) and
+// the projections' (B, Lq, 2d), (B, L1, 2d), (B, L2, 2d). out (B, Lq, d).
+// DH = d / H in {16, 32, 48, 64, 96, 128}, d % 32 == 0, ff % 32 == 0, d,
+// ff <= 768 (bf16), lengths <= 128. keep_div = 1 - rate in fp32
+// (attention), epi_div = 1 - rate in x's dtype (epilogue). Returns a
+// cudaError_t (0 = launched).
 extern "C" int segmm_layer_stream_fwd(int dtype, const void* const* ptrs, const int* mq,
                                       const int* m1, const int* m2, void* const* work, void* out,
                                       int B, int Lq, int L1, int L2, int dm, int H, int ff,
@@ -214,8 +212,8 @@ extern "C" int segmm_layer_stream_fwd(int dtype, const void* const* ptrs, const 
                                       unsigned seed, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return (int)segmm::launch_k4f<float>(ptrs, mq, m1, m2, work[0], out, B, Lq, L1, L2, dm, H,
-                                         ff, scale, rate, keep_div, epi_div, seed, s);
+    return (int)segmm::launch_k4f_epilogue<float>(ptrs, work[0], out, B, Lq, dm, H, ff, rate,
+                                                  epi_div, seed, s);
   if (dtype == 1)
     return (int)segmm::launch_k4f_mma(ptrs, mq, m1, m2, work, out, B, Lq, L1, L2, dm, H, ff,
                                       scale, rate, keep_div, epi_div, seed, s);

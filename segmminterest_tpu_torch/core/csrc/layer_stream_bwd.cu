@@ -23,9 +23,9 @@
 //  (7), (8) the nine dW = dy^T x, db = sum dy in row chunks of `chunk`
 //      rows (the wrapper's k4_dw_chunk rule), then their sums in chunk
 //      order.
-// fp32, seven launches on the CUDA cores:
-//  (1) att recomputed by K2f's block body (proj_attention.cuh), as the
-//      forward made it.
+// fp32, on the CUDA cores between the wrapper's launches of K2's fp32
+// route (core/attention.py: the projections and K1's 3xTF32 core):
+//  (1) att, recomputed by the wrapper as the forward made it.
 //  (2) the epilogue-backward row-tile kernel, one block of 256 threads per
 //      16 rows of (B * Lq): the epilogue forward recomputed in shared memory
 //      (layer_epilogue.cuh products, the forward's roundings and dropout
@@ -40,7 +40,8 @@
 //      need (dm, du, dh fp32; y1, g in the compute dtype) and each block's
 //      column sums of g xhat2, g, dy1 xhat1, dy1 (the LayerNorm gradients).
 //  (3) those partial sums added over the blocks in order.
-//  (4) K2b's qkv pass (proj_attention.cuh) on g = d_att in fp32.
+//  (4) K2b's qkv pass on g = d_att in fp32, by the wrapper (K1b's 3xTF32
+//      core on the recomputed projections).
 //  (5) dxq = dq1.Wq1 + dq2.Wq2 + dr1, dx1, dx2 (chain_gemm.cuh).
 //  (6) the nine dW = dy^T x and db = sum dy (the six projections and
 //      W_ff, W_m1, W_m2) in row chunks,
@@ -54,7 +55,6 @@
 #include "chain_gemm.cuh"
 #include "layer_epilogue.cuh"
 #include "layer_mma.cuh"
-#include "proj_attention.cuh"
 #include "proj_gemm.cuh"
 #include "two_block_mma.cuh"
 
@@ -298,44 +298,45 @@ __global__ void ln_partial_sum_kernel(const float* __restrict__ part, int nblk, 
   out[j][c] = s;
 }
 
+// fp32 (2) and (3): the epilogue backward on att (work[0], the wrapper's)
+// and the LayerNorm gradients.
 template <typename T>
-cudaError_t launch_k4b(const void* const* p, const int* mq, const int* m1, const int* m2,
-                       const void* g, float* const* work, void* const* dx, float* const* grads,
-                       float* scratch, int B, int Lq, int L1, int L2, int dm, int H, int ff,
-                       int splits, float scale, float rate, float keep_div, float epi_div,
-                       unsigned seed, cudaStream_t s) {
-  if (splits < 1 || splits > kMaxSplits) return cudaErrorInvalidValue;
+cudaError_t launch_k4b_epilogue(const void* const* p, const void* g, float* const* work,
+                                float* const* grads, int B, int Lq, int dm, int H, int ff,
+                                float rate, float keep_div, float epi_div, unsigned seed,
+                                cudaStream_t s) {
   const int rows = B * Lq, d = dm;
-  void* att = work[0];
-  // (1) att
-  cudaError_t err = dispatch_proj_fwd<T>(dm / H, p, mq, m1, m2, att, B, Lq, L1, L2, dm, scale,
-                                         rate, keep_div, seed, s);
-  if (err != cudaSuccess) return err;
-  // (2) the epilogue backward
-  EpBwdIO<T> io{static_cast<const T*>(att), static_cast<const T*>(p[0]),
+  EpBwdIO<T> io{static_cast<const T*>((const void*)work[0]), static_cast<const T*>(p[0]),
                 static_cast<const T*>(g),   reinterpret_cast<T*>(work[1]),
                 reinterpret_cast<T*>(work[2]), work[3], work[4], work[5], work[6], work[7],
                 work[8]};
   const size_t smem = EpBwdLayout<T>(d, ff).total;
   auto kernel = rate > 0.f ? layer_epilogue_bwd_kernel<T, true>
                            : layer_epilogue_bwd_kernel<T, false>;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const int nblk = (rows + kEpBwdRows - 1) / kEpBwdRows;
   kernel<<<nblk, kEpThreads, smem, s>>>(io, ep_params<T>(p + 15), rows, Lq, B, d, ff, H, rate,
                                         keep_div, epi_div, seed);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  // (3) the LayerNorm gradients
   ln_partial_sum_kernel<<<(4 * d + 255) / 256, 256, 0, s>>>(work[8], nblk, d, grads[20],
                                                               grads[21], grads[14], grads[15]);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  // (4) the attention's qkv pass on g = d_att (fp32)
+  return cudaGetLastError();
+}
+
+// fp32 (5)-(7): dx and the nine dW, db from the six fp32 dq1..dv2 of the
+// attention's qkv pass (work[9..14], the wrapper's).
+template <typename T>
+cudaError_t launch_k4b_chain(const void* const* p, float* const* work, void* const* dx,
+                             float* const* grads, float* scratch, int B, int Lq, int L1, int L2,
+                             int dm, int ff, int splits, cudaStream_t s) {
+  if (splits < 1 || splits > kMaxSplits) return cudaErrorInvalidValue;
+  const int rows = B * Lq, d = dm;
+  const void* att = work[0];
   float* const* dys = work + 9;
-  err = dispatch_qkv_bwd<T, float>(dm / H, p, mq, m1, m2, work[3], dys, B, Lq, L1, L2, dm, scale,
-                                   rate, keep_div, seed, s);
-  if (err != cudaSuccess) return err;
+  cudaError_t err;
   // (5) dxq (+ dr1), dx1, dx2
   DxJobs<2> xj{};
   const int L[3] = {Lq, L1, L2};
@@ -376,17 +377,18 @@ cudaError_t launch_k4b(const void* const* p, const int* mq, const int* m1, const
 }
 
 inline cudaError_t launch_layer_epilogue_bwd_mma(const LmBwdArgs& a, cudaStream_t s) {
-  if (!lm_takes(a.f.d, a.f.ff)) return cudaErrorInvalidValue;
-  auto kernel = a.f.rate > 0.f ? layer_epilogue_bwd_mma_kernel<true>
-                               : layer_epilogue_bwd_mma_kernel<false>;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)kLmBwdSmemBytes);
+  const int d = a.f.d, ff = a.f.ff;
+  if (!lm_takes(d, ff)) return cudaErrorInvalidValue;
+  auto kernel = lm_bwd_kernel(d, ff, a.f.rate > 0.f);
+  const size_t smem = lm_bwd_smem_bytes(d, ff);
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  if (a.f.rows > 0) kernel<<<lm_blocks(a.f.rows), kLmThreads, kLmBwdSmemBytes, s>>>(a);
+  if (a.f.rows > 0) kernel<<<lm_blocks(a.f.rows, d, ff), kLmThreads, smem, s>>>(a);
   return cudaGetLastError();
 }
 
-// bf16: work as launch_k4b's, the partials (lm_blocks(B Lq), 4, d), then
+// bf16: work as segmm_layer_stream_bwd's, the partials (lm_blocks(B Lq, d, ff), 4, d), then
 // K2's projection workspace (three (B, L, 2d) tensors) at work[15..17].
 inline cudaError_t launch_k4b_mma(const void* const* p, const int* mq, const int* m1,
                                   const int* m2, const void* g, float* const* work,
@@ -425,7 +427,7 @@ inline cudaError_t launch_k4b_mma(const void* const* p, const int* mq, const int
   // (4) the LayerNorm gradients
   if (rows > 0) {
     ln_partial_sum_kernel<<<(4 * d + 255) / 256, 256, 0, s>>>(
-        work[8], lm_blocks(rows), d, grads[20], grads[21], grads[14], grads[15]);
+        work[8], lm_blocks(rows, d, ff), d, grads[20], grads[21], grads[14], grads[15]);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
@@ -447,34 +449,32 @@ inline cudaError_t launch_k4b_mma(const void* const* p, const int* mq, const int
 
 }  // namespace segmm
 
-// dtype: 0 = float32, 1 = bfloat16. The largest of the launches' bytes.
+// dtype: 0 = float32 (the epilogue backward's block), 1 = bfloat16 (the
+// largest of the launches' bytes).
 extern "C" size_t segmm_layer_stream_bwd_smem_bytes(int dtype, int Lq, int L1, int L2, int DH,
                                                     int dm, int ff) {
-  size_t a, b, e;
-  if (dtype == 1) {
-    a = segmm::k2_core_fwd_smem_bytes(Lq, L1, L2, DH);
-    b = segmm::k2_core_bwd_smem_bytes(Lq, L1, L2, DH, true);
-    e = segmm::kLmBwdSmemBytes;
-  } else {
-    a = segmm::k2_smem_bytes(false, Lq, L1, L2, DH);
-    b = segmm::k2b_smem_bytes(false, Lq, L1, L2, DH);
-    e = segmm::EpBwdLayout<float>(dm, ff).total;
-  }
+  if (dtype != 1) return segmm::EpBwdLayout<float>(dm, ff).total;
+  const size_t a = segmm::k2_core_fwd_smem_bytes(Lq, L1, L2, DH);
+  const size_t b = segmm::k2_core_bwd_smem_bytes(Lq, L1, L2, DH, true);
+  const size_t e = segmm::lm_bwd_smem_bytes(dm, ff);
   return a > b ? (a > e ? a : e) : (b > e ? b : e);
 }
 
 // ptrs: as segmm_layer_stream_fwd's; g (B, Lq, d) in x's dtype. work:
 // att, y1 (B, Lq, d) and g (B, Lq, ff) in x's dtype; d_att, dr1, dm, dh
 // (B, Lq, d) and du (B, Lq, ff) fp32; the LayerNorm partials (blocks, 4,
-// d) fp32, blocks = ceil(B Lq / 16) (fp32) or ceil(B Lq / 64) (bf16); the
+// d) fp32, blocks = ceil(B Lq / 16) (fp32) or ceil(B Lq / 64) (bf16, d and
+// ff <= 512; ceil(B Lq / 32) up to 768); the
 // six fp32 dq1, dq2, dk1, dk2, dv1, dv2 ((B, L, d) each); bf16 only, the
 // projections' (B, Lq, 2d), (B, L1, 2d), (B, L2, 2d) bf16. dx: dxq, dx1,
 // dx2 (x's dtype). grads (fp32): dW of the six projections, their six db,
 // then dW_ff, db_ff, dln1_s, dln1_b, dW_m1, db_m1, dW_m2, db_m2, dln2_s,
 // dln2_b. scratch: fp32; fp32, splits * (6 (d^2 + d) + d^2 + 2 d ff + 2 d
 // + ff) with 1 <= splits <= 4; bf16, the sum over the nine weights of
-// dw_chunks(rows, chunk) * (Mo Ni + Mo) with chunk % 32 == 0. Returns a
-// cudaError_t.
+// dw_chunks(rows, chunk) * (Mo Ni + Mo) with chunk % 32 == 0. fp32 runs
+// (2) and (3) alone, on att in work[0] (the wrapper's); its qkv pass and
+// chain follow (the wrapper's, then segmm_layer_stream_chain_bwd).
+// Returns a cudaError_t.
 extern "C" int segmm_layer_stream_bwd(int dtype, const void* const* ptrs, const int* mq,
                                       const int* m1, const int* m2, const void* g,
                                       float* const* work, void* const* dx, float* const* grads,
@@ -484,12 +484,23 @@ extern "C" int segmm_layer_stream_bwd(int dtype, const void* const* ptrs, const 
                                       void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return (int)segmm::launch_k4b<float>(ptrs, mq, m1, m2, g, work, dx, grads, scratch, B, Lq,
-                                         L1, L2, dm, H, ff, splits, scale, rate, keep_div,
-                                         epi_div, seed, s);
+    return (int)segmm::launch_k4b_epilogue<float>(ptrs, g, work, grads, B, Lq, dm, H, ff, rate,
+                                                  keep_div, epi_div, seed, s);
   if (dtype == 1)
     return (int)segmm::launch_k4b_mma(ptrs, mq, m1, m2, g, work, dx, grads, scratch, B, Lq, L1,
                                       L2, dm, H, ff, chunk, scale, rate, keep_div, epi_div, seed,
                                       s);
   return (int)cudaErrorInvalidValue;
+}
+
+// fp32 (5)-(7): dxq (+ dr1), dx1, dx2 and the nine dW, db, from work[9..14]
+// (the six fp32 dq1..dv2 of the wrapper's qkv pass on d_att) and what
+// segmm_layer_stream_bwd wrote; ptrs, work, dx, grads and scratch as
+// there, 1 <= splits <= 4. Returns a cudaError_t.
+extern "C" int segmm_layer_stream_chain_bwd(const void* const* ptrs, float* const* work,
+                                            void* const* dx, float* const* grads, float* scratch,
+                                            int B, int Lq, int L1, int L2, int dm, int ff,
+                                            int splits, void* stream) {
+  return (int)segmm::launch_k4b_chain<float>(ptrs, work, dx, grads, scratch, B, Lq, L1, L2, dm,
+                                             ff, splits, static_cast<cudaStream_t>(stream));
 }

@@ -39,8 +39,10 @@
 //     the JAX kernel's probs.astype(v.dtype) rounding, fp32 accumulation.
 //   * The output goes through the warp's own q rows in shared memory and
 //     out in 16-byte stores.
-//   Templates: D in {16, 32, 64}; NT, the n8 key tiles kept in registers
-//   (2, 4, 8 or 16 by Lk), so that short key rows do not pay 64 registers.
+//   Templates: D in {16, 32, 48, 64, 96, 128}; NT, the n8 key tiles kept in
+//   registers (2, 4, 8 or 16 by Lk), so that short key rows do not pay 64
+//   registers. At D = 128 and (100, 100) the backward's block takes
+//   230,272 of its 232,448 bytes; (128, 128) exceeds them and raises.
 //
 // fp32 (masked_fwd_tf32_kernel, tf32_attention.cuh with one key block): on
 // the TF32 tensor cores in 3xTF32, K1f's fp32 body over one key block: a
@@ -49,9 +51,20 @@
 // registers, out = p v with p's C tiles as the A operand. Shared memory at
 // D = 32 (tf32_fwd_smem_bytes): 36.3 KB at (40, 100), 27.1 KB at (100, 40),
 // 56.3 KB at (128, 128) (105.5 KB at D = 64). It takes every shape the
-// wrapper accepts (D in {16, 32, 64}, lengths <= 128: at most 16 key tiles).
+// wrapper accepts (D in {16, 32, 48, 64, 96, 128}, lengths <= 128: at most
+// 16 key tiles), past D = 64 in query windows (tf32_attention.cuh).
 #include "masked_attention_mma.cuh"
 #include "tf32_attention.cuh"
+
+namespace segmm {
+// The fp32 body at head dims past 64 is instantiated in masked_attention.d96.cu and
+// .d128.cu, compiled beside this file (core/build.py), so that its longest
+// compiles run side by side.
+extern template cudaError_t launch_tf32_fwd_nt<1, 96>(const Tf32FwdArgs<1>&, int,
+                                                          cudaStream_t);
+extern template cudaError_t launch_tf32_fwd_nt<1, 128>(const Tf32FwdArgs<1>&, int,
+                                                           cudaStream_t);
+}  // namespace segmm
 
 namespace segmm {
 
@@ -139,9 +152,19 @@ cudaError_t launch_k3_mma_d(const void* q, const void* k, const void* v, const i
 
 }  // namespace segmm
 
+// Shared memory of one block at a shape: dtype 0, the fp32 body's query
+// window (all Lq where it fits); 1, the bf16 body's.
+extern "C" size_t segmm_masked_attention_smem_bytes(int dtype, int Lq, int Lk, int D) {
+  if (dtype == 1) return segmm::k3_stage_bytes(Lq, Lk, D, false);
+  const int L[1] = {Lk};
+  const int w = segmm::tf32_fwd_window(1, Lq, L, D);
+  return segmm::tf32_fwd_smem_bytes(1, w ? w : Lq, L, D);
+}
+
 // dtype: 0 = float32 (3xTF32), 1 = bfloat16 (bf16 tensor cores). rate > 0
 // applies the dropout mask of `seed` (keep_div = 1 - rate in fp32). Lq, Lk
-// <= 128, D in {16, 32, 64}; bf16 pointers 16-byte aligned (the wrapper
+// <= 128, D in {16, 32, 48, 64, 96, 128} (fp32: D % 4 == 0, D <= 128);
+// bf16 pointers 16-byte aligned (the wrapper
 // checks). Returns a cudaError_t (0 = launched).
 extern "C" int segmm_masked_attention_fwd(int dtype, const void* q, const void* k,
                                           const void* v, const int* mq, const int* mk, void* out,
@@ -157,10 +180,13 @@ extern "C" int segmm_masked_attention_fwd(int dtype, const void* q, const void* 
     return (int)segmm::launch_tf32_attention_fwd<1>(args, B, s);
   }
   if (dtype != 1) return (int)cudaErrorInvalidValue;
-  auto launch = D == 16   ? segmm::launch_k3_mma_d<16>
-                : D == 32 ? segmm::launch_k3_mma_d<32>
-                : D == 64 ? segmm::launch_k3_mma_d<64>
-                          : nullptr;
+  auto launch = D == 16    ? segmm::launch_k3_mma_d<16>
+                : D == 32  ? segmm::launch_k3_mma_d<32>
+                : D == 48  ? segmm::launch_k3_mma_d<48>
+                : D == 64  ? segmm::launch_k3_mma_d<64>
+                : D == 96  ? segmm::launch_k3_mma_d<96>
+                : D == 128 ? segmm::launch_k3_mma_d<128>
+                           : nullptr;
   if (!launch) return (int)cudaErrorInvalidValue;
   return (int)launch(q, k, v, mq, mk, out, B, Lq, Lk, H, scale, rate, keep_div, seed, s);
 }

@@ -66,13 +66,17 @@
 #include "tf32_attention.cuh"
 
 namespace segmm {
-// The fp32 body at head dims 16 and 64 is instantiated in
-// masked_attention_bwd.d16.cu and .d64.cu, compiled beside this file
+// The fp32 body at head dims 16, 64, 96 and 128 is instantiated in
+// masked_attention_bwd.d16.cu, .d64.cu, .d96.cu and .d128.cu, compiled beside this file
 // (core/build.py), so that its longest compiles run side by side.
 extern template cudaError_t launch_tf32_bwd_nt<1, 16>(const Tf32BwdArgs<1>&, int,
                                                           cudaStream_t);
 extern template cudaError_t launch_tf32_bwd_nt<1, 64>(const Tf32BwdArgs<1>&, int,
                                                           cudaStream_t);
+extern template cudaError_t launch_tf32_bwd_nt<1, 96>(const Tf32BwdArgs<1>&, int,
+                                                          cudaStream_t);
+extern template cudaError_t launch_tf32_bwd_nt<1, 128>(const Tf32BwdArgs<1>&, int,
+                                                           cudaStream_t);
 }  // namespace segmm
 
 namespace segmm {
@@ -258,29 +262,50 @@ cudaError_t launch_k3b_mma_d(const void* q, const void* k, const void* v, const 
 
 }  // namespace segmm
 
+// Shared memory of one block at a shape: dtype 0, the fp32 body's query
+// window (all Lq where it fits); 1, the bf16 body's.
+extern "C" size_t segmm_masked_attention_bwd_smem_bytes(int dtype, int Lq, int Lk, int D) {
+  if (dtype == 1) return segmm::k3b_split_bytes(Lq, Lk) + segmm::k3_stage_bytes(Lq, Lk, D, true);
+  const int L[1] = {Lk};
+  const int w = segmm::tf32_bwd_window(1, Lq, L, D);
+  return segmm::tf32_bwd_smem_bytes(1, w ? w : Lq, L, D);
+}
+
+// The fp32 body's query windows at a shape (0: none fits).
+extern "C" int segmm_masked_attention_bwd_windows(int Lq, int Lk, int D) {
+  const int L[1] = {Lk};
+  return segmm::tf32_windows(Lq, segmm::tf32_bwd_window(1, Lq, L, D));
+}
+
 // dtype: 0 = float32 (3xTF32), 1 = bfloat16 (bf16 tensor cores). Inputs q, k,
 // v, the masks and g; outputs dq, dk, dv (same shapes and dtype as q, k,
-// v). Lq, Lk <= 128, D in {16, 32, 64}; bf16 pointers 16-byte aligned (the
+// v). Lq, Lk <= 128, D in {16, 32, 48, 64, 96, 128} (fp32: D % 4 == 0,
+// D <= 128; part: scratch of (windows - 1) part slots, or null where there
+// is one window); bf16 pointers 16-byte aligned (the
 // wrapper checks). Returns a cudaError_t (0 = launched).
 extern "C" int segmm_masked_attention_bwd(int dtype, const void* q, const void* k,
                                           const void* v, const int* mq, const int* mk,
                                           const void* g, void* dq, void* dk, void* dv, int B,
                                           int Lq, int Lk, int H, int D, float scale, float rate,
-                                          float keep_div, unsigned seed, void* stream) {
+                                          float keep_div, unsigned seed, float* part,
+                                          void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
     using f = float;
     const segmm::Tf32BwdArgs<1> args{
         {static_cast<const f*>(q)}, {static_cast<const f*>(k)}, {static_cast<const f*>(v)},
         static_cast<const f*>(g), mq, {mk}, {static_cast<f*>(dq)}, {static_cast<f*>(dk)},
-        {static_cast<f*>(dv)}, Lq, {Lk}, H, D, scale, rate, keep_div, seed};
+        {static_cast<f*>(dv)}, Lq, {Lk}, H, D, scale, rate, keep_div, seed, 0, part};
     return (int)segmm::launch_tf32_attention_bwd<1>(args, B, s);
   }
   if (dtype != 1) return (int)cudaErrorInvalidValue;
-  auto launch = D == 16   ? segmm::launch_k3b_mma_d<16>
-                : D == 32 ? segmm::launch_k3b_mma_d<32>
-                : D == 64 ? segmm::launch_k3b_mma_d<64>
-                          : nullptr;
+  auto launch = D == 16    ? segmm::launch_k3b_mma_d<16>
+                : D == 32  ? segmm::launch_k3b_mma_d<32>
+                : D == 48  ? segmm::launch_k3b_mma_d<48>
+                : D == 64  ? segmm::launch_k3b_mma_d<64>
+                : D == 96  ? segmm::launch_k3b_mma_d<96>
+                : D == 128 ? segmm::launch_k3b_mma_d<128>
+                           : nullptr;
   if (!launch) return (int)cudaErrorInvalidValue;
   return (int)launch(q, k, v, mq, mk, g, dq, dk, dv, B, Lq, Lk, H, scale, rate, keep_div, seed,
                      s);

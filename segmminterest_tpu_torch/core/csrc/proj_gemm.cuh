@@ -602,6 +602,31 @@ inline cudaError_t launch_k2_projections(const void* const* p, void* const* ws, 
   return launch_qkv_gemm(x, w, bias, out, M, 3, d, stream);
 }
 
+// K5's projections, both streams in one grouped GEMM. p: xv, xu, then the
+// video stream's 12 parameters and the user stream's; ws: per stream (the
+// video stream's at 0, the user stream's at 3) q1|q2 of its queries, k1|v1
+// of xv, k2|v2 of xu, (B, L, 2d) bf16 each.
+inline cudaError_t launch_k5_projections(const void* const* p, void* const* ws, int B, int Lv,
+                                         int Lu, int d, cudaStream_t stream) {
+  const bf16* const* t = reinterpret_cast<const bf16* const*>(p);
+  const bf16* x[6] = {t[0], t[0], t[1], t[1], t[0], t[1]};
+  const bf16* w[12];
+  const bf16* bias[12];
+  bf16* out[6];
+  for (int st = 0; st < 2; ++st) {
+    const int o = 2 + 12 * st;
+    const int pair[3][2] = {{0, 2}, {4, 8}, {6, 10}};  // q1 q2 | k1 v1 | k2 v2
+    for (int j = 0; j < 3; ++j)
+      for (int k = 0; k < 2; ++k) {
+        w[2 * (3 * st + j) + k] = t[o + pair[j][k]];
+        bias[2 * (3 * st + j) + k] = t[o + pair[j][k] + 1];
+      }
+  }
+  for (int i = 0; i < 6; ++i) out[i] = static_cast<bf16*>(ws[i]);
+  const int M[6] = {B * Lv, B * Lv, B * Lu, B * Lu, B * Lv, B * Lu};
+  return launch_qkv_gemm(x, w, bias, out, M, 6, d, stream);
+}
+
 // Host side: dx of n <= 3 sources over NP pairs each, dx_s = dy[NP s] .
 // w[NP s] + ... + dy[NP s + NP - 1] . w[NP s + NP - 1] in that order, dx_0
 // with add0 (M[0] x d fp32) added before its cast where given.

@@ -27,28 +27,25 @@
 //      (head, batch row) stages its head's q1, q2, k, v rows by cp.async
 //      and runs S, the softmax and p v on mma.sync m16n8k16, both key
 //      blocks on one axis.
-// fp32: the CUDA-core body, one block (256 threads) per (head, batch row): the
-// head's DH columns of the six projections on the CUDA cores in fp32 into
-// shared memory (projection.cuh), then joint_attention.cuh's core; q, k and
-// v never reach device memory. The wrapper picks the body by dtype.
-// proj_fwd_block, that block body, lives in proj_attention.cuh, shared
-// with K5 and K4.
-#include "proj_attention.cuh"
+// fp32 runs no body of this file: the wrapper computes the projections
+// (segmm_project_pairs_f32) and K1f's 3xTF32 core over them
+// (core/attention.py, k2_body), which beat the first per-(head, batch row)
+// CUDA-core body at every head dim and stream shape.
 #include "proj_gemm.cuh"
 #include "two_block_mma.cuh"
 
-// dtype: 0 = float32 (the CUDA-core body), 1 = bfloat16 (the core's block; the
-// projection GEMM's is fixed, qkv_gemm_smem_bytes).
+// dtype: 1 = bfloat16 (the core's block; the projection GEMM's is fixed,
+// qkv_gemm_smem_bytes); any other dtype has no block here (0 bytes).
 extern "C" size_t segmm_proj_two_block_attention_smem_bytes(int dtype, int Lq, int L1, int L2,
                                                             int DH) {
-  if (dtype == 1) return segmm::k2_core_fwd_smem_bytes(Lq, L1, L2, DH);
-  return segmm::k2_smem_bytes(false, Lq, L1, L2, DH);
+  return dtype == 1 ? segmm::k2_core_fwd_smem_bytes(Lq, L1, L2, DH) : 0;
 }
 
 // ptrs: xq, x1, x2, wq1, bq1, wq2, bq2, wk1, bk1, wk2, bk2, wv1, bv1, wv2, bv2
-// (device pointers, 16-byte aligned). dtype: 0 = float32, 1 = bfloat16.
-// ws (bf16 only): the projections' outputs, (B, Lq, 2d), (B, L1, 2d),
-// (B, L2, 2d) bf16. DH in {16, 32, 64}, d % 32 == 0, every length <= 128.
+// (device pointers, 16-byte aligned). dtype: 1 = bfloat16 (any other is
+// refused). ws: the projections' outputs, (B, Lq, 2d), (B, L1, 2d),
+// (B, L2, 2d) bf16. DH in SEGMM_K2_HEAD_DIMS, d % 32 == 0, every length
+// <= 128.
 // rate > 0 applies the dropout mask of `seed` (keep_div = 1 - rate in
 // fp32). Returns a cudaError_t (0 = launched).
 extern "C" int segmm_proj_two_block_attention_fwd(
@@ -65,8 +62,5 @@ extern "C" int segmm_proj_two_block_attention_fwd(
     a.out = static_cast<__nv_bfloat16*>(out);
     return (int)segmm::launch_k2_core<false>(a, DH, B, s);
   }
-  if (dtype == 0)
-    return (int)segmm::dispatch_proj_fwd<float>(DH, ptrs, mq, mk1, mk2, out, B, Lq, L1, L2, dm,
-                                                scale, rate, keep_div, seed, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -36,13 +36,11 @@
 //      read (x and W are bf16 values), three products into one fp32
 //      accumulator: the fp32 products on the bf16 tensor cores. dW's row
 //      chunks are `chunk` rows each (the wrapper's k2_dw_chunk rule).
-// fp32, the CUDA-core body: (a) one thread block per (head, batch row)
-// (proj_qkv_bwd_block, proj_attention.cuh: projections and core on the CUDA
-// cores), (b) and (c) 128x128 tiles of 8x8 fp32 FMAs per thread
-// (chain_gemm.cuh, shared with K5b and K4b), dW in `splits` row chunks.
-// The wrapper picks the bodies by dtype.
+// fp32: (a) is the wrapper's (the projections recomputed, K1b's 3xTF32
+// core; core/attention.py), (b) and (c) 128x128 tiles of 8x8 fp32 FMAs per
+// thread (chain_gemm.cuh, shared with K5b and K4b), dW in `splits` row
+// chunks. The wrapper picks the bodies by dtype.
 #include "chain_gemm.cuh"
-#include "proj_attention.cuh"
 #include "proj_gemm.cuh"
 #include "two_block_mma.cuh"
 
@@ -83,18 +81,19 @@ cudaError_t launch_chain(const void* const* in, float* const* dys, void* const* 
 
 }  // namespace segmm
 
-// dtype: 0 = float32 (the CUDA-core qkv pass), 1 = bfloat16 (the core's block).
+// dtype: 1 = bfloat16 (the core's block); any other dtype has no block
+// here (0 bytes).
 extern "C" size_t segmm_proj_two_block_attention_bwd_smem_bytes(int dtype, int Lq, int L1, int L2,
                                                                 int DH) {
-  if (dtype == 1) return segmm::k2_core_bwd_smem_bytes(Lq, L1, L2, DH);
-  return segmm::k2b_smem_bytes(false, Lq, L1, L2, DH);
+  return dtype == 1 ? segmm::k2_core_bwd_smem_bytes(Lq, L1, L2, DH) : 0;
 }
 
 // Pass (a) (K7b alone). ptrs: xq, x1, x2, wq1, bq1, wq2, bq2, wk1, bk1, wk2,
 // bk2, wv1, bv1, wv2, bv2 (16-byte aligned); g (B, Lq, d); out: fp32
-// dq1, dq2, dk1, dk2, dv1, dv2, each (B, L, d); ws (bf16 only): the
-// projections' workspace, as K2f's. DH in {16, 32, 64}, d % 32 == 0, every
-// length <= 128. Returns a cudaError_t (0 = launched).
+// dq1, dq2, dk1, dk2, dv1, dv2, each (B, L, d); ws: the projections'
+// workspace, as K2f's. dtype: 1 = bfloat16 (any other is refused). DH in
+// SEGMM_K2_HEAD_DIMS, d % 32 == 0, every length <= 128. Returns a
+// cudaError_t (0 = launched).
 extern "C" int segmm_proj_two_block_attention_qkv_bwd(
     int dtype, const void* const* ptrs, const int* mq, const int* mk1, const int* mk2,
     const void* g, float* const* out, void* const* ws, int B, int Lq, int L1, int L2, int dm,
@@ -110,10 +109,6 @@ extern "C" int segmm_proj_two_block_attention_qkv_bwd(
     for (int i = 0; i < 6; ++i) a.dy[i] = out[i];
     return (int)segmm::launch_k2_core<true>(a, DH, B, s);
   }
-  if (dtype == 0)
-    return (int)segmm::dispatch_qkv_bwd<float, float>(
-        DH, ptrs, mq, mk1, mk2, static_cast<const float*>(g), out, B, Lq, L1, L2, dm, scale,
-        rate, keep_div, seed, s);
   return (int)cudaErrorInvalidValue;
 }
 

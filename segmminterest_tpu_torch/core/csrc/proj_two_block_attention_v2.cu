@@ -6,94 +6,45 @@
 // fused_proj_two_block_attention version 2 (SEGMM_ATTN_V2=1, :1116-1131).
 // The function is K2f's; the dropout mask is drawn once over (query,
 // concatenated key) with salt h, and the softmax and PV run over one key
-// axis of Lk = L1 + L2 (proj_attention_v2.cuh).
-//
-// Design: one thread block (256 threads, 8 warps) per (head, batch row), as
-// K2f. The block projects its head's q row of width 2 DH from the
-// interleaved Wq_c, the nonzero half of each concatenated key row from
-// Wk1_c / Wk2_c and the values from wv1 / wv2 (projection.cuh: wmma tensor
-// cores in bf16, CUDA cores in fp32), keeps them in shared memory as fp32,
-// then takes two query rows per warp: one logit row of Lk floats, one
-// softmax, one PV over Lk. The zero halves of Wk1_c / Wk2_c are not
-// multiplied, so the logit loop does DH products per key, as K2f's.
+// axis of Lk = L1 + L2.
 //
 // What bounds it on an H100: operations, as K2f (the same projections and
-// the same logit and PV products). This first version re-reads x and the
-// weight slices from L2 for every (head, batch row) and runs the attention
-// core as fp32 FMAs from shared memory, as K2f does.
-#include "proj_attention_v2.cuh"
+// the same logit and PV products).
+//
+// bf16: K2f's two launches on the tensor cores (the wrapper picks the body
+// by dtype, k6_body). The projections as K2f's one grouped GEMM on the
+// (d, d) weights in K2's layout (proj_gemm.cuh), nothing interleaved;
+// then K2f's two-block core (two_block_mma.cuh) with K6's dropout keys
+// (kConcatKeys: one key axis of L1 + L2 keys, salt h, block 2's key j
+// hashed as L1 + j). Head h's q_c . [k1_h | 0] is q1_h . k1_h and
+// q_c . [0 | k2_h] is q2_h . k2_h, so the logits, the fill, the softmax
+// over both blocks and PV are K2f's; only the keep bits are K6's.
+// fp32 runs no body of this file: the wrapper runs K2f's fp32 route (the
+// projections and K1f's 3xTF32 core) with K6's keys (core/attention.py).
+#include "proj_gemm.cuh"
+#include "two_block_mma.cuh"
 
-namespace segmm {
-
-template <typename T, int DH, bool kDrop>
-__global__ void __launch_bounds__(kK2Threads)
-proj_v2_fwd_kernel(const T* __restrict__ xq, const T* __restrict__ x1, const T* __restrict__ x2,
-                   V2Weights<T> w, const int* __restrict__ mq, const int* __restrict__ mk1,
-                   const int* __restrict__ mk2, T* __restrict__ out, int Lq, int L1, int L2,
-                   int dm, float scale, float rate, float keep_div, unsigned seed) {
-  const int h = blockIdx.x, b = blockIdx.y;
-  proj_v2_fwd_block<T, DH, kDrop>(xq, x1, x2, w, mq, mk1, mk2, out, Lq, L1, L2, dm, scale,
-                                  make_dropout(rate, keep_div, seed, b, gridDim.y), h, b);
-}
-
-template <typename T, int DH>
-cudaError_t launch_v2_fwd(const void* const* p, const int* mq, const int* mk1, const int* mk2,
-                          void* out, int B, int Lq, int L1, int L2, int dm, float scale,
-                          float rate, float keep_div, unsigned seed, cudaStream_t stream) {
-  const size_t smem = k6_smem_bytes(std::is_same<T, __nv_bfloat16>::value, Lq, L1, L2, DH);
-  auto kernel = rate > 0.f ? proj_v2_fwd_kernel<T, DH, true> : proj_v2_fwd_kernel<T, DH, false>;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-  if (err != cudaSuccess) return err;
-  const T* const* a = reinterpret_cast<const T* const*>(p);
-  kernel<<<dim3(dm / DH, B), kK2Threads, smem, stream>>>(
-      a[0], a[1], a[2], v2_weights<T>(p + 3), mq, mk1, mk2, static_cast<T*>(out), Lq, L1, L2,
-      dm, scale, rate, keep_div, seed);
-  return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t dispatch_v2_fwd(int DH, const void* const* p, const int* mq, const int* mk1,
-                            const int* mk2, void* out, int B, int Lq, int L1, int L2, int dm,
-                            float scale, float rate, float keep_div, unsigned seed,
-                            cudaStream_t s) {
-#define SEGMM_K6(DH_)                                                                          \
-  launch_v2_fwd<T, DH_>(p, mq, mk1, mk2, out, B, Lq, L1, L2, dm, scale, rate, keep_div, seed, \
-                        s)
-  switch (DH) {
-    case 16: return SEGMM_K6(16);
-    case 32: return SEGMM_K6(32);
-    case 64: return SEGMM_K6(64);
-    default: return cudaErrorInvalidValue;
-  }
-#undef SEGMM_K6
-}
-
-}  // namespace segmm
-
-// dtype: 0 = float32, 1 = bfloat16.
+// dtype: 1 = bfloat16 (K2f's core block; the projection GEMM's is fixed,
+// qkv_gemm_smem_bytes); any other dtype has no block here (0 bytes).
 extern "C" size_t segmm_proj_two_block_attention_v2_smem_bytes(int dtype, int Lq, int L1, int L2,
                                                                int DH) {
-  return segmm::k6_smem_bytes(dtype == 1, Lq, L1, L2, DH);
+  return dtype == 1 ? segmm::k2_core_fwd_smem_bytes(Lq, L1, L2, DH) : 0;
 }
 
-// ptrs: xq, x1, x2, Wq_c, bq_c, Wk1_c, bk1_c, Wk2_c, bk2_c (interleaved,
-// (2d, d) and (2d,)), wv1, bv1, wv2, bv2 ((d, d), (d,)); device pointers,
-// 16-byte aligned. dtype: 0 = float32, 1 = bfloat16. DH in {16, 32, 64},
-// d % 32 == 0, L1 and L2 <= 128. rate > 0 applies the dropout mask of
-// `seed` (keep_div = 1 - rate in fp32). Returns a cudaError_t (0 =
-// launched).
-extern "C" int segmm_proj_two_block_attention_v2_fwd(
-    int dtype, const void* const* ptrs, const int* mq, const int* mk1, const int* mk2,
-    void* out, int B, int Lq, int L1, int L2, int dm, int H, float scale, float rate,
+// bf16 K6f on K2f's pieces. ptrs: xq, x1, x2, then wq1, bq1, wq2, bq2, wk1,
+// bk1, wk2, bk2, wv1, bv1, wv2, bv2 (K2's layout, bf16, 16-byte aligned);
+// ws: the projections' workspace, as K2f's; out (B, Lq, d) bf16. DH in
+// SEGMM_K2_HEAD_DIMS, d % 32 == 0, every length <= 128. Two launches.
+// Returns a cudaError_t (0 = launched).
+extern "C" int segmm_proj_two_block_attention_v2_fwd_mma(
+    const void* const* ptrs, const int* mq, const int* mk1, const int* mk2, void* out,
+    void* const* ws, int B, int Lq, int L1, int L2, int dm, int H, float scale, float rate,
     float keep_div, unsigned seed, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int DH = dm / H;
-  if (dtype == 0)
-    return (int)segmm::dispatch_v2_fwd<float>(DH, ptrs, mq, mk1, mk2, out, B, Lq, L1, L2, dm,
-                                              scale, rate, keep_div, seed, s);
-  if (dtype == 1)
-    return (int)segmm::dispatch_v2_fwd<__nv_bfloat16>(DH, ptrs, mq, mk1, mk2, out, B, Lq, L1, L2,
-                                                      dm, scale, rate, keep_div, seed, s);
-  return (int)cudaErrorInvalidValue;
+  cudaError_t err = segmm::launch_k2_projections(ptrs, ws, B, Lq, L1, L2, dm, s);
+  if (err != cudaSuccess) return (int)err;
+  segmm::K2CoreArgs a =
+      segmm::k2_core_args(ws, mq, mk1, mk2, Lq, L1, L2, H, scale, rate, keep_div, seed);
+  a.out = static_cast<__nv_bfloat16*>(out);
+  return (int)segmm::launch_k2_core<false, false, segmm::kConcatKeys>(a, dm / H, B, s);
 }

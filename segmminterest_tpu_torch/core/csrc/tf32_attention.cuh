@@ -57,6 +57,21 @@
 // of each) took more time at every stream shape and leave no room for K1b
 // at (100, 40, 100); the numbers are in PERF.md.
 //
+// Head dims past 64 (96, 128; 4 heads at d_model 512): the tiles of one
+// (batch row, head) exceed one block's shared memory at the flagship's
+// longest stream (K1b at (100, 40, 100) and D = 128 would need ~307 KB), so
+// the launcher splits the queries into windows (tf32_fwd_window /
+// tf32_bwd_window: the most rows, a multiple of 16, whose tiles fit), one
+// block each (grid z), each staging k and v whole. The forward's windows
+// share nothing; the backward's dq is each window's own, its dk and dv
+// sums over the windows: window 0 writes them, the others into part slots
+// that tf32_sum_windows_kernel adds in window order (no atomics: the same
+// bits on every run). Where all of Lq fits (every shape at D <= 64) there
+// is one window and nothing changes. The register tile past 64 is 18 n8
+// tiles (144 keys, the flagship's 40 | 100): 32 spilled some 4 KB a thread.
+// The salts' first head (salt_h0, K5's user stream) and K6's key axis
+// (concat) let the fp32 routes of K2, K4, K5 and K6 run on this body.
+//
 // Every key row's dk and dv is written, 0 where no query reaches it; keys
 // past L_b get p = 0 and take no part in the max or the sum; masked keys
 // inside L_b keep -10000; a fully padded query row is the uniform softmax
@@ -84,8 +99,11 @@ template <int N> __host__ __device__ inline int round_up(int n) { return (n + N 
 
 // the head dim as the kernels tile it (0: unsupported)
 __host__ __device__ inline int tf32_dp(int D) {
-  return D % 4 ? 0 : D <= 16 ? 16 : D <= 32 ? 32 : D <= 64 ? 64 : 0;
+  return D % 4 ? 0 : D <= 16 ? 16 : D <= 32 ? 32 : D <= 64 ? 64 : D <= 96 ? 96 : D <= 128 ? 128 : 0;
 }
+
+// The most shared memory one block may use on an H100 (227 KB).
+constexpr size_t kTf32MaxBlockSmem = 232448;
 
 // Key-axis geometry of NB blocks (L[1] unused when NB == 1).
 struct Tf32KeyAxis {
@@ -134,15 +152,36 @@ template <int NB> struct Tf32BwdArgs {
   int Lq, L[NB], H, D;
   float scale, rate, keep_div;
   unsigned seed;
+  // set by the launcher (tf32_windows): the query rows of a block, a
+  // multiple of 16 or all of Lq; where there are several windows, window
+  // z > 0 writes its dk and dv into part + (z - 1) slot (dk of each block,
+  // then dv of each block, (B, L_b, H, D) each), which tf32_sum_windows
+  // adds to dk and dv in window order
+  int qw;
+  float* part;
+  // the dropout salts' first head (K5's user stream: H) and, with concat,
+  // K6's key axis (block 2's key j hashed as L[0] + j, every key with salt
+  // h), where K2's, K5's and K6's fp32 bodies run on this one
+  int salt_h0, concat;
 };
+
+// Floats of one window's part slot: dk and dv of every block.
+template <int NB>
+__host__ __device__ inline long tf32_part_floats(const Tf32BwdArgs<NB>& a, int B) {
+  long n = 0;
+  for (int i = 0; i < NB; ++i) n += 2L * B * a.L[i] * a.H * a.D;
+  return n;
+}
 
 // Rows [0, L) of head h of batch row b of a (B, L, H, D) fp32 tensor into a
 // tile of `rows` rows of LD = DP + 4; columns [D, DP) and rows [L, rows)
 // are zero. 16-byte copies where the tensor starts on a 16-byte boundary,
 // else 4-byte ones. Only issues the copies.
+// With a window: rows [r0, r0 + L) of a tensor of Ls rows a batch row.
 template <int DP>
 __device__ __forceinline__ void tf32_stage(const float* __restrict__ src, float* dst, int b,
-                                           int L, int rows, int H, int h, int D) {
+                                           int L, int rows, int H, int h, int D, int r0 = 0,
+                                           int Ls = -1) {
   constexpr int LD = DP + 4, kChunks = DP / 4;
   const bool a16 = (reinterpret_cast<uintptr_t>(src) & 15) == 0;
   for (int c = threadIdx.x; c < rows * kChunks; c += blockDim.x) {
@@ -152,7 +191,7 @@ __device__ __forceinline__ void tf32_stage(const float* __restrict__ src, float*
       *reinterpret_cast<float4*>(t) = make_float4(0.f, 0.f, 0.f, 0.f);
       continue;
     }
-    const float* s = src + (((long)b * L + r) * H + h) * D + d;
+    const float* s = src + (((long)b * (Ls < 0 ? L : Ls) + r0 + r) * H + h) * D + d;
     if (a16) {
       cp_async16(t, s, true);
     } else {
@@ -163,9 +202,9 @@ __device__ __forceinline__ void tf32_stage(const float* __restrict__ src, float*
 }
 
 __device__ __forceinline__ void tf32_stage_mask(const int* __restrict__ src, int* dst, int b,
-                                                int L, int rows) {
+                                                int L, int rows, int r0 = 0, int Ls = -1) {
   for (int i = threadIdx.x; i < rows; i += blockDim.x)
-    cp_async4(dst + i, i < L ? src + (long)b * L + i : src, i < L);
+    cp_async4(dst + i, i < L ? src + (long)b * (Ls < 0 ? L : Ls) + r0 + i : src, i < L);
 }
 
 // acc[n] += A[q0 .. q0 + 16) . B[8 (n - n0) .. + 8)^T over DP for the n8
@@ -284,7 +323,7 @@ template <int DP> __device__ __forceinline__ void tf32_zero(float (&acc)[DP / 8]
 
 // The blocks of one (batch row, head) as pass 1 sees them.
 template <int NB> struct Tf32Blocks {
-  int L[NB], n0[NB], n1[NB];
+  int L[NB], n0[NB], n1[NB], koff[NB];  // koff: the dropout hash's first key
   const int* mk[NB];  // key masks in shared memory
   unsigned salt[NB];
   // the block of n8 tile n of the key axis
@@ -293,6 +332,7 @@ template <int NB> struct Tf32Blocks {
   __device__ __forceinline__ int first(int b) const { return b ? n0[NB - 1] : n0[0]; }
   __device__ __forceinline__ const int* mask(int b) const { return b ? mk[NB - 1] : mk[0]; }
   __device__ __forceinline__ unsigned salt_of(int b) const { return b ? salt[NB - 1] : salt[0]; }
+  __device__ __forceinline__ int koff_of(int b) const { return b ? koff[NB - 1] : koff[0]; }
 };
 
 // k and v of each block at `at` (pad8(L_b) rows each) and the blocks'
@@ -304,7 +344,8 @@ __device__ __forceinline__ float* tf32_stage_keys(const float* const (&k)[NB],
                                                   const int (&L)[NB], const Tf32KeyAxis& ax,
                                                   int b, int H, int h, int D, float* at,
                                                   const float* (&sk)[NB], const float* (&sv)[NB],
-                                                  Tf32Blocks<NB>& bk) {
+                                                  Tf32Blocks<NB>& bk, int salt_h0 = 0,
+                                                  int concat = 0) {
   constexpr int LD = DP + 4;
 #pragma unroll
   for (int i = 0; i < NB; ++i) {
@@ -318,17 +359,20 @@ __device__ __forceinline__ float* tf32_stage_keys(const float* const (&k)[NB],
     bk.L[i] = L[i];
     bk.n0[i] = ax.c0[i] / 8;
     bk.n1[i] = bk.n0[i] + rows / 8;
-    bk.salt[i] = NB == 1 ? (unsigned)h : 2u * h + i;
+    bk.salt[i] = NB == 1 || concat ? (unsigned)h : 2u * (salt_h0 + h) + i;
+    bk.koff[i] = concat && i ? L[0] : 0;
   }
   return at;
 }
 
 // The query mask (pad8(Lq) entries) at smq, then each block's key mask
 // (pad8(L_b)); returns the first int past them. Only issues the copies.
+// With a window, query rows [zq, zq + Lq) of the mq of aLq rows.
 template <int NB>
 __device__ __forceinline__ int* tf32_stage_masks(const int* mq, const int* const (&mk)[NB], int b,
-                                                 int Lq, int* smq, Tf32Blocks<NB>& bk) {
-  tf32_stage_mask(mq, smq, b, Lq, round_up<8>(Lq));
+                                                 int Lq, int* smq, Tf32Blocks<NB>& bk,
+                                                 int zq = 0, int aLq = -1) {
+  tf32_stage_mask(mq, smq, b, Lq, round_up<8>(Lq), zq, aLq);
   int* at = smq + round_up<8>(Lq);
 #pragma unroll
   for (int i = 0; i < NB; ++i) {
@@ -345,11 +389,12 @@ __device__ __forceinline__ int* tf32_stage_masks(const int* mq, const int* const
 // block's salt, key within its block), x scale, one softmax; columns past
 // their block's length get p = 0 and take no part in the max or the sum.
 // Rows past Lq are zeroed (and draw no dropout bits). Keep bits go to
-// keep[n / 8] bit 4 (n % 8) + c (the forward drops them).
+// keep[n / 8] bit 4 (n % 8) + c (the forward drops them). zq: the query
+// row of the window's row 0, as the dropout hash counts it.
 template <int NT, int NB, bool kDrop>
 __device__ __forceinline__ void tf32_probs(float (&s)[NT][4], unsigned (&keep)[(NT + 7) / 8],
                                            const Tf32Blocks<NB>& bk, int nt, const int* smq,
-                                           int q0, int Lq, float scale, Dropout dr) {
+                                           int q0, int Lq, float scale, Dropout dr, int zq = 0) {
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int rows[2] = {q0 + g, q0 + g + 8};
   // smq holds pad8(Lq) rows; a row past Lq reads no mask
@@ -375,7 +420,7 @@ __device__ __forceinline__ void tf32_probs(float (&s)[NT][4], unsigned (&keep)[(
         } else if (j < L) {
           l = (mqr[r] * mk[j]) > 0 ? s[n][c] : kMaskFill;
           if (kDrop) {
-            const bool kept = dropout_keep(dr, rows[r], j, bk.salt_of(b));
+            const bool kept = dropout_keep(dr, zq + rows[r], j + bk.koff_of(b), bk.salt_of(b));
             keep[n / 8] |= (unsigned)kept << (4 * (n % 8) + c);
             l = kept ? l * inv_keep : 0.f;
           }
@@ -512,11 +557,11 @@ __device__ __forceinline__ void tf32_dl(float (&dp)[NT][4], const unsigned (&kee
 // a tile.
 template <int DP, int NB>
 __device__ __forceinline__ void tf32_pass2(const float* X, int ldp, const Tf32KeyAxis& ax,
-                                           const Tf32BwdArgs<NB>& a, const float* s0,
+                                           const Tf32BwdArgs<NB>& a, int Lq, const float* s0,
                                            const float* s1, float* const (&out)[NB], int b,
                                            int h) {
   const int warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
-  const int nq8 = round_up<8>(a.Lq) / 8, t0 = (a.L[0] + 15) / 16;
+  const int nq8 = round_up<8>(Lq) / 8, t0 = (a.L[0] + 15) / 16;
   const int ntiles = t0 + (NB > 1 ? (a.L[NB - 1] + 15) / 16 : 0);
   for (int tt = warp; tt < ntiles; tt += nwarps) {
     const bool second = NB > 1 && tt >= t0;
@@ -535,7 +580,9 @@ __device__ __forceinline__ void tf32_attention_bwd(const Tf32BwdArgs<NB>& a) {
   constexpr int LD = DP + 4;
   const int h = blockIdx.x, b = blockIdx.y;
   const int warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
-  const int Lq = a.Lq, D = a.D, mq8 = round_up<8>(Lq);
+  // the block's query window: rows [zq, zq + Lq) of a.Lq
+  const int zq = blockIdx.z * a.qw;
+  const int Lq = min(a.qw, a.Lq - zq), D = a.D, mq8 = round_up<8>(Lq);
   const Tf32KeyAxis ax = tf32_key_axis(NB, a.L);
   const int nt = ax.nk / 8, ldp = ax.ldp;
   const long stride = (long)a.H * D;
@@ -547,18 +594,19 @@ __device__ __forceinline__ void tf32_attention_bwd(const Tf32BwdArgs<NB>& a) {
   float* at = tf32_smem;
 #pragma unroll
   for (int i = 0; i < NB; ++i) {
-    tf32_stage<DP>(a.q[i], at, b, Lq, mq8, a.H, h, D);
+    tf32_stage<DP>(a.q[i], at, b, Lq, mq8, a.H, h, D, zq, a.Lq);
     sq[i] = at;
     at += mq8 * LD;
   }
   float* sg = at;
-  tf32_stage<DP>(a.g, sg, b, Lq, mq8, a.H, h, D);
+  tf32_stage<DP>(a.g, sg, b, Lq, mq8, a.H, h, D, zq, a.Lq);
   at += mq8 * LD;
   Tf32Blocks<NB> bk;
   int* smq = reinterpret_cast<int*>(tf32_stage_keys<DP, NB>(a.k, a.v, a.L, ax, b, a.H, h, D, at,
-                                                            sk, sv, bk));
+                                                            sk, sv, bk, a.salt_h0, a.concat));
   // the masks, the keep words, then P
-  unsigned* KW = reinterpret_cast<unsigned*>(tf32_stage_masks<NB>(a.mq, a.mk, b, Lq, smq, bk));
+  unsigned* KW = reinterpret_cast<unsigned*>(
+      tf32_stage_masks<NB>(a.mq, a.mk, b, Lq, smq, bk, zq, a.Lq));
   const int kwords = (ax.nk + 63) / 64;
   float* P = reinterpret_cast<float*>(KW + tf32_keep_words(Lq, ax.nk));
   cp_async_commit();
@@ -566,8 +614,26 @@ __device__ __forceinline__ void tf32_attention_bwd(const Tf32BwdArgs<NB>& a) {
   __syncthreads();
 
   const Dropout dr = make_dropout(a.rate, a.keep_div, a.seed, b, gridDim.y);
-  const long oq = ((long)b * Lq * a.H + h) * D;
+  const long oq = ((long)b * a.Lq + zq) * stride + (long)h * D;
   const int lane = threadIdx.x & 31;
+  // dk and dv: window 0's to the outputs, the others' to their part slots
+  float* dk[NB];
+  float* dv[NB];
+  {
+    float* part = blockIdx.z ? a.part + (blockIdx.z - 1) * tf32_part_floats(a, gridDim.y) : nullptr;
+#pragma unroll
+    for (int i = 0; i < NB; ++i) {
+      const long n = (long)gridDim.y * a.L[i] * stride;
+      dk[i] = part ? part : a.dk[i];
+      if (part) part += n;
+    }
+#pragma unroll
+    for (int i = 0; i < NB; ++i) {
+      const long n = (long)gridDim.y * a.L[i] * stride;
+      dv[i] = part ? part : a.dv[i];
+      if (part) part += n;
+    }
+  }
   // pass 1: p and its keep bits
   for (int q0 = warp * 16; q0 < Lq; q0 += nwarps * 16) {
     unsigned keep[(NT + 7) / 8];
@@ -577,7 +643,7 @@ __device__ __forceinline__ void tf32_attention_bwd(const Tf32BwdArgs<NB>& a) {
 #pragma unroll
     for (int i = 0; i < NB; ++i)
       tf32_rows_times_rowsT<DP, NT>(sq[i], q0, mq8, sk[i], bk.n0[i], bk.n1[i], s);
-    tf32_probs<NT, NB, kDrop>(s, keep, bk, nt, smq, q0, Lq, a.scale, dr);
+    tf32_probs<NT, NB, kDrop>(s, keep, bk, nt, smq, q0, Lq, a.scale, dr, zq);
     tf32_store_tile<NT>(s, nt, q0, mq8, P, ldp);
     if (kDrop) {
 #pragma unroll
@@ -588,7 +654,7 @@ __device__ __forceinline__ void tf32_attention_bwd(const Tf32BwdArgs<NB>& a) {
   __syncthreads();
 
   // pass 2: dv = p^T g
-  tf32_pass2<DP, NB>(P, ldp, ax, a, sg, sg, a.dv, b, h);
+  tf32_pass2<DP, NB>(P, ldp, ax, a, Lq, sg, sg, dv, b, h);
   __syncthreads();
 
   // pass 1 again: dl over p, dq = dl k
@@ -614,7 +680,7 @@ __device__ __forceinline__ void tf32_attention_bwd(const Tf32BwdArgs<NB>& a) {
   __syncthreads();
 
   // pass 2 again: dk = dl^T q
-  tf32_pass2<DP, NB>(P, ldp, ax, a, sq[0], sq[NB - 1], a.dk, b, h);
+  tf32_pass2<DP, NB>(P, ldp, ax, a, Lq, sq[0], sq[NB - 1], dk, b, h);
 }
 
 // The kernels, named for the profiler's rows: K1b's and K3b's.
@@ -648,7 +714,10 @@ constexpr auto tf32_bwd_kernel() {
 // keeps nvcc's time down. A key axis past the largest tile is refused.
 template <int NB, int DP, class Launch>
 cudaError_t tf32_with_nt(int nt, Launch&& launch) {
-  constexpr int kMost = NB == 1 ? 16 : 32;
+  // past 64, K1's register tile is 18 n8 tiles (the flagship's 40 | 100
+  // keys), the largest: beside the accumulator of DP / 8 n8 tiles a tile of
+  // 32 spilled some 4 KB a thread at DP = 128 and took nvcc minutes
+  constexpr int kMost = NB == 1 ? 16 : DP > 64 ? 18 : 32;
   if constexpr (DP == 32) {
     if (nt <= (NB == 1 ? 4 : 6)) return launch(std::integral_constant<int, NB == 1 ? 4 : 6>());
     if (nt <= (NB == 1 ? 8 : 18)) return launch(std::integral_constant<int, NB == 1 ? 8 : 18>());
@@ -657,21 +726,66 @@ cudaError_t tf32_with_nt(int nt, Launch&& launch) {
   return cudaErrorInvalidValue;
 }
 
+// The query rows of a block (tf32_windows): all Lq where one block's
+// tiles fit its shared memory, else the most rows, a multiple of 16, that
+// fit (0: none), so that a head dim past 64 stages its k and v whole and
+// its queries in windows of blocks of their own (grid z). The forward's
+// windows share nothing; the backward's dk and dv are sums over the
+// windows, each window's in a part slot of its own, added in window order
+// by tf32_sum_windows (no atomics: the same bits on every run).
+inline int tf32_bwd_window(int NB, int Lq, const int* L, int D) {
+  if (tf32_bwd_smem_bytes(NB, Lq, L, D) <= kTf32MaxBlockSmem) return Lq;
+  for (int w = (Lq - 1) / 16 * 16; w >= 16; w -= 16)
+    if (tf32_bwd_smem_bytes(NB, w, L, D) <= kTf32MaxBlockSmem) return w;
+  return 0;
+}
+
+// windows of qw rows over Lq (0 where qw is 0)
+inline int tf32_windows(int Lq, int qw) { return qw ? (Lq + qw - 1) / qw : 0; }
+
+// dk and dv += the part slots of windows 1 .. nz - 1, in order.
+template <int NB>
+__global__ void tf32_sum_windows_kernel(const Tf32BwdArgs<NB> a, int B, int nz) {
+  const long slot = tf32_part_floats(a, B);
+  long base = 0;
+#pragma unroll
+  for (int o = 0; o < 2 * NB; ++o) {
+    const int i = o % NB;
+    float* dst = o < NB ? a.dk[i] : a.dv[i];
+    const long n = (long)B * a.L[i] * a.H * a.D;
+    for (long e = blockIdx.x * (long)blockDim.x + threadIdx.x; e < n;
+         e += (long)gridDim.x * blockDim.x) {
+      float acc = dst[e];
+      for (int z = 1; z < nz; ++z) acc += a.part[(z - 1) * slot + base + e];
+      dst[e] = acc;
+    }
+    base += n;
+  }
+}
+
 template <int DP, int NT, int NB>
-cudaError_t launch_tf32_bwd(const Tf32BwdArgs<NB>& a, int B, cudaStream_t stream) {
+cudaError_t launch_tf32_bwd(Tf32BwdArgs<NB> a, int B, cudaStream_t stream) {
   auto kern = a.rate > 0.f ? tf32_bwd_kernel<DP, NT, NB, true>()
                            : tf32_bwd_kernel<DP, NT, NB, false>();
-  const size_t smem = tf32_bwd_smem_bytes(NB, a.Lq, a.L, a.D);
+  a.qw = tf32_bwd_window(NB, a.Lq, a.L, a.D);
+  const int nz = tf32_windows(a.Lq, a.qw);
+  if (!nz || (nz > 1 && !a.part)) return cudaErrorInvalidValue;
+  const size_t smem = tf32_bwd_smem_bytes(NB, a.qw, a.L, a.D);
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   // a warp per query tile in pass 1 and per key tile in pass 2
   const int most = 2 * (smem + 1024) > kSmBytes ? 8 : 4;
-  int tiles = (a.Lq + 15) / 16, ktiles = 0;
+  int tiles = (a.qw + 15) / 16, ktiles = 0;
   for (int i = 0; i < NB; ++i) ktiles += (a.L[i] + 15) / 16;
   tiles = tiles > ktiles ? tiles : ktiles;
   const int warps = tiles < most ? tiles : most;
-  kern<<<dim3(a.H, B), 32 * warps, smem, stream>>>(a);
+  kern<<<dim3(a.H, B, nz), 32 * warps, smem, stream>>>(a);
+  if (nz > 1) {
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    tf32_sum_windows_kernel<NB><<<4 * 132, 256, 0, stream>>>(a, B, nz);
+  }
   return cudaGetLastError();
 }
 
@@ -688,6 +802,8 @@ cudaError_t launch_tf32_attention_bwd(const Tf32BwdArgs<NB>& a, int B, cudaStrea
     case 16: return launch_tf32_bwd_nt<NB, 16>(a, B, s);
     case 32: return launch_tf32_bwd_nt<NB, 32>(a, B, s);
     case 64: return launch_tf32_bwd_nt<NB, 64>(a, B, s);
+    case 96: return launch_tf32_bwd_nt<NB, 96>(a, B, s);
+    case 128: return launch_tf32_bwd_nt<NB, 128>(a, B, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -709,6 +825,12 @@ template <int NB> struct Tf32FwdArgs {
   int Lq, L[NB], H, D;
   float scale, rate, keep_div;
   unsigned seed;
+  int qw;  // set by the launcher: the query rows of a block (tf32_windows)
+  // 1: q, k, v are fp32 copies of bf16 values and p is rounded to bf16
+  // before p v, as the bf16 function rounds it (K1f's bf16 shapes that its
+  // CUDA-core body does not take)
+  int p_bf16;
+  int salt_h0, concat;  // as Tf32BwdArgs's
 };
 
 // q of each block (pad8(Lq) rows), k and v (pad8(L_b) rows) and the masks.
@@ -728,7 +850,9 @@ __device__ __forceinline__ void tf32_attention_fwd(const Tf32FwdArgs<NB>& a) {
   const int h = blockIdx.x, b = blockIdx.y;
   const int warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int Lq = a.Lq, D = a.D, mq8 = round_up<8>(Lq);
+  // the block's query window: rows [zq, zq + Lq) of a.Lq
+  const int zq = blockIdx.z * a.qw;
+  const int Lq = min(a.qw, a.Lq - zq), D = a.D, mq8 = round_up<8>(Lq);
   const Tf32KeyAxis ax = tf32_key_axis(NB, a.L);
   const int nt = ax.nk / 8;
 
@@ -739,14 +863,14 @@ __device__ __forceinline__ void tf32_attention_fwd(const Tf32FwdArgs<NB>& a) {
   float* at = tf32_smem;
 #pragma unroll
   for (int i = 0; i < NB; ++i) {
-    tf32_stage<DP>(a.q[i], at, b, Lq, mq8, a.H, h, D);
+    tf32_stage<DP>(a.q[i], at, b, Lq, mq8, a.H, h, D, zq, a.Lq);
     sq[i] = at;
     at += mq8 * LD;
   }
   Tf32Blocks<NB> bk;
   int* smq = reinterpret_cast<int*>(tf32_stage_keys<DP, NB>(a.k, a.v, a.L, ax, b, a.H, h, D, at,
-                                                            sk, sv, bk));
-  tf32_stage_masks<NB>(a.mq, a.mk, b, Lq, smq, bk);
+                                                            sk, sv, bk, a.salt_h0, a.concat));
+  tf32_stage_masks<NB>(a.mq, a.mk, b, Lq, smq, bk, zq, a.Lq);
   cp_async_commit();
   cp_async_wait<0>();
   __syncthreads();
@@ -763,7 +887,13 @@ __device__ __forceinline__ void tf32_attention_fwd(const Tf32FwdArgs<NB>& a) {
     for (int i = 0; i < NB; ++i)
       tf32_rows_times_rowsT<DP, NT>(sq[i], q0, mq8, sk[i], bk.n0[i], bk.n1[i], s);
     unsigned keep[(NT + 7) / 8];  // the backward's
-    tf32_probs<NT, NB, kDrop>(s, keep, bk, nt, smq, q0, Lq, a.scale, dr);
+    tf32_probs<NT, NB, kDrop>(s, keep, bk, nt, smq, q0, Lq, a.scale, dr, zq);
+    if (a.p_bf16) {
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) s[n][c] = round_to<__nv_bfloat16>(s[n][c]);
+    }
     float o[DP / 8][4];
     tf32_zero<DP>(o);
 #pragma unroll
@@ -784,7 +914,7 @@ __device__ __forceinline__ void tf32_attention_fwd(const Tf32FwdArgs<NB>& a) {
     for (int c = lane; c < 16 * chunks; c += 32) {
       const int r = c / chunks, kc = c - r * chunks, i = q0 + r;
       if (i < Lq)
-        *reinterpret_cast<float4*>(a.out + (((long)b * Lq + i) * a.H + h) * D + 4 * kc) =
+        *reinterpret_cast<float4*>(a.out + (((long)b * a.Lq + zq + i) * a.H + h) * D + 4 * kc) =
             *reinterpret_cast<const float4*>(so + i * LD + 4 * kc);
     }
   }
@@ -811,17 +941,27 @@ constexpr auto tf32_fwd_kernel() {
     return masked_fwd_tf32_kernel<DP, NT, kDrop>;
 }
 
+inline int tf32_fwd_window(int NB, int Lq, const int* L, int D) {
+  if (tf32_fwd_smem_bytes(NB, Lq, L, D) <= kTf32MaxBlockSmem) return Lq;
+  for (int w = (Lq - 1) / 16 * 16; w >= 16; w -= 16)
+    if (tf32_fwd_smem_bytes(NB, w, L, D) <= kTf32MaxBlockSmem) return w;
+  return 0;
+}
+
 template <int DP, int NT, int NB>
-cudaError_t launch_tf32_fwd(const Tf32FwdArgs<NB>& a, int B, cudaStream_t stream) {
+cudaError_t launch_tf32_fwd(Tf32FwdArgs<NB> a, int B, cudaStream_t stream) {
   auto kern = a.rate > 0.f ? tf32_fwd_kernel<DP, NT, NB, true>()
                            : tf32_fwd_kernel<DP, NT, NB, false>();
-  const size_t smem = tf32_fwd_smem_bytes(NB, a.Lq, a.L, a.D);
+  a.qw = tf32_fwd_window(NB, a.Lq, a.L, a.D);
+  const int nz = tf32_windows(a.Lq, a.qw);
+  if (!nz) return cudaErrorInvalidValue;
+  const size_t smem = tf32_fwd_smem_bytes(NB, a.qw, a.L, a.D);
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const int tiles = (a.Lq + 15) / 16;  // Lq = 1 runs one warp, and no warp idles
+  const int tiles = (a.qw + 15) / 16;  // Lq = 1 runs one warp, and no warp idles
   const int warps = tiles < kTf32FwdWarps ? tiles : kTf32FwdWarps;
-  kern<<<dim3(a.H, B), 32 * warps, smem, stream>>>(a);
+  kern<<<dim3(a.H, B, nz), 32 * warps, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -832,15 +972,17 @@ cudaError_t launch_tf32_fwd_nt(const Tf32FwdArgs<NB>& a, int B, cudaStream_t s) 
   });
 }
 
-// Refuses (cudaErrorInvalidValue) a head dim past 64 or not a multiple of
-// 4 and a key axis past the largest register tile; the wrapper chooses the
-// shapes it sends here (core/attention.py).
+// Refuses (cudaErrorInvalidValue) a head dim past 128 or not a multiple of
+// 4, a key axis past the largest register tile and a shape no query window
+// fits; the wrapper chooses the shapes it sends here (core/attention.py).
 template <int NB>
 cudaError_t launch_tf32_attention_fwd(const Tf32FwdArgs<NB>& a, int B, cudaStream_t s) {
   switch (tf32_dp(a.D)) {
     case 16: return launch_tf32_fwd_nt<NB, 16>(a, B, s);
     case 32: return launch_tf32_fwd_nt<NB, 32>(a, B, s);
     case 64: return launch_tf32_fwd_nt<NB, 64>(a, B, s);
+    case 96: return launch_tf32_fwd_nt<NB, 96>(a, B, s);
+    case 128: return launch_tf32_fwd_nt<NB, 128>(a, B, s);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -51,7 +51,18 @@
 // FLOP per (row, head), 11.7 GFLOP there, three times over in 3xTF32: 0.071
 // ms at a third of the 495 TFLOP/s TF32 peak.
 #include "joint_attention.cuh"
+#include "projection.cuh"
 #include "tf32_attention.cuh"
+
+namespace segmm {
+// The fp32 body at head dims past 64 is instantiated in two_block_attention.d96.cu and
+// .d128.cu, compiled beside this file (core/build.py), so that its longest
+// compiles run side by side.
+extern template cudaError_t launch_tf32_fwd_nt<2, 96>(const Tf32FwdArgs<2>&, int,
+                                                          cudaStream_t);
+extern template cudaError_t launch_tf32_fwd_nt<2, 128>(const Tf32FwdArgs<2>&, int,
+                                                           cudaStream_t);
+}  // namespace segmm
 
 namespace segmm {
 
@@ -137,28 +148,110 @@ cudaError_t launch_k1(const void* q1, const void* q2, const void* k1, const void
 // the fp32 tensor-core one.
 extern "C" size_t segmm_two_block_attention_smem_bytes(int tf32, int Lq, int L1, int L2, int D) {
   const int L[2] = {L1, L2};
-  return tf32 ? segmm::tf32_fwd_smem_bytes(2, Lq, L, D) : segmm::k1_smem_bytes(Lq, L1, L2, D);
+  if (!tf32) return segmm::k1_smem_bytes(Lq, L1, L2, D);
+  const int w = segmm::tf32_fwd_window(2, Lq, L, D);  // the query window's
+  return segmm::tf32_fwd_smem_bytes(2, w ? w : Lq, L, D);
+}
+
+// fp32 projections of the fp32 routes of K2, K4, K5 and K6, as _proj
+// rounds them (the fp32 dot, then the bias):
+// job s projects x_s (B, L_s, d) through two (d, d) weights into two fp32
+// (B, L_s, d) outputs; a block takes one batch row's 32 columns of both
+// (projection.cuh's CUDA-core pair, its head as 32 columns), grid
+// (d / 32, B, jobs).
+struct ProjPairJobs {
+  const float* x[6];
+  const float *wa[6], *ba[6], *wb[6], *bb[6];
+  float *oa[6], *ob[6];
+  int L[6];
+};
+
+__global__ void __launch_bounds__(segmm::kK2Threads)
+    proj_pairs_f32_kernel(const ProjPairJobs j, int dm) {
+  const int s = blockIdx.z, h = blockIdx.x, b = blockIdx.y;
+  extern __shared__ __align__(16) float pp_stage[];
+  const long off = (long)b * j.L[s] * dm;
+  if (j.L[s] > 0)
+    segmm::project_pair_f32<32>(j.x[s] + off, j.L[s], dm, j.wa[s], j.ba[s], j.wb[s], j.bb[s],
+                                h, pp_stage, j.oa[s] + off + h * 32, j.ob[s] + off + h * 32,
+                                dm);
+}
+
+// x: n sources; w: wa, ba, wb, bb of each; out: its two outputs; L: its
+// rows a batch row (<= 128). d % 32 == 0, n <= 6. Returns a cudaError_t.
+extern "C" int segmm_project_pairs_f32(const void* const* x, const void* const* w,
+                                       void* const* out, const int* L, int n, int B, int dm,
+                                       void* stream) {
+  if (n < 1 || n > 6 || dm % 32) return (int)cudaErrorInvalidValue;
+  ProjPairJobs j{};
+  int lmax = 0;
+  for (int s = 0; s < n; ++s) {
+    if (L[s] > segmm::kK2MaxL) return (int)cudaErrorInvalidValue;
+    j.x[s] = static_cast<const float*>(x[s]);
+    j.wa[s] = static_cast<const float*>(w[4 * s]);
+    j.ba[s] = static_cast<const float*>(w[4 * s + 1]);
+    j.wb[s] = static_cast<const float*>(w[4 * s + 2]);
+    j.bb[s] = static_cast<const float*>(w[4 * s + 3]);
+    j.oa[s] = static_cast<float*>(out[2 * s]);
+    j.ob[s] = static_cast<float*>(out[2 * s + 1]);
+    j.L[s] = L[s];
+    lmax = L[s] > lmax ? L[s] : lmax;
+  }
+  const size_t smem = segmm::k2_stage_bytes(lmax, 32);
+  cudaError_t err = cudaFuncSetAttribute(proj_pairs_f32_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  proj_pairs_f32_kernel<<<dim3(dm / 32, B, n), segmm::kK2Threads, smem,
+                          static_cast<cudaStream_t>(stream)>>>(j, dm);
+  return (int)cudaGetLastError();
+}
+
+// Copies n values between fp32 and bf16 (to_bf16: fp32 -> bf16, rounded
+// to nearest even; else bf16 -> fp32, exact): the bf16 K1 shapes that the
+// CUDA-core bodies do not take run the fp32 tensor-core bodies on fp32
+// copies of their inputs, and their outputs are rounded back.
+__global__ void convert_kernel(const void* __restrict__ src, void* __restrict__ dst, long n,
+                               int to_bf16) {
+  for (long i = blockIdx.x * (long)blockDim.x + threadIdx.x; i < n;
+       i += (long)gridDim.x * blockDim.x) {
+    if (to_bf16)
+      static_cast<__nv_bfloat16*>(dst)[i] = __float2bfloat16(static_cast<const float*>(src)[i]);
+    else
+      static_cast<float*>(dst)[i] = __bfloat162float(static_cast<const __nv_bfloat16*>(src)[i]);
+  }
+}
+
+extern "C" int segmm_convert(int to_bf16, const void* src, void* dst, long n, void* stream) {
+  if (n > 0)
+    convert_kernel<<<4 * 132, 256, 0, static_cast<cudaStream_t>(stream)>>>(src, dst, n, to_bf16);
+  return (int)cudaGetLastError();
 }
 
 // dtype: 0 = float32, 1 = bfloat16. tf32 = 1 runs the fp32 tensor-core body
-// (refused outside its templates: D % 4 == 0 up to 64, pad8(L1) + pad8(L2)
-// <= 256), 0 the CUDA-core body. rate > 0 applies the dropout mask of
+// (refused outside its templates: D % 4 == 0 up to 128, pad8(L1) +
+// pad8(L2) <= 256; past 64 its queries in windows where one block's tiles
+// exceed shared memory), 0 the CUDA-core body. dtype 1 with tf32 = 1: the
+// fp32 body on fp32 copies of bf16 inputs (q..v and out fp32), p rounded
+// to bf16 before p v. rate > 0 applies the dropout mask of
 // `seed` (keep_div = 1 - rate in fp32). Returns a cudaError_t (0 =
 // launched).
+// salt_h0, concat (the fp32 body only): the dropout salts' first head and
+// K6's concatenated key axis (Tf32BwdArgs), where the fp32 routes of K2,
+// K5 and K6 run on this one.
 extern "C" int segmm_two_block_attention_fwd(
     int dtype, int tf32, const void* q1, const void* q2, const void* k1, const void* k2,
     const void* v1, const void* v2, const int* mq, const int* mk1, const int* mk2,
     void* out, int B, int Lq, int L1, int L2, int H, int D, float scale, float rate,
-    float keep_div, unsigned seed, void* stream) {
+    float keep_div, unsigned seed, int salt_h0, int concat, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (tf32) {
-    if (dtype != 0) return (int)cudaErrorInvalidValue;
     using f = const float*;
     const segmm::Tf32FwdArgs<2> args{{static_cast<f>(q1), static_cast<f>(q2)},
                                      {static_cast<f>(k1), static_cast<f>(k2)},
                                      {static_cast<f>(v1), static_cast<f>(v2)},
                                      mq, {mk1, mk2}, static_cast<float*>(out), Lq, {L1, L2}, H,
-                                     D, scale, rate, keep_div, seed};
+                                     D, scale, rate, keep_div, seed, 0, dtype == 1, salt_h0,
+                                     concat};
     return (int)segmm::launch_tf32_attention_fwd<2>(args, B, s);
   }
   if (dtype == 0)

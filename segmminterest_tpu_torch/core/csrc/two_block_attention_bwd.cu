@@ -31,15 +31,19 @@
 //   (40, 40, 1)     17.3 + 13.8 + 0.7 + 8.3 = 40.2 KB: 4 blocks (registers)
 //   (1, 40, 1)      3.5 + 13.8 + 0.4 + 1.7 = 19.3 KB: 4 blocks (registers)
 // At D = 64 the largest stream takes 228.4 KB, within the 227 KB of one
-// block. The body takes fewer shapes than the CUDA-core fp32 body it
-// replaced (rows padded to 8, D to 16 / 32 / 64, where that one kept Lq
-// rows of D + 4): the wrapper raises for the rest (PERF.md lists them).
+// block; past it (96, 128) the body runs the queries in windows of blocks
+// of their own and sums dk and dv over them in order (tf32_attention.cuh).
+// The wrapper's rule (k1_body) holds the shapes it takes.
 // A 16-row query tile at Lq = 1 does 16 rows' products for one (15/16 of
 // pass 1's tensor-core work wasted; its rows draw no dropout bits); the
 // shape's time is in PERF.md.
 //
 // bf16 (not on a path the training configs time: bf16 training takes K2)
-// keeps the CUDA-core body of joint_attention.cuh: the seven tiles staged
+// keeps the CUDA-core body of joint_attention.cuh where its tiles fit one
+// block, and past that (head dims 96 and 128 at the flagship's streams,
+// k1_body "tf32_bf16") runs the fp32 body on fp32 copies of its inputs
+// (convert_kernel, two_block_attention.cu), its gradients rounded back.
+// The CUDA-core body: the seven tiles staged
 // as fp32, the whole (Lq x (L1 + L2)) probability matrix in shared memory,
 // overwritten in place by dl, fp32 FMAs with operands in shared memory.
 //
@@ -52,13 +56,18 @@
 #include "tf32_attention.cuh"
 
 namespace segmm {
-// The fp32 body at head dims up to 16 and from 36 to 64 is instantiated
-// in two_block_attention_bwd.d16.cu and .d64.cu, compiled beside this file
-// (core/build.py), so that its longest compiles run side by side.
+// The fp32 body at head dims up to 16, from 36 to 64, to 96 and to 128
+// is instantiated in two_block_attention_bwd.d16.cu, .d64.cu, .d96.cu and
+// .d128.cu, compiled beside this file (core/build.py), so that its
+// longest compiles run side by side.
 extern template cudaError_t launch_tf32_bwd_nt<2, 16>(const Tf32BwdArgs<2>&, int,
                                                           cudaStream_t);
 extern template cudaError_t launch_tf32_bwd_nt<2, 64>(const Tf32BwdArgs<2>&, int,
                                                           cudaStream_t);
+extern template cudaError_t launch_tf32_bwd_nt<2, 96>(const Tf32BwdArgs<2>&, int,
+                                                          cudaStream_t);
+extern template cudaError_t launch_tf32_bwd_nt<2, 128>(const Tf32BwdArgs<2>&, int,
+                                                           cudaStream_t);
 }  // namespace segmm
 
 namespace segmm {
@@ -111,10 +120,13 @@ two_block_bwd_kernel(const T* __restrict__ q1, const T* __restrict__ q2,
                                 dv1 + o1, dv2 + o2, stride);
 }
 
+// fp32: the bytes of the body's query window (tf32_bwd_window; all Lq
+// where it fits), or of all Lq where no window fits.
 inline size_t k1b_smem_bytes(int dtype, int Lq, int L1, int L2, int D) {
   const int L[2] = {L1, L2};
-  return dtype == 0 ? tf32_bwd_smem_bytes(2, Lq, L, D)
-                    : bwd_core_bytes(Lq, L1, L2, D);
+  if (dtype != 0) return bwd_core_bytes(Lq, L1, L2, D);
+  const int w = tf32_bwd_window(2, Lq, L, D);
+  return tf32_bwd_smem_bytes(2, w ? w : Lq, L, D);
 }
 
 template <typename T, bool kDrop>
@@ -153,17 +165,26 @@ extern "C" size_t segmm_two_block_attention_bwd_smem_bytes(int dtype, int Lq, in
   return segmm::k1b_smem_bytes(dtype, Lq, L1, L2, D);
 }
 
+// The fp32 body's query windows at a shape (0: none fits); the wrapper
+// gives windows - 1 part slots of scratch (tf32_part_floats).
+extern "C" int segmm_two_block_attention_bwd_windows(int Lq, int L1, int L2, int D) {
+  const int L[2] = {L1, L2};
+  return segmm::tf32_windows(Lq, segmm::tf32_bwd_window(2, Lq, L, D));
+}
+
 // dtype: 0 = float32 (3xTF32 body), 1 = bfloat16 (FMA body). Inputs q1, q2,
 // k1, k2, v1, v2, then the masks and g; outputs dq1, dq2, dk1, dk2, dv1,
 // dv2 (same shapes and dtype as the inputs). Every length <= 128,
-// D % 4 == 0 and D <= 64.
+// D % 4 == 0 and D <= 128 (fp32), D <= 64 (bf16). part (fp32 only):
+// scratch of (windows - 1) part slots, or null where there is one window.
+// salt_h0, concat (fp32 only): as segmm_two_block_attention_fwd's.
 // Returns a cudaError_t (0 = launched).
 extern "C" int segmm_two_block_attention_bwd(
     int dtype, const void* q1, const void* q2, const void* k1, const void* k2,
     const void* v1, const void* v2, const int* mq, const int* mk1, const int* mk2,
     const void* g, void* dq1, void* dq2, void* dk1, void* dk2, void* dv1, void* dv2, int B,
     int Lq, int L1, int L2, int H, int D, float scale, float rate, float keep_div,
-    unsigned seed, void* stream) {
+    unsigned seed, float* part, int salt_h0, int concat, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const void* in[6] = {q1, q2, k1, k2, v1, v2};
   void* out[6] = {dq1, dq2, dk1, dk2, dv1, dv2};
@@ -173,7 +194,7 @@ extern "C" int segmm_two_block_attention_bwd(
     const segmm::Tf32BwdArgs<2> args{{a[0], a[1]}, {a[2], a[3]}, {a[4], a[5]},
                                      static_cast<const float*>(g), mq, {mk1, mk2},
                                      {o[0], o[1]}, {o[2], o[3]}, {o[4], o[5]}, Lq, {L1, L2}, H, D,
-                                     scale, rate, keep_div, seed};
+                                     scale, rate, keep_div, seed, 0, part, salt_h0, concat};
     return (int)segmm::launch_tf32_attention_bwd<2>(args, B, s);
   }
   if (dtype == 1)

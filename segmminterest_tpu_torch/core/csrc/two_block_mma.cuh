@@ -43,6 +43,27 @@
 //     dq_b from dl's registers masked to block b's tiles; pass 2 again
 //     dk = dl^T q_b, a 16-key tile across the block boundary taking q1 for
 //     its first 8 keys and q2 for the rest.
+// Head dims 16, 32, 48, 64, 96 and 128 (SEGMM_K2_HEAD_DIMS; m16n8k16
+// steps over D, its n8 tiles in pairs). Past 64 the backward's tiles no
+// longer fit one block staged at once: at (100, 40, 100) and D = 128 they
+// and the [query][key] planes take 241,536 bytes (K4b's fp32 g: 272,000)
+// against 232,448. Of the ways to cut them (the planes per 16-row tile,
+// q2 left unstaged, the query tiles over two blocks with dk and dv summed
+// after), the kernel stages its operands in turns (k2_load_restaged), as
+// each pass needs only some of them: pass 1 q1, q2 and k; passes 2 and 1
+// again g and v (in q2's and q1's place) and k; pass 2 again q1 and q2 (in
+// v's and k's place). That keeps one block per (head, batch row), its
+// passes and every sum's order, and costs q1 and q2 read twice (from L2)
+// and two more barriers; the tiles take 2 max(pad16(Lq), key axis) +
+// pad16(Lq) rows (+ pad16(Lq) for an fp32 g): 180,608 bytes at (100, 40,
+// 100) and D = 128, 211,072 with K4b's g. The planes per tile would have
+// needed a pass order of its own for dv and dk, and two blocks a sum
+// kernel and a scratch of dk and dv. At 64 and below nothing changes. The
+// wide head dims hold 6 or 18 n8 key tiles in registers (kK2WideKeys16):
+// the output accumulator of D / 8 n8 tiles (64 floats a lane at 128)
+// beside a logit tile of 32 spilled, and the flagship's streams need 18.
+// The forward takes K6's dropout keys too (kKeys) and K5's second stream
+// (dual_stream_core_fwd_kernel, salts from head H), as the backward does.
 // What bounds it on an H100: device memory. The forward reads q, k, v
 // (0.38 GB at B=1024, (40, 40, 100), 16 heads of 32) and writes out (0.04
 // GB): ~0.13 ms at 3.35 TB/s; the backward also reads g and writes six fp32
@@ -89,10 +110,25 @@ __host__ __device__ inline size_t k2_core_fwd_smem_bytes(int Lq, int L1, int L2,
          sizeof(unsigned) * (size_t)kK2MmaWarps * k2_keep_words(nk16) * 32;
 }
 
+// Head dims past this stage the backward's operands in turns (k2_core_bwd):
+// q1, q2 and k for pass 1, then g and v in q1's and q2's place, then q1
+// and q2 again in v's and k's place.
+constexpr int kK2RestageD = 64;
+
+// bf16 rows of the backward's tiles: all at once (D <= kK2RestageD: q1, q2,
+// g (and glo) over pad16(Lq) rows, k and v over the key axis), or in turns
+// (two regions of max(pad16(Lq), key axis) rows, q2's / g's region of
+// pad16(Lq) rows, and glo's).
+__host__ __device__ inline int k2_bwd_tile_rows(int mq16, int nk16, int D, bool glo) {
+  if (D <= kK2RestageD) return (glo ? 4 : 3) * mq16 + 2 * nk16;
+  const int big = mq16 > nk16 ? mq16 : nk16;
+  return 2 * big + (glo ? 2 : 1) * mq16;
+}
+
 __host__ __device__ inline size_t k2_core_bwd_smem_bytes(int Lq, int L1, int L2, int D,
                                                          bool glo = false) {
   const int mq16 = pad16(Lq), nk16 = k2_keys16(L1, L2);
-  return sizeof(__nv_bfloat16) * (size_t)((glo ? 4 : 3) * mq16 + 2 * nk16) * (D + 8) +
+  return sizeof(__nv_bfloat16) * (size_t)k2_bwd_tile_rows(mq16, nk16, D, glo) * (D + 8) +
          sizeof(int) * (size_t)(mq16 + nk16) +
          sizeof(unsigned) * (size_t)(mq16 / 16) * k2_keep_words(nk16) * 32 +
          sizeof(__nv_bfloat16) * 2 * (size_t)mq16 * (nk16 + 8);
@@ -158,6 +194,52 @@ __device__ __forceinline__ unsigned char* k2_load(const K2CoreArgs& a, unsigned 
   k2_stage<D>(a.kv2, rs, h * D, t.k + t.c1 * LD, b, a.L2, t.nk16 - t.c1);
   k2_stage<D>(a.kv1, rs, dm + h * D, t.v, b, a.L1, t.c1);
   k2_stage<D>(a.kv2, rs, dm + h * D, t.v + t.c1 * LD, b, a.L2, t.nk16 - t.c1);
+  k2_stage_mask(a.mq, t.mq, b, a.Lq, mq16);
+  k2_stage_mask(a.mk1, t.mk, b, a.L1, t.c1);
+  k2_stage_mask(a.mk2, t.mk + t.c1, b, a.L2, t.nk16 - t.c1);
+  cp_async_commit();
+  cp_async_wait<0>();
+  return reinterpret_cast<unsigned char*>(t.mk + t.nk16);
+}
+
+// One key-axis operand of both blocks (k at column h D of kv1 / kv2, v at
+// d + h D) into a tile of t.nk16 rows, zeros past each block's length.
+// Only issues the copies.
+template <int D>
+__device__ __forceinline__ void k2_stage_keys(const K2CoreArgs& a, int col, __nv_bfloat16* dst,
+                                              const K2Tiles& t) {
+  const long rs = 2L * a.H * D;
+  const int b = blockIdx.y;
+  k2_stage<D>(a.kv1, rs, col, dst, b, a.L1, t.c1);
+  k2_stage<D>(a.kv2, rs, col, dst + t.c1 * (D + 8), b, a.L2, t.nk16 - t.c1);
+}
+
+// The backward's first operands when they are staged in turns (D >
+// kK2RestageD): q1 in region A (v's later, then q1's again), q2 in region
+// B (g's later), k in region K (q2's at the end), glo (with `glo`) and the
+// masks; returns the first byte past them. Waits for the copies; the
+// caller synchronises the block.
+template <int D>
+__device__ __forceinline__ unsigned char* k2_load_restaged(const K2CoreArgs& a,
+                                                           unsigned char* smem, K2Tiles& t,
+                                                           bool glo) {
+  constexpr int LD = D + 8;
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int dm = a.H * D;
+  const int mq16 = pad16(a.Lq);
+  t.c1 = k2_c1(a.L1);
+  t.nk16 = k2_keys16(a.L1, a.L2);
+  const int big = mq16 > t.nk16 ? mq16 : t.nk16;
+  t.q1 = t.v = reinterpret_cast<__nv_bfloat16*>(smem);
+  t.q2 = t.g = t.q1 + big * LD;
+  t.k = t.q2 + mq16 * LD;
+  t.glo = glo ? t.k + big * LD : nullptr;
+  t.mq = reinterpret_cast<int*>(t.k + (big + (glo ? mq16 : 0)) * LD);
+  t.mk = t.mq + mq16;
+  k2_stage<D>(a.q, 2L * dm, h * D, t.q1, b, a.Lq, mq16);
+  k2_stage<D>(a.q, 2L * dm, dm + h * D, t.q2, b, a.Lq, mq16);
+  k2_stage_keys<D>(a, h * D, t.k, t);
+  if (glo) k2_stage<D>(a.glo, dm, h * D, t.glo, b, a.Lq, mq16);
   k2_stage_mask(a.mq, t.mq, b, a.Lq, mq16);
   k2_stage_mask(a.mk1, t.mk, b, a.L1, t.c1);
   k2_stage_mask(a.mk2, t.mk + t.c1, b, a.L2, t.nk16 - t.c1);
@@ -400,11 +482,13 @@ __device__ __forceinline__ void k2_write_key_rows(const float (&acc)[D / 8][4], 
 
 // ---------------------------------------------------------------------------
 // Forward: one block per (head, batch row), a warp per 16-row query tile.
-template <int D, int NT, bool kDrop>
-__global__ void __launch_bounds__(32 * kK2MmaWarps)
-proj_two_block_core_fwd_kernel(const __grid_constant__ K2CoreArgs a) {
+// kKeys: how the dropout hash counts the keys (K2Keys); h: the head the
+// dropout salts count from (blockIdx.x, or K5's user stream's H +
+// blockIdx.x).
+template <int D, int NT, bool kDrop, int kKeys>
+__device__ __forceinline__ void k2_core_fwd(const K2CoreArgs& a, int h) {
   constexpr int LD = D + 8;
-  const int h = blockIdx.x, b = blockIdx.y;
+  const int b = blockIdx.y;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
   const int g = lane >> 2, t = lane & 3;
   extern __shared__ __align__(16) unsigned char k2f_smem[];
@@ -423,7 +507,7 @@ proj_two_block_core_fwd_kernel(const __grid_constant__ K2CoreArgs a) {
     k2_logits<D, NT>(st.q1, st.q2, q0, st.k, st.c1, nkc, s);
     unsigned keep[(NT + 7) / 8] = {};
     if (kDrop) {
-      k2_keep_bits(kw, kwords, q0, st.c1, a.L1, a.L2, nkc, dr, h);
+      k2_keep_bits<kKeys>(kw, kwords, q0, st.c1, a.L1, a.L2, nkc, dr, h);
 #pragma unroll
       for (int w = 0; w < (NT + 7) / 8; ++w)
         if (w < kwords) keep[w] = kw[w * 32];
@@ -447,10 +531,27 @@ proj_two_block_core_fwd_kernel(const __grid_constant__ K2CoreArgs a) {
       const int r = c / (D / 8), kc = c - r * (D / 8);
       const int i = q0 + r;
       if (i < a.Lq)
-        *reinterpret_cast<uint4*>(a.out + (((long)b * a.Lq + i) * a.H + h) * D + kc * 8) =
+        *reinterpret_cast<uint4*>(a.out + (((long)b * a.Lq + i) * a.H + blockIdx.x) * D +
+                                  kc * 8) =
             *reinterpret_cast<const uint4*>(st.q1 + i * LD + kc * 8);
     }
   }
+}
+
+template <int D, int NT, bool kDrop, int kKeys>
+__global__ void __launch_bounds__(32 * kK2MmaWarps)
+proj_two_block_core_fwd_kernel(const __grid_constant__ K2CoreArgs a) {
+  k2_core_fwd<D, NT, kDrop, kKeys>(a, blockIdx.x);
+}
+
+// K5f's core: both streams of a layer in one launch, grid z = 2, as
+// dual_stream_core_bwd_kernel below (the user stream salted from head H).
+template <int D, int NT, bool kDrop>
+__global__ void __launch_bounds__(32 * kK2MmaWarps)
+dual_stream_core_fwd_kernel(const __grid_constant__ K2CoreArgs a,
+                            const __grid_constant__ K2CoreArgs u) {
+  const bool user = blockIdx.z != 0;
+  k2_core_fwd<D, NT, kDrop, kBlockKeys>(user ? u : a, blockIdx.x + (user ? a.H : 0));
 }
 
 // ---------------------------------------------------------------------------
@@ -465,8 +566,16 @@ __device__ __forceinline__ void k2_core_bwd(const K2CoreArgs& a, int sh) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
   const int gi = lane >> 2, ti = lane & 3;
   extern __shared__ __align__(16) unsigned char k2b_smem[];
+  // head dims past kK2RestageD stage q1, q2 and k, then g and v, then q1
+  // and q2 (k2_load_restaged)
+  constexpr bool kRestage = D > kK2RestageD;
   K2Tiles st;
-  unsigned* KW = reinterpret_cast<unsigned*>(k2_load<D>(a, k2b_smem, true, st, kG32));
+  unsigned char* past;
+  if constexpr (kRestage)
+    past = k2_load_restaged<D>(a, k2b_smem, st, kG32);
+  else
+    past = k2_load<D>(a, k2b_smem, true, st, kG32);
+  unsigned* KW = reinterpret_cast<unsigned*>(past);
   const int Lq = a.Lq, L1 = a.L1, L2 = a.L2, c1 = st.c1;
   const int mq16 = pad16(Lq), nkc = st.nk16 / 16, nq16 = mq16 / 16, nb1 = c1 / 8;
   const int kwords = k2_keep_words(st.nk16);
@@ -501,6 +610,13 @@ __device__ __forceinline__ void k2_core_bwd(const K2CoreArgs& a, int sh) {
     k3b_store_split<NT>(p, q0, nkc, ph, pl, ldp);
   }
   __syncthreads();
+  if constexpr (kRestage) {  // g in q2's place, v in q1's
+    k2_stage<D>(a.g, a.H * D, blockIdx.x * D, st.g, b, Lq, mq16);
+    k2_stage_keys<D>(a, (a.H + blockIdx.x) * D, st.v, st);
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+  }
 
   // pass 2: dv = p^T g
   for (int k0 = warp * 16; k0 < st.nk16; k0 += nwarps * 16) {
@@ -573,6 +689,14 @@ __device__ __forceinline__ void k2_core_bwd(const K2CoreArgs& a, int sh) {
     k2_write_q_rows<D>(acc, q0, Lq, a.H, a.dy[1]);
   }
   __syncthreads();
+  if constexpr (kRestage) {  // q1 in v's place, q2 in k's
+    st.q2 = st.k;
+    k2_stage<D>(a.q, 2L * a.H * D, blockIdx.x * D, st.q1, b, Lq, mq16);
+    k2_stage<D>(a.q, 2L * a.H * D, (a.H + blockIdx.x) * D, st.q2, b, Lq, mq16);
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+  }
 
   // pass 2 again: dk = dl^T q1 (block 1's keys), dl^T q2 (block 2's)
   for (int k0 = warp * 16; k0 < st.nk16; k0 += nwarps * 16) {
@@ -647,8 +771,8 @@ cudaError_t launch_k2_core_nt(const K2CoreArgs& a, int B, cudaStream_t stream) {
                         : proj_two_block_core_bwd_kernel<D, NT, false, kG32, kKeys>;
   } else {
     smem = k2_core_fwd_smem_bytes(a.Lq, a.L1, a.L2, D);
-    kern = a.rate > 0.f ? proj_two_block_core_fwd_kernel<D, NT, true>
-                        : proj_two_block_core_fwd_kernel<D, NT, false>;
+    kern = a.rate > 0.f ? proj_two_block_core_fwd_kernel<D, NT, true, kKeys>
+                        : proj_two_block_core_fwd_kernel<D, NT, false, kKeys>;
   }
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -662,73 +786,109 @@ cudaError_t launch_k2_core_nt(const K2CoreArgs& a, int B, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// The register tiles of head dim D: 6, 12, 18, 24 and 32 n8 key tiles at
+// 16, 32 and 64; at the other head dims 6 and 18 only (the flagship's
+// streams: 48 and 144 keys), which keeps nvcc's time down: there the key
+// axis takes at most kK2WideKeys16 16-key chunks.
+template <int D> constexpr bool kK2AllTiles = D == 16 || D == 32 || D == 64;
+constexpr int kK2WideKeys16 = 9;
+
 template <int D, bool kBwd, bool kG32, int kKeys>
 cudaError_t launch_k2_core_d(const K2CoreArgs& a, int B, cudaStream_t stream) {
   const int nkc = k2_keys16(a.L1, a.L2) / 16;
-  auto launch = nkc <= 3    ? launch_k2_core_nt<D, kBwd, kG32, kKeys, 6>
-                : nkc <= 6  ? launch_k2_core_nt<D, kBwd, kG32, kKeys, 12>
-                : nkc <= 9  ? launch_k2_core_nt<D, kBwd, kG32, kKeys, 18>
-                : nkc <= 12 ? launch_k2_core_nt<D, kBwd, kG32, kKeys, 24>
-                            : launch_k2_core_nt<D, kBwd, kG32, kKeys, 32>;
-  return launch(a, B, stream);
+  if (nkc <= 3) return launch_k2_core_nt<D, kBwd, kG32, kKeys, 6>(a, B, stream);
+  if constexpr (kK2AllTiles<D>) {
+    if (nkc <= 6) return launch_k2_core_nt<D, kBwd, kG32, kKeys, 12>(a, B, stream);
+    if (nkc <= 9) return launch_k2_core_nt<D, kBwd, kG32, kKeys, 18>(a, B, stream);
+    if (nkc <= 12) return launch_k2_core_nt<D, kBwd, kG32, kKeys, 24>(a, B, stream);
+    return launch_k2_core_nt<D, kBwd, kG32, kKeys, 32>(a, B, stream);
+  } else {
+    if (nkc > kK2WideKeys16) return cudaErrorInvalidValue;
+    return launch_k2_core_nt<D, kBwd, kG32, kKeys, 18>(a, B, stream);
+  }
 }
 
-// K2's core in either direction for head dim D (16, 32, 64); lengths up to
-// 128 each (at most 16 key chunks). kG32 (backward): g is fp32, as a.g
-// and a.glo. kKeys (backward): the dropout's key indexing, K2Keys.
+// The head dims the core takes (m16n8k16 steps over D; D / 8 n8 tiles in
+// pairs): 16, 32, 48, 64, 96, 128. The backward stages its operands in
+// turns past kK2RestageD.
+#define SEGMM_K2_HEAD_DIMS(X) X(16) X(32) X(48) X(64) X(96) X(128)
+
+// K2's core in either direction for head dim D (SEGMM_K2_HEAD_DIMS);
+// lengths up to 128 each (at most 16 key chunks; kK2WideKeys16 past the
+// head dims of kK2AllTiles). kG32 (backward): g is
+// fp32, as a.g and a.glo. kKeys: the dropout's key indexing, K2Keys.
 template <bool kBwd, bool kG32 = false, int kKeys = kBlockKeys>
 cudaError_t launch_k2_core(const K2CoreArgs& a, int D, int B, cudaStream_t stream) {
   if (a.Lq > 128 || a.L1 > 128 || a.L2 > 128) return cudaErrorInvalidValue;
   switch (D) {
-    case 16: return launch_k2_core_d<16, kBwd, kG32, kKeys>(a, B, stream);
-    case 32: return launch_k2_core_d<32, kBwd, kG32, kKeys>(a, B, stream);
-    case 64: return launch_k2_core_d<64, kBwd, kG32, kKeys>(a, B, stream);
+#define SEGMM_K2_CASE(d) \
+  case d: return launch_k2_core_d<d, kBwd, kG32, kKeys>(a, B, stream);
+    SEGMM_K2_HEAD_DIMS(SEGMM_K2_CASE)
+#undef SEGMM_K2_CASE
     default: return cudaErrorInvalidValue;
   }
 }
 
-// K5b's two streams, a (video) and u (user), on one key axis.
-template <int D, int NT>
-cudaError_t launch_dual_core_bwd_nt(const K2CoreArgs& a, const K2CoreArgs& u, int B,
-                                    cudaStream_t stream) {
-  const size_t sa = k2_core_bwd_smem_bytes(a.Lq, a.L1, a.L2, D),
-               su = k2_core_bwd_smem_bytes(u.Lq, u.L1, u.L2, D);
+// K5's two streams, a (video) and u (user), on one key axis, in one launch
+// (grid z = 2) with the larger stream's shared memory and warps.
+template <int D, int NT, bool kBwd>
+cudaError_t launch_dual_core_nt(const K2CoreArgs& a, const K2CoreArgs& u, int B,
+                                cudaStream_t stream) {
+  size_t sa, su;
+  void (*kern)(K2CoreArgs, K2CoreArgs);
+  if constexpr (kBwd) {
+    sa = k2_core_bwd_smem_bytes(a.Lq, a.L1, a.L2, D);
+    su = k2_core_bwd_smem_bytes(u.Lq, u.L1, u.L2, D);
+    kern = a.rate > 0.f ? dual_stream_core_bwd_kernel<D, NT, true>
+                        : dual_stream_core_bwd_kernel<D, NT, false>;
+  } else {
+    sa = k2_core_fwd_smem_bytes(a.Lq, a.L1, a.L2, D);
+    su = k2_core_fwd_smem_bytes(u.Lq, u.L1, u.L2, D);
+    kern = a.rate > 0.f ? dual_stream_core_fwd_kernel<D, NT, true>
+                        : dual_stream_core_fwd_kernel<D, NT, false>;
+  }
   const size_t smem = sa > su ? sa : su;
-  auto kern = a.rate > 0.f ? dual_stream_core_bwd_kernel<D, NT, true>
-                           : dual_stream_core_bwd_kernel<D, NT, false>;
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const int lq = a.Lq > u.Lq ? a.Lq : u.Lq;
   const int qt = pad16(lq) / 16, kt = k2_keys16(a.L1, a.L2) / 16;
-  kern<<<dim3(a.H, B, 2), 32 * k2_bwd_warps(qt > kt ? qt : kt, smem), smem, stream>>>(a, u);
+  const int warps = kBwd ? k2_bwd_warps(qt > kt ? qt : kt, smem)
+                         : (qt < kK2MmaWarps ? qt : kK2MmaWarps);
+  kern<<<dim3(a.H, B, 2), 32 * warps, smem, stream>>>(a, u);
   return cudaGetLastError();
 }
 
-template <int D>
-cudaError_t launch_dual_core_bwd_d(const K2CoreArgs& a, const K2CoreArgs& u, int B,
-                                   cudaStream_t stream) {
+template <int D, bool kBwd>
+cudaError_t launch_dual_core_d(const K2CoreArgs& a, const K2CoreArgs& u, int B,
+                               cudaStream_t stream) {
   const int nkc = k2_keys16(a.L1, a.L2) / 16;
-  auto launch = nkc <= 3    ? launch_dual_core_bwd_nt<D, 6>
-                : nkc <= 6  ? launch_dual_core_bwd_nt<D, 12>
-                : nkc <= 9  ? launch_dual_core_bwd_nt<D, 18>
-                : nkc <= 12 ? launch_dual_core_bwd_nt<D, 24>
-                            : launch_dual_core_bwd_nt<D, 32>;
-  return launch(a, u, B, stream);
+  if (nkc <= 3) return launch_dual_core_nt<D, 6, kBwd>(a, u, B, stream);
+  if constexpr (kK2AllTiles<D>) {
+    if (nkc <= 6) return launch_dual_core_nt<D, 12, kBwd>(a, u, B, stream);
+    if (nkc <= 9) return launch_dual_core_nt<D, 18, kBwd>(a, u, B, stream);
+    if (nkc <= 12) return launch_dual_core_nt<D, 24, kBwd>(a, u, B, stream);
+    return launch_dual_core_nt<D, 32, kBwd>(a, u, B, stream);
+  } else {
+    if (nkc > kK2WideKeys16) return cudaErrorInvalidValue;
+    return launch_dual_core_nt<D, 18, kBwd>(a, u, B, stream);
+  }
 }
 
-// K5b's core backward for head dim D (16, 32, 64): the video stream a
-// (Lq = L1) and the user stream u (Lq = L2) over the same key blocks,
-// lengths up to 128 each.
-inline cudaError_t launch_dual_core_bwd(const K2CoreArgs& a, const K2CoreArgs& u, int D, int B,
-                                        cudaStream_t stream) {
+// K5's core in either direction for head dim D (SEGMM_K2_HEAD_DIMS): the
+// video stream a (Lq = L1) and the user stream u (Lq = L2) over the same
+// key blocks, lengths up to 128 each.
+template <bool kBwd>
+cudaError_t launch_dual_core(const K2CoreArgs& a, const K2CoreArgs& u, int D, int B,
+                             cudaStream_t stream) {
   if (a.Lq > 128 || u.Lq > 128 || a.L1 > 128 || a.L2 > 128 || a.L1 != u.L1 || a.L2 != u.L2 ||
       a.H != u.H)
     return cudaErrorInvalidValue;
   switch (D) {
-    case 16: return launch_dual_core_bwd_d<16>(a, u, B, stream);
-    case 32: return launch_dual_core_bwd_d<32>(a, u, B, stream);
-    case 64: return launch_dual_core_bwd_d<64>(a, u, B, stream);
+#define SEGMM_K2_CASE(d) \
+  case d: return launch_dual_core_d<d, kBwd>(a, u, B, stream);
+    SEGMM_K2_HEAD_DIMS(SEGMM_K2_CASE)
+#undef SEGMM_K2_CASE
     default: return cudaErrorInvalidValue;
   }
 }

@@ -17,9 +17,12 @@ The backward sums the input gradients as ``_ds_bwd_kernel`` does
 keys and values and the user stream's block-1 keys and values, the user
 input the rest.
 
-bf16 K5b runs on K2b's tensor-core pieces (``k5_body``): both streams'
-six projections as one grouped GEMM, both cores in one launch, dxv and dxu
-each over its six products, the 12 dW in ``k5_dw_chunk`` row chunks.
+bf16 K5 runs on K2's tensor-core pieces (``k5_body``): both streams' six
+projections as one grouped GEMM, then both streams' cores in one launch
+(forward and backward); K5b then dxv and dxu each over its six products
+and the 12 dW in ``k5_dw_chunk`` row chunks. fp32 K5 runs K2's fp32 route
+on each stream (the user stream salted from head H), K5b then its chain
+on the CUDA cores (``segmm_dual_stream_attention_chain_bwd``).
 
 Weights in nn.Linear layout (out, in), biases (d,), 12 per stream in the
 order wq1, bq1, wq2, bq2, wk1, bk1, wk2, bk2, wv1, bv1, wv2, bv2. The
@@ -111,12 +114,13 @@ def _check_k5(xv, xu, wsa, wsb, mask_v, mask_u, num_heads, g=(None, None)):
 
 
 def k5_body(dtype) -> str:
-    """Which body K5b runs: ``"mma"`` for bf16 (K2b's projection GEMM over
-    both streams' six sources, both cores in one tensor-core launch, the
-    chain's dx over six pairs and the 12 dW in three bf16 parts),
-    ``"cuda_core"`` for fp32 (the first bodies). By dtype, never on a failure.
-    K5f keeps its first bodies."""
-    return "mma" if dtype == torch.bfloat16 else "cuda_core"
+    """Which bodies K5f and K5b run, by dtype, never on a failure:
+    ``"mma"`` for bf16 (K2's projection GEMM over both streams' six
+    sources, both streams' cores in one tensor-core launch; K5b's chain dx
+    over six pairs and the 12 dW in three bf16 parts), ``"tf32"`` for fp32
+    (K2's fp32 route on each stream, the user stream salted from head H;
+    K5b then the CUDA-core chain)."""
+    return A.k2_body(dtype)
 
 
 def k5_dw_rows(B: int, Lv: int, Lu: int):
@@ -141,7 +145,7 @@ def k5_dw_chunks(B: int, Lv: int, Lu: int, chunk: int):
 
 
 def k5_workspace(xv, xu):
-    """bf16 K5b's transient projections, (B, L, 2d) each: the video
+    """bf16 K5's transient projections, (B, L, 2d) each: the video
     stream's q1|q2 (xv), k1|v1 (xv), k2|v2 (xu), then the user stream's
     q1|q2 (xu), k1|v1 (xv), k2|v2 (xu)."""
     B, _, d = xv.shape
@@ -160,18 +164,38 @@ def _k5_smem_check(lib, dtype, Lv, Lu, dh):
 def _k5_forward_cuda(xv, xu, wsa, wsb, mask_v, mask_u, num_heads, scale,
                      rate, seed):
     B, Lv, Lu, d, dh = _check_k5(xv, xu, wsa, wsb, mask_v, mask_u, num_heads)
+    if k5_body(xv.dtype) == "tf32":
+        A.LAUNCHES["dual_stream_attention"] += 1
+        return tuple(A._k2_tf32_forward(xq, x1, x2, ws, masks, num_heads,
+                                        scale, rate, seed, salt_h0=h0)
+                     for (xq, x1, x2, masks), ws, h0 in zip(
+                         _stream_inputs(xv, xu, mask_v, mask_u), (wsa, wsb),
+                         (0, num_heads)))
     _k5_smem_check("dual_stream_attention", xv.dtype, Lv, Lu, dh)
-    fn = A._fn("dual_stream_attention", "segmm_dual_stream_attention_fwd",
-               ctypes.c_int, [ctypes.c_int, ctypes.POINTER(ctypes.c_void_p)]
-               + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
-               + [ctypes.c_float] + A._DROP_ARGS + [ctypes.c_void_p])
+    return _k5_forward_mma(xv, xu, wsa, wsb, mask_v, mask_u, num_heads,
+                           scale, rate, seed)
+
+
+def _k5_forward_mma(xv, xu, wsa, wsb, mask_v, mask_u, num_heads, scale,
+                    rate, seed):
+    """bf16 K5f: both streams' six projections as one grouped GEMM into
+    ``k5_workspace``, then both streams' cores in one launch
+    (csrc/dual_stream_attention.cu, two launches)."""
+    B, Lv, d = xv.shape
+    Lu = xu.shape[1]
+    fn = A._fn("dual_stream_attention", "segmm_dual_stream_attention_fwd_mma",
+               ctypes.c_int, [ctypes.POINTER(ctypes.c_void_p)]
+               + [ctypes.c_void_p] * 4 + [ctypes.POINTER(ctypes.c_void_p)]
+               + [ctypes.c_int] * 5 + [ctypes.c_float] + A._DROP_ARGS
+               + [ctypes.c_void_p])
     mv, mu = A._masks_i32(mask_v, mask_u)
     ov, ou = torch.empty_like(xv), torch.empty_like(xu)
+    work = k5_workspace(xv, xu)
     with torch.cuda.device(xv.device):
-        code = fn(A._DTYPE_CODE[xv.dtype], A._ptrs((xv, xu, *wsa, *wsb)),
-                  mv.data_ptr(), mu.data_ptr(), ov.data_ptr(), ou.data_ptr(),
-                  B, Lv, Lu, d, num_heads, float(scale),
-                  *A._drop_args(rate, seed), A._stream_ptr(xv.device))
+        code = fn(A._ptrs((xv, xu, *wsa, *wsb)), mv.data_ptr(), mu.data_ptr(),
+                  ov.data_ptr(), ou.data_ptr(), A._ptrs(work), B, Lv, Lu, d,
+                  num_heads, float(scale), *A._drop_args(rate, seed),
+                  A._stream_ptr(xv.device))
     A._raise_on_cuda_error(code, "dual_stream_attention")
     A.LAUNCHES["dual_stream_attention"] += 1
     return ov, ou
@@ -179,41 +203,37 @@ def _k5_forward_cuda(xv, xu, wsa, wsb, mask_v, mask_u, num_heads, scale,
 
 def _k5_backward_cuda(xv, xu, wsa, wsb, mask_v, mask_u, gv, gu, num_heads,
                       scale, rate, seed):
-    """K5b: the qkv pass of both streams in one launch into an fp32
-    workspace, then the chain: dxv and dxu (six products each) and the 12
+    """K5b. bf16: ``_k5_backward_mma``. fp32: each stream's qkv pass by
+    K2's fp32 route (the user stream salted from head H) into fp32
+    workspaces, then the chain: dxv and dxu (six products each) and the 12
     dW and 12 db over the batch in row chunks added in order."""
     B, Lv, Lu, d, dh = _check_k5(xv, xu, wsa, wsb, mask_v, mask_u, num_heads,
                                  (gv, gu))
-    _k5_smem_check("dual_stream_attention_bwd", xv.dtype, Lv, Lu, dh)
     if k5_body(xv.dtype) == "mma":
+        _k5_smem_check("dual_stream_attention_bwd", xv.dtype, Lv, Lu, dh)
         return _k5_backward_mma(xv, xu, wsa, wsb, mask_v, mask_u, gv, gu,
                                 num_heads, scale, rate, seed)
-    fn = A._fn("dual_stream_attention_bwd", "segmm_dual_stream_attention_bwd",
-               ctypes.c_int, [ctypes.c_int, ctypes.POINTER(ctypes.c_void_p)]
-               + [ctypes.c_void_p] * 4
-               + [ctypes.POINTER(ctypes.c_void_p)] * 3 + [ctypes.c_void_p]
-               + [ctypes.c_int] * 5 + [ctypes.c_float] + A._DROP_ARGS
-               + [ctypes.c_int, ctypes.c_void_p])
-    mv, mu = A._masks_i32(mask_v, mask_u)
+    fn = A._fn("dual_stream_attention_bwd",
+               "segmm_dual_stream_attention_chain_bwd", ctypes.c_int,
+               [ctypes.POINTER(ctypes.c_void_p)] * 4 + [ctypes.c_void_p]
+               + [ctypes.c_int] * 5 + [ctypes.c_void_p])
     dev, f32 = xv.device, torch.float32
-    # per stream: dq1, dq2 (its own length), dk1, dv1 (Lv), dk2, dv2 (Lu)
-    dys = [torch.empty(B, L, d, dtype=f32, device=dev)
-           for Lq in (Lv, Lu) for L in (Lq, Lq, Lv, Lu, Lv, Lu)]
+    # per stream: dq1, dq2 (its Lq), dk1 (Lv), dk2 (Lu), dv1, dv2
+    dys = [t for (xq, x1, x2, masks), ws, gq, h0 in zip(
+        _stream_inputs(xv, xu, mask_v, mask_u), (wsa, wsb), (gv, gu),
+        (0, num_heads)) for t in A._k2_tf32_qkv_grads(
+            xq, x1, x2, ws, masks, gq.contiguous(), num_heads, scale, rate,
+            seed, salt_h0=h0)]
     dx = [torch.empty_like(xv), torch.empty_like(xu)]
     dw = [torch.empty(d, d, dtype=f32, device=dev) for _ in range(12)]
     db = [torch.empty(d, dtype=f32, device=dev) for _ in range(12)]
     scratch = torch.empty(12 * A.K2_DW_SPLITS * (d * d + d), dtype=f32,
                           device=dev)
-    gv, gu = gv.contiguous(), gu.contiguous()
     with torch.cuda.device(dev):
-        code = fn(A._DTYPE_CODE[xv.dtype], A._ptrs((xv, xu, *wsa, *wsb)),
-                  mv.data_ptr(), mu.data_ptr(), gv.data_ptr(), gu.data_ptr(),
-                  A._ptrs(dys), A._ptrs(dx), A._ptrs(dw + db),
-                  scratch.data_ptr(),
-                  B, Lv, Lu, d, num_heads, float(scale),
-                  *A._drop_args(rate, seed), A.K2_DW_SPLITS,
-                  A._stream_ptr(dev))
-    A._raise_on_cuda_error(code, "dual_stream_attention_bwd")
+        code = fn(A._ptrs((xv, xu, *wsa, *wsb)), A._ptrs(dys), A._ptrs(dx),
+                  A._ptrs(dw + db), scratch.data_ptr(), B, Lv, Lu, d,
+                  A.K2_DW_SPLITS, A._stream_ptr(dev))
+    A._raise_on_cuda_error(code, "dual_stream_attention_chain_bwd")
     A.LAUNCHES["dual_stream_attention_bwd"] += 1
     ws = tuple(wsa) + tuple(wsb)
     grads = list(dx)

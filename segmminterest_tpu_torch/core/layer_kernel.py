@@ -31,8 +31,9 @@ fp32 whatever the compute dtype. The wrapper launches the CUDA kernels
 (core/csrc/layer_stream*.cu) for CUDA tensors and runs the plain versions
 only for CPU tensors. bf16 runs the tensor-core bodies (K2's projection
 GEMM and two-block core, the epilogue on mma.sync over 64-row blocks, K2's
-three-part chain for dx and the nine dW), fp32 the CUDA-core bodies
-(``k4_body``).
+three-part chain for dx and the nine dW), fp32 K2's fp32 route for the
+attention (the projections and K1's 3xTF32 core) around the row-tile
+epilogue, its backward and the chain on the CUDA cores (``k4_body``).
 """
 
 from __future__ import annotations
@@ -47,12 +48,15 @@ from . import attention as A
 
 LN_EPS = 1e-12
 # rows of (B * Lq) one block of the epilogue-backward kernel takes, fp32
-# (kEpBwdRows, layer_epilogue.cuh) and bf16 (kLmRows, layer_mma.cuh); its
+# (kEpBwdRows, layer_epilogue.cuh) and bf16 (kLmRows, layer_mma.cuh: 64
+# where d and ff are at most K4_MMA_NARROW, else 32); its
 # LayerNorm-parameter partial sums are one row of four d-vectors per block
 K4_BWD_ROWS = 16
 K4_MMA_ROWS = 64
-# the bf16 epilogue holds a block's full rows of d and of ff in registers
-K4_MMA_MAX_WIDTH = 512
+# the bf16 epilogue holds a block's full rows of d and of ff in registers:
+# 64 rows of widths up to 512, 32 of widths up to 768
+K4_MMA_NARROW = 512
+K4_MMA_MAX_WIDTH = 768
 # bf16 K4b's nine weights' rows in chunks of k4_dw_chunk rows, about this
 # many chunks in all, added in chunk order (K2's kernel, whose table holds
 # attention.K2_DW_MAX_CHUNKS)
@@ -199,12 +203,13 @@ def layer_stream_bwd_plain(xq, x1, x2, qkv, ep, mask_q, mask_1, mask_2, g,
 # ---------------------------------------------------------------------------
 
 def k4_body(dtype) -> str:
-    """Which bodies K4f and K4b run: ``"mma"`` for bf16 (K2's projection
-    GEMM and two-block core, the epilogue on mma.sync, the chain's dx and
-    the nine dW in three bf16 parts), ``"cuda_core"`` for fp32 (the
-    per-(head, batch row) attention and row-tile epilogue on the CUDA
-    cores). By dtype, never on a failure."""
-    return "mma" if dtype == torch.bfloat16 else "cuda_core"
+    """Which bodies K4f and K4b run, by dtype, never on a failure:
+    ``"mma"`` for bf16 (K2's projection GEMM and two-block core, the
+    epilogue on mma.sync, the chain's dx and the nine dW in three bf16
+    parts), ``"tf32"`` for fp32 (att and the qkv pass by K2's fp32 route,
+    ``A.k2_body``; the row-tile epilogue, its backward and the chain on the
+    CUDA cores)."""
+    return A.k2_body(dtype)
 
 
 def k4_dw_rows(B: int, Lq: int, L1: int, L2: int):
@@ -232,25 +237,35 @@ def k4_dw_shapes(d: int, ff: int):
     return [(d, d)] * 7 + [(ff, d), (d, ff)]
 
 
-# the bf16 epilogue's shared memory (layer_mma.cuh): a ring of three
-# stages, each the larger of (64 + 512) rows x 40 bf16 (forward products)
-# and 64 x 40 fp32 + 32 x 520 bf16 (backward products); the seven fp32
-# bias and LayerNorm vectors of 512; the backward's LN1 statistics and
-# three 64 x 40 bf16 planes
-_LM_STAGE = max((64 + 512) * 40 * 2, 64 * 40 * 4 + 32 * 520 * 2)
-_LM_FWD_SMEM = 3 * _LM_STAGE + 4 * 7 * 512
-_LM_BWD_SMEM = _LM_FWD_SMEM + 4 * 2 * 64 + 3 * 2 * 64 * 40
+def k4_mma_rows(d: int, ff: int) -> int:
+    """Rows of (B * Lq) a block of bf16 K4's epilogue takes: 64 where d and
+    ff are at most K4_MMA_NARROW (lm512), else 32 (lm768)."""
+    return K4_MMA_ROWS if max(d, ff) <= K4_MMA_NARROW else 32
+
+
+def k4_epilogue_smem_bytes(d: int, ff: int, backward: bool) -> int:
+    """The bf16 epilogue's shared memory (layer_mma.cuh) at its geometry
+    (R rows, widths up to N): a ring of three stages, each the larger of
+    (R + N) rows x 40 bf16 (forward products) and R x 40 fp32 + 32 x (N +
+    8) bf16 (backward products); the seven fp32 bias and LayerNorm vectors
+    of N; the backward's LN1 statistics and three R x 40 bf16 planes."""
+    R = k4_mma_rows(d, ff)
+    N = K4_MMA_NARROW if R == K4_MMA_ROWS else K4_MMA_MAX_WIDTH
+    stage = max((R + N) * 40 * 2, R * 40 * 4 + 32 * (N + 8) * 2)
+    fwd = 3 * stage + 4 * 7 * N
+    return fwd + 4 * 2 * R + 3 * 2 * R * 40 if backward else fwd
 
 
 def k4_mma_smem_bytes(Lq: int, L1: int, L2: int, D: int,
-                      backward: bool) -> int:
+                      backward: bool, d: int = 512, ff: int = 512) -> int:
     """Shared memory of bf16 K4's largest block: K2's core (forward; the
-    backward's with g in fp32, two bf16 halves) or the epilogue's."""
+    backward's with g in fp32, two bf16 halves) or the epilogue's at
+    widths d and ff."""
     core = A.k2_mma_smem_bytes(Lq, L1, L2, D, False)
     if backward:
         core = max(core, A.k2_mma_smem_bytes(Lq, L1, L2, D, True,
                                              g_fp32=True))
-    return max(core, _LM_BWD_SMEM if backward else _LM_FWD_SMEM)
+    return max(core, k4_epilogue_smem_bytes(d, ff, backward))
 
 
 def _check_k4(xq, x1, x2, qkv, ep, masks, num_heads, g=None):
@@ -296,9 +311,10 @@ def _k4_forward_cuda(xq, x1, x2, qkv, ep, masks, num_heads, scale, rate,
     """K4f: att (B, Lq, d) in the compute dtype, then the epilogue. bf16:
     K2f's projection GEMM and core, then the tensor-core epilogue (y1 and g
     through transient (B, Lq, ·) tensors); three launches. fp32: K2f's
-    CUDA-core body, then the row-tile epilogue; two launches."""
+    fp32 route, then the row-tile epilogue."""
     B, Lq, L1, L2, d, dh, ff = _check_k4(xq, x1, x2, qkv, ep, masks,
                                          num_heads)
+    tf32 = k4_body(xq.dtype) == "tf32"
     _k4_smem_check("layer_stream", xq, Lq, L1, L2, dh, d, ff)
     fn = A._fn("layer_stream", "segmm_layer_stream_fwd", ctypes.c_int,
                [ctypes.c_int, ctypes.POINTER(ctypes.c_void_p)]
@@ -308,8 +324,10 @@ def _k4_forward_cuda(xq, x1, x2, qkv, ep, masks, num_heads, scale, rate,
                + [ctypes.c_float, ctypes.c_uint32, ctypes.c_void_p])
     mq, m1, m2 = A._masks_i32(*masks)
     out = torch.empty_like(xq)
-    work = [torch.empty_like(xq)]  # att
-    if k4_body(xq.dtype) == "mma":
+    work = [A._k2_tf32_forward(xq, x1, x2, qkv, masks, num_heads, scale,
+                               rate, seed) if tf32
+            else torch.empty_like(xq)]  # att
+    if not tf32:
         work += [torch.empty_like(xq),
                  torch.empty(B, Lq, ff, dtype=xq.dtype, device=xq.device)]
         work += A.k2_workspace(xq, x1, x2)
@@ -333,8 +351,9 @@ def _k4_backward_cuda(xq, x1, x2, qkv, ep, masks, g, num_heads, scale, rate,
     the LayerNorm gradients summed in order; then K2b's qkv pass on g =
     d_att and its chain with dxq += dr1 and the epilogue's three dW, db.
     bf16: the tensor-core bodies, dW in k4_dw_chunk row chunks (eight
-    launches); fp32: the CUDA-core bodies, dW in K2_DW_SPLITS chunks
-    (seven)."""
+    launches); fp32: att and the qkv pass by K2's fp32 route around the
+    CUDA-core epilogue backward (``segmm_layer_stream_bwd``) and chain
+    (``segmm_layer_stream_chain_bwd``), dW in K2_DW_SPLITS chunks."""
     B, Lq, L1, L2, d, dh, ff = _check_k4(xq, x1, x2, qkv, ep, masks,
                                          num_heads, g)
     _k4_smem_check("layer_stream_bwd", xq, Lq, L1, L2, dh, d, ff)
@@ -349,7 +368,7 @@ def _k4_backward_cuda(xq, x1, x2, qkv, ep, masks, g, num_heads, scale, rate,
     dev, f32, T = xq.device, torch.float32, xq.dtype
     mma = k4_body(T) == "mma"
     rows = B * Lq
-    rows_per_block = K4_MMA_ROWS if mma else K4_BWD_ROWS
+    rows_per_block = k4_mma_rows(d, ff) if mma else K4_BWD_ROWS
     nblk = (rows + rows_per_block - 1) // rows_per_block
     # workspace: att (T), y1 (T), gact (T); d_att (bf16: its hi and lo
     # halves in the same bytes), dr1, dm, dh (rows, d), du (rows, ff) fp32;
@@ -377,16 +396,33 @@ def _k4_backward_cuda(xq, x1, x2, qkv, ep, masks, g, num_heads, scale, rate,
         chunk = 0
         parts = splits * (7 * (d * d + d) + 2 * d * ff + ff + d)
     scratch = torch.empty(parts, dtype=f32, device=dev)
+    args = (rate, seed)
     rate, kdiv, seed = A._drop_args(rate, seed)
+    ptrs = A._ptrs((xq, x1, x2, *qkv, *ep))
+    if not mma:  # att, as the forward made it
+        work[0] = A._k2_tf32_forward(xq, x1, x2, qkv, masks, num_heads,
+                                     scale, *args)
+    # bf16: all of K4b; fp32: the epilogue backward (d_att in work[3]) and
+    # the LayerNorm gradients
     with torch.cuda.device(dev):
-        code = fn(A._DTYPE_CODE[T], A._ptrs((xq, x1, x2, *qkv, *ep)),
-                  mq.data_ptr(), m1.data_ptr(), m2.data_ptr(), g.data_ptr(),
-                  A._ptrs(work), A._ptrs(dx), A._ptrs(grads),
-                  scratch.data_ptr(),
-                  B, Lq, L1, L2, d, num_heads, ff, splits, chunk,
-                  float(scale), rate, kdiv, _epi_div(rate, T), seed,
-                  A._stream_ptr(dev))
+        code = fn(A._DTYPE_CODE[T], ptrs, mq.data_ptr(), m1.data_ptr(),
+                  m2.data_ptr(), g.data_ptr(), A._ptrs(work), A._ptrs(dx),
+                  A._ptrs(grads), scratch.data_ptr(), B, Lq, L1, L2, d,
+                  num_heads, ff, splits, chunk, float(scale), rate, kdiv,
+                  _epi_div(rate, T), seed, A._stream_ptr(dev))
     A._raise_on_cuda_error(code, "layer_stream_bwd")
+    if not mma:  # the qkv pass on d_att into work[9..14], then the chain
+        work[9:15] = A._k2_tf32_qkv_grads(xq, x1, x2, qkv, masks, work[3],
+                                          num_heads, scale, *args)
+        chain = A._fn("layer_stream_bwd", "segmm_layer_stream_chain_bwd",
+                      ctypes.c_int, [ctypes.POINTER(ctypes.c_void_p)] * 4
+                      + [ctypes.c_void_p] + [ctypes.c_int] * 7
+                      + [ctypes.c_void_p])
+        with torch.cuda.device(dev):
+            code = chain(ptrs, A._ptrs(work), A._ptrs(dx), A._ptrs(grads),
+                         scratch.data_ptr(), B, Lq, L1, L2, d, ff, splits,
+                         A._stream_ptr(dev))
+        A._raise_on_cuda_error(code, "layer_stream_chain_bwd")
     A.LAUNCHES["layer_stream_bwd"] += 1
     params = tuple(qkv[0::2]) + tuple(qkv[1::2]) + tuple(ep)
     out = [t.to(p.dtype) for t, p in zip(grads, params)]

@@ -29,9 +29,16 @@ def test_library_files_start_with_its_source(lib):
 
 
 def test_fp32_backward_libraries_have_their_head_dim_parts():
+    """The fp32 (3xTF32) bodies' instantiations by head dim, in parts of
+    their libraries (the forwards' past 64, the backwards' at 16, 64, 96
+    and 128), in the order the build globs them."""
     for lib in ("two_block_attention_bwd", "masked_attention_bwd"):
         assert [f.name for f in build._files(lib)[1:]] == [
-            f"{lib}.d16.cu", f"{lib}.d64.cu"]
+            f"{lib}.d128.cu", f"{lib}.d16.cu", f"{lib}.d64.cu",
+            f"{lib}.d96.cu"]
+    for lib in ("two_block_attention", "masked_attention"):
+        assert [f.name for f in build._files(lib)[1:]] == [
+            f"{lib}.d128.cu", f"{lib}.d96.cu"]
 
 
 def test_library_name_follows_its_parts(tmp_path, monkeypatch):

@@ -332,7 +332,7 @@ def test_k6b_mma_body_matches_plain(cuda, shape, dh, rate):
     proj_two_block_attention_v2_bwd_plain; it counts once and launches no
     K2b."""
     assert A.k6_body(torch.bfloat16) == "mma"
-    assert A.k6_body(torch.float32) == "cuda_core"
+    assert A.k6_body(torch.float32) == "tf32"
     rng = np.random.default_rng(12)
     B, (Lq, L1, L2), d = 8, shape, 256
     heads, scale = d // dh, 1 / math.sqrt(dh)
@@ -402,7 +402,7 @@ def test_k5b_mma_body_matches_plain(cuda, lengths, dh, rate):
     in one launch, dx over six pairs, 12 dW in row chunks) at head dims 16
     and 64 (d = 256) against dual_stream_attention_bwd_plain."""
     assert K5.k5_body(torch.bfloat16) == "mma"
-    assert K5.k5_body(torch.float32) == "cuda_core"
+    assert K5.k5_body(torch.float32) == "tf32"
     rng = np.random.default_rng(14)
     B, (Lv, Lu), d = 8, lengths, 256
     heads, scale = d // dh, 1 / math.sqrt(dh)
@@ -449,13 +449,35 @@ K3_SHAPES = [(40, 100), (100, 40), (40, 1), (1, 40), (40, 40), (128, 128),
              pytest.param((40, 100, 50.0), id="near_one_hot")]
 
 
+def _k3_onehot_hold(dev, rate):
+    """fp32 K3 on near-one-hot rows as chip_smoke.py holds it
+    (``k3_onehot``, ``k3_onehot_hold``): its ONEHOT_DRAWS draws at (40,
+    100), B=64, each from a generator of its own seeded ONEHOT_SEED + i;
+    K3f against the function in fp64 (``_masked_f64``) at TOL[float32],
+    K3b against its plain version at BWD_TOL. Against the fp32 plain
+    version K3f cannot be held at 1e-4 there: the kernel is 7.63e-5 and
+    the plain version 6.72e-5 from the function in fp64, and the two differ
+    by up to 1.34e-4 (the logits' rounding, ~50 x an fp32 ulp, grows
+    through exp)."""
+    import chip_smoke as CS
+    rows = [r for r in CS.k3_onehot(A, dev, torch.float32)
+            if r["rate"] == (rate and CS.DROP_RATE)]
+    assert len(rows) == CS.ONEHOT_DRAWS
+    assert TOL[torch.float32]["atol"] == CS.TOL[torch.float32][0]
+    CS.k3_onehot_hold(rows, torch.float32)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("rate", [0.0, 0.1], ids=["eval", "dropout"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", K3_SHAPES)
 def test_k3_kernels_match_plain(cuda, shape, dtype, rate):
     """K3f and K3b against their plain versions, padded query and key rows;
-    each launch counts once."""
+    each launch counts once. fp32 on near-one-hot rows: K3f against the
+    function in fp64 over chip_smoke.py's 32 draws (``_k3_onehot_hold``)."""
+    if len(shape) > 2 and dtype == torch.float32:
+        _k3_onehot_hold(cuda, rate)
+        return
     rng = np.random.default_rng(5)
     B, (Lq, Lk), amp = 16, shape[:2], (shape[2:] or (1.0,))[0]
     q, k, v = _on(cuda, [a * rng.normal(size=(B, L, H, DH)).astype(np.float32)
@@ -552,14 +574,15 @@ def test_fp32_backward_head_dims(cuda, kernel, lengths, heads, dh, rate):
 # fp32 K1f and K3f on the TF32 tensor cores (3xTF32) at head dims 16, 32
 # and 64, Lq = 1 and the largest shapes, each batch row 0 with a fully
 # padded query row; K1f also at head dim 128, which its shape rule sends to
-# the CUDA-core body: (kernel, lengths, heads, head dim, body)
+# the tensor-core body too (in query windows past one block's shared
+# memory): (kernel, lengths, heads, head dim, body)
 FP32_FWD_CASES = [("K1f", (40, 40, 100), 32, 16, "tf32"),
                   ("K1f", (100, 40, 100), 16, 32, "tf32"),
                   ("K1f", (1, 40, 1), 16, 32, "tf32"),
                   ("K1f", (40, 40, 1), 16, 32, "tf32"),
                   ("K1f", (100, 40, 100), 8, 64, "tf32"),
                   ("K1f", (128, 128, 128), 8, 64, "tf32"),
-                  ("K1f", (40, 40, 100), 4, 128, "cuda_core"),
+                  ("K1f", (40, 40, 100), 4, 128, "tf32"),
                   ("K3f", (40, 100), 32, 16, "tf32"),
                   ("K3f", (1, 40), 16, 32, "tf32"),
                   ("K3f", (128, 128), 8, 64, "tf32")]
@@ -575,7 +598,7 @@ def test_fp32_forward_bodies(cuda, kernel, lengths, heads, dh, body, rate):
     rng = np.random.default_rng(8)
     Lq = lengths[0]
     if kernel == "K1f":
-        assert A.k1_forward_body(torch.float32, *lengths, dh) == body
+        assert A.k1_body(torch.float32, *lengths, dh) == body
         L = (Lq, Lq, lengths[1], lengths[2], lengths[1], lengths[2])
         masks = _on(cuda, _masks_for(rng, B, *lengths))
         fused, plain = A.fused_two_block_attention, A.two_block_attention_plain
@@ -604,15 +627,18 @@ def test_k1f_tf32_shared_memory_matches_the_rule(cuda):
                  ctypes.c_size_t, [ctypes.c_int] * 5)
     for shape in ((40, 40, 100), (100, 40, 100), (1, 40, 1), (300, 128, 128),
                   (7, 13, 250)):
-        for D in (4, 16, 20, 32, 36, 64):
-            assert smem(1, *shape, D) == A.k1_tf32_smem_bytes(*shape, D)
+        for D in (4, 16, 20, 32, 36, 64, 96, 128):
+            w = A.tf32_window(shape[0], shape[1:], D, False)
+            assert smem(1, *shape, D) == A.tf32_smem_bytes(
+                w or shape[0], shape[1:], D, False)
 
 
 @pytest.mark.cuda
 def test_k1b_rejects_shapes_past_shared_memory(cuda):
-    """fp32 K1b raises where its tiles and P do not fit one block's shared
-    memory, rather than launching."""
-    B, H, D, L = 2, 2, 64, 128
+    """fp32 K1b raises where no query window of its tiles and P fits one
+    block's shared memory, rather than launching (head dim 128 over two
+    blocks of 128 keys)."""
+    B, H, D, L = 2, 2, 128, 128
     t = torch.zeros(B, L, H, D, device=cuda)
     m = torch.ones(B, L, dtype=torch.bool, device=cuda)
     with pytest.raises(ValueError, match="shared memory"):
@@ -755,3 +781,323 @@ def test_k4_bf16_narrow_model_and_repeatable_grads(cuda, shape, heads,
                                              SCALE, rate, 99)], dtype)
     _rel_close(got, K4.layer_stream_bwd_plain(*xs, qkv, ep, *masks, g,
                                               heads, SCALE, rate, 99), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.1], ids=["eval", "dropout"])
+@pytest.mark.parametrize("dh", [16, 32, 64, 128])
+@pytest.mark.parametrize("shape", K6_MMA_SHAPES)
+def test_k6f_mma_body_matches_plain(cuda, shape, dh, rate):
+    """bf16 K6f (K2f's projection GEMM and core with K6's dropout keys)
+    through its wrapper, blocks in the order given (an unaligned L1
+    included, which the entry point would swap), against
+    proj_two_block_attention_v2_plain; it counts once and launches no K2f."""
+    assert A.k6_body(torch.bfloat16) == "mma"
+    rng = np.random.default_rng(13)
+    B, (Lq, L1, L2), d = 8, shape, 256 if dh < 128 else 512
+    heads, scale = d // dh, 1 / math.sqrt(dh)
+    inputs = _on(cuda, [rng.normal(size=(B, L, d)).astype(np.float32)
+                        for L in (Lq, L1, L2)] + _proj_params(rng, d),
+                 torch.bfloat16)
+    masks = _on(cuda, _masks_for(rng, B, Lq, L1, L2))
+    before = dict(A.LAUNCHES)
+    got = A._k6_forward_cuda(*inputs[:3], inputs[3:], masks, heads, scale,
+                             rate, 31)
+    assert A.LAUNCHES["proj_two_block_attention_v2"] == \
+        before["proj_two_block_attention_v2"] + 1
+    assert A.LAUNCHES["proj_two_block_attention"] == \
+        before["proj_two_block_attention"]
+    torch.testing.assert_close(
+        got.float(), A.proj_two_block_attention_v2_plain(
+            *inputs, *masks, heads, scale, rate, 31).float(),
+        **TOL[torch.bfloat16])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.1], ids=["eval", "dropout"])
+@pytest.mark.parametrize("dh", [16, 32, 64, 128])
+@pytest.mark.parametrize("lengths", [(40, 100), (100, 40), (128, 7)])
+def test_k5f_mma_body_matches_plain(cuda, lengths, dh, rate):
+    """bf16 K5f (both streams' six projections as one GEMM, both streams'
+    cores in one launch, the user stream salted from head H) against
+    dual_stream_attention_plain; it counts once."""
+    assert K5.k5_body(torch.bfloat16) == "mma"
+    rng = np.random.default_rng(14)
+    B, (Lv, Lu), d = 8, lengths, 256 if dh < 128 else 512
+    heads, scale = d // dh, 1 / math.sqrt(dh)
+    xv, xu = _on(cuda, [rng.normal(size=(B, L, d)).astype(np.float32)
+                        for L in (Lv, Lu)], torch.bfloat16)
+    ws = _on(cuda, _proj_params(rng, d, 12), torch.bfloat16)
+    mv, mu = _on(cuda, (_masks(rng, B, Lv, False), _masks(rng, B, Lu, True)))
+    before = A.LAUNCHES["dual_stream_attention"]
+    got = K5._k5_forward_cuda(xv, xu, ws[:12], ws[12:], mv, mu, heads, scale,
+                              rate, 37)
+    assert A.LAUNCHES["dual_stream_attention"] == before + 1
+    want = K5.dual_stream_attention_plain(xv, xu, ws[:12], ws[12:], mv, mu,
+                                          heads, scale, rate, 37)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a.float(), b.float(),
+                                   **TOL[torch.bfloat16])
+
+
+# Head dims past the flagship's 32, the widened bodies: d_model 768 with 16
+# and 8 heads (48, 96) and d_model 512 with 4 (128, skip_train --nhead 4)
+WIDE_D = {48: 768, 96: 768, 128: 512}
+
+
+def _wide_rate_ids(rate):
+    return "dropout" if rate else "eval"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.1], ids=_wide_rate_ids)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("dh", list(WIDE_D))
+def test_wide_k1_matches_plain(cuda, dh, shape, dtype, rate):
+    """K1f and K1b at head dims 48, 96 and 128 on the body k1_body names
+    (fp32: the tensor-core one, in query windows where one block's tiles
+    exceed shared memory; bf16 past its CUDA-core body's shared memory:
+    the fp32 one on fp32 copies); each launch counts once."""
+    rng = np.random.default_rng(15)
+    B, (Lq, L1, L2), heads = 8, shape, WIDE_D[dh] // dh
+    scale = 1 / math.sqrt(dh)
+    qkv = _on(cuda, [rng.normal(size=(B, L, heads, dh)).astype(np.float32)
+                     for L in (Lq, Lq, L1, L2, L1, L2)], dtype)
+    masks = _on(cuda, _masks_for(rng, B, Lq, L1, L2))
+    g = _on(cuda, [rng.normal(size=(B, Lq, heads, dh)).astype(np.float32)],
+            dtype)[0]
+    leaves = [t.clone().requires_grad_() for t in qkv]
+    before = dict(A.LAUNCHES)
+    out = A.fused_two_block_attention(*leaves, *masks, scale=scale,
+                                      dropout_rate=rate, seed=5,
+                                      deterministic=rate == 0)
+    got = torch.autograd.grad(out, leaves, g)
+    for k in ("two_block_attention", "two_block_attention_bwd"):
+        assert A.LAUNCHES[k] == before[k] + 1
+    torch.testing.assert_close(out.float(), A.two_block_attention_plain(
+        *qkv, *masks, scale, rate, 5).float(), **TOL[dtype])
+    _rel_close(got, A.two_block_attention_bwd_plain(
+        *qkv, *masks, g, scale, rate, 5), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.1], ids=_wide_rate_ids)
+@pytest.mark.parametrize("version", [1, 2], ids=["K2", "K6"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("dh", list(WIDE_D))
+def test_wide_k2_and_k6_match_plain(cuda, dh, shape, dtype, version, rate):
+    """K2f / K2b and K6f / K6b at head dims 48, 96 and 128: bf16 on the
+    tensor-core pieces (the backward core staging its operands in turns
+    past 64), fp32 on the CUDA-core bodies at 48 and past them on the
+    projections and K1's tensor-core body ("tf32")."""
+    rng = np.random.default_rng(16)
+    B, (Lq, L1, L2), d = 8, shape, WIDE_D[dh]
+    heads, scale = d // dh, 1 / math.sqrt(dh)
+    inputs = _on(cuda, [rng.normal(size=(B, L, d)).astype(np.float32)
+                        for L in (Lq, L1, L2)] + _proj_params(rng, d), dtype)
+    masks = _on(cuda, _masks_for(rng, B, Lq, L1, L2))
+    g = _on(cuda, [rng.normal(size=(B, Lq, d)).astype(np.float32)],
+            dtype)[0]
+    keys = (("proj_two_block_attention", "proj_two_block_attention_bwd")
+            if version == 1 else ("proj_two_block_attention_v2",
+                                  "proj_two_block_attention_v2_bwd"))
+    leaves = [t.clone().requires_grad_() for t in inputs]
+    before = dict(A.LAUNCHES)
+    out = A.fused_proj_two_block_attention(
+        *leaves, *masks, num_heads=heads, scale=scale, dropout_rate=rate,
+        seed=7, deterministic=rate == 0, version=version)
+    got = torch.autograd.grad(out, leaves, g)
+    for k in keys:
+        assert A.LAUNCHES[k] == before[k] + 1
+    plain, plain_bwd = ((A.proj_two_block_attention_plain,
+                         A.proj_two_block_attention_bwd_plain)
+                        if version == 1 else
+                        (A.proj_two_block_attention_v2_plain,
+                         A.proj_two_block_attention_v2_bwd_plain))
+    torch.testing.assert_close(out.float(), plain(
+        *inputs, *masks, heads, scale, rate, 7).float(), **TOL[dtype])
+    _rel_close(got, plain_bwd(*inputs, *masks, g, heads, scale, rate, 7),
+               dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.1], ids=_wide_rate_ids)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(40, 100), (100, 40), (100, 100),
+                                   (40, 1), (1, 40)])
+@pytest.mark.parametrize("dh", list(WIDE_D))
+def test_wide_k3_matches_plain(cuda, dh, shape, dtype, rate):
+    """K3f and K3b at head dims 48, 96 and 128 at CrossAtt's and SelfAtt's
+    shapes (fp32 in query windows where one block's tiles exceed shared
+    memory)."""
+    rng = np.random.default_rng(17)
+    B, (Lq, Lk), heads = 8, shape, WIDE_D[dh] // dh
+    scale = 1 / math.sqrt(dh)
+    q, k, v, g = _on(cuda, [rng.normal(size=(B, L, heads, dh)).astype(
+        np.float32) for L in (Lq, Lk, Lk, Lq)], dtype)
+    masks = _on(cuda, (_masks(rng, B, Lq, Lq > 1), _masks(rng, B, Lk, False)))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = dict(A.LAUNCHES)
+    out = A.fused_masked_attention(*leaves, *masks, scale=scale,
+                                   dropout_rate=rate, seed=9,
+                                   deterministic=rate == 0)
+    got = torch.autograd.grad(out, leaves, g)
+    for key in ("masked_attention", "masked_attention_bwd"):
+        assert A.LAUNCHES[key] == before[key] + 1
+    torch.testing.assert_close(out.float(), A.masked_attention_plain(
+        q, k, v, *masks, scale, rate, 9).float(), **TOL[dtype])
+    _rel_close(got, A.masked_attention_bwd_plain(
+        q, k, v, *masks, g, scale, rate, 9), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.1], ids=_wide_rate_ids)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("lengths", [(40, 100), (100, 40)])
+@pytest.mark.parametrize("dh", list(WIDE_D))
+def test_wide_k5_matches_plain(cuda, dh, lengths, dtype, rate):
+    """K5f and K5b at head dims 48, 96 and 128 (fp32 past 64: each stream
+    on K2's "tf32" body, then the first body's chain)."""
+    rng = np.random.default_rng(18)
+    B, (Lv, Lu), d = 8, lengths, WIDE_D[dh]
+    heads, scale = d // dh, 1 / math.sqrt(dh)
+    xv, xu = _on(cuda, [rng.normal(size=(B, L, d)).astype(np.float32)
+                        for L in (Lv, Lu)], dtype)
+    ws = _on(cuda, _proj_params(rng, d, 12), dtype)
+    mv, mu = _on(cuda, (_masks(rng, B, Lv, False), _masks(rng, B, Lu, True)))
+    gv, gu = _on(cuda, [rng.normal(size=(B, L, d)).astype(np.float32)
+                        for L in (Lv, Lu)], dtype)
+    leaves = [t.clone().requires_grad_() for t in [xv, xu] + ws]
+    pairs = lambda ts: [(ts[i], ts[i + 1]) for i in range(0, 12, 2)]  # noqa
+    before = dict(A.LAUNCHES)
+    ov, ou = K5.fused_dual_stream_attention(
+        leaves[0], leaves[1], pairs(leaves[2:14]), pairs(leaves[14:]), mv,
+        mu, num_heads=heads, scale=scale, dropout_rate=rate, seed=11,
+        deterministic=rate == 0)
+    got = torch.autograd.grad((ov, ou), leaves, (gv, gu))
+    for k in ("dual_stream_attention", "dual_stream_attention_bwd"):
+        assert A.LAUNCHES[k] == before[k] + 1
+    wv, wu = K5.dual_stream_attention_plain(xv, xu, ws[:12], ws[12:], mv, mu,
+                                            heads, scale, rate, 11)
+    torch.testing.assert_close(ov.float(), wv.float(), **TOL[dtype])
+    torch.testing.assert_close(ou.float(), wu.float(), **TOL[dtype])
+    _rel_close(got, K5.dual_stream_attention_bwd_plain(
+        xv, xu, ws[:12], ws[12:], mv, mu, gv, gu, heads, scale, rate, 11),
+        dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.1], ids=_wide_rate_ids)
+@pytest.mark.parametrize("shape", SHAPES[:2])
+@pytest.mark.parametrize("dtype,dh,d", [
+    (torch.bfloat16, 128, 512), (torch.bfloat16, 48, 768),
+    (torch.bfloat16, 96, 768), (torch.float32, 128, 512),
+    (torch.float32, 96, 384), (torch.float32, 48, 384)],
+    ids=lambda v: str(v).replace("torch.", ""))
+def test_wide_k4_matches_plain(cuda, dtype, dh, d, shape, rate):
+    """K4f and K4b at head dims 48, 96 and 128, bf16 also at d = ff = 768
+    (the epilogue's 32-row blocks), fp32 at 96 and 128 on K2's "tf32" body
+    around its CUDA-core epilogue and chain (fp32 at d 384: its row-tile
+    epilogue takes no d = 768)."""
+    rng = np.random.default_rng(19)
+    B, heads = 8, d // dh
+    xs, qkv, ep, masks, g = _k4_inputs(cuda, rng, B, shape, d, d, dtype)
+    leaves = [t.clone().requires_grad_() for t in xs + qkv + ep]
+    before = dict(A.LAUNCHES)
+    out = _k4_call(leaves, masks, heads, rate)
+    got = torch.autograd.grad(out, leaves, g)
+    for k in ("layer_stream", "layer_stream_bwd"):
+        assert A.LAUNCHES[k] == before[k] + 1
+    _rel_close([out], [K4.layer_stream_plain(*xs, qkv, ep, *masks, heads,
+                                             SCALE, rate, 99)], dtype)
+    _rel_close(got, K4.layer_stream_bwd_plain(*xs, qkv, ep, *masks, g,
+                                              heads, SCALE, rate, 99), dtype)
+
+
+# skip_train --nhead 4 (head dim 128): one layer of the model per route,
+# fp32, dropout off, a step's forward and backward on the card (the
+# routes' kernels) against the CPU (their plain versions)
+NHEAD4_ROUTES = {"k1": dict(fused_attention=True),
+                 "k2": dict(fused_attention=True, fuse_qkv=True),
+                 "k6": dict(fused_attention=True, fuse_qkv=True),
+                 "k3-CrossAtt": dict(fused_attention=True,
+                                     ablation="CrossAtt"),
+                 "k5-fuse_dual": dict(fused_attention=True, fuse_dual=True),
+                 "k4-fuse_layer": dict(fuse_layer=True)}
+NHEAD4_KERNELS = {"k1": "two_block_attention_bwd",
+                  "k2": "proj_two_block_attention_bwd",
+                  "k6": "proj_two_block_attention_v2_bwd",
+                  "k3-CrossAtt": "masked_attention_bwd",
+                  "k5-fuse_dual": "dual_stream_attention_bwd",
+                  "k4-fuse_layer": "layer_stream_bwd"}
+# a leaf whose CPU gradient stays below this share of the model's largest
+# gradient is rounding noise on both devices
+NOISE_GRAD = 1e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", list(NHEAD4_ROUTES))
+def test_nhead4_layer_step_on_the_card_matches_the_cpu(cuda, route,
+                                                       monkeypatch):
+    """The model at d_model 512 with 4 heads, one layer run (two built: it
+    reads the last one's input), both modalities (streams of 40 and 100
+    segments), B=4: the loss and every parameter's gradient of a step on
+    the card within BWD_TOL[fp32] of the CPU's, each relative to its own
+    largest CPU value; the route's backward kernel launched on the card.
+    A leaf whose CPU gradient stays below NOISE_GRAD of the model's largest
+    is rounding noise on both devices and is not held (a key projection's
+    bias: zero in exact arithmetic, since the softmax does not see it,
+    ~4e-9 on the CPU); the skipped leaves are printed with their norms."""
+    from segmminterest_tpu_torch.models.interest import SegInterestModel
+    monkeypatch.setattr(A, "ATTN_V2", route == "k6")
+    rng = np.random.default_rng(20)
+    B, F, LU = 4, 48, 100
+    kw = dict(d_model=512, num_heads=4, num_layers=2, ff_dim=512,
+              n_users=20, n_items=30, fusion_heads=2, feat_dim=F,
+              dropout=0.0, **NHEAD4_ROUTES[route])
+    torch.manual_seed(0)
+    cpu = SegInterestModel(**kw).train()
+    card = SegInterestModel(**kw).train()
+    card.load_state_dict(cpu.state_dict())
+    card.to(cuda)
+    um = np.arange(LU)[None] < rng.integers(1, LU + 1, B)[:, None]
+    vm = np.arange(40)[None] < rng.integers(1, 41, B)[:, None]
+    args = (rng.normal(size=(B, LU, F)).astype(np.float32),
+            rng.integers(1, 21, B).astype(np.int32), um,
+            rng.normal(size=(B, 40, F)).astype(np.float32),
+            rng.integers(1, 31, B).astype(np.int32), vm)
+    w = torch.from_numpy(rng.normal(size=(B, 40)).astype(np.float32))
+    grads, losses = {}, {}
+    for name, model, dev in (("cpu", cpu, torch.device("cpu")),
+                             ("cuda", card, cuda)):
+        A.reset_launch_counts()
+        loss = (model(*(torch.from_numpy(a).to(dev) for a in args))
+                * w.to(dev)).sum()
+        loss.backward()
+        losses[name] = loss.item()
+        grads[name] = {n: p.grad.float().cpu()
+                       for n, p in model.named_parameters()
+                       if p.grad is not None}
+        launched = A.LAUNCHES[NHEAD4_KERNELS[route]]
+        assert launched > 0 if name == "cuda" else launched == 0
+    assert abs(losses["cuda"] - losses["cpu"]) <= \
+        BWD_TOL[torch.float32] * abs(losses["cpu"])
+    assert set(grads["cuda"]) == set(grads["cpu"])
+    largest = max(g.abs().max().item() for g in grads["cpu"].values())
+    bad, skipped = [], []
+    for n, want in sorted(grads["cpu"].items()):
+        got = grads["cuda"][n]
+        assert torch.isfinite(got).all(), n
+        top = want.abs().max().item()
+        if top < NOISE_GRAD * largest:
+            skipped.append(f"{n} (cpu {want.norm():.3g}, card "
+                           f"{got.norm():.3g})")
+            continue
+        err = (got - want).abs().max().item() / top
+        if err > BWD_TOL[torch.float32]:
+            bad.append(f"{n}: {err:.3g} of its largest {top:.3g}")
+    print(f"{route}: leaves not held (below {NOISE_GRAD} of the largest "
+          f"gradient {largest:.3g}): {skipped}")
+    assert not bad, bad

@@ -243,7 +243,7 @@ def test_k4b_core_fp32_g_split_matches_plain(rng, shape, drop):
 
 def test_k4_body_by_dtype():
     assert LK.k4_body(torch.bfloat16) == "mma"
-    assert LK.k4_body(torch.float32) == "cuda_core"
+    assert LK.k4_body(torch.float32) == "tf32"
 
 
 @pytest.mark.parametrize("B", [1, 7, 16, 1024, 65535])
@@ -339,8 +339,9 @@ def test_k4_wrappers_hand_each_body_its_operands(dtype, ff, monkeypatch):
     """bf16: K4f gets att, y1, g and K2's three-tensor workspace; K4b the
     fp32 body's fifteen buffers with 64-row LayerNorm partials, the
     workspace, dW's row chunk and a scratch of the nine weights' chunks.
-    fp32: att alone; fifteen buffers with 16-row partials, K2_DW_SPLITS
-    chunks a weight."""
+    fp32: att alone (K2's fp32 route's); K4b fifteen buffers with 16-row
+    partials, then the chain's own launch, K2_DW_SPLITS chunks a
+    weight."""
     fake = _FakeLib()
     monkeypatch.setattr(A, "_fn", fake)
     monkeypatch.setattr(A, "_stream_ptr", lambda dev: ctypes.c_void_p(0))
@@ -371,6 +372,10 @@ def test_k4_wrappers_hand_each_body_its_operands(dtype, ff, monkeypatch):
     assert _n_ptrs(fwd[5]) == (6 if mma else 1)
     assert _n_ptrs(bwd[6]) == (18 if mma else 15)
     splits, chunk = bwd[17], bwd[18]
+    assert ("segmm_layer_stream_chain_bwd" in fake.calls) == (not mma)
+    if not mma:
+        chain = fake.calls["segmm_layer_stream_chain_bwd"]
+        assert _n_ptrs(chain[1]) == 15 and chain[-2] == splits
     rows = LK.K4_MMA_ROWS if mma else LK.K4_BWD_ROWS
     nblk = -(-B * Lq // rows)
     assert any(a == (nblk, 4, D) for a, _ in allocated)
@@ -385,7 +390,7 @@ def test_k4_wrappers_hand_each_body_its_operands(dtype, ff, monkeypatch):
 
 
 def test_k4_mma_refuses_widths_past_its_registers():
-    """The bf16 epilogue holds a block's full rows: widths past 512 raise
+    """The bf16 epilogue holds a block's full rows: widths past 768 raise
     before any launch (fp32's body takes what its shared memory takes)."""
     d, ff = 512, 1024
     xs = [torch.zeros(2, 4, d, dtype=torch.bfloat16) for _ in range(3)]

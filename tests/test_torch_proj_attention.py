@@ -13,7 +13,8 @@ emulated on the CPU, and the wrapper's rules around them.
   reproduces ``_joint_bwd_plain`` within 1e-4 (and so within the 3e-2
   that tests/test_torch_kernels.py holds bf16 K2b to on the card).
 * ``k2_body`` picks the bodies by dtype; the wrappers hand the bf16 bodies
-  their workspace and dW's row chunks, the fp32 ones neither; the bf16
+  their workspace and dW's row chunks, and run fp32 as the projections,
+  K1's 3xTF32 body and the CUDA-core chain; the bf16
   core's shared memory takes every shape the CUDA-core bf16 bodies
   (proj_attention.cuh) took; dW's chunks cover every row and stay within the kernel's table.
 """
@@ -168,7 +169,7 @@ def test_k2b_core_hilo_matches_plain(rng, shape, drop):
 
 def test_k2_body_by_dtype():
     assert A.k2_body(torch.bfloat16) == "mma"
-    assert A.k2_body(torch.float32) == "cuda_core"
+    assert A.k2_body(torch.float32) == "tf32"
 
 
 def _old_bf16_smem(Lq, L1, L2, dh, backward):
@@ -239,8 +240,9 @@ def _n_ptrs(arr):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_k2_wrappers_hand_each_body_its_operands(rng, dtype, monkeypatch):
     """bf16: K2f and K2b's qkv pass get a three-tensor workspace, K2b's
-    chain dW's row chunk and a scratch of its chunks; fp32: no workspace,
-    K2_DW_SPLITS chunks a weight."""
+    chain dW's row chunk and a scratch of its chunks; fp32: the pair
+    projections, then K1f's and K1b's tensor-core body (never K2's bf16
+    entries), and the chain K2_DW_SPLITS chunks a weight."""
     fake = _FakeLib()
     monkeypatch.setattr(A, "_fn", fake)
     monkeypatch.setattr(A, "_stream_ptr", lambda dev: ctypes.c_void_p(0))
@@ -257,16 +259,24 @@ def test_k2_wrappers_hand_each_body_its_operands(rng, dtype, monkeypatch):
     A._k2_forward_cuda(*xs, ws, masks, H, 0.1, 0.0, 0)
     grads = A._k2_backward_cuda(*xs, ws, masks, g, H, 0.1, 0.0, 0)
     assert len(grads) == 15
-    fwd = fake.calls["segmm_proj_two_block_attention_fwd"]
-    qkv = fake.calls["segmm_proj_two_block_attention_qkv_bwd"]
     chain = fake.calls["segmm_proj_two_block_attention_chain_bwd"]
     mma = dtype == torch.bfloat16
-    assert fwd[0] == qkv[0] == chain[0] == (1 if mma else 0)
-    assert _n_ptrs(fwd[6]) == _n_ptrs(qkv[7]) == (3 if mma else 0)
+    assert chain[0] == (1 if mma else 0)
     chunk = chain[-2]
     if mma:
+        fwd = fake.calls["segmm_proj_two_block_attention_fwd"]
+        qkv = fake.calls["segmm_proj_two_block_attention_qkv_bwd"]
+        assert fwd[0] == qkv[0] == 1
+        assert _n_ptrs(fwd[6]) == _n_ptrs(qkv[7]) == 3
         assert chunk == A.k2_dw_chunk(B, Lq, L1, L2)
     else:
+        assert "segmm_proj_two_block_attention_fwd" not in fake.calls
+        assert "segmm_proj_two_block_attention_qkv_bwd" not in fake.calls
+        pairs = fake.calls["segmm_project_pairs_f32"]
+        assert pairs[4] == 3 and _n_ptrs(pairs[2]) == 6
+        k1f = fake.calls["segmm_two_block_attention_fwd"]
+        k1b = fake.calls["segmm_two_block_attention_bwd"]
+        assert k1f[:2] == (0, 1) and k1b[0] == 0  # fp32, tensor cores
         assert chunk == 0 and chain[-3] == A.K2_DW_SPLITS
 
 

@@ -262,9 +262,9 @@ def test_k5b_job_lists_match_plain(rng, lengths, drop):
 
 def test_k6_and_k5_bodies_by_dtype():
     assert A.k6_body(torch.bfloat16) == "mma"
-    assert A.k6_body(torch.float32) == "cuda_core"
+    assert A.k6_body(torch.float32) == "tf32"
     assert K5.k5_body(torch.bfloat16) == "mma"
-    assert K5.k5_body(torch.float32) == "cuda_core"
+    assert K5.k5_body(torch.float32) == "tf32"
 
 
 @pytest.mark.parametrize("B", [1, 7, 16, 1024, 65535])
@@ -322,8 +322,8 @@ def fake(monkeypatch):
 def test_k6b_wrapper_hands_each_body_its_operands(fake, dtype):
     """bf16: the weights as they are (15 pointers), the six K2 gradients,
     a three-tensor workspace, dW's row chunk; the gradients come back in
-    K2's layout. fp32: the first body's entry with the interleaved
-    weights."""
+    K2's layout. fp32: K2's fp32 route with K6's keys (K1b's tensor-core
+    body with concat), then K2b's chain, on the weights as they are."""
     B, (Lq, L1, L2) = 4, SHAPES[0]
     xs = [torch.randn(B, L, D, dtype=dtype) for L in (Lq, L1, L2)]
     ws = []
@@ -343,15 +343,19 @@ def test_k6b_wrapper_hands_each_body_its_operands(fake, dtype):
         assert call[-2] == A.k2_dw_chunk(B, Lq, L1, L2)
         assert "segmm_proj_two_block_attention_v2_bwd" not in fake.calls
     else:
-        call = fake.calls["segmm_proj_two_block_attention_v2_bwd"]
-        assert call[0] == 0 and _n_ptrs(call[1]) == 3 + 10 + 2
+        k1b = fake.calls["segmm_two_block_attention_bwd"]
+        assert k1b[0] == 0 and k1b[-2] == 1  # fp32, K6's concatenated keys
+        chain = fake.calls["segmm_proj_two_block_attention_chain_bwd"]
+        assert chain[0] == 0 and _n_ptrs(chain[1]) == 15
         assert "segmm_proj_two_block_attention_v2_bwd_mma" not in fake.calls
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_k5b_wrapper_hands_each_body_its_operands(fake, dtype):
     """bf16: six workspaces, twelve gradients, dW's row chunk of
-    k5_dw_chunk; fp32: the first body's entry with K2_DW_SPLITS."""
+    k5_dw_chunk; fp32: each stream's qkv pass by K2's fp32 route (the user
+    stream's salts from head H), then the chain's entry with twelve
+    gradients and K2_DW_SPLITS."""
     B, Lv, Lu = 4, 40, 100
     xv, xu = (torch.randn(B, L, D, dtype=dtype) for L in (Lv, Lu))
     ws = []
@@ -369,6 +373,10 @@ def test_k5b_wrapper_hands_each_body_its_operands(fake, dtype):
         assert _n_ptrs(call[7]) == 2 and _n_ptrs(call[8]) == 24
         assert call[-2] == K5.k5_dw_chunk(B, Lv, Lu)
     else:
-        call = fake.calls["segmm_dual_stream_attention_bwd"]
-        assert call[0] == 0 and call[-2] == A.K2_DW_SPLITS
+        k1b = fake.calls["segmm_two_block_attention_bwd"]
+        assert k1b[0] == 0 and k1b[-3] == H  # the last call: the user stream
+        call = fake.calls["segmm_dual_stream_attention_chain_bwd"]
+        assert _n_ptrs(call[0]) == 26 and _n_ptrs(call[1]) == 12
+        assert _n_ptrs(call[2]) == 2 and _n_ptrs(call[3]) == 24
+        assert call[-2] == A.K2_DW_SPLITS
         assert "segmm_dual_stream_attention_bwd_mma" not in fake.calls
