@@ -16,7 +16,12 @@ Phases, each of which fails the run (non-zero exit) on any error:
                  dropout off and on, near-one-hot rows for K1b and K3,
                  every kernel also at head dims 48, 96 and 128 (d_model
                  768 / 16 and 8 heads, 512 / 4) in fp32 and bf16, and
-                 timed at 4 heads of 128 (the `<K> D128` entries); fp32
+                 timed at 4 heads of 128 (the `<K> D128` entries); every
+                 kernel at streams past its core's one chunk ((200, 150,
+                 300), (1, 300, 7); K3 (200, 300), (128, 128)) and K4 at
+                 d = ff = 1024, fp32 and bf16, dropout off and on, K1b's
+                 and K3b's gradients bit-equal across two calls; bf16 K1f
+                 and K1b at B=1024 beside SDPA's bf16 calls; fp32
                  K1b's and K3b's outputs on fixed inputs bit for bit those
                  of the tree that introduced their bodies (a SHA-256);
                  bf16 K2b's, K4b's, K5b's and K6b's dW and db bit-equal
@@ -45,6 +50,10 @@ Phases, each of which fails the run (non-zero exit) on any error:
   train_default  the default config trained (K1, fp32, layer remat): 40 K1f
                  + 18 K1b per step; one 32-row fp32 step against the CPU on
                  the K2 route and one on the K1 route (18 K1b)
+  train_bf16     the default config in bf16 (--compute_dtype bfloat16, K1
+                 on the bf16 two-block core, layer remat, B=1024): 40 K1f
+                 + 18 K1b per step, K1's share of the step; a batch served
+                 (20 K1f); one 32-row bf16 step against the CPU
   ablation       the ablation models at the flagship width over the same
                  table: CrossAtt and SelfAtt trained in the default config
                  (fp32, K3, layer remat; 40 K3f + 18 K3b and 20 K3f + 10 K3b
@@ -140,8 +149,8 @@ DROP_RATE = 0.1                      # the model's dropout
 
 RESULT = {"kernels": {}, "launches": {}}
 ALL_PHASES = ("build", "kernels", "serving", "default", "train",
-              "train_default", "ablation", "fused_variants", "attn_v2",
-              "wide", "train_cli")
+              "train_default", "train_bf16", "ablation", "fused_variants",
+              "attn_v2", "wide", "train_cli")
 
 
 def log(*a):
@@ -451,6 +460,7 @@ def phase_kernels():
             f"{_ms(t['k1b'])} (sdpa backward {_ms(t['sdpa_bwd'])}; bound "
             f"{1e3 * max(b1 / HBM_BYTES_PER_S, o1):.3f}); sdpa kernels "
             f"{t['sdpa_kernels']}")
+    _k1_bf16_kernels(A, g, dev, k1, k1_plain, scale)
 
     x, ws, m = _k2_inputs(g, B, Lq, L1, L2, torch.bfloat16, dev)
     err2 = _check("K2 B=1024", k2(x, ws, m), k2_plain(x, ws, m),
@@ -556,12 +566,217 @@ def phase_kernels():
     _k6_kernels(A, g, dev, (bytes2, flops2 / PEAK_FLOPS[torch.bfloat16]),
                 (bytes2b, ops2b))
     _wide_kernels(A, dev)
+    _long_kernels(A, dev)
     digest = fp32_bwd_digest(A, dev)
     log(f"  fp32 K1b + K3b outputs, SHA-256: {digest}")
     if digest != FP32_BWD_SHA256:
         raise AssertionError("fp32 K1b / K3b outputs differ from those of "
                              f"their bodies' tree ({FP32_BWD_SHA256})")
     A.reset_launch_counts()
+
+
+# ---------------------------------------------------------------------------
+# Streams past the cores' one-chunk shapes and K4 past its epilogues' widths:
+# every kernel takes every length (the two cores' key-chunk paths,
+# csrc/two_block_chunked.cu and csrc/tf32_chunked.cu) and K4 every width (the
+# row-tile epilogue, fewer rows a block as the width grows)
+LONG_SHAPES = ((200, 150, 300), (1, 300, 7))
+# K6's version 2 needs a block whose length is a multiple of 8
+LONG_K6_SHAPE = (200, 152, 300)
+LONG_K3_SHAPES = ((200, 300), (1, 300), (128, 128))
+LONG_D = {32: 256, 128: 256}    # head dim: d_model (8 heads of 32, 2 of 128)
+LONG_KERNELS = ("K1", "K2", "K6", "K3", "K4", "K5")
+# K4 at d = ff = 1024 (16 heads of 64), past bf16's 768 and fp32's 512
+WIDE_LAYER = (1024, 16, (40, 40, 100))
+
+
+def _long_kernels(A, dev, B=2, dtypes=(torch.float32, torch.bfloat16),
+                  rates=(0.0, DROP_RATE), kernels=LONG_KERNELS):
+    """Each kernel of `kernels` at streams past the cores' one-chunk shapes
+    (K1, K2 with K7b, K6, K5 and K4 at LONG_SHAPES, K3 at LONG_K3_SHAPES),
+    head dims 32 and 128, B=2, in each dtype and dropout rate, against its
+    plain version; K1b's and K3b's gradients bit-equal across two calls
+    where the query windows apply (Lq = 200: four windows); K4 also at
+    WIDE_LAYER's d = ff = 1024. Returns the worst error of each kernel and
+    dtype."""
+    from segmminterest_tpu_torch.core import dual_kernel as K5
+    from segmminterest_tpu_torch.core import layer_kernel as K4
+    g = torch.Generator(device=dev).manual_seed(13)
+    worst = {}
+
+    def note(key, dt, err):
+        key = f"{key} {str(dt)[6:]}"
+        worst[key] = max(worst.get(key, 0.0), err)
+
+    def grads_of(fn, inputs, gout, name, key):
+        n = A.LAUNCHES[key]
+        got = _grads(fn, inputs, gout)
+        if A.LAUNCHES[key] != n + 1:
+            raise AssertionError(f"{name} did not launch {key}")
+        return got
+
+    def same_twice(fn, inputs, gout, got, name):
+        if not all(torch.equal(a, b) for a, b in
+                   zip(got, _grads(fn, inputs, gout))):
+            raise AssertionError(f"{name}: two calls differ")
+
+    def k4_check(name, got, want, dt):
+        # bf16 against the largest output, as _k4_kernels holds it
+        if dt == torch.float32:
+            return _check(name, got, want, dt)
+        return _rel_err(name, [got], [want], BWD_TOL[dt])
+
+    def k4_case(dt, H, d, shape, rate, seed, tag):
+        t4, m4 = _k4_inputs(g, B, *shape, dt, dev, ff=d, d=d)
+        gx = torch.randn(B, shape[0], d, generator=g, device=dev).to(dt)
+        scale = 1.0 / math.sqrt(d // H)
+
+        def k4(*t):
+            return K4.fused_layer_stream(
+                *t[:3], _pairs(t[3:15]), t[15:], *m4, num_heads=H,
+                scale=scale, dropout_rate=rate, seed=seed,
+                deterministic=rate == 0)
+        note("K4f", dt, k4_check(f"K4f {tag}", k4(*t4), K4.layer_stream_plain(
+            *t4[:3], t4[3:15], t4[15:], *m4, H, scale, rate, seed), dt))
+        got = grads_of(k4, t4, gx, "K4b", "layer_stream_bwd")
+        note("K4b", dt, _rel_err(f"K4b {tag}", got, K4.layer_stream_bwd_plain(
+            *t4[:3], t4[3:15], t4[15:], *m4, gx, H, scale, rate, seed),
+            BWD_TOL[dt]))
+
+    for dt in dtypes:
+        for D, d in LONG_D.items():
+            H = d // D
+            scale = 1.0 / math.sqrt(D)
+            for rate in rates:
+                seed = 97531 if rate else 0
+                on = "drop" if rate else "eval"
+                for (Lq, L1, L2) in LONG_SHAPES:
+                    tag = f"{str(dt)[6:]} D={D} {(Lq, L1, L2)} {on}"
+                    qkv, m = _k1_inputs(g, B, Lq, L1, L2, dt, dev, H, d)
+                    gq = torch.randn(B, Lq, H, D, generator=g,
+                                     device=dev).to(dt)
+
+                    def k1(*t):
+                        return A.fused_two_block_attention(
+                            *t, *m, scale=scale, dropout_rate=rate,
+                            seed=seed, deterministic=rate == 0)
+                    if "K1" in kernels:
+                        note("K1f", dt, _check(
+                            f"K1f {tag}", k1(*qkv), A.two_block_attention_plain(
+                                *qkv, *m, scale, rate, seed), dt))
+                        got = grads_of(k1, qkv, gq, "K1b",
+                                       "two_block_attention_bwd")
+                        note("K1b", dt, _rel_err(
+                            f"K1b {tag}", got, A.two_block_attention_bwd_plain(
+                                *qkv, *m, gq, scale, rate, seed),
+                            BWD_TOL[dt]))
+                        same_twice(k1, qkv, gq, got, f"K1b {tag}")
+                    gx = gq.reshape(B, Lq, d)
+                    for name in ("K2", "K6"):
+                        if name not in kernels or (
+                                name == "K6" and (Lq, L1, L2) != LONG_SHAPES[0]):
+                            continue
+                        v2 = name == "K6"
+                        x, ws, mx = _k2_inputs(
+                            g, B, *(LONG_K6_SHAPE if v2 else (Lq, L1, L2)), dt,
+                            dev, d)
+                        plain = (A.proj_two_block_attention_v2_plain if v2
+                                 else A.proj_two_block_attention_plain)
+                        plain_b = (A.proj_two_block_attention_v2_bwd_plain if v2
+                                   else A.proj_two_block_attention_bwd_plain)
+
+                        def k2(*t):
+                            return A.fused_proj_two_block_attention(
+                                *t[:3], *t[3:], *mx, num_heads=H, scale=scale,
+                                dropout_rate=rate, seed=seed,
+                                deterministic=rate == 0,
+                                version=2 if v2 else 1)
+                        inputs = tuple(x) + tuple(ws)
+                        note(f"{name}f", dt, _check(
+                            f"{name}f {tag}", k2(*inputs),
+                            plain(*x, *ws, *mx, H, scale, rate, seed), dt))
+                        want = plain_b(*x, *ws, *mx, gx, H, scale, rate, seed)
+                        key = ("proj_two_block_attention_v2_bwd" if v2
+                               else "proj_two_block_attention_bwd")
+                        note(f"{name}b", dt, _rel_err(
+                            f"{name}b {tag}", grads_of(k2, inputs, gx,
+                                                       f"{name}b", key),
+                            want, BWD_TOL[dt]))
+                        if not v2:
+                            A.ATTN_V3_BWD = True
+                            try:
+                                got = grads_of(
+                                    k2, inputs, gx, "K7b",
+                                    "proj_two_block_attention_qkv_bwd")
+                            finally:
+                                A.ATTN_V3_BWD = False
+                            note("K7b", dt, _rel_err(f"K7b {tag}", got, want,
+                                                     BWD_TOL[dt]))
+                    if "K4" in kernels:  # d = ff on the same streams
+                        k4_case(dt, H, d, (Lq, L1, L2), rate, seed, tag)
+                if "K5" in kernels:  # video 150, user 300
+                    Lv, Lu = LONG_SHAPES[0][1:]
+                    t5 = [torch.randn(B, L, d, generator=g, device=dev).to(dt)
+                          for L in (Lv, Lu)] + _proj_weights(g, d, 12, dt,
+                                                             dev)
+                    m5 = (_masks(g, B, Lv, dev, False), _masks(g, B, Lu, dev))
+                    gs = tuple(torch.randn(B, L, d, generator=g,
+                                           device=dev).to(dt)
+                               for L in (Lv, Lu))
+
+                    def k5(*t):
+                        return K5.fused_dual_stream_attention(
+                            t[0], t[1], _pairs(t[2:14]), _pairs(t[14:26]),
+                            *m5, num_heads=H, scale=scale, dropout_rate=rate,
+                            seed=seed, deterministic=rate == 0)
+                    tag = f"{str(dt)[6:]} D={D} {(Lv, Lu)} {on}"
+                    want = K5.dual_stream_attention_plain(
+                        t5[0], t5[1], t5[2:14], t5[14:26], *m5, H, scale,
+                        rate, seed)
+                    note("K5f", dt, max(_check(f"K5f {tag} {s_}", a_, b_, dt)
+                                        for s_, a_, b_ in zip("vu", k5(*t5),
+                                                              want)))
+                    note("K5b", dt, _rel_err(
+                        f"K5b {tag}",
+                        grads_of(k5, t5, gs, "K5b", "dual_stream_attention_bwd"),
+                        K5.dual_stream_attention_bwd_plain(
+                            t5[0], t5[1], t5[2:14], t5[14:26], *m5, *gs, H,
+                            scale, rate, seed), BWD_TOL[dt]))
+                for (Lq, Lk) in LONG_K3_SHAPES if "K3" in kernels else ():
+                    tag = f"{str(dt)[6:]} D={D} {(Lq, Lk)} {on}"
+                    q, k, v = (torch.randn(B, L, H, D, generator=g,
+                                           device=dev).to(dt)
+                               for L in (Lq, Lk, Lk))
+                    mq, mk = _masks(g, B, Lq, dev), _masks(g, B, Lk, dev,
+                                                           False)
+                    g3 = torch.randn(B, Lq, H, D, generator=g,
+                                     device=dev).to(dt)
+
+                    def k3(*t):
+                        return A.fused_masked_attention(
+                            *t, mq, mk, scale=scale, dropout_rate=rate,
+                            seed=seed, deterministic=rate == 0)
+                    note("K3f", dt, _check(f"K3f {tag}", k3(q, k, v),
+                                           A.masked_attention_plain(
+                                               q, k, v, mq, mk, scale, rate,
+                                               seed), dt))
+                    got = grads_of(k3, (q, k, v), g3, "K3b",
+                                   "masked_attention_bwd")
+                    note("K3b", dt, _rel_err(f"K3b {tag}", got,
+                                             A.masked_attention_bwd_plain(
+                                                 q, k, v, mq, mk, g3, scale,
+                                                 rate, seed), BWD_TOL[dt]))
+                    same_twice(k3, (q, k, v), g3, got, f"K3b {tag}")
+        if "K4" in kernels:
+            d, H, shape = WIDE_LAYER
+            for rate in rates:
+                k4_case(dt, H, d, shape, rate, 97531 if rate else 0,
+                        f"{str(dt)[6:]} d=ff={d} {shape} rate {rate}")
+    torch.cuda.synchronize()
+    log("  long streams and K4 at d = ff = 1024 (B=2, head dims 32 and 128, "
+        "dropout off and on): " + ", ".join(f"{k} {v:.2g}"
+                                            for k, v in worst.items()))
+    return worst
 
 
 # ---------------------------------------------------------------------------
@@ -1007,12 +1222,58 @@ def _k1_device_times(A, g, dev, B, Lq, L1, L2, scale, heads=HEADS,
     ms_sdpa, _ = _sdpa_device(sdpa_fwd, 10)
     ms_sdpa_bwd, names = _sdpa_device(sdpa_bwd, 5)
     return dict(
-        k1f=_device_ms(k1f, 10, K1_NAMES[:1]) or _time_ms(k1f, 10),
-        k1f_drop=_device_ms(k1f_drop, 10, K1_NAMES[:1])
+        k1f=_device_ms(k1f, 10, K1F_NAMES) or _time_ms(k1f, 10),
+        k1f_drop=_device_ms(k1f_drop, 10, K1F_NAMES)
         or _time_ms(k1f_drop, 10),
-        k1b=_device_ms(k1b, 5, K1_NAMES[1:]) or _time_ms(k1b, 5),
+        k1b=_device_ms(k1b, 5, K1B_NAMES) or _time_ms(k1b, 5),
         sdpa=ms_sdpa or _time_ms(sdpa_fwd, 10),
         sdpa_bwd=ms_sdpa_bwd or _time_ms(sdpa_bwd, 5), sdpa_kernels=names[:3])
+
+
+def _k1_bf16_kernels(A, g, dev, k1, k1_plain, scale, B=1024):
+    """bf16 K1f and K1b (the default config in bf16: phase train_bf16) on
+    the bf16 two-block core at B=1024: against their plain versions at
+    (40, 40, 100), and by device time at the four stream shapes beside
+    SDPA's bf16 forward and backward on the same inputs (the kernels line's
+    library_ms); bounds at the bf16 rate."""
+    bf, H, Dh = torch.bfloat16, HEADS, D_MODEL // HEADS
+    Lq, L1, L2 = STREAM_SHAPES[0]
+    qkv, m = _k1_inputs(g, B, Lq, L1, L2, bf, dev)
+    gq = torch.randn(B, Lq, H, Dh, generator=g, device=dev).to(bf)
+    err = _check("K1 bf16 B=1024", k1(qkv, m), k1_plain(qkv, m), bf)
+    errb = _rel_err("K1b bf16 B=1024", _grads(lambda *t: k1(t, m), qkv, gq),
+                    A.two_block_attention_bwd_plain(*qkv, *m, gq, scale),
+                    BWD_TOL[bf])
+    plain = _time_ms(lambda: k1_plain(qkv, m), 5)
+    plainb = _time_ms(lambda: A.two_block_attention_bwd_plain(
+        *qkv, *m, gq, scale), 3)
+    del qkv, m, gq
+    e = _elem(bf)
+
+    def cost(sq, s1, s2):
+        """bytes and seconds at the bf16 rate, forward and backward"""
+        rows, elems = B * (sq + s1 + s2), B * H * Dh
+        ops = elems * sq * (s1 + s2) / PEAK_FLOPS[bf]
+        return (e * elems * (3 * sq + 2 * s1 + 2 * s2) + 4 * rows, 4.0 * ops,
+                e * elems * (5 * sq + 4 * s1 + 4 * s2) + 4 * rows, 10.0 * ops)
+    for s in STREAM_SHAPES:
+        t = _k1_device_times(A, g, dev, B, *s, scale, dt=bf)
+        bf_, of, bb, ob = cost(*s)
+        if s == STREAM_SHAPES[0]:
+            _record("K1 bf16", "two_block_attention_fwd (K1f, bf16)",
+                    "two_block_mma.cuh", 527, err, t["k1f"], plain, bf_, of,
+                    t["sdpa"])
+            _record("K1b bf16", "two_block_attention_bwd (K1b, bf16)",
+                    "two_block_mma.cuh", 558, errb, t["k1b"], plainb, bb, ob,
+                    t["sdpa_bwd"])
+        log(f"  K1 bf16 B=1024 {s}, device ms: K1f {_ms(t['k1f'])}, dropout "
+            f"{_ms(t['k1f_drop'])} (sdpa {_ms(t['sdpa'])}; bound "
+            f"{1e3 * max(bf_ / HBM_BYTES_PER_S, of):.3f}), K1b "
+            f"{_ms(t['k1b'])} (sdpa backward {_ms(t['sdpa_bwd'])}; bound "
+            f"{1e3 * max(bb / HBM_BYTES_PER_S, ob):.3f})")
+    log(f"  K1 bf16 B=1024 {(Lq, L1, L2)}: plain K1f {plain:.3f} ms, plain "
+        f"K1b {plainb:.3f} ms; max|err| K1f {err:.3g}, max rel err K1b "
+        f"{errb:.3g}")
 
 
 def _k3_kernels(A, g, dev):
@@ -2067,7 +2328,7 @@ def phase_default(ctx):
     dev_batch = {"_dev": k1_eng.put_batch(batches[0])}
     ms = _time_ms(lambda: k1_eng.eval_step(k1_state, dev_batch), 5)
     share = _device_share(lambda: k1_eng.eval_step(k1_state, dev_batch), 3,
-                          K1_NAMES[:1])
+                          K1F_NAMES)
     log(f"  default config served (fp32, K1, B=1024): {ms:.1f} ms a batch"
         + ("" if share is None else f", device {share[1]:.1f} ms, K1f "
            f"{100 * share[0]:.1f}% of it"))
@@ -2138,7 +2399,13 @@ K4_NAMES = K2_NAMES + ("layer_epilogue", "ln_partial_sum")
 K5_NAMES = K2_NAMES + ("dual_stream",)
 K6_NAMES = K2_NAMES
 # K1f and K1b (fp32: two_block_bwd_tf32_kernel, bf16: two_block_bwd_kernel)
-K1_NAMES = ("two_block_fwd", "two_block_bwd", "tf32_sum_windows")
+# K1's kernels by name, forward and backward: fp32 its 3xTF32 bodies (and
+# their window sums), bf16 the two-block core's, in one chunk or on the
+# key-chunk path
+K1F_NAMES = ("two_block_fwd", "two_block_core_fwd", "k2_chunked_fwd")
+K1B_NAMES = ("two_block_bwd", "tf32_sum_windows", "two_block_core_bwd",
+             "k2_chunked_bwd")
+K1_NAMES = K1F_NAMES + K1B_NAMES
 # K3f and K3b, fp32 (masked_*_tf32_kernel) and bf16 (masked_*_mma_kernel)
 K3_NAMES = ("masked_fwd", "masked_bwd", "tf32_sum_windows")
 
@@ -2324,6 +2591,96 @@ def phase_train_default(ctx):
         if not (dl <= 1e-4 and dg <= 1e-4):
             raise AssertionError(f"card and CPU {route} training steps "
                                  f"differ: {got}")
+
+
+# bf16 through five layers on two devices that round at different places:
+# the 32-row step's loss and gradient norm agree to this, relative
+BF16_STEP_RTOL = 2e-2
+
+
+def phase_train_bf16(ctx):
+    """The default configuration with compute_dtype bfloat16 (fused
+    attention without fuse_qkv: K1 in bf16, on the bf16 two-block core;
+    layer remat) for a few steps at B=1024: 40 K1f + 18 K1b a step, K1's
+    share of the step's device time; a test batch served (20 K1f); one
+    32-row bf16 step, dropout off, on the card against the same step on
+    the CPU's plain versions."""
+    from segmminterest_tpu_torch.core import attention as A
+    from segmminterest_tpu_torch.data.dataset import BatchIterator
+    from segmminterest_tpu_torch.engine.train import InterestEngine
+
+    _data(ctx)
+    reader, store = ctx["reader"], ctx["store"]
+    cfg = _flagship_cfg(ctx["csv"]).replace(
+        train_batch_size=1024, table_quant="int8", compute_dtype="bfloat16")
+    if not (cfg.fused_attention and not cfg.fuse_qkv):
+        raise AssertionError("the default config no longer runs K1")
+    engine = InterestEngine(cfg, reader.n_users, reader.n_items,
+                            feature_table=ctx["table"], device="cuda")
+    batches = [b for _, b in zip(range(DEFAULT_TRAIN_STEPS), BatchIterator(
+        reader, reader.tables["train"], 1024, shuffle=True,
+        feature_store=store, seed=cfg.seed,
+        transform=engine.batch_transform))]
+    state, times, losses, counts = _train_steps(engine, batches)
+    n = len(batches)
+    _expect(counts, {"two_block_attention": 2 * FWD_PER_STEP * n,
+                     "two_block_attention_bwd": BWD_PER_STEP * n,
+                     "proj_two_block_attention": 0,
+                     "proj_two_block_attention_bwd": 0}, "bf16 default train")
+    RESULT["launches"]["K1 bf16"] = counts["two_block_attention"]
+    RESULT["launches"]["K1b bf16"] = counts["two_block_attention_bwd"]
+    rows = sum(int(b["row_mask"].sum()) for b in batches[1:])
+    share = _kernel_share(engine, batches[:2], K1_NAMES)
+    log("  bf16 K1f + K1b share of device time: " + (
+        "not measured (no device times in the trace)" if share is None else
+        f"{100 * share[0]:.1f}% of {share[1]:.1f} ms device time per step "
+        "(torch.profiler, 2 steps)"))
+    log(f"  bf16 default train (K1 on the bf16 core, layer remat, B=1024): "
+        f"{1e3 * sum(times[1:]) / (n - 1):.1f} ms per step, "
+        f"{rows / sum(times[1:]):.1f} interactions/s (steps 2-{n}); losses "
+        f"{[round(x, 4) for x in losses]}; launches {counts}")
+    test = next(iter(BatchIterator(reader, reader.tables["test"], 1024,
+                                   feature_store=store, seed=7,
+                                   prefetch_size=0)))
+    dev_batch = {"_dev": engine.put_batch(test)}
+    A.reset_launch_counts()
+    logits = engine.eval_step(state, dev_batch)[1]
+    torch.cuda.synchronize()
+    if A.LAUNCHES["two_block_attention"] != FWD_PER_STEP or \
+            not torch.isfinite(logits.float()).all():
+        raise AssertionError(f"bf16 default served: launches {A.LAUNCHES}, "
+                             "or non-finite logits")
+    ms = _time_ms(lambda: engine.eval_step(state, dev_batch), 5)
+    log(f"  bf16 default served (K1f, B=1024): {ms:.1f} ms a batch, "
+        f"{tuple(logits.shape)} finite logits")
+    del engine, state
+    torch.cuda.empty_cache()
+
+    small = next(iter(BatchIterator(reader, reader.tables["train"], 32,
+                                    feature_store=store, seed=7,
+                                    prefetch_size=0)))
+    one = cfg.replace(train_batch_size=32, dropout=0.0)
+    got = {}
+    for dev, table in (("cuda", ctx["table"]),
+                       ("cpu", tuple(t.cpu() for t in ctx["table"]))):
+        eng = InterestEngine(one, reader.n_users, reader.n_items,
+                             feature_table=table, device=dev)
+        A.reset_launch_counts()
+        _, ld = eng.train_step(eng.init_state(), small)
+        got[dev] = (float(ld["loss"]), float(eng.last_grad_norm),
+                    A.LAUNCHES["two_block_attention_bwd"])
+        del eng, table
+    if got["cuda"][2] != BWD_PER_STEP or got["cpu"][2] != 0:
+        raise AssertionError(f"32-row bf16 step launches of K1b: {got}")
+    dl = abs(got["cuda"][0] - got["cpu"][0]) / abs(got["cpu"][0])
+    dg = abs(got["cuda"][1] - got["cpu"][1]) / got["cpu"][1]
+    log(f"  32-row bf16 step, K1 route, card vs CPU: loss "
+        f"{got['cuda'][0]:.6f} vs {got['cpu'][0]:.6f} (rel {dl:.2g}), grad "
+        f"norm {got['cuda'][1]:.6f} vs {got['cpu'][1]:.6f} (rel {dg:.2g}); "
+        f"{got['cuda'][2]} K1b launches on the card")
+    if not (dl <= BF16_STEP_RTOL and dg <= BF16_STEP_RTOL):
+        raise AssertionError(f"card and CPU bf16 K1 training steps differ: "
+                             f"{got}")
 
 
 # launches per flagship step of the ablations (2 backbones x 5 run layers):
@@ -2999,6 +3356,7 @@ def main(argv=None):
          "default": lambda: phase_default(ctx),
          "train": lambda: phase_train(ctx),
          "train_default": lambda: phase_train_default(ctx),
+         "train_bf16": lambda: phase_train_bf16(ctx),
          "ablation": lambda: phase_ablation(ctx),
          "fused_variants": lambda: phase_fused_variants(ctx),
          "attn_v2": lambda: phase_attn_v2(ctx),

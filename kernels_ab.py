@@ -73,6 +73,12 @@ builds that package's kernels under DIR/build, and prints one JSON line:
   * fp32 and bf16 K3f and K3b on near-one-hot rows (`k3_onehot`: q x 50
     at (40, 100), B=64, ONEHOT_DRAWS seeded draws, dropout off and on),
     every draw's error against the plain version;
+  * every kernel at a long stream (`long`: (200, 150, 300), K6 (200, 152,
+    300), K3 (200, 300), K5 (150, 300)), past its core's one-chunk shapes,
+    at B=1024, 16 heads of 32, fp32 and bf16, dropout off, by device time
+    (every kernel of the call), each beside its bound (_wide_bounds);
+  * the default training configuration in bf16 (`bf16_default`: K1 in
+    bf16, layer remat) at B=1024, as `fp32_train` measures its two;
   * the card's name and power limit (nvidia-smi).
 `--parts` picks some of these (default: all).
 To compare two checkouts, run it on each in turns in one call on one card:
@@ -98,7 +104,8 @@ import chip_smoke as C
 K3_SHAPES = ((40, 100), (100, 40))
 PARTS = ("k2_bf16", "k4_bf16", "k6_bf16", "k5_bf16", "e2e", "k3_bf16",
          "fp32_fwd", "fp32_bwd", "fp32_bwd_sha256", "served", "k3_onehot",
-         "untimed", "wide", "fp32_routes", "fp32_train")
+         "untimed", "wide", "fp32_routes", "fp32_train", "long",
+         "bf16_default")
 B = 1024
 SEED = 1234567
 
@@ -157,10 +164,10 @@ def _breakdown(fn, iters):
 
 def _old_proj_stage(root):
     """The projection stage of K2f's per-(head, batch row) body alone, built
-    from the checkout's
-    projection.cuh (None where the checkout has none)."""
+    from the checkout's proj_attention.cuh (None where the checkout has
+    none)."""
     csrc = os.path.join(root, "segmminterest_tpu_torch", "core", "csrc")
-    if not os.path.exists(os.path.join(csrc, "projection.cuh")):
+    if not os.path.exists(os.path.join(csrc, "proj_attention.cuh")):
         return None
     from segmminterest_tpu_torch.core import build
     out_dir = os.path.join(root, "build", "kernels_ab")
@@ -649,7 +656,7 @@ def _fp32_fwd(A, g, dev):
         pair = A._pair_mask(m[0], torch.cat([m[1], m[2]], 1))
         cases.append((f"K1f {(Lq, L1, L2)}", qkv, m,
                       A.fused_two_block_attention,
-                      A.two_block_attention_plain, C.K1_NAMES[:1],
+                      A.two_block_attention_plain, C.K1F_NAMES,
                       (qs, ks, vs, pair)))
     for (Lq, Lk) in K3_SHAPES:
         qkv = [torch.randn(B, L, H, Dh, generator=g, device=dev)
@@ -687,7 +694,7 @@ def _fp32_bwd(A, g, dev):
         qkv, m = C._k1_inputs(g, B, Lq, L1, L2, torch.float32, dev)
         cases.append((f"K1b {(Lq, L1, L2)}", qkv, m, Lq,
                       A.fused_two_block_attention,
-                      A.two_block_attention_bwd_plain, C.K1_NAMES[1:]))
+                      A.two_block_attention_bwd_plain, C.K1B_NAMES))
     for (Lq, Lk) in K3_SHAPES:
         qkv = [torch.randn(B, L, H, Dh, generator=g, device=dev)
                for L in (Lq, Lk, Lk)]
@@ -732,7 +739,7 @@ def _served(dev):
             ("default_fp32", flagship.replace(
                 compute_dtype="float32", table_quant="int8",
                 fused_attention=True, fuse_qkv=False),
-             C.K1_NAMES[:1])):
+             C.K1F_NAMES)):
         engine = InterestEngine(cfg, reader.n_users, reader.n_items,
                                 feature_table=ctx["table"], device=dev)
         state = engine.init_state()
@@ -823,6 +830,73 @@ def _wide_bounds(kernel, dt, shape, d):
                proj + 2 * qk + epi),
             ms(e * (2 * rows_in + B * Lq * d + params) + 4 * (params + 4 * d)
                + ln + masks, 7 * proj + 12 * qk + 7 * epi))
+
+
+def _long(A, g, dev):
+    """Every kernel at a long stream, on its core's key-chunk path, B=1024,
+    16 heads of 32, fp32 and bf16, dropout off: device ms of the forward
+    and of the backward (every kernel of each call), beside the bounds of
+    _wide_bounds at d 512."""
+    from segmminterest_tpu_torch.core import dual_kernel as K5
+    from segmminterest_tpu_torch.core import layer_kernel as K4
+    H, d = C.HEADS, C.D_MODEL
+    scale = 1.0 / math.sqrt(d // H)
+    shape = C.LONG_SHAPES[0]
+    out = {}
+    for dt in (torch.float32, torch.bfloat16):
+        row = {}
+
+        def timed(name, kernel, shp, fwd, inputs, gout):
+            leaves = [t.detach().requires_grad_(t.is_floating_point())
+                      for t in inputs]
+            o = fwd(*leaves)
+            diff = [t for t in leaves if t.requires_grad]
+            f_ms = C._device_ms(lambda: fwd(*inputs), 3)
+            b_ms = C._device_ms(lambda: torch.autograd.grad(
+                o, diff, gout, retain_graph=True), 2)
+            bf, bb = _wide_bounds(kernel, dt, shp, d)
+            row[name] = dict(shape=shp, fwd_ms=f_ms, bwd_ms=b_ms,
+                             fwd_bound_ms=bf, bwd_bound_ms=bb)
+            print(f"long {str(dt)[6:]} {name} {shp}: fwd {f_ms} ms (bound "
+                  f"{bf:.3f}), bwd {b_ms} ms (bound {bb:.3f})", flush=True)
+            torch.cuda.empty_cache()
+
+        qkv, m = C._k1_inputs(g, B, *shape, dt, dev)
+        gq = torch.randn(B, shape[0], H, d // H, generator=g,
+                         device=dev).to(dt)
+        timed("K1", "K1", shape, lambda *t: A.fused_two_block_attention(
+            *t, *m, scale=scale), qkv, gq)
+        del qkv
+        for name, shp in (("K2", shape), ("K6", C.LONG_K6_SHAPE)):
+            x, ws, mx = C._k2_inputs(g, B, *shp, dt, dev)
+            timed(name, name, shp, lambda *t: A.fused_proj_two_block_attention(
+                *t[:3], *t[3:], *mx, num_heads=H, scale=scale,
+                version=2 if name == "K6" else 1), tuple(x) + tuple(ws),
+                gq.reshape(B, shp[0], d))
+        t4, m4 = C._k4_inputs(g, B, *shape, dt, dev)
+        timed("K4", "K4", shape, lambda *t: K4.fused_layer_stream(
+            *t[:3], C._pairs(t[3:15]), t[15:], *m4, num_heads=H,
+            scale=scale), t4, gq.reshape(B, shape[0], d))
+        del t4
+        Lq, Lk = shape[0], shape[2]
+        q3 = [torch.randn(B, L, H, d // H, generator=g, device=dev).to(dt)
+              for L in (Lq, Lk, Lk)]
+        m3 = (C._masks(g, B, Lq, dev), C._masks(g, B, Lk, dev, False))
+        timed("K3", "K3", (Lq, Lk), lambda *t: A.fused_masked_attention(
+            *t, *m3, scale=scale), q3, gq)
+        del q3
+        Lv, Lu = shape[1:]
+        t5 = [torch.randn(B, L, d, generator=g, device=dev).to(dt)
+              for L in (Lv, Lu)] + C._proj_weights(g, d, 12, dt, dev)
+        m5 = (C._masks(g, B, Lv, dev, False), C._masks(g, B, Lu, dev))
+        g5 = tuple(torch.randn(B, L, d, generator=g, device=dev).to(dt)
+                   for L in (Lv, Lu))
+        timed("K5", "K5", (Lv, Lu), lambda *t: K5.fused_dual_stream_attention(
+            t[0], t[1], C._pairs(t[2:14]), C._pairs(t[14:26]), *m5,
+            num_heads=H, scale=scale), t5, g5)
+        del t5, g5, gq
+        out[str(dt)[6:]] = row
+    return out
 
 
 def _wide(A, g, dev):
@@ -1017,6 +1091,24 @@ def _fp32_train():
     CrossAtt (K3, layer remat), dropout 0.1: ms per step on the host's
     clock, device ms per step and K1's (K3's) share of it (torch.profiler,
     2 steps)."""
+    return _train_configs(lambda base: (
+        ("default", base, C.K1_NAMES),
+        ("crossatt", base.replace(ablation_type="CrossAtt"), C.K3_NAMES)))
+
+
+def _bf16_default():
+    """The default configuration in bf16 (`--compute_dtype bfloat16`:
+    K1 in bf16, layer remat) at B=1024, as _fp32_train measures it."""
+    return _train_configs(lambda base: (
+        ("bf16_default", base.replace(compute_dtype="bfloat16"),
+         C.K1_NAMES),))
+
+
+def _train_configs(configs):
+    """Each (name, config, kernel names) of configs(base) trained at
+    B=1024 over the 3.9M-row int8 table: ms per step on the host's clock
+    (after 2 steps), device ms per step and the named kernels' share of it
+    (torch.profiler, 2 steps), the losses and the launches per step."""
     from segmminterest_tpu_torch.data.dataset import BatchIterator
     from segmminterest_tpu_torch.engine.train import InterestEngine
 
@@ -1025,10 +1117,7 @@ def _fp32_train():
     base = C._flagship_cfg(ctx["csv"]).replace(train_batch_size=1024,
                                                table_quant="int8")
     out, batches = {}, None
-    for name, cfg, names in (
-            ("default", base, C.K1_NAMES),
-            ("crossatt", base.replace(ablation_type="CrossAtt"),
-             C.K3_NAMES)):
+    for name, cfg, names in configs(base):
         engine = InterestEngine(cfg, reader.n_users, reader.n_items,
                                 feature_table=ctx["table"], device="cuda")
         if batches is None:
@@ -1046,7 +1135,7 @@ def _fp32_train():
             kernel_share=None if share is None else share[0],
             losses=losses, launches_per_step={
                 k: v // len(batches) for k, v in counts.items() if v})
-        print(f"  fp32 {name} train: {out[name]}", flush=True)
+        print(f"  {name} train: {out[name]}", flush=True)
         del engine
         torch.cuda.empty_cache()
     return out
@@ -1107,7 +1196,9 @@ def main(argv=None):
         "k3_onehot": lambda: _k3_onehot(A, dev),
         "wide": lambda: _wide(A, g, dev),
         "fp32_routes": lambda: _fp32_routes(A, g, dev),
-        "fp32_train": _fp32_train}
+        "fp32_train": _fp32_train,
+        "long": lambda: _long(A, g, dev),
+        "bf16_default": _bf16_default}
     res = dict(root=root)
     for name in args.parts.split(","):
         if name not in parts:

@@ -56,10 +56,14 @@ then K1's 3xTF32 tensor-core body over them, and in the backward K2b's
 CUDA-core chain; it beat the first per-(head, batch row) CUDA-core bodies
 at every stream shape.
 
-Every kernel takes head dims 16, 32, 48, 64, 96 and 128; each kernel's
-limits, and the body it runs at a shape, live in one function that its
-wrapper's check calls (``k1_body``, ``k2_body`` through ``_check_k2``,
-``k3_takes``; K4's, K5's and K6's through K2's).
+Every kernel takes head dims 16, 32, 48, 64, 96 and 128 and every stream
+length: each attention core runs a shape in one chunk where its register
+tile and one block's shared memory hold it (the model's streams), else on
+its key-chunk path (``k2_core_whole``: csrc/two_block_chunked.cu for bf16;
+``tf32_whole``: csrc/tf32_chunked.cu for fp32). Each kernel's limits, and
+the body it runs at a shape, live in one function that its wrapper's check
+calls (``k1_body``, ``k2_body`` through ``_check_k2``, ``k3_takes``; K4's,
+K5's and K6's through K2's).
 
 Each wrapper launches its CUDA kernel (``core/csrc``) for CUDA tensors and
 runs the plain version only for CPU tensors; there is no fall-back from one
@@ -89,29 +93,33 @@ LAUNCHES = {"two_block_attention": 0, "proj_two_block_attention": 0,
 # the most shared memory one block may use on an H100 (227 KB)
 MAX_SMEM_BYTES = 232_448
 MAX_GRID_Y = 65_535
-K2_MAX_LEN = 128
 # the head dims of the bf16 two-block core (csrc/two_block_mma.cuh:
-# m16n8k16 steps over D, n8 tiles of D in pairs), K2's, K4's, K5's and K6's
-# bf16 bodies; past 64 its backward stages its operands in turns
+# m16n8k16 steps over D, n8 tiles of D in pairs), K1's, K2's, K4's, K5's
+# and K6's bf16 bodies; past 64 its backward stages its operands in turns
 K2_HEAD_DIMS = (16, 32, 48, 64, 96, 128)
-# past 16, 32 and 64 the bf16 core's register tile is 18 n8 tiles: a key
-# axis pad16(pad8(L1) + L2) of at most 144 (kK2WideKeys16)
-K2_WIDE_KEYS = 144
-# K3's tensor-core bodies (both directions, fp32 and bf16) keep a warp's
-# 16 x Lk logit tile in registers
+# the bf16 core's register tile in 16-key chunks (kK2AllTiles: 32 n8
+# tiles at head dims 16, 32 and 64; 18 at the others, kK2WideKeys16)
+K2_CORE_TILES = {16: 16, 32: 16, 64: 16, 48: 9, 96: 9, 128: 9}
+# the core's key-chunk path (csrc/two_block_chunked.cu): keys per chunk,
+# query rows per window (kK2ChunkKeys, kK2ChunkRows)
+K2_CHUNK_KEYS = 128
+K2_CHUNK_ROWS = 64
+# K3's own tensor-core bodies (both directions, fp32 and bf16) keep a
+# warp's 16 x Lk logit tile in registers; past them bf16 K3 runs on the
+# two-block core's key-chunk path, fp32 on the 3xTF32 core's (k3_takes)
 K3_MAX_LEN = 128
 K3_HEAD_DIMS = (16, 32, 48, 64, 96, 128)
-# the fp32 tensor-core bodies of K1 and K3 (csrc/tf32_attention.cuh) keep a
-# warp's logit tile over the key axis in registers: head dims D % 4 == 0 up
-# to 128, a key axis pad8(L1) + pad8(L2) of at most 256 (K1) or pad8(Lk)
-# of 128 (K3); where one block's tiles exceed its shared memory, the
-# queries in windows of blocks of their own (tf32_windows)
+# the fp32 tensor-core bodies of K1 and K3 (csrc/tf32_attention.cuh) in one
+# chunk keep a warp's logit tile over the key axis in registers: head dims
+# D % 4 == 0 up to 128, a key axis pad8(L1) + pad8(L2) of at most 256 (K1;
+# 144 past head dim 64) or pad8(Lk) of 128 (K3), K1b's and K3's lengths at
+# most 128; where one block's tiles exceed its shared memory, the queries
+# in windows of blocks of their own (tf32_windows). Every other shape runs
+# their key-chunk path (csrc/tf32_chunked.cu, tf32_whole).
 K1_TF32_MAX_HEAD_DIM = 128
 K1_TF32_MAX_KEYS = 256
-# past head dim 64, K1's register tile is 18 n8 tiles: 144 keys
 K1_TF32_WIDE_KEYS = 144
-# K1b takes streams at most 128 long
-BWD_MAX_LEN = 128
+TF32_WHOLE_MAX_LEN = 128
 # the CUDA-core chain (chain_gemm.cuh: fp32 K2b, K4b, K5b, K6b) sums the
 # weight gradients over the batch in this many row chunks, then adds the
 # chunks in order (deterministic, no atomics)
@@ -634,15 +642,14 @@ def _check_k1(tensors, masks, bwd):
     if B > MAX_GRID_Y:
         raise ValueError(f"batch {B} exceeds the grid limit {MAX_GRID_Y}")
     body = k1_body(q1.dtype, Lq, L1, L2, D, bwd)
+    # the bf16 core stages head rows by 16-byte cp.async
+    if body == "mma" and any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError("bf16 inputs must start on a 16-byte boundary")
     return B, Lq, L1, L2, H, D, body
 
 
 def _pad8(n: int) -> int:
     return (n + 7) // 8 * 8
-
-
-def _pad4(n: int) -> int:
-    return (n + 3) // 4 * 4
 
 
 def _tf32_dp(D: int) -> int:
@@ -688,17 +695,20 @@ def tf32_windows(Lq: int, Ls, D: int, backward: bool) -> int:
     return -(-Lq // w) if w else 0
 
 
-def k1_cuda_core_smem_bytes(Lq: int, L1: int, L2: int, D: int,
-                            backward: bool) -> int:
-    """Shared memory of one block of K1's CUDA-core bodies
-    (``k1_smem_bytes`` / ``bwd_core_bytes``, csrc/joint_attention.cuh):
-    fp32 tiles of row stride D + 4 (q1, q2 (and g) over Lq rows, k and v of
-    each block), the masks, and the forward's probability row a warp (8
-    warps) or the backward's whole (Lq x (pad4(L1) + pad4(L2))) matrix."""
-    row = _pad4(L1) + _pad4(L2)
-    tiles = (3 if backward else 2) * Lq + 2 * L1 + 2 * L2
-    extra = Lq * row if backward else 8 * row
-    return 4 * (tiles * (D + 4) + _pad4(Lq + L1 + L2) + extra)
+def tf32_whole(Lq: int, Ls, D: int, backward: bool) -> bool:
+    """Whether the fp32 3xTF32 core takes a shape in one chunk
+    (``tf32_whole``, csrc/tf32_attention.cuh): its key axis within its
+    register tile, a query window within one block's shared memory, and
+    for K3 (one key block) and K1b every length at most
+    TF32_WHOLE_MAX_LEN. Every other shape runs its key-chunk path."""
+    keys = sum(_pad8(L) for L in Ls)
+    most = 128 if len(Ls) == 1 else K1_TF32_MAX_KEYS if D <= 64 \
+        else K1_TF32_WIDE_KEYS
+    if D % 4 or D > K1_TF32_MAX_HEAD_DIM or keys > most:
+        return False
+    if (len(Ls) == 1 or backward) and max(Lq, *Ls) > TF32_WHOLE_MAX_LEN:
+        return False
+    return tf32_window(Lq, Ls, D, backward) > 0
 
 
 def k1_body(dtype, Lq: int, L1: int, L2: int, D: int,
@@ -707,72 +717,116 @@ def k1_body(dtype, Lq: int, L1: int, L2: int, D: int,
     ValueError where none takes it. The choice is made here, by the shape,
     and never on a failure:
 
-    * ``"tf32"``: the fp32 tensor-core body (3xTF32, csrc/tf32_attention.
-      cuh), for fp32 with D % 4 == 0 up to 128 and a key axis pad8(L1) +
-      pad8(L2) of at most 256 (144 past head dim 64), in query windows
-      where one block's tiles exceed shared memory;
-    * ``"cuda_core"``: the CUDA-core body (csrc/joint_attention.cuh), for
-      bf16 where its tiles fit one block (D % 4 == 0), and for fp32 K1f
-      past the tensor-core body's key axis;
-    * ``"tf32_bf16"``: bf16 past the CUDA-core body's shared memory (head
-      dims 96 and 128 at the flagship's streams): the fp32 tensor-core
-      body on fp32 copies of the inputs, p rounded to bf16 before p v as
-      the bf16 function rounds it, the outputs rounded to bf16.
+    * ``"mma"``: bf16 at every length, on the bf16 two-block core
+      (csrc/two_block_mma.cuh, K2's, its operands read as six (B, L, H, D)
+      tensors, K1b's gradients stored in bf16), head dims K2_HEAD_DIMS; in
+      one chunk where ``k2_core_whole`` takes the shape, else on its
+      key-chunk path;
+    * ``"tf32"``: fp32 at every length, on the 3xTF32 tensor-core core
+      (csrc/tf32_attention.cuh), head dims D % 4 == 0 up to 128; in one
+      chunk where ``tf32_whole`` takes the shape (in query windows where
+      one block's tiles exceed shared memory), else on its key-chunk path.
     """
-    if D % 4:
-        raise ValueError(f"head dim {D} unsupported: the kernels read q and "
-                         "k four values at a time (D % 4 == 0)")
-    if backward and max(Lq, L1, L2) > BWD_MAX_LEN:
-        raise ValueError(f"(Lq, L1, L2)={(Lq, L1, L2)}: the backward takes "
-                         f"lengths <= {BWD_MAX_LEN}")
-    keys = K1_TF32_MAX_KEYS if D <= 64 else K1_TF32_WIDE_KEYS
-    tf32 = (D <= K1_TF32_MAX_HEAD_DIM and _pad8(L1) + _pad8(L2) <= keys
-            and tf32_window(Lq, (L1, L2), D, backward) > 0)
-    if dtype == torch.float32 and tf32:
-        return "tf32"
-    if (dtype == torch.bfloat16 or not backward) and \
-            k1_cuda_core_smem_bytes(Lq, L1, L2, D, backward) <= MAX_SMEM_BYTES:
-        return "cuda_core"
-    if dtype == torch.bfloat16 and tf32:
-        return "tf32_bf16"
-    raise ValueError(f"(Lq, L1, L2, D)={(Lq, L1, L2, D)}: no body of K1"
-                     f"{'b' if backward else 'f'} takes this shape in "
-                     f"{dtype}: past head dim {K1_TF32_MAX_HEAD_DIM} or a "
-                     f"key axis of {K1_TF32_MAX_KEYS} ({K1_TF32_WIDE_KEYS} "
-                     "past head dim 64), or no query window fits one "
-                     "block's shared memory")
+    if dtype == torch.bfloat16:
+        if D not in K2_HEAD_DIMS:
+            raise ValueError(f"head dim {D} unsupported: bf16 K1 runs on the "
+                             f"two-block core, head dims {K2_HEAD_DIMS}")
+        return "mma"
+    if D % 4 or D > K1_TF32_MAX_HEAD_DIM:
+        raise ValueError(f"head dim {D} unsupported: fp32 K1 takes D % 4 == "
+                         f"0 up to {K1_TF32_MAX_HEAD_DIM}")
+    return "tf32"
 
 
-def _convert(src, dtype):
-    """``src`` copied to ``dtype`` (fp32 <-> bf16) by the port's conversion
-    kernel (csrc/two_block_attention.cu), on src's stream."""
-    fn = _fn("two_block_attention", "segmm_convert", ctypes.c_int,
-             [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_long,
-              ctypes.c_void_p])
-    dst = torch.empty(src.shape, dtype=dtype, device=src.device)
-    with torch.cuda.device(src.device):
-        code = fn(int(dtype == torch.bfloat16), src.data_ptr(),
-                  dst.data_ptr(), src.numel(), _stream_ptr(src.device))
-    _raise_on_cuda_error(code, "convert")
-    return dst
+def k2_core_whole(Lq: int, L1: int, L2: int, D: int, backward: bool,
+                  g_fp32: bool = False) -> bool:
+    """Whether the bf16 two-block core takes a shape in one chunk
+    (``k2_core_whole``, csrc/two_block_mma.cuh): the key axis
+    pad16(pad8(L1) + L2) within its register tile (K2_CORE_TILES 16-key
+    chunks) and one (head, batch row)'s tiles within one block's shared
+    memory (``k2_mma_smem_bytes``). Every other shape runs its key-chunk
+    path (csrc/two_block_chunked.cu): K2_CHUNK_KEYS keys at a time with an
+    online softmax, the queries in windows of K2_CHUNK_ROWS rows."""
+    return (_pad16(_pad8(L1) + L2) // 16 <= K2_CORE_TILES[D]
+            and k2_mma_smem_bytes(Lq, L1, L2, D, backward, g_fp32)
+            <= MAX_SMEM_BYTES)
 
 
-def _k1_fwd_launch(dtype, tf32, tensors, masks, scale, rate, seed,
-                   salt_h0=0, concat=False):
-    """One launch of K1f's C entry on (B, L, H, D) q1..v2: ``dtype`` the
-    function's (bf16 with ``tf32``: the fp32 body on fp32 copies), the
-    dropout salts from head ``salt_h0``, K6's key axis with ``concat``."""
+def _core_scratch(Lq: int, Ls, B: int, H: int, D: int, chunked: bool,
+                  device):
+    """The fp32 scratch of the key-chunk backward with bf16 gradients (K1b,
+    K3b) over several query windows: dk and dv of every key block, which
+    the windows sum into before the cast; None where it needs none."""
+    if not chunked or -(-Lq // K2_CHUNK_ROWS) <= 1:
+        return None
+    return torch.empty(2 * B * sum(Ls) * H * D, dtype=torch.float32,
+                       device=device)
+
+
+def _core_fwd_launch(q1, q2, k1, k2, v1, v2, masks, scale, rate, seed,
+                     k3=False):
+    """bf16 K1f (or, with ``k3``, K3f over the one key block k1, v1) on
+    the two-block core; returns out (B, Lq, H, D) bf16."""
+    B, Lq, H, D = q1.shape
+    fn = _fn("proj_two_block_attention", "segmm_two_block_core_fwd",
+             ctypes.c_int, [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
+             + [ctypes.c_float] + _DROP_ARGS + [ctypes.c_int, ctypes.c_void_p])
+    ms = _masks_i32(*masks)
+    out = torch.empty_like(q1)
+    with torch.cuda.device(q1.device):
+        code = fn(*(t.data_ptr() for t in (q1, q2, k1, k2, v1, v2)),
+                  *(m.data_ptr() for m in ms), out.data_ptr(), B, Lq,
+                  k1.shape[1], k2.shape[1], H, D, float(scale),
+                  *_drop_args(rate, seed), int(k3), _stream_ptr(q1.device))
+    _raise_on_cuda_error(code, "two_block_core_fwd")
+    return out
+
+
+def _core_bwd_launch(q1, q2, k1, k2, v1, v2, masks, g, scale, rate, seed,
+                     k3=False):
+    """bf16 K1b (or, with ``k3``, K3b over the one key block k1, v1, on
+    the key-chunk path) on the two-block core: dq1, dq2, dk1, dk2, dv1,
+    dv2 in bf16 (K3: dq, dk, dv)."""
+    B, Lq, H, D = q1.shape
+    Ls = (k1.shape[1],) if k3 else (k1.shape[1], k2.shape[1])
+    fn = _fn("proj_two_block_attention_bwd", "segmm_two_block_core_bwd",
+             ctypes.c_int, [ctypes.c_void_p] * 10
+             + [ctypes.POINTER(ctypes.c_void_p), ctypes.c_void_p]
+             + [ctypes.c_int] * 6 + [ctypes.c_float] + _DROP_ARGS
+             + [ctypes.c_int, ctypes.c_void_p])
+    ms = _masks_i32(*masks)
+    grads = [torch.empty_like(t) for t in (q1, k1, v1)] if k3 else \
+        [torch.empty_like(t) for t in (q1, q2, k1, k2, v1, v2)]
+    chunked = k3 or not k2_core_whole(Lq, Ls[0], Ls[1], D, True)
+    acc = _core_scratch(Lq, Ls, B, H, D, chunked, q1.device)
+    slots = (grads[0], None, grads[1], None, grads[2], None) if k3 else grads
+    ptrs = (ctypes.c_void_p * 6)(*(t.data_ptr() if t is not None else None
+                                   for t in slots))
+    with torch.cuda.device(q1.device):
+        code = fn(*(t.data_ptr() for t in (q1, q2, k1, k2, v1, v2)),
+                  *(m.data_ptr() for m in ms), g.data_ptr(), ptrs,
+                  acc.data_ptr() if acc is not None else None, B, Lq,
+                  k1.shape[1], k2.shape[1], H, D, float(scale),
+                  *_drop_args(rate, seed), int(k3), _stream_ptr(q1.device))
+    _raise_on_cuda_error(code, "two_block_core_bwd")
+    return grads
+
+
+def _k1_fwd_launch(tensors, masks, scale, rate, seed, salt_h0=0,
+                   concat=False):
+    """One launch of fp32 K1f's C entry (the 3xTF32 core, in one chunk or
+    on its key-chunk path) on (B, L, H, D) q1..v2: the dropout salts from
+    head ``salt_h0``, K6's key axis with ``concat``."""
     q1, k1, k2 = tensors[0], tensors[2], tensors[3]
     B, Lq, H, D = q1.shape
     fn = _fn("two_block_attention", "segmm_two_block_attention_fwd",
-             ctypes.c_int, [ctypes.c_int] * 2 + [ctypes.c_void_p] * 10
+             ctypes.c_int, [ctypes.c_void_p] * 10
              + [ctypes.c_int] * 6 + [ctypes.c_float] + _DROP_ARGS
              + [ctypes.c_int] * 2 + [ctypes.c_void_p])
     mq, mk1, mk2 = _masks_i32(*masks)
     out = torch.empty_like(q1)
     with torch.cuda.device(q1.device):
-        code = fn(_DTYPE_CODE[dtype], int(tf32),
-                  *(t.data_ptr() for t in tensors),
+        code = fn(*(t.data_ptr() for t in tensors),
                   mq.data_ptr(), mk1.data_ptr(), mk2.data_ptr(),
                   out.data_ptr(), B, Lq, k1.shape[1], k2.shape[1], H, D,
                   float(scale), *_drop_args(rate, seed), int(salt_h0),
@@ -784,13 +838,14 @@ def _k1_fwd_launch(dtype, tf32, tensors, masks, scale, rate, seed,
 def _k1_forward_cuda(q1, q2, k1, k2, v1, v2, mask_q, mask_k1, mask_k2,
                      scale, rate, seed):
     tensors = (q1, q2, k1, k2, v1, v2)
-    body = _check_k1(tensors, (mask_q, mask_k1, mask_k2), False)[-1]
-    if body == "tf32_bf16":
-        tensors = tuple(_convert(t, torch.float32) for t in tensors)
-    out = _k1_fwd_launch(q1.dtype, body != "cuda_core", tensors,
-                         (mask_q, mask_k1, mask_k2), scale, rate, seed)
+    masks = (mask_q, mask_k1, mask_k2)
+    body = _check_k1(tensors, masks, False)[-1]
+    if body == "mma":
+        out = _core_fwd_launch(*tensors, masks, scale, rate, seed)
+    else:
+        out = _k1_fwd_launch(tensors, masks, scale, rate, seed)
     LAUNCHES["two_block_attention"] += 1
-    return _convert(out, q1.dtype) if body == "tf32_bf16" else out
+    return out
 
 
 def tf32_part_scratch(windows: int, B: int, Ls, H: int, D: int, device):
@@ -803,12 +858,11 @@ def tf32_part_scratch(windows: int, B: int, Ls, H: int, D: int, device):
                        dtype=torch.float32, device=device)
 
 
-def _k1_bwd_launch(dtype, tensors, masks, scale, rate, seed, salt_h0=0,
+def _k1_bwd_launch(tensors, masks, scale, rate, seed, salt_h0=0,
                    concat=False):
-    """One launch of K1b's C entry on (B, L, H, D) q1..v2 and g: ``dtype``
-    picks the body (fp32: the tensor-core one, whose query windows get their
-    part slots here), the rest as ``_k1_fwd_launch``. Returns dq1, dq2,
-    dk1, dk2, dv1, dv2 in the inputs' dtype."""
+    """One launch of fp32 K1b's C entry (the 3xTF32 body, whose query
+    windows get their part slots here) on (B, L, H, D) q1..v2 and g, the
+    rest as ``_k1_fwd_launch``. Returns dq1, dq2, dk1, dk2, dv1, dv2."""
     q1, k1, k2 = tensors[0], tensors[2], tensors[3]
     B, Lq, H, D = q1.shape
     L1, L2 = k1.shape[1], k2.shape[1]
@@ -818,12 +872,12 @@ def _k1_bwd_launch(dtype, tensors, masks, scale, rate, seed, salt_h0=0,
              + [ctypes.c_void_p] + [ctypes.c_int] * 2 + [ctypes.c_void_p])
     mq, mk1, mk2 = _masks_i32(*masks)
     grads = [torch.empty_like(t) for t in tensors[:6]]
-    part = None
-    if dtype == torch.float32:
-        part = tf32_part_scratch(tf32_windows(Lq, (L1, L2), D, True), B,
-                                 (L1, L2), H, D, q1.device)
+    part = (tf32_part_scratch(tf32_windows(Lq, (L1, L2), D, True), B,
+                              (L1, L2), H, D, q1.device)
+            if tf32_whole(Lq, (L1, L2), D, True) else None)
     with torch.cuda.device(q1.device):
-        code = fn(_DTYPE_CODE[dtype], *(t.data_ptr() for t in tensors[:6]),
+        code = fn(_DTYPE_CODE[torch.float32],
+                  *(t.data_ptr() for t in tensors[:6]),
                   mq.data_ptr(), mk1.data_ptr(), mk2.data_ptr(),
                   tensors[6].data_ptr(), *(t.data_ptr() for t in grads), B,
                   Lq, L1, L2, H, D, float(scale), *_drop_args(rate, seed),
@@ -836,15 +890,13 @@ def _k1_bwd_launch(dtype, tensors, masks, scale, rate, seed, salt_h0=0,
 def _k1_backward_cuda(q1, q2, k1, k2, v1, v2, mask_q, mask_k1, mask_k2, g,
                       scale, rate, seed):
     tensors = (q1, q2, k1, k2, v1, v2, g)
-    body = _check_k1(tensors, (mask_q, mask_k1, mask_k2), True)[-1]
-    if body == "tf32_bf16":
-        tensors = tuple(_convert(t, torch.float32) for t in tensors)
-    grads = _k1_bwd_launch(q1.dtype if body == "cuda_core" else torch.float32,
-                           tensors, (mask_q, mask_k1, mask_k2), scale, rate,
-                           seed)
+    masks = (mask_q, mask_k1, mask_k2)
+    body = _check_k1(tensors, masks, True)[-1]
+    if body == "mma":
+        grads = _core_bwd_launch(*tensors[:6], masks, g, scale, rate, seed)
+    else:
+        grads = _k1_bwd_launch(tensors, masks, scale, rate, seed)
     LAUNCHES["two_block_attention_bwd"] += 1
-    if body == "tf32_bf16":
-        grads = [_convert(t, q1.dtype) for t in grads]
     return tuple(grads)
 
 
@@ -873,16 +925,8 @@ def _check_k2(tensors, masks, num_heads, g=None):
     if dh not in K2_HEAD_DIMS or d % 32:
         raise ValueError(f"head dim {dh} (d={d}) unsupported: the kernel "
                          f"takes head dims {K2_HEAD_DIMS} and d % 32 == 0")
-    body = k2_body(xq.dtype)
-    if body == "tf32":  # K1's rule holds its core's limits
+    if k2_body(xq.dtype) == "tf32":  # K1's rule holds its core's limits
         k1_body(torch.float32, Lq, L1, L2, dh, g is not None)
-    if body == "mma" and dh not in (16, 32, 64) and \
-            _pad16(_pad8(L1) + L2) > K2_WIDE_KEYS:
-        raise ValueError(f"(L1, L2)={(L1, L2)}: at head dim {dh} the bf16 "
-                         f"core takes a key axis of at most {K2_WIDE_KEYS}")
-    if max(Lq, L1, L2) > K2_MAX_LEN:
-        raise ValueError(f"stream lengths {(Lq, L1, L2)} exceed "
-                         f"{K2_MAX_LEN}")
     if B > MAX_GRID_Y:
         raise ValueError(f"batch {B} exceeds the grid limit {MAX_GRID_Y}")
     # the kernel reads x and W rows 16 bytes at a time
@@ -895,9 +939,10 @@ def k2_body(dtype) -> str:
     """Which bodies K2f and K2b run (and K4's, K5's and K6's attention): by
     dtype, never on a failure.
 
-    * ``"mma"`` for bf16: the projections as one tensor-core GEMM into a
-      bf16 workspace, the two-block core on mma.sync, the chain's dx and dW
-      on the tensor cores at fp32 accuracy;
+    * ``"mma"`` for bf16, any lengths: the projections as one tensor-core
+      GEMM into a bf16 workspace, the two-block core on mma.sync (in one
+      chunk where ``k2_core_whole`` takes the shape, else its key-chunk
+      path), the chain's dx and dW on the tensor cores at fp32 accuracy;
     * ``"tf32"`` for fp32: the six projections on the CUDA cores
       (``segmm_project_pairs_f32``) into fp32 (B, L, d) workspaces, then
       K1's fp32 tensor-core body over them (3xTF32, in query windows where
@@ -940,8 +985,7 @@ def _k2_tf32_forward(xq, x1, x2, ws, masks, num_heads, scale, rate, seed,
     """fp32 K2f (k2_body "tf32"): the projections, then K1f's tensor-core
     body; salts from head ``salt_h0`` (K5's user stream), K6's keys with
     ``concat``."""
-    out = _k1_fwd_launch(torch.float32, True,
-                         _k2_tf32_operands(xq, x1, x2, ws, num_heads), masks,
+    out = _k1_fwd_launch(_k2_tf32_operands(xq, x1, x2, ws, num_heads), masks,
                          scale, rate, seed, salt_h0, concat)
     return out.reshape(xq.shape)
 
@@ -952,8 +996,8 @@ def _k2_tf32_qkv_grads(xq, x1, x2, ws, masks, g, num_heads, scale, rate,
     body on g (fp32, as K4b's d_att is too); fp32 dq1, dq2, dk1, dk2, dv1,
     dv2 as (B, L, d)."""
     grads = _k1_bwd_launch(
-        torch.float32, _k2_tf32_operands(xq, x1, x2, ws, num_heads)
-        + [_heads(g, num_heads)], masks, scale, rate, seed, salt_h0, concat)
+        _k2_tf32_operands(xq, x1, x2, ws, num_heads) + [_heads(g, num_heads)],
+        masks, scale, rate, seed, salt_h0, concat)
     return [t.reshape(t.shape[0], t.shape[1], -1) for t in grads]
 
 
@@ -991,6 +1035,31 @@ def k2_mma_smem_bytes(Lq: int, L1: int, L2: int, D: int,
     return n + 4 * 4 * keep_words
 
 
+def k2_chunked_smem_bytes(D: int, backward: bool,
+                          g_fp32: bool = False) -> int:
+    """Shared memory of one block of the bf16 core's key-chunk path
+    (``k2_chunked_smem_bytes``, csrc/two_block_mma.cuh): bf16 tiles of row
+    stride D + 8, q1 and q2 (and g, with ``g_fp32`` its two halves) over a
+    window of K2_CHUNK_ROWS rows, k and v over K2_CHUNK_KEYS keys; the
+    masks; the backward's hi / lo planes over window x chunk."""
+    qt = (4 if g_fp32 else 3) if backward else 2
+    n = 2 * (qt * K2_CHUNK_ROWS + 2 * K2_CHUNK_KEYS) * (D + 8) \
+        + 4 * (K2_CHUNK_ROWS + K2_CHUNK_KEYS)
+    if backward:
+        n += 2 * 2 * K2_CHUNK_ROWS * (K2_CHUNK_KEYS + 8)
+    return n
+
+
+def k2_core_smem_bytes(Lq: int, L1: int, L2: int, D: int, backward: bool,
+                       g_fp32: bool = False) -> int:
+    """Shared memory of one block of the bf16 core on the path a shape
+    takes (``k2_core_smem_bytes``): ``k2_mma_smem_bytes`` in one chunk,
+    else ``k2_chunked_smem_bytes``."""
+    if k2_core_whole(Lq, L1, L2, D, backward, g_fp32):
+        return k2_mma_smem_bytes(Lq, L1, L2, D, backward, g_fp32)
+    return k2_chunked_smem_bytes(D, backward, g_fp32)
+
+
 def k2_workspace(xq, x1, x2):
     """bf16 K2's transient projections: per source a (B, L, 2d) bf16
     tensor, the first weight's d columns then the second's (q1 | q2,
@@ -1015,13 +1084,6 @@ def k2_dw_chunks(B: int, Lq: int, L1: int, L2: int, chunk: int):
     return [-(-B * L // chunk) for L in (Lq, Lq, L1, L2, L1, L2)]
 
 
-def _k2_smem_check(lib, symbol, xq, Lq, L1, L2, dh):
-    smem = _fn(lib, symbol, ctypes.c_size_t, [ctypes.c_int] * 5)
-    if smem(_DTYPE_CODE[xq.dtype], Lq, L1, L2, dh) > MAX_SMEM_BYTES:
-        raise ValueError(f"(Lq, L1, L2)={(Lq, L1, L2)} needs more shared "
-                         "memory than one block has")
-
-
 def _k2_forward_cuda(xq, x1, x2, ws, masks, num_heads, scale, rate, seed):
     tensors = (xq, x1, x2) + tuple(ws)
     B, Lq, L1, L2, d, dh = _check_k2(tensors, masks, num_heads)
@@ -1029,9 +1091,6 @@ def _k2_forward_cuda(xq, x1, x2, ws, masks, num_heads, scale, rate, seed):
         LAUNCHES["proj_two_block_attention"] += 1
         return _k2_tf32_forward(xq, x1, x2, ws, masks, num_heads, scale,
                                 rate, seed)
-    _k2_smem_check("proj_two_block_attention",
-                   "segmm_proj_two_block_attention_smem_bytes", xq, Lq, L1,
-                   L2, dh)
     fn = _fn("proj_two_block_attention", "segmm_proj_two_block_attention_fwd",
              ctypes.c_int, [ctypes.c_int, ctypes.POINTER(ctypes.c_void_p)]
              + [ctypes.c_void_p] * 4 + [ctypes.POINTER(ctypes.c_void_p)]
@@ -1060,9 +1119,6 @@ def _k2_qkv_grads_cuda(xq, x1, x2, ws, masks, g, num_heads, scale, rate,
     if k2_body(xq.dtype) == "tf32":
         return _k2_tf32_qkv_grads(xq, x1, x2, ws, masks, g, num_heads, scale,
                                   rate, seed)
-    _k2_smem_check("proj_two_block_attention_bwd",
-                   "segmm_proj_two_block_attention_bwd_smem_bytes", xq, Lq,
-                   L1, L2, dh)
     fn = _fn("proj_two_block_attention_bwd",
              "segmm_proj_two_block_attention_qkv_bwd", ctypes.c_int,
              [ctypes.c_int, ctypes.POINTER(ctypes.c_void_p)]
@@ -1148,9 +1204,6 @@ def _k6_forward_cuda(xq, x1, x2, ws, masks, num_heads, scale, rate, seed):
         LAUNCHES["proj_two_block_attention_v2"] += 1
         return _k2_tf32_forward(xq, x1, x2, ws, masks, num_heads, scale,
                                 rate, seed, concat=True)
-    _k2_smem_check("proj_two_block_attention_v2",
-                   "segmm_proj_two_block_attention_v2_smem_bytes", xq, Lq, L1,
-                   L2, dh)
     return _k6_forward_mma(xq, x1, x2, ws, masks, num_heads, scale, rate,
                            seed)
 
@@ -1190,9 +1243,6 @@ def _k6_backward_cuda(xq, x1, x2, ws, masks, g, num_heads, scale, rate,
                                  rate, seed, concat=True)
         return _k2_chain(xq, x1, x2, ws, dys,
                          "proj_two_block_attention_v2_bwd")
-    _k2_smem_check("proj_two_block_attention_v2_bwd",
-                   "segmm_proj_two_block_attention_v2_bwd_smem_bytes", xq, Lq,
-                   L1, L2, dh)
     return _k6_backward_mma(xq, x1, x2, ws, masks, g, num_heads, scale,
                             rate, seed)
 
@@ -1245,21 +1295,29 @@ def k3_mma_smem_bytes(Lq: int, Lk: int, D: int, backward: bool) -> int:
     return n + (2 * 4 * mq16 * (mk16 + 8) if backward else 0)
 
 
-def k3_takes(dtype, Lq: int, Lk: int, D: int, backward: bool) -> None:
-    """K3's shape rule, both bodies (bf16 on mma.sync, fp32 in 3xTF32 with
-    its query windows); raises a ValueError at a shape it does not take."""
+def k3_takes(dtype, Lq: int, Lk: int, D: int, backward: bool) -> str:
+    """K3's shape rule: the body K3f (or, with ``backward``, K3b) runs at a
+    shape, by the shape and never on a failure, or a ValueError where none
+    takes it:
+
+    * ``"mma"``: bf16 on its own mma.sync body (masked_attention_mma.cuh)
+      where its 16 x Lk logit tile (lengths up to K3_MAX_LEN) and its tiles
+      fit one block;
+    * ``"core"``: bf16 at every other length, on the two-block core's
+      key-chunk path (csrc/two_block_chunked.cu) over one key block, its
+      dropout salt h and key index j, its gradients in bf16;
+    * ``"tf32"``: fp32 at every length on the 3xTF32 core, in one chunk
+      where ``tf32_whole`` takes the shape (its query windows where one
+      block's tiles exceed shared memory), else on its key-chunk path."""
     if D not in K3_HEAD_DIMS:
         raise ValueError(f"head dim {D} unsupported: the kernel takes "
                          f"{K3_HEAD_DIMS}")
-    if max(Lq, Lk) > K3_MAX_LEN:
-        raise ValueError(f"(Lq, Lk)={(Lq, Lk)}: the kernel takes lengths "
-                         f"<= {K3_MAX_LEN}")
-    fits = (k3_mma_smem_bytes(Lq, Lk, D, backward) <= MAX_SMEM_BYTES
-            if dtype == torch.bfloat16
-            else tf32_window(Lq, (Lk,), D, backward) > 0)
-    if not fits:
-        raise ValueError(f"(Lq, Lk, D)={(Lq, Lk, D)} needs more shared "
-                         "memory than one block has")
+    if dtype == torch.bfloat16:
+        if max(Lq, Lk) <= K3_MAX_LEN and \
+                k3_mma_smem_bytes(Lq, Lk, D, backward) <= MAX_SMEM_BYTES:
+            return "mma"
+        return "core"
+    return "tf32"
 
 
 def _check_k3(q, k, v, mask_q, mask_k, g=None):
@@ -1273,7 +1331,7 @@ def _check_k3(q, k, v, mask_q, mask_k, g=None):
                              f"{tuple(t.shape)} (the kernel takes Dqk = Dv)")
     _check_mask(mask_q, B, Lq, "mask_q")
     _check_mask(mask_k, B, Lk, "mask_k")
-    k3_takes(q.dtype, Lq, Lk, D, g is not None)
+    body = k3_takes(q.dtype, Lq, Lk, D, g is not None)
     if B > MAX_GRID_Y:
         raise ValueError(f"batch {B} exceeds the grid limit {MAX_GRID_Y}")
     # the bf16 kernels stage head rows by 16-byte cp.async
@@ -1281,11 +1339,16 @@ def _check_k3(q, k, v, mask_q, mask_k, g=None):
             t.data_ptr() % 16 for t in (q, k, v) + ((g,) if g is not None
                                                    else ())):
         raise ValueError("bf16 inputs must start on a 16-byte boundary")
-    return B, Lq, Lk, H, D
+    return B, Lq, Lk, H, D, body
 
 
 def _k3_forward_cuda(q, k, v, mask_q, mask_k, scale, rate, seed):
-    B, Lq, Lk, H, D = _check_k3(q, k, v, mask_q, mask_k)
+    B, Lq, Lk, H, D, body = _check_k3(q, k, v, mask_q, mask_k)
+    if body == "core":
+        out = _core_fwd_launch(q, q, k, k, v, v, (mask_q, mask_k, mask_k),
+                               scale, rate, seed, k3=True)
+        LAUNCHES["masked_attention"] += 1
+        return out
     fn = _fn("masked_attention", "segmm_masked_attention_fwd", ctypes.c_int,
              [ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
              + [ctypes.c_float] + _DROP_ARGS + [ctypes.c_void_p])
@@ -1302,7 +1365,12 @@ def _k3_forward_cuda(q, k, v, mask_q, mask_k, scale, rate, seed):
 
 
 def _k3_backward_cuda(q, k, v, mask_q, mask_k, g, scale, rate, seed):
-    B, Lq, Lk, H, D = _check_k3(q, k, v, mask_q, mask_k, g)
+    B, Lq, Lk, H, D, body = _check_k3(q, k, v, mask_q, mask_k, g)
+    if body == "core":
+        grads = _core_bwd_launch(q, q, k, k, v, v, (mask_q, mask_k, mask_k),
+                                 g, scale, rate, seed, k3=True)
+        LAUNCHES["masked_attention_bwd"] += 1
+        return tuple(grads)
     fn = _fn("masked_attention_bwd", "segmm_masked_attention_bwd",
              ctypes.c_int, [ctypes.c_int] + [ctypes.c_void_p] * 9
              + [ctypes.c_int] * 5 + [ctypes.c_float] + _DROP_ARGS
@@ -1311,7 +1379,8 @@ def _k3_backward_cuda(q, k, v, mask_q, mask_k, g, scale, rate, seed):
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     part = (tf32_part_scratch(tf32_windows(Lq, (Lk,), D, True), B, (Lk,), H,
                               D, q.device)
-            if q.dtype == torch.float32 else None)
+            if q.dtype == torch.float32 and tf32_whole(Lq, (Lk,), D, True)
+            else None)
     with torch.cuda.device(q.device):
         code = fn(_DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(),
                   v.data_ptr(), mq.data_ptr(), mk.data_ptr(), g.data_ptr(),

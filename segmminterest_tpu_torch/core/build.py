@@ -5,7 +5,10 @@ library with a plain C interface under ``build/segmm_torch_kernels/`` at the
 root of the checkout, and loaded with ``ctypes``. A library may have parts,
 ``csrc/<name>.<part>.cu``, that hold some of its template instantiations:
 then each file is compiled to an object and the objects are linked, so that
-one long compile is cut into several that run side by side. Nothing is
+one long compile is cut into several that run side by side. The sources
+of ``COMMON`` (the key-chunk paths of the bf16 and fp32 attention cores)
+are compiled once into objects that the libraries launching their kernels
+link. Nothing is
 built when this module is imported: the first call to :func:`load_library`
 builds every library, one ``nvcc`` process a file, all started together,
 and later calls reuse the libraries whose file name carries the hash of
@@ -32,6 +35,18 @@ SOURCES = ("two_block_attention", "proj_two_block_attention",
            "dual_stream_attention", "dual_stream_attention_bwd",
            "layer_stream", "layer_stream_bwd", "proj_two_block_attention_v2",
            "proj_two_block_attention_v2_bwd")
+# compiled once, each linked into the libraries that launch its kernels:
+# the key-chunk paths of the bf16 two-block core and of the fp32 3xTF32
+# core
+COMMON = {
+    "two_block_chunked": (
+        "proj_two_block_attention", "proj_two_block_attention_bwd",
+        "dual_stream_attention", "dual_stream_attention_bwd",
+        "layer_stream", "layer_stream_bwd", "proj_two_block_attention_v2",
+        "proj_two_block_attention_v2_bwd"),
+    "tf32_chunked": (
+        "two_block_attention", "two_block_attention_bwd",
+        "masked_attention", "masked_attention_bwd")}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # compiling a library's parts to objects: the same without -shared
@@ -60,18 +75,27 @@ def _files(name: str):
     return [CSRC / f"{name}.cu"] + sorted(CSRC.glob(f"{name}.*.cu"))
 
 
+def _common_files(lib=None):
+    """The COMMON sources, or those library ``lib`` links."""
+    return [CSRC / f"{c}.cu" for c, libs in COMMON.items()
+            if lib is None or lib in libs]
+
+
 def _lib_path(name: str) -> Path:
     h = hashlib.sha1()
-    for f in sorted(CSRC.glob("*.cuh")) + _files(name):
+    for f in sorted(CSRC.glob("*.cuh")) + _files(name) + _common_files(name):
         h.update(f.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
-def _start_build(name: str, out: Path):
+def _start_build(name: str, out: Path, common=None):
     """Start building ``csrc/<name>.cu`` (and its parts) into the library
-    ``out``; returns a thread and a dict that holds nvcc's exit code, its
-    output and the seconds it took once the thread has ended."""
+    ``out``, linked with the objects of ``common`` (a thread that compiles
+    the COMMON objects, and the paths of those this library links);
+    returns a thread and a dict that holds nvcc's exit code, its output
+    and the seconds it took once the thread has ended. Without ``common``,
+    compiles ``csrc/<name>.cu`` to the object ``out``."""
     res = {"code": 0, "text": "", "seconds": 0.0}
     files = _files(name)
     inc = ("-I", str(CSRC))
@@ -90,15 +114,20 @@ def _start_build(name: str, out: Path):
         res["seconds"] = time.perf_counter() - t0
 
     def compile_and_link():
-        if len(files) == 1:
-            run([[_nvcc(), *NVCC_FLAGS, *inc, "-o", str(out),
+        if common is None:
+            run([[_nvcc(), *COMPILE_FLAGS, "-c", *inc, "-o", str(out),
                   str(files[0])]])
             return
         objs = [out.with_suffix(f".{i}.o") for i in range(len(files))]
         run([[_nvcc(), *COMPILE_FLAGS, "-c", *inc, "-o", str(o),
               str(f)] for o, f in zip(objs, files)])
+        thread, (cres, cobjs) = common
+        thread.join()
+        if cres["code"]:
+            res["code"] = cres["code"]
         if not res["code"]:
-            run([[_nvcc(), "-shared", "-o", str(out), *map(str, objs)]])
+            run([[_nvcc(), "-shared", "-o", str(out), *map(str, objs),
+                  *map(str, cobjs)]])
         for o in objs:
             o.unlink(missing_ok=True)
     thread = threading.Thread(target=go)
@@ -110,9 +139,26 @@ def build_all() -> Dict[str, Path]:
     """Compile every source whose library is missing, in parallel."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     paths = {n: _lib_path(n) for n in SOURCES}
-    jobs = {n: (_start_build(n, p.with_suffix(f".{os.getpid()}.tmp")),
-                p.with_suffix(f".{os.getpid()}.tmp"))
-            for n, p in paths.items() if not p.exists()}
+    todo = [n for n, p in paths.items() if not p.exists()]
+    if not todo:
+        return paths
+    tag = f"{os.getpid()}"
+    cobjs = [BUILD_DIR / f"{c}.{tag}.o" for c in COMMON]
+    cjobs = [_start_build(c, o) for c, o in zip(COMMON, cobjs)]
+    cres = {"code": 0, "text": "", "seconds": 0.0}
+
+    def common_done():
+        for (thread, res) in cjobs:
+            thread.join()
+            cres["text"] += res["text"]
+            cres["code"] = cres["code"] or res["code"]
+    cthread = threading.Thread(target=common_done)
+    cthread.start()
+    jobs = {}
+    for n in todo:
+        linked = [o for c, o in zip(COMMON, cobjs) if n in COMMON[c]]
+        tmp = paths[n].with_suffix(f".{tag}.tmp")
+        jobs[n] = (_start_build(n, tmp, (cthread, (cres, linked))), tmp)
     failed = []
     for n, ((thread, res), tmp) in jobs.items():
         thread.join()
@@ -122,6 +168,13 @@ def build_all() -> Dict[str, Path]:
             failed.append(f"{n}.cu (exit {res['code']}):\n{res['text']}")
         else:
             os.replace(tmp, paths[n])
+    cthread.join()
+    for c, o in zip(COMMON, cobjs):
+        o.unlink(missing_ok=True)
+    build_log["+".join(COMMON)] = cres["text"]
+    if cres["code"]:
+        failed.append(f"{'+'.join(COMMON)}.cu (exit {cres['code']}):\n"
+                      f"{cres['text']}")
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
     return paths

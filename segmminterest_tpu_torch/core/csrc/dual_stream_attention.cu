@@ -25,15 +25,6 @@
 #include "proj_gemm.cuh"
 #include "two_block_mma.cuh"
 
-// dtype: 1 = bfloat16 (K2f's core block, the larger of the two streams');
-// any other dtype has no block here (0 bytes).
-extern "C" size_t segmm_dual_stream_attention_smem_bytes(int dtype, int Lv, int Lu, int DH) {
-  if (dtype != 1) return 0;
-  const size_t v = segmm::k2_core_fwd_smem_bytes(Lv, Lv, Lu, DH),
-               u = segmm::k2_core_fwd_smem_bytes(Lu, Lv, Lu, DH);
-  return v > u ? v : u;
-}
-
 // bf16 K5f on K2f's pieces. ptrs: xv, xu, then the video stream's wq1,
 // bq1, wq2, bq2, wk1, bk1, wk2, bk2, wv1, bv1, wv2, bv2, then the user
 // stream's (26 device pointers, bf16, 16-byte aligned). mv (B, Lv), mu
@@ -50,9 +41,9 @@ extern "C" int segmm_dual_stream_attention_fwd_mma(const void* const* ptrs, cons
   cudaError_t err = segmm::launch_k5_projections(ptrs, ws, B, Lv, Lu, dm, s);
   if (err != cudaSuccess) return (int)err;
   segmm::K2CoreArgs a =
-      segmm::k2_core_args(ws, mv, mv, mu, Lv, Lv, Lu, H, scale, rate, keep_div, seed);
+      segmm::k2_core_args(ws, dm, mv, mv, mu, Lv, Lv, Lu, H, scale, rate, keep_div, seed);
   segmm::K2CoreArgs u =
-      segmm::k2_core_args(ws + 3, mu, mv, mu, Lu, Lv, Lu, H, scale, rate, keep_div, seed);
+      segmm::k2_core_args(ws + 3, dm, mu, mv, mu, Lu, Lv, Lu, H, scale, rate, keep_div, seed);
   a.out = static_cast<__nv_bfloat16*>(ov);
   u.out = static_cast<__nv_bfloat16*>(ou);
   return (int)segmm::launch_dual_core<false>(a, u, dm / H, B, s);

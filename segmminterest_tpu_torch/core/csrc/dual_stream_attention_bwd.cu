@@ -90,8 +90,8 @@ inline cudaError_t launch_k5b_mma(const void* const* p, const int* mv, const int
   if (err != cudaSuccess) return err;
   // (2) the two cores: video queries (Lv) and user queries (Lu) over the
   // key blocks (Lv, Lu)
-  K2CoreArgs a = k2_core_args(ws, mv, mv, mu, Lv, Lv, Lu, H, scale, rate, keep_div, seed);
-  K2CoreArgs u = k2_core_args(ws + 3, mu, mv, mu, Lu, Lv, Lu, H, scale, rate, keep_div, seed);
+  K2CoreArgs a = k2_core_args(ws, d, mv, mv, mu, Lv, Lv, Lu, H, scale, rate, keep_div, seed);
+  K2CoreArgs u = k2_core_args(ws + 3, d, mu, mv, mu, Lu, Lv, Lu, H, scale, rate, keep_div, seed);
   a.g = static_cast<const bf16*>(gv);
   u.g = static_cast<const bf16*>(gu);
   for (int i = 0; i < 6; ++i) {
@@ -126,8 +126,8 @@ inline cudaError_t launch_k5b_mma(const void* const* p, const int* mv, const int
 // any other dtype has no block here (0 bytes).
 extern "C" size_t segmm_dual_stream_attention_bwd_smem_bytes(int dtype, int Lv, int Lu, int DH) {
   if (dtype != 1) return 0;
-  const size_t v = segmm::k2_core_bwd_smem_bytes(Lv, Lv, Lu, DH),
-               u = segmm::k2_core_bwd_smem_bytes(Lu, Lv, Lu, DH);
+  const size_t v = segmm::k2_core_smem_bytes(Lv, Lv, Lu, DH, true),
+               u = segmm::k2_core_smem_bytes(Lu, Lv, Lu, DH, true);
   return v > u ? v : u;
 }
 

@@ -25,6 +25,12 @@ constexpr int kEpPanel = 128;     // output columns per pass
 constexpr int kEpK = 32;          // depth of a staged weight chunk
 constexpr int kEpFwdRows = 32;    // rows per block, forward
 constexpr int kEpBwdRows = 16;    // rows per block, backward
+// Wider layers keep fewer rows a block, so that a block's full rows of d
+// and ff stay in shared memory: kEpFwdRows / kEpBwdRows where they fit
+// (every width up to 512), else 8, else
+// 2 (ep_fwd_rows / ep_bwd_rows). Each row's sums run in the same order
+// whatever its block's rows.
+constexpr int kEpNarrowRows = 8, kEpNarrowestRows = 2;
 constexpr float kLnEps = 1e-12f;  // models/segformerx.py LN_EPS
 constexpr int kEpSalt = 2;        // the epilogue's salts: 2H, 2H + 1, 2H + 2
 
@@ -104,11 +110,23 @@ __device__ __forceinline__ bool ep_keep(float rate, unsigned seed, int row, int 
 // ---------------------------------------------------------------------------
 // products
 
-// fp32: thread (column n of the panel, row group g) sums RT / 2 rows; the
-// weight chunk is staged transposed ([k][n], stride 129: conflict-free
-// stores and reads), A's rows are read as float4 broadcasts.
-template <int RT>
-__device__ void tile_gemm_tn(const float* sA, int lda, int K, const float* __restrict__ W, int N,
+// A's four values at a (16 bytes of fp32, or 8 of bf16 widened).
+__device__ __forceinline__ float4 load4_f(const float* a) {
+  return *reinterpret_cast<const float4*>(a);
+}
+__device__ __forceinline__ float4 load4_f(const __nv_bfloat16* a) {
+  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(a));
+  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(a + 2));
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
+}
+
+// Thread (column n of the panel, row group g) sums RT / 2 rows in fp32;
+// the weight chunk is staged transposed ([k][n], stride 129: conflict-free
+// stores and reads) as fp32, A's rows are read as four-value broadcasts.
+// T: fp32 (fp32 K4) or bf16 (bf16 K4 past its tensor-core epilogue's
+// widths: products of bf16 values, summed in fp32).
+template <int RT, typename T = float>
+__device__ void tile_gemm_tn(const T* sA, int lda, int K, const T* __restrict__ W, int N,
                              float* sC, int ldc, unsigned char* stage) {
   constexpr int G = kEpThreads / kEpPanel, RPT = RT / G, WS = kEpPanel + 1;
   float* sw = reinterpret_cast<float*>(stage);
@@ -122,7 +140,7 @@ __device__ void tile_gemm_tn(const float* sA, int lda, int K, const float* __res
       __syncthreads();
       for (int i = tid; i < pw * kEpK; i += kEpThreads) {
         const int nn = i / kEpK, k = i - nn * kEpK;
-        sw[k * WS + nn] = W[(long)(n0 + nn) * K + k0 + k];
+        sw[k * WS + nn] = to_f<T>(W[(long)(n0 + nn) * K + k0 + k]);
       }
       __syncthreads();
       if (n < pw) {
@@ -132,7 +150,7 @@ __device__ void tile_gemm_tn(const float* sA, int lda, int K, const float* __res
           const float w2 = sw[(k + 2) * WS + n], w3 = sw[(k + 3) * WS + n];
 #pragma unroll
           for (int i = 0; i < RPT; ++i) {
-            const float4 a = *reinterpret_cast<const float4*>(sA + (g + i * G) * lda + k0 + k);
+            const float4 a = load4_f(sA + (g + i * G) * lda + k0 + k);
             acc[i] = fmaf(a.x, w0, acc[i]);
             acc[i] = fmaf(a.y, w1, acc[i]);
             acc[i] = fmaf(a.z, w2, acc[i]);

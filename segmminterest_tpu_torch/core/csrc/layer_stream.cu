@@ -21,11 +21,12 @@
 // (layer_mma.cuh): a block of 16 warps per 64 rows of (B * Lq) (32 rows
 // where d or ff passes 512, up to 768) runs the
 // three Dense layers on mma.sync with full rows in its registers, y1 and g
-// through device memory.
+// through device memory; past 768, the row-tile kernel below in bf16.
 // fp32: att comes from the wrapper (K2f's fp32 route: the projections and
 // K1f's 3xTF32 core, core/attention.py); here a row-tile epilogue kernel,
 // one block of 256 threads per
-// 32 rows, the rows kept in shared memory through the three Dense layers
+// 32 rows (8, then 2, where a wider layer's full rows would not fit), the
+// rows kept in shared memory through the three Dense layers
 // and both LayerNorms, the weights streamed through shared memory in
 // 128 x 32 chunks, fp32 FMAs on the CUDA cores (layer_epilogue.cuh).
 // The wrapper picks the body by dtype.
@@ -41,30 +42,40 @@
 
 namespace segmm {
 
-// shared-memory layout of the forward epilogue: the A tile (att, then y1),
-// the GELU tile g, the fp32 product tile, the weight stage, the row stats
+// shared-memory layout of the forward epilogue over rt rows: the A tile
+// (att, then y1), the GELU tile g, the fp32 product tile, the weight stage,
+// the row stats
 template <typename T>
 struct EpFwdLayout {
   size_t a, g, c, stage, stats, total;
-  __host__ __device__ EpFwdLayout(int d, int ff) {
+  __host__ __device__ EpFwdLayout(int d, int ff, int rt = kEpFwdRows) {
     const int w = d > ff ? d : ff;
     a = 0;
-    g = a + align128(sizeof(T) * kEpFwdRows * tile_ld<T>(w));
-    c = g + align128(sizeof(T) * kEpFwdRows * tile_ld<T>(ff));
-    stage = c + align128(sizeof(float) * kEpFwdRows * (w + 4));
+    g = a + align128(sizeof(T) * rt * tile_ld<T>(w));
+    c = g + align128(sizeof(T) * rt * tile_ld<T>(ff));
+    stage = c + align128(sizeof(float) * rt * (w + 4));
     stats = stage + align128(ep_stage_bytes());
-    total = stats + 2 * sizeof(float) * kEpFwdRows;
+    total = stats + 2 * sizeof(float) * rt;
   }
 };
 
-template <typename T, bool kDrop>
+// The forward row-tile epilogue's rows a block at widths d, ff: the most
+// of kEpFwdRows, kEpNarrowRows and kEpNarrowestRows whose layout fits one
+// block (0: none does).
+template <typename T> inline int ep_fwd_rows(int d, int ff) {
+  const int rts[3] = {kEpFwdRows, kEpNarrowRows, kEpNarrowestRows};
+  for (int rt : rts)
+    if (EpFwdLayout<T>(d, ff, rt).total <= kK2MaxBlockSmem) return rt;
+  return 0;
+}
+
+template <typename T, bool kDrop, int RT>
 __global__ void __launch_bounds__(kEpThreads)
 layer_epilogue_fwd_kernel(const T* __restrict__ att, const T* __restrict__ xq, EpParams<T> ep,
                           T* __restrict__ out, int rows, int Lq, int B, int d, int ff, int H,
                           float rate, float epi_div, unsigned seed) {
-  constexpr int RT = kEpFwdRows;
   extern __shared__ __align__(128) unsigned char smem[];
-  const EpFwdLayout<T> lay(d, ff);
+  const EpFwdLayout<T> lay(d, ff, RT);
   const int w = d > ff ? d : ff, lda = tile_ld<T>(w), ldg = tile_ld<T>(ff), ldc = w + 4;
   T* sA = reinterpret_cast<T*>(smem + lay.a);
   T* sG = reinterpret_cast<T*>(smem + lay.g);
@@ -82,7 +93,7 @@ layer_epilogue_fwd_kernel(const T* __restrict__ att, const T* __restrict__ xq, E
   }
   __syncthreads();
   // h, its dropout, the residual r1 = xq + h (rounded to T)
-  tile_gemm_tn<RT>(sA, lda, d, ep.wff, d, sC, ldc, stage);
+  tile_gemm_tn<RT, T>(sA, lda, d, ep.wff, d, sC, ldc, stage);
   for (int i = tid; i < RT * d; i += kEpThreads) {
     const int r = i / d, c = i - r * d;
     float v = 0.f;
@@ -103,7 +114,7 @@ layer_epilogue_fwd_kernel(const T* __restrict__ att, const T* __restrict__ xq, E
   }
   __syncthreads();
   // g = gelu(y1 . W_m1^T + b_m1), its dropout
-  tile_gemm_tn<RT>(sA, lda, d, ep.wm1, ff, sC, ldc, stage);
+  tile_gemm_tn<RT, T>(sA, lda, d, ep.wm1, ff, sC, ldc, stage);
   for (int i = tid; i < RT * ff; i += kEpThreads) {
     const int r = i / ff, c = i - r * ff;
     const float u = proj_epilogue<T>(sC[r * ldc + c], to_f<T>(ep.bm1[c]));
@@ -114,7 +125,7 @@ layer_epilogue_fwd_kernel(const T* __restrict__ att, const T* __restrict__ xq, E
   }
   __syncthreads();
   // m = g . W_m2^T + b_m2, its dropout, r2 = y1 + m (rounded to T)
-  tile_gemm_tn<RT>(sG, ldg, ff, ep.wm2, d, sC, ldc, stage);
+  tile_gemm_tn<RT, T>(sG, ldg, ff, ep.wm2, d, sC, ldc, stage);
   for (int i = tid; i < RT * d; i += kEpThreads) {
     const int r = i / d, c = i - r * d;
     float m = proj_epilogue<T>(sC[r * ldc + c], to_f<T>(ep.bm2[c]));
@@ -132,22 +143,42 @@ layer_epilogue_fwd_kernel(const T* __restrict__ att, const T* __restrict__ xq, E
   }
 }
 
-// The fp32 epilogue on att (the wrapper's).
-template <typename T>
-cudaError_t launch_k4f_epilogue(const void* const* p, const void* att, void* out, int B, int Lq,
-                                int dm, int H, int ff, float rate, float epi_div, unsigned seed,
-                                cudaStream_t s) {
-  const size_t smem = EpFwdLayout<T>(dm, ff).total;
-  auto kernel = rate > 0.f ? layer_epilogue_fwd_kernel<T, true>
-                           : layer_epilogue_fwd_kernel<T, false>;
+template <typename T, int RT>
+cudaError_t launch_k4f_epilogue_rt(const void* const* p, const void* att, void* out, int B,
+                                   int Lq, int dm, int H, int ff, float rate, float epi_div,
+                                   unsigned seed, cudaStream_t s) {
+  const size_t smem = EpFwdLayout<T>(dm, ff, RT).total;
+  auto kernel = rate > 0.f ? layer_epilogue_fwd_kernel<T, true, RT>
+                           : layer_epilogue_fwd_kernel<T, false, RT>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const int rows = B * Lq;
-  kernel<<<(rows + kEpFwdRows - 1) / kEpFwdRows, kEpThreads, smem, s>>>(
-      static_cast<const T*>(att), static_cast<const T*>(p[0]), ep_params<T>(p + 15),
-      static_cast<T*>(out), rows, Lq, B, dm, ff, H, rate, epi_div, seed);
+  if (rows > 0)
+    kernel<<<(rows + RT - 1) / RT, kEpThreads, smem, s>>>(
+        static_cast<const T*>(att), static_cast<const T*>(p[0]), ep_params<T>(p + 15),
+        static_cast<T*>(out), rows, Lq, B, dm, ff, H, rate, epi_div, seed);
   return cudaGetLastError();
+}
+
+// The row-tile epilogue on att: fp32 K4f's (att the wrapper's), and bf16
+// K4f's at widths past the tensor-core epilogue's (lm_takes).
+template <typename T>
+cudaError_t launch_k4f_epilogue(const void* const* p, const void* att, void* out, int B, int Lq,
+                                int dm, int H, int ff, float rate, float epi_div, unsigned seed,
+                                cudaStream_t s) {
+  switch (ep_fwd_rows<T>(dm, ff)) {
+    case kEpFwdRows:
+      return launch_k4f_epilogue_rt<T, kEpFwdRows>(p, att, out, B, Lq, dm, H, ff, rate, epi_div,
+                                                   seed, s);
+    case kEpNarrowRows:
+      return launch_k4f_epilogue_rt<T, kEpNarrowRows>(p, att, out, B, Lq, dm, H, ff, rate,
+                                                      epi_div, seed, s);
+    case kEpNarrowestRows:
+      return launch_k4f_epilogue_rt<T, kEpNarrowestRows>(p, att, out, B, Lq, dm, H, ff, rate,
+                                                         epi_div, seed, s);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 inline cudaError_t launch_layer_epilogue_fwd_mma(const LmFwdArgs& a, cudaStream_t s) {
@@ -167,13 +198,15 @@ inline cudaError_t launch_k4f_mma(const void* const* p, const int* mq, const int
                                   const int* m2, void* const* work, void* out, int B, int Lq,
                                   int L1, int L2, int dm, int H, int ff, float scale, float rate,
                                   float keep_div, float epi_div, unsigned seed, cudaStream_t s) {
-  if (!lm_takes(dm, ff)) return cudaErrorInvalidValue;
   cudaError_t err = launch_k2_projections(p, work + 3, B, Lq, L1, L2, dm, s);
   if (err != cudaSuccess) return err;
-  K2CoreArgs a = k2_core_args(work + 3, mq, m1, m2, Lq, L1, L2, H, scale, rate, keep_div, seed);
+  K2CoreArgs a = k2_core_args(work + 3, dm, mq, m1, m2, Lq, L1, L2, H, scale, rate, keep_div, seed);
   a.out = static_cast<bf16*>(work[0]);
   err = launch_k2_core<false>(a, dm / H, B, s);
   if (err != cudaSuccess) return err;
+  // past the tensor-core epilogue's widths, the row-tile one in bf16
+  if (!lm_takes(dm, ff))
+    return launch_k4f_epilogue<bf16>(p, work[0], out, B, Lq, dm, H, ff, rate, epi_div, seed, s);
   const LmFwdArgs e{static_cast<const bf16*>(work[0]), static_cast<const bf16*>(p[0]),
                     static_cast<bf16*>(work[1]), static_cast<bf16*>(work[2]),
                     static_cast<bf16*>(out), ep_params<bf16>(p + 15), B * Lq, Lq, B, dm, ff, H,
@@ -183,26 +216,15 @@ inline cudaError_t launch_k4f_mma(const void* const* p, const int* mq, const int
 
 }  // namespace segmm
 
-// dtype: 0 = float32 (the epilogue's block), 1 = bfloat16 (the largest of
-// the launches' bytes; the projection GEMM's are fixed and smaller).
-extern "C" size_t segmm_layer_stream_smem_bytes(int dtype, int Lq, int L1, int L2, int DH,
-                                                int dm, int ff) {
-  if (dtype == 1) {
-    const size_t a = segmm::k2_core_fwd_smem_bytes(Lq, L1, L2, DH);
-    const size_t e = segmm::lm_fwd_smem_bytes(dm, ff);
-    return a > e ? a : e;
-  }
-  return segmm::EpFwdLayout<float>(dm, ff).total;
-}
-
 // ptrs: xq, x1, x2, the twelve projection parameters (as K2's), then the
 // ten epilogue parameters (w_ff (d, d), b_ff, ln1_s, ln1_b, w_m1 (ff, d),
 // b_m1, w_m2 (d, ff), b_m2, ln2_s, ln2_b; nn.Linear layout, the LayerNorm
 // ones fp32). work: fp32, att (B, Lq, d), computed by the wrapper, which
 // the epilogue alone reads; bf16, att, y1 (B, Lq, d), gact (B, Lq, ff) and
 // the projections' (B, Lq, 2d), (B, L1, 2d), (B, L2, 2d). out (B, Lq, d).
-// DH = d / H in {16, 32, 48, 64, 96, 128}, d % 32 == 0, ff % 32 == 0, d,
-// ff <= 768 (bf16), lengths <= 128. keep_div = 1 - rate in fp32
+// DH = d / H in {16, 32, 48, 64, 96, 128}, d % 32 == 0, ff % 32 == 0, any
+// lengths, widths whose 2-row epilogue block fits one block's shared
+// memory (ep_fwd_rows). keep_div = 1 - rate in fp32
 // (attention), epi_div = 1 - rate in x's dtype (epilogue). Returns a
 // cudaError_t (0 = launched).
 extern "C" int segmm_layer_stream_fwd(int dtype, const void* const* ptrs, const int* mq,

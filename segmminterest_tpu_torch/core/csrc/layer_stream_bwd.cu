@@ -13,7 +13,8 @@
 //      rows of (B * Lq) recomputes the epilogue forward on mma.sync, then
 //      runs LN2', W_m2, GELU', W_m1, LN1' and W_ff with its dgrad products'
 //      fp32 operand in three bf16 parts, full rows in its registers; it
-//      writes what (4)-(8) read, as the fp32 kernel below does.
+//      writes what (4)-(8) read, as the fp32 kernel below does. Past 768
+//      the fp32 kernel below runs in bf16 instead, d_att as two halves.
 //  (4) the LayerNorm gradients, its blocks' column sums added in order.
 //  (5) K2b's core (two_block_mma.cuh) on g = d_att in fp32, which (3)
 //      writes as bf16 hi and lo halves (the TPU kernel keeps its `sdatt`
@@ -27,7 +28,8 @@
 // route (core/attention.py: the projections and K1's 3xTF32 core):
 //  (1) att, recomputed by the wrapper as the forward made it.
 //  (2) the epilogue-backward row-tile kernel, one block of 256 threads per
-//      16 rows of (B * Lq): the epilogue forward recomputed in shared memory
+//      16 rows of (B * Lq) (8, then 2, where a wider layer's rows would not
+//      fit; ep_bwd_rows): the epilogue forward recomputed in shared memory
 //      (layer_epilogue.cuh products, the forward's roundings and dropout
 //      bits), then
 //        dr2 = LN2'(g), dm = drop(dr2), dgd = drop(dm . W_m2),
@@ -74,35 +76,49 @@ struct EpBwdIO {
   float* dh;      // (rows, d)
   float* du;      // (rows, ff); holds u until du replaces it
   float* part;    // (blocks, 4, d): sums of g xhat2, g, dy1 xhat1, dy1
+  // T = bf16 (the bf16 K4b's widths past the tensor-core epilogue): d_att
+  // as bf16 hi and lo halves, as the bf16 core stages K4b's g; datt unused
+  bf16* datt_hi;
+  bf16* datt_lo;
 };
 
-// shared memory: the A tile (att in T, then the backward's fp32 operands
-// dm, du, dh), y1 (T), the fp32 product tile, r2 / dr2 (fp32), the weight
-// stage, the two LayerNorms' row stats
+// shared memory over rt rows: the A tile (att in T, then the backward's
+// fp32 operands dm, du, dh), y1 (T), the fp32 product tile, r2 / dr2
+// (fp32), the weight stage, the two LayerNorms' row stats
 template <typename T>
 struct EpBwdLayout {
   size_t a, y1, c, r2, stage, stats, total;
-  __host__ __device__ EpBwdLayout(int d, int ff) {
+  __host__ __device__ EpBwdLayout(int d, int ff, int rt = kEpBwdRows) {
     const int w = d > ff ? d : ff;
-    const size_t at = sizeof(T) * kEpBwdRows * tile_ld<T>(w);
-    const size_t af = sizeof(float) * kEpBwdRows * (w + 4);
+    const size_t at = sizeof(T) * rt * tile_ld<T>(w);
+    const size_t af = sizeof(float) * rt * (w + 4);
     a = 0;
     y1 = a + align128(at > af ? at : af);
-    c = y1 + align128(sizeof(T) * kEpBwdRows * tile_ld<T>(d));
-    r2 = c + align128(sizeof(float) * kEpBwdRows * (w + 4));
-    stage = r2 + align128(sizeof(float) * kEpBwdRows * (d + 4));
+    c = y1 + align128(sizeof(T) * rt * tile_ld<T>(d));
+    r2 = c + align128(sizeof(float) * rt * (w + 4));
+    stage = r2 + align128(sizeof(float) * rt * (d + 4));
     stats = stage + align128(ep_stage_bytes());
-    total = stats + 4 * sizeof(float) * kEpBwdRows;
+    total = stats + 4 * sizeof(float) * rt;
   }
 };
 
-template <typename T, bool kDrop>
+// The backward row-tile epilogue's rows a block at widths d, ff: the most
+// of kEpBwdRows, kEpNarrowRows and kEpNarrowestRows whose layout fits one
+// block (0: none does); its LayerNorm partials are ceil(B Lq / rows)
+// blocks' (core/layer_kernel.py k4_epilogue_rows).
+template <typename T> inline int ep_bwd_rows(int d, int ff) {
+  const int rts[3] = {kEpBwdRows, kEpNarrowRows, kEpNarrowestRows};
+  for (int rt : rts)
+    if (EpBwdLayout<T>(d, ff, rt).total <= kK2MaxBlockSmem) return rt;
+  return 0;
+}
+
+template <typename T, bool kDrop, int RT>
 __global__ void __launch_bounds__(kEpThreads)
 layer_epilogue_bwd_kernel(EpBwdIO<T> io, EpParams<T> ep, int rows, int Lq, int B, int d, int ff,
                           int H, float rate, float keep_div, float epi_div, unsigned seed) {
-  constexpr int RT = kEpBwdRows;
   extern __shared__ __align__(128) unsigned char smem[];
-  const EpBwdLayout<T> lay(d, ff);
+  const EpBwdLayout<T> lay(d, ff, RT);
   const int w = d > ff ? d : ff, lda = tile_ld<T>(w), ldf = w + 4, ldy = tile_ld<T>(d);
   const int ldc = w + 4, ldr = d + 4;
   T* sA = reinterpret_cast<T*>(smem + lay.a);
@@ -127,7 +143,7 @@ layer_epilogue_bwd_kernel(EpBwdIO<T> io, EpParams<T> ep, int rows, int Lq, int B
     sA[r * lda + c] = r < nrows ? io.att[(long)(r0 + r) * d + c] : from_f<T>(0.f);
   }
   __syncthreads();
-  tile_gemm_tn<RT>(sA, lda, d, ep.wff, d, sC, ldc, stage);
+  tile_gemm_tn<RT, T>(sA, lda, d, ep.wff, d, sC, ldc, stage);
   for (int i = tid; i < RT * d; i += kEpThreads) {
     const int r = i / d, c = i - r * d;
     float v = 0.f;
@@ -149,7 +165,7 @@ layer_epilogue_bwd_kernel(EpBwdIO<T> io, EpParams<T> ep, int rows, int Lq, int B
     if (r < nrows) io.y1[(long)(r0 + r) * d + c] = y;
   }
   __syncthreads();
-  tile_gemm_tn<RT>(sY, ldy, d, ep.wm1, ff, sC, ldc, stage);
+  tile_gemm_tn<RT, T>(sY, ldy, d, ep.wm1, ff, sC, ldc, stage);
   for (int i = tid; i < RT * ff; i += kEpThreads) {
     const int r = i / ff, c = i - r * ff;
     const float u = proj_epilogue<T>(sC[r * ldc + c], to_f<T>(ep.bm1[c]));
@@ -163,7 +179,7 @@ layer_epilogue_bwd_kernel(EpBwdIO<T> io, EpParams<T> ep, int rows, int Lq, int B
     sA[r * lda + c] = from_f<T>(g);
   }
   __syncthreads();
-  tile_gemm_tn<RT>(sA, lda, ff, ep.wm2, d, sC, ldc, stage);
+  tile_gemm_tn<RT, T>(sA, lda, ff, ep.wm2, d, sC, ldc, stage);
   for (int i = tid; i < RT * d; i += kEpThreads) {
     const int r = i / d, c = i - r * d;
     float m = proj_epilogue<T>(sC[r * ldc + c], to_f<T>(ep.bm2[c]));
@@ -282,7 +298,15 @@ layer_epilogue_bwd_kernel(EpBwdIO<T> io, EpParams<T> ep, int rows, int Lq, int B
   tile_gemm_nn_f32<T, RT>(sF, ldf, d, ep.wff, d, sC, ldc, stage);
   for (int i = tid; i < nrows * d; i += kEpThreads) {
     const int r = i / d, c = i - r * d;
-    io.datt[(long)(r0 + r) * d + c] = sC[r * ldc + c];
+    const long o = (long)(r0 + r) * d + c;
+    if constexpr (std::is_same<T, float>::value) {
+      io.datt[o] = sC[r * ldc + c];
+    } else {
+      float hi, lo;
+      split_bf16(sC[r * ldc + c], hi, lo);
+      io.datt_hi[o] = __float2bfloat16(hi);
+      io.datt_lo[o] = __float2bfloat16(lo);
+    }
   }
 }
 
@@ -298,32 +322,59 @@ __global__ void ln_partial_sum_kernel(const float* __restrict__ part, int nblk, 
   out[j][c] = s;
 }
 
-// fp32 (2) and (3): the epilogue backward on att (work[0], the wrapper's)
-// and the LayerNorm gradients.
+template <typename T, int RT>
+cudaError_t launch_k4b_epilogue_rt(const EpBwdIO<T>& io, const void* const* p,
+                                   float* const* grads, int B, int Lq, int d, int H, int ff,
+                                   float rate, float keep_div, float epi_div, unsigned seed,
+                                   cudaStream_t s) {
+  const int rows = B * Lq;
+  const size_t smem = EpBwdLayout<T>(d, ff, RT).total;
+  auto kernel = rate > 0.f ? layer_epilogue_bwd_kernel<T, true, RT>
+                           : layer_epilogue_bwd_kernel<T, false, RT>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const int nblk = (rows + RT - 1) / RT;
+  if (nblk > 0)
+    kernel<<<nblk, kEpThreads, smem, s>>>(io, ep_params<T>(p + 15), rows, Lq, B, d, ff, H, rate,
+                                          keep_div, epi_div, seed);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  ln_partial_sum_kernel<<<(4 * d + 255) / 256, 256, 0, s>>>(io.part, nblk, d, grads[20],
+                                                              grads[21], grads[14], grads[15]);
+  return cudaGetLastError();
+}
+
+// (2) and (3) of fp32 K4b: the row-tile epilogue backward on att (work[0],
+// the wrapper's) and the LayerNorm gradients; also bf16 K4b's (3) and (4)
+// at widths past the tensor-core epilogue's (lm_takes), d_att into
+// work[3]'s bytes as bf16 hi and lo halves.
 template <typename T>
 cudaError_t launch_k4b_epilogue(const void* const* p, const void* g, float* const* work,
                                 float* const* grads, int B, int Lq, int dm, int H, int ff,
                                 float rate, float keep_div, float epi_div, unsigned seed,
                                 cudaStream_t s) {
-  const int rows = B * Lq, d = dm;
-  EpBwdIO<T> io{static_cast<const T*>((const void*)work[0]), static_cast<const T*>(p[0]),
-                static_cast<const T*>(g),   reinterpret_cast<T*>(work[1]),
-                reinterpret_cast<T*>(work[2]), work[3], work[4], work[5], work[6], work[7],
-                work[8]};
-  const size_t smem = EpBwdLayout<T>(d, ff).total;
-  auto kernel = rate > 0.f ? layer_epilogue_bwd_kernel<T, true>
-                           : layer_epilogue_bwd_kernel<T, false>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const int nblk = (rows + kEpBwdRows - 1) / kEpBwdRows;
-  kernel<<<nblk, kEpThreads, smem, s>>>(io, ep_params<T>(p + 15), rows, Lq, B, d, ff, H, rate,
-                                        keep_div, epi_div, seed);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  ln_partial_sum_kernel<<<(4 * d + 255) / 256, 256, 0, s>>>(work[8], nblk, d, grads[20],
-                                                              grads[21], grads[14], grads[15]);
-  return cudaGetLastError();
+  const int d = dm;
+  bf16* hi = reinterpret_cast<bf16*>(work[3]);
+  const EpBwdIO<T> io{static_cast<const T*>((const void*)work[0]),
+                      static_cast<const T*>(p[0]),
+                      static_cast<const T*>(g),
+                      reinterpret_cast<T*>(work[1]),
+                      reinterpret_cast<T*>(work[2]),
+                      work[3], work[4], work[5], work[6], work[7], work[8], hi,
+                      hi + (long)B * Lq * d};
+  switch (ep_bwd_rows<T>(d, ff)) {
+    case kEpBwdRows:
+      return launch_k4b_epilogue_rt<T, kEpBwdRows>(io, p, grads, B, Lq, d, H, ff, rate,
+                                                   keep_div, epi_div, seed, s);
+    case kEpNarrowRows:
+      return launch_k4b_epilogue_rt<T, kEpNarrowRows>(io, p, grads, B, Lq, d, H, ff, rate,
+                                                      keep_div, epi_div, seed, s);
+    case kEpNarrowestRows:
+      return launch_k4b_epilogue_rt<T, kEpNarrowestRows>(io, p, grads, B, Lq, d, H, ff, rate,
+                                                         keep_div, epi_div, seed, s);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 // fp32 (5)-(7): dx and the nine dW, db from the six fp32 dq1..dv2 of the
@@ -388,34 +439,24 @@ inline cudaError_t launch_layer_epilogue_bwd_mma(const LmBwdArgs& a, cudaStream_
   return cudaGetLastError();
 }
 
-// bf16: work as segmm_layer_stream_bwd's, the partials (lm_blocks(B Lq, d, ff), 4, d), then
-// K2's projection workspace (three (B, L, 2d) tensors) at work[15..17].
-inline cudaError_t launch_k4b_mma(const void* const* p, const int* mq, const int* m1,
-                                  const int* m2, const void* g, float* const* work,
-                                  void* const* dx, float* const* grads, float* scratch, int B,
-                                  int Lq, int L1, int L2, int dm, int H, int ff, int chunk,
-                                  float scale, float rate, float keep_div, float epi_div,
-                                  unsigned seed, cudaStream_t s) {
-  if (!lm_takes(dm, ff)) return cudaErrorInvalidValue;
-  const int rows = B * Lq, d = dm;
-  void* const ws[3] = {work[15], work[16], work[17]};
-  bf16* att = reinterpret_cast<bf16*>(work[0]);
-  // (1), (2) att
-  cudaError_t err = launch_k2_projections(p, ws, B, Lq, L1, L2, dm, s);
-  if (err != cudaSuccess) return err;
-  K2CoreArgs a = k2_core_args(ws, mq, m1, m2, Lq, L1, L2, H, scale, rate, keep_div, seed);
-  a.out = att;
-  err = launch_k2_core<false>(a, dm / H, B, s);
-  if (err != cudaSuccess) return err;
+// bf16 K4b's (3) and (4) at the tensor-core epilogue's widths: the
+// epilogue backward on mma.sync and the LayerNorm gradients.
+inline cudaError_t launch_k4b_epilogue_mma(const void* const* p, const void* g,
+                                           float* const* work, float* const* grads,
+                                           const bf16* att, bf16* datt_hi, bf16* datt_lo, int B,
+                                           int Lq, int d, int H, int ff, float rate,
+                                           float keep_div, float epi_div, unsigned seed,
+                                           cudaStream_t s) {
+  const int rows = B * Lq;
+  cudaError_t err;
   // (3) the epilogue backward
   LmBwdArgs e{};
   e.f = LmFwdArgs{att, static_cast<const bf16*>(p[0]), reinterpret_cast<bf16*>(work[1]),
                   reinterpret_cast<bf16*>(work[2]), nullptr, ep_params<bf16>(p + 15), rows, Lq,
                   B, d, ff, H, rate, epi_div, seed};
   e.g = static_cast<const bf16*>(g);
-  // d_att's fp32 buffer holds its two bf16 halves
-  e.datt_hi = reinterpret_cast<bf16*>(work[3]);
-  e.datt_lo = e.datt_hi + (long)rows * d;
+  e.datt_hi = datt_hi;
+  e.datt_lo = datt_lo;
   e.r1 = work[4];
   e.dm = work[5];
   e.dh = work[6];
@@ -429,11 +470,46 @@ inline cudaError_t launch_k4b_mma(const void* const* p, const int* mq, const int
     ln_partial_sum_kernel<<<(4 * d + 255) / 256, 256, 0, s>>>(
         work[8], lm_blocks(rows, d, ff), d, grads[20], grads[21], grads[14], grads[15]);
     err = cudaGetLastError();
+  }
+  return err;
+}
+
+// bf16: work as segmm_layer_stream_bwd's, then K2's projection workspace
+// (three (B, L, 2d) tensors) at work[15..17]; the epilogue backward on the
+// tensor cores up to widths of 768 (lm_takes), past them the row-tile one.
+inline cudaError_t launch_k4b_mma(const void* const* p, const int* mq, const int* m1,
+                                  const int* m2, const void* g, float* const* work,
+                                  void* const* dx, float* const* grads, float* scratch, int B,
+                                  int Lq, int L1, int L2, int dm, int H, int ff, int chunk,
+                                  float scale, float rate, float keep_div, float epi_div,
+                                  unsigned seed, cudaStream_t s) {
+  const int rows = B * Lq, d = dm;
+  void* const ws[3] = {work[15], work[16], work[17]};
+  bf16* att = reinterpret_cast<bf16*>(work[0]);
+  // (1), (2) att
+  cudaError_t err = launch_k2_projections(p, ws, B, Lq, L1, L2, dm, s);
+  if (err != cudaSuccess) return err;
+  K2CoreArgs a = k2_core_args(ws, dm, mq, m1, m2, Lq, L1, L2, H, scale, rate, keep_div, seed);
+  a.out = att;
+  err = launch_k2_core<false>(a, dm / H, B, s);
+  if (err != cudaSuccess) return err;
+  // d_att's fp32 buffer holds its two bf16 halves
+  bf16* datt_hi = reinterpret_cast<bf16*>(work[3]);
+  bf16* datt_lo = datt_hi + (long)rows * d;
+  if (!lm_takes(d, ff)) {
+    // (3), (4) past the tensor-core epilogue's widths: the row-tile
+    // epilogue backward in bf16 and the LayerNorm gradients
+    err = launch_k4b_epilogue<bf16>(p, g, work, grads, B, Lq, d, H, ff, rate, keep_div, epi_div,
+                                    seed, s);
+    if (err != cudaSuccess) return err;
+  } else {
+    err = launch_k4b_epilogue_mma(p, g, work, grads, att, datt_hi, datt_lo, B, Lq, d, H, ff,
+                                  rate, keep_div, epi_div, seed, s);
     if (err != cudaSuccess) return err;
   }
   // (5) the attention's core backward on g = d_att (fp32, as two halves)
-  a.g = e.datt_hi;
-  a.glo = e.datt_lo;
+  a.g = datt_hi;
+  a.glo = datt_lo;
   for (int i = 0; i < 6; ++i) a.dy[i] = work[9 + i];
   err = launch_k2_core<true, true>(a, dm / H, B, s);
   if (err != cudaSuccess) return err;
@@ -449,22 +525,12 @@ inline cudaError_t launch_k4b_mma(const void* const* p, const int* mq, const int
 
 }  // namespace segmm
 
-// dtype: 0 = float32 (the epilogue backward's block), 1 = bfloat16 (the
-// largest of the launches' bytes).
-extern "C" size_t segmm_layer_stream_bwd_smem_bytes(int dtype, int Lq, int L1, int L2, int DH,
-                                                    int dm, int ff) {
-  if (dtype != 1) return segmm::EpBwdLayout<float>(dm, ff).total;
-  const size_t a = segmm::k2_core_fwd_smem_bytes(Lq, L1, L2, DH);
-  const size_t b = segmm::k2_core_bwd_smem_bytes(Lq, L1, L2, DH, true);
-  const size_t e = segmm::lm_bwd_smem_bytes(dm, ff);
-  return a > b ? (a > e ? a : e) : (b > e ? b : e);
-}
-
 // ptrs: as segmm_layer_stream_fwd's; g (B, Lq, d) in x's dtype. work:
 // att, y1 (B, Lq, d) and g (B, Lq, ff) in x's dtype; d_att, dr1, dm, dh
 // (B, Lq, d) and du (B, Lq, ff) fp32; the LayerNorm partials (blocks, 4,
-// d) fp32, blocks = ceil(B Lq / 16) (fp32) or ceil(B Lq / 64) (bf16, d and
-// ff <= 512; ceil(B Lq / 32) up to 768); the
+// d) fp32, blocks = ceil(B Lq / rows), rows the epilogue body's
+// (core/layer_kernel.py k4_epilogue_rows: the row-tile body's ep_bwd_rows,
+// or bf16's tensor-core body's lm_rows up to 768); the
 // six fp32 dq1, dq2, dk1, dk2, dv1, dv2 ((B, L, d) each); bf16 only, the
 // projections' (B, Lq, 2d), (B, L1, 2d), (B, L2, 2d) bf16. dx: dxq, dx1,
 // dx2 (x's dtype). grads (fp32): dW of the six projections, their six db,

@@ -42,7 +42,11 @@
 //   Templates: D in {16, 32, 48, 64, 96, 128}; NT, the n8 key tiles kept in
 //   registers (2, 4, 8 or 16 by Lk), so that short key rows do not pay 64
 //   registers. At D = 128 and (100, 100) the backward's block takes
-//   230,272 of its 232,448 bytes; (128, 128) exceeds them and raises.
+//   230,272 of its 232,448 bytes; (128, 128) exceeds them. Lengths past
+//   128, and shapes past this body's shared memory, run on the bf16
+//   two-block core's key-chunk path over one key block instead
+//   (segmm_two_block_core_fwd / _bwd, proj_two_block_attention*.cu; the
+//   wrapper's rule k3_takes names it "core").
 //
 // fp32 (masked_fwd_tf32_kernel, tf32_attention.cuh with one key block): on
 // the TF32 tensor cores in 3xTF32, K1f's fp32 body over one key block: a
@@ -50,9 +54,9 @@
 // lengths rounded up to 8 staged by cp.async, S and the softmax in
 // registers, out = p v with p's C tiles as the A operand. Shared memory at
 // D = 32 (tf32_fwd_smem_bytes): 36.3 KB at (40, 100), 27.1 KB at (100, 40),
-// 56.3 KB at (128, 128) (105.5 KB at D = 64). It takes every shape the
-// wrapper accepts (D in {16, 32, 48, 64, 96, 128}, lengths <= 128: at most
-// 16 key tiles), past D = 64 in query windows (tf32_attention.cuh).
+// 56.3 KB at (128, 128) (105.5 KB at D = 64). It takes lengths up to 128
+// (at most 16 key tiles), past D = 64 in query windows, and longer ones on
+// its key-chunk path (tf32_chunked.cu), so every length.
 #include "masked_attention_mma.cuh"
 #include "tf32_attention.cuh"
 
@@ -162,8 +166,9 @@ extern "C" size_t segmm_masked_attention_smem_bytes(int dtype, int Lq, int Lk, i
 }
 
 // dtype: 0 = float32 (3xTF32), 1 = bfloat16 (bf16 tensor cores). rate > 0
-// applies the dropout mask of `seed` (keep_div = 1 - rate in fp32). Lq, Lk
-// <= 128, D in {16, 32, 48, 64, 96, 128} (fp32: D % 4 == 0, D <= 128);
+// applies the dropout mask of `seed` (keep_div = 1 - rate in fp32). bf16:
+// the shapes its body takes (k3_takes "mma"); fp32 any lengths. D in {16,
+// 32, 48, 64, 96, 128} (fp32: D % 4 == 0, D <= 128);
 // bf16 pointers 16-byte aligned (the wrapper
 // checks). Returns a cudaError_t (0 = launched).
 extern "C" int segmm_masked_attention_fwd(int dtype, const void* q, const void* k,

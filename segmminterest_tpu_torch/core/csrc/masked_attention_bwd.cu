@@ -279,9 +279,10 @@ extern "C" int segmm_masked_attention_bwd_windows(int Lq, int Lk, int D) {
 
 // dtype: 0 = float32 (3xTF32), 1 = bfloat16 (bf16 tensor cores). Inputs q, k,
 // v, the masks and g; outputs dq, dk, dv (same shapes and dtype as q, k,
-// v). Lq, Lk <= 128, D in {16, 32, 48, 64, 96, 128} (fp32: D % 4 == 0,
-// D <= 128; part: scratch of (windows - 1) part slots, or null where there
-// is one window); bf16 pointers 16-byte aligned (the
+// v). bf16: the shapes its body takes (k3_takes "mma"); fp32 any lengths.
+// D in {16, 32, 48, 64, 96, 128} (fp32: D % 4 == 0, D <= 128; part:
+// scratch of (windows - 1) part slots where the one-chunk body runs in
+// several windows, else null); bf16 pointers 16-byte aligned (the
 // wrapper checks). Returns a cudaError_t (0 = launched).
 extern "C" int segmm_masked_attention_bwd(int dtype, const void* q, const void* k,
                                           const void* v, const int* mq, const int* mk,

@@ -38,14 +38,14 @@
 // qkv_gemm_smem_bytes); any other dtype has no block here (0 bytes).
 extern "C" size_t segmm_proj_two_block_attention_smem_bytes(int dtype, int Lq, int L1, int L2,
                                                             int DH) {
-  return dtype == 1 ? segmm::k2_core_fwd_smem_bytes(Lq, L1, L2, DH) : 0;
+  return dtype == 1 ? segmm::k2_core_smem_bytes(Lq, L1, L2, DH, false) : 0;
 }
 
 // ptrs: xq, x1, x2, wq1, bq1, wq2, bq2, wk1, bk1, wk2, bk2, wv1, bv1, wv2, bv2
 // (device pointers, 16-byte aligned). dtype: 1 = bfloat16 (any other is
 // refused). ws: the projections' outputs, (B, Lq, 2d), (B, L1, 2d),
-// (B, L2, 2d) bf16. DH in SEGMM_K2_HEAD_DIMS, d % 32 == 0, every length
-// <= 128.
+// (B, L2, 2d) bf16. DH in SEGMM_K2_HEAD_DIMS, d % 32 == 0, any lengths
+// (past the core's one-chunk shapes its key-chunk path).
 // rate > 0 applies the dropout mask of `seed` (keep_div = 1 - rate in
 // fp32). Returns a cudaError_t (0 = launched).
 extern "C" int segmm_proj_two_block_attention_fwd(
@@ -57,10 +57,53 @@ extern "C" int segmm_proj_two_block_attention_fwd(
   if (dtype == 1) {
     cudaError_t err = segmm::launch_k2_projections(ptrs, ws, B, Lq, L1, L2, dm, s);
     if (err != cudaSuccess) return (int)err;
-    segmm::K2CoreArgs a = segmm::k2_core_args(ws, mq, mk1, mk2, Lq, L1, L2, H, scale, rate,
+    segmm::K2CoreArgs a = segmm::k2_core_args(ws, dm, mq, mk1, mk2, Lq, L1, L2, H, scale, rate,
                                               keep_div, seed);
     a.out = static_cast<__nv_bfloat16*>(out);
     return (int)segmm::launch_k2_core<false>(a, DH, B, s);
   }
   return (int)cudaErrorInvalidValue;
+}
+
+// bf16 K1f, and bf16 K3f at the shapes its own body does not take, on this
+// core: q1, q2 (B, Lq, H, D), k1, v1 (B, L1, H, D), k2, v2 (B, L2, H, D)
+// bf16 (16-byte aligned), masks int32, out (B, Lq, H, D) bf16; D in
+// SEGMM_K2_HEAD_DIMS, any lengths. K1 (k3 = 0): the core as K2 runs it
+// (kBlockKeys). K3 (k3 = 1): one key block (L2 = 0, k2, v2 and mk2
+// unused, q2 = q1), its dropout salt h and key index j (kConcatKeys over
+// one block), on the key-chunk path, as its rule (core/attention.py
+// k3_takes) names it. Returns a cudaError_t (0 = launched).
+extern "C" int segmm_two_block_core_fwd(const void* q1, const void* q2, const void* k1,
+                                        const void* k2, const void* v1, const void* v2,
+                                        const int* mq, const int* mk1, const int* mk2, void* out,
+                                        int B, int Lq, int L1, int L2, int H, int D, float scale,
+                                        float rate, float keep_div, unsigned seed, int k3,
+                                        void* stream) {
+  using bf = const __nv_bfloat16*;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  segmm::K2CoreArgs a{};
+  a.q1 = static_cast<bf>(q1);
+  a.q2 = static_cast<bf>(q2);
+  a.k1 = static_cast<bf>(k1);
+  a.v1 = static_cast<bf>(v1);
+  a.k2 = static_cast<bf>(k2);
+  a.v2 = static_cast<bf>(v2);
+  a.rs = (long)H * D;
+  a.mq = mq;
+  a.mk1 = mk1;
+  a.mk2 = mk2;
+  a.out = static_cast<__nv_bfloat16*>(out);
+  a.Lq = Lq;
+  a.L1 = L1;
+  a.L2 = k3 ? 0 : L2;
+  a.H = H;
+  a.scale = scale;
+  a.rate = rate;
+  a.keep_div = keep_div;
+  a.seed = seed;
+  if (k3) {
+    a.concat = 1;
+    return (int)segmm::launch_k2_chunked(a, D, false, B, s);
+  }
+  return (int)segmm::launch_k2_core<false>(a, D, B, s);
 }

@@ -46,6 +46,12 @@
 
 namespace segmm {
 
+// bf16 K1b's core (its gradients in bf16) is instantiated in
+// proj_two_block_attention_bwd.k1.cu, compiled beside this file
+// (core/build.py), so that the two compiles run side by side.
+extern template cudaError_t launch_k2_core<true, false, kBlockKeys, __nv_bfloat16>(
+    const K2CoreArgs&, int, int, cudaStream_t);
+
 template <typename T>
 cudaError_t launch_chain(const void* const* in, float* const* dys, void* const* dx,
                          float* const* dwdb, float* scratch, int B, int Lq, int L1, int L2,
@@ -85,15 +91,15 @@ cudaError_t launch_chain(const void* const* in, float* const* dys, void* const* 
 // here (0 bytes).
 extern "C" size_t segmm_proj_two_block_attention_bwd_smem_bytes(int dtype, int Lq, int L1, int L2,
                                                                 int DH) {
-  return dtype == 1 ? segmm::k2_core_bwd_smem_bytes(Lq, L1, L2, DH) : 0;
+  return dtype == 1 ? segmm::k2_core_smem_bytes(Lq, L1, L2, DH, true) : 0;
 }
 
 // Pass (a) (K7b alone). ptrs: xq, x1, x2, wq1, bq1, wq2, bq2, wk1, bk1, wk2,
 // bk2, wv1, bv1, wv2, bv2 (16-byte aligned); g (B, Lq, d); out: fp32
 // dq1, dq2, dk1, dk2, dv1, dv2, each (B, L, d); ws: the projections'
 // workspace, as K2f's. dtype: 1 = bfloat16 (any other is refused). DH in
-// SEGMM_K2_HEAD_DIMS, d % 32 == 0, every length <= 128. Returns a
-// cudaError_t (0 = launched).
+// SEGMM_K2_HEAD_DIMS, d % 32 == 0, any lengths. Returns a cudaError_t
+// (0 = launched).
 extern "C" int segmm_proj_two_block_attention_qkv_bwd(
     int dtype, const void* const* ptrs, const int* mq, const int* mk1, const int* mk2,
     const void* g, float* const* out, void* const* ws, int B, int Lq, int L1, int L2, int dm,
@@ -103,7 +109,7 @@ extern "C" int segmm_proj_two_block_attention_qkv_bwd(
   if (dtype == 1) {
     cudaError_t err = segmm::launch_k2_projections(ptrs, ws, B, Lq, L1, L2, dm, s);
     if (err != cudaSuccess) return (int)err;
-    segmm::K2CoreArgs a = segmm::k2_core_args(ws, mq, mk1, mk2, Lq, L1, L2, H, scale, rate,
+    segmm::K2CoreArgs a = segmm::k2_core_args(ws, dm, mq, mk1, mk2, Lq, L1, L2, H, scale, rate,
                                               keep_div, seed);
     a.g = static_cast<const __nv_bfloat16*>(g);
     for (int i = 0; i < 6; ++i) a.dy[i] = out[i];
@@ -130,4 +136,50 @@ extern "C" int segmm_proj_two_block_attention_chain_bwd(
     return (int)segmm::launch_k2_chain(ptrs, dys, dx, dwdb, nullptr, nullptr, 0, B, Lq, L1, L2,
                                        dm, chunk, scratch, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// bf16 K1b, and bf16 K3b at the shapes its own body does not take, on this
+// core, its gradients stored in bf16 straight from the accumulators: the
+// operands as segmm_two_block_core_fwd's, g (B, Lq, H, D), dq1, dq2, dk1,
+// dk2, dv1, dv2 as their operands (bf16; K3: dq2, dk2, dv2 null). acc: on
+// the key-chunk path over several query windows (k2_chunk_windows(Lq) > 1,
+// two_block_mma.cuh), an fp32 scratch of B (2 L1 + 2 L2) H D values that
+// the windows sum dk and dv into; else null. Returns a cudaError_t.
+extern "C" int segmm_two_block_core_bwd(const void* q1, const void* q2, const void* k1,
+                                        const void* k2, const void* v1, const void* v2,
+                                        const int* mq, const int* mk1, const int* mk2,
+                                        const void* g, void* const* grads, float* acc, int B,
+                                        int Lq, int L1, int L2, int H, int D, float scale,
+                                        float rate, float keep_div, unsigned seed, int k3,
+                                        void* stream) {
+  using bf = const __nv_bfloat16*;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  segmm::K2CoreArgs a{};
+  a.q1 = static_cast<bf>(q1);
+  a.q2 = static_cast<bf>(q2);
+  a.k1 = static_cast<bf>(k1);
+  a.v1 = static_cast<bf>(v1);
+  a.k2 = static_cast<bf>(k2);
+  a.v2 = static_cast<bf>(v2);
+  a.rs = (long)H * D;
+  a.mq = mq;
+  a.mk1 = mk1;
+  a.mk2 = mk2;
+  a.g = static_cast<bf>(g);
+  for (int i = 0; i < 6; ++i) a.dy[i] = grads[i];
+  a.Lq = Lq;
+  a.L1 = L1;
+  a.L2 = k3 ? 0 : L2;
+  a.H = H;
+  a.scale = scale;
+  a.rate = rate;
+  a.keep_div = keep_div;
+  a.seed = seed;
+  a.acc = acc;
+  if (k3) {
+    a.concat = 1;
+    a.dy_bf16 = 1;
+    return (int)segmm::launch_k2_chunked(a, D, true, B, s);
+  }
+  return (int)segmm::launch_k2_core<true, false, segmm::kBlockKeys, __nv_bfloat16>(a, D, B, s);
 }

@@ -24,13 +24,6 @@
 #include "proj_gemm.cuh"
 #include "two_block_mma.cuh"
 
-// dtype: 1 = bfloat16 (K2f's core block; the projection GEMM's is fixed,
-// qkv_gemm_smem_bytes); any other dtype has no block here (0 bytes).
-extern "C" size_t segmm_proj_two_block_attention_v2_smem_bytes(int dtype, int Lq, int L1, int L2,
-                                                               int DH) {
-  return dtype == 1 ? segmm::k2_core_fwd_smem_bytes(Lq, L1, L2, DH) : 0;
-}
-
 // bf16 K6f on K2f's pieces. ptrs: xq, x1, x2, then wq1, bq1, wq2, bq2, wk1,
 // bk1, wk2, bk2, wv1, bv1, wv2, bv2 (K2's layout, bf16, 16-byte aligned);
 // ws: the projections' workspace, as K2f's; out (B, Lq, d) bf16. DH in
@@ -44,7 +37,7 @@ extern "C" int segmm_proj_two_block_attention_v2_fwd_mma(
   cudaError_t err = segmm::launch_k2_projections(ptrs, ws, B, Lq, L1, L2, dm, s);
   if (err != cudaSuccess) return (int)err;
   segmm::K2CoreArgs a =
-      segmm::k2_core_args(ws, mq, mk1, mk2, Lq, L1, L2, H, scale, rate, keep_div, seed);
+      segmm::k2_core_args(ws, dm, mq, mk1, mk2, Lq, L1, L2, H, scale, rate, keep_div, seed);
   a.out = static_cast<__nv_bfloat16*>(out);
   return (int)segmm::launch_k2_core<false, false, segmm::kConcatKeys>(a, dm / H, B, s);
 }

@@ -37,7 +37,7 @@
 // here (0 bytes).
 extern "C" size_t segmm_proj_two_block_attention_v2_bwd_smem_bytes(int dtype, int Lq, int L1,
                                                                    int L2, int DH) {
-  return dtype == 1 ? segmm::k2_core_bwd_smem_bytes(Lq, L1, L2, DH) : 0;
+  return dtype == 1 ? segmm::k2_core_smem_bytes(Lq, L1, L2, DH, true) : 0;
 }
 
 // bf16 K6b on K2b's pieces. ptrs: xq, x1, x2, then wq1, bq1, wq2, bq2, wk1,
@@ -57,7 +57,7 @@ extern "C" int segmm_proj_two_block_attention_v2_bwd_mma(
   cudaError_t err = segmm::launch_k2_projections(ptrs, ws, B, Lq, L1, L2, dm, s);
   if (err != cudaSuccess) return (int)err;
   segmm::K2CoreArgs a =
-      segmm::k2_core_args(ws, mq, mk1, mk2, Lq, L1, L2, H, scale, rate, keep_div, seed);
+      segmm::k2_core_args(ws, dm, mq, mk1, mk2, Lq, L1, L2, H, scale, rate, keep_div, seed);
   a.g = static_cast<const __nv_bfloat16*>(g);
   for (int i = 0; i < 6; ++i) a.dy[i] = dys[i];
   err = segmm::launch_k2_core<true, false, segmm::kConcatKeys>(a, dm / H, B, s);

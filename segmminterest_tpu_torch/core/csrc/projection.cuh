@@ -36,8 +36,8 @@ template <> __device__ __forceinline__ float proj_epilogue<__nv_bfloat16>(float 
   return round_to<__nv_bfloat16>(round_to<__nv_bfloat16>(acc) + bias);
 }
 
-// fp32: outa = x.Wa^T + ba and outb = x.Wb^T + bb for head h, rows [0, L),
-// into shared tiles of row stride tile_stride(DH), on the CUDA cores.
+// fp32: outa = x.Wa^T + ba and outb = x.Wb^T + bb for head h, rows [0, L)
+// (L <= kK2MaxL), into tiles of row stride ost, on the CUDA cores.
 template <int DH>
 __device__ void project_pair_f32(const float* __restrict__ x, int L, int dm,
                                  const float* __restrict__ wa, const float* __restrict__ ba,

@@ -796,8 +796,15 @@ cudaError_t launch_tf32_bwd_nt(const Tf32BwdArgs<NB>& a, int B, cudaStream_t s) 
   });
 }
 
+// Whether the bodies above take a shape (tf32_whole, below), else the
+// key-chunk path (tf32_chunked.cu).
+inline bool tf32_whole(int NB, int Lq, const int* L, int D, bool bwd);
+template <int NB>
+cudaError_t launch_tf32_chunked_bwd(const Tf32BwdArgs<NB>& a, int B, cudaStream_t s);
+
 template <int NB>
 cudaError_t launch_tf32_attention_bwd(const Tf32BwdArgs<NB>& a, int B, cudaStream_t s) {
+  if (!tf32_whole(NB, a.Lq, a.L, a.D, true)) return launch_tf32_chunked_bwd<NB>(a, B, s);
   switch (tf32_dp(a.D)) {
     case 16: return launch_tf32_bwd_nt<NB, 16>(a, B, s);
     case 32: return launch_tf32_bwd_nt<NB, 32>(a, B, s);
@@ -826,10 +833,6 @@ template <int NB> struct Tf32FwdArgs {
   float scale, rate, keep_div;
   unsigned seed;
   int qw;  // set by the launcher: the query rows of a block (tf32_windows)
-  // 1: q, k, v are fp32 copies of bf16 values and p is rounded to bf16
-  // before p v, as the bf16 function rounds it (K1f's bf16 shapes that its
-  // CUDA-core body does not take)
-  int p_bf16;
   int salt_h0, concat;  // as Tf32BwdArgs's
 };
 
@@ -888,12 +891,6 @@ __device__ __forceinline__ void tf32_attention_fwd(const Tf32FwdArgs<NB>& a) {
       tf32_rows_times_rowsT<DP, NT>(sq[i], q0, mq8, sk[i], bk.n0[i], bk.n1[i], s);
     unsigned keep[(NT + 7) / 8];  // the backward's
     tf32_probs<NT, NB, kDrop>(s, keep, bk, nt, smq, q0, Lq, a.scale, dr, zq);
-    if (a.p_bf16) {
-#pragma unroll
-      for (int n = 0; n < NT; ++n)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) s[n][c] = round_to<__nv_bfloat16>(s[n][c]);
-    }
     float o[DP / 8][4];
     tf32_zero<DP>(o);
 #pragma unroll
@@ -948,6 +945,33 @@ inline int tf32_fwd_window(int NB, int Lq, const int* L, int D) {
   return 0;
 }
 
+// The key-chunk path (tf32_chunked.cu): any lengths, kTf32ChunkKeys keys
+// of one block at a time with an online softmax, the queries in windows
+// of kTf32ChunkRows rows (a warp per 16; the backward's block walks its
+// windows in order and adds their dk and dv in place). Its kernels are
+// compiled once (core/build.py links them into every library).
+constexpr int kTf32ChunkNT = 8;                        // n8 key tiles a chunk
+constexpr int kTf32ChunkKeys = 8 * kTf32ChunkNT;       // 64 keys
+constexpr int kTf32ChunkWarps = 4;
+constexpr int kTf32ChunkRows = 16 * kTf32ChunkWarps;   // 64 query rows
+
+// The bodies above take a shape where its key axis fits their register
+// tile (tf32_with_nt), a query window's tiles fit one block and, for K3
+// and for K1b, every length is at most 128 (the lengths they are tested
+// at); core/attention.py tf32_whole holds the same rule.
+inline bool tf32_whole(int NB, int Lq, const int* L, int D, bool bwd) {
+  const int dp = tf32_dp(D);
+  const int most = NB == 1 ? 16 : dp > 64 ? 18 : 32;
+  int lmax = Lq;
+  for (int b = 0; b < NB; ++b) lmax = L[b] > lmax ? L[b] : lmax;
+  if (!dp || tf32_key_axis(NB, L).nk / 8 > most) return false;
+  if ((NB == 1 || bwd) && lmax > 128) return false;
+  return (bwd ? tf32_bwd_window(NB, Lq, L, D) : tf32_fwd_window(NB, Lq, L, D)) > 0;
+}
+
+template <int NB>
+cudaError_t launch_tf32_chunked_fwd(const Tf32FwdArgs<NB>& a, int B, cudaStream_t s);
+
 template <int DP, int NT, int NB>
 cudaError_t launch_tf32_fwd(Tf32FwdArgs<NB> a, int B, cudaStream_t stream) {
   auto kern = a.rate > 0.f ? tf32_fwd_kernel<DP, NT, NB, true>()
@@ -973,10 +997,10 @@ cudaError_t launch_tf32_fwd_nt(const Tf32FwdArgs<NB>& a, int B, cudaStream_t s) 
 }
 
 // Refuses (cudaErrorInvalidValue) a head dim past 128 or not a multiple of
-// 4, a key axis past the largest register tile and a shape no query window
-// fits; the wrapper chooses the shapes it sends here (core/attention.py).
+// 4; a shape the bodies above do not take runs on the key-chunk path.
 template <int NB>
 cudaError_t launch_tf32_attention_fwd(const Tf32FwdArgs<NB>& a, int B, cudaStream_t s) {
+  if (!tf32_whole(NB, a.Lq, a.L, a.D, false)) return launch_tf32_chunked_fwd<NB>(a, B, s);
   switch (tf32_dp(a.D)) {
     case 16: return launch_tf32_fwd_nt<NB, 16>(a, B, s);
     case 32: return launch_tf32_fwd_nt<NB, 32>(a, B, s);

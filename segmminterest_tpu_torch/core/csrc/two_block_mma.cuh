@@ -2,6 +2,15 @@
 // directions (proj_two_block_attention*.cu), over the bf16 q/k/v that
 // qkv_gemm_kernel (proj_gemm.cuh) writes: xq's (B, Lq, 2d) rows hold q1 |
 // q2, x1's k1 | v1 and x2's k2 | v2, head h at columns h D and d + h D.
+// bf16 K1 (and bf16 K3 past its own body) runs on it too, over its six
+// (B, L, H, D) tensors (K2CoreArgs: six operand pointers, one row stride),
+// K1b's gradients stored in bf16 (the backward's TY).
+//
+// Lengths. The bodies below hold the whole key axis in a register tile
+// and one (head, batch row)'s tiles in one block: the model's streams.
+// Every other shape (k2_core_whole) runs the key-chunk path,
+// two_block_chunked.cu: an online softmax over chunks of 128 keys, the
+// queries in windows of 64 rows.
 //
 // Function (attention.py _fp_fwd_kernel :776 / _fp_bwd_kernel :808 after
 // their projections, with _joint_probs :374 and _attn_group_bwd :448):
@@ -70,6 +79,8 @@
 // gradients (0.75 GB).
 #pragma once
 
+#include <type_traits>
+
 #include "masked_attention_mma.cuh"
 
 namespace segmm {
@@ -81,23 +92,32 @@ constexpr size_t kK2SmBytes = 233472;  // an H100 SM's shared memory, 1 KB a blo
 __host__ __device__ inline int k2_c1(int L1) { return (L1 + 7) & ~7; }
 __host__ __device__ inline int k2_keys16(int L1, int L2) { return pad16(k2_c1(L1) + L2); }
 
-// The operands of one launch: the projections' bf16 outputs (row stride
-// 2 d), the masks, and the output (forward) or g and the six fp32
-// gradients (backward: dq1 dq2 dk1 dk2 dv1 dv2 as (B, L, d)). g is bf16
-// (K2b), or an fp32 g given as bf16 hi and lo halves (K4b's d_att: g and
-// glo), as the core keeps p and dl.
+// The operands of one launch: q1, q2 (B, Lq, .), k1, v1 (B, L1, .), k2, v2
+// (B, L2, .), head h at column h D of rows of stride rs (bf16 K2, K4, K5
+// and K6: the projections' (B, L, 2d) workspaces, q2 = q1 + d, v = k + d,
+// rs = 2d; bf16 K1: six (B, L, H, D) tensors, rs = d = H D), the masks,
+// and the output (forward) or g and the six gradients (backward: dq1 dq2
+// dk1 dk2 dv1 dv2 as (B, L, d), fp32 for K2's chain or bf16 for K1b, the
+// launch's TY). g is bf16 (K2b), or an fp32 g given as bf16 hi and lo
+// halves (K4b's d_att: g and glo), as the core keeps p and dl.
 struct K2CoreArgs {
-  const __nv_bfloat16* q;   // (B, Lq, 2d): q1 | q2
-  const __nv_bfloat16* kv1; // (B, L1, 2d): k1 | v1
-  const __nv_bfloat16* kv2; // (B, L2, 2d): k2 | v2
+  const __nv_bfloat16 *q1, *q2, *k1, *v1, *k2, *v2;
+  long rs;
   const int *mq, *mk1, *mk2;
   __nv_bfloat16* out;       // forward: (B, Lq, d)
   const __nv_bfloat16* g;   // backward: (B, Lq, d)
   const __nv_bfloat16* glo; // backward with an fp32 g: its lo half, (B, Lq, d)
-  float* dy[6];
+  void* dy[6];
   int Lq, L1, L2, H;
   float scale, rate, keep_div;
   unsigned seed;
+  // The key-chunk path only (two_block_chunked.cu), set at run time: the
+  // dropout salts' first head (K5's user stream: H), K6's keys (concat),
+  // bf16 gradients (dy_bf16), and where those span several query windows
+  // an fp32 scratch of dk1, dk2, dv1, dv2 (B, L, d) that the windows sum
+  // into before the cast (acc).
+  int salt_h0, concat, dy_bf16;
+  float* acc;
 };
 
 // 32-bit keep words a lane holds per 16-row query tile (4 bits an n8 tile)
@@ -173,7 +193,7 @@ __device__ __forceinline__ unsigned char* k2_load(const K2CoreArgs& a, unsigned 
   constexpr int LD = D + 8;
   const int h = blockIdx.x, b = blockIdx.y;
   const int dm = a.H * D;
-  const long rs = 2L * dm;
+  const long rs = a.rs;
   const int mq16 = pad16(a.Lq);
   t.c1 = k2_c1(a.L1);
   t.nk16 = k2_keys16(a.L1, a.L2);
@@ -186,14 +206,14 @@ __device__ __forceinline__ unsigned char* k2_load(const K2CoreArgs& a, unsigned 
   t.v = t.k + t.nk16 * LD;
   t.mq = reinterpret_cast<int*>(t.v + t.nk16 * LD);
   t.mk = t.mq + mq16;
-  k2_stage<D>(a.q, rs, h * D, t.q1, b, a.Lq, mq16);
-  k2_stage<D>(a.q, rs, dm + h * D, t.q2, b, a.Lq, mq16);
+  k2_stage<D>(a.q1, rs, h * D, t.q1, b, a.Lq, mq16);
+  k2_stage<D>(a.q2, rs, h * D, t.q2, b, a.Lq, mq16);
   if (with_g) k2_stage<D>(a.g, dm, h * D, t.g, b, a.Lq, mq16);
   if (t.glo) k2_stage<D>(a.glo, dm, h * D, t.glo, b, a.Lq, mq16);
-  k2_stage<D>(a.kv1, rs, h * D, t.k, b, a.L1, t.c1);
-  k2_stage<D>(a.kv2, rs, h * D, t.k + t.c1 * LD, b, a.L2, t.nk16 - t.c1);
-  k2_stage<D>(a.kv1, rs, dm + h * D, t.v, b, a.L1, t.c1);
-  k2_stage<D>(a.kv2, rs, dm + h * D, t.v + t.c1 * LD, b, a.L2, t.nk16 - t.c1);
+  k2_stage<D>(a.k1, rs, h * D, t.k, b, a.L1, t.c1);
+  k2_stage<D>(a.k2, rs, h * D, t.k + t.c1 * LD, b, a.L2, t.nk16 - t.c1);
+  k2_stage<D>(a.v1, rs, h * D, t.v, b, a.L1, t.c1);
+  k2_stage<D>(a.v2, rs, h * D, t.v + t.c1 * LD, b, a.L2, t.nk16 - t.c1);
   k2_stage_mask(a.mq, t.mq, b, a.Lq, mq16);
   k2_stage_mask(a.mk1, t.mk, b, a.L1, t.c1);
   k2_stage_mask(a.mk2, t.mk + t.c1, b, a.L2, t.nk16 - t.c1);
@@ -202,16 +222,15 @@ __device__ __forceinline__ unsigned char* k2_load(const K2CoreArgs& a, unsigned 
   return reinterpret_cast<unsigned char*>(t.mk + t.nk16);
 }
 
-// One key-axis operand of both blocks (k at column h D of kv1 / kv2, v at
-// d + h D) into a tile of t.nk16 rows, zeros past each block's length.
-// Only issues the copies.
+// One key-axis operand of both blocks (k1 | k2, or with v v1 | v2, head
+// h = blockIdx.x) into a tile of t.nk16 rows, zeros past each block's
+// length. Only issues the copies.
 template <int D>
-__device__ __forceinline__ void k2_stage_keys(const K2CoreArgs& a, int col, __nv_bfloat16* dst,
+__device__ __forceinline__ void k2_stage_keys(const K2CoreArgs& a, bool v, __nv_bfloat16* dst,
                                               const K2Tiles& t) {
-  const long rs = 2L * a.H * D;
-  const int b = blockIdx.y;
-  k2_stage<D>(a.kv1, rs, col, dst, b, a.L1, t.c1);
-  k2_stage<D>(a.kv2, rs, col, dst + t.c1 * (D + 8), b, a.L2, t.nk16 - t.c1);
+  const int b = blockIdx.y, col = blockIdx.x * D;
+  k2_stage<D>(v ? a.v1 : a.k1, a.rs, col, dst, b, a.L1, t.c1);
+  k2_stage<D>(v ? a.v2 : a.k2, a.rs, col, dst + t.c1 * (D + 8), b, a.L2, t.nk16 - t.c1);
 }
 
 // The backward's first operands when they are staged in turns (D >
@@ -236,9 +255,9 @@ __device__ __forceinline__ unsigned char* k2_load_restaged(const K2CoreArgs& a,
   t.glo = glo ? t.k + big * LD : nullptr;
   t.mq = reinterpret_cast<int*>(t.k + (big + (glo ? mq16 : 0)) * LD);
   t.mk = t.mq + mq16;
-  k2_stage<D>(a.q, 2L * dm, h * D, t.q1, b, a.Lq, mq16);
-  k2_stage<D>(a.q, 2L * dm, dm + h * D, t.q2, b, a.Lq, mq16);
-  k2_stage_keys<D>(a, h * D, t.k, t);
+  k2_stage<D>(a.q1, a.rs, h * D, t.q1, b, a.Lq, mq16);
+  k2_stage<D>(a.q2, a.rs, h * D, t.q2, b, a.Lq, mq16);
+  k2_stage_keys<D>(a, false, t.k, t);
   if (glo) k2_stage<D>(a.glo, dm, h * D, t.glo, b, a.Lq, mq16);
   k2_stage_mask(a.mq, t.mq, b, a.Lq, mq16);
   k2_stage_mask(a.mk1, t.mk, b, a.L1, t.c1);
@@ -441,34 +460,39 @@ template <int D> __device__ __forceinline__ void k2_zero(float (&acc)[D / 8][4])
   for (int dn = 0; dn < D / 8; ++dn) acc[dn][0] = acc[dn][1] = acc[dn][2] = acc[dn][3] = 0.f;
 }
 
-// Row `row` (< L) of a 16 x D accumulator tile (its half r) in fp32 to dst
-// (D contiguous floats).
-template <int D>
-__device__ __forceinline__ void k2_write_row(const float (&acc)[D / 8][4], int r, float* dst) {
+// Row `row` (< L) of a 16 x D accumulator tile (its half r) to dst (D
+// contiguous values): fp32 (K2's chain), or rounded to bf16 (K1b).
+template <int D, typename TY>
+__device__ __forceinline__ void k2_write_row(const float (&acc)[D / 8][4], int r, TY* dst) {
   const int t = threadIdx.x & 3;
 #pragma unroll
-  for (int dn = 0; dn < D / 8; ++dn)
-    *reinterpret_cast<float2*>(dst + dn * 8 + 2 * t) =
-        make_float2(acc[dn][2 * r], acc[dn][2 * r + 1]);
+  for (int dn = 0; dn < D / 8; ++dn) {
+    if constexpr (std::is_same<TY, float>::value)
+      *reinterpret_cast<float2*>(dst + dn * 8 + 2 * t) =
+          make_float2(acc[dn][2 * r], acc[dn][2 * r + 1]);
+    else
+      *reinterpret_cast<unsigned*>(dst + dn * 8 + 2 * t) =
+          pack_bf16(acc[dn][2 * r], acc[dn][2 * r + 1]);
+  }
 }
 
 // Query rows q0 + g, q0 + g + 8 (those < Lq) of head h of batch row b.
-template <int D>
+template <int D, typename TY>
 __device__ __forceinline__ void k2_write_q_rows(const float (&acc)[D / 8][4], int q0, int Lq,
-                                                int H, float* dst) {
+                                                int H, TY* dst) {
   const int g = (threadIdx.x & 31) >> 2, h = blockIdx.x, b = blockIdx.y;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int i = q0 + g + 8 * r;
-    if (i < Lq) k2_write_row<D>(acc, r, dst + (((long)b * Lq + i) * H + h) * D);
+    if (i < Lq) k2_write_row<D, TY>(acc, r, dst + (((long)b * Lq + i) * H + h) * D);
   }
 }
 
 // Key rows k0 + g, k0 + g + 8 of the axis, each to its block's gradient
 // (d1 for block 1, d2 for block 2), those within their block's length.
-template <int D>
+template <int D, typename TY>
 __device__ __forceinline__ void k2_write_key_rows(const float (&acc)[D / 8][4], int k0, int c1,
-                                                  int L1, int L2, int H, float* d1, float* d2) {
+                                                  int L1, int L2, int H, TY* d1, TY* d2) {
   const int g = (threadIdx.x & 31) >> 2, h = blockIdx.x, b = blockIdx.y;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -476,7 +500,7 @@ __device__ __forceinline__ void k2_write_key_rows(const float (&acc)[D / 8][4], 
     const bool second = j >= c1;
     const int jj = second ? j - c1 : j, L = second ? L2 : L1;
     if (jj < L)
-      k2_write_row<D>(acc, r, (second ? d2 : d1) + (((long)b * L + jj) * H + h) * D);
+      k2_write_row<D, TY>(acc, r, (second ? d2 : d1) + (((long)b * L + jj) * H + h) * D);
   }
 }
 
@@ -559,9 +583,11 @@ dual_stream_core_fwd_kernel(const __grid_constant__ K2CoreArgs a,
 // kG32: g is fp32, given as bf16 hi and lo halves (a.g, a.glo), and the
 // products with g (dv, dp) take both halves into one accumulator. kKeys:
 // how the dropout hash counts the keys (K2Keys). sh: the head the dropout
-// salts count from (blockIdx.x, or K5's user stream's H + blockIdx.x).
-template <int D, int NT, bool kDrop, bool kG32, int kKeys>
+// salts count from (blockIdx.x, or K5's user stream's H + blockIdx.x). TY:
+// the gradients' type (fp32 for K2's chain, bf16 for K1b).
+template <int D, int NT, bool kDrop, bool kG32, int kKeys, typename TY>
 __device__ __forceinline__ void k2_core_bwd(const K2CoreArgs& a, int sh) {
+  TY* const* dy = reinterpret_cast<TY* const*>(a.dy);
   const int b = blockIdx.y;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
   const int gi = lane >> 2, ti = lane & 3;
@@ -612,7 +638,7 @@ __device__ __forceinline__ void k2_core_bwd(const K2CoreArgs& a, int sh) {
   __syncthreads();
   if constexpr (kRestage) {  // g in q2's place, v in q1's
     k2_stage<D>(a.g, a.H * D, blockIdx.x * D, st.g, b, Lq, mq16);
-    k2_stage_keys<D>(a, (a.H + blockIdx.x) * D, st.v, st);
+    k2_stage_keys<D>(a, true, st.v, st);
     cp_async_commit();
     cp_async_wait<0>();
     __syncthreads();
@@ -624,7 +650,7 @@ __device__ __forceinline__ void k2_core_bwd(const K2CoreArgs& a, int sh) {
     k2_zero<D>(acc);
     k3b_colsT_times_rows<D>(ph, pl, ldp, k0, nq16, st.g, acc);
     if (kG32) k3b_colsT_times_rows<D>(ph, pl, ldp, k0, nq16, st.glo, acc);
-    k2_write_key_rows<D>(acc, k0, c1, L1, L2, a.H, a.dy[4], a.dy[5]);
+    k2_write_key_rows<D, TY>(acc, k0, c1, L1, L2, a.H, dy[4], dy[5]);
   }
   __syncthreads();
 
@@ -683,16 +709,16 @@ __device__ __forceinline__ void k2_core_bwd(const K2CoreArgs& a, int sh) {
     float acc[D / 8][4];
     k2_zero<D>(acc);
     k2_regs_times_rows<D, NT>(dp, 0, nb1, nkc, st.k, acc);
-    k2_write_q_rows<D>(acc, q0, Lq, a.H, a.dy[0]);
+    k2_write_q_rows<D, TY>(acc, q0, Lq, a.H, dy[0]);
     k2_zero<D>(acc);
     k2_regs_times_rows<D, NT>(dp, nb1, 2 * nkc, nkc, st.k, acc);
-    k2_write_q_rows<D>(acc, q0, Lq, a.H, a.dy[1]);
+    k2_write_q_rows<D, TY>(acc, q0, Lq, a.H, dy[1]);
   }
   __syncthreads();
   if constexpr (kRestage) {  // q1 in v's place, q2 in k's
     st.q2 = st.k;
-    k2_stage<D>(a.q, 2L * a.H * D, blockIdx.x * D, st.q1, b, Lq, mq16);
-    k2_stage<D>(a.q, 2L * a.H * D, (a.H + blockIdx.x) * D, st.q2, b, Lq, mq16);
+    k2_stage<D>(a.q1, a.rs, blockIdx.x * D, st.q1, b, Lq, mq16);
+    k2_stage<D>(a.q2, a.rs, blockIdx.x * D, st.q2, b, Lq, mq16);
     cp_async_commit();
     cp_async_wait<0>();
     __syncthreads();
@@ -705,14 +731,14 @@ __device__ __forceinline__ void k2_core_bwd(const K2CoreArgs& a, int sh) {
     k2_zero<D>(acc);
     if (!lo2 || !hi2) k3b_colsT_times_rows<D>(ph, pl, ldp, k0, nq16, st.q1, acc, !lo2, !hi2);
     if (lo2 || hi2) k3b_colsT_times_rows<D>(ph, pl, ldp, k0, nq16, st.q2, acc, lo2, hi2);
-    k2_write_key_rows<D>(acc, k0, c1, L1, L2, a.H, a.dy[2], a.dy[3]);
+    k2_write_key_rows<D, TY>(acc, k0, c1, L1, L2, a.H, dy[2], dy[3]);
   }
 }
 
-template <int D, int NT, bool kDrop, bool kG32, int kKeys>
+template <int D, int NT, bool kDrop, bool kG32, int kKeys, typename TY>
 __global__ void __launch_bounds__(32 * kK2MmaWarpsMax)
 proj_two_block_core_bwd_kernel(const __grid_constant__ K2CoreArgs a) {
-  k2_core_bwd<D, NT, kDrop, kG32, kKeys>(a, blockIdx.x);
+  k2_core_bwd<D, NT, kDrop, kG32, kKeys, TY>(a, blockIdx.x);
 }
 
 // K5b's core: both streams of a layer in one launch, grid z = 2 (z = 0 the
@@ -724,21 +750,29 @@ __global__ void __launch_bounds__(32 * kK2MmaWarpsMax)
 dual_stream_core_bwd_kernel(const __grid_constant__ K2CoreArgs a,
                             const __grid_constant__ K2CoreArgs u) {
   const bool user = blockIdx.z != 0;
-  k2_core_bwd<D, NT, kDrop, false, kBlockKeys>(user ? u : a, blockIdx.x + (user ? a.H : 0));
+  k2_core_bwd<D, NT, kDrop, false, kBlockKeys, float>(user ? u : a,
+                                                    blockIdx.x + (user ? a.H : 0));
 }
 
 // ---------------------------------------------------------------------------
 // Host side
 
-// A launch's arguments over the projections' outputs ws (xq's, x1's, x2's);
-// the caller sets out, or g and dy.
-inline K2CoreArgs k2_core_args(void* const* ws, const int* mq, const int* mk1, const int* mk2,
-                               int Lq, int L1, int L2, int H, float scale, float rate,
-                               float keep_div, unsigned seed) {
+// A launch's arguments over the projections' outputs ws (xq's, x1's, x2's:
+// (B, L, 2 dm) each); the caller sets out, or g and dy.
+inline K2CoreArgs k2_core_args(void* const* ws, int dm, const int* mq, const int* mk1,
+                               const int* mk2, int Lq, int L1, int L2, int H, float scale,
+                               float rate, float keep_div, unsigned seed) {
   K2CoreArgs a{};
-  a.q = static_cast<const __nv_bfloat16*>(ws[0]);
-  a.kv1 = static_cast<const __nv_bfloat16*>(ws[1]);
-  a.kv2 = static_cast<const __nv_bfloat16*>(ws[2]);
+  const __nv_bfloat16* w[3] = {static_cast<const __nv_bfloat16*>(ws[0]),
+                               static_cast<const __nv_bfloat16*>(ws[1]),
+                               static_cast<const __nv_bfloat16*>(ws[2])};
+  a.q1 = w[0];
+  a.q2 = w[0] + dm;
+  a.k1 = w[1];
+  a.v1 = w[1] + dm;
+  a.k2 = w[2];
+  a.v2 = w[2] + dm;
+  a.rs = 2L * dm;
   a.mq = mq;
   a.mk1 = mk1;
   a.mk2 = mk2;
@@ -760,15 +794,76 @@ inline int k2_bwd_warps(int tiles, size_t smem) {
   return tiles < cap ? tiles : cap;
 }
 
+// The register tiles of head dim D: 6, 12, 18, 24 and 32 n8 key tiles at
+// 16, 32 and 64; at the other head dims 6 and 18 only (the flagship's
+// streams: 48 and 144 keys), which keeps nvcc's time down.
+template <int D> constexpr bool kK2AllTiles = D == 16 || D == 32 || D == 64;
+constexpr int kK2WideKeys16 = 9;
+
+// ---------------------------------------------------------------------------
+// The key-chunk path (two_block_chunked.cu): a key axis past the register
+// tile, or tiles past one block's shared memory, in chunks of kK2ChunkKeys
+// keys with an online softmax, the queries in windows of kK2ChunkRows rows
+// (a warp per 16). Its kernels are compiled once (core/build.py links the
+// object into every library of the core) and take the launch's options at
+// run time.
+constexpr int kK2ChunkNT = 16;                       // n8 key tiles of a chunk
+constexpr int kK2ChunkKeys = 8 * kK2ChunkNT;         // 128 keys
+constexpr int kK2ChunkWarps = 4;
+constexpr int kK2ChunkRows = 16 * kK2ChunkWarps;     // a query window: 64 rows
+constexpr size_t kK2MaxBlockSmem = 232448;           // what one block may use
+
+__host__ __device__ inline int k2_chunk_windows(int Lq) {
+  return (Lq + kK2ChunkRows - 1) / kK2ChunkRows;
+}
+
+// The key-chunk path's shared memory: bf16 tiles of row stride D + 8, q1,
+// q2 (and g, with g32 its lo half) over a window, k and v over a chunk;
+// the masks; the backward's hi / lo planes of p and dl over window x chunk.
+__host__ __device__ inline size_t k2_chunked_smem_bytes(int D, bool bwd, bool g32) {
+  const int qt = bwd ? (g32 ? 4 : 3) : 2;
+  size_t n = sizeof(__nv_bfloat16) * (size_t)(qt * kK2ChunkRows + 2 * kK2ChunkKeys) * (D + 8) +
+             sizeof(int) * (size_t)(kK2ChunkRows + kK2ChunkKeys);
+  if (bwd) n += sizeof(__nv_bfloat16) * 2 * (size_t)kK2ChunkRows * (kK2ChunkKeys + 8);
+  return n;
+}
+
+// Whether the core takes a shape in one chunk (the whole key axis in the
+// register tile, every tile of one (head, batch row) in one block's shared
+// memory): the bodies above, as they run at the model's streams. Every
+// other shape runs the key-chunk path. core/attention.py k2_core_whole
+// holds the same rule.
+__host__ __device__ inline bool k2_core_whole(int Lq, int L1, int L2, int D, bool bwd, bool g32) {
+  const int nkc = k2_keys16(L1, L2) / 16;
+  const int tiles = (D == 16 || D == 32 || D == 64) ? 16 : kK2WideKeys16;
+  const size_t smem =
+      bwd ? k2_core_bwd_smem_bytes(Lq, L1, L2, D, g32) : k2_core_fwd_smem_bytes(Lq, L1, L2, D);
+  return nkc <= tiles && smem <= kK2MaxBlockSmem;
+}
+
+// A block's shared memory on the path the shape takes.
+__host__ __device__ inline size_t k2_core_smem_bytes(int Lq, int L1, int L2, int D, bool bwd,
+                                                     bool g32 = false) {
+  if (!k2_core_whole(Lq, L1, L2, D, bwd, g32)) return k2_chunked_smem_bytes(D, bwd, g32);
+  return bwd ? k2_core_bwd_smem_bytes(Lq, L1, L2, D, g32) : k2_core_fwd_smem_bytes(Lq, L1, L2, D);
+}
+
+// The key-chunk path in either direction for head dim D
+// (SEGMM_K2_HEAD_DIMS): forward grid (H, B, windows), backward (H, B), one
+// block walking the windows in order. a.glo set: the backward's g is fp32
+// (K4b). a.dy_bf16 with several windows needs a.acc. Defined in
+// two_block_chunked.cu.
+cudaError_t launch_k2_chunked(const K2CoreArgs& a, int D, bool bwd, int B, cudaStream_t stream);
+
 // n8 key tiles the templates hold in registers (2 x the 16-key chunks)
-template <int D, bool kBwd, bool kG32, int kKeys, int NT>
+template <int D, bool kBwd, bool kG32, int kKeys, int NT, typename TY>
 cudaError_t launch_k2_core_nt(const K2CoreArgs& a, int B, cudaStream_t stream) {
   size_t smem;
   void (*kern)(K2CoreArgs);
   if constexpr (kBwd) {
     smem = k2_core_bwd_smem_bytes(a.Lq, a.L1, a.L2, D, kG32);
-    kern = a.rate > 0.f ? proj_two_block_core_bwd_kernel<D, NT, true, kG32, kKeys>
-                        : proj_two_block_core_bwd_kernel<D, NT, false, kG32, kKeys>;
+    kern = a.rate > 0.f ? proj_two_block_core_bwd_kernel<D, NT, true, kG32, kKeys, TY>
+                        : proj_two_block_core_bwd_kernel<D, NT, false, kG32, kKeys, TY>;
   } else {
     smem = k2_core_fwd_smem_bytes(a.Lq, a.L1, a.L2, D);
     kern = a.rate > 0.f ? proj_two_block_core_fwd_kernel<D, NT, true, kKeys>
@@ -786,25 +881,17 @@ cudaError_t launch_k2_core_nt(const K2CoreArgs& a, int B, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// The register tiles of head dim D: 6, 12, 18, 24 and 32 n8 key tiles at
-// 16, 32 and 64; at the other head dims 6 and 18 only (the flagship's
-// streams: 48 and 144 keys), which keeps nvcc's time down: there the key
-// axis takes at most kK2WideKeys16 16-key chunks.
-template <int D> constexpr bool kK2AllTiles = D == 16 || D == 32 || D == 64;
-constexpr int kK2WideKeys16 = 9;
-
-template <int D, bool kBwd, bool kG32, int kKeys>
+template <int D, bool kBwd, bool kG32, int kKeys, typename TY>
 cudaError_t launch_k2_core_d(const K2CoreArgs& a, int B, cudaStream_t stream) {
   const int nkc = k2_keys16(a.L1, a.L2) / 16;
-  if (nkc <= 3) return launch_k2_core_nt<D, kBwd, kG32, kKeys, 6>(a, B, stream);
+  if (nkc <= 3) return launch_k2_core_nt<D, kBwd, kG32, kKeys, 6, TY>(a, B, stream);
   if constexpr (kK2AllTiles<D>) {
-    if (nkc <= 6) return launch_k2_core_nt<D, kBwd, kG32, kKeys, 12>(a, B, stream);
-    if (nkc <= 9) return launch_k2_core_nt<D, kBwd, kG32, kKeys, 18>(a, B, stream);
-    if (nkc <= 12) return launch_k2_core_nt<D, kBwd, kG32, kKeys, 24>(a, B, stream);
-    return launch_k2_core_nt<D, kBwd, kG32, kKeys, 32>(a, B, stream);
+    if (nkc <= 6) return launch_k2_core_nt<D, kBwd, kG32, kKeys, 12, TY>(a, B, stream);
+    if (nkc <= 9) return launch_k2_core_nt<D, kBwd, kG32, kKeys, 18, TY>(a, B, stream);
+    if (nkc <= 12) return launch_k2_core_nt<D, kBwd, kG32, kKeys, 24, TY>(a, B, stream);
+    return launch_k2_core_nt<D, kBwd, kG32, kKeys, 32, TY>(a, B, stream);
   } else {
-    if (nkc > kK2WideKeys16) return cudaErrorInvalidValue;
-    return launch_k2_core_nt<D, kBwd, kG32, kKeys, 18>(a, B, stream);
+    return launch_k2_core_nt<D, kBwd, kG32, kKeys, 18, TY>(a, B, stream);
   }
 }
 
@@ -813,16 +900,22 @@ cudaError_t launch_k2_core_d(const K2CoreArgs& a, int B, cudaStream_t stream) {
 // turns past kK2RestageD.
 #define SEGMM_K2_HEAD_DIMS(X) X(16) X(32) X(48) X(64) X(96) X(128)
 
-// K2's core in either direction for head dim D (SEGMM_K2_HEAD_DIMS);
-// lengths up to 128 each (at most 16 key chunks; kK2WideKeys16 past the
-// head dims of kK2AllTiles). kG32 (backward): g is
-// fp32, as a.g and a.glo. kKeys: the dropout's key indexing, K2Keys.
-template <bool kBwd, bool kG32 = false, int kKeys = kBlockKeys>
+// K2's core in either direction for head dim D (SEGMM_K2_HEAD_DIMS), any
+// lengths: in one chunk where k2_core_whole takes the shape, else on the
+// key-chunk path. kG32 (backward): g is fp32, as a.g and a.glo. kKeys: the
+// dropout's key indexing, K2Keys. TY (backward): the gradients' type.
+template <bool kBwd, bool kG32 = false, int kKeys = kBlockKeys, typename TY = float>
 cudaError_t launch_k2_core(const K2CoreArgs& a, int D, int B, cudaStream_t stream) {
-  if (a.Lq > 128 || a.L1 > 128 || a.L2 > 128) return cudaErrorInvalidValue;
+  if (!k2_core_whole(a.Lq, a.L1, a.L2, D, kBwd, kG32)) {
+    K2CoreArgs c = a;
+    c.concat = kKeys == kConcatKeys;
+    c.dy_bf16 = !std::is_same<TY, float>::value;
+    if (!kG32) c.glo = nullptr;
+    return launch_k2_chunked(c, D, kBwd, B, stream);
+  }
   switch (D) {
 #define SEGMM_K2_CASE(d) \
-  case d: return launch_k2_core_d<d, kBwd, kG32, kKeys>(a, B, stream);
+  case d: return launch_k2_core_d<d, kBwd, kG32, kKeys, TY>(a, B, stream);
     SEGMM_K2_HEAD_DIMS(SEGMM_K2_CASE)
 #undef SEGMM_K2_CASE
     default: return cudaErrorInvalidValue;
@@ -870,20 +963,25 @@ cudaError_t launch_dual_core_d(const K2CoreArgs& a, const K2CoreArgs& u, int B,
     if (nkc <= 12) return launch_dual_core_nt<D, 24, kBwd>(a, u, B, stream);
     return launch_dual_core_nt<D, 32, kBwd>(a, u, B, stream);
   } else {
-    if (nkc > kK2WideKeys16) return cudaErrorInvalidValue;
     return launch_dual_core_nt<D, 18, kBwd>(a, u, B, stream);
   }
 }
 
 // K5's core in either direction for head dim D (SEGMM_K2_HEAD_DIMS): the
 // video stream a (Lq = L1) and the user stream u (Lq = L2) over the same
-// key blocks, lengths up to 128 each.
+// key blocks, any lengths: one launch where k2_core_whole takes both
+// streams, else each stream on the key-chunk path (u salted from head H).
 template <bool kBwd>
 cudaError_t launch_dual_core(const K2CoreArgs& a, const K2CoreArgs& u, int D, int B,
                              cudaStream_t stream) {
-  if (a.Lq > 128 || u.Lq > 128 || a.L1 > 128 || a.L2 > 128 || a.L1 != u.L1 || a.L2 != u.L2 ||
-      a.H != u.H)
-    return cudaErrorInvalidValue;
+  if (a.L1 != u.L1 || a.L2 != u.L2 || a.H != u.H) return cudaErrorInvalidValue;
+  if (!k2_core_whole(a.Lq, a.L1, a.L2, D, kBwd, false) ||
+      !k2_core_whole(u.Lq, u.L1, u.L2, D, kBwd, false)) {
+    K2CoreArgs c = u;
+    c.salt_h0 = u.H;
+    cudaError_t err = launch_k2_chunked(a, D, kBwd, B, stream);
+    return err != cudaSuccess ? err : launch_k2_chunked(c, D, kBwd, B, stream);
+  }
   switch (D) {
 #define SEGMM_K2_CASE(d) \
   case d: return launch_dual_core_d<d, kBwd>(a, u, B, stream);

@@ -153,14 +153,6 @@ def k5_workspace(xv, xu):
                         device=x.device) for x in (xv, xv, xu, xu, xv, xu)]
 
 
-def _k5_smem_check(lib, dtype, Lv, Lu, dh):
-    smem = A._fn(lib, f"segmm_{lib}_smem_bytes", ctypes.c_size_t,
-                 [ctypes.c_int] * 4)
-    if smem(A._DTYPE_CODE[dtype], Lv, Lu, dh) > A.MAX_SMEM_BYTES:
-        raise ValueError(f"(Lv, Lu)={(Lv, Lu)} needs more shared memory "
-                         "than one block has")
-
-
 def _k5_forward_cuda(xv, xu, wsa, wsb, mask_v, mask_u, num_heads, scale,
                      rate, seed):
     B, Lv, Lu, d, dh = _check_k5(xv, xu, wsa, wsb, mask_v, mask_u, num_heads)
@@ -171,7 +163,6 @@ def _k5_forward_cuda(xv, xu, wsa, wsb, mask_v, mask_u, num_heads, scale,
                      for (xq, x1, x2, masks), ws, h0 in zip(
                          _stream_inputs(xv, xu, mask_v, mask_u), (wsa, wsb),
                          (0, num_heads)))
-    _k5_smem_check("dual_stream_attention", xv.dtype, Lv, Lu, dh)
     return _k5_forward_mma(xv, xu, wsa, wsb, mask_v, mask_u, num_heads,
                            scale, rate, seed)
 
@@ -210,7 +201,6 @@ def _k5_backward_cuda(xv, xu, wsa, wsb, mask_v, mask_u, gv, gu, num_heads,
     B, Lv, Lu, d, dh = _check_k5(xv, xu, wsa, wsb, mask_v, mask_u, num_heads,
                                  (gv, gu))
     if k5_body(xv.dtype) == "mma":
-        _k5_smem_check("dual_stream_attention_bwd", xv.dtype, Lv, Lu, dh)
         return _k5_backward_mma(xv, xu, wsa, wsb, mask_v, mask_u, gv, gu,
                                 num_heads, scale, rate, seed)
     fn = A._fn("dual_stream_attention_bwd",

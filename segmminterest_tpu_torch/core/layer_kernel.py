@@ -47,16 +47,25 @@ import torch
 from . import attention as A
 
 LN_EPS = 1e-12
-# rows of (B * Lq) one block of the epilogue-backward kernel takes, fp32
-# (kEpBwdRows, layer_epilogue.cuh) and bf16 (kLmRows, layer_mma.cuh: 64
-# where d and ff are at most K4_MMA_NARROW, else 32); its
-# LayerNorm-parameter partial sums are one row of four d-vectors per block
+# rows of (B * Lq) one block of the row-tile epilogue takes
+# (layer_epilogue.cuh: kEpFwdRows, kEpBwdRows where a block's full rows fit
+# its shared memory, as at every width up to 512; else kEpNarrowRows, else
+# kEpNarrowestRows), and of bf16's tensor-core epilogue (kLmRows,
+# layer_mma.cuh: 64 where d and ff are at most K4_MMA_NARROW, else 32); the
+# backward's LayerNorm-parameter partial sums are one row of four d-vectors
+# per block
+K4_FWD_ROWS = 32
 K4_BWD_ROWS = 16
+K4_NARROW_ROWS = (8, 2)
 K4_MMA_ROWS = 64
-# the bf16 epilogue holds a block's full rows of d and of ff in registers:
-# 64 rows of widths up to 512, 32 of widths up to 768
+# the bf16 tensor-core epilogue holds a block's full rows of d and of ff in
+# registers: 64 rows of widths up to 512, 32 of widths up to 768; past
+# that bf16 K4 runs the row-tile epilogue (k4_epilogue_rows)
 K4_MMA_NARROW = 512
 K4_MMA_MAX_WIDTH = 768
+# the row-tile epilogue's weight stage (ep_stage_bytes): 32 deep, 128
+# columns, fp32, transposed (stride 129) or as is (stride 132)
+_EP_STAGE_BYTES = 4 * 32 * 132
 # bf16 K4b's nine weights' rows in chunks of k4_dw_chunk rows, about this
 # many chunks in all, added in chunk order (K2's kernel, whose table holds
 # attention.K2_DW_MAX_CHUNKS)
@@ -243,6 +252,51 @@ def k4_mma_rows(d: int, ff: int) -> int:
     return K4_MMA_ROWS if max(d, ff) <= K4_MMA_NARROW else 32
 
 
+def _align128(n: int) -> int:
+    return (n + 127) // 128 * 128
+
+
+def k4_rowtile_smem_bytes(dtype, d: int, ff: int, rows: int,
+                          backward: bool) -> int:
+    """Shared memory of a block of the row-tile epilogue over `rows` rows
+    (``EpFwdLayout`` / ``EpBwdLayout``, csrc/layer_stream*.cu): tiles of
+    the compute dtype (row stride w + 4 in fp32, w + 8 in bf16) and fp32
+    (w + 4), the weight stage, the LayerNorms' row stats."""
+    e = torch.tensor([], dtype=dtype).element_size()
+    w = max(d, ff)
+
+    def ld(n):
+        return n + (4 if dtype == torch.float32 else 8)
+    if not backward:
+        g = _align128(e * rows * ld(w))
+        c = g + _align128(e * rows * ld(ff))
+        stage = c + _align128(4 * rows * (w + 4))
+        return stage + _align128(_EP_STAGE_BYTES) + 2 * 4 * rows
+    y1 = _align128(max(e * rows * ld(w), 4 * rows * (w + 4)))
+    c = y1 + _align128(e * rows * ld(d))
+    r2 = c + _align128(4 * rows * (w + 4))
+    stage = r2 + _align128(4 * rows * (d + 4))
+    return stage + _align128(_EP_STAGE_BYTES) + 4 * 4 * rows
+
+
+def k4_epilogue_rows(dtype, d: int, ff: int, backward: bool) -> int:
+    """Rows of (B * Lq) one block of K4's epilogue takes at widths d, ff,
+    or 0 where no block fits (``ep_fwd_rows`` / ``ep_bwd_rows`` and
+    ``lm_rows``): bf16 up to K4_MMA_MAX_WIDTH on the tensor-core epilogue
+    (``k4_mma_rows``), every other shape on the row-tile epilogue, the
+    most of K4_FWD_ROWS (K4_BWD_ROWS) and K4_NARROW_ROWS whose block fits
+    one block's shared memory. Each row's sums run in the same order
+    whatever its block's rows."""
+    if dtype == torch.bfloat16 and max(d, ff) <= K4_MMA_MAX_WIDTH:
+        return k4_mma_rows(d, ff)
+    for rows in ((K4_BWD_ROWS if backward else K4_FWD_ROWS),
+                 *K4_NARROW_ROWS):
+        if k4_rowtile_smem_bytes(dtype, d, ff, rows, backward) \
+                <= A.MAX_SMEM_BYTES:
+            return rows
+    return 0
+
+
 def k4_epilogue_smem_bytes(d: int, ff: int, backward: bool) -> int:
     """The bf16 epilogue's shared memory (layer_mma.cuh) at its geometry
     (R rows, widths up to N): a ring of three stages, each the larger of
@@ -258,13 +312,19 @@ def k4_epilogue_smem_bytes(d: int, ff: int, backward: bool) -> int:
 
 def k4_mma_smem_bytes(Lq: int, L1: int, L2: int, D: int,
                       backward: bool, d: int = 512, ff: int = 512) -> int:
-    """Shared memory of bf16 K4's largest block: K2's core (forward; the
-    backward's with g in fp32, two bf16 halves) or the epilogue's at
-    widths d and ff."""
-    core = A.k2_mma_smem_bytes(Lq, L1, L2, D, False)
+    """Shared memory of bf16 K4's largest block: K2's core on the path
+    the shape takes (forward; the backward's with g in fp32, two bf16
+    halves) or the epilogue's at widths d and ff (the tensor-core one up to
+    K4_MMA_MAX_WIDTH, the row-tile one past it)."""
+    core = A.k2_core_smem_bytes(Lq, L1, L2, D, False)
     if backward:
-        core = max(core, A.k2_mma_smem_bytes(Lq, L1, L2, D, True,
-                                             g_fp32=True))
+        core = max(core, A.k2_core_smem_bytes(Lq, L1, L2, D, True,
+                                              g_fp32=True))
+    if max(d, ff) > K4_MMA_MAX_WIDTH:
+        rows = k4_epilogue_rows(torch.bfloat16, d, ff, backward) or \
+            K4_NARROW_ROWS[-1]
+        return max(core, k4_rowtile_smem_bytes(torch.bfloat16, d, ff, rows,
+                                               backward))
     return max(core, k4_epilogue_smem_bytes(d, ff, backward))
 
 
@@ -284,9 +344,11 @@ def _check_k4(xq, x1, x2, qkv, ep, masks, num_heads, g=None):
                              f"{tuple(t.shape)}")
     if ff % 32:
         raise ValueError(f"ff={ff}: the epilogue takes ff % 32 == 0")
-    if k4_body(xq.dtype) == "mma" and max(d, ff) > K4_MMA_MAX_WIDTH:
-        raise ValueError(f"(d, ff)={(d, ff)}: the bf16 epilogue takes widths "
-                         f"<= {K4_MMA_MAX_WIDTH}")
+    if not all(k4_epilogue_rows(xq.dtype, d, ff, bwd) for bwd in (False,
+                                                                  True)):
+        raise ValueError(f"(d, ff)={(d, ff)}: the epilogue's block of "
+                         f"{K4_NARROW_ROWS[-1]} full rows exceeds one block's "
+                         "shared memory")
     if any(t.data_ptr() % 16 for t in (wff, wm1, wm2)):
         raise ValueError("inputs must start on a 16-byte boundary")
     return B, Lq, L1, L2, d, dh, ff
@@ -295,15 +357,6 @@ def _check_k4(xq, x1, x2, qkv, ep, masks, num_heads, g=None):
 def _epi_div(rate, dtype):
     """1 - rate in the compute dtype, as a float (the epilogue's divisor)."""
     return float(torch.tensor(1.0 - rate, dtype=dtype).float())
-
-
-def _k4_smem_check(lib, xq, Lq, L1, L2, dh, d, ff):
-    smem = A._fn(lib, f"segmm_{lib}_smem_bytes", ctypes.c_size_t,
-                 [ctypes.c_int] * 7)
-    if smem(A._DTYPE_CODE[xq.dtype], Lq, L1, L2, dh, d, ff) > \
-            A.MAX_SMEM_BYTES:
-        raise ValueError(f"(Lq, L1, L2, d, ff)={(Lq, L1, L2, d, ff)} needs "
-                         "more shared memory than one block has")
 
 
 def _k4_forward_cuda(xq, x1, x2, qkv, ep, masks, num_heads, scale, rate,
@@ -315,7 +368,6 @@ def _k4_forward_cuda(xq, x1, x2, qkv, ep, masks, num_heads, scale, rate,
     B, Lq, L1, L2, d, dh, ff = _check_k4(xq, x1, x2, qkv, ep, masks,
                                          num_heads)
     tf32 = k4_body(xq.dtype) == "tf32"
-    _k4_smem_check("layer_stream", xq, Lq, L1, L2, dh, d, ff)
     fn = A._fn("layer_stream", "segmm_layer_stream_fwd", ctypes.c_int,
                [ctypes.c_int, ctypes.POINTER(ctypes.c_void_p)]
                + [ctypes.c_void_p] * 3 + [ctypes.POINTER(ctypes.c_void_p),
@@ -356,7 +408,6 @@ def _k4_backward_cuda(xq, x1, x2, qkv, ep, masks, g, num_heads, scale, rate,
     (``segmm_layer_stream_chain_bwd``), dW in K2_DW_SPLITS chunks."""
     B, Lq, L1, L2, d, dh, ff = _check_k4(xq, x1, x2, qkv, ep, masks,
                                          num_heads, g)
-    _k4_smem_check("layer_stream_bwd", xq, Lq, L1, L2, dh, d, ff)
     fn = A._fn("layer_stream_bwd", "segmm_layer_stream_bwd", ctypes.c_int,
                [ctypes.c_int, ctypes.POINTER(ctypes.c_void_p)]
                + [ctypes.c_void_p] * 4
@@ -368,7 +419,7 @@ def _k4_backward_cuda(xq, x1, x2, qkv, ep, masks, g, num_heads, scale, rate,
     dev, f32, T = xq.device, torch.float32, xq.dtype
     mma = k4_body(T) == "mma"
     rows = B * Lq
-    rows_per_block = k4_mma_rows(d, ff) if mma else K4_BWD_ROWS
+    rows_per_block = k4_epilogue_rows(T, d, ff, True)
     nblk = (rows + rows_per_block - 1) // rows_per_block
     # workspace: att (T), y1 (T), gact (T); d_att (bf16: its hi and lo
     # halves in the same bytes), dr1, dm, dh (rows, d), du (rows, ff) fp32;

@@ -11,11 +11,12 @@ on the CPU, where no kernel runs:
   tests/test_torch_attention.py the 3xTF32 forwards agree with the JAX
   Pallas kernels run through the interpreter within their fp32 tolerance
   of 2e-5;
-* K1f's shape rule (``k1_body``): every shape the CUDA-core fp32
-  body took before the tensor-core body is still taken, the tensor-core body is named for the
-  model's stream shapes at head dims 16, 32, 64 and 128, and the wrapper hands
-  its choice to the C entry point (replaced here by a recorder, so no nvcc
-  is needed).
+* K1f's shape rule (``k1_body``): every shape the first CUDA-core fp32
+  body took is taken by the tensor-core body (at every shape, on its
+  key-chunk path past its one-chunk shapes), which runs the model's stream
+  shapes at head dims 16, 32, 64 and 128 in one chunk, and the wrapper
+  hands its choice to the C entry point (replaced here by a recorder, so
+  no nvcc is needed).
 
 The kernels themselves are held against the plain versions on the card by
 tests/test_torch_kernels.py and chip_smoke.py.
@@ -153,58 +154,67 @@ def _cuda_core_k1f_smem(Lq, L1, L2, D):
 
 
 def test_k1f_shape_rule_takes_every_shape_the_cuda_core_body_took():
-    """Every fp32 shape the CUDA-core body took alone is taken: by the
-    tensor-core body where the rule names it (a query window of its tiles
-    fits one block by the rule), else by the CUDA-core body, whose shared
-    memory is unchanged. The rule names the tensor-core body only for head
-    dims up to 128 and key axes up to 256 (144 past head dim 64)."""
+    """Every fp32 shape the CUDA-core body took alone, at head dims up to
+    128, is taken by the tensor-core body: in one chunk where
+    ``tf32_whole`` says so (a query window of its tiles fits one block, its
+    key axis at most 256 keys, 144 past head dim 64), else on its key-chunk
+    path; past head dim 128 the rule raises."""
     lengths = (1, 8, 40, 100, 128, 129, 200, 300)
-    taken = tf32 = 0
+    taken = whole = 0
     for D in range(4, 260, 4):
         for Lq in lengths:
             for L1 in lengths:
                 for L2 in lengths:
                     if _cuda_core_k1f_smem(Lq, L1, L2, D) > A.MAX_SMEM_BYTES:
                         continue
+                    if D > 128:
+                        with pytest.raises(ValueError):
+                            A.k1_body(torch.float32, Lq, L1, L2, D)
+                        continue
                     taken += 1
-                    body = A.k1_body(torch.float32, Lq, L1, L2, D)
-                    if body == "tf32":
-                        tf32 += 1
+                    assert A.k1_body(torch.float32, Lq, L1, L2, D) == "tf32"
+                    if A.tf32_whole(Lq, (L1, L2), D, False):
+                        whole += 1
                         w = A.tf32_window(Lq, (L1, L2), D, False)
                         assert 0 < w and (w == Lq or w % 16 == 0)
                         assert (A.tf32_smem_bytes(w, (L1, L2), D, False)
                                 <= A.MAX_SMEM_BYTES)
-                        assert D <= 128 and A._pad8(L1) + A._pad8(L2) <= (
+                        assert A._pad8(L1) + A._pad8(L2) <= (
                             256 if D <= 64 else 144)
-                    else:
-                        assert body == "cuda_core"
-    assert taken > tf32 > 0
+    assert taken > whole > 0
 
 
 @pytest.mark.parametrize("D", [16, 32, 64])
 def test_k1f_tensor_cores_take_the_model_streams(D):
     """The model's four K1 stream shapes at head dims 16, 32 (the
-    flagship's) and 64 run on the tensor cores in fp32; bf16 keeps the
-    CUDA-core body; fp32 at head dim 128 (--nhead 4 at d_model 512) runs on
-    the tensor cores too, in query windows where one block's tiles exceed
-    shared memory, and fp32 past 256 keys on the CUDA-core body."""
+    flagship's) and 64 run on the tensor cores in fp32, and in bf16 on the
+    bf16 two-block core ("mma", in one chunk there); fp32 at head dim 128
+    (--nhead 4 at d_model 512) runs on the tensor cores too, in query
+    windows where one block's tiles exceed shared memory, and fp32 past
+    256 keys on the same core's key-chunk path."""
     for shape in K1_SHAPES:
         assert A.k1_body(torch.float32, *shape, D) == "tf32"
-        assert A.k1_body(torch.bfloat16, *shape, D) == "cuda_core"
+        assert A.k1_body(torch.bfloat16, *shape, D) == "mma"
+        assert A.k2_core_whole(*shape, D, False)
         assert A.k1_body(torch.float32, *shape, 128) == "tf32"
     assert A.k1_body(torch.float32, 40, 128, 128, D) == "tf32"
-    assert A.k1_body(torch.float32, 40, 129, 128, D) == "cuda_core"
+    assert A.tf32_whole(40, (128, 128), D, False)
+    assert A.k1_body(torch.float32, 40, 129, 128, D) == "tf32"
+    assert not A.tf32_whole(40, (129, 128), D, False)
 
 
 @pytest.mark.parametrize("dtype,D,tf32", [(torch.float32, 32, 1),
                                           (torch.float32, 64, 1),
                                           (torch.float32, 128, 1),
-                                          (torch.bfloat16, 32, 0)])
+                                          (torch.bfloat16, 32, None)])
 def test_k1f_wrapper_hands_its_body_to_the_kernel(monkeypatch, dtype, D,
                                                   tf32):
-    """The wrapper passes the rule's choice to the C entry point as its
-    second argument; the rule (``k1_body``) holds the bodies' shared
-    memory, so nothing else is asked."""
+    """The wrapper sends the rule's choice to its C entry point: fp32 to
+    K1f's (``segmm_two_block_attention_fwd``, the 3xTF32 core, which picks
+    one chunk or key chunks by the shape itself), bf16 to the two-block
+    core's (``segmm_two_block_core_fwd``, K1's block keys: its last
+    argument before the stream is 0); both get (B, Lq, L1, L2, H, D)
+    after their ten pointers. Nothing else is asked."""
     calls = []
 
     def fn(lib, symbol, restype, argtypes):
@@ -223,6 +233,9 @@ def test_k1f_wrapper_hands_its_body_to_the_kernel(monkeypatch, dtype, D,
     masks = [torch.ones(B, L, dtype=torch.bool) for L in (Lq, L1, L2)]
     A._k1_forward_cuda(*ts, *masks, 0.125, 0.0, 0)
     (fwd, fwd_args), = calls
-    assert fwd == "segmm_two_block_attention_fwd"
-    assert fwd_args[:2] == (A._DTYPE_CODE[dtype], tf32)
+    assert fwd_args[10:16] == (B, Lq, L1, L2, 2, D)
+    if tf32 is None:
+        assert fwd == "segmm_two_block_core_fwd" and fwd_args[-2] == 0
+    else:
+        assert fwd == "segmm_two_block_attention_fwd"
     assert A.LAUNCHES["two_block_attention"] == 1

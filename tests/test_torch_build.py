@@ -1,7 +1,10 @@
 """The kernel build's file list (``core/build.py``): every CUDA source under
-``core/csrc`` is compiled into exactly one library, a library's parts
-(``<name>.<part>.cu``) into their own library, and the name of a built
-library changes with any file it is compiled from. Nothing here runs nvcc."""
+``core/csrc`` is compiled into exactly one library, or is one of the
+``COMMON`` sources compiled once and linked into the libraries that launch
+its kernels; a
+library's parts (``<name>.<part>.cu``) into their own library, and the
+name of a built library changes with any file it is compiled from or
+links. Nothing here runs nvcc."""
 
 import pathlib
 
@@ -16,7 +19,9 @@ CU_FILES = sorted(p.name for p in build.CSRC.glob("*.cu"))
 def test_every_source_belongs_to_one_library(name):
     owners = [lib for lib in build.SOURCES
               if name in {f.name for f in build._files(lib)}]
-    assert len(owners) == 1, f"{name} is compiled into {owners}"
+    common = name in {f.name for f in build._common_files()}
+    assert len(owners) == (0 if common else 1), \
+        f"{name} is compiled into {owners}"
 
 
 @pytest.mark.parametrize("lib", build.SOURCES)
@@ -49,11 +54,17 @@ def test_library_name_follows_its_parts(tmp_path, monkeypatch):
     for f in build.CSRC.glob("*.cuh"):
         (csrc / f.name).write_bytes(f.read_bytes())
     lib = "two_block_attention_bwd"
-    for f in build._files(lib):
+    for f in build._files(lib) + build._common_files():
         (csrc / f.name).write_bytes(f.read_bytes())
     monkeypatch.setattr(build, "CSRC", csrc)
     before = build._lib_path(lib)
     part = csrc / f"{lib}.d64.cu"
     part.write_text(part.read_text() + "\n")
     assert build._lib_path(lib) != before
+    # and with the common sources it links
+    after = build._lib_path(lib)
+    common = build._common_files(lib)[0]
+    common = csrc / common.name
+    common.write_text(common.read_text() + "\n")
+    assert build._lib_path(lib) != after
     assert pathlib.Path(build._lib_path(lib)).name.startswith(f"lib{lib}-")

@@ -189,7 +189,7 @@ def test_k2_backward_kernel_matches_plain(cuda, shape, dtype, rate, v3,
         *inputs, *masks, g, H, SCALE, rate, 99), dtype)
 
 
-# bf16 K2's tensor-core bodies (k2_body "mma"): lengths up to K2_MAX_LEN,
+# bf16 K2's tensor-core bodies (k2_body "mma"): lengths up to 128,
 # block 2 starting mid 16-key tile (L1 = 40, 5, 128 + 8 alignment) and on
 # one (L1 = 9), and (a fourth entry: the query weights' scale) near-one-hot
 # rows, logits of magnitude ~50; mask_q's row 0 fully padded throughout
@@ -258,8 +258,10 @@ def test_k2b_weight_grads_bit_equal_across_calls(cuda, rate):
 
 @pytest.mark.cuda
 def test_k2_mma_shared_memory_matches_the_rule(cuda):
-    """The bf16 core's shared memory (k2_core_fwd_smem_bytes,
-    k2_core_bwd_smem_bytes) is the wrapper's Python formula."""
+    """The bf16 core's shared memory on the path each shape takes
+    (k2_core_smem_bytes: k2_core_fwd_smem_bytes / k2_core_bwd_smem_bytes in
+    one chunk, k2_chunked_smem_bytes past it) is the wrapper's Python
+    formula."""
     for lib, symbol, bwd in (
             ("proj_two_block_attention",
              "segmm_proj_two_block_attention_smem_bytes", False),
@@ -268,8 +270,8 @@ def test_k2_mma_shared_memory_matches_the_rule(cuda):
         smem = A._fn(lib, symbol, ctypes.c_size_t, [ctypes.c_int] * 5)
         for shape in SHAPES + [(128, 128, 128), (7, 5, 13), (3, 9, 128)]:
             for dh in (16, 32, 64):
-                assert smem(1, *shape, dh) == A.k2_mma_smem_bytes(*shape, dh,
-                                                                  bwd)
+                assert smem(1, *shape, dh) == A.k2_core_smem_bytes(*shape,
+                                                                   dh, bwd)
 
 
 # K6 (version 2 of K2): the four stream shapes and one whose unaligned L1
@@ -423,8 +425,10 @@ def test_k5b_mma_body_matches_plain(cuda, lengths, dh, rate):
 
 @pytest.mark.cuda
 def test_k5b_and_k6b_shared_memory_match_the_rule(cuda):
-    """bf16 K6b's and K5b's core blocks take K2b's shared memory (K5b the
-    larger of its two streams')."""
+    """bf16 K6b's and K5b's core blocks take K2b's shared memory on the
+    path each shape takes (``k2_core_smem_bytes``: one chunk, or the
+    key-chunk path's block, as at (128, 128, 128) and head dim 64), K5b the
+    larger of its two streams'."""
     smem6 = A._fn("proj_two_block_attention_v2_bwd",
                   "segmm_proj_two_block_attention_v2_bwd_smem_bytes",
                   ctypes.c_size_t, [ctypes.c_int] * 5)
@@ -433,12 +437,13 @@ def test_k5b_and_k6b_shared_memory_match_the_rule(cuda):
                   ctypes.c_size_t, [ctypes.c_int] * 4)
     for dh in (16, 32, 64):
         for shape in SHAPES + [(128, 128, 128), (7, 5, 13)]:
-            assert smem6(1, *shape, dh) == A.k2_mma_smem_bytes(*shape, dh,
-                                                               True)
+            assert smem6(1, *shape, dh) == A.k2_core_smem_bytes(*shape, dh,
+                                                                True)
         for Lv, Lu in ((40, 100), (128, 7)):
             assert smem5(1, Lv, Lu, dh) == max(
-                A.k2_mma_smem_bytes(Lv, Lv, Lu, dh, True),
-                A.k2_mma_smem_bytes(Lu, Lv, Lu, dh, True))
+                A.k2_core_smem_bytes(Lv, Lv, Lu, dh, True),
+                A.k2_core_smem_bytes(Lu, Lv, Lu, dh, True))
+    assert not A.k2_core_whole(128, 128, 128, 64, True)
 
 
 # K3 (single-block masked attention of the CrossAtt / SelfAtt ablations):
@@ -634,27 +639,98 @@ def test_k1f_tf32_shared_memory_matches_the_rule(cuda):
 
 
 @pytest.mark.cuda
-def test_k1b_rejects_shapes_past_shared_memory(cuda):
-    """fp32 K1b raises where no query window of its tiles and P fits one
-    block's shared memory, rather than launching (head dim 128 over two
-    blocks of 128 keys)."""
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k1b_rejects_shapes_past_shared_memory(cuda, dtype):
+    """K1b at head dim 128 over two blocks of 128 keys, where no query
+    window of the fp32 one-chunk body's tiles and P fits one block's shared
+    memory (and bf16's one-chunk tiles do not either): both run on their
+    core's key-chunk path and match their plain versions, dropout on."""
+    rng = np.random.default_rng(12)
     B, H, D, L = 2, 2, 128, 128
-    t = torch.zeros(B, L, H, D, device=cuda)
-    m = torch.ones(B, L, dtype=torch.bool, device=cuda)
-    with pytest.raises(ValueError, match="shared memory"):
-        A._k1_backward_cuda(t, t, t, t, t, t, m, m, m, t, 0.125, 0.0, 0)
+    assert not A.tf32_whole(L, (L, L), D, True)
+    assert not A.k2_core_whole(L, L, L, D, True)
+    qkv = _on(cuda, [rng.normal(size=(B, L, H, D)).astype(np.float32)
+                     for _ in range(6)], dtype)
+    masks = _on(cuda, _masks_for(rng, B, L, L, L))
+    g = _on(cuda, [rng.normal(size=(B, L, H, D)).astype(np.float32)],
+            dtype)[0]
+    before = A.LAUNCHES["two_block_attention_bwd"]
+    got = A._k1_backward_cuda(*qkv, *masks, g, 0.125, 0.1, 5)
+    assert A.LAUNCHES["two_block_attention_bwd"] == before + 1
+    _rel_close(got, A.two_block_attention_bwd_plain(*qkv, *masks, g, 0.125,
+                                                    0.1, 5), dtype)
 
 
 @pytest.mark.cuda
-def test_k3_rejects_unsupported_shapes(cuda):
-    q = torch.zeros(2, 3, 2, 8, device=cuda)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k3_rejects_unsupported_shapes(cuda, dtype):
+    """K3 refuses head dim 8; a stream longer than 128 runs on its core's
+    key-chunk path (fp32: the 3xTF32 core's, bf16: the two-block core's)
+    and matches the plain version."""
+    q = torch.zeros(2, 3, 2, 8, device=cuda, dtype=dtype)
     m = torch.ones(2, 3, dtype=torch.bool, device=cuda)
     with pytest.raises(ValueError):
         A.fused_masked_attention(q, q, q, m, m)   # head dim 8
-    q = torch.zeros(2, 129, 2, 32, device=cuda)
-    m = torch.ones(2, 129, dtype=torch.bool, device=cuda)
-    with pytest.raises(ValueError):
-        A.fused_masked_attention(q, q, q, m, m)   # longer than 128
+    rng = np.random.default_rng(13)
+    q, k, v = _on(cuda, [rng.normal(size=(2, 129, 2, 32)).astype(np.float32)
+                         for _ in range(3)], dtype)
+    mq, mk = _on(cuda, (_masks(rng, 2, 129, True), _masks(rng, 2, 129, False)))
+    torch.testing.assert_close(
+        A.fused_masked_attention(q, k, v, mq, mk).float(),
+        A.masked_attention_plain(q, k, v, mq, mk, 1 / math.sqrt(32)).float(),
+        **TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.1], ids=["eval", "dropout"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kernel", ["K1", "K2", "K6", "K3", "K4", "K5"])
+def test_long_streams_and_wide_layers_match_plain(cuda, kernel, dtype, rate):
+    """Each kernel past its core's one-chunk shapes (streams (200, 150,
+    300) and (1, 300, 7), K3 (200, 300), (1, 300), (128, 128); head dims 32
+    and 128; K2 with K7b) and K4 also at d = ff = 1024, against its plain
+    version, as chip_smoke.py's phase kernels holds them
+    (``_long_kernels``, which raises on a disagreement, a kernel that did
+    not launch, or K1b's or K3b's gradients that differ between two
+    calls)."""
+    import chip_smoke as CS
+    worst = CS._long_kernels(A, cuda, dtypes=(dtype,), rates=(rate,),
+                             kernels=(kernel,))
+    assert worst and all(math.isfinite(v) for v in worst.values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.1], ids=["eval", "dropout"])
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("dh", [16, 64])
+def test_k1_bf16_core_head_dims(cuda, dh, shape, rate):
+    """bf16 K1f and K1b on the two-block core at head dims 16 and 64 (32 is
+    the tests above, 48, 96 and 128 test_wide_k1_matches_plain) at the
+    four stream shapes: against their plain versions, the dropout bits the
+    plain version's (a dropped logit the other way moves the output far
+    past the tolerance), one launch each, on the core's kernels."""
+    rng = np.random.default_rng(21)
+    B, (Lq, L1, L2), heads = 8, shape, 4
+    assert A.k1_body(torch.bfloat16, Lq, L1, L2, dh, True) == "mma"
+    qkv = _on(cuda, [rng.normal(size=(B, L, heads, dh)).astype(np.float32)
+                     for L in (Lq, Lq, L1, L2, L1, L2)], torch.bfloat16)
+    masks = _on(cuda, _masks_for(rng, B, Lq, L1, L2))
+    g = _on(cuda, [rng.normal(size=(B, Lq, heads, dh)).astype(np.float32)],
+            torch.bfloat16)[0]
+    scale = 1 / math.sqrt(dh)
+    leaves = [t.clone().requires_grad_() for t in qkv]
+    before = dict(A.LAUNCHES)
+    out = A.fused_two_block_attention(*leaves, *masks, scale=scale,
+                                      dropout_rate=rate, seed=77,
+                                      deterministic=rate == 0)
+    got = torch.autograd.grad(out, leaves, g)
+    for key in ("two_block_attention", "two_block_attention_bwd"):
+        assert A.LAUNCHES[key] == before[key] + 1
+    torch.testing.assert_close(
+        out.float(), A.two_block_attention_plain(
+            *qkv, *masks, scale, rate, 77).float(), **TOL[torch.bfloat16])
+    _rel_close(got, A.two_block_attention_bwd_plain(
+        *qkv, *masks, g, scale, rate, 77), torch.bfloat16)
 
 
 def _proj_params(rng, d, n=6):

@@ -390,8 +390,10 @@ def test_k4_wrappers_hand_each_body_its_operands(dtype, ff, monkeypatch):
 
 
 def test_k4_mma_refuses_widths_past_its_registers():
-    """The bf16 epilogue holds a block's full rows: widths past 768 raise
-    before any launch (fp32's body takes what its shared memory takes)."""
+    """The bf16 tensor-core epilogue holds a block's full rows, so widths
+    past 768 take the row-tile epilogue in bf16 instead, fewer rows a block
+    as the width grows; only a width whose block of two full rows exceeds
+    shared memory raises before any launch."""
     d, ff = 512, 1024
     xs = [torch.zeros(2, 4, d, dtype=torch.bfloat16) for _ in range(3)]
     qkv = [torch.zeros(d, d, dtype=torch.bfloat16),
@@ -404,5 +406,21 @@ def test_k4_mma_refuses_widths_past_its_registers():
           torch.zeros(d, dtype=torch.bfloat16), torch.ones(d),
           torch.zeros(d)]
     masks = [torch.ones(2, 4, dtype=torch.bool)] * 3
-    with pytest.raises(ValueError, match="512"):
-        LK._check_k4(*xs, qkv, ep, masks, 16)
+    assert LK._check_k4(*xs, qkv, ep, masks, 16)[-1] == ff
+    assert [LK.k4_epilogue_rows(torch.bfloat16, d, ff, bwd)
+            for bwd in (False, True)] == [8, 16]
+    assert LK.k4_epilogue_rows(torch.bfloat16, 512, 512, True) == 64
+    assert LK.k4_epilogue_rows(torch.float32, 512, 512, True) == 16
+    assert LK.k4_epilogue_rows(torch.float32, 8192, 8192, True) == 0
+    with pytest.raises(ValueError, match="shared memory"):
+        LK._check_k4(*[torch.zeros(2, 4, 8192, dtype=torch.bfloat16)] * 3,
+                     [torch.zeros(8192, 8192, dtype=torch.bfloat16),
+                      torch.zeros(8192, dtype=torch.bfloat16)] * 6,
+                     [torch.zeros(8192, 8192, dtype=torch.bfloat16),
+                      torch.zeros(8192, dtype=torch.bfloat16),
+                      torch.ones(8192), torch.zeros(8192),
+                      torch.zeros(8192, 8192, dtype=torch.bfloat16),
+                      torch.zeros(8192, dtype=torch.bfloat16),
+                      torch.zeros(8192, 8192, dtype=torch.bfloat16),
+                      torch.zeros(8192, dtype=torch.bfloat16),
+                      torch.ones(8192), torch.zeros(8192)], masks, 64)

@@ -276,7 +276,9 @@ def test_k2_wrappers_hand_each_body_its_operands(rng, dtype, monkeypatch):
         assert pairs[4] == 3 and _n_ptrs(pairs[2]) == 6
         k1f = fake.calls["segmm_two_block_attention_fwd"]
         k1b = fake.calls["segmm_two_block_attention_bwd"]
-        assert k1f[:2] == (0, 1) and k1b[0] == 0  # fp32, tensor cores
+        # fp32 on the 3xTF32 core: K1f's entry takes fp32 alone, K1b's
+        # dtype 0
+        assert k1f[10:16] == (B, Lq, L1, L2, H, D // H) and k1b[0] == 0
         assert chunk == 0 and chain[-3] == A.K2_DW_SPLITS
 
 

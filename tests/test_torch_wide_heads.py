@@ -126,17 +126,15 @@ WIDE_DIMS = (48, 96, 128)
 def test_k1_rule_takes_every_head_dim_at_the_streams(D):
     """K1 at the four stream shapes and every head dim of the flagship's
     widths, both directions: fp32 on the tensor-core body (in query
-    windows where one block's tiles exceed shared memory), bf16 on its
-    CUDA-core body where that fits and else on the fp32 body over fp32
-    copies (head dims 96 and 128 at 100-query streams)."""
+    windows where one block's tiles exceed shared memory), bf16 on the
+    bf16 two-block core ("mma"), in one chunk at every one of them."""
     for shape in STREAMS:
         for bwd in (False, True):
             assert A.k1_body(torch.float32, *shape, D, bwd) == "tf32"
             w = A.tf32_window(shape[0], shape[1:], D, bwd)
             assert w == shape[0] or (w % 16 == 0 and 0 < w < shape[0])
-            cc = A.k1_cuda_core_smem_bytes(*shape, D, bwd) <= A.MAX_SMEM_BYTES
-            assert A.k1_body(torch.bfloat16, *shape, D, bwd) == (
-                "cuda_core" if cc else "tf32_bf16")
+            assert A.k1_body(torch.bfloat16, *shape, D, bwd) == "mma"
+            assert A.k2_core_whole(*shape, D, bwd)
     # the flagship's head dim and 64 keep their bodies whole
     if D <= 64:
         for shape in STREAMS:
@@ -150,9 +148,18 @@ def test_k1_rule_takes_every_head_dim_at_the_streams(D):
     (130, (40, 40, 100), False), (132, (40, 40, 100), True),
     (32, (40, 129, 128), True), (64, (129, 40, 100), True)])
 def test_k1_rule_refuses_what_no_body_takes(D, shape, bwd):
-    """A head dim not a multiple of 4, past 128 in the backward, or a
-    stream past 128 in the backward raises."""
+    """A head dim not a multiple of 4, or past 128, raises in both dtypes;
+    a stream past 128 runs on the cores' key-chunk paths in both (fp32
+    where the one-chunk body refused it, bf16 where its tiles exceed one
+    chunk)."""
     for dt in (torch.float32, torch.bfloat16):
+        if D % 4 == 0 and D <= 128 and (dt == torch.float32
+                                        or D in A.K2_HEAD_DIMS):
+            assert A.k1_body(dt, *shape, D, bwd) == (
+                "tf32" if dt == torch.float32 else "mma")
+            if dt == torch.float32:
+                assert not A.tf32_whole(shape[0], shape[1:], D, bwd)
+            continue
         with pytest.raises(ValueError):
             A.k1_body(dt, *shape, D, bwd)
 
@@ -187,19 +194,18 @@ def test_k2_rule_takes_the_wide_head_dims_in_bf16(D):
 @pytest.mark.parametrize("D", WIDE_DIMS)
 def test_k2_bf16_rule_refuses_key_axes_past_144_at_wide_head_dims(D):
     """Past 16, 32 and 64 the bf16 core's register tile holds 144 keys:
-    (40 | 100) and (100 | 40) keys fit, (100 | 100) raises; at 64 it
-    takes 256."""
+    (40 | 100) and (100 | 40) keys run in one chunk, (100 | 100) and
+    (128 | 128) on the key-chunk path, which the rule takes too; at 64 one
+    chunk holds 256."""
     d = 4 * D if D != 48 else 768
-    for L1, L2, takes in ((40, 100, True), (100, 40, True), (1, 40, True),
+    for L1, L2, whole in ((40, 100, True), (100, 40, True), (1, 40, True),
                           (100, 100, False), (128, 128, False)):
         ts, masks = _k2_tensors(torch.bfloat16, 2, 40, L1, L2, d)
-        if takes:
-            A._check_k2(ts, masks, d // D)
-        else:
-            with pytest.raises(ValueError, match="144"):
-                A._check_k2(ts, masks, d // D)
+        A._check_k2(ts, masks, d // D)
+        assert A.k2_core_whole(40, L1, L2, D, False) == whole
     ts, masks = _k2_tensors(torch.bfloat16, 2, 40, 128, 128, 512)
     A._check_k2(ts, masks, 8)
+    assert A.k2_core_whole(40, 128, 128, 64, False)
 
 
 def test_k2_backward_core_stages_in_turns_past_64():
@@ -224,27 +230,34 @@ def test_k2_backward_core_stages_in_turns_past_64():
 @pytest.mark.parametrize("D", A.K3_HEAD_DIMS)
 def test_k3_rule_takes_the_ablation_shapes(D):
     """K3 at CrossAtt's and SelfAtt's shapes, every head dim, both dtypes,
-    both directions; lengths past 128 and other head dims raise."""
+    both directions, on its own bodies in one chunk; a length past 128 runs
+    on the 3xTF32 core's key-chunk path in fp32 and on the two-block core's
+    in bf16; other head dims raise."""
     for shape in ((40, 100), (100, 40), (100, 100), (40, 40), (40, 1),
                   (1, 40)):
         for dt in (torch.float32, torch.bfloat16):
             for bwd in (False, True):
-                A.k3_takes(dt, *shape, D, bwd)
+                assert A.k3_takes(dt, *shape, D, bwd) == (
+                    "tf32" if dt == torch.float32 else "mma")
+                assert A.tf32_whole(shape[0], shape[1:], D, bwd)
+    assert A.k3_takes(torch.float32, 129, 40, D, False) == "tf32"
+    assert not A.tf32_whole(129, (40,), D, False)
+    assert A.k3_takes(torch.bfloat16, 129, 40, D, False) == "core"
     for dt in (torch.float32, torch.bfloat16):
-        with pytest.raises(ValueError):
-            A.k3_takes(dt, 129, 40, D, False)
         with pytest.raises(ValueError):
             A.k3_takes(dt, 40, 40, D + 8, False)
 
 
 def test_k3_bf16_rule_refuses_past_shared_memory():
     """bf16 K3b at head dim 128 and (128, 128) needs more than one block's
-    shared memory and raises; (100, 100) fits."""
+    shared memory of its own body, and runs on the two-block core's
+    key-chunk path instead; (100, 100) fits its own body."""
     assert A.k3_mma_smem_bytes(100, 100, 128, True) <= A.MAX_SMEM_BYTES
     assert A.k3_mma_smem_bytes(128, 128, 128, True) > A.MAX_SMEM_BYTES
-    with pytest.raises(ValueError, match="shared memory"):
-        A.k3_takes(torch.bfloat16, 128, 128, 128, True)
-    A.k3_takes(torch.float32, 128, 128, 128, True)  # windows
+    assert A.k3_takes(torch.bfloat16, 100, 100, 128, True) == "mma"
+    assert A.k3_takes(torch.bfloat16, 128, 128, 128, True) == "core"
+    assert A.k2_chunked_smem_bytes(128, True) <= A.MAX_SMEM_BYTES
+    assert A.k3_takes(torch.float32, 128, 128, 128, True) == "tf32"
 
 
 def _k4_tensors(dtype, d, ff):
@@ -259,19 +272,22 @@ def _k4_tensors(dtype, d, ff):
     (768, 768, 16, True), (768, 768, 8, True), (512, 512, 4, True),
     (512, 768, 16, True), (1024, 1024, 16, False), (768, 1024, 16, False)])
 def test_k4_bf16_rule_takes_widths_to_768(d, ff, heads, takes):
-    """bf16 K4's epilogue takes d, ff <= 768 (32-row blocks past 512) and
-    refuses wider; its shared memory fits at every width it takes."""
+    """bf16 K4's tensor-core epilogue takes d, ff <= 768 (32-row blocks
+    past 512); wider layers (`takes` False) run the row-tile epilogue in
+    bf16, 8 rows a block at 1024; its shared memory fits at every width."""
     ts, masks = _k2_tensors(torch.bfloat16, 2, 40, 40, 100, d)
     ep = _k4_tensors(torch.bfloat16, d, ff)
-    if takes:
-        assert LK._check_k4(*ts[:3], ts[3:], ep, masks, heads)[-1] == ff
-        for bwd in (False, True):
-            assert LK.k4_mma_smem_bytes(100, 40, 100, d // heads, bwd, d, ff) \
-                <= A.MAX_SMEM_BYTES
-        assert LK.k4_mma_rows(d, ff) == (64 if max(d, ff) <= 512 else 32)
-    else:
-        with pytest.raises(ValueError, match="768"):
-            LK._check_k4(*ts[:3], ts[3:], ep, masks, heads)
+    assert LK._check_k4(*ts[:3], ts[3:], ep, masks, heads)[-1] == ff
+    for bwd in (False, True):
+        assert LK.k4_mma_smem_bytes(100, 40, 100, d // heads, bwd, d, ff) \
+            <= A.MAX_SMEM_BYTES
+        rows = LK.k4_epilogue_rows(torch.bfloat16, d, ff, bwd)
+        if takes:
+            assert rows == LK.k4_mma_rows(d, ff) == (
+                64 if max(d, ff) <= 512 else 32)
+        else:
+            assert rows in (8, 16) and LK.k4_rowtile_smem_bytes(
+                torch.bfloat16, d, ff, rows, bwd) <= A.MAX_SMEM_BYTES
 
 
 # --- K6's keys and bf16 K6f's arithmetic -----------------------------------
