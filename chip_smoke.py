@@ -84,6 +84,22 @@ Phases, each of which fails the run (non-zero exit) on any error:
   train_cli      skip_train's CLI over the small memmap, then export_logits
                  serving the checkpoint it wrote; the same for
                  --ablation_type CrossAtt and for --fuse_layer 1
+  watchtime      the watch-time CLI: --method ours at the flagship width
+                 over the small memmap in the CLI's default config (fp32,
+                 K1, layer remat, B=1024, one epoch; its K1f and K1b
+                 launches counted against its steps and evaluation
+                 batches), --method wlr, d2q and tpm at B=1024 (finite HR1
+                 and MAE; their steps timed on a batch on the card; a
+                 32-row fp32 step of each against the CPU); stats_eval and
+                 export_statistics_logits here and in a process that sees
+                 no card (the same bytes); build_interactions,
+                 build_segrec_data and build_leave_rank_data without
+                 pandas, the built directory read back as the CSV's split
+                 and trained by skip_train --path on the card
+  msgpack        train_cli's flagship weights written in the JAX package's
+                 .msgpack layout (bf16 PE tables, one chunked leaf) by a
+                 small encoder here, served by export_logits --serving 1:
+                 the logits bit for bit those of a .pt of the same weights
 The last line is {"ok": true, "device": {...}}; before it come the card's
 name and power limit (nvidia-smi) and one JSON line describing the kernels.
 It needs no network and writes only under build/ (the kernels in
@@ -93,10 +109,14 @@ build/segmm_torch_kernels/, its data and checkpoints in build/chip_smoke/).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import hashlib
+import io
 import json
+import logging
 import math
 import os
+import struct
 import subprocess
 import sys
 import time
@@ -150,7 +170,7 @@ DROP_RATE = 0.1                      # the model's dropout
 RESULT = {"kernels": {}, "launches": {}}
 ALL_PHASES = ("build", "kernels", "serving", "default", "train",
               "train_default", "train_bf16", "ablation", "fused_variants",
-              "attn_v2", "wide", "train_cli")
+              "attn_v2", "wide", "train_cli", "watchtime", "msgpack")
 
 
 def log(*a):
@@ -3227,6 +3247,7 @@ def phase_train_cli(ctx):
         "--table_quant", "int8", "--remat", "0", "--ckpt_dir",
         os.path.join(WORK, "train_cli")])
     work = res["work_dir"]
+    ctx.update(cli_work=work, cli_common=common)
     for f in ("ckpt-latest.pt", "final_results.json"):
         if not os.path.exists(os.path.join(work, f)):
             raise AssertionError(f"skip_train wrote no {f}")
@@ -3325,6 +3346,431 @@ def phase_train_cli(ctx):
 
 
 # ---------------------------------------------------------------------------
+# the watch-time task, the statistics tasks and the dataset builders
+
+OURS_VALID_STEP = 12    # two validations in the epoch of 24 steps at B=1024
+BASELINES = ("wlr", "d2q", "tpm")
+BASELINE_TIMED = 20     # device-resident steps timed per baseline
+
+
+class _Records(logging.Handler):
+    """The records a logger emits while the handler is installed."""
+
+    def __init__(self, name):
+        super().__init__(logging.INFO)
+        self.logger, self.records = logging.getLogger(name), []
+
+    def emit(self, record):
+        self.records.append(record)
+
+    def __enter__(self):
+        self.records = []
+        self.logger.addHandler(self)
+        self.logger.setLevel(logging.INFO)
+        return self
+
+    def __exit__(self, *exc):
+        self.logger.removeHandler(self)
+
+    def args_of(self, prefix):
+        found = [r.args for r in self.records if r.msg.startswith(prefix)]
+        if not found:
+            raise AssertionError(f"no log line '{prefix}...'")
+        return found[-1]
+
+
+def _finite(x):
+    if isinstance(x, dict):
+        return all(_finite(v) for v in x.values())
+    if isinstance(x, (list, tuple)):
+        return all(_finite(v) for v in x)
+    return math.isfinite(x)
+
+
+def phase_watchtime(ctx):
+    """The watch-time task (tasks/watchtime.py): --method ours at the
+    flagship width over the small memmap in the CLI's default config (fp32,
+    K1, layer remat, B=1024, one epoch) with its K1 launches counted, the
+    baselines at B=1024 (the CLI, then their steps timed on a batch on the
+    card, then a 32-row step of each against the CPU); the statistics tasks
+    in this process and in one that sees no card (the same files); the
+    three dataset builders, whose directory reads back as the CSV's split
+    and trains skip_train on the card."""
+    from segmminterest_tpu_torch.core import attention as A
+    from segmminterest_tpu_torch.data.dataset import BatchIterator
+    from segmminterest_tpu_torch.data.reader import SeqReader
+    from segmminterest_tpu_torch.tasks import watchtime as W
+
+    _data(ctx)
+    memmap, lineid = _cli_files(ctx)
+    reader = ctx["reader"]
+    split = ["--sample_csv", ctx["csv"], "--min_interactions", "100",
+             "--num_warmup", "80"]
+    logs = _Records(W.__name__)
+
+    # Ours: the flagship both/both model trained and tested with the
+    # watch-time metrics
+    A.reset_launch_counts()
+    t0 = time.perf_counter()
+    with logs:
+        res = W.main(split + [
+            "--method", "ours", "--seed", "7", "--memmap", memmap,
+            "--lineid_map", lineid, "--user_input_type", "both",
+            "--photo_input_type", "both", "--epochs", "1",
+            "--train_batch_size", "1024", "--valid_batch_size", "1024",
+            "--test_batch_size", "1024", "--valid_step",
+            str(OURS_VALID_STEP), "--early_stop", "0", "--ckpt_dir",
+            os.path.join(WORK, "watchtime_ours")])
+    wall = time.perf_counter() - t0
+    steps, batch, ips = logs.args_of("ours:")[:3]
+
+    def n_batches(split_name):
+        return -(-len(reader.tables[split_name]) // 1024)
+    # a step runs each layer's forward twice (remat); every evaluation
+    # batch (before training, each validation, the test split) once
+    evals = (1 + steps // OURS_VALID_STEP) * n_batches("dev") \
+        + n_batches("test")
+    counts = dict(A.LAUNCHES)
+    _expect(counts, {"two_block_attention": 2 * FWD_PER_STEP * steps
+                     + FWD_PER_STEP * evals,
+                     "two_block_attention_bwd": BWD_PER_STEP * steps,
+                     "proj_two_block_attention": 0,
+                     "proj_two_block_attention_bwd": 0},
+            "watchtime --method ours")
+    if steps != n_batches("train") or batch != 1024 or not _finite(res) \
+            or not {"LeaveMSE", "TOP1MSE", "MAES", "pred_leave"} <= set(res):
+        raise AssertionError(f"watchtime --method ours: {steps} steps at "
+                             f"B={batch}, results {res}")
+    log(f"  watchtime --method ours (fp32, K1, layer remat, B=1024): {steps} "
+        f"steps, {ips:.1f} interactions/s ({1024e3 / ips:.1f} ms a step, "
+        f"host included), {wall:.1f} s wall; LeaveMSE (MSE, MAE) "
+        f"{res['LeaveMSE']}, TOP1MSE {res['TOP1MSE']}, HR@1 "
+        f"{res['HR@1']:.4f}; launches {counts['two_block_attention']} K1f "
+        f"+ {counts['two_block_attention_bwd']} K1b ({steps} steps, "
+        f"{evals} evaluation batches)")
+
+    # the baselines through the CLI, B=1024, --debug 1 (at most 6 steps)
+    for m in BASELINES:
+        with logs:
+            r = W.main(split + ["--method", m, "--batch_size", "1024",
+                                "--debug", "1", "--epochs", "1",
+                                "--valid_step", "3", "--early_stop", "0"])
+        what, n, b, ms = logs.args_of(f"%s: %d steps")[:4]
+        if not (_finite(r) and 0 <= r["HR1"] <= 1 and b == 1024):
+            raise AssertionError(f"watchtime --method {m}: {r}")
+        log(f"  watchtime --method {m}: HR1 {r['HR1']:.4f}, MAE "
+            f"{r['MAE']:.4f}; {n} steps at B=1024, {ms:.3f} ms a step "
+            "(host included)")
+
+    # their steps on a batch on the card, and 32 rows card against CPU,
+    # each built by the CLI's own make_baseline
+    train_t = reader.tables["train"]
+    dev = torch.device("cuda")
+
+    def first(bs):
+        return next(iter(BatchIterator(reader, train_t, bs, shuffle=True,
+                                       seed=7, prefetch_size=0)))
+    big, small = first(1024), first(32)
+    for m in BASELINES:
+        args = W.build_parser().parse_args(split + ["--method", m,
+                                                    "--seed", "7"])
+        base = W.make_baseline(args, reader, m, dev)
+        b = W.to_device(big, dev)
+        ms = _time_ms(lambda: W.train_step(base.model, base.opt,
+                                           base.train_loss, b),
+                      BASELINE_TIMED)
+        got = {}
+        for d in ("cuda", "cpu"):
+            model, _, loss_of = W.make_baseline(
+                args, reader, m, torch.device(d), dropout=False)[:3]
+            loss = loss_of(model, W.to_device(small, d))
+            loss.backward()
+            gn = math.sqrt(sum(float(p.grad.double().square().sum())
+                               for p in model.parameters()))
+            got[d] = (loss.item(), gn)
+        dl = abs(got["cuda"][0] - got["cpu"][0]) / abs(got["cpu"][0])
+        dg = abs(got["cuda"][1] - got["cpu"][1]) / got["cpu"][1]
+        log(f"  {m} step at B=1024, batch on the card: {ms:.3f} ms "
+            f"(CUDA events, {BASELINE_TIMED} steps"
+            f"{', dropout 0.2' if m == 'tpm' else ''}); 32-row fp32 step "
+            f"card vs CPU: loss {got['cuda'][0]:.6f} vs {got['cpu'][0]:.6f} "
+            f"(rel {dl:.2g}), grad norm {got['cuda'][1]:.6f} vs "
+            f"{got['cpu'][1]:.6f} (rel {dg:.2g})")
+        # fp32 MLPs, TF32 off: the same sums in another order
+        if not (dl <= 1e-4 and dg <= 1e-4):
+            raise AssertionError(f"{m}: card and CPU steps differ: {got}")
+
+    # the statistics tasks (host only): here, and in a process that sees
+    # no card; their files must be the same
+    sdir = os.path.join(WORK, "stats")
+    st = split + ["--debug", "1"]
+    runs = {"here": None, "no_card": dict(os.environ, CUDA_VISIBLE_DEVICES="")}
+    t0 = time.perf_counter()
+    for name, env in runs.items():
+        ev = st + ["--out", os.path.join(sdir, f"{name}.json")]
+        ex = st + ["--out_dir", os.path.join(sdir, name)]
+        if env is None:
+            from segmminterest_tpu_torch.tasks import (
+                export_statistics_logits, stats_eval)
+            os.makedirs(sdir, exist_ok=True)
+            with contextlib.redirect_stdout(io.StringIO()):  # its JSON
+                stats_eval.main(ev)
+            export_statistics_logits.main(ex)
+        else:
+            _subprocess_json(["segmminterest_tpu_torch.tasks.stats_eval"]
+                             + ev, env, "stats_eval, no card")
+            _subprocess_json(
+                ["segmminterest_tpu_torch.tasks.export_statistics_logits"]
+                + ex, env, "export_statistics_logits, no card")
+    files = sorted(os.listdir(os.path.join(sdir, "here")))
+    pairs = [(os.path.join(sdir, "here.json"),
+              os.path.join(sdir, "no_card.json"))] + [
+        (os.path.join(sdir, "here", f), os.path.join(sdir, "no_card", f))
+        for f in files]
+    for a, b in pairs:
+        with open(a, "rb") as fa, open(b, "rb") as fb:
+            if fa.read() != fb.read():
+                raise AssertionError(f"{a} and {b} differ")
+    with open(pairs[0][0]) as f:
+        evaluated = json.load(f)
+    if len(evaluated) != 12 or len(files) != 4 or not _finite(
+            [v["all"] for v in evaluated.values()]):
+        raise AssertionError(f"statistics tasks: {sorted(evaluated)}, "
+                             f"{files}")
+    log(f"  stats_eval ({len(evaluated)} test types) and "
+        f"export_statistics_logits ({len(files)} files): the same bytes "
+        f"with and without the card ({time.perf_counter() - t0:.1f} s); "
+        f"prob_view_pos_static HR@1 "
+        f"{evaluated['prob_view_pos_static']['all']['HR@1']:.4f}")
+
+    # the dataset builders, with no pandas; the built directory reads back
+    # as the CSV's split and trains on the card
+    from segmminterest_tpu_torch.tasks import (build_interactions,
+                                               build_leave_rank_data,
+                                               build_segrec_data, skip_train)
+    bdir = os.path.join(WORK, "built")
+    raw = ["--inter_csv", ctx["csv"], "--min_interactions", "100",
+           "--num_warmup", "80"]
+    t0 = time.perf_counter()
+    build_interactions.main(raw + ["--out", os.path.join(bdir, "SegMM")])
+    build_segrec_data.main(raw + ["--out", bdir, "--name", "SegRec",
+                                  "--kg_meta", "1"])
+    build_leave_rank_data.main(raw + ["--out", bdir])
+    built_s = time.perf_counter() - t0
+    if "pandas" in sys.modules:
+        raise AssertionError("a builder imported pandas")
+    for f in ("SegRec/test.csv", "SegRec_CTR/item_meta.csv",
+              "SegMMstep1RankingDefault/dev.csv", "SegMMdefault.inter",
+              "photo_id2frame_id_leave.json"):
+        if not os.path.getsize(os.path.join(bdir, f)):
+            raise AssertionError(f"builder wrote no {f}")
+    back = SeqReader.from_dir(os.path.join(bdir, "SegMM"))
+    for s in ("train", "dev", "test"):
+        for fld in ("user_raw", "video_raw", "time_ms", "labels",
+                    "user_idx", "item_idx", "position"):
+            if not np.array_equal(getattr(back.tables[s], fld),
+                                  getattr(reader.tables[s], fld)):
+                raise AssertionError(f"built {s} {fld} differs from the "
+                                     "CSV's split")
+    if back.user_input_dict != reader.user_input_dict:
+        raise AssertionError("built user_input_dict differs")
+    A.reset_launch_counts()
+    res = skip_train.main(["--path", os.path.join(bdir, "SegMM"),
+                           "--user_input_type", "id", "--photo_input_type",
+                           "id", "--debug", "1", "--seed", "7", "--ckpt_dir",
+                           os.path.join(WORK, "built_train")])
+    if res["steps"] < 1 or not A.LAUNCHES["two_block_attention_bwd"] or \
+            not _finite(res["test_metrics"]):
+        raise AssertionError(f"skip_train --path <built>: {res['steps']} "
+                             f"steps, launches {A.LAUNCHES}, "
+                             f"{res['test_metrics']}")
+    log(f"  build_interactions, build_segrec_data, build_leave_rank_data: "
+        f"{built_s:.1f} s, no pandas; the built SegMM/ reads back as the "
+        f"CSV's split; skip_train --path on it (id/id): {res['steps']} "
+        f"steps, test HR@5 {res['test_metrics']['HR@5']:.4f}, "
+        f"{A.LAUNCHES['two_block_attention_bwd']} K1b")
+
+
+# ---------------------------------------------------------------------------
+# the JAX package's .msgpack checkpoints, written here without flax
+
+def _mp_len(out, n, fix, fix_n, codes):
+    if fix is not None and n < fix_n:
+        out.append(fix | n)
+    elif codes[0] is not None and n < 1 << 8:
+        out += bytes((codes[0], n))
+    elif n < 1 << 16:
+        out += bytes((codes[1],)) + struct.pack(">H", n)
+    else:
+        out += bytes((codes[2],)) + struct.pack(">I", n)
+
+
+def _mp_pack(obj, out):
+    """msgpack as flax's to_bytes writes it (msgpack-python's packb with
+    use_bin_type): arrays (numpy, or torch bf16) as ext type 1, (shape,
+    dtype name, C-order bytes)."""
+    if obj is None or obj is True or obj is False:
+        out += {None: b"\xc0", False: b"\xc2", True: b"\xc3"}[obj]
+    elif isinstance(obj, int):
+        out += (bytes((obj,)) if 0 <= obj < 128 else
+                struct.pack(">b", obj) if -32 <= obj < 0 else
+                b"\xd3" + struct.pack(">q", obj))
+    elif isinstance(obj, float):
+        out += b"\xcb" + struct.pack(">d", obj)
+    elif isinstance(obj, str):
+        data = obj.encode()
+        _mp_len(out, len(data), 0xa0, 32, (0xd9, 0xda, 0xdb))
+        out += data
+    elif isinstance(obj, bytes):
+        _mp_len(out, len(obj), None, 0, (0xc4, 0xc5, 0xc6))
+        out += obj
+    elif isinstance(obj, dict):
+        _mp_len(out, len(obj), 0x80, 16, (None, 0xde, 0xdf))
+        for k, v in obj.items():
+            _mp_pack(k, out)
+            _mp_pack(v, out)
+    elif isinstance(obj, (list, tuple)):
+        _mp_len(out, len(obj), 0x90, 16, (None, 0xdc, 0xdd))
+        for v in obj:
+            _mp_pack(v, out)
+    else:
+        t = obj.detach().cpu().contiguous()
+        name = "bfloat16" if t.dtype == torch.bfloat16 else \
+            str(t.numpy().dtype)
+        raw = (t.view(torch.int16) if t.dtype == torch.bfloat16 else t) \
+            .numpy().tobytes()
+        payload = bytearray()
+        _mp_pack([list(t.shape), name, raw], payload)
+        n = len(payload)
+        if n in (1, 2, 4, 8, 16):
+            out += bytes((0xd4 + (1, 2, 4, 8, 16).index(n), 1))
+        else:
+            _mp_len(out, n, None, 0, (0xc7, 0xc8, 0xc9))
+            out.append(1)
+        out += payload
+
+
+def _flax_tree(model, state_dict, chunked=()):
+    """The flax params tree of a port state dict (the inverse of
+    models/convert.py's rules: Linear weight -> Dense kernel (in, out),
+    Embedding -> embedding, LayerNorm weight -> scale, layers.{i} ->
+    layer_{i}, {stream}_proj.{j} -> {stream}_proj_{j}); the keys in
+    `chunked` as flax's chunked leaves, in three flat chunks."""
+    mods = dict(model.named_modules())
+    tree = {}
+    for key, t in state_dict.items():
+        mod, _, leaf = key.rpartition(".")
+        m = mods[mod]
+        if isinstance(m, torch.nn.Linear) and leaf == "weight":
+            leaf, t = "kernel", t.T.contiguous()
+        elif isinstance(m, torch.nn.Embedding):
+            leaf = "embedding"
+        elif isinstance(m, torch.nn.LayerNorm) and leaf == "weight":
+            leaf = "scale"
+        path = []
+        for p in mod.split(".") if mod else []:
+            if p.isdigit():
+                path[-1] = ("layer_" if path[-1] == "layers"
+                            else path[-1] + "_") + p
+            else:
+                path.append(p)
+        node = tree
+        for p in path:
+            node = node.setdefault(p, {})
+        if key in chunked:
+            flat = t.reshape(-1)
+            k = -(-flat.numel() // 3)
+            t = {"__msgpack_chunked_array__": True,
+                 "shape": {str(i): s for i, s in enumerate(t.shape)},
+                 "chunks": {str(i): flat[i * k:(i + 1) * k]
+                            for i in range(3)}}
+        node[leaf] = t
+    return tree
+
+
+def phase_msgpack(ctx):
+    """The flagship weights phase train_cli trained, written as the JAX
+    package's CheckPointer writes them (flax's msgpack layout and ext
+    types; the PE tables as bf16 leaves, the item embedding as a chunked
+    leaf), served by export_logits --work_dir with --serving 1: the logits
+    bit for bit those served from a ckpt-latest.pt of the same weights. A
+    directory holding both kinds raises."""
+    from segmminterest_tpu_torch.engine.checkpoint import (CheckPointer,
+                                                           msgpack_restore)
+    from segmminterest_tpu_torch.models.convert import flax_to_state_dict
+    from segmminterest_tpu_torch.models.interest import SegInterestModel
+    from segmminterest_tpu_torch.tasks import export_logits as X
+
+    if "cli_work" not in ctx:
+        raise AssertionError("phase msgpack serves the checkpoint of phase "
+                             "train_cli: run that first")
+    work, common, reader = ctx["cli_work"], ctx["cli_common"], ctx["reader"]
+    saved = torch.load(os.path.join(work, "ckpt-latest.pt"),
+                       map_location="cpu", weights_only=True)
+    sd = {k: (v.to(torch.bfloat16) if k.endswith("_pe") else v)
+          for k, v in saved["state"]["params"].items()}
+    with torch.device("meta"):
+        model = SegInterestModel(
+            d_model=D_MODEL, num_heads=HEADS, num_layers=6, ff_dim=D_MODEL,
+            n_users=reader.n_users, n_items=reader.n_items, fusion_heads=2)
+    chunked = [max(sd, key=lambda k: sd[k].numel())]
+    tree = _flax_tree(model, sd, chunked)
+    packed = bytearray()
+    _mp_pack({"state": {"params": tree}, "num_epochs": 1,
+              "metrics": {"main_metric": 0.5}}, packed)
+    name = os.path.basename(work.rstrip("/"))
+    mdir = os.path.join(WORK, "msgpack", name)
+    pdir = os.path.join(WORK, "msgpack_pt", name)
+    os.makedirs(mdir, exist_ok=True)
+    with open(os.path.join(mdir, "ckpt-latest.msgpack"), "wb") as f:
+        f.write(packed)
+    twin = {k: v.float() for k, v in sd.items()}  # bf16 is exact in fp32
+    CheckPointer("main_metric", pdir, mode="max").save_checkpoint(
+        {"params": twin}, 1)
+    # the encoder's layout is the reader's and the converter's: the file
+    # reads back to the same tensors
+    back = flax_to_state_dict(msgpack_restore(bytes(packed))["state"]
+                              ["params"], model)
+    if any(not torch.equal(back[k], v) for k, v in twin.items()):
+        raise AssertionError("the .msgpack file reads back other weights")
+    served = {}
+    for kind, d in (("msgpack", mdir), ("pt", pdir)):
+        t0 = time.perf_counter()
+        out = X.main(common + ["--serving", "1", "--splits", "test",
+                               "--ckpt_mode", "latest", "--work_dir", d,
+                               "--out_dir", os.path.join(WORK, f"{kind}_logits")])
+        with open(out) as f:
+            served[kind] = json.load(f)
+        log(f"  export_logits --serving 1 --work_dir <{kind}>: "
+            f"{len(served[kind])} rows ({time.perf_counter() - t0:.1f} s)")
+    n_test = len(reader.tables["test"])
+    if len(served["msgpack"]) != n_test or served["msgpack"] != served["pt"]:
+        diff = max(float(np.abs(np.subtract(served["msgpack"][k],
+                                            served["pt"][k])).max())
+                   for k in served["pt"] if k in served["msgpack"])
+        raise AssertionError(f".msgpack served {len(served['msgpack'])} "
+                             f"rows of {n_test}, max |diff| from .pt {diff}")
+    both = os.path.join(WORK, "msgpack_both")
+    os.makedirs(both, exist_ok=True)
+    for src in (os.path.join(mdir, "ckpt-latest.msgpack"),
+                os.path.join(pdir, "ckpt-latest.pt")):
+        dst = os.path.join(both, os.path.basename(src))
+        if not os.path.lexists(dst):
+            os.symlink(src, dst)
+    try:
+        CheckPointer("main_metric", both).load_checkpoint(
+            {"params": twin}, "latest")
+        raise AssertionError("a directory with both kinds was read")
+    except ValueError as e:
+        if "msgpack" not in str(e) or ".pt" not in str(e):
+            raise
+    n_bf16 = sum(k.endswith("_pe") for k in sd)
+    log(f"  .msgpack ({len(packed) / 2**20:.1f} MiB, {len(sd)} leaves, "
+        f"{n_bf16} bf16, {chunked[0]} chunked): logits bit for bit the .pt "
+        "twin's; a directory with both kinds raises")
+
+
+# ---------------------------------------------------------------------------
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--phases", default=",".join(ALL_PHASES))
@@ -3361,7 +3807,9 @@ def main(argv=None):
          "fused_variants": lambda: phase_fused_variants(ctx),
          "attn_v2": lambda: phase_attn_v2(ctx),
          "wide": lambda: phase_wide(ctx),
-         "train_cli": lambda: phase_train_cli(ctx)}[name]()
+         "train_cli": lambda: phase_train_cli(ctx),
+         "watchtime": lambda: phase_watchtime(ctx),
+         "msgpack": lambda: phase_msgpack(ctx)}[name]()
         log(f"phase {name}: ok ({time.perf_counter() - t0:.1f} s)")
     log(f"all phases: {time.perf_counter() - t_all:.1f} s")
     if "memmap" in ctx:

@@ -1008,8 +1008,9 @@ def _fp32_routes(A, g, dev):
     """fp32 K2, K6, K4 and K5 at 16 heads of 32 (d 512), B=1024, dropout
     off, through their wrappers, on the bodies the checkout picks: device
     ms per call (every kernel of the call), the error against the plain
-    version, and each kernel's bound (_wide_bounds). Run on two checkouts
-    in turns to compare their fp32 bodies."""
+    version, the plain version's device ms forward and backward on the same
+    inputs, and each kernel's bound (_wide_bounds). Run on two checkouts in
+    turns to compare their fp32 bodies."""
     from segmminterest_tpu_torch.core import dual_kernel as K5
     from segmminterest_tpu_torch.core import layer_kernel as K4
     H, d = C.HEADS, C.D_MODEL
@@ -1028,7 +1029,9 @@ def _fp32_routes(A, g, dev):
             got = torch.autograd.grad(o, leaves, gs)
             os_ = o if isinstance(o, tuple) else (o,)
             row.update(err_f=_rel(os_, want_f()), err_b=_rel(got, want_b()))
-            del o
+            del o, got
+            row["plain_fwd_ms"] = C._device_ms(want_f, 3)
+            row["plain_bwd_ms"] = C._device_ms(want_b, 2)
         except (ValueError, RuntimeError) as e:
             row["error"] = str(e)[:200]
         out[key] = row

@@ -25,6 +25,7 @@ import csv
 import json
 import math
 import os.path as osp
+import re
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
 
@@ -61,15 +62,66 @@ class InteractionTable:
 # frames: a dict of equal-length numpy columns
 # ---------------------------------------------------------------------------
 
+_FLOAT = re.compile(r"([+-]?)(\d*)(?:\.(\d*))?(?:[eE]([+-]?\d+))?")
+# the powers of ten of pandas' parser, each the double nearest 10**i
+_POW10 = [float(f"1e{i}") for i in range(309)]
+
+
+def pandas_float(text: str) -> float:
+    """A float as ``pd.read_csv``'s default parser reads it (pandas
+    tokenizer.c ``precise_xstrtod``): at most 17 digits, the rest dropped,
+    accumulated in a double, then one multiply or divide by a power of
+    ten. Past 2**53 this may differ from ``float(text)`` in the last bit;
+    with at most 15 digits and no exponent the digits and the power of ten
+    are doubles exactly, the one rounding is correct, and ``float`` gives
+    the same bits faster."""
+    if len(text) <= 15 or (len(text) == 16 and "." in text):
+        if "e" not in text and "E" not in text:
+            return float(text)
+    return xstrtod(text)
+
+
+def xstrtod(text: str) -> float:
+    """``precise_xstrtod`` digit by digit (:func:`pandas_float` without its
+    fast path)."""
+    m = _FLOAT.fullmatch(text.strip())
+    if not m or not (m.group(2) or m.group(3)):
+        return float(text)  # inf, infinity, or not a number: raises
+    sign, whole, frac, exp = m.groups()
+    number, digits, exponent = 0.0, 0, 0
+    for ch in whole:
+        if digits < 17:
+            number = number * 10.0 + (ord(ch) - 48)
+            digits += 1
+        else:
+            exponent += 1
+    for ch in (frac or "")[:max(0, 17 - digits)]:
+        number = number * 10.0 + (ord(ch) - 48)
+        exponent -= 1
+    if sign == "-":
+        number = -number
+    exponent += int(exp) if exp else 0
+    if exponent > 308:
+        return float(text)
+    if exponent > 0:
+        return number * _POW10[exponent]
+    if exponent < -616:
+        return 0.0 * number
+    if exponent < -308:
+        return number / _POW10[-308 - exponent] / _POW10[308]
+    return number / _POW10[-exponent]
+
+
 def _column(values: List[str]) -> np.ndarray:
-    """Numeric columns as int64 (float64 when any value is not an integer),
-    anything else as strings — the types ``pd.read_csv`` infers here."""
+    """Numeric columns as int64 (float64, parsed as pandas parses them, when
+    any value is not an integer), anything else as strings — the types
+    ``pd.read_csv`` infers here."""
     try:
         return np.asarray([int(v) for v in values], np.int64)
     except ValueError:
         pass
     try:
-        return np.asarray([float(v) for v in values], np.float64)
+        return np.asarray([pandas_float(v) for v in values], np.float64)
     except ValueError:
         return np.asarray(values, dtype=object)
 
@@ -82,6 +134,31 @@ def read_csv(path: str, sep: str = ",") -> Frame:
     header, body = rows[0], rows[1:]
     return {name: _column([r[i] for r in body])
             for i, name in enumerate(header)}
+
+
+def _csv_cells(values: np.ndarray) -> list:
+    """One column as ``DataFrame.to_csv`` writes it: floats by numpy's
+    shortest repr (NaN empty), anything else by ``str``."""
+    if values.dtype.kind == "f":
+        cells = values.astype(str).astype(object)
+        cells[np.isnan(values)] = ""
+        return cells.tolist()
+    return values.tolist()
+
+
+def write_csv(df: Frame, path: str, sep: str = "\t") -> str:
+    """``pd.DataFrame(df).to_csv(path, sep=sep, index=False)``, byte for
+    byte: the same ``csv`` writer settings (minimal quoting, ``\\n``
+    lines)."""
+    with open(path, "w", newline="", encoding="utf-8") as f:
+        if not df:  # a frame without columns is one empty line
+            f.write("\n")
+            return path
+        w = csv.writer(f, delimiter=sep, lineterminator="\n", quotechar='"',
+                       doublequote=True, quoting=csv.QUOTE_MINIMAL)
+        w.writerow(list(df))
+        w.writerows(zip(*(_csv_cells(np.asarray(v)) for v in df.values())))
+    return path
 
 
 def frame_len(df: Frame) -> int:
@@ -114,13 +191,15 @@ def normalize_columns(df: Frame) -> Frame:
     """Unify the SegMM / KuaiRand column dialects
     (dataloader_SegMM.py:73 'playing_time_x' vs dataloader_KuaiRand.py:73
     'play_time_ms_x'): photo_id -> video_id, play_time_ms -> playing_time."""
-    df = dict(df)
+    renames = {}
     if "photo_id" in df and "video_id" not in df:
-        df["video_id"] = df.pop("photo_id")
+        renames["photo_id"] = "video_id"
     for cand in ("play_time_ms", "playing_time_x", "play_time_ms_x"):
-        if cand in df and "playing_time" not in df:
-            df["playing_time"] = df.pop(cand)
-    return df
+        if cand in df and "playing_time" not in df \
+                and "playing_time" not in renames.values():
+            renames[cand] = "playing_time"
+    # renamed in place, as DataFrame.rename keeps the column order
+    return {renames.get(k, k): v for k, v in df.items()}
 
 
 def _labels_from_df(df: Frame) -> np.ndarray:
@@ -177,6 +256,24 @@ def split_interactions(df: Frame, seed: int = SPLIT_SEED,
             "interactions) — lower --min_interactions/--num_warmup for small "
             "datasets")
     return {k: concat(v) for k, v in parts.items()}
+
+
+def warmup_dict(warm: Frame) -> Dict[str, List[str]]:
+    """The warm-up dict: uid -> ["{photo}_{frame}" ...] over the played
+    segments of the user's warm-up interactions, users ascending
+    (get_data_SegMM_public.py:104-114)."""
+    out: Dict[str, List[str]] = {}
+    if not frame_len(warm):
+        return out
+    for uid, rows in groups(warm["user_id"]):
+        frames = []
+        for r in rows:
+            playing = min(warm["playing_time"][r], warm["duration_ms"][r])
+            n = max(0, -(-int(playing) // 5000))
+            pid = str(int(warm["video_id"][r]))
+            frames.extend(f"{pid}_{i}" for i in range(n))
+        out[str(int(uid))] = frames
+    return out
 
 
 def dense_id_maps(dfs: List[Frame], user_col="user_id", item_col="video_id"
@@ -305,20 +402,7 @@ class SeqReader:
         df = normalize_columns(read_csv(path, sep=sep))
         parts = split_interactions(df, num_warmup=num_warmup,
                                    min_interactions=min_interactions)
-        # warm-up dict: uid -> ["{photo}_{frame}" ...] over played segments
-        # (get_data_SegMM_public.py:104-114)
-        user_input_dict: Dict[str, List[str]] = {}
-        warm = parts["input"]
-        if frame_len(warm):
-            for uid, rows in groups(warm["user_id"]):
-                frames = []
-                for r in rows:
-                    playing = min(warm["playing_time"][r],
-                                  warm["duration_ms"][r])
-                    n = max(0, -(-int(playing) // 5000))
-                    pid = str(int(warm["video_id"][r]))
-                    frames.extend(f"{pid}_{i}" for i in range(n))
-                user_input_dict[str(int(uid))] = frames
+        user_input_dict = warmup_dict(parts["input"])
         user2id, item2id = dense_id_maps(
             [parts[k] for k in ("input", "train", "dev", "test")])
         return cls({k: parts[k] for k in ("train", "dev", "test")},

@@ -14,8 +14,20 @@ the params into the target's tensors in place, as ``load_state_dict`` does
 (every name and shape checked), so a target that shares storage with a
 model updates that model; every other entry the target names (the
 optimizer state) comes back as it was saved, on the host. A target without
-``opt_state`` (serving) reads the params only. The JAX package's
-``.msgpack`` checkpoints are not read yet.
+``opt_state`` (serving) reads the params only.
+
+The JAX package's checkpoints (``ckpt-latest.msgpack``,
+``ckpt-best-ep{epoch}-{metric}.msgpack``: ``flax.serialization.to_bytes``
+of ``{"state", "num_epochs", "metrics"}``, segmminterest_tpu/engine/
+checkpoint.py:35-36,53) are read too, without flax or msgpack:
+:func:`msgpack_restore` decodes them as flax 0.12.3's ``msgpack_restore``
+does (flax/serialization.py:278-311 ext types, :344-389 chunked leaves),
+and their ``state["params"]`` pass through ``models/convert.py``. A
+``bfloat16`` leaf, which numpy has no dtype for, becomes a
+``torch.bfloat16`` tensor (cast to fp32 into the port's parameters). Only
+the params are read: resuming training from a ``.msgpack`` checkpoint would
+need optax's optimizer state mapped to AdamW's, and raises. A directory
+that holds both kinds of checkpoint raises too.
 """
 
 from __future__ import annotations
@@ -23,10 +35,13 @@ from __future__ import annotations
 import glob
 import os
 import os.path as osp
+import struct
 from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
+
+from ..models.convert import flax_to_state_dict
 
 
 def _to_host(tree):
@@ -57,6 +72,143 @@ def _copy_into(target, loaded, path="state"):
                 for k, v in target.items()}
     return loaded
 
+
+# ---------------------------------------------------------------------------
+# msgpack, as flax writes it
+
+# flax/serialization.py:_MsgpackExtType
+_EXT_NDARRAY, _EXT_COMPLEX, _EXT_NPSCALAR = 1, 2, 3
+_CHUNKED = "__msgpack_chunked_array__"
+_SCALARS = {0xca: ">f", 0xcb: ">d", 0xcc: ">B", 0xcd: ">H", 0xce: ">I",
+            0xcf: ">Q", 0xd0: ">b", 0xd1: ">h", 0xd2: ">i", 0xd3: ">q"}
+# type byte -> (length format, kind)
+_SIZED = {0xc4: (">B", "bin"), 0xc5: (">H", "bin"), 0xc6: (">I", "bin"),
+          0xc7: (">B", "ext"), 0xc8: (">H", "ext"), 0xc9: (">I", "ext"),
+          0xd9: (">B", "str"), 0xda: (">H", "str"), 0xdb: (">I", "str"),
+          0xdc: (">H", "array"), 0xdd: (">I", "array"),
+          0xde: (">H", "map"), 0xdf: (">I", "map")}
+_FIXEXT = {0xd4: 1, 0xd5: 2, 0xd6: 4, 0xd7: 8, 0xd8: 16}
+
+
+def _unpack(buf: memoryview, pos: int, raw: bool):
+    """(object, next position) of the msgpack object at ``pos``: maps as
+    dicts, arrays as lists, str as str (bytes when ``raw``), bin as bytes,
+    flax's ext types decoded."""
+    b = buf[pos]
+    pos += 1
+    if b <= 0x7f:
+        return b, pos
+    if b >= 0xe0:
+        return b - 0x100, pos
+    if b <= 0x8f:
+        return _unpack_map(buf, pos, b & 0x0f, raw)
+    if b <= 0x9f:
+        return _unpack_array(buf, pos, b & 0x0f, raw)
+    if b <= 0xbf:
+        return _unpack_str(buf, pos, b & 0x1f, raw)
+    if b in (0xc0, 0xc2, 0xc3):
+        return {0xc0: None, 0xc2: False, 0xc3: True}[b], pos
+    if b in _SCALARS:
+        fmt = _SCALARS[b]
+        return struct.unpack_from(fmt, buf, pos)[0], pos + struct.calcsize(fmt)
+    if b in _FIXEXT:
+        n = _FIXEXT[b]
+        code = struct.unpack_from(">b", buf, pos)[0]
+        return _ext(code, bytes(buf[pos + 1:pos + 1 + n])), pos + 1 + n
+    if b not in _SIZED:
+        raise ValueError(f"msgpack: unknown type byte 0x{b:02x} at {pos - 1}")
+    fmt, kind = _SIZED[b]
+    n = struct.unpack_from(fmt, buf, pos)[0]
+    pos += struct.calcsize(fmt)
+    if kind == "bin":
+        return bytes(buf[pos:pos + n]), pos + n
+    if kind == "str":
+        return _unpack_str(buf, pos, n, raw)
+    if kind == "array":
+        return _unpack_array(buf, pos, n, raw)
+    if kind == "map":
+        return _unpack_map(buf, pos, n, raw)
+    code = struct.unpack_from(">b", buf, pos)[0]
+    return _ext(code, buf[pos + 1:pos + 1 + n]), pos + 1 + n
+
+
+def _unpack_str(buf, pos, n, raw):
+    data = bytes(buf[pos:pos + n])
+    return (data if raw else data.decode("utf-8")), pos + n
+
+
+def _unpack_array(buf, pos, n, raw):
+    out = []
+    for _ in range(n):
+        v, pos = _unpack(buf, pos, raw)
+        out.append(v)
+    return out, pos
+
+
+def _unpack_map(buf, pos, n, raw):
+    out = {}
+    for _ in range(n):
+        k, pos = _unpack(buf, pos, raw)
+        if not isinstance(k, (str, bytes)):  # msgpack's strict_map_key
+            raise ValueError(f"msgpack: map key of type {type(k).__name__}")
+        out[k], pos = _unpack(buf, pos, raw)
+    return out, pos
+
+
+def unpackb(data, raw: bool = False):
+    """``msgpack.unpackb(data, raw=raw, ext_hook=flax's)``."""
+    buf = memoryview(data)
+    obj, pos = _unpack(buf, 0, raw)
+    if pos != len(buf):
+        raise ValueError(f"msgpack: {len(buf) - pos} bytes past the object")
+    return obj
+
+
+def _ndarray(data):
+    """flax's ``_ndarray_from_bytes``: (shape, dtype name, C-order bytes);
+    a bf16 array as a torch tensor."""
+    shape, name, buffer = unpackb(data, raw=True)
+    if name == b"bfloat16":
+        bits = np.frombuffer(buffer, np.uint16).copy()
+        return torch.from_numpy(bits).view(torch.bfloat16).reshape(shape)
+    return np.frombuffer(buffer, np.dtype(name.decode())).reshape(shape)
+
+
+def _ext(code: int, data):
+    if code == _EXT_NDARRAY:
+        return _ndarray(data)
+    if code == _EXT_COMPLEX:
+        re_, im = unpackb(data)
+        return complex(re_, im)
+    if code == _EXT_NPSCALAR:
+        arr = _ndarray(data)
+        return arr if isinstance(arr, torch.Tensor) else arr[()]
+    raise ValueError(f"msgpack: ext type {code} is not one flax writes")
+
+
+def _unchunk(tree):
+    """flax's ``_unchunk_array_leaves_in_place``: a chunked leaf (arrays
+    past ``MAX_CHUNK_SIZE`` bytes, split flat) back into one array, in
+    nested dicts."""
+    if not isinstance(tree, dict):
+        return tree
+    if _CHUNKED in tree:
+        shape = [tree["shape"][str(i)] for i in range(len(tree["shape"]))]
+        chunks = [tree["chunks"][str(i)] for i in range(len(tree["chunks"]))]
+        flat = (torch.cat(chunks) if isinstance(chunks[0], torch.Tensor)
+                else np.concatenate(chunks))
+        return flat.reshape(shape)
+    return {k: _unchunk(v) for k, v in tree.items()}
+
+
+def msgpack_restore(data: bytes):
+    """``flax.serialization.msgpack_restore``: the state dict of a
+    ``to_bytes`` checkpoint (nested dicts of numpy arrays, numpy scalars,
+    Python numbers, str, None; bf16 leaves as torch tensors)."""
+    return _unchunk(unpackb(data))
+
+
+# ---------------------------------------------------------------------------
 
 class CheckPointer:
     def __init__(self, monitor: str, work_dir: str, mode: str = "min") -> None:
@@ -92,19 +244,32 @@ class CheckPointer:
                 return True
         return False
 
+    def _path(self, mode: str, suffix: str) -> str:
+        if mode == "latest":
+            return self.ckpt_latest[:-len(".pt")] + suffix
+        if mode == "best":
+            candidates = glob.glob(
+                self.ckpt_best_fmt.format("*", "*")[:-len(".pt")] + suffix)
+            if not candidates:
+                raise FileNotFoundError(f"no best checkpoint in {self.work_dir}")
+            return candidates[0]
+        raise NotImplementedError(mode)
+
     def load_checkpoint(self, target: Dict[str, Any],
                         mode: str = "latest") -> Dict[str, Any]:
         """Load into ``target`` (a state of the same structure as what was
-        saved); returns ``{"state", "num_epochs", "metrics"}``."""
-        if mode == "latest":
-            fn = self.ckpt_latest
-        elif mode == "best":
-            candidates = glob.glob(self.ckpt_best_fmt.format("*", "*"))
-            if not candidates:
-                raise FileNotFoundError(f"no best checkpoint in {self.work_dir}")
-            fn = candidates[0]
-        else:
-            raise NotImplementedError(mode)
+        saved); returns ``{"state", "num_epochs", "metrics"}``. A directory
+        of the JAX package's ``.msgpack`` checkpoints fills the params of a
+        target that holds nothing else."""
+        pts = sorted(glob.glob(osp.join(self.work_dir, "ckpt-*.pt")))
+        packs = sorted(glob.glob(osp.join(self.work_dir, "ckpt-*.msgpack")))
+        if pts and packs:
+            raise ValueError(
+                f"{self.work_dir} holds both the port's checkpoints {pts} and "
+                f"the JAX package's {packs}: keep one kind")
+        if packs:
+            return self._load_msgpack(target, self._path(mode, ".msgpack"))
+        fn = self._path(mode, ".pt")
         data = torch.load(fn, map_location="cpu", weights_only=True)
         saved = data["state"]
         missing = sorted(set(target) - set(saved))
@@ -114,3 +279,18 @@ class CheckPointer:
                      else saved[k]) for k, v in target.items()}
         return dict(state=state, num_epochs=data["num_epochs"],
                     metrics=data["metrics"])
+
+    def _load_msgpack(self, target: Dict[str, Any], fn: str
+                      ) -> Dict[str, Any]:
+        if set(target) != {"params"}:
+            raise NotImplementedError(
+                f"{fn} is a JAX checkpoint: only its params are read (to "
+                "serve it); resuming training from it, optax's state into "
+                "AdamW's, is not ported")
+        with open(fn, "rb") as f:
+            data = msgpack_restore(f.read())
+        params = flax_to_state_dict(data["state"]["params"],
+                                    target["params"])
+        return dict(state={"params": _copy_into(target["params"], params,
+                                                "state/params")},
+                    num_epochs=data["num_epochs"], metrics=data["metrics"])

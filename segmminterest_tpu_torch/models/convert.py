@@ -1,14 +1,16 @@
 """Weights of the JAX package -> the port's ``state_dict``.
 
-Input is the flax ``params`` tree of a ``SegInterestModel`` as nested dicts
-of numpy arrays (no flax needed to read it). Path rules, as in
-tools/ref_torch_loader.py:175-265:
+Input is the flax ``params`` tree of a ``SegInterestModel`` (or of a
+watch-time model, ``models/watchtime.py``) as nested dicts of numpy arrays,
+or of torch tensors where numpy has no dtype (bf16 leaves of a ``.msgpack``
+checkpoint, ``engine/checkpoint.py``); no flax is needed to read it. Path
+rules, as in tools/ref_torch_loader.py:175-265:
 
   Dense  {kernel (in, out), bias}  -> {weight (out, in), bias}
   Embed  {embedding}               -> {weight} as is
   LayerNorm {scale, bias}          -> {weight, bias}
   other leaves (vid_pe, usr_pe, fusion_module/w_xy, bias_weight/bias_bias)
-                                   -> as is
+                                   -> as is, cast to fp32
   ``layer_{i}`` (encoder layer, KnMLP layer) -> ``layers.{i}``
   ``{stream}_proj_{j}``            -> ``{stream}_proj.{j}``
 
@@ -21,7 +23,7 @@ model must be written; anything else raises.
 from __future__ import annotations
 
 import re
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Union
 
 import numpy as np
 import torch
@@ -45,15 +47,19 @@ def _leaves(tree: Mapping, prefix=()):
     for k, v in tree.items():
         if isinstance(v, Mapping):
             yield from _leaves(v, prefix + (k,))
+        elif isinstance(v, torch.Tensor):  # bf16 is exact in fp32
+            yield prefix + (k,), v.detach().float().cpu().numpy()
         else:
             yield prefix + (k,), np.asarray(v)
 
 
-def flax_to_state_dict(params: Mapping, model: nn.Module
+def flax_to_state_dict(params: Mapping,
+                       model: Union[nn.Module, Mapping[str, torch.Tensor]]
                        ) -> Dict[str, torch.Tensor]:
-    """The state_dict for ``model`` holding the flax ``params``; every shape
-    checked against the model, every model key covered."""
-    target = model.state_dict()
+    """The state_dict for ``model`` (a module, or its tensors by name)
+    holding the flax ``params``; every shape checked against the model,
+    every model key covered."""
+    target = model.state_dict() if isinstance(model, nn.Module) else model
     out: Dict[str, torch.Tensor] = {}
     for path, arr in _leaves(params):
         *mods, leaf = path

@@ -12,6 +12,11 @@ Usage:
       [--serving 1] [--memmap ... --lineid_map ...] [--device cpu]
       [--fuse_layer 1]
 
+``--work_dir`` may instead hold the JAX package's checkpoints
+(``ckpt-latest.msgpack``, ``ckpt-best-ep*-*.msgpack``, read without flax by
+``engine/checkpoint.py``), with the same model flags as the run that wrote
+them; a directory with both kinds raises.
+
 ``--fuse_layer 1`` serves each encoder-layer stream through kernel K4; with
 ``--serving 1`` it supersedes the preset's ``fuse_qkv``, as in the JAX
 package (export_logits.py:67). ``SEGMM_ATTN_V2=1`` in the environment runs
@@ -98,8 +103,8 @@ def main(argv=None):
                         format="%(asctime)s %(levelname)s %(message)s")
     p = build_parser()
     p.add_argument("--work_dir", type=str, required=True,
-                   help="checkpoint dir holding ckpt-latest.pt / "
-                        "ckpt-best-*.pt")
+                   help="checkpoint dir holding ckpt-latest / ckpt-best-* "
+                        "as the port's .pt or the JAX package's .msgpack")
     p.add_argument("--ckpt_mode", type=str, default="best",
                    choices=["best", "latest"])
     p.add_argument("--out_dir", type=str, default="saved_logits")

@@ -1,6 +1,7 @@
 """Import guard: the port and its scripts for the card (chip_smoke.py,
 kernels_ab.py) import torch, never JAX or the JAX package — the machine
-with the card has neither, nor pandas, scikit-learn, flax or optax."""
+with the card has neither, nor pandas, scikit-learn, flax, optax or
+msgpack."""
 
 import ast
 import pathlib
@@ -8,7 +9,8 @@ import pathlib
 import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "flax", "optax", "pandas", "sklearn", "segmminterest_tpu")
+FORBIDDEN = ("jax", "flax", "optax", "pandas", "sklearn", "msgpack",
+             "segmminterest_tpu")
 FILES = sorted((ROOT / "segmminterest_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "kernels_ab.py"]
 
