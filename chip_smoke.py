@@ -6,10 +6,11 @@ Run from the root of a checkout:  python3 chip_smoke.py
 
 Phases, each of which fails the run (non-zero exit) on any error:
   build          compile the CUDA kernels of core/csrc with nvcc for sm_90a
-                 (seconds per library); count the HMMA instructions of the
-                 libraries of K1f, K1b, K3f and K3b, and the TF32 ones
-                 among them, and the BF16 ones of K2f's, K2b's, K4f's,
-                 K4b's, K5b's and K6b's
+                 (seconds per library); the libraries of K1f, K1b, K3f and
+                 K3b must hold TF32 HMMA instructions, K2f's, K2b's, K4f's,
+                 K4b's, K5b's and K6b's BF16 ones (cuobjdump -sass up to
+                 the first, each library as soon as it links, all read
+                 before the other phases start)
   kernels        each kernel (K1f, K1b, K2f, K2b, K7b, K3f, K3b, K5f, K5b,
                  K4f, K4b, K6f, K6b) against its plain PyTorch version on
                  the card, at the main paths' stream shapes, fp32 and bf16,
@@ -74,9 +75,9 @@ Phases, each of which fails the run (non-zero exit) on any error:
                  with K6 (K2's weight-interleaved version 2) on every
                  fuse_qkv stream, 20 K6f + 18 K6b and no K2 per step; 3
                  batches served at B=1024; one 32-row fp32 step against the
-                 CPU; skip_train's CLI with SEGMM_ATTN_V2=1 in its
-                 environment and export_logits --serving 1 on its
-                 checkpoint, each in a process of its own
+                 CPU; skip_train's CLI under the switch (here), then
+                 export_logits --serving 1 on its checkpoint in a process
+                 of its own with SEGMM_ATTN_V2=1 in its environment
   wide           one training step per route at 4 heads of 128 (skip_train
                  --nhead 4 at d_model 512, B=256): the default config's K1
                  and CrossAtt's K3 (fp32), the production config's K2, K6,
@@ -96,10 +97,27 @@ Phases, each of which fails the run (non-zero exit) on any error:
                  build_segrec_data and build_leave_rank_data without
                  pandas, the built directory read back as the CSV's split
                  and trained by skip_train --path on the card
-  msgpack        train_cli's flagship weights written in the JAX package's
-                 .msgpack layout (bf16 PE tables, one chunked leaf) by a
-                 small encoder here, served by export_logits --serving 1:
-                 the logits bit for bit those of a .pt of the same weights
+  msgpack        train_cli's flagship weights and AdamW state written in
+                 the JAX package's .msgpack layout (optax's chain(clip,
+                 adamw) state; bf16 PE tables and moments, one chunked
+                 leaf) by a small encoder here, served by export_logits
+                 --serving 1: the logits bit for bit those of a .pt of the
+                 same weights; training resumed from each for 2 steps: the
+                 losses bit for bit
+  segrec         SegRec fed by Task 1: build_interactions and
+                 build_segrec_data over the synthetic CSV, export_logits
+                 --serving 1 of train_cli's checkpoint over the three
+                 splits (20 K2f a batch), segrec.main (CTR, B=512) for
+                 ClipWDRec and ClipDINRec, 2 epochs each, in two processes
+                 side by side (finite AUC, LOG_LOSS, WUAUC); both models'
+                 steps and an evaluation batch at B=512 over a
+                 3,920,483-row fp32 table (ms, interactions/s, peak
+                 memory); a 32-row fp32 step of ClipWDRec, ClipDINRec,
+                 WideDeep and DIN card against CPU (interest weights of
+                 ones), of ClipWDRec and ClipDINRec under Task 1's logits
+                 and of ClipDINRec under them softmax-normalised (loss,
+                 gradient norm, evaluation scores: 1e-6; ClipDINRec
+                 1e-5), each beside the CPU's fp32 step against fp64
 The last line is {"ok": true, "device": {...}}; before it come the card's
 name and power limit (nvidia-smi) and one JSON line describing the kernels.
 It needs no network and writes only under build/ (the kernels in
@@ -112,10 +130,12 @@ import argparse
 import contextlib
 import hashlib
 import io
+import itertools
 import json
 import logging
 import math
 import os
+import shlex
 import struct
 import subprocess
 import sys
@@ -170,7 +190,8 @@ DROP_RATE = 0.1                      # the model's dropout
 RESULT = {"kernels": {}, "launches": {}}
 ALL_PHASES = ("build", "kernels", "serving", "default", "train",
               "train_default", "train_bf16", "ablation", "fused_variants",
-              "attn_v2", "wide", "train_cli", "watchtime", "msgpack")
+              "attn_v2", "wide", "train_cli", "watchtime", "msgpack",
+              "segrec")
 
 
 def log(*a):
@@ -204,9 +225,31 @@ def _check(name, got, want, dtype):
 
 # ---------------------------------------------------------------------------
 def phase_build():
+    """Build every library; each tensor-core library is disassembled as
+    soon as it links, during the build's tail, when the last long compiles
+    leave most cores idle."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from segmminterest_tpu_torch.core import build
     t0 = time.perf_counter()
-    paths = build.build_all()
+    cuobjdump = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
+    libs = {name: build._lib_path(name) for name in SASS_LIBS}
+    sass = {}
+    try:
+        with ThreadPoolExecutor(1) as pool:
+            built = pool.submit(build.build_all)
+            while len(sass) < len(libs) and not built.done():
+                _start_sass(cuobjdump, libs, sass)
+                time.sleep(0.5)
+            paths = built.result()
+        log(f"build: {time.perf_counter() - t0:.1f} s")
+        _start_sass(cuobjdump, libs, sass)
+        _check_sass(sass)
+    finally:
+        for proc, _ in sass.values():
+            if proc.poll() is None:
+                os.killpg(proc.pid, 9)
+                proc.wait()
     for name, out in build.build_log.items():
         for line in out.splitlines():
             if "registers" in line or "spill" in line:
@@ -216,30 +259,43 @@ def phase_build():
     for name, p in paths.items():
         log(f"  built {os.path.relpath(p, ROOT)} in "
             f"{build.build_seconds.get(name, 0.0):.1f} s")
-    log(f"build: {time.perf_counter() - t0:.1f} s")
-    # the tensor-core bodies: their libraries must hold HMMA (mma.sync)
-    # instructions, among them TF32 ones (HMMA.1688.F32.TF32) for the fp32
-    # bodies
-    # (the libraries disassembled side by side, one process each)
-    cuobjdump = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
-    names = MMA_LIBS + BF16_MMA_LIBS
-    procs = {name: subprocess.Popen([cuobjdump, "-sass", str(paths[name])],
-                                    stdout=subprocess.PIPE,
-                                    stderr=subprocess.PIPE, text=True)
-             for name in names}
-    for name in names:
-        out, err = procs[name].communicate(timeout=300)
-        sass = subprocess.CompletedProcess(procs[name].args,
-                                           procs[name].returncode, out, err)
-        hmma = [ln for ln in sass.stdout.splitlines() if "HMMA" in ln]
-        tf32 = sum("TF32" in ln for ln in hmma)
-        bf16 = sum("BF16" in ln for ln in hmma)
-        log(f"  {name}: {len(hmma)} HMMA instructions, {tf32} of them TF32, "
-            f"{bf16} BF16 (cuobjdump -sass)")
-        kind, n = ("BF16", bf16) if name in BF16_MMA_LIBS else ("TF32", tf32)
-        if sass.returncode or not n:
+    log(f"build and disassembly: {time.perf_counter() - t0:.1f} s")
+
+
+# the tensor-core bodies: their libraries must hold HMMA (mma.sync)
+# instructions of their kind, TF32 ones (HMMA.1688.F32.TF32) for the fp32
+# bodies, BF16 ones for K2's, K4's, K5b's and K6b's. Each is disassembled
+# by a process of its own, up to the first such instruction, before any
+# phase times anything
+SASS_LIBS = MMA_LIBS + BF16_MMA_LIBS
+
+
+def _start_sass(cuobjdump, libs, sass):
+    """Start the disassembly of each library of `libs` (name -> path) built
+    by now."""
+    for name, path in libs.items():
+        if name in sass or not path.exists():
+            continue
+        kind = "BF16" if name in BF16_MMA_LIBS else "TF32"
+        cmd = (f"{shlex.quote(cuobjdump)} -sass {shlex.quote(str(path))} | "
+               f"grep -m 1 -E 'HMMA[.][0-9A-Z.]*{kind}'")
+        # at the lowest priority: the build's last compiles go first
+        sass[name] = (subprocess.Popen(
+            ["nice", "-n", "19", "bash", "-c", cmd], stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True, start_new_session=True), kind)
+
+
+def _check_sass(sass):
+    t0 = time.perf_counter()
+    for name in SASS_LIBS:
+        proc, kind = sass[name]
+        first, err = proc.communicate(timeout=600)
+        if proc.returncode or kind not in first:
             raise AssertionError(f"{name}: no {kind} HMMA instruction in "
-                                 f"its library ({sass.stderr[-400:]})")
+                                 f"its library ({err[-400:]})")
+        log(f"  {name}: {kind} HMMA instructions (cuobjdump -sass; the "
+            f"first: {first.split(';')[0].split('*/')[-1].strip()})")
+    log(f"disassembly: {time.perf_counter() - t0:.1f} s after the build")
 
 
 def _masks(g, B, L, dev, allow_empty=True):
@@ -3040,9 +3096,10 @@ def phase_attn_v2(ctx):
     """SEGMM_ATTN_V2's route (K6 on every fuse_qkv stream): the production
     training configuration for V2_STEPS steps (20 K6f + 18 K6b and no K2
     per step), V2_SERVED batches served at B=1024 (20 K6f each), one 32-row
-    fp32 step on the card against the CPU; then skip_train's CLI with
-    SEGMM_ATTN_V2=1 in its environment and export_logits --serving 1 on the
-    checkpoint it wrote, each in a process of its own."""
+    fp32 step on the card against the CPU; then skip_train's CLI under the
+    switch in this process (the flag SEGMM_ATTN_V2=1 sets at import) and
+    export_logits --serving 1 on the checkpoint it wrote in a process of
+    its own, SEGMM_ATTN_V2=1 in its environment."""
     from segmminterest_tpu_torch.core import attention as A
     from segmminterest_tpu_torch.data.dataset import BatchIterator
     from segmminterest_tpu_torch.engine.train import InterestEngine
@@ -3130,20 +3187,29 @@ def phase_attn_v2(ctx):
     finally:
         A.ATTN_V2 = False
 
-    # the CLIs with the real switch, SEGMM_ATTN_V2=1 in their environment
+    # the CLIs under the switch: skip_train here with the flag
+    # SEGMM_ATTN_V2=1 sets at import, export_logits in a process of its
+    # own with SEGMM_ATTN_V2=1 in its environment
+    from segmminterest_tpu_torch.tasks import skip_train
     memmap, lineid = _cli_files(ctx)
     env = dict(os.environ, SEGMM_ATTN_V2="1")
     common = ["--sample_csv", ctx["csv"], "--min_interactions", "100",
               "--num_warmup", "80", "--memmap", memmap, "--lineid_map",
               lineid, "--seed", "7"]
     t0 = time.perf_counter()
-    res, err = _subprocess_json(
-        ["segmminterest_tpu_torch.tasks.skip_train"] + common + [
-            "--debug", "1", "--compute_dtype", "bfloat16", "--fuse_qkv", "1",
-            "--table_quant", "int8", "--remat", "0", "--ckpt_dir",
-            os.path.join(WORK, "train_cli_v2")], env, "skip_train (v2)")
+    A.reset_launch_counts()
+    A.ATTN_V2 = True
+    try:
+        with _Records("segmminterest_tpu_torch.engine.train") as logs:
+            res = skip_train.main(common + [
+                "--debug", "1", "--compute_dtype", "bfloat16", "--fuse_qkv",
+                "1", "--table_quant", "int8", "--remat", "0", "--ckpt_dir",
+                os.path.join(WORK, "train_cli_v2")])
+        version = logs.args_of("projection-fused attention")[0]
+    finally:
+        A.ATTN_V2 = False
     launches, steps = res["kernel_launches"], res["steps"]
-    if "K2 version 2" not in err or steps < 1 or \
+    if version != 2 or steps < 1 or \
             launches.get(K6_KEYS[1]) != BWD_PER_STEP * steps or \
             any(k in launches for k in K2_KEYS) or \
             not all(math.isfinite(v) for v in res["test_metrics"].values()):
@@ -3694,7 +3760,9 @@ def phase_msgpack(ctx):
     types; the PE tables as bf16 leaves, the item embedding as a chunked
     leaf), served by export_logits --work_dir with --serving 1: the logits
     bit for bit those served from a ckpt-latest.pt of the same weights. A
-    directory holding both kinds raises."""
+    directory holding both kinds raises. The run's AdamW state goes beside
+    the params as optax's state; training resumed from the .msgpack and
+    from its .pt twin gives the same losses, bit for bit."""
     from segmminterest_tpu_torch.engine.checkpoint import (CheckPointer,
                                                            msgpack_restore)
     from segmminterest_tpu_torch.models.convert import flax_to_state_dict
@@ -3715,9 +3783,23 @@ def phase_msgpack(ctx):
             n_users=reader.n_users, n_items=reader.n_items, fusion_heads=2)
     chunked = [max(sd, key=lambda k: sd[k].numel())]
     tree = _flax_tree(model, sd, chunked)
+    # the AdamW state as optax's chain(clip_by_global_norm, adamw) state:
+    # {"0": {}, "1": {"0": {count, mu, nu}, "1": {}, "2": {}}}, the PE
+    # tables' moments in bf16 as their params
+    opt = saved["state"]["opt_state"]
+    names = list(saved["state"]["params"])
+    moments = {m: {n: opt["state"][i][k] for i, n in enumerate(names)}
+               for m, k in (("mu", "exp_avg"), ("nu", "exp_avg_sq"))}
+    moments = {m: {n: (v.to(torch.bfloat16) if n.endswith("_pe") else v)
+                   for n, v in d.items()} for m, d in moments.items()}
+    count = int(opt["state"][0]["step"])
+    opt_tree = {"0": {}, "1": {"0": {
+        "count": torch.tensor(count, dtype=torch.int32),
+        "mu": _flax_tree(model, moments["mu"]),
+        "nu": _flax_tree(model, moments["nu"])}, "1": {}, "2": {}}}
     packed = bytearray()
-    _mp_pack({"state": {"params": tree}, "num_epochs": 1,
-              "metrics": {"main_metric": 0.5}}, packed)
+    _mp_pack({"state": {"params": tree, "opt_state": opt_tree},
+              "num_epochs": 1, "metrics": {"main_metric": 0.5}}, packed)
     name = os.path.basename(work.rstrip("/"))
     mdir = os.path.join(WORK, "msgpack", name)
     pdir = os.path.join(WORK, "msgpack_pt", name)
@@ -3725,8 +3807,13 @@ def phase_msgpack(ctx):
     with open(os.path.join(mdir, "ckpt-latest.msgpack"), "wb") as f:
         f.write(packed)
     twin = {k: v.float() for k, v in sd.items()}  # bf16 is exact in fp32
+    twin_opt = {"state": {i: {
+        "step": torch.tensor(float(count)),
+        "exp_avg": moments["mu"][n].float(),
+        "exp_avg_sq": moments["nu"][n].float()} for i, n in enumerate(names)},
+        "param_groups": opt["param_groups"]}
     CheckPointer("main_metric", pdir, mode="max").save_checkpoint(
-        {"params": twin}, 1)
+        {"params": twin, "opt_state": twin_opt}, 1)
     # the encoder's layout is the reader's and the converter's: the file
     # reads back to the same tensors
     back = flax_to_state_dict(msgpack_restore(bytes(packed))["state"]
@@ -3768,6 +3855,345 @@ def phase_msgpack(ctx):
     log(f"  .msgpack ({len(packed) / 2**20:.1f} MiB, {len(sd)} leaves, "
         f"{n_bf16} bf16, {chunked[0]} chunked): logits bit for bit the .pt "
         "twin's; a directory with both kinds raises")
+    # training resumed from each (skip_train --load 1's route): the same
+    # losses, bit for bit
+    losses = {kind: _resume_losses(ctx, d, RESUME_STEPS)
+              for kind, d in (("msgpack", mdir), ("pt", pdir))}
+    ctx.pop("resume_table")
+    if losses["msgpack"] != losses["pt"] or not _finite(losses["pt"]):
+        raise AssertionError(f"resumed losses: {losses}")
+    log(f"  training resumed from the .msgpack (params and optax's AdamW "
+        f"state, count {count}) and from its .pt twin: {RESUME_STEPS} steps, "
+        f"losses {losses['pt']} bit for bit")
+
+
+RESUME_STEPS = 2
+
+
+def _resume_losses(ctx, work_dir, steps):
+    """train_cli's configuration (bf16, K2, int8 table, no remat, --debug's
+    B=128) resumed from work_dir's ckpt-latest on the card: the losses of
+    `steps` steps on the train split's first batches."""
+    from segmminterest_tpu_torch.core.numerics import quantize_table_int8
+    from segmminterest_tpu_torch.data.dataset import BatchIterator
+    from segmminterest_tpu_torch.data.feature_store import FeatureStore
+    from segmminterest_tpu_torch.engine.checkpoint import CheckPointer
+    from segmminterest_tpu_torch.engine.train import InterestEngine
+    from segmminterest_tpu_torch.tasks import skip_train
+
+    memmap, lineid = _cli_files(ctx)
+    cfg = skip_train.config_from_args(skip_train.build_parser().parse_args(
+        ctx["cli_common"] + ["--debug", "1", "--compute_dtype", "bfloat16",
+                             "--fuse_qkv", "1", "--table_quant", "int8",
+                             "--remat", "0"]))
+    reader = ctx["reader"]
+    store = FeatureStore.open(memmap, lineid)
+    if "resume_table" not in ctx:  # the int8 table, quantized once
+        ctx["resume_table"] = tuple(
+            torch.from_numpy(a).cuda()
+            for a in quantize_table_int8(np.asarray(store.feat)))
+    torch.manual_seed(cfg.seed)  # nn.Dropout's masks
+    engine = InterestEngine(cfg, reader.n_users, reader.n_items,
+                            feature_table=ctx["resume_table"])
+    ckpt = CheckPointer("main_metric", work_dir, mode="max")
+    state = ckpt.load_checkpoint(engine.init_state(), "latest")["state"]
+    it = BatchIterator(reader, reader.tables["train"], cfg.train_batch_size,
+                       shuffle=True, feature_store=store, seed=cfg.seed,
+                       prefetch_size=0)
+    out = []
+    for _, batch in zip(range(steps), it):
+        state, ld = engine.train_step(state, batch)
+        out.append(float(ld["loss"]))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# SegRec (Task 2) fed by Task 1's logits
+
+SEGREC_EPOCHS = 2       # epochs of each segrec.main run
+SEGREC_B = 512          # segrec.main's --batch_size default
+SEGREC_TIMED = 10       # full-width steps timed per model
+SEGREC_MODELS = ("ClipWDRec", "ClipDINRec")
+SEGREC_RTOL = 1e-6      # card against CPU, the 32-row steps
+# ClipDINRec's fp32 step is conditioned worse: its BatchNorms take
+# E[x^2] - E[x]^2 in fp32 (flax's fast variance) over 1,280 rows of one
+# scale, and its attention sums unnormalised sigmoid scores. Its gradient
+# norm reads 2.4e-6 relative against fp64 on the CPU alone at the inputs
+# of the weights-of-ones step (tests/test_torch_segrec.py::
+# test_chip_step_fp32_against_fp64, which holds each model's step here to
+# fp64 on the CPU); two fp32 runs may differ by twice that: held to 1e-5
+SEGREC_RTOL_CLIPDIN = 1e-5
+SEGREC_TRIES = 20       # batches tried for a 32-row step with a gradient
+
+
+def _segrec_lineid(corpus, rows, n_lines=None):
+    """"{item}-{frame}" -> line over the corpus's items (the dense item ids
+    SegRec's feeds look segments up by), the first min(duration, 40)
+    segments of each, at most `rows` entries; lines strided over `n_lines`
+    table rows (None: one row per entry, the layout FeatureStore.open reads
+    from a memmap)."""
+    dur = np.minimum(corpus.item_features_arr["i_duration"], 40)
+    total = min(rows, int(dur[1:].sum()))
+    stride = 1 if n_lines is None else max(1, n_lines // max(1, total))
+    n_lines = total if n_lines is None else n_lines
+    out, line = {}, 0
+    for iid in range(1, corpus.n_items):
+        for f in range(int(dur[iid])):
+            if line == total:
+                return out
+            out[f"{iid}-{f}"] = (line * stride) % n_lines
+            line += 1
+    return out
+
+
+def _segrec_model(name, corpus, frames, seed=0, extra=()):
+    """segrec.main's model at its defaults (emb 64, [64] layers), or with
+    the flags `extra`."""
+    from segmminterest_tpu_torch.segrec import main as M
+    args = M.build_parser().parse_args(["--model_name", name, *extra])
+    args.random_seed = seed
+    return M.build_model(args, corpus, use_frames=frames)
+
+
+def _segrec_builder(corpus, name, store, clip, phase="train"):
+    from segmminterest_tpu_torch.segrec import main as M
+    from segmminterest_tpu_torch.segrec.feeds import FeedBuilder
+    return FeedBuilder(corpus, phase, task="ctr",
+                       include_history=name in M.SEQ_MODELS,
+                       clip_weights=clip, feature_store=store, seed=0)
+
+
+def phase_segrec(ctx):
+    """SegRec fed by Task 1 on the card: (a) build_interactions and
+    build_segrec_data over the synthetic CSV, export_logits --serving 1 of
+    train_cli's flagship checkpoint over the three splits (K2f's launches
+    counted), segrec.main at its defaults (CTR, B=512) for ClipWDRec and
+    then ClipDINRec over those logits and a segment table, each in a
+    process of its own; (b) both models' training steps and an evaluation
+    batch at B=512 over a 3,920,483-row fp32 table on the card: ms per
+    step, interactions/s, peak device memory; (c) one 32-row fp32 step of
+    ClipWDRec, ClipDINRec, WideDeep and DIN on the card and on the CPU
+    (interest weights of ones), of ClipWDRec and ClipDINRec under Task 1's
+    logits and of ClipDINRec under them softmax-normalised: the loss, the
+    gradient norm and the evaluation scores within 1e-6 relative
+    (ClipDINRec 1e-5: SEGREC_RTOL_CLIPDIN), each beside the CPU's fp32 step
+    against fp64 (_segrec_steps)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from segmminterest_tpu_torch.core import attention as A
+    from segmminterest_tpu_torch.data.feature_store import FeatureStore
+    from segmminterest_tpu_torch.segrec.corpus import Corpus
+    from segmminterest_tpu_torch.segrec.feeds import ClipWeights
+    from segmminterest_tpu_torch.segrec.runner import CTRRunner, RunnerConfig
+    from segmminterest_tpu_torch.tasks import build_interactions
+    from segmminterest_tpu_torch.tasks import build_segrec_data
+    from segmminterest_tpu_torch.tasks import export_logits as X
+
+    if "cli_work" not in ctx:
+        raise AssertionError("phase segrec serves the checkpoint of phase "
+                             "train_cli: run that first")
+    memmap, lineid = _cli_files(ctx)
+    sdir = os.path.join(WORK, "segrec")
+    t0 = time.perf_counter()
+    split = ["--min_interactions", "100", "--num_warmup", "80"]
+    task1 = os.path.join(sdir, "task1")
+    build_interactions.main(["--inter_csv", ctx["csv"], "--out", task1]
+                            + split)
+    build_segrec_data.main(["--inter_csv", ctx["csv"], "--out", sdir,
+                            "--name", "SegMM"] + split)
+    log(f"  build_interactions + build_segrec_data: "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # (a) Task 1's logits through export_logits, then segrec.main
+    A.reset_launch_counts()
+    t0 = time.perf_counter()
+    logits_path = X.main(["--path", task1, "--memmap", memmap,
+                          "--lineid_map", lineid, "--seed", "7",
+                          "--serving", "1", "--work_dir", ctx["cli_work"],
+                          "--out_dir", os.path.join(sdir, "logits")])
+    reader = ctx["reader"]
+    n_batches = sum(-(-len(reader.tables[s]) // 1024)
+                    for s in ("train", "dev", "test"))
+    k2f = A.LAUNCHES["proj_two_block_attention"]
+    if k2f != FWD_PER_STEP * n_batches:
+        raise AssertionError(f"export_logits --serving 1: {k2f} K2f "
+                             f"launches for {n_batches} batches")
+    with open(logits_path) as f:
+        n_logits = len(json.load(f))
+    log(f"  export_logits --serving 1 over train/dev/test: {n_logits} rows, "
+        f"{n_batches} batches, {k2f} K2f launches "
+        f"({time.perf_counter() - t0:.1f} s)")
+    corpus = Corpus(sdir, "SegMM_CTR")
+    seg_map = _segrec_lineid(corpus, ctx["memmap_rows"])
+    seg_lineid = os.path.join(sdir, "lineid.json")
+    with open(seg_lineid, "w") as f:
+        json.dump(seg_map, f)
+    env = dict(os.environ)
+
+    def run_main(name):
+        return _subprocess_json(
+            ["segmminterest_tpu_torch.segrec.main", "--model_name", name,
+             "--path", sdir, "--dataset", "SegMM_CTR",
+             "--epoch", str(SEGREC_EPOCHS), "--clip_weight_path",
+             logits_path, "--clip_feature_memmap", memmap, "--lineid_map",
+             seg_lineid], env, f"segrec.main --model_name {name}")[0]
+    # side by side: neither is timed
+    with ThreadPoolExecutor(len(SEGREC_MODELS)) as pool:
+        results = list(pool.map(run_main, SEGREC_MODELS))
+    for name, res in zip(SEGREC_MODELS, results):
+        got = {s: {k: res[s][k] for k in ("AUC", "LOG_LOSS", "WUAUC")}
+               for s in ("dev", "test")}
+        if not _finite(got):
+            raise AssertionError(f"segrec.main {name}: metrics {got}")
+        log(f"  segrec.main {name} ({SEGREC_EPOCHS} epochs, B={SEGREC_B}): "
+            f"dev {got['dev']}, test {got['test']}")
+
+    # (b) full width: the fp32 table of 3,920,483 rows on the card
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(3)
+    table = torch.empty(PRODUCTION_ROWS, FEAT_DIM, device=dev)
+    for s in range(0, PRODUCTION_ROWS, 1 << 19):
+        e = min(PRODUCTION_ROWS, s + (1 << 19))
+        table[s:e] = torch.randn(e - s, FEAT_DIM, generator=g, device=dev)
+    full_map = _segrec_lineid(corpus, 10 ** 9, PRODUCTION_ROWS)
+    stub = np.broadcast_to(np.zeros((1, FEAT_DIM), np.float32),
+                           (PRODUCTION_ROWS, FEAT_DIM))
+    store = FeatureStore(stub, full_map)
+    id2 = [json.load(open(os.path.join(sdir, "SegMM_CTR", f)))
+           for f in ("id2user.json", "id2item.json")]
+    clip = ClipWeights(logits_path, *id2)
+    covered = float(np.mean([k in clip.table for k in (
+        clip._key(u, i, t) for u, i, t in zip(
+            corpus.data_df["train"]["user_id"],
+            corpus.data_df["train"]["item_id"],
+            corpus.data_df["train"]["time"]))]))
+    log(f"  table {PRODUCTION_ROWS} x {FEAT_DIM} fp32 on the card "
+        f"({table.numel() * 4 / 1e9:.2f} GB); {len(full_map)} segments of "
+        f"{corpus.n_items - 1} items; Task-1 logits for {covered:.1%} of the "
+        "train rows")
+    for name in SEGREC_MODELS:
+        b = _segrec_builder(corpus, name, store, clip)
+        feeds = list(itertools.islice(b.batches(SEGREC_B, shuffle=True),
+                                      SEGREC_TIMED + 2))
+        r = CTRRunner(_segrec_model(name, corpus, True),
+                      RunnerConfig(batch_size=SEGREC_B,
+                                   eval_batch_size=SEGREC_B,
+                                   metrics=("AUC",)),
+                      feat_table=table, device=dev)
+        for feed in feeds[:2]:  # warm-up
+            r.train_step(feed, 0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        for i, feed in enumerate(feeds[2:]):
+            loss = r.train_step(feed, i)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / len(feeds[2:])
+        peak = torch.cuda.max_memory_allocated()
+        if not math.isfinite(float(loss)):
+            raise AssertionError(f"{name}: loss {float(loss)}")
+        eval_ms = _time_ms(lambda: r.eval_scores(feeds[0]), 10)
+        log(f"  {name} CTR at B={SEGREC_B} over the fp32 table: "
+            f"{ms:.2f} ms/step ({SEGREC_B / ms * 1e3:.0f} interactions/s, "
+            f"{len(feeds) - 2} steps after 2 warm-up, host batches "
+            f"assembled before), eval batch {eval_ms:.2f} ms, peak device "
+            f"memory {peak / 2**30:.2f} GiB ({(peak - base) / 2**30:.2f} "
+            f"GiB above the {base / 2**30:.2f} GiB held before)")
+        del r
+    del table
+    torch.cuda.empty_cache()
+
+    # (c) one 32-row fp32 step, card against the CPU
+    for name, what, tried, card, cpu, fp64 in _segrec_steps(
+            corpus, clip, torch.device("cuda")):
+        err, rounding = _rel_errs(card, cpu), _rel_errs(cpu, fp64)
+        if max(err) > (SEGREC_RTOL_CLIPDIN if name == "ClipDINRec"
+                       else SEGREC_RTOL):
+            raise AssertionError(f"{name} 32-row step ({what}): card "
+                                 f"{card[:2]}, CPU {cpu[:2]}, relative "
+                                 f"errors {err}")
+        log(f"  {name} 32-row fp32 step ({what}, batch {tried}), card "
+            f"against the CPU: loss {card[0]:.6f} ({err[0]:.1e} relative), "
+            f"gradient norm {card[1]:.6f} ({err[1]:.1e}), evaluation "
+            f"scores {err[2]:.1e}; the CPU's against fp64: "
+            + ", ".join(f"{e:.1e}" for e in rounding))
+
+
+def _rel_errs(got, want):
+    """|got - want| relative to |want| for the loss and the gradient norm,
+    to max |want| for the scores; 0 where both are 0 (a batch whose rows
+    all sit at BCE's clamp has no gradient)."""
+    out = [abs(a - b) / abs(b) if b else float(a != 0)
+           for a, b in zip(got[:2], want[:2])]
+    scale = np.abs(want[2]).max()
+    return out + [float(np.abs(got[2] - want[2]).max() / scale)
+                  if scale else float(np.abs(got[2]).max() != 0)]
+
+
+def _segrec_steps(corpus, clip, dev):
+    """One 32-row CTR step of each case on `dev`, on the CPU and on the CPU
+    in fp64, from the same weights and batch: (name, what, batch number,
+    then (loss, gradient norm, evaluation scores before the step) on dev,
+    on the CPU and in fp64). Each model with interest weights of ones,
+    whose inputs do not depend on how train_cli's run went (`--debug`
+    stops its epochs early, and the abandoned prefetch thread draws from
+    the iterator's generator); then the Clip models under `clip`'s Task-1
+    logits, and ClipDINRec with them under --norm_interest_type softmax.
+    The first batch of SEGREC_TRIES with a gradient is taken. Raw Task-1
+    logits can push every row of every batch past BCE's clamp (the sum of
+    40 weighted segments), and their cases then compare the first batch's
+    loss and scores; every other case must have a gradient."""
+    import copy
+
+    from segmminterest_tpu_torch.data.feature_store import FeatureStore
+    from segmminterest_tpu_torch.segrec.runner import CTRRunner, RunnerConfig
+    small = torch.randn(4096, FEAT_DIM, generator=torch.Generator()
+                        .manual_seed(5))
+    small_store = FeatureStore(small.numpy(),
+                               _segrec_lineid(corpus, 10 ** 9, 4096))
+
+    def step(model, feed, frames, where, dtype=torch.float32):
+        r = CTRRunner(copy.deepcopy(model).to(dtype),
+                      RunnerConfig(batch_size=32),
+                      feat_table=small.to(dtype) if frames else None,
+                      device=where)
+        scores = r.eval_scores(feed).astype(np.float64)
+        loss = float(r.train_step(feed, 0))
+        norm = float(torch.sqrt(sum((p.grad.double() ** 2).sum()
+                                    for p in r.model.parameters())))
+        return loss, norm, scores
+
+    out = []
+    softmax = ("--norm_interest_type", "softmax")
+    cases = [(n, None, ()) for n in SEGREC_MODELS + ("WideDeep", "DIN")] + \
+        [(n, clip, ()) for n in SEGREC_MODELS] + \
+        [("ClipDINRec", clip, softmax)]
+    for name, weights, extra in cases:
+        frames = name.startswith("Clip")
+        need_grad = weights is None or bool(extra)
+        b = _segrec_builder(corpus, name, small_store if frames else None,
+                            weights)
+        model = _segrec_model(name, corpus, frames, extra=extra)
+        first = None
+        for tried, feed in zip(range(1, SEGREC_TRIES + 1),
+                               b.batches(32, shuffle=True)):
+            cpu = step(model, feed, frames, "cpu")
+            first = first or (tried, feed, cpu)
+            if cpu[1] > 0:
+                break
+        else:
+            if need_grad:
+                raise AssertionError(f"{name}: no gradient in "
+                                     f"{SEGREC_TRIES} 32-row batches")
+            tried, feed, cpu = first
+        what = ("weights of ones" if weights is None else
+                " ".join(("Task-1 logits",) + extra))
+        if not cpu[1]:
+            what += ", no gradient in any batch"
+        out.append((name, what, tried, step(model, feed, frames, dev), cpu,
+                    step(model, feed, frames, "cpu", torch.float64)))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -3809,7 +4235,8 @@ def main(argv=None):
          "wide": lambda: phase_wide(ctx),
          "train_cli": lambda: phase_train_cli(ctx),
          "watchtime": lambda: phase_watchtime(ctx),
-         "msgpack": lambda: phase_msgpack(ctx)}[name]()
+         "msgpack": lambda: phase_msgpack(ctx),
+         "segrec": lambda: phase_segrec(ctx)}[name]()
         log(f"phase {name}: ok ({time.perf_counter() - t0:.1f} s)")
     log(f"all phases: {time.perf_counter() - t_all:.1f} s")
     if "memmap" in ctx:

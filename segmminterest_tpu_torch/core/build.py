@@ -10,9 +10,10 @@ of ``COMMON`` (the key-chunk paths of the bf16 and fp32 attention cores)
 are compiled once into objects that the libraries launching their kernels
 link. Nothing is
 built when this module is imported: the first call to :func:`load_library`
-builds every library, one ``nvcc`` process a file, all started together,
-and later calls reuse the libraries whose file name carries the hash of
-their sources. A failed build raises.
+builds every library, one ``nvcc`` process a file, all started together;
+each library takes its final name as soon as it links, and later calls
+reuse the libraries whose file name carries the hash of their sources. A
+failed build raises.
 """
 
 from __future__ import annotations
@@ -89,13 +90,14 @@ def _lib_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
-def _start_build(name: str, out: Path, common=None):
+def _start_build(name: str, out: Path, common=None, publish=None):
     """Start building ``csrc/<name>.cu`` (and its parts) into the library
     ``out``, linked with the objects of ``common`` (a thread that compiles
-    the COMMON objects, and the paths of those this library links);
-    returns a thread and a dict that holds nvcc's exit code, its output
-    and the seconds it took once the thread has ended. Without ``common``,
-    compiles ``csrc/<name>.cu`` to the object ``out``."""
+    the COMMON objects, and the paths of those this library links), then
+    renames it ``publish``; returns a thread and a dict that holds nvcc's
+    exit code, its output and the seconds it took once the thread has
+    ended. Without ``common``, compiles ``csrc/<name>.cu`` to the object
+    ``out``."""
     res = {"code": 0, "text": "", "seconds": 0.0}
     files = _files(name)
     inc = ("-I", str(CSRC))
@@ -112,6 +114,8 @@ def _start_build(name: str, out: Path, common=None):
         t0 = time.perf_counter()
         compile_and_link()
         res["seconds"] = time.perf_counter() - t0
+        if publish is not None and not res["code"]:
+            os.replace(out, publish)
 
     def compile_and_link():
         if common is None:
@@ -158,16 +162,14 @@ def build_all() -> Dict[str, Path]:
     for n in todo:
         linked = [o for c, o in zip(COMMON, cobjs) if n in COMMON[c]]
         tmp = paths[n].with_suffix(f".{tag}.tmp")
-        jobs[n] = (_start_build(n, tmp, (cthread, (cres, linked))), tmp)
+        jobs[n] = _start_build(n, tmp, (cthread, (cres, linked)), paths[n])
     failed = []
-    for n, ((thread, res), tmp) in jobs.items():
+    for n, (thread, res) in jobs.items():
         thread.join()
         build_log[n] = res["text"]
         build_seconds[n] = res["seconds"]
         if res["code"]:
             failed.append(f"{n}.cu (exit {res['code']}):\n{res['text']}")
-        else:
-            os.replace(tmp, paths[n])
     cthread.join()
     for c, o in zip(COMMON, cobjs):
         o.unlink(missing_ok=True)

@@ -52,14 +52,19 @@ class FeatureStore:
         return cls(feat, lineid_map)
 
     # ------------------------------------------------------------------
-    def photo_line_ids(self, pid: int, n_frames: int) -> np.ndarray:
+    def photo_line_ids(self, pid: int, n_frames: int,
+                       strict: bool = True) -> np.ndarray:
         """Line ids for the first n_frames segments of a photo; raises on a
-        missing key like the reference video path (dataloader_SegMM.py:305-308)."""
+        missing key like the reference video path (dataloader_SegMM.py:305-308).
+        With ``strict`` False (SegRec's candidates) a missing photo gives no
+        lines and a missing segment -1."""
         lines = self.photo_lines.get(int(pid))
         if lines is None or len(lines) < n_frames or \
                 (n_frames and (lines[:n_frames] < 0).any()):
-            raise KeyError(f"No key in lineid dict for photo {pid} "
-                           f"up to frame {n_frames - 1}")
+            if strict:
+                raise KeyError(f"No key in lineid dict for photo {pid} "
+                               f"up to frame {n_frames - 1}")
+            lines = lines if lines is not None else np.zeros(0, np.int32)
         return lines[:n_frames]
 
     def played_line_ids(self, pid: int, playing_ms: float) -> np.ndarray:

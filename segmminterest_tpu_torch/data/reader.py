@@ -114,14 +114,15 @@ def xstrtod(text: str) -> float:
 
 def _column(values: List[str]) -> np.ndarray:
     """Numeric columns as int64 (float64, parsed as pandas parses them, when
-    any value is not an integer), anything else as strings — the types
-    ``pd.read_csv`` infers here."""
+    any value is not an integer or a cell is empty, which is NaN), anything
+    else as strings — the types ``pd.read_csv`` infers here."""
     try:
         return np.asarray([int(v) for v in values], np.int64)
     except ValueError:
         pass
     try:
-        return np.asarray([pandas_float(v) for v in values], np.float64)
+        return np.asarray([pandas_float(v) if v else math.nan
+                           for v in values], np.float64)
     except ValueError:
         return np.asarray(values, dtype=object)
 

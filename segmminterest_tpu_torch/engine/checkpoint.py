@@ -24,15 +24,26 @@ checkpoint.py:35-36,53) are read too, without flax or msgpack:
 does (flax/serialization.py:278-311 ext types, :344-389 chunked leaves),
 and their ``state["params"]`` pass through ``models/convert.py``. A
 ``bfloat16`` leaf, which numpy has no dtype for, becomes a
-``torch.bfloat16`` tensor (cast to fp32 into the port's parameters). Only
-the params are read: resuming training from a ``.msgpack`` checkpoint would
-need optax's optimizer state mapped to AdamW's, and raises. A directory
-that holds both kinds of checkpoint raises too.
+``torch.bfloat16`` tensor (cast to fp32 into the port's parameters). A
+target with ``opt_state`` (resuming training) also gets optax's state
+(segmminterest_tpu/engine/train.py:85-88: ``chain(clip_by_global_norm,
+adamw)``, which flax writes as ``{"0": {}, "1": {"0": {count, mu, nu},
+"1": {}, "2": {}}}``) as ``torch.optim.AdamW``'s: ``mu`` and ``nu`` pass
+through the same key rules as the params (Dense kernels transposed, bf16
+widened) into ``exp_avg`` and ``exp_avg_sq``, ``count`` into ``step``.
+
+A run resumed from ``ckpt-latest.msgpack`` writes ``.pt`` checkpoints beside
+it, and each records the ``.msgpack`` it continues (``continues``: file name
+and SHA-256). A directory that holds both kinds is read as the port's when
+its ``ckpt-latest.pt`` continues the ``ckpt-latest.msgpack`` there, as it
+was, and raises otherwise (two runs' checkpoints in one directory).
 """
 
 from __future__ import annotations
 
+import copy
 import glob
+import hashlib
 import os
 import os.path as osp
 import struct
@@ -219,6 +230,10 @@ class CheckPointer:
         os.makedirs(work_dir, exist_ok=True)
         self.ckpt_latest = osp.join(work_dir, "ckpt-latest.pt")
         self.ckpt_best_fmt = osp.join(work_dir, "ckpt-best-ep{}-{}.pt")
+        # the .msgpack checkpoint this run continues, recorded in its saves
+        # (its SHA-256 taken at the first save: serving never hashes)
+        self.continues: Optional[Dict[str, str]] = None
+        self._resumed_msgpack = False
 
     def better(self, new: float, orig: Optional[float]) -> bool:
         if orig is None:
@@ -232,6 +247,10 @@ class CheckPointer:
         save_dict = dict(state=_to_host(state), num_epochs=num_epochs,
                          metrics={k: float(v) for k, v in
                                   (metric_vals or {}).items()})
+        if self._resumed_msgpack and self.continues is None:
+            self.continues = self._msgpack_id()
+        if self.continues:
+            save_dict["continues"] = dict(self.continues)
         torch.save(save_dict, self.ckpt_latest)
         if metric_vals:
             val = float(metric_vals[self.monitor])
@@ -255,20 +274,47 @@ class CheckPointer:
             return candidates[0]
         raise NotImplementedError(mode)
 
-    def load_checkpoint(self, target: Dict[str, Any],
-                        mode: str = "latest") -> Dict[str, Any]:
-        """Load into ``target`` (a state of the same structure as what was
-        saved); returns ``{"state", "num_epochs", "metrics"}``. A directory
-        of the JAX package's ``.msgpack`` checkpoints fills the params of a
-        target that holds nothing else."""
+    def has_latest(self) -> bool:
+        """A latest checkpoint of either kind is in the directory."""
+        return any(osp.exists(self._path("latest", suffix))
+                   for suffix in (".pt", ".msgpack"))
+
+    def _msgpack_id(self) -> Dict[str, str]:
+        fn = self._path("latest", ".msgpack")
+        with open(fn, "rb") as f:
+            digest = hashlib.file_digest(f, "sha256").hexdigest()
+        return {"file": osp.basename(fn), "sha256": digest}
+
+    def _kind(self) -> str:
+        """The kind of checkpoint the directory is read as: ".msgpack" or
+        ".pt"; both raise unless the port's continue the JAX run's."""
         pts = sorted(glob.glob(osp.join(self.work_dir, "ckpt-*.pt")))
         packs = sorted(glob.glob(osp.join(self.work_dir, "ckpt-*.msgpack")))
-        if pts and packs:
-            raise ValueError(
-                f"{self.work_dir} holds both the port's checkpoints {pts} and "
-                f"the JAX package's {packs}: keep one kind")
-        if packs:
-            return self._load_msgpack(target, self._path(mode, ".msgpack"))
+        if not (pts and packs):
+            return ".msgpack" if packs else ".pt"
+        latest = self._path("latest", ".pt")
+        continues = (torch.load(latest, map_location="cpu",
+                                weights_only=True).get("continues")
+                     if osp.exists(latest) else None)
+        if continues and osp.exists(self._path("latest", ".msgpack")) \
+                and continues == self._msgpack_id():
+            return ".pt"
+        raise ValueError(
+            f"{self.work_dir} holds both the port's checkpoints {pts} and "
+            f"the JAX package's {packs}, and its ckpt-latest.pt does not "
+            "continue that ckpt-latest.msgpack: keep one kind")
+
+    def load_checkpoint(self, target: Dict[str, Any], mode: str = "latest"
+                        ) -> Dict[str, Any]:
+        """Load into ``target`` (a state of the same structure as what was
+        saved); returns ``{"state", "num_epochs", "metrics"}``. A directory
+        of the JAX package's ``.msgpack`` checkpoints fills the params and,
+        where the target has one, the AdamW state; later saves record it as
+        the checkpoint they continue."""
+        if self._kind() == ".msgpack":
+            loaded = self._load_msgpack(target, self._path(mode, ".msgpack"))
+            self._resumed_msgpack = True
+            return loaded
         fn = self._path(mode, ".pt")
         data = torch.load(fn, map_location="cpu", weights_only=True)
         saved = data["state"]
@@ -277,20 +323,56 @@ class CheckPointer:
             raise KeyError(f"{fn} holds no {missing}")
         state = {k: (_copy_into(v, saved[k], f"state/{k}") if k == "params"
                      else saved[k]) for k, v in target.items()}
+        self.continues = data.get("continues", self.continues)
         return dict(state=state, num_epochs=data["num_epochs"],
                     metrics=data["metrics"])
 
     def _load_msgpack(self, target: Dict[str, Any], fn: str
                       ) -> Dict[str, Any]:
-        if set(target) != {"params"}:
-            raise NotImplementedError(
-                f"{fn} is a JAX checkpoint: only its params are read (to "
-                "serve it); resuming training from it, optax's state into "
-                "AdamW's, is not ported")
+        extra = sorted(set(target) - {"params", "opt_state"})
+        if extra:
+            raise KeyError(f"{fn} is a JAX checkpoint: it holds params and "
+                           f"optax's state, not {extra}")
         with open(fn, "rb") as f:
             data = msgpack_restore(f.read())
         params = flax_to_state_dict(data["state"]["params"],
                                     target["params"])
-        return dict(state={"params": _copy_into(target["params"], params,
-                                                "state/params")},
-                    num_epochs=data["num_epochs"], metrics=data["metrics"])
+        state = {"params": _copy_into(target["params"], params,
+                                      "state/params")}
+        if "opt_state" in target:
+            state["opt_state"] = adamw_state_from_optax(
+                data["state"].get("opt_state"), target["params"],
+                target["opt_state"], fn)
+        return dict(state=state, num_epochs=data["num_epochs"],
+                    metrics=data["metrics"])
+
+
+def adamw_state_from_optax(opt_state, params: Mapping[str, torch.Tensor],
+                           template: Mapping[str, Any], what: str = "opt_state"
+                           ) -> Dict[str, Any]:
+    """``torch.optim.AdamW.state_dict()`` holding the state of the JAX
+    engine's ``optax.chain(clip_by_global_norm, adamw)``. ``params`` are the
+    optimizer's parameters by name, in the order it holds them; ``template``
+    is its current ``state_dict()`` (its one parameter group is kept)."""
+    try:
+        adam = opt_state["1"]["0"]
+        count, mu, nu = adam["count"], adam["mu"], adam["nu"]
+    except (KeyError, TypeError):
+        raise ValueError(
+            f"{what}: not the state of optax.chain(clip_by_global_norm, "
+            "adamw) (expected {'0': {}, '1': {'0': {count, mu, nu}, ...}})")
+    groups = template["param_groups"]
+    if len(groups) != 1 or list(groups[0]["params"]) != list(
+            range(len(params))):
+        raise ValueError(f"{what}: the optimizer must hold the {len(params)} "
+                         "parameters in one group, in order")
+    step = int(np.asarray(count))
+    state = {}
+    if step:
+        exp_avg = flax_to_state_dict(mu, params)
+        exp_avg_sq = flax_to_state_dict(nu, params)
+        # a 0-d tensor of the default dtype, as AdamW makes its step
+        state = {i: {"step": torch.tensor(float(step)),
+                     "exp_avg": exp_avg[n], "exp_avg_sq": exp_avg_sq[n]}
+                 for i, n in enumerate(params)}
+    return {"state": state, "param_groups": copy.deepcopy(groups)}

@@ -433,14 +433,14 @@ def run_training(config: InterestConfig, reader: SeqReader,
     eval_rng = np.random.default_rng(cfg.seed)
     state = engine.init_state()
     start_epoch = 0
-    if cfg.load and osp.exists(ckpt.ckpt_latest):
+    if cfg.load and ckpt.has_latest():
         # resume from latest (CheckPointer mode='latest', preemption
-        # recovery)
+        # recovery): the port's ckpt-latest.pt or the JAX package's
+        # ckpt-latest.msgpack, params and AdamW state
         loaded = ckpt.load_checkpoint(state, mode="latest")
         state = loaded["state"]
         start_epoch = int(loaded["num_epochs"])
-        logger.info("resumed from %s at epoch %d", ckpt.ckpt_latest,
-                    start_epoch)
+        logger.info("resumed from %s at epoch %d", work_dir, start_epoch)
 
     total_train_loss: list = []
     total_metrics: Dict[str, list] = {"train_loss": [], "valid_loss": []}

@@ -17,13 +17,22 @@ rules, as in tools/ref_torch_loader.py:175-265:
 The same tree serves every attention route: the projection-fused path
 declares Dense-compatible names (segformerx.py:96-107). Every leaf must land
 on a key of the target model with the same shape, and every key of the
-model must be written; anything else raises.
+model must be written; anything else raises (``partial`` keeps the leaves
+that land and writes what they cover, as the JAX SegRec runner's partial
+restore does).
+
+SegRec models (``segrec/``, :func:`segrec_state_dict`) take their flax
+``params`` and ``batch_stats`` together: the port's modules carry the flax
+names, so the same rules apply, and a BatchNorm's ``{scale, bias}`` params
+and ``{mean, var}`` statistics land on its ``weight``, ``bias``, ``mean``
+and ``var``; Dice's ``alpha`` and the models' single parameters
+(``overall_bias``, ``trainable_interest_weight``) go as they are.
 """
 
 from __future__ import annotations
 
 import re
-from typing import Dict, Mapping, Union
+from typing import Dict, Mapping, Optional, Union
 
 import numpy as np
 import torch
@@ -54,11 +63,12 @@ def _leaves(tree: Mapping, prefix=()):
 
 
 def flax_to_state_dict(params: Mapping,
-                       model: Union[nn.Module, Mapping[str, torch.Tensor]]
-                       ) -> Dict[str, torch.Tensor]:
+                       model: Union[nn.Module, Mapping[str, torch.Tensor]],
+                       partial: bool = False) -> Dict[str, torch.Tensor]:
     """The state_dict for ``model`` (a module, or its tensors by name)
     holding the flax ``params``; every shape checked against the model,
-    every model key covered."""
+    every model key covered. ``partial``: leaves without a key of the same
+    shape are skipped and the model's other keys left out."""
     target = model.state_dict() if isinstance(model, nn.Module) else model
     out: Dict[str, torch.Tensor] = {}
     for path, arr in _leaves(params):
@@ -73,6 +83,9 @@ def flax_to_state_dict(params: Mapping,
             key = f"{base}.weight"
         else:
             key = f"{base}.{leaf}" if base else leaf
+        if partial and (key not in target
+                        or tuple(target[key].shape) != arr.shape):
+            continue
         if key not in target:
             raise KeyError(f"flax param {'/'.join(path)} -> {key}: no such "
                            "key in the model")
@@ -83,7 +96,7 @@ def flax_to_state_dict(params: Mapping,
             raise KeyError(f"two flax params map to {key}")
         out[key] = torch.from_numpy(np.array(arr, np.float32))
     missing = sorted(set(target) - set(out))
-    if missing:
+    if missing and not partial:
         raise KeyError(f"model keys with no flax param: {missing[:8]}"
                        f"{' ...' if len(missing) > 8 else ''}")
     return out
@@ -93,3 +106,23 @@ def load_flax_params(model: nn.Module, params: Mapping) -> nn.Module:
     """Copy the flax ``params`` into ``model`` (cast to its dtype)."""
     model.load_state_dict(flax_to_state_dict(params, model))
     return model
+
+
+def _merge(a: Mapping, b: Mapping) -> dict:
+    out = dict(a)
+    for k, v in b.items():
+        out[k] = _merge(out[k], v) if k in out else v
+    return out
+
+
+def segrec_state_dict(model: nn.Module, params: Mapping,
+                      batch_stats: Optional[Mapping] = None,
+                      partial: bool = False) -> Dict[str, torch.Tensor]:
+    """The state_dict of a SegRec ``model`` holding the flax ``params`` and
+    ``batch_stats``. Without ``batch_stats`` only the parameters are
+    written (the BatchNorm statistics stay the model's)."""
+    if batch_stats is None:
+        target = dict(model.named_parameters())
+        return flax_to_state_dict(params, target, partial=partial)
+    return flax_to_state_dict(_merge(params, batch_stats), model,
+                              partial=partial)

@@ -1,0 +1,405 @@
+"""SegRec's command line (port of ``segmminterest_tpu/segrec/main.py``).
+
+Behavioral spec: reference SegRec/main.py (:44-99,192-236): resolve
+model + mode, build corpus, train, report dev/test metrics, save CTR rows
+with WUAUC.
+
+  python -m segmminterest_tpu_torch.segrec.main --model_name ClipWDRec \
+      --model_mode CTR --path data --dataset SegMM_CTR \
+      --clip_weight_path saved_logits/interest_logits.json \
+      [--clip_feature_memmap feat.dat --lineid_map lineid.json] \
+      [--device cpu]
+
+The parser is the JAX CLI's, every flag, plus ``--device`` (the card
+unless ``cpu`` is asked for; without a card and without ``--device cpu`` it
+raises). The CTR and Ranking (TopK) modes run the models of
+``models.MODEL_REGISTRY``; ``--model_mode Impression``, the KG models,
+``--leave_rank``, ``--test_all`` and a batch sharded over more than one
+card (``--use_mesh`` with several cards) raise, naming ROADMAP Queue A
+item 4. ``save_final_results`` and ``all_inference`` write their TSVs with
+``data/reader.py``'s ``write_csv`` (pandas' ``to_csv`` byte for byte).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import logging
+import os
+import os.path as osp
+
+import numpy as np
+import torch
+
+from ..data.feature_store import FeatureStore
+from ..data.reader import write_csv
+from ..utils.device import resolve_device
+from .corpus import Corpus
+from .feeds import QUEUE_ITEM_4, ClipWeights, FeedBuilder
+from .layers import init_weights
+from .models import model_class
+from .runner import CTRRunner, RankingRunner, RunnerConfig
+
+logger = logging.getLogger(__name__)
+
+SEQ_MODELS = {"DIN", "DIEN", "CAN", "SDIM", "ETA", "ClipDINRec", "ClipDIENRec",
+              "ClipCANRec", "SASRec", "GRU4Rec", "Caser", "NARM", "FPMC",
+              "TiSASRec", "ComiRec", "ContraRec", "TiMiRec",
+              "SRGNN", "CLRec", "FourierTA", "S3Rec",
+              "SLRCPlus", "Chorus", "KDA"}
+KG_MODELS = {"CFKG", "SLRCPlus", "Chorus", "KDA"}
+
+
+def build_parser():
+    p = argparse.ArgumentParser()
+    p.add_argument("--model_name", type=str, default="ClipWDRec")
+    p.add_argument("--model_mode", type=str, default="CTR",
+                   choices=["CTR", "Ranking", "TopK", "Impression"])
+    p.add_argument("--path", type=str, default="data")
+    p.add_argument("--dataset", type=str, default="SegMM_CTR")
+    p.add_argument("--sep", type=str, default="\t")
+    p.add_argument("--random_seed", type=int, default=0)
+    # runner
+    p.add_argument("--epoch", type=int, default=200)
+    p.add_argument("--early_stop", type=int, default=10)
+    p.add_argument("--lr", type=float, default=1e-3)
+    p.add_argument("--l2", type=float, default=0.0)
+    p.add_argument("--batch_size", type=int, default=512)
+    p.add_argument("--eval_batch_size", type=int, default=512)
+    p.add_argument("--optimizer", type=str, default="Adam")
+    p.add_argument("--topk", type=str, default="5,10,20,50")
+    p.add_argument("--metric", type=str, default="")
+    p.add_argument("--main_metric", type=str, default="")
+    p.add_argument("--loss_n", type=str, default="")
+    p.add_argument("--num_neg", type=int, default=1)
+    p.add_argument("--test_all", type=int, default=0,
+                   help="full-sort ranking eval over all items with clicked "
+                        "items masked -inf (BaseModel.py:200,231-235)")
+    p.add_argument("--history_max", type=int, default=20)
+    p.add_argument("--time_max", type=int, default=512,
+                   help="TiSASRec max time-interval buckets")
+    p.add_argument("--buir_momentum", type=float, default=0.995)
+    p.add_argument("--model_path", type=str, default="",
+                   help="save the best state here after training (.pt; "
+                        "for a .msgpack path, beside it as .pt) "
+                        "and/or load from here (--load 1), like ReChorus "
+                        "BaseModel.save_model/load_model; a .msgpack of the "
+                        "JAX runner's params loads too")
+    p.add_argument("--load", type=int, default=0,
+                   help="initialize from --model_path before training "
+                        "(missing file -> train from scratch)")
+    p.add_argument("--train", type=int, default=1,
+                   help="0: skip training and evaluate the loaded model "
+                        "(ReChorus main.py --train 0)")
+    p.add_argument("--device", type=str, default=None,
+                   help="torch device; default: the CUDA card (raises "
+                        "without one — pass 'cpu' to run on the CPU)")
+    p.add_argument("--narm_hidden_size", type=int, default=100)
+    p.add_argument("--narm_attention_size", type=int, default=50)
+    p.add_argument("--train_max_pos_item", type=int, default=20)
+    p.add_argument("--train_max_neg_item", type=int, default=20)
+    p.add_argument("--n_blocks", type=int, default=4)
+    p.add_argument("--num_hidden_unit", type=int, default=64)
+    p.add_argument("--setrank_type", type=str, default="IMSAB")
+    p.add_argument("--ranker_name", type=str, default="BPRMF",
+                   help="Impression mode: base ranker for rerankers")
+    p.add_argument("--ranker_emb_size", type=int, default=64)
+    p.add_argument("--ranker_model_path", type=str, default="",
+                   help="pretrained base-ranker msgpack (rerankers)")
+    p.add_argument("--tuneranker", type=int, default=0)
+    p.add_argument("--include_attr", type=int, default=0)
+    p.add_argument("--margin", type=float, default=0.0)
+    p.add_argument("--time_scalar", type=int, default=60 * 60 * 24 * 100)
+    p.add_argument("--stage", type=int, default=2,
+                   help="Chorus: 1 KG pretrain, 2 recommendation")
+    p.add_argument("--base_method", type=str, default="BPR")
+    p.add_argument("--lr_scale", type=float, default=0.1)
+    p.add_argument("--category_col", type=str, default="i_category")
+    p.add_argument("--n_dft", type=int, default=64)
+    p.add_argument("--freq_rand", type=int, default=0)
+    p.add_argument("--neg_head_p", type=float, default=0.5)
+    p.add_argument("--gamma", type=float, default=-1)
+    p.add_argument("--pooling", type=str, default="average")
+    p.add_argument("--include_val", type=int, default=1)
+    p.add_argument("--s3rec_stage", type=int, default=2,
+                   help="1: self-supervised pretrain (save via --model_path);"
+                        " 2: finetune (load pretrain via --load 1)")
+    p.add_argument("--mip_weight", type=float, default=0.2)
+    p.add_argument("--sp_weight", type=float, default=0.5)
+    p.add_argument("--mask_ratio", type=float, default=0.2)
+    p.add_argument("--t_scalar", type=int, default=60,
+                   help="FourierTA time-interval scalar")
+    p.add_argument("--timirec_stage", type=str, default="finetune",
+                   choices=["pretrain", "finetune"])
+    p.add_argument("--timirec_temp", type=float, default=1.0)
+    p.add_argument("--timirec_n_layers", type=int, default=1)
+    p.add_argument("--contrarec_encoder", type=str, default="BERT4Rec")
+    p.add_argument("--contrarec_gamma", type=float, default=1.0)
+    p.add_argument("--ctc_temp", type=float, default=1.0)
+    p.add_argument("--ccc_temp", type=float, default=0.2)
+    p.add_argument("--beta_a", type=int, default=3)
+    p.add_argument("--beta_b", type=int, default=3)
+    p.add_argument("--comirec_attn_size", type=int, default=8)
+    p.add_argument("--comirec_k", type=int, default=2)
+    p.add_argument("--comirec_add_pos", type=int, default=1)
+    p.add_argument("--sam_interaction_type", type=str, default="SAM2E")
+    p.add_argument("--sam_aggregation", type=str, default="concat")
+    p.add_argument("--sam_num_layers", type=int, default=1)
+    p.add_argument("--sam_use_residual", type=int, default=0)
+    p.add_argument("--cin_layers", type=str, default="[8,8]",
+                   help="xDeepFM CIN layer sizes")
+    p.add_argument("--cin_direct", type=int, default=0,
+                   help="xDeepFM CIN direct connections")
+    p.add_argument("--dropout", type=float, default=0.0)
+    # model
+    p.add_argument("--emb_size", type=int, default=64)
+    p.add_argument("--layers", type=str, default="[64]")
+    p.add_argument("--att_layers", type=str, default="[64]")
+    p.add_argument("--dnn_layers", type=str, default="[64]")
+    p.add_argument("--adjust_interest_weight", type=int, default=0)
+    p.add_argument("--duration_mask", type=int, default=0)
+    p.add_argument("--norm_interest_type", type=str, default="none")
+    # DCNv2 family (DCNv2.py / ClipDCNv2Rec.py argparse)
+    p.add_argument("--cross_layer_num", type=int, default=6)
+    p.add_argument("--mixed", type=int, default=1)
+    p.add_argument("--structure", type=str, default="parallel",
+                   choices=["parallel", "stacked"])
+    p.add_argument("--low_rank", type=int, default=64)
+    p.add_argument("--expert_num", type=int, default=2)
+    p.add_argument("--reg_weight", type=float, default=2.0)
+    # AutoInt (AutoInt.py argparse)
+    p.add_argument("--num_heads", type=int, default=1)
+    p.add_argument("--num_layers", type=int, default=1)
+    p.add_argument("--attention_size", type=int, default=32)
+    # DIEN / CAN (DIEN.py / CAN.py argparse)
+    p.add_argument("--alpha_aux", type=float, default=0.0)
+    p.add_argument("--aux_hidden_layers", type=str, default="[64]")
+    p.add_argument("--evolving_gru_type", type=str, default="AGRU")
+    p.add_argument("--add_historical_situations", type=int, default=0,
+                   help="append situation embeddings to history steps and "
+                        "candidates (DIN.py:132-141)")
+    p.add_argument("--co_action_layers", type=str, default="[4,4]")
+    p.add_argument("--induce_vec_size", type=int, default=512)
+    p.add_argument("--orders", type=int, default=1)
+    # FinalMLP feature selection (FinalMLP.py argparse)
+    p.add_argument("--use_fs", type=int, default=1)
+    p.add_argument("--fs_hidden_units", type=str, default="[64]")
+    p.add_argument("--fs1_context", type=str, default="")
+    p.add_argument("--fs2_context", type=str, default="")
+    # AdaGIN (AdaGIN.py argparse)
+    p.add_argument("--warm_dim", type=int, default=64)
+    p.add_argument("--cold_dim", type=int, default=64)
+    p.add_argument("--warm_tau", type=float, default=1.0)
+    p.add_argument("--cold_tau", type=float, default=0.01)
+    p.add_argument("--num_gnn_layers", type=int, default=3)
+    p.add_argument("--only_use_last_layer", type=int, default=1)
+    p.add_argument("--fi_hidden_units", type=str, default="[64,64]")
+    p.add_argument("--w_hidden_units", type=str, default="[64,64]")
+    p.add_argument("--contrastive", type=str, default="",
+                   choices=["", "ContrastiveLoss", "infoNCELoss"],
+                   help="ClipRec feats-vs-id alignment aux loss")
+    p.add_argument("--auxillary_loss_weight", type=float, default=0.0)
+    # segment integration inputs
+    p.add_argument("--clip_weight_path", type=str, default="")
+    p.add_argument("--eval_neg_weight_path", type=str, default="")
+    p.add_argument("--clip_feature_memmap", type=str, default="")
+    p.add_argument("--lineid_map", type=str, default="")
+    p.add_argument("--save_final_results", type=int, default=0)
+    p.add_argument("--result_dir", type=str, default="results")
+    # SkipPredBaseline fork features (ReChorus/src/main.py:39,105-141 and
+    # helpers/BaseRunner.py:52-114)
+    p.add_argument("--use_mesh", type=int, default=1,
+                   help="shard batches over every visible card when there "
+                        "is more than one and the batch sizes divide their "
+                        "count (not ported yet: raises then)")
+    p.add_argument("--leave_rank", type=int, default=0,
+                   help="evaluate with the leave-frame ranking variant (not "
+                        "ported yet: raises)")
+    p.add_argument("--all_inference", type=int, default=0,
+                   help="after training, dump per-candidate prediction "
+                        "scores over train/dev/test for the logits converter")
+    return p
+
+
+def build_model(args, corpus: Corpus, use_frames: bool) -> torch.nn.Module:
+    """The model of ``--model_name`` with the JAX CLI's arguments,
+    initialised on the host from ``--random_seed`` (the same weights on
+    every device)."""
+    name = args.model_name
+    cls = model_class(name)
+    feature_names = (corpus.user_feature_names + corpus.item_feature_names
+                     + corpus.situation_feature_names
+                     + ["user_id", "item_id"])
+    layers = json.loads(args.layers)
+    dnn_layers = json.loads(args.dnn_layers)
+    att_layers = json.loads(args.att_layers)
+    clip_kwargs = dict(
+        feature_max=corpus.feature_max, dropout=args.dropout,
+        adjust_interest_weight=bool(args.adjust_interest_weight),
+        duration_mask=bool(args.duration_mask), use_frames=use_frames)
+    if name == "WideDeep":
+        model = cls(feature_names, corpus.feature_max,
+                    emb_size=args.emb_size, layers=layers,
+                    dropout=args.dropout)
+    elif name == "DIN":
+        model = cls(user_features=["user_id"] + corpus.user_feature_names,
+                    item_features=["item_id"] + corpus.item_feature_names,
+                    situation_features=corpus.situation_feature_names,
+                    feature_max=corpus.feature_max, emb_size=args.emb_size,
+                    att_layers=att_layers, dnn_layers=dnn_layers,
+                    add_historical_situations=bool(
+                        args.add_historical_situations),
+                    dropout=args.dropout)
+    elif name in ("ClipRec", "ClipWDRec"):
+        model = cls(emb_dim=args.emb_size, dnn_layers=dnn_layers,
+                    contrastive=args.contrastive, **clip_kwargs)
+    else:  # ClipDINRec
+        model = cls(has_duration="i_duration" in corpus.item_feature_names,
+                    emb_size=args.emb_size, att_layers=att_layers,
+                    dnn_layers=dnn_layers,
+                    norm_interest_type=args.norm_interest_type, **clip_kwargs)
+    return init_weights(model, torch.Generator().manual_seed(
+        args.random_seed))
+
+
+def _not_ported(args, task: str):
+    """The routes of the JAX CLI this slice does not port: raise naming the
+    queue item."""
+    what = None
+    if args.model_mode == "Impression":
+        what = "--model_mode Impression (rerankers)"
+    elif args.model_name in KG_MODELS:
+        what = f"the KG model {args.model_name}"
+    elif args.leave_rank:
+        what = "--leave_rank (LeaveRankingRunner)"
+    elif args.test_all and task == "ranking":
+        what = "--test_all (full-sort evaluation)"
+    if what:
+        raise NotImplementedError(f"{what} is not ported yet: {QUEUE_ITEM_4}")
+    model_class(args.model_name)  # raises for a model not ported
+
+
+def main(argv=None):
+    logging.basicConfig(level=logging.INFO,
+                        format="%(asctime)s %(levelname)s %(message)s")
+    args = build_parser().parse_args(argv)
+    task = "ctr" if args.model_mode == "CTR" else "ranking"
+    _not_ported(args, task)
+    device = resolve_device(args.device)
+    if args.use_mesh and device.type == "cuda":
+        n_dev = torch.cuda.device_count()
+        if (n_dev > 1 and args.batch_size % n_dev == 0
+                and args.eval_batch_size % n_dev == 0):
+            raise NotImplementedError(
+                f"--use_mesh over {n_dev} cards is not ported yet: "
+                f"{QUEUE_ITEM_4}; pass --use_mesh 0 for one card")
+
+    corpus = Corpus(args.path, args.dataset, sep=args.sep)
+    # dense -> raw id maps: logit-key lookup (SegRec/models/BaseModel.py:
+    # 132-136) and raw-id re-mapping of saved results (SegRec/main.py:148-187)
+    id2user = id2item = None
+    base = osp.join(args.path, args.dataset)
+    if osp.exists(osp.join(base, "id2user.json")):
+        with open(osp.join(base, "id2user.json")) as f:
+            id2user = json.load(f)
+        with open(osp.join(base, "id2item.json")) as f:
+            id2item = json.load(f)
+    clip_weights = None
+    if args.clip_weight_path:
+        clip_weights = ClipWeights(args.clip_weight_path,
+                                   id2user=id2user, id2item=id2item,
+                                   neg_weight_path=args.eval_neg_weight_path)
+    feat_table = store = None
+    if args.clip_feature_memmap and args.lineid_map:
+        store = FeatureStore.open(args.clip_feature_memmap, args.lineid_map)
+        feat_table = store.feat
+
+    include_history = args.model_name in SEQ_MODELS
+    builders = {phase: FeedBuilder(
+        corpus, phase, task=task, num_neg=args.num_neg,
+        history_max=args.history_max, include_history=include_history,
+        neg_history=(args.alpha_aux > 0 and include_history),
+        clip_weights=clip_weights, feature_store=store,
+        seed=args.random_seed) for phase in ("train", "dev", "test")}
+
+    model = build_model(args, corpus, use_frames=store is not None)
+    metrics = args.metric or ("AUC,F1_SCORE,LOG_LOSS,ACC"
+                              if task == "ctr" else "NDCG,HR")
+    cfg = RunnerConfig(
+        epoch=args.epoch, early_stop=args.early_stop, lr=args.lr, l2=args.l2,
+        batch_size=args.batch_size, eval_batch_size=args.eval_batch_size,
+        optimizer=args.optimizer,
+        topk=tuple(int(x) for x in args.topk.split(",")),
+        metrics=tuple(m.strip().upper() for m in metrics.split(",")),
+        main_metric=args.main_metric,
+        loss_n=args.loss_n or ("BCE" if task == "ctr" else "BPR"),
+        auxillary_loss_weight=args.auxillary_loss_weight,
+        seed=args.random_seed)
+    runner_cls = CTRRunner if task == "ctr" else RankingRunner
+    runner = runner_cls(model, cfg, feat_table=feat_table, device=device)
+
+    best_state, _ = runner.train(
+        builders,
+        init_path=args.model_path if (args.load or not args.train) else "",
+        do_train=bool(args.train))
+    if args.model_path and args.train:
+        # the port writes .pt: trained from the JAX runner's .msgpack, the
+        # state goes beside it
+        path = args.model_path
+        if path.endswith(".msgpack"):
+            path = path[:-len(".msgpack")] + ".pt"
+        runner.save_state(best_state, path)
+    dev_res = runner.evaluate(builders["dev"], best_state)
+    test_res = runner.evaluate(builders["test"], best_state)
+    logger.info("Dev  After Training: %s", dev_res)
+    logger.info("Test After Training: %s", test_res)
+    result = {"dev": dev_res, "test": test_res}
+    if args.save_final_results and task == "ctr":
+        os.makedirs(args.result_dir, exist_ok=True)
+        preds, labels, users = runner.predict(builders["test"])
+        wuauc = test_res.get("WUAUC", 0.0)
+        out_path = osp.join(
+            args.result_dir,
+            f"rec-{args.model_name}{args.model_mode}-test_wuauc={wuauc}.csv")
+        if id2user is not None:  # raw ids on save (SegRec/main.py:148-187)
+            users = np.asarray([id2user.get(str(u), u) for u in users],
+                               dtype=object)
+        write_csv({"user_id": users, "pCTR": preds, "label": labels},
+                  out_path)
+        logger.info("saved CTR predictions to %s", out_path)
+    if args.all_inference:
+        out_path = all_inference(args, task, runner, builders)
+        logger.info("saved inference scores to %s", out_path)
+    print(json.dumps(result, indent=2))
+    return result
+
+
+def all_inference(args, task: str, runner, builders) -> str:
+    """Per-candidate scores over train/dev/test for the logits converter
+    (ReChorus fork main.py:105-141): one row per (row, candidate), the CTR
+    probability or the ranking score."""
+    os.makedirs(args.result_dir, exist_ok=True)
+    cols = {"user_id": [], "time": [], "item_id": [], "predictions": []}
+    for phase in ("train", "dev", "test"):
+        b = builders[phase]
+        if phase == "train" and task == "ranking":
+            b.actions_before_epoch()
+        preds = runner.predict(b)
+        if task == "ctr":
+            preds = preds[0]
+        if preds.ndim == 1:
+            preds = preds[:, None]
+        items = b._candidates(np.arange(len(b)))
+        n, c = items.shape
+        cols["user_id"].append(np.repeat(b.user_id, c))
+        cols["time"].append(np.repeat(np.asarray(b.time, np.int64), c))
+        cols["item_id"].append(items.reshape(-1))
+        cols["predictions"].append(preds.reshape(-1).astype(np.float64))
+    out_path = osp.join(args.result_dir, f"inference_scores-{args.model_name}"
+                                         f"{args.model_mode}.csv")
+    return write_csv({k: np.concatenate(v) for k, v in cols.items()},
+                     out_path)
+
+
+if __name__ == "__main__":
+    main()

@@ -42,6 +42,7 @@ import torch
 from ..data.dataset import BatchIterator
 from ..data.feature_store import FeatureStore
 from ..data.reader import SeqReader
+from ..engine.optim import Adagrad
 from ..engine.train import run_training
 from ..models.watchtime import (D2QModel, TreeModel, playtime_percentiles,
                                 tpm_encoded_playtime, tpm_loss)
@@ -53,30 +54,6 @@ logger = logging.getLogger(__name__)
 
 # the eval list of the watch-time harness (JAX watchtime.py:230-237)
 OURS_EVAL_TYPES = "JaccardSim,LeaveMSE,LeaveCTR,LeaveCTR_view,TOP_K"
-
-
-class Adagrad(torch.optim.Optimizer):
-    """``optax.adagrad(lr)``: ``sum += g^2`` from ``initial_accumulator_value``;
-    ``p -= lr * g * rsqrt(sum + eps)``, no step where the sum is 0."""
-
-    def __init__(self, params, lr: float,
-                 initial_accumulator_value: float = 0.1, eps: float = 1e-7):
-        super().__init__(params, dict(lr=lr, eps=eps,
-                                      initial=initial_accumulator_value))
-
-    @torch.no_grad()
-    def step(self, closure=None):
-        for group in self.param_groups:
-            for p in group["params"]:
-                if p.grad is None:
-                    continue
-                st = self.state[p]
-                if "sum" not in st:
-                    st["sum"] = torch.full_like(p, group["initial"])
-                acc = st["sum"].add_(p.grad.square())
-                scale = torch.where(acc > 0, torch.rsqrt(acc + group["eps"]),
-                                    torch.zeros_like(acc))
-                p.sub_(group["lr"] * (scale * p.grad))
 
 
 def _bce(probs, labels, row_mask):

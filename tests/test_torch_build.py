@@ -4,9 +4,13 @@
 its kernels; a
 library's parts (``<name>.<part>.cu``) into their own library, and the
 name of a built library changes with any file it is compiled from or
-links. Nothing here runs nvcc."""
+links; each library takes its name as soon as it links, before a slower
+one has (a stand-in for nvcc that writes empty files). Nothing here runs
+nvcc."""
 
 import pathlib
+import threading
+import time
 
 import pytest
 
@@ -68,3 +72,35 @@ def test_library_name_follows_its_parts(tmp_path, monkeypatch):
     common.write_text(common.read_text() + "\n")
     assert build._lib_path(lib) != after
     assert pathlib.Path(build._lib_path(lib)).name.startswith(f"lib{lib}-")
+
+
+def test_each_library_appears_when_it_links(tmp_path, monkeypatch):
+    """A library finished early is under its final name while a slower
+    source still compiles; the build leaves every library and no
+    temporary file."""
+    # the first library in the build's order, the other the last
+    slow, early = build.SOURCES[0], build.SOURCES[-1]
+    fake = tmp_path / "nvcc"
+    fake.write_text(
+        "#!/bin/bash\n"
+        'out=""; prev=""\n'
+        'for a in "$@"; do [ "$prev" = "-o" ] && out="$a"; prev="$a"; done\n'
+        f'case "$*" in *"/{slow}.cu"*) sleep 3;; esac\n'
+        'touch "$out"\n')
+    fake.chmod(0o755)
+    monkeypatch.setattr(build, "_nvcc", lambda: str(fake))
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "out")
+    out = {}
+    thread = threading.Thread(target=lambda: out.update(build.build_all()))
+    thread.start()
+    early = build._lib_path(early)
+    deadline = time.time() + 60
+    while not early.exists() and time.time() < deadline:
+        time.sleep(0.05)
+    assert early.exists() and thread.is_alive()
+    assert not build._lib_path(slow).exists()
+    thread.join(60)
+    assert sorted(out) == sorted(build.SOURCES)
+    assert all(p.exists() for p in out.values())
+    assert sorted(f.name for f in (tmp_path / "out").iterdir()) == \
+        sorted(p.name for p in out.values())

@@ -13,8 +13,17 @@
   scalars, empty arrays) decodes as ``flax.serialization.msgpack_restore``
   decodes it; leaves past ``MAX_CHUNK_SIZE`` (lowered here) come back
   whole;
-* a directory with both kinds of checkpoint raises, naming both; resuming
-  training from a ``.msgpack`` checkpoint raises.
+* a directory with both kinds of checkpoint raises, naming both, unless
+  its ckpt-latest.pt continues its ckpt-latest.msgpack; an optimizer state
+  that is not optax's chain(clip, adamw) raises;
+* resuming training: a JAX engine takes 3 steps and its CheckPointer
+  writes ckpt-latest.msgpack; the port's engine resumes from it (params
+  and AdamW state) and takes 3 more steps in lock-step with the JAX
+  engine's own next 3, losses within 3e-4 relative, in fp32 and under
+  bf16 compute (the bf16 PE tables and their moments widened to fp32);
+  ``run_training(load=True)`` resumes from such a directory and writes
+  ``.pt`` checkpoints beside it, resumes a second time from those, and
+  ``export_logits --work_dir`` serves the directory as the ``.pt`` alone.
 """
 
 import json
@@ -234,8 +243,137 @@ def test_both_kinds_raise(tmp_path):
 
 
 def test_resuming_training_from_msgpack_raises(tmp_path):
+    """A checkpoint without optax's chain(clip, adamw) state cannot resume
+    training."""
     (tmp_path / "ckpt-latest.msgpack").write_bytes(fser.msgpack_serialize(
         {"state": {"params": {}}, "num_epochs": 1, "metrics": {}}))
     ckpt = CheckPointer("main_metric", str(tmp_path), mode="max")
-    with pytest.raises(NotImplementedError, match="optax"):
+    with pytest.raises(ValueError, match="optax"):
         ckpt.load_checkpoint({"params": {}, "opt_state": {}}, "latest")
+
+
+RESUME = dict(MODEL, dropout=0.0, remat=False, train_batch_size=16,
+              loss_type="interestBPR,focal,interestCE,hazard",
+              fused_attention=True, fuse_qkv=True)
+RESUME_RTOL = 3e-4   # test_torch_train.py's lock-step tolerance
+
+
+def _resume_batches(csv_path, n):
+    reader = JaxReader.from_single_csv(csv_path, **READER)
+    it = JaxIterator(reader, reader.tables["train"], 16, shuffle=True,
+                     seed=3, prefetch_size=0)
+    return reader, [b for _, b in zip(range(n), it)]
+
+
+def _port_resume(tmp_path, cfg, reader):
+    """The port's engine resumed from tmp_path's ckpt-latest.msgpack."""
+    peng = InterestEngine(InterestConfig(**cfg), reader.n_users,
+                          reader.n_items, device="cpu")
+    ckpt = CheckPointer("main_metric", str(tmp_path), mode="max")
+    assert ckpt.has_latest()
+    loaded = ckpt.load_checkpoint(peng.init_state(), "latest")
+    assert loaded["num_epochs"] == 2 and loaded["metrics"] == \
+        {"main_metric": 0.5}
+    opt = loaded["state"]["opt_state"]["state"]
+    assert len(opt) == len(peng.params) and all(
+        float(s["step"]) == 3 and s["exp_avg"].dtype == torch.float32
+        for s in opt.values())
+    return peng, loaded["state"]
+
+
+def _next_losses(jeng, jstate, peng, pstate, batches):
+    key = jax.random.PRNGKey(0)
+    jl, pl = [], []
+    for b in batches:
+        jstate, jld = jeng.train_step(jstate, key, b)
+        pstate, pld = peng.train_step(pstate, b)
+        jl.append(float(jld["loss"]))
+        pl.append(float(pld["loss"]))
+    return jl, pl
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_resume_jax_run_lockstep(csv_path, tmp_path, dtype):
+    """bfloat16: the JAX run in bf16 writes bf16 PE tables and moments.
+    Both sides go on from it in fp32, the JAX side from its state widened
+    as the port widens it (within 3e-4); and both in bf16 (within 1e-2:
+    the frameworks round bf16 at other points, 1.8e-3 measured)."""
+    reader, batches = _resume_batches(csv_path, 6)
+    cfg = dict(RESUME, compute_dtype=dtype)
+    jeng = JaxEngine(JaxConfig(**cfg), reader.n_users, reader.n_items)
+    jstate = jeng.init_state(jax.random.PRNGKey(3), batches[0])
+    for b in batches[:3]:
+        jstate, _ = jeng.train_step(jstate, jax.random.PRNGKey(0), b)
+    JaxCheckPointer("main_metric", str(tmp_path), mode="max") \
+        .save_checkpoint(jstate, 2, {"main_metric": 0.5})
+    saved = jax.tree.map(np.asarray, jstate)  # train_step donates jstate
+    peng, pstate = _port_resume(tmp_path, cfg, reader)
+    jl, pl = _next_losses(jeng, jstate, peng, pstate, batches[3:])
+    np.testing.assert_allclose(
+        pl, jl, rtol=RESUME_RTOL if dtype == "float32" else 1e-2)
+    cfg32 = dict(cfg, compute_dtype="float32")
+    if dtype == "bfloat16":
+        with open(tmp_path / "ckpt-latest.msgpack", "rb") as f:
+            tree = msgpack_restore(f.read())["state"]
+        pe = [k for k, v in _leaves(tree["opt_state"])
+              if isinstance(v, torch.Tensor) and v.dtype == torch.bfloat16]
+        assert pe and all(k.endswith("_pe") for k in pe), pe
+        jeng = JaxEngine(JaxConfig(**cfg32), reader.n_users, reader.n_items)
+        wide = jax.tree.map(lambda x: jnp.asarray(
+            x, jnp.float32 if x.dtype == jnp.bfloat16 else x.dtype), saved)
+        peng, pstate = _port_resume(tmp_path, cfg32, reader)
+        jl, pl = _next_losses(jeng, wide, peng, pstate, batches[3:])
+        np.testing.assert_allclose(pl, jl, rtol=RESUME_RTOL)
+    # the restored moments matter: a fresh AdamW state drifts off
+    fresh = InterestEngine(InterestConfig(**cfg32), reader.n_users,
+                           reader.n_items, device="cpu")
+    fstate = {"params": CheckPointer("main_metric", str(tmp_path))
+              .load_checkpoint({"params": fresh.params})["state"]["params"],
+              "opt_state": fresh.init_state()["opt_state"]}
+    fl = [float(fresh.train_step(fstate, b)[1]["loss"])
+          for b in batches[3:]]
+    assert max(abs(a / b - 1) for a, b in zip(fl[1:], jl[1:])) > \
+        10 * RESUME_RTOL
+
+
+def test_run_training_resumes_from_msgpack(csv_path, tmp_path):
+    """skip_train --load 1 over the JAX run's work dir: run_training
+    resumes at its epoch and writes the port's checkpoints beside it."""
+    from segmminterest_tpu_torch.engine.train import run_training
+    reader, batches = _resume_batches(csv_path, 1)
+    cfg = dict(RESUME, epochs=2, debug=True, early_stop=0, valid_step=2)
+    jeng = JaxEngine(JaxConfig(**cfg), reader.n_users, reader.n_items)
+    jstate = jeng.init_state(jax.random.PRNGKey(3), batches[0])
+    jstate, _ = jeng.train_step(jstate, jax.random.PRNGKey(0), batches[0])
+    JaxCheckPointer("main_metric", str(tmp_path), mode="max") \
+        .save_checkpoint(jstate, 1, {"main_metric": 0.5})
+    res = run_training(InterestConfig(**cfg, load=True),
+                       SeqReader.from_single_csv(csv_path, **READER),
+                       work_dir=str(tmp_path), device="cpu")
+    assert res["steps"] == 4  # one epoch of --debug's 4 steps, not two
+    names = set(os.listdir(tmp_path))
+    assert {"ckpt-latest.msgpack", "ckpt-latest.pt"} <= names
+    # preempted again: the second resume reads the .pt, which continues
+    # the .msgpack, at the epoch of its save (1, as the JAX engine counts)
+    # and runs epochs 1 and 2
+    cfg["epochs"] = 3
+    res = run_training(InterestConfig(**cfg, load=True),
+                       SeqReader.from_single_csv(csv_path, **READER),
+                       work_dir=str(tmp_path), device="cpu")
+    assert res["steps"] == 8
+    assert torch.load(tmp_path / "ckpt-latest.pt",
+                      weights_only=True)["num_epochs"] == 2
+    # served as the port's own checkpoints, which it is
+    serve = ["--loss_type", cfg["loss_type"], "--ckpt_mode", "latest"]
+    got = _served(csv_path, tmp_path, tmp_path / "out", serve)
+    alone = tmp_path / "pt_only"
+    alone.mkdir()
+    for n in os.listdir(tmp_path):
+        if n.endswith(".pt"):
+            os.link(tmp_path / n, alone / n)
+    assert got == _served(csv_path, alone, tmp_path / "out2", serve)
+    # a .msgpack that is not the one the run continued: two runs' files
+    JaxCheckPointer("main_metric", str(tmp_path), mode="max") \
+        .save_checkpoint(jstate, 2, {"main_metric": 0.5})
+    with pytest.raises(ValueError, match="does not continue"):
+        _served(csv_path, tmp_path, tmp_path / "out3", serve)

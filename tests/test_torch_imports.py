@@ -32,3 +32,15 @@ def test_no_forbidden_imports(path):
     bad = [m for m in _imports(path)
            if m.split(".")[0] in FORBIDDEN]
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_segrec_modules_guarded():
+    """SegRec's modules (and the optimizers they share) are among the
+    guarded files."""
+    names = {p.relative_to(ROOT).as_posix() for p in FILES}
+    for m in ("segrec/__init__", "segrec/corpus", "segrec/feeds",
+              "segrec/layers", "segrec/runner", "segrec/main",
+              "segrec/models/__init__", "segrec/models/cliprec",
+              "segrec/models/din", "segrec/models/widedeep",
+              "engine/optim"):
+        assert f"segmminterest_tpu_torch/{m}.py" in names, m
