@@ -9,8 +9,8 @@ Phases, each of which fails the run (non-zero exit) on any error:
                  (seconds per library); the libraries of K1f, K1b, K3f and
                  K3b must hold TF32 HMMA instructions, K2f's, K2b's, K4f's,
                  K4b's, K5b's and K6b's BF16 ones (cuobjdump -sass up to
-                 the first, each library as soon as it links, all read
-                 before the other phases start)
+                 the first, each library as soon as it links; the last
+                 ones finish beside phase kernels at the lowest priority)
   kernels        each kernel (K1f, K1b, K2f, K2b, K7b, K3f, K3b, K5f, K5b,
                  K4f, K4b, K6f, K6b) against its plain PyTorch version on
                  the card, at the main paths' stream shapes, fp32 and bf16,
@@ -77,7 +77,9 @@ Phases, each of which fails the run (non-zero exit) on any error:
                  batches served at B=1024; one 32-row fp32 step against the
                  CPU; skip_train's CLI under the switch (here), then
                  export_logits --serving 1 on its checkpoint in a process
-                 of its own with SEGMM_ATTN_V2=1 in its environment
+                 of its own with SEGMM_ATTN_V2=1 in its environment (it
+                 runs on beside phases wide and train_cli, which time
+                 nothing; checked at the end of train_cli)
   wide           one training step per route at 4 heads of 128 (skip_train
                  --nhead 4 at d_model 512, B=256): the default config's K1
                  and CrossAtt's K3 (fp32), the production config's K2, K6,
@@ -107,17 +109,31 @@ Phases, each of which fails the run (non-zero exit) on any error:
   segrec         SegRec fed by Task 1: build_interactions and
                  build_segrec_data over the synthetic CSV, export_logits
                  --serving 1 of train_cli's checkpoint over the three
-                 splits (20 K2f a batch), segrec.main (CTR, B=512) for
-                 ClipWDRec and ClipDINRec, 2 epochs each, in two processes
-                 side by side (finite AUC, LOG_LOSS, WUAUC); both models'
-                 steps and an evaluation batch at B=512 over a
-                 3,920,483-row fp32 table (ms, interactions/s, peak
-                 memory); a 32-row fp32 step of ClipWDRec, ClipDINRec,
-                 WideDeep and DIN card against CPU (interest weights of
-                 ones), of ClipWDRec and ClipDINRec under Task 1's logits
-                 and of ClipDINRec under them softmax-normalised (loss,
-                 gradient norm, evaluation scores: 1e-6; ClipDINRec
-                 1e-5), each beside the CPU's fp32 step against fp64
+                 splits (20 K2f a batch), segrec.main side by side in six
+                 processes: ClipWDRec, ClipDINRec, DIEN --alpha_aux 0.1 and
+                 ClipCANRec (CTR, B=512, 1 epoch; finite AUC, LOG_LOSS,
+                 WUAUC), ClipWDRec and ClipDINRec --model_mode TopK (one
+                 epoch, evaluation batches of 128 rows x 100 candidates;
+                 finite HR and NDCG, peak memory); meanwhile a 32-row fp32
+                 step card against CPU of ClipWDRec, ClipDINRec, WideDeep
+                 and DIN (interest weights of ones), of ClipWDRec and
+                 ClipDINRec under Task 1's logits and of ClipDINRec under
+                 them softmax-normalised (loss, gradient norm, evaluation
+                 scores: 1e-6; ClipDINRec 1e-5), and of each context model
+                 of segrec_models (1e-5, or 4x the CPU's step's own
+                 fp32-vs-fp64 where that is more: DCNv2's crosses), each
+                 beside the CPU's fp32 step against fp64; then ClipWDRec's
+                 and ClipDINRec's steps and an evaluation batch at B=512
+                 over a 3,920,483-row fp32 table (ms, interactions/s, peak
+                 memory)
+  segrec_models  SegRec's context models over phase segrec's table: FM,
+                 DeepFM, AFM, xDeepFM, SAM, DCN, DCNv2, AutoInt, FinalMLP,
+                 AdaGIN, DIEN, CAN, SDIM, ETA and the six Clip variants at
+                 segrec.main's defaults (CTR, emb 64, B=512), DIEN and CAN
+                 again with --alpha_aux 0.1: 10 steps timed after 2 and an
+                 evaluation batch (ms, interactions/s, peak memory);
+                 ClipDINRec's ranking evaluation at --eval_batch_size 512,
+                 whether it fits
 The last line is {"ok": true, "device": {...}}; before it come the card's
 name and power limit (nvidia-smi) and one JSON line describing the kernels.
 It needs no network and writes only under build/ (the kernels in
@@ -191,7 +207,7 @@ RESULT = {"kernels": {}, "launches": {}}
 ALL_PHASES = ("build", "kernels", "serving", "default", "train",
               "train_default", "train_bf16", "ablation", "fused_variants",
               "attn_v2", "wide", "train_cli", "watchtime", "msgpack",
-              "segrec")
+              "segrec", "segrec_models")
 
 
 def log(*a):
@@ -224,10 +240,12 @@ def _check(name, got, want, dtype):
 
 
 # ---------------------------------------------------------------------------
-def phase_build():
+def phase_build(ctx):
     """Build every library; each tensor-core library is disassembled as
     soon as it links, during the build's tail, when the last long compiles
-    leave most cores idle."""
+    leave most cores idle. The last ones' disassembly goes on beside phase
+    kernels, at the lowest priority; its check fails the run where
+    _join_background reads it."""
     from concurrent.futures import ThreadPoolExecutor
 
     from segmminterest_tpu_torch.core import build
@@ -235,6 +253,18 @@ def phase_build():
     cuobjdump = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
     libs = {name: build._lib_path(name) for name in SASS_LIBS}
     sass = {}
+
+    def stop():
+        for proc, _ in sass.values():
+            if proc.poll() is None:
+                os.killpg(proc.pid, 9)
+                proc.wait()
+
+    def check():
+        try:
+            _check_sass(sass)
+        finally:
+            stop()
     try:
         with ThreadPoolExecutor(1) as pool:
             built = pool.submit(build.build_all)
@@ -244,12 +274,10 @@ def phase_build():
             paths = built.result()
         log(f"build: {time.perf_counter() - t0:.1f} s")
         _start_sass(cuobjdump, libs, sass)
-        _check_sass(sass)
-    finally:
-        for proc, _ in sass.values():
-            if proc.poll() is None:
-                os.killpg(proc.pid, 9)
-                proc.wait()
+    except BaseException:
+        stop()
+        raise
+    _in_background(ctx, "disassembly", check)
     for name, out in build.build_log.items():
         for line in out.splitlines():
             if "registers" in line or "spill" in line:
@@ -257,9 +285,11 @@ def phase_build():
             elif "Compiling entry function" in line and name in MMA_LIBS:
                 log(f"  ptxas {name}: {line.split('function', 1)[1].strip()}")
     for name, p in paths.items():
+        parts = "; ".join(f"{f} {t:.1f}" for f, t in
+                          build.part_seconds.get(name, {}).items())
         log(f"  built {os.path.relpath(p, ROOT)} in "
-            f"{build.build_seconds.get(name, 0.0):.1f} s")
-    log(f"build and disassembly: {time.perf_counter() - t0:.1f} s")
+            f"{build.build_seconds.get(name, 0.0):.1f} s (each file done "
+            f"at, s: {parts})")
 
 
 # the tensor-core bodies: their libraries must hold HMMA (mma.sync)
@@ -295,7 +325,8 @@ def _check_sass(sass):
                                  f"its library ({err[-400:]})")
         log(f"  {name}: {kind} HMMA instructions (cuobjdump -sass; the "
             f"first: {first.split(';')[0].split('*/')[-1].strip()})")
-    log(f"disassembly: {time.perf_counter() - t0:.1f} s after the build")
+    log(f"disassembly: {time.perf_counter() - t0:.1f} s after the build, "
+        "beside phase kernels")
 
 
 def _masks(g, B, L, dev, allow_empty=True):
@@ -3099,7 +3130,8 @@ def phase_attn_v2(ctx):
     fp32 step on the card against the CPU; then skip_train's CLI under the
     switch in this process (the flag SEGMM_ATTN_V2=1 sets at import) and
     export_logits --serving 1 on the checkpoint it wrote in a process of
-    its own, SEGMM_ATTN_V2=1 in its environment."""
+    its own, SEGMM_ATTN_V2=1 in its environment, which runs on beside
+    phases wide and train_cli (checked at the end of train_cli)."""
     from segmminterest_tpu_torch.core import attention as A
     from segmminterest_tpu_torch.data.dataset import BatchIterator
     from segmminterest_tpu_torch.engine.train import InterestEngine
@@ -3220,23 +3252,50 @@ def phase_attn_v2(ctx):
         f"s): {steps} steps, test HR@5 {res['test_metrics']['HR@5']:.4f}; "
         f"launches {launches}")
     out_dir = os.path.join(WORK, "trained_v2_logits")
-    _, err = _subprocess_json(
-        ["segmminterest_tpu_torch.tasks.export_logits"] + common + [
-            "--serving", "1", "--splits", "test", "--work_dir",
-            res["work_dir"], "--out_dir", out_dir], env,
-        "export_logits (v2)")
-    launches = _logged_launches(err, "export_logits (v2)")
-    with open(os.path.join(out_dir, "interest_logits.json")) as f:
-        served = json.load(f)
     n_test = len(ctx["reader"].tables["test"])
-    if len(served) != n_test or not all(
-            len(v) == 40 and np.isfinite(v).all() for v in served.values()) \
-            or not launches.get(K6_KEYS[0]) or \
-            any(k in launches for k in K2_KEYS):
-        raise AssertionError(f"export_logits SEGMM_ATTN_V2=1: {len(served)} "
-                             f"rows of {n_test}, launches {launches}")
-    log(f"  export_logits --serving 1, SEGMM_ATTN_V2=1: {len(served)} rows of "
-        f"40 finite logits; launches {launches}")
+
+    def export():
+        _, err = _subprocess_json(
+            ["segmminterest_tpu_torch.tasks.export_logits"] + common + [
+                "--serving", "1", "--splits", "test", "--work_dir",
+                res["work_dir"], "--out_dir", out_dir], env,
+            "export_logits (v2)")
+        launches = _logged_launches(err, "export_logits (v2)")
+        with open(os.path.join(out_dir, "interest_logits.json")) as f:
+            served = json.load(f)
+        if len(served) != n_test or not all(
+                len(v) == 40 and np.isfinite(v).all()
+                for v in served.values()) \
+                or not launches.get(K6_KEYS[0]) or \
+                any(k in launches for k in K2_KEYS):
+            raise AssertionError(f"export_logits SEGMM_ATTN_V2=1: "
+                                 f"{len(served)} rows of {n_test}, launches "
+                                 f"{launches}")
+        log(f"  export_logits --serving 1, SEGMM_ATTN_V2=1: {len(served)} "
+            f"rows of 40 finite logits; launches {launches}")
+    # its own process, beside phases wide and train_cli (neither times
+    # anything)
+    _in_background(ctx, "export_logits (v2)", export)
+
+
+def _in_background(ctx, what, fn):
+    """Run fn() in a thread beside the next, untimed phases; its failure
+    fails the run where _join_background reads it (at the end of phase
+    train_cli, or of the run)."""
+    from concurrent.futures import ThreadPoolExecutor
+    pool = ThreadPoolExecutor(1)
+    ctx.setdefault("background", []).append((what, pool.submit(fn), pool))
+
+
+def _join_background(ctx):
+    for what, done, pool in ctx.pop("background", []):
+        t0 = time.perf_counter()
+        try:
+            done.result()
+        finally:
+            pool.shutdown()
+        log(f"  {what}: done in the background ({time.perf_counter() - t0:.1f}"
+            " s waited for it)")
 
 
 # skip_train --nhead 4 (4 heads of 128 at d_model 512): one training step
@@ -3409,6 +3468,7 @@ def phase_train_cli(ctx):
     log(f"  export_logits --serving 1 --fuse_layer 1: {len(served)} rows of "
         f"40 finite logits; launches "
         f"{ {k: v for k, v in A.LAUNCHES.items() if v} }")
+    _join_background(ctx)
 
 
 # ---------------------------------------------------------------------------
@@ -3910,7 +3970,7 @@ def _resume_losses(ctx, work_dir, steps):
 # ---------------------------------------------------------------------------
 # SegRec (Task 2) fed by Task 1's logits
 
-SEGREC_EPOCHS = 2       # epochs of each segrec.main run
+SEGREC_EPOCHS = 1       # epochs of each segrec.main run
 SEGREC_B = 512          # segrec.main's --batch_size default
 SEGREC_TIMED = 10       # full-width steps timed per model
 SEGREC_MODELS = ("ClipWDRec", "ClipDINRec")
@@ -3924,6 +3984,35 @@ SEGREC_RTOL = 1e-6      # card against CPU, the 32-row steps
 # fp64 on the CPU); two fp32 runs may differ by twice that: held to 1e-5
 SEGREC_RTOL_CLIPDIN = 1e-5
 SEGREC_TRIES = 20       # batches tried for a 32-row step with a gradient
+# the side-by-side segrec.main runs: (model, flags); the CTR runs go
+# SEGREC_EPOCHS epochs, the ranking legs (--model_mode TopK over the SegMM
+# split, 100 candidates a row, at SEGREC_RANK_EVAL_B rows an evaluation
+# batch) one
+SEGREC_RANK_EVAL_B = 128
+SEGREC_CLI = (("ClipWDRec", ()), ("ClipDINRec", ()),
+              ("DIEN", ("--alpha_aux", "0.1")), ("ClipCANRec", ()),
+              ("ClipWDRec", ("--model_mode", "TopK")),
+              ("ClipDINRec", ("--model_mode", "TopK")))
+# the other context models at segrec.main's defaults, and DIEN and CAN
+# once more with the auxiliary loss on (segrec.main passes CAN no
+# --alpha_aux, as the JAX CLI does: its run draws the history negatives
+# and trains CAN as without)
+SEGREC_CONTEXT = ("FM", "DeepFM", "AFM", "xDeepFM", "SAM", "DCN", "DCNv2",
+                  "AutoInt", "FinalMLP", "AdaGIN", "DIEN", "CAN", "SDIM",
+                  "ETA", "ClipDCNv2Rec", "ClipAutoIntRec", "ClipFinalMLPRec",
+                  "ClipAdaGINRec", "ClipDIENRec", "ClipCANRec")
+SEGREC_CONTEXT_TIMED = tuple((n, ()) for n in SEGREC_CONTEXT) + (
+    ("DIEN", ("--alpha_aux", "0.1")), ("CAN", ("--alpha_aux", "0.1")))
+# the context models' 32-row steps, card against CPU: 1e-5 relative, or
+# SEGREC_COND times what fp32 rounding alone moves the CPU's step from
+# fp64 (the most of its loss, gradient norm and scores) where that is
+# more. DCNv2's and ClipDCNv2Rec's six crosses on N(0, 1) weights (the JAX
+# model's init) amplify rounding: on the CPU their fp32 gradient norms sit
+# 5.1e-4 and 4.3e-3 from fp64, their scores 1.8e-4 and 2.8e-4, and the
+# card's loss 2.1e-5 from the CPU's where the CPU's sits 1.3e-6 from fp64;
+# the other models' within 2.3e-6
+SEGREC_RTOL_CONTEXT = 1e-5
+SEGREC_COND = 4
 
 
 def _segrec_lineid(corpus, rows, n_lines=None):
@@ -3955,11 +4044,15 @@ def _segrec_model(name, corpus, frames, seed=0, extra=()):
     return M.build_model(args, corpus, use_frames=frames)
 
 
-def _segrec_builder(corpus, name, store, clip, phase="train"):
+def _segrec_builder(corpus, name, store, clip, phase="train", extra=()):
+    """segrec.main's CTR builder of `phase` for model `name` under the
+    flags `extra` (--alpha_aux draws DIEN's history negatives)."""
     from segmminterest_tpu_torch.segrec import main as M
     from segmminterest_tpu_torch.segrec.feeds import FeedBuilder
-    return FeedBuilder(corpus, phase, task="ctr",
-                       include_history=name in M.SEQ_MODELS,
+    args = M.build_parser().parse_args(["--model_name", name, *extra])
+    hist = name in M.SEQ_MODELS
+    return FeedBuilder(corpus, phase, task="ctr", include_history=hist,
+                       neg_history=args.alpha_aux > 0 and hist,
                        clip_weights=clip, feature_store=store, seed=0)
 
 
@@ -3967,17 +4060,15 @@ def phase_segrec(ctx):
     """SegRec fed by Task 1 on the card: (a) build_interactions and
     build_segrec_data over the synthetic CSV, export_logits --serving 1 of
     train_cli's flagship checkpoint over the three splits (K2f's launches
-    counted), segrec.main at its defaults (CTR, B=512) for ClipWDRec and
-    then ClipDINRec over those logits and a segment table, each in a
-    process of its own; (b) both models' training steps and an evaluation
-    batch at B=512 over a 3,920,483-row fp32 table on the card: ms per
-    step, interactions/s, peak device memory; (c) one 32-row fp32 step of
-    ClipWDRec, ClipDINRec, WideDeep and DIN on the card and on the CPU
-    (interest weights of ones), of ClipWDRec and ClipDINRec under Task 1's
-    logits and of ClipDINRec under them softmax-normalised: the loss, the
-    gradient norm and the evaluation scores within 1e-6 relative
-    (ClipDINRec 1e-5: SEGREC_RTOL_CLIPDIN), each beside the CPU's fp32 step
-    against fp64 (_segrec_steps)."""
+    counted), then segrec.main over those logits and a segment table in
+    six processes side by side (SEGREC_CLI: ClipWDRec, ClipDINRec, DIEN
+    --alpha_aux 0.1 and ClipCANRec in CTR mode, ClipWDRec and ClipDINRec
+    --model_mode TopK: finite metrics, each process's peak device memory);
+    (c) meanwhile, untimed, one 32-row fp32 step of each case of
+    _segrec_checks on the card and on the CPU; (b) then ClipWDRec's and
+    ClipDINRec's training steps and an evaluation batch at B=512 over a
+    3,920,483-row fp32 table on the card: ms per step, interactions/s,
+    peak device memory. The table stays for phase segrec_models."""
     from concurrent.futures import ThreadPoolExecutor
 
     from segmminterest_tpu_torch.core import attention as A
@@ -4030,23 +4121,45 @@ def phase_segrec(ctx):
         json.dump(seg_map, f)
     env = dict(os.environ)
 
-    def run_main(name):
-        return _subprocess_json(
-            ["segmminterest_tpu_torch.segrec.main", "--model_name", name,
-             "--path", sdir, "--dataset", "SegMM_CTR",
-             "--epoch", str(SEGREC_EPOCHS), "--clip_weight_path",
-             logits_path, "--clip_feature_memmap", memmap, "--lineid_map",
-             seg_lineid], env, f"segrec.main --model_name {name}")[0]
-    # side by side: neither is timed
-    with ThreadPoolExecutor(len(SEGREC_MODELS)) as pool:
-        results = list(pool.map(run_main, SEGREC_MODELS))
-    for name, res in zip(SEGREC_MODELS, results):
-        got = {s: {k: res[s][k] for k in ("AUC", "LOG_LOSS", "WUAUC")}
-               for s in ("dev", "test")}
+    def run_main(case):
+        name, extra = case
+        ranking = "--model_mode" in extra
+        argv = ["segmminterest_tpu_torch.segrec.main", "--model_name", name,
+                "--path", sdir, "--clip_weight_path", logits_path,
+                "--clip_feature_memmap", memmap, "--lineid_map", seg_lineid,
+                *extra]
+        argv += (["--dataset", "SegMM", "--epoch", "1",
+                  "--eval_batch_size", str(SEGREC_RANK_EVAL_B)] if ranking
+                 else ["--dataset", "SegMM_CTR",
+                       "--epoch", str(SEGREC_EPOCHS)])
+        return _subprocess_json(argv, env, "segrec.main " + " ".join(
+            [name, *extra]))
+    # side by side, and beside the untimed 32-row checks (c): none is timed
+    with ThreadPoolExecutor(len(SEGREC_CLI)) as pool:
+        running = [pool.submit(run_main, case) for case in SEGREC_CLI]
+        id2 = [json.load(open(os.path.join(sdir, "SegMM_CTR", f)))
+               for f in ("id2user.json", "id2item.json")]
+        clip = ClipWeights(logits_path, *id2)
+        _segrec_checks(corpus, clip)
+        results = [f.result() for f in running]
+    for (name, extra), (res, err) in zip(SEGREC_CLI, results):
+        ranking = "--model_mode" in extra
+        keys = (("HR@5", "NDCG@5", "HR@50", "NDCG@50") if ranking
+                else ("AUC", "LOG_LOSS", "WUAUC"))
+        got = {s: {k: res[s][k] for k in keys} for s in ("dev", "test")}
         if not _finite(got):
-            raise AssertionError(f"segrec.main {name}: metrics {got}")
-        log(f"  segrec.main {name} ({SEGREC_EPOCHS} epochs, B={SEGREC_B}): "
-            f"dev {got['dev']}, test {got['test']}")
+            raise AssertionError(f"segrec.main {name} {extra}: metrics "
+                                 f"{got}")
+        peak = [ln.split("peak device memory: ", 1)[1] for ln in
+                err.splitlines() if "peak device memory: " in ln]
+        what = (f"TopK, 1 epoch, B={SEGREC_B}, evaluation batches of "
+                f"{SEGREC_RANK_EVAL_B} rows x 100 candidates" if ranking
+                else f"CTR, {SEGREC_EPOCHS} epochs, B={SEGREC_B}")
+        log(f"  segrec.main {' '.join([name, *extra])} ({what}): dev "
+            f"{got['dev']}, test {got['test']}; peak device memory "
+            f"{peak[-1] if peak else 'not logged'}")
+    ctx["segrec"] = dict(sdir=sdir, corpus=corpus, logits=logits_path,
+                         lineid=seg_lineid)
 
     # (b) full width: the fp32 table of 3,920,483 rows on the card
     dev = torch.device("cuda")
@@ -4059,9 +4172,6 @@ def phase_segrec(ctx):
     stub = np.broadcast_to(np.zeros((1, FEAT_DIM), np.float32),
                            (PRODUCTION_ROWS, FEAT_DIM))
     store = FeatureStore(stub, full_map)
-    id2 = [json.load(open(os.path.join(sdir, "SegMM_CTR", f)))
-           for f in ("id2user.json", "id2item.json")]
-    clip = ClipWeights(logits_path, *id2)
     covered = float(np.mean([k in clip.table for k in (
         clip._key(u, i, t) for u, i, t in zip(
             corpus.data_df["train"]["user_id"],
@@ -4101,12 +4211,21 @@ def phase_segrec(ctx):
             f"memory {peak / 2**30:.2f} GiB ({(peak - base) / 2**30:.2f} "
             f"GiB above the {base / 2**30:.2f} GiB held before)")
         del r
+    # phase segrec_models steps the context models over the same table
+    ctx["segrec"].update(table=table, store=store, clip=clip)
     del table
-    torch.cuda.empty_cache()
 
-    # (c) one 32-row fp32 step, card against the CPU
+
+def _segrec_checks(corpus, clip):
+    """Phase segrec's (c): one 32-row fp32 step of each case of
+    _segrec_steps on the card and on the CPU: ClipWDRec, ClipDINRec,
+    WideDeep and DIN (1e-6; ClipDINRec 1e-5), then each context model of
+    SEGREC_CONTEXT with interest weights of ones (SEGREC_RTOL_CONTEXT, or
+    SEGREC_COND times the CPU's step's own fp32 rounding where that is
+    more); each beside the CPU's fp32 step against fp64."""
+    dev = torch.device("cuda")
     for name, what, tried, card, cpu, fp64 in _segrec_steps(
-            corpus, clip, torch.device("cuda")):
+            corpus, clip, dev):
         err, rounding = _rel_errs(card, cpu), _rel_errs(cpu, fp64)
         if max(err) > (SEGREC_RTOL_CLIPDIN if name == "ClipDINRec"
                        else SEGREC_RTOL):
@@ -4118,6 +4237,21 @@ def phase_segrec(ctx):
             f"gradient norm {card[1]:.6f} ({err[1]:.1e}), evaluation "
             f"scores {err[2]:.1e}; the CPU's against fp64: "
             + ", ".join(f"{e:.1e}" for e in rounding))
+    for name, what, tried, card, cpu, fp64 in _segrec_steps(
+            corpus, None, dev,
+            cases=[(n, None, ()) for n in SEGREC_CONTEXT]):
+        err, rounding = _rel_errs(card, cpu), _rel_errs(cpu, fp64)
+        limit = max(SEGREC_RTOL_CONTEXT, SEGREC_COND * max(rounding))
+        if max(err) > limit:
+            raise AssertionError(f"{name} 32-row step ({what}): card "
+                                 f"{card[:2]}, CPU {cpu[:2]}, relative "
+                                 f"errors {err} against {limit}")
+        log(f"  {name} 32-row fp32 step ({what}, batch {tried}), card "
+            f"against the CPU: loss {card[0]:.6f} ({err[0]:.1e} relative), "
+            f"gradient norm {card[1]:.6f} ({err[1]:.1e}), evaluation "
+            f"scores {err[2]:.1e}; the CPU's against fp64: "
+            + ", ".join(f"{e:.1e}" for e in rounding)
+            + f"; limit {limit:.1e}")
 
 
 def _rel_errs(got, want):
@@ -4131,7 +4265,7 @@ def _rel_errs(got, want):
                   if scale else float(np.abs(got[2]).max() != 0)]
 
 
-def _segrec_steps(corpus, clip, dev):
+def _segrec_steps(corpus, clip, dev, cases=None):
     """One 32-row CTR step of each case on `dev`, on the CPU and on the CPU
     in fp64, from the same weights and batch: (name, what, batch number,
     then (loss, gradient norm, evaluation scores before the step) on dev,
@@ -4158,6 +4292,9 @@ def _segrec_steps(corpus, clip, dev):
                       RunnerConfig(batch_size=32),
                       feat_table=small.to(dtype) if frames else None,
                       device=where)
+        # AdaGIN's Gumbel noise drawn on the host from one seed: the card
+        # and the CPU draw the same (no dropout here)
+        r.generator = torch.Generator()
         scores = r.eval_scores(feed).astype(np.float64)
         loss = float(r.train_step(feed, 0))
         norm = float(torch.sqrt(sum((p.grad.double() ** 2).sum()
@@ -4166,14 +4303,15 @@ def _segrec_steps(corpus, clip, dev):
 
     out = []
     softmax = ("--norm_interest_type", "softmax")
-    cases = [(n, None, ()) for n in SEGREC_MODELS + ("WideDeep", "DIN")] + \
-        [(n, clip, ()) for n in SEGREC_MODELS] + \
-        [("ClipDINRec", clip, softmax)]
+    cases = cases or (
+        [(n, None, ()) for n in SEGREC_MODELS + ("WideDeep", "DIN")]
+        + [(n, clip, ()) for n in SEGREC_MODELS]
+        + [("ClipDINRec", clip, softmax)])
     for name, weights, extra in cases:
         frames = name.startswith("Clip")
         need_grad = weights is None or bool(extra)
         b = _segrec_builder(corpus, name, small_store if frames else None,
-                            weights)
+                            weights, extra=extra)
         model = _segrec_model(name, corpus, frames, extra=extra)
         first = None
         for tried, feed in zip(range(1, SEGREC_TRIES + 1),
@@ -4194,6 +4332,100 @@ def _segrec_steps(corpus, clip, dev):
         out.append((name, what, tried, step(model, feed, frames, dev), cpu,
                     step(model, feed, frames, "cpu", torch.float64)))
     return out
+
+
+def phase_segrec_models(ctx):
+    """SegRec's other context models on the card, after phase segrec and
+    over its fp32 table: (a) each of SEGREC_CONTEXT at segrec.main's
+    defaults (CTR, emb 64, [64] layers, B=512; the Clip variants over the
+    3,920,483-row table), DIEN and CAN once more with --alpha_aux 0.1:
+    SEGREC_TIMED training steps timed after 2, an evaluation batch, ms a
+    step, interactions/s, peak device memory; (b) ClipDINRec's ranking
+    evaluation at segrec.main's default --eval_batch_size 512 (100
+    candidates a row) over the CLIs' segment table: whether it fits on the
+    card (a finding either way, not a failure). Their 32-row steps card
+    against CPU run in phase segrec (_segrec_checks)."""
+    from segmminterest_tpu_torch.data.feature_store import FeatureStore
+    from segmminterest_tpu_torch.segrec.feeds import FeedBuilder
+    from segmminterest_tpu_torch.segrec.runner import (CTRRunner,
+                                                       RankingRunner,
+                                                       RunnerConfig)
+    from segmminterest_tpu_torch.segrec.corpus import Corpus
+
+    if "segrec" not in ctx:
+        raise AssertionError("phase segrec_models runs on phase segrec's "
+                             "data and table: run that first")
+    sr = ctx.pop("segrec")
+    corpus, table, store, clip = (sr["corpus"], sr["table"], sr["store"],
+                                  sr["clip"])
+    sdir, seg_lineid = sr["sdir"], sr["lineid"]
+    dev = torch.device("cuda")
+    # (a) each model's steps at full width; the host batches of each kind
+    # of builder made once, before
+    feeds = {}
+    for name, extra in SEGREC_CONTEXT_TIMED:
+        b = _segrec_builder(corpus, name, store, clip, extra=extra)
+        kind = (b.include_history, b.neg_history)
+        if kind not in feeds:
+            b.actions_before_epoch()   # the history negatives, if any
+            feeds[kind] = list(itertools.islice(
+                b.batches(SEGREC_B, shuffle=True), SEGREC_TIMED + 2))
+        batches = feeds[kind]
+        model = _segrec_model(name, corpus, name.startswith("Clip"),
+                              extra=extra)
+        r = CTRRunner(model, RunnerConfig(batch_size=SEGREC_B,
+                                          eval_batch_size=SEGREC_B,
+                                          metrics=("AUC",)),
+                      feat_table=table, device=dev)
+        for feed in batches[:2]:  # warm-up
+            r.train_step(feed, 0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        for i, feed in enumerate(batches[2:]):
+            loss = r.train_step(feed, i)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / len(batches[2:])
+        peak = torch.cuda.max_memory_allocated()
+        if not math.isfinite(float(loss)):
+            raise AssertionError(f"{name} {extra}: loss {float(loss)}")
+        eval_ms = _time_ms(lambda: r.eval_scores(batches[0]), 3, warmup=1)
+        log(f"  {' '.join([name, *extra])} CTR at B={SEGREC_B}: "
+            f"{ms:.2f} ms/step ({SEGREC_B / ms * 1e3:.0f} interactions/s, "
+            f"{len(batches) - 2} steps after 2), eval batch {eval_ms:.2f} "
+            f"ms, peak device memory {peak / 2**30:.2f} GiB "
+            f"({(peak - base) / 2**30:.2f} above the {base / 2**30:.2f} "
+            "held)")
+        del r, model
+    del feeds, table, sr, store
+    torch.cuda.empty_cache()
+
+    # (b) ClipDINRec's ranking evaluation at the CLI's default batch
+    rank = Corpus(sdir, "SegMM")
+    seg_store = FeatureStore.open(ctx["memmap"], seg_lineid)
+    b = FeedBuilder(rank, "test", task="ranking", include_history=True,
+                    clip_weights=clip, feature_store=seg_store, seed=0)
+    feed = next(b.batches(512, shuffle=False))
+    r = RankingRunner(_segrec_model("ClipDINRec", rank, True),
+                      RunnerConfig(eval_batch_size=512),
+                      feat_table=seg_store.feat, device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        scores = r.eval_scores(feed)
+        fits = f"fits ({time.perf_counter() - t0:.2f} s)"
+        if not np.isfinite(scores[feed["row_mask"]]).all():
+            raise AssertionError("ClipDINRec ranking evaluation: scores "
+                                 "not finite")
+    except torch.cuda.OutOfMemoryError as e:
+        fits = f"does not fit: {str(e).splitlines()[0][:160]}"
+    log(f"  ClipDINRec ranking evaluation at --eval_batch_size 512 "
+        f"({int(feed['row_mask'].sum())} rows x {feed['item_id'].shape[1]} "
+        f"candidates x 40 segments): {fits}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del r
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -4223,7 +4455,7 @@ def main(argv=None):
     for name in phases:
         t0 = time.perf_counter()
         log(f"phase {name}")
-        {"build": phase_build, "kernels": phase_kernels,
+        {"build": lambda: phase_build(ctx), "kernels": phase_kernels,
          "serving": lambda: phase_serving(ctx),
          "default": lambda: phase_default(ctx),
          "train": lambda: phase_train(ctx),
@@ -4236,8 +4468,10 @@ def main(argv=None):
          "train_cli": lambda: phase_train_cli(ctx),
          "watchtime": lambda: phase_watchtime(ctx),
          "msgpack": lambda: phase_msgpack(ctx),
-         "segrec": lambda: phase_segrec(ctx)}[name]()
+         "segrec": lambda: phase_segrec(ctx),
+         "segrec_models": lambda: phase_segrec_models(ctx)}[name]()
         log(f"phase {name}: ok ({time.perf_counter() - t0:.1f} s)")
+    _join_background(ctx)
     log(f"all phases: {time.perf_counter() - t_all:.1f} s")
     if "memmap" in ctx:
         os.remove(ctx["memmap"])

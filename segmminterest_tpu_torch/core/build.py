@@ -55,10 +55,12 @@ COMPILE_FLAGS = tuple(f for f in NVCC_FLAGS if f != "-shared")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
-# what the last build printed (ptxas register / shared-memory report) and
-# how long each library took, for chip_smoke.py to show
+# what the last build printed (ptxas register / shared-memory report), how
+# long each library took and when each of its files' compiles ended (from
+# the library's start), for chip_smoke.py to show
 build_log: Dict[str, str] = {}
 build_seconds: Dict[str, float] = {}
+part_seconds: Dict[str, Dict[str, float]] = {}
 
 
 def _nvcc() -> str:
@@ -98,20 +100,31 @@ def _start_build(name: str, out: Path, common=None, publish=None):
     exit code, its output and the seconds it took once the thread has
     ended. Without ``common``, compiles ``csrc/<name>.cu`` to the object
     ``out``."""
-    res = {"code": 0, "text": "", "seconds": 0.0}
+    res = {"code": 0, "text": "", "seconds": 0.0, "parts": {}}
     files = _files(name)
     inc = ("-I", str(CSRC))
+    t0 = time.perf_counter()
 
-    def run(cmds):
+    def run(cmds, labels):
         procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
                                   stderr=subprocess.STDOUT, text=True)
                  for c in cmds]
-        for proc in procs:
-            res["text"] += proc.communicate()[0]
+        outs = [""] * len(procs)
+
+        def wait(i):
+            outs[i] = procs[i].communicate()[0]
+            res["parts"][labels[i]] = time.perf_counter() - t0
+        waits = [threading.Thread(target=wait, args=(i,))
+                 for i in range(len(procs))]
+        for w in waits:
+            w.start()
+        for w in waits:
+            w.join()
+        for proc, out in zip(procs, outs):
+            res["text"] += out
             res["code"] = res["code"] or proc.returncode
 
     def go():
-        t0 = time.perf_counter()
         compile_and_link()
         res["seconds"] = time.perf_counter() - t0
         if publish is not None and not res["code"]:
@@ -120,18 +133,18 @@ def _start_build(name: str, out: Path, common=None, publish=None):
     def compile_and_link():
         if common is None:
             run([[_nvcc(), *COMPILE_FLAGS, "-c", *inc, "-o", str(out),
-                  str(files[0])]])
+                  str(files[0])]], [files[0].name])
             return
         objs = [out.with_suffix(f".{i}.o") for i in range(len(files))]
         run([[_nvcc(), *COMPILE_FLAGS, "-c", *inc, "-o", str(o),
-              str(f)] for o, f in zip(objs, files)])
+              str(f)] for o, f in zip(objs, files)], [f.name for f in files])
         thread, (cres, cobjs) = common
         thread.join()
         if cres["code"]:
             res["code"] = cres["code"]
         if not res["code"]:
             run([[_nvcc(), "-shared", "-o", str(out), *map(str, objs),
-                  *map(str, cobjs)]])
+                  *map(str, cobjs)]], ["link"])
         for o in objs:
             o.unlink(missing_ok=True)
     thread = threading.Thread(target=go)
@@ -168,6 +181,7 @@ def build_all() -> Dict[str, Path]:
         thread.join()
         build_log[n] = res["text"]
         build_seconds[n] = res["seconds"]
+        part_seconds[n] = res["parts"]
         if res["code"]:
             failed.append(f"{n}.cu (exit {res['code']}):\n{res['text']}")
     cthread.join()

@@ -19,10 +19,14 @@ padded, ``row_mask`` marks real rows), key for key and dtype for dtype the
 JAX builder's; the numpy ``Generator`` calls are the JAX builder's, in the
 same order, so negatives and shuffles are the same bits.
 
-Not ported yet (ROADMAP Queue A item 4): S3Rec's pretrain views, SRGNN's
-session graphs, ContraRec's augmented histories, DIEN's history negatives,
-full-sort (``test_all``) evaluation and the KG feeds; asking for one
-raises.
+``neg_history`` (DIEN's auxiliary loss, on where ``--alpha_aux`` > 0)
+draws one uniform negative per history slot of the train split each epoch,
+never the positive there (DIEN.py:206-216), before the ranking negatives
+and from the same generator, as the JAX builder does.
+
+Not ported yet (ROADMAP Queue A item 3): S3Rec's pretrain views, SRGNN's
+session graphs, ContraRec's augmented histories and full-sort
+(``test_all``) evaluation; asking for one raises. The KG feeds are item 4.
 """
 
 from __future__ import annotations
@@ -35,7 +39,12 @@ import numpy as np
 from .corpus import Corpus
 
 CLIP_NUM = 40
-QUEUE_ITEM_4 = "ROADMAP Queue A item 4 (the rest of SegRec)"
+# the ROADMAP items that port the routes of the JAX package still missing
+QUEUE_SEQUENTIAL = ("ROADMAP Queue A item 3 (SegRec's general and "
+                    "sequential models)")
+QUEUE_RUNNERS = ("ROADMAP Queue A item 4 (SegRec's other runners and the "
+                 "KG models)")
+QUEUE_MULTI_GPU = "ROADMAP Queue A item 6 (multi-GPU)"
 
 
 class ClipWeights:
@@ -88,21 +97,23 @@ class FeedBuilder:
                  test_all: bool = False,
                  clip_weights: Optional[ClipWeights] = None,
                  feature_store=None, seed: int = 0):
-        for flag, what in ((neg_history, "neg_history (DIEN)"),
-                           (augment_history, "augment_history (ContraRec)"),
+        for flag, what in ((augment_history, "augment_history (ContraRec)"),
                            (session_graph, "session_graph (SRGNN)"),
                            (s3rec_pretrain and phase == "train",
                             "s3rec_pretrain (S3Rec)"),
                            (test_all, "test_all (full-sort evaluation)")):
             if flag:
                 raise NotImplementedError(
-                    f"FeedBuilder {what} is not ported yet: {QUEUE_ITEM_4}")
+                    f"FeedBuilder {what} is not ported yet: "
+                    f"{QUEUE_SEQUENTIAL}")
         self.corpus = corpus
         self.phase = phase
         self.task = task
         self.num_neg = num_neg
         self.history_max = history_max
         self.include_history = include_history
+        self.neg_history = neg_history
+        self.hist_neg: Optional[np.ndarray] = None
         self.clip_weights = clip_weights
         self.store = feature_store
         self.rng = np.random.default_rng(seed)
@@ -168,7 +179,19 @@ class FeedBuilder:
 
     def actions_before_epoch(self):
         """Per-epoch negative sampling with clicked-set rejection
-        (GeneralModel.Dataset.actions_before_epoch, BaseModel.py:292-300)."""
+        (GeneralModel.Dataset.actions_before_epoch, BaseModel.py:292-300);
+        with ``neg_history``, first one uniform negative per history slot
+        other than the positive there (DIEN.py:206-216)."""
+        if self.neg_history and self.include_history \
+                and self.phase == "train":
+            neg_h = self.rng.integers(1, self.corpus.n_items,
+                                      size=self.hist_items.shape)
+            clash = neg_h == self.hist_items
+            while clash.any():
+                neg_h[clash] = self.rng.integers(1, self.corpus.n_items,
+                                                 size=int(clash.sum()))
+                clash = neg_h == self.hist_items
+            self.hist_neg = neg_h
         if self.task != "ranking" or self.phase != "train":
             return
         n = len(self)
@@ -259,6 +282,11 @@ class FeedBuilder:
             # used when the model sets add_historical_situations)
             for f in corpus.situation_feature_names:
                 feed["history_" + f] = pad(self.hist_situs[f][idx])
+            if self.hist_neg is not None:
+                feed["history_neg_item_id"] = pad(self.hist_neg[idx])
+                for f in corpus.item_feature_names:
+                    feed["history_neg_" + f] = pad(
+                        corpus.item_features_arr[f][self.hist_neg[idx]])
         if self.store is not None and "i_duration" in corpus.item_feature_names:
             # per-candidate segment line ids for the device-side gather
             dur = corpus.item_features_arr["i_duration"][items].astype(np.int64)

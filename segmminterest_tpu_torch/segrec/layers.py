@@ -7,7 +7,11 @@ embedding-dict pattern every context model shares).
 
 Init (:func:`init_weights`): every Linear / Embedding weight AND bias
 ~ N(0, 0.01) (BaseModel.init_weights :37-44), drawn from the caller's
-``torch.Generator``; BatchNorm scale 1 and bias 0, Dice's alpha 0.
+``torch.Generator``; BatchNorm scale 1 and bias 0, Dice's alpha 0. A
+model's own parameters drawn from a normal in the JAX package (DCN's cross
+weights, DIEN's ``attentionW``, SDIM's ``random_rotations``...) are made by
+:func:`normal_param` and drawn next, in the same walk; FinalMLP's
+InteractionAggregation takes its xavier init as in the Task-1 model.
 
 Module and parameter names follow the flax tree (``dense_{i}``, ``bn_{i}``,
 ``dice_{i}.BatchNorm_0``, ``emb_{feature}``...), so ``models/convert.py``'s
@@ -27,6 +31,7 @@ masks are not the JAX package's bits.
 
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional, Sequence
 
 import torch
@@ -38,13 +43,34 @@ INIT_STD = 0.01
 
 def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """N(0, 0.01) into every Linear / Embedding weight and bias, in the
-    order ``named_modules`` walks them (init_weights :37-44)."""
+    order ``named_modules`` walks them (init_weights :37-44); then each
+    :func:`normal_param` and each InteractionAggregation, in that order
+    again."""
+    from ..models.interest import InteractionAggregation
     with torch.no_grad():
         for m in model.modules():
             if isinstance(m, (nn.Linear, nn.Embedding)):
                 for p in m.parameters(recurse=False):
                     p.normal_(0.0, INIT_STD, generator=generator)
+        for m in model.modules():
+            for name, std in getattr(m, "normal_init", {}).items():
+                getattr(m, name).normal_(0.0, std, generator=generator)
+            if isinstance(m, InteractionAggregation):
+                m.reset_parameters(generator)
     return model
+
+
+def normal_param(owner: nn.Module, name: str, shape, std: float = 1.0
+                 ) -> nn.Parameter:
+    """A parameter ``name`` of ``owner`` that :func:`init_weights` draws
+    from N(0, std) (flax's ``normal(std)`` initializer in the JAX
+    package); zeros until then."""
+    if "normal_init" not in owner.__dict__:
+        owner.normal_init = {}
+    owner.normal_init[name] = std
+    p = nn.Parameter(torch.zeros(shape))
+    owner.register_parameter(name, p)
+    return p
 
 
 def dropout(x: torch.Tensor, rate: float,
@@ -84,6 +110,10 @@ def _broadcast_items(v: torch.Tensor, item_num: int) -> torch.Tensor:
     if v.dim() == 2:
         return v[:, None, :].expand(v.shape[0], item_num, v.shape[1])
     return v
+
+
+def leaky_relu(x: torch.Tensor) -> torch.Tensor:
+    return F.leaky_relu(x, 0.01)
 
 
 class ContextEmbedding(nn.Module):
@@ -214,3 +244,43 @@ class MLPBlock(nn.Module):
         if self.has_output:
             x = self.dense_out(x)
         return x
+
+
+class MultiHeadTargetAttention(nn.Module):
+    """Target attention (utils/layers.py:120-; FuxiCTR): one (N, D) query
+    item attends over its (N, L, D) history through the W_q, W_k, W_v and
+    W_o projections, scaled by 1/sqrt(head dim), masked slots at -1e9
+    before an fp32 softmax; SDIM and ETA use it (the JAX layer's
+    ``use_scale`` and ``use_qkvo`` at their defaults, the only values its
+    callers use)."""
+
+    def __init__(self, input_dim: int = 64, attention_dim: int = 64,
+                 num_heads: int = 1, dropout: float = 0.0):
+        super().__init__()
+        self.att_dim, self.num_heads, self.dropout = \
+            attention_dim, num_heads, dropout
+        self.W_q = nn.Linear(input_dim, attention_dim, bias=False)
+        self.W_k = nn.Linear(input_dim, attention_dim, bias=False)
+        self.W_v = nn.Linear(input_dim, attention_dim, bias=False)
+        self.W_o = nn.Linear(attention_dim, input_dim, bias=False)
+
+    def forward(self, target_item: torch.Tensor,
+                history_sequence: torch.Tensor,
+                mask: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None):
+        N, L = history_sequence.shape[:2]
+        H = self.num_heads
+        hd = self.att_dim // H
+        q = self.W_q(target_item).reshape(N, 1, H, hd)
+        k = self.W_k(history_sequence).reshape(N, L, H, hd)
+        v = self.W_v(history_sequence).reshape(N, L, H, hd)
+        scores = torch.einsum("bqhd,bkhd->bhqk", q, k) / math.sqrt(hd)
+        if mask is not None:
+            scores = torch.where(mask[:, None, None, :], scores,
+                                 torch.full_like(scores, -1e9))
+        probs = torch.softmax(scores.float(), dim=-1).to(scores.dtype)
+        probs = dropout(probs, self.dropout,
+                        generator if self.training else None)
+        out = torch.einsum("bhqk,bkhd->bqhd", probs, v).reshape(
+            N, self.att_dim)
+        return self.W_o(out)

@@ -12,12 +12,15 @@ with WUAUC.
 
 The parser is the JAX CLI's, every flag, plus ``--device`` (the card
 unless ``cpu`` is asked for; without a card and without ``--device cpu`` it
-raises). The CTR and Ranking (TopK) modes run the models of
-``models.MODEL_REGISTRY``; ``--model_mode Impression``, the KG models,
-``--leave_rank``, ``--test_all`` and a batch sharded over more than one
-card (``--use_mesh`` with several cards) raise, naming ROADMAP Queue A
-item 4. ``save_final_results`` and ``all_inference`` write their TSVs with
-``data/reader.py``'s ``write_csv`` (pandas' ``to_csv`` byte for byte).
+raises). The CTR and Ranking (TopK) modes run every context model of the
+JAX registry (``models.MODEL_REGISTRY``), DIEN's auxiliary loss
+(``--alpha_aux``) included; the general and sequential models and
+``--test_all`` raise naming ROADMAP Queue A item 3, ``--model_mode
+Impression``, the KG models and ``--leave_rank`` item 4, a batch sharded
+over more than one card (``--use_mesh`` with several cards) item 6.
+``save_final_results`` and ``all_inference`` write their TSVs with
+``data/reader.py``'s ``write_csv`` (pandas' ``to_csv`` byte for byte). On
+the card the run logs its peak device memory.
 """
 
 from __future__ import annotations
@@ -35,7 +38,8 @@ from ..data.feature_store import FeatureStore
 from ..data.reader import write_csv
 from ..utils.device import resolve_device
 from .corpus import Corpus
-from .feeds import QUEUE_ITEM_4, ClipWeights, FeedBuilder
+from .feeds import (QUEUE_MULTI_GPU, QUEUE_RUNNERS, QUEUE_SEQUENTIAL,
+                    ClipWeights, FeedBuilder)
 from .layers import init_weights
 from .models import model_class
 from .runner import CTRRunner, RankingRunner, RunnerConfig
@@ -222,7 +226,8 @@ def build_parser():
 
 
 def build_model(args, corpus: Corpus, use_frames: bool) -> torch.nn.Module:
-    """The model of ``--model_name`` with the JAX CLI's arguments,
+    """The model of ``--model_name`` with the JAX CLI's arguments (its
+    ``build_model``, segrec/main.py:202-452, branch for branch),
     initialised on the host from ``--random_seed`` (the same weights on
     every device)."""
     name = args.model_name
@@ -233,49 +238,137 @@ def build_model(args, corpus: Corpus, use_frames: bool) -> torch.nn.Module:
     layers = json.loads(args.layers)
     dnn_layers = json.loads(args.dnn_layers)
     att_layers = json.loads(args.att_layers)
+    ctx = dict(emb_size=args.emb_size, dropout=args.dropout)
+    seq_kwargs = dict(
+        user_features=["user_id"] + corpus.user_feature_names,
+        item_features=["item_id"] + corpus.item_feature_names,
+        situation_features=corpus.situation_feature_names,
+        feature_max=corpus.feature_max, **ctx)
     clip_kwargs = dict(
         feature_max=corpus.feature_max, dropout=args.dropout,
         adjust_interest_weight=bool(args.adjust_interest_weight),
         duration_mask=bool(args.duration_mask), use_frames=use_frames)
-    if name == "WideDeep":
+    co_action = tuple(json.loads(args.co_action_layers))
+    dcnv2 = dict(cross_layer_num=args.cross_layer_num, mixed=bool(args.mixed),
+                 structure=args.structure, low_rank=args.low_rank,
+                 expert_num=args.expert_num, reg_weight=args.reg_weight)
+    if name == "FM":
+        model = cls(feature_names, corpus.feature_max, **ctx)
+    elif name in ("DeepFM", "WideDeep"):
+        model = cls(feature_names, corpus.feature_max, layers=layers, **ctx)
+    elif name == "AFM":
         model = cls(feature_names, corpus.feature_max,
-                    emb_size=args.emb_size, layers=layers,
-                    dropout=args.dropout)
+                    attention_size=args.attention_size,
+                    reg_weight=args.reg_weight, **ctx)
+    elif name == "SAM":
+        model = cls(feature_names, corpus.feature_max,
+                    interaction_type=args.sam_interaction_type,
+                    aggregation=args.sam_aggregation,
+                    num_layers=args.sam_num_layers,
+                    use_residual=bool(args.sam_use_residual), **ctx)
+    elif name == "xDeepFM":
+        model = cls(feature_names, corpus.feature_max, layers=layers,
+                    cin_layers=json.loads(args.cin_layers),
+                    direct=bool(args.cin_direct),
+                    reg_weight=args.reg_weight, **ctx)
+    elif name == "DCN":
+        model = cls(feature_names, corpus.feature_max, layers=layers,
+                    cross_layer_num=args.cross_layer_num, **ctx)
+    elif name == "DCNv2":
+        model = cls(feature_names, corpus.feature_max, layers=layers,
+                    **dcnv2, **ctx)
+    elif name == "AutoInt":
+        model = cls(feature_names, corpus.feature_max, layers=layers,
+                    attention_size=args.attention_size,
+                    num_heads=args.num_heads, num_layers=args.num_layers,
+                    **ctx)
+    elif name == "FinalMLP":
+        def fs_ctx(v):
+            return tuple(t for t in v.split(",") if t)
+        model = cls(feature_names, corpus.feature_max,
+                    mlp1_hidden_units=layers, mlp2_hidden_units=layers,
+                    use_fs=bool(args.use_fs),
+                    fs_hidden_units=tuple(json.loads(args.fs_hidden_units)),
+                    fs1_context=fs_ctx(args.fs1_context),
+                    fs2_context=fs_ctx(args.fs2_context),
+                    num_heads=args.num_heads, **ctx)
+    elif name == "AdaGIN":
+        model = cls(feature_names, corpus.feature_max,
+                    warm_dim=args.warm_dim, cold_dim=args.cold_dim,
+                    warm_tau=args.warm_tau, cold_tau=args.cold_tau,
+                    num_gnn_layers=args.num_gnn_layers,
+                    only_use_last_layer=bool(args.only_use_last_layer),
+                    fi_hidden_units=tuple(json.loads(args.fi_hidden_units)),
+                    w_hidden_units=tuple(json.loads(args.w_hidden_units)),
+                    **ctx)
     elif name == "DIN":
-        model = cls(user_features=["user_id"] + corpus.user_feature_names,
-                    item_features=["item_id"] + corpus.item_feature_names,
-                    situation_features=corpus.situation_feature_names,
-                    feature_max=corpus.feature_max, emb_size=args.emb_size,
-                    att_layers=att_layers, dnn_layers=dnn_layers,
+        model = cls(att_layers=att_layers, dnn_layers=dnn_layers,
+                    add_historical_situations=bool(
+                        args.add_historical_situations), **seq_kwargs)
+    elif name == "DIEN":
+        model = cls(fcn_hidden_layers=layers, alpha_aux=args.alpha_aux,
                     add_historical_situations=bool(
                         args.add_historical_situations),
-                    dropout=args.dropout)
+                    aux_hidden_layers=tuple(json.loads(
+                        args.aux_hidden_layers)),
+                    evolving_gru_type=args.evolving_gru_type, **seq_kwargs)
+    elif name == "CAN":
+        # the JAX CLI passes CAN neither --alpha_aux nor
+        # --evolving_gru_type: its defaults hold
+        model = cls(fcn_hidden_layers=layers, orders=args.orders,
+                    induce_vec_size=args.induce_vec_size,
+                    co_action_layers=co_action, **seq_kwargs)
+    elif name == "SDIM":
+        model = cls(dnn_layers=dnn_layers, **seq_kwargs)
+    elif name == "ETA":
+        model = cls(dnn_layers=dnn_layers, history_max=args.history_max,
+                    **seq_kwargs)
     elif name in ("ClipRec", "ClipWDRec"):
         model = cls(emb_dim=args.emb_size, dnn_layers=dnn_layers,
                     contrastive=args.contrastive, **clip_kwargs)
-    else:  # ClipDINRec
+    elif name == "ClipDINRec":
         model = cls(has_duration="i_duration" in corpus.item_feature_names,
                     emb_size=args.emb_size, att_layers=att_layers,
                     dnn_layers=dnn_layers,
+                    norm_interest_type=args.norm_interest_type, **clip_kwargs)
+    elif name == "ClipDCNv2Rec":
+        model = cls(emb_size=args.emb_size, layers=layers, **dcnv2,
+                    **clip_kwargs)
+    elif name == "ClipAutoIntRec":
+        model = cls(emb_size=args.emb_size, layers=layers, **clip_kwargs)
+    elif name == "ClipFinalMLPRec":
+        model = cls(emb_size=args.emb_size, mlp1_hidden_units=layers,
+                    mlp2_hidden_units=layers, **clip_kwargs)
+    elif name == "ClipAdaGINRec":
+        model = cls(emb_size=args.emb_size, **clip_kwargs)
+    elif name == "ClipDIENRec":
+        model = cls(emb_size=args.emb_size, fcn_hidden_layers=layers,
+                    evolving_gru_type=args.evolving_gru_type,
+                    norm_interest_type=args.norm_interest_type, **clip_kwargs)
+    else:  # ClipCANRec
+        model = cls(emb_size=args.emb_size, fcn_hidden_layers=layers,
+                    evolving_gru_type=args.evolving_gru_type,
+                    orders=args.orders, induce_vec_size=args.induce_vec_size,
+                    co_action_layers=co_action,
                     norm_interest_type=args.norm_interest_type, **clip_kwargs)
     return init_weights(model, torch.Generator().manual_seed(
         args.random_seed))
 
 
 def _not_ported(args, task: str):
-    """The routes of the JAX CLI this slice does not port: raise naming the
-    queue item."""
+    """The routes of the JAX CLI the port lacks: raise naming the ROADMAP
+    item that ports each."""
     what = None
     if args.model_mode == "Impression":
-        what = "--model_mode Impression (rerankers)"
+        what, item = "--model_mode Impression (rerankers)", QUEUE_RUNNERS
     elif args.model_name in KG_MODELS:
-        what = f"the KG model {args.model_name}"
+        what, item = f"the KG model {args.model_name}", QUEUE_RUNNERS
     elif args.leave_rank:
-        what = "--leave_rank (LeaveRankingRunner)"
+        what, item = "--leave_rank (LeaveRankingRunner)", QUEUE_RUNNERS
     elif args.test_all and task == "ranking":
-        what = "--test_all (full-sort evaluation)"
+        what, item = "--test_all (full-sort evaluation)", QUEUE_SEQUENTIAL
     if what:
-        raise NotImplementedError(f"{what} is not ported yet: {QUEUE_ITEM_4}")
+        raise NotImplementedError(f"{what} is not ported yet: {item}")
     model_class(args.model_name)  # raises for a model not ported
 
 
@@ -292,7 +385,7 @@ def main(argv=None):
                 and args.eval_batch_size % n_dev == 0):
             raise NotImplementedError(
                 f"--use_mesh over {n_dev} cards is not ported yet: "
-                f"{QUEUE_ITEM_4}; pass --use_mesh 0 for one card")
+                f"{QUEUE_MULTI_GPU}; pass --use_mesh 0 for one card")
 
     corpus = Corpus(args.path, args.dataset, sep=args.sep)
     # dense -> raw id maps: logit-key lookup (SegRec/models/BaseModel.py:
@@ -351,6 +444,9 @@ def main(argv=None):
         runner.save_state(best_state, path)
     dev_res = runner.evaluate(builders["dev"], best_state)
     test_res = runner.evaluate(builders["test"], best_state)
+    if device.type == "cuda":
+        logger.info("peak device memory: %.2f GiB",
+                    torch.cuda.max_memory_allocated(device) / 2 ** 30)
     logger.info("Dev  After Training: %s", dev_res)
     logger.info("Test After Training: %s", test_res)
     result = {"dev": dev_res, "test": test_res}

@@ -4,34 +4,69 @@ the reference's *CTR / *Ranking class pairs map to the same module run
 under different runners (CTR applies sigmoid + BCE, Ranking softmax-weighted
 BPR).
 
-``MODEL_REGISTRY`` holds the models this slice ports; every other name of
-the JAX package's registry raises ``NotImplementedError`` (ROADMAP Queue A
-item 4). No model stands in for another.
+``MODEL_REGISTRY`` holds every context model of the JAX package's
+registry; its general and sequential models and the KG family raise
+``NotImplementedError`` naming the ROADMAP item that ports them. No model
+stands in for another.
 """
 
+from ..feeds import QUEUE_RUNNERS, QUEUE_SEQUENTIAL
+from .adagin import AdaGINModel
+from .autoint import AutoIntModel
+from .can import CANModel
+from .clip_variants import (ClipAdaGINModel, ClipAutoIntModel, ClipCANModel,
+                            ClipDCNv2Model, ClipDIENModel, ClipFinalMLPModel)
 from .cliprec import ClipWDModel
+from .dcn import DCNModel, DCNv2Model
+from .deepfm import AFMModel, DeepFMModel, XDeepFMModel
+from .dien import DIENModel
 from .din import ClipDINModel, DINModel
+from .finalmlp import FinalMLPModel
+from .fm import FMModel
+from .sam import SAMModel
+from .sdim import ETAModel, SDIMModel
 from .widedeep import WideDeepModel
 
 MODEL_REGISTRY = {
+    "FM": FMModel,
     "WideDeep": WideDeepModel,
+    "DeepFM": DeepFMModel,
+    "AFM": AFMModel,
+    "xDeepFM": XDeepFMModel,
+    "SAM": SAMModel,
+    "DCN": DCNModel,
+    "DCNv2": DCNv2Model,
+    "AutoInt": AutoIntModel,
+    "FinalMLP": FinalMLPModel,
+    "AdaGIN": AdaGINModel,
     "DIN": DINModel,
+    "DIEN": DIENModel,
+    "CAN": CANModel,
+    "SDIM": SDIMModel,
+    "ETA": ETAModel,
     "ClipRec": ClipWDModel,     # reference ClipRec.py is the WideDeep variant
     "ClipWDRec": ClipWDModel,
+    "ClipDCNv2Rec": ClipDCNv2Model,
+    "ClipAutoIntRec": ClipAutoIntModel,
+    "ClipFinalMLPRec": ClipFinalMLPModel,
+    "ClipAdaGINRec": ClipAdaGINModel,
     "ClipDINRec": ClipDINModel,
+    "ClipDIENRec": ClipDIENModel,
+    "ClipCANRec": ClipCANModel,
 }
 
-# the JAX package's other models (segmminterest_tpu/segrec/models/
-# __init__.py:30-74, and the KG and Impression families of segrec/kg.py
-# and segrec/rerank.py)
-NOT_PORTED = (
-    "BPRMF", "BUIR", "NeuMF", "LightGCN", "DirectAU", "POP", "SASRec",
-    "GRU4Rec", "Caser", "NARM", "FPMC", "TiSASRec", "ComiRec", "ContraRec",
-    "TiMiRec", "SRGNN", "CLRec", "FourierTA", "S3Rec", "FM", "DeepFM", "AFM",
-    "xDeepFM", "SAM", "DCN", "DCNv2", "AutoInt", "FinalMLP", "AdaGIN",
-    "DIEN", "CAN", "SDIM", "ETA", "ClipDCNv2Rec", "ClipAutoIntRec",
-    "ClipFinalMLPRec", "ClipAdaGINRec", "ClipDIENRec", "ClipCANRec",
-    "CFKG", "SLRCPlus", "Chorus", "KDA")
+# the JAX package's models still to port, by the ROADMAP Queue A item that
+# ports them: the general and sequential models
+# (segmminterest_tpu/segrec/models/__init__.py:30-74) and the KG family of
+# segrec/kg.py
+NOT_PORTED = {
+    **{name: QUEUE_SEQUENTIAL for name in (
+        "BPRMF", "BUIR", "NeuMF", "LightGCN", "DirectAU", "POP", "SASRec",
+        "GRU4Rec", "Caser", "NARM", "FPMC", "TiSASRec", "ComiRec",
+        "ContraRec", "TiMiRec", "SRGNN", "CLRec", "FourierTA", "S3Rec")},
+    **{name: QUEUE_RUNNERS for name in ("CFKG", "SLRCPlus", "Chorus",
+                                        "KDA")},
+}
 
 
 def model_class(name: str):
@@ -41,10 +76,9 @@ def model_class(name: str):
         return MODEL_REGISTRY[name]
     if name in NOT_PORTED:
         raise NotImplementedError(
-            f"SegRec model {name} is not ported yet: ROADMAP Queue A item 4 "
-            f"(the rest of SegRec); ported: {sorted(MODEL_REGISTRY)}")
+            f"SegRec model {name} is not ported yet: {NOT_PORTED[name]}")
     raise ValueError(f"unknown model {name}")
 
 
-__all__ = ["MODEL_REGISTRY", "NOT_PORTED", "model_class", "ClipDINModel",
-           "ClipWDModel", "DINModel", "WideDeepModel"]
+__all__ = ["MODEL_REGISTRY", "NOT_PORTED", "model_class"] + sorted(
+    {cls.__name__ for cls in MODEL_REGISTRY.values()})

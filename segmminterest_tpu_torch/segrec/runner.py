@@ -41,6 +41,14 @@ generator that draws the step's dropout masks.
 the JAX runner's ``.msgpack`` params (flax ``to_bytes`` of the params
 tree, decoded by ``engine/checkpoint.py``), in full or ``partial``.
 ``LeaveRankingRunner`` is ROADMAP Queue A item 4.
+
+The training loss adds what the model returns in ``losses`` (the flax
+models' sown terms): the contrastive term weighted by
+``auxillary_loss_weight``, the others (DCNv2's ``reg_loss``, DIEN's
+``aux_loss``) as they are, pre-weighted; then ``model.reg_loss()`` where
+the model has one (AFM, xDeepFM). Evaluation hands the model a generator
+seeded from ``seed`` for each batch, as the JAX runner hands its evaluation
+a fixed ``gumbel`` key: AdaGIN samples its Gumbel noise there too.
 """
 
 from __future__ import annotations
@@ -59,7 +67,7 @@ from ..engine.evaluation import _auc_score
 from ..engine.optim import Adagrad
 from ..models.convert import segrec_state_dict
 from ..utils.device import resolve_device
-from .feeds import FeedBuilder
+from .feeds import QUEUE_SEQUENTIAL, FeedBuilder
 
 logger = logging.getLogger(__name__)
 
@@ -232,8 +240,8 @@ class RankingRunner:
             return bce_ranking_loss(predictions, batch["row_mask"])
         if self.cfg.loss_n != "BPR":
             raise NotImplementedError(
-                f"ranking loss {self.cfg.loss_n} is not ported yet: ROADMAP "
-                "Queue A item 4 (the rest of SegRec)")
+                f"ranking loss {self.cfg.loss_n} is not ported yet: "
+                f"{QUEUE_SEQUENTIAL}")
         return bpr_loss(predictions, batch["row_mask"])
 
     def put(self, feed: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
@@ -269,6 +277,10 @@ class RankingRunner:
                 w = (self.cfg.auxillary_loss_weight
                      if "contrastive" in name else 1.0)
                 loss = loss + w * v
+            if hasattr(self.model, "reg_loss"):
+                # AFM / xDeepFM's L2 terms (AFM.py:103-106,
+                # xDeepFM.py:77-94)
+                loss = loss + self.model.reg_loss()
             self.optimizer.zero_grad(set_to_none=True)
             loss.backward()
         finally:
@@ -285,8 +297,9 @@ class RankingRunner:
     def eval_scores(self, feed: Dict[str, np.ndarray]) -> np.ndarray:
         """The (B, I) scores of a host batch, deterministic, on the host."""
         self.model.eval()
+        self.generator.manual_seed(self.cfg.seed)
         with torch.inference_mode():
-            out, _ = self._forward(self.put(feed))
+            out, _ = self._forward(self.put(feed), self.generator)
         return out.float().cpu().numpy()
 
     # ------------------------------------------------------------------

@@ -23,7 +23,7 @@ package's on the CPU:
 * segrec.main --device cpu against the JAX main on the same directory from
   the same .msgpack weights: the metrics within 1e-5 and the
   save_final_results file; the guards (no card without --device cpu, the
-  routes not ported raise).
+  routes not ported raise, naming the ROADMAP item that ports each).
 """
 
 import json
@@ -421,7 +421,10 @@ def _setups(data, argv):
         builders = {p: fm.FeedBuilder(corpus, p, task=task,
                                       num_neg=args.num_neg,
                                       history_max=args.history_max,
-                                      include_history=hist, clip_weights=cw,
+                                      include_history=hist,
+                                      neg_history=(args.alpha_aux > 0
+                                                   and hist),
+                                      clip_weights=cw,
                                       feature_store=store, seed=0)
                     for p in ("train", "dev", "test")}
         table = np.asarray(store.feat) if store else None
@@ -730,25 +733,30 @@ def test_main_needs_the_card_or_cpu(data):
         main.main(argv + ["--epoch", "1"])
 
 
-@pytest.mark.parametrize("extra,match", [
-    (["--model_mode", "Impression"], "Impression"),
-    (["--model_name", "CFKG"], "CFKG"),
-    (["--model_name", "SASRec"], "SASRec"),
-    (["--model_name", "ClipDIENRec"], "ClipDIENRec"),
-    (["--model_mode", "Ranking", "--test_all", "1"], "test_all"),
-    (["--leave_rank", "1"], "leave_rank"),
-])
-def test_routes_not_ported_raise(data, extra, match):
+ROUTES_NOT_PORTED = [  # (flags, what the message names, its Queue A item)
+    (["--model_mode", "Impression"], "Impression", 4),
+    (["--model_name", "CFKG"], "CFKG", 4),
+    (["--model_name", "SASRec"], "SASRec", 3),
+    (["--model_name", "GRU4Rec"], "GRU4Rec", 3),
+    (["--model_mode", "Ranking", "--test_all", "1"], "test_all", 3),
+    (["--leave_rank", "1"], "leave_rank", 4),
+]
+
+
+@pytest.mark.parametrize(
+    "extra,match,item", ROUTES_NOT_PORTED,
+    ids=[f"extra{i}-{m}" for i, (_, m, _) in enumerate(ROUTES_NOT_PORTED)])
+def test_routes_not_ported_raise(data, extra, match, item):
     argv = ["--path", data["dir"], "--dataset", "SegMM_CTR",
             "--device", "cpu"] + extra
-    with pytest.raises(NotImplementedError, match=f"{match}.*Queue A item 4"):
+    with pytest.raises(NotImplementedError,
+                       match=f"{match}.*Queue A item {item}"):
         main.main(argv)
 
 
 def test_feedbuilder_flags_not_ported_raise(data):
     corpus = Corpus(data["dir"], "SegMM")
-    for kw in (dict(neg_history=True), dict(augment_history=True),
-               dict(session_graph=True), dict(s3rec_pretrain=True),
-               dict(test_all=True)):
-        with pytest.raises(NotImplementedError, match="Queue A item 4"):
+    for kw in (dict(augment_history=True), dict(session_graph=True),
+               dict(s3rec_pretrain=True), dict(test_all=True)):
+        with pytest.raises(NotImplementedError, match="Queue A item 3"):
             feeds.FeedBuilder(corpus, "train", **kw)
