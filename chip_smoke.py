@@ -122,9 +122,12 @@ Phases, each of which fails the run (non-zero exit) on any error:
                  scores: 1e-6; ClipDINRec 1e-5), and of each context model
                  of segrec_models (1e-5, or 4x the CPU's step's own
                  fp32-vs-fp64 where that is more: DCNv2's crosses), each
-                 beside the CPU's fp32 step against fp64; then ClipWDRec's
-                 and ClipDINRec's steps and an evaluation batch at B=512
-                 over a 3,920,483-row fp32 table (ms, interactions/s, peak
+                 beside the CPU's fp32 step against fp64; beside them too,
+                 segrec_seq's 32-row ranking steps card against CPU of
+                 each general and sequential model (1e-5, or 4x the CPU's
+                 own fp32-vs-fp64); then ClipWDRec's and ClipDINRec's
+                 steps and an evaluation batch at B=512 over a
+                 3,920,483-row fp32 table (ms, interactions/s, peak
                  memory)
   segrec_models  SegRec's context models over phase segrec's table: FM,
                  DeepFM, AFM, xDeepFM, SAM, DCN, DCNv2, AutoInt, FinalMLP,
@@ -134,6 +137,19 @@ Phases, each of which fails the run (non-zero exit) on any error:
                  evaluation batch (ms, interactions/s, peak memory);
                  ClipDINRec's ranking evaluation at --eval_batch_size 512,
                  whether it fits
+  segrec_seq     SegRec's general and sequential models, BPRMF through
+                 S3Rec, at segrec.main's ranking defaults (emb 64, history
+                 20, one negative, B=512) with their loss routes (their
+                 CLI runs, --model_mode TopK for one epoch: SASRec, BPRMF
+                 --test_all 1, BUIR, ContraRec, and S3Rec --s3rec_stage 1
+                 then 2 --load 1 in one thread, with finite HR and NDCG,
+                 go beside phases wide and train_cli; their 32-row checks
+                 in phase segrec), and
+                 S3Rec's and TiMiRec's pretrain stages: 10 steps timed
+                 after 2 (ms, rows/s, peak memory), an evaluation batch of
+                 512 rows x 100 candidates, a full-sort batch of 32 rows
+                 (the target's two columns bit-equal); the host time of
+                 SRGNN's and ContraRec's feeds
 The last line is {"ok": true, "device": {...}}; before it come the card's
 name and power limit (nvidia-smi) and one JSON line describing the kernels.
 It needs no network and writes only under build/ (the kernels in
@@ -207,7 +223,7 @@ RESULT = {"kernels": {}, "launches": {}}
 ALL_PHASES = ("build", "kernels", "serving", "default", "train",
               "train_default", "train_bf16", "ablation", "fused_variants",
               "attn_v2", "wide", "train_cli", "watchtime", "msgpack",
-              "segrec", "segrec_models")
+              "segrec", "segrec_models", "segrec_seq")
 
 
 def log(*a):
@@ -3325,6 +3341,7 @@ def phase_wide(ctx):
     from segmminterest_tpu_torch.engine.train import InterestEngine
 
     _data(ctx)
+    _start_segrec_seq_clis(ctx)
     reader, store = ctx["reader"], ctx["store"]
     for key, base, kw, keys in WIDE_ROUTES:
         cfg = (_flagship_cfg(ctx["csv"]).replace(table_quant="int8")
@@ -3356,12 +3373,15 @@ def phase_wide(ctx):
 
 def phase_train_cli(ctx):
     """skip_train's CLI (production flags, --debug 1) over the small
-    memmap, then export_logits serving the checkpoint it wrote."""
+    memmap, then export_logits serving the checkpoint it wrote; phase
+    segrec_seq's CLI runs beside it (started by phase wide where that
+    ran), waited for at its end."""
     from segmminterest_tpu_torch.core import attention as A
     from segmminterest_tpu_torch.tasks import export_logits as X
     from segmminterest_tpu_torch.tasks import skip_train
 
     _data(ctx)
+    _start_segrec_seq_clis(ctx)
     memmap, lineid = _cli_files(ctx)
     common = ["--sample_csv", ctx["csv"], "--min_interactions", "100",
               "--num_warmup", "80", "--memmap", memmap, "--lineid_map",
@@ -4065,20 +4085,14 @@ def phase_segrec(ctx):
     --alpha_aux 0.1 and ClipCANRec in CTR mode, ClipWDRec and ClipDINRec
     --model_mode TopK: finite metrics, each process's peak device memory);
     (c) meanwhile, untimed, one 32-row fp32 step of each case of
-    _segrec_checks on the card and on the CPU; (b) then ClipWDRec's and
-    ClipDINRec's training steps and an evaluation batch at B=512 over a
-    3,920,483-row fp32 table on the card: ms per step, interactions/s,
-    peak device memory. The table stays for phase segrec_models."""
-    from concurrent.futures import ThreadPoolExecutor
-
-    from segmminterest_tpu_torch.core import attention as A
-    from segmminterest_tpu_torch.data.feature_store import FeatureStore
-    from segmminterest_tpu_torch.segrec.corpus import Corpus
-    from segmminterest_tpu_torch.segrec.feeds import ClipWeights
-    from segmminterest_tpu_torch.segrec.runner import CTRRunner, RunnerConfig
+    _segrec_checks and _segrec_seq_checks on the card and on the CPU; (b)
+    then
+    ClipWDRec's and ClipDINRec's training steps and an evaluation batch at
+    B=512 over a 3,920,483-row fp32 table on the card: ms per step,
+    interactions/s, peak device memory. The table stays for phase
+    segrec_models."""
     from segmminterest_tpu_torch.tasks import build_interactions
     from segmminterest_tpu_torch.tasks import build_segrec_data
-    from segmminterest_tpu_torch.tasks import export_logits as X
 
     if "cli_work" not in ctx:
         raise AssertionError("phase segrec serves the checkpoint of phase "
@@ -4094,6 +4108,20 @@ def phase_segrec(ctx):
                             "--name", "SegMM"] + split)
     log(f"  build_interactions + build_segrec_data: "
         f"{time.perf_counter() - t0:.1f} s")
+    _segrec_cli_and_checks(ctx, sdir, task1, memmap, lineid,
+                           dict(os.environ))
+    _segrec_tables(ctx)
+
+
+def _segrec_cli_and_checks(ctx, sdir, task1, memmap, lineid, env):
+    """Phase segrec's (a) and (c): Task 1's logits through export_logits,
+    then segrec.main in processes side by side beside the 32-row checks."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from segmminterest_tpu_torch.core import attention as A
+    from segmminterest_tpu_torch.segrec.corpus import Corpus
+    from segmminterest_tpu_torch.segrec.feeds import ClipWeights
+    from segmminterest_tpu_torch.tasks import export_logits as X
 
     # (a) Task 1's logits through export_logits, then segrec.main
     A.reset_launch_counts()
@@ -4119,7 +4147,6 @@ def phase_segrec(ctx):
     seg_lineid = os.path.join(sdir, "lineid.json")
     with open(seg_lineid, "w") as f:
         json.dump(seg_map, f)
-    env = dict(os.environ)
 
     def run_main(case):
         name, extra = case
@@ -4134,13 +4161,17 @@ def phase_segrec(ctx):
                        "--epoch", str(SEGREC_EPOCHS)])
         return _subprocess_json(argv, env, "segrec.main " + " ".join(
             [name, *extra]))
-    # side by side, and beside the untimed 32-row checks (c): none is timed
+    # side by side, and beside the untimed 32-row checks (c) and phase
+    # segrec_seq's 32-row checks: none is timed
+    rank = Corpus(sdir, "SegMM")
+    seq_cache = ctx.setdefault("segrec_seq_builders", {})
     with ThreadPoolExecutor(len(SEGREC_CLI)) as pool:
         running = [pool.submit(run_main, case) for case in SEGREC_CLI]
         id2 = [json.load(open(os.path.join(sdir, "SegMM_CTR", f)))
                for f in ("id2user.json", "id2item.json")]
         clip = ClipWeights(logits_path, *id2)
         _segrec_checks(corpus, clip)
+        _segrec_seq_checks(rank, seq_cache, torch.device("cuda"))
         results = [f.result() for f in running]
     for (name, extra), (res, err) in zip(SEGREC_CLI, results):
         ranking = "--model_mode" in extra
@@ -4159,7 +4190,16 @@ def phase_segrec(ctx):
             f"{got['dev']}, test {got['test']}; peak device memory "
             f"{peak[-1] if peak else 'not logged'}")
     ctx["segrec"] = dict(sdir=sdir, corpus=corpus, logits=logits_path,
-                         lineid=seg_lineid)
+                         lineid=seg_lineid, clip=clip)
+    ctx["segrec_rank"] = rank   # phase segrec_seq's ranking corpus
+
+
+def _segrec_tables(ctx):
+    """Phase segrec's (b), its timed steps, after the CLIs have ended."""
+    from segmminterest_tpu_torch.data.feature_store import FeatureStore
+    from segmminterest_tpu_torch.segrec.runner import CTRRunner, RunnerConfig
+    sr = ctx["segrec"]
+    corpus, clip = sr["corpus"], sr["clip"]
 
     # (b) full width: the fp32 table of 3,920,483 rows on the card
     dev = torch.device("cuda")
@@ -4429,6 +4469,283 @@ def phase_segrec_models(ctx):
 
 
 # ---------------------------------------------------------------------------
+# SegRec's general and sequential models, ranking mode
+
+SEGREC_SEQ = ("BPRMF", "BUIR", "NeuMF", "LightGCN", "DirectAU", "POP",
+              "SASRec", "GRU4Rec", "Caser", "NARM", "FPMC", "TiSASRec",
+              "ComiRec", "ContraRec", "TiMiRec", "SRGNN", "CLRec",
+              "FourierTA", "S3Rec")
+# each model at segrec.main's defaults (ranking, emb 64, --history_max 20,
+# --num_neg 1, B=512) with its own loss route (DirectAU's is asked for,
+# as in the JAX CLI), then S3Rec's pretrain (stage 1) and TiMiRec's
+# pretrain stage; S3Rec and TiMiRec above run their defaults, the
+# finetune stages
+SEGREC_SEQ_CASES = tuple(
+    (n, ("--loss_n", "DirectAU") if n == "DirectAU" else ())
+    for n in SEGREC_SEQ) + (("S3Rec", ("--s3rec_stage", "1")),
+                            ("TiMiRec", ("--timirec_stage", "pretrain")))
+# segrec.main --model_mode TopK runs in phase segrec's pool (one epoch;
+# BPRMF over every item), and S3Rec's stage 1 then stage 2 --load 1 in one
+# thread of it
+SEGREC_SEQ_CLI = (("SASRec", ()), ("BPRMF", ("--test_all", "1")),
+                  ("BUIR", ()), ("ContraRec", ()))
+SEGREC_FULL_SORT_ROWS = 32   # rows of the full-sort evaluation batch
+
+
+def _segrec_seq_args(name, extra=()):
+    from segmminterest_tpu_torch.segrec import main as M
+    return M.build_parser().parse_args(["--model_name", name,
+                                        "--model_mode", "TopK", *extra])
+
+
+def _segrec_seq_builders(cache, corpus, args):
+    """segrec.main's train and dev builders for `args` (ranking), one pair
+    per kind of feed (histories, ContraRec's views, SRGNN's graphs,
+    S3Rec's pretrain corpus), made once and kept in `cache`."""
+    from segmminterest_tpu_torch.segrec import main as M
+    kind = (args.model_name in M.SEQ_MODELS, args.model_name == "ContraRec",
+            args.model_name == "SRGNN",
+            args.model_name == "S3Rec" and args.s3rec_stage == 1)
+    if kind not in cache:
+        cache[kind] = M.feed_builders(args, corpus, "ranking",
+                                      phases=("train", "dev"))
+    return cache[kind]
+
+
+def _segrec_seq_runner(name, extra, corpus, dev, batch_size=SEGREC_B,
+                       dtype=torch.float32, model=None):
+    """A RankingRunner on `dev` of segrec.main's model and loss route."""
+    import copy
+
+    from segmminterest_tpu_torch.segrec import main as M
+    from segmminterest_tpu_torch.segrec.runner import (RankingRunner,
+                                                       RunnerConfig)
+    args = _segrec_seq_args(name, extra)
+    model = copy.deepcopy(model) if model is not None else \
+        M.build_model(args, corpus, use_frames=False)
+    if hasattr(model, "sync_targets"):
+        model.sync_targets()
+    return RankingRunner(model.to(dtype), RunnerConfig(
+        batch_size=batch_size, eval_batch_size=batch_size,
+        loss_n=M.loss_name(args, "ranking"), ctc_temp=args.ctc_temp),
+        device=dev)
+
+
+def _candidate_shuffle(feed, seed):
+    """The runner's candidate shuffle of item_id, from a fixed seed (a
+    pretrain batch has no candidates)."""
+    if "item_id" not in feed:
+        return feed
+    items = feed["item_id"]
+    perm = np.argsort(np.random.default_rng(seed).random(items.shape), -1)
+    return dict(feed, item_id=np.take_along_axis(items, perm, 1),
+                unshuffle=np.argsort(perm, -1))
+
+
+def _segrec_seq_steps(corpus, cache, dev):
+    """One 32-row step of each case of SEGREC_SEQ_CASES on `dev`, on the
+    CPU and on the CPU in fp64, from the same weights and batch: (case,
+    then (loss, gradient norm, evaluation scores of a 32-row dev batch
+    before the step) on dev, on the CPU, in fp64)."""
+    import copy
+    out = []
+    for name, extra in SEGREC_SEQ_CASES:
+        args = _segrec_seq_args(name, extra)
+        bs = _segrec_seq_builders(cache, corpus, args)
+        bs["train"].actions_before_epoch()
+        feed = _candidate_shuffle(next(bs["train"].batches(32,
+                                                           shuffle=True)), 0)
+        dev_feed = next(bs["dev"].batches(32, shuffle=False))
+        from segmminterest_tpu_torch.segrec import main as M
+        model = M.build_model(args, corpus, use_frames=False)
+
+        def step(where, dtype=torch.float32):
+            r = _segrec_seq_runner(name, extra, corpus, where, 32, dtype,
+                                   model=copy.deepcopy(model))
+            r.generator = torch.Generator()
+            scores = r.eval_scores(dev_feed).astype(np.float64)
+            loss = float(r.train_step(feed, 0))
+            norm = float(torch.sqrt(sum((p.grad.double() ** 2).sum()
+                                        for p in r.model.parameters())))
+            return loss, norm, scores
+        out.append(((name, extra), step(dev), step("cpu"),
+                    step("cpu", torch.float64)))
+    return out
+
+
+def _segrec_seq_checks(corpus, cache, dev):
+    """Phase segrec_seq's (b), run in phase segrec beside its CLIs: one
+    32-row fp32 step of each general and sequential model (and of S3Rec's
+    and TiMiRec's pretrain) on the card and on the CPU: loss, gradient
+    norm and a dev batch's scores within SEGREC_RTOL_CONTEXT, or
+    SEGREC_COND times the CPU's own fp32-vs-fp64 rounding where that is
+    more."""
+    for (name, extra), card, cpu, fp64 in _segrec_seq_steps(corpus, cache,
+                                                            dev):
+        err, rounding = _rel_errs(card, cpu), _rel_errs(cpu, fp64)
+        limit = max(SEGREC_RTOL_CONTEXT, SEGREC_COND * max(rounding))
+        what = " ".join([name, *extra])
+        if max(err) > limit:
+            raise AssertionError(f"{what} 32-row step: card {card[:2]}, CPU "
+                                 f"{cpu[:2]}, relative errors {err} against "
+                                 f"{limit}")
+        log(f"  {what} 32-row fp32 ranking step, card against the CPU: loss "
+            f"{card[0]:.6f} ({err[0]:.1e} relative), gradient norm "
+            f"{card[1]:.6f} ({err[1]:.1e}), dev scores {err[2]:.1e}; the "
+            "CPU's against fp64: " + ", ".join(f"{e:.1e}" for e in rounding)
+            + f"; limit {limit:.1e}")
+
+
+def _segrec_seq_cli(sdir, env, case):
+    """segrec.main --model_mode TopK for one epoch over phase segrec's
+    SegMM split (no Task-1 logits, no segment table): finite HR and
+    NDCG; (result, stderr)."""
+    name, extra = case
+    what = "segrec.main " + " ".join([name, "--model_mode TopK", *extra])
+    res, err = _subprocess_json(
+        ["segmminterest_tpu_torch.segrec.main", "--model_name", name,
+         "--path", sdir, "--dataset", "SegMM", "--model_mode", "TopK",
+         "--epoch", "1", *extra], env, what)
+    got = {s: {k: res[s][k] for k in ("HR@5", "NDCG@5", "HR@50", "NDCG@50")}
+           for s in ("dev", "test")}
+    if not _finite(got):
+        raise AssertionError(f"{what}: metrics {got}")
+    peak = [ln.split("peak device memory: ", 1)[1] for ln in
+            err.splitlines() if "peak device memory: " in ln]
+    log(f"  {what}: dev {got['dev']}, test {got['test']}; peak device "
+        f"memory {peak[-1] if peak else 'not logged'}")
+    return res, err
+
+
+def _start_segrec_seq_clis(ctx):
+    """Phase segrec_seq's CLI runs (SEGREC_SEQ_CLI, then S3Rec's two stages
+    in one thread) over a SegMM split of the synthetic CSV built here, in
+    processes of their own beside phases wide and train_cli, which time
+    nothing; train_cli's end waits for them. Started once."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from segmminterest_tpu_torch.tasks import build_segrec_data
+    if "segrec_seq_clis" in ctx:
+        return
+    ctx["segrec_seq_clis"] = True
+    _data(ctx)
+    sdir = os.path.join(WORK, "segrec_seq")
+    build_segrec_data.main(["--inter_csv", ctx["csv"], "--out", sdir,
+                            "--name", "SegMM", "--min_interactions", "100",
+                            "--num_warmup", "80"])
+    env = dict(os.environ)
+
+    def run():
+        with ThreadPoolExecutor(len(SEGREC_SEQ_CLI) + 1) as pool:
+            running = ([pool.submit(_segrec_seq_cli, sdir, env, case)
+                        for case in SEGREC_SEQ_CLI]
+                       + [pool.submit(_segrec_s3rec_cli, sdir, env)])
+            for f in running:
+                f.result()
+    _in_background(ctx, "segrec_seq's CLI runs", run)
+
+
+def _segrec_s3rec_cli(sdir, env):
+    """S3Rec's two stages through segrec.main in one thread: stage 1
+    (pretrain) saves its state to --model_path, stage 2 loads it in part
+    (--load 1) and trains on."""
+    pt = os.path.join(sdir, "s3rec_stage1.pt")
+    _segrec_seq_cli(sdir, env, ("S3Rec", ("--s3rec_stage", "1",
+                                          "--model_path", pt)))
+    stage1 = set(torch.load(pt, weights_only=True))
+    _, err = _segrec_seq_cli(sdir, env, ("S3Rec", (
+        "--s3rec_stage", "2", "--load", "1", "--model_path", pt)))
+    stage2 = set(torch.load(pt, weights_only=True))
+    if "(partial)" not in err or not {"mip_norm.weight", "sp_norm.weight"} \
+            <= stage1 - stage2:
+        raise AssertionError("S3Rec stage 2 did not load stage 1 in part")
+
+
+def phase_segrec_seq(ctx):
+    """SegRec's general and sequential models in ranking mode on the card
+    over phase segrec's SegMM split (its CLI runs went beside phases wide
+    and train_cli, its 32-row checks beside phase segrec's CLIs): each
+    case of SEGREC_SEQ_CASES at
+    segrec.main's defaults (emb 64, --history_max 20, --num_neg 1, B=512)
+    with its loss route, SEGREC_TIMED steps timed after 2 on batches made
+    before (ms, rows/s: interactions, or S3Rec's pretrain chunks of up to
+    20; peak device memory above what is held), an
+    evaluation batch of 512 rows x 100 candidates, and a full-sort batch
+    (SEGREC_FULL_SORT_ROWS rows x every item): finite, each row's target
+    scored at column 0 and at its own id's column with the same bits; the
+    host ms of one batch of SRGNN's and of ContraRec's feeds."""
+    if "segrec_rank" not in ctx:
+        raise AssertionError("phase segrec_seq runs on phase segrec's data: "
+                             "run that first")
+    corpus = ctx.pop("segrec_rank")
+    cache = ctx.pop("segrec_seq_builders", {})
+    dev = torch.device("cuda")
+    n_items = corpus.n_items
+    for name in ("SRGNN", "ContraRec"):
+        b = _segrec_seq_builders(cache, corpus, _segrec_seq_args(name))
+        b["train"].actions_before_epoch()
+        t0 = time.perf_counter()
+        next(b["train"].batches(SEGREC_B, shuffle=True))
+        log(f"  {name}'s feeds: {(time.perf_counter() - t0) * 1e3:.1f} ms "
+            f"on the host for one batch of {SEGREC_B} rows")
+    batches = {}
+    for name, extra in SEGREC_SEQ_CASES:
+        args = _segrec_seq_args(name, extra)
+        bs = _segrec_seq_builders(cache, corpus, args)
+        key = id(bs["train"])
+        if key not in batches:
+            # as many epochs as it takes (S3Rec's pretrain corpus of
+            # 20-item chunks fills 3 batches an epoch)
+            def epochs(b=bs["train"]):
+                while True:
+                    b.actions_before_epoch()
+                    yield from b.batches(SEGREC_B, shuffle=True)
+            batches[key] = [_candidate_shuffle(f, i) for i, f in enumerate(
+                itertools.islice(epochs(), SEGREC_TIMED + 2))]
+            batches[key, "dev"] = next(bs["dev"].batches(SEGREC_B,
+                                                         shuffle=False))
+        feeds, dev_feed = batches[key], batches[key, "dev"]
+        r = _segrec_seq_runner(name, extra, corpus, dev)
+        for i, feed in enumerate(feeds[:2]):   # warm-up
+            r.train_step(feed, i)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        for i, feed in enumerate(feeds[2:]):
+            loss = r.train_step(feed, i)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / len(feeds[2:])
+        peak = torch.cuda.max_memory_allocated()
+        what = " ".join([name, *extra])
+        if not math.isfinite(float(loss)):
+            raise AssertionError(f"{what}: loss {float(loss)}")
+        eval_ms = _time_ms(lambda: r.eval_scores(dev_feed), 3, warmup=1)
+        # full sort: [target] + every item id, the dev batch's first rows
+        rows = SEGREC_FULL_SORT_ROWS
+        full = {k: v[:rows] for k, v in dev_feed.items()}
+        target = full["item_id"][:, 0]
+        full["item_id"] = np.concatenate(
+            [target[:, None], np.broadcast_to(np.arange(1, n_items),
+                                              (rows, n_items - 1))], 1)
+        scores = r.eval_scores(full)
+        real = np.flatnonzero(full["row_mask"])
+        if not np.isfinite(scores[real]).all() or not np.array_equal(
+                scores[real, 0], scores[real, target[real]]):
+            raise AssertionError(f"{what}: full-sort scores not finite, or "
+                                 "the target's two columns differ")
+        log(f"  {what} ranking at B={SEGREC_B}: {ms:.2f} ms/step "
+            f"({SEGREC_B / ms * 1e3:.0f} rows/s, {len(feeds) - 2} "
+            f"steps after 2), eval batch {eval_ms:.2f} ms ({SEGREC_B} rows x "
+            f"{dev_feed['item_id'].shape[1]} candidates), peak device memory "
+            f"{peak / 2**30:.2f} GiB ({(peak - base) / 2**30:.2f} above the "
+            f"{base / 2**30:.2f} held); full sort over {n_items - 1} items: "
+            "target columns bit-equal")
+        del r
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--phases", default=",".join(ALL_PHASES))
@@ -4469,7 +4786,8 @@ def main(argv=None):
          "watchtime": lambda: phase_watchtime(ctx),
          "msgpack": lambda: phase_msgpack(ctx),
          "segrec": lambda: phase_segrec(ctx),
-         "segrec_models": lambda: phase_segrec_models(ctx)}[name]()
+         "segrec_models": lambda: phase_segrec_models(ctx),
+         "segrec_seq": lambda: phase_segrec_seq(ctx)}[name]()
         log(f"phase {name}: ok ({time.perf_counter() - t0:.1f} s)")
     _join_background(ctx)
     log(f"all phases: {time.perf_counter() - t_all:.1f} s")

@@ -6,9 +6,9 @@ root of the checkout, and loaded with ``ctypes``. A library may have parts,
 ``csrc/<name>.<part>.cu``, that hold some of its template instantiations:
 then each file is compiled to an object and the objects are linked, so that
 one long compile is cut into several that run side by side. The sources
-of ``COMMON`` (the key-chunk paths of the bf16 and fp32 attention cores)
-are compiled once into objects that the libraries launching their kernels
-link. Nothing is
+of ``COMMON`` (the key-chunk paths of the bf16 and fp32 attention cores,
+and the bf16 core's forward, which three libraries run) are compiled once
+into objects that the libraries launching their kernels link. Nothing is
 built when this module is imported: the first call to :func:`load_library`
 builds every library, one ``nvcc`` process a file, all started together;
 each library takes its final name as soon as it links, and later calls
@@ -38,7 +38,8 @@ SOURCES = ("two_block_attention", "proj_two_block_attention",
            "proj_two_block_attention_v2_bwd")
 # compiled once, each linked into the libraries that launch its kernels:
 # the key-chunk paths of the bf16 two-block core and of the fp32 3xTF32
-# core
+# core, and the bf16 core's forward (K2f, K4f, K4b's recompute; the
+# libraries declare it extern)
 COMMON = {
     "two_block_chunked": (
         "proj_two_block_attention", "proj_two_block_attention_bwd",
@@ -47,7 +48,9 @@ COMMON = {
         "proj_two_block_attention_v2_bwd"),
     "tf32_chunked": (
         "two_block_attention", "two_block_attention_bwd",
-        "masked_attention", "masked_attention_bwd")}
+        "masked_attention", "masked_attention_bwd"),
+    "k2_core_fwd": (
+        "proj_two_block_attention", "layer_stream", "layer_stream_bwd")}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # compiling a library's parts to objects: the same without -shared

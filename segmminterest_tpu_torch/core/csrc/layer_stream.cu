@@ -40,6 +40,15 @@
 #include "layer_mma.cuh"
 #include "two_block_mma.cuh"
 
+// K2's core forward (launch_k2_core<false>) is compiled once, in
+// k2_core_fwd.cu (core/build.py's COMMON), and linked into each library
+// that runs it.
+namespace segmm {
+extern template cudaError_t launch_k2_core<false, false, kBlockKeys, float>(const K2CoreArgs&,
+                                                                            int, int,
+                                                                            cudaStream_t);
+}  // namespace segmm
+
 namespace segmm {
 
 // shared-memory layout of the forward epilogue over rt rows: the A tile

@@ -62,6 +62,18 @@
 
 namespace segmm {
 
+// K2's core in the two directions that bf16 K4b runs: the forward
+// (recomputing att) is compiled once, in k2_core_fwd.cu (core/build.py's
+// COMMON), and linked into each library that runs it; the backward on an
+// fp32 g is instantiated in layer_stream_bwd.core.cu, compiled beside this
+// file (core/build.py), so that the two compiles run side by side.
+extern template cudaError_t launch_k2_core<false, false, kBlockKeys, float>(const K2CoreArgs&,
+                                                                            int, int,
+                                                                            cudaStream_t);
+extern template cudaError_t launch_k2_core<true, true, kBlockKeys, float>(const K2CoreArgs&,
+                                                                          int, int,
+                                                                          cudaStream_t);
+
 // what the epilogue-backward kernel reads and writes besides the weights
 template <typename T>
 struct EpBwdIO {

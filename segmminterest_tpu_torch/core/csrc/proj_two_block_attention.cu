@@ -34,6 +34,15 @@
 #include "proj_gemm.cuh"
 #include "two_block_mma.cuh"
 
+// K2's core forward (launch_k2_core<false>) is compiled once, in
+// k2_core_fwd.cu (core/build.py's COMMON), and linked into each library
+// that runs it.
+namespace segmm {
+extern template cudaError_t launch_k2_core<false, false, kBlockKeys, float>(const K2CoreArgs&,
+                                                                            int, int,
+                                                                            cudaStream_t);
+}  // namespace segmm
+
 // dtype: 1 = bfloat16 (the core's block; the projection GEMM's is fixed,
 // qkv_gemm_smem_bytes); any other dtype has no block here (0 bytes).
 extern "C" size_t segmm_proj_two_block_attention_smem_bytes(int dtype, int Lq, int L1, int L2,

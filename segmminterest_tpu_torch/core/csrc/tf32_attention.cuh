@@ -763,10 +763,9 @@ __global__ void tf32_sum_windows_kernel(const Tf32BwdArgs<NB> a, int B, int nz) 
   }
 }
 
-template <int DP, int NT, int NB>
+template <int DP, int NT, int NB, bool kDrop>
 cudaError_t launch_tf32_bwd(Tf32BwdArgs<NB> a, int B, cudaStream_t stream) {
-  auto kern = a.rate > 0.f ? tf32_bwd_kernel<DP, NT, NB, true>()
-                           : tf32_bwd_kernel<DP, NT, NB, false>();
+  auto kern = tf32_bwd_kernel<DP, NT, NB, kDrop>();
   a.qw = tf32_bwd_window(NB, a.Lq, a.L, a.D);
   const int nz = tf32_windows(a.Lq, a.qw);
   if (!nz || (nz > 1 && !a.part)) return cudaErrorInvalidValue;
@@ -789,11 +788,20 @@ cudaError_t launch_tf32_bwd(Tf32BwdArgs<NB> a, int B, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// The body at head dim DP with dropout (kDrop) or without: a library may
+// instantiate the two in files of their own, compiled side by side
+// (two_block_attention_bwd.d64.cu, .d64_drop.cu...).
+template <int NB, int DP, bool kDrop>
+cudaError_t launch_tf32_bwd_drop(const Tf32BwdArgs<NB>& a, int B, cudaStream_t s) {
+  return tf32_with_nt<NB, DP>(tf32_key_axis(NB, a.L).nk / 8, [&](auto nt) {
+    return launch_tf32_bwd<DP, decltype(nt)::value, NB, kDrop>(a, B, s);
+  });
+}
+
 template <int NB, int DP>
 cudaError_t launch_tf32_bwd_nt(const Tf32BwdArgs<NB>& a, int B, cudaStream_t s) {
-  return tf32_with_nt<NB, DP>(tf32_key_axis(NB, a.L).nk / 8, [&](auto nt) {
-    return launch_tf32_bwd<DP, decltype(nt)::value, NB>(a, B, s);
-  });
+  return a.rate > 0.f ? launch_tf32_bwd_drop<NB, DP, true>(a, B, s)
+                      : launch_tf32_bwd_drop<NB, DP, false>(a, B, s);
 }
 
 // Whether the bodies above take a shape (tf32_whole, below), else the

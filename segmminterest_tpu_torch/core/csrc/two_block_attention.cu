@@ -46,13 +46,18 @@
 #include "tf32_attention.cuh"
 
 namespace segmm {
-// The fp32 body at head dims past 64 is instantiated in two_block_attention.d96.cu and
-// .d128.cu, compiled beside this file (core/build.py), so that its longest
-// compiles run side by side.
-extern template cudaError_t launch_tf32_fwd_nt<2, 96>(const Tf32FwdArgs<2>&, int,
-                                                          cudaStream_t);
-extern template cudaError_t launch_tf32_fwd_nt<2, 128>(const Tf32FwdArgs<2>&, int,
-                                                           cudaStream_t);
+// The fp32 body at each head dim is instantiated in two_block_attention.d16.cu,
+// .d32.cu, .d64.cu, .d96.cu and .d128.cu, compiled beside this file
+// (core/build.py), so that its long compiles run side by side.
+#define SEGMM_K1F_EXTERN(d)                                                          \
+  extern template cudaError_t launch_tf32_fwd_nt<2, d>(const Tf32FwdArgs<2>&, int, \
+                                                       cudaStream_t);
+SEGMM_K1F_EXTERN(16)
+SEGMM_K1F_EXTERN(32)
+SEGMM_K1F_EXTERN(64)
+SEGMM_K1F_EXTERN(96)
+SEGMM_K1F_EXTERN(128)
+#undef SEGMM_K1F_EXTERN
 }  // namespace segmm
 
 // Shared memory of a block of the one-chunk body (tf32 = 1; 0 has no

@@ -50,16 +50,19 @@
 namespace segmm {
 // The fp32 body at head dims up to 16, from 36 to 64, to 96 and to 128
 // is instantiated in two_block_attention_bwd.d16.cu, .d64.cu, .d96.cu and
-// .d128.cu, compiled beside this file (core/build.py), so that its
+// .d128.cu, the bodies with dropout at 64 and 128 in .d64_drop.cu and
+// .d128_drop.cu, compiled beside this file (core/build.py), so that its
 // longest compiles run side by side.
-extern template cudaError_t launch_tf32_bwd_nt<2, 16>(const Tf32BwdArgs<2>&, int,
-                                                          cudaStream_t);
-extern template cudaError_t launch_tf32_bwd_nt<2, 64>(const Tf32BwdArgs<2>&, int,
-                                                          cudaStream_t);
-extern template cudaError_t launch_tf32_bwd_nt<2, 96>(const Tf32BwdArgs<2>&, int,
-                                                          cudaStream_t);
-extern template cudaError_t launch_tf32_bwd_nt<2, 128>(const Tf32BwdArgs<2>&, int,
-                                                           cudaStream_t);
+#define SEGMM_K1B_EXTERN(d)                                                              \
+  extern template cudaError_t launch_tf32_bwd_drop<2, d, false>(const Tf32BwdArgs<2>&, \
+                                                                 int, cudaStream_t);   \
+  extern template cudaError_t launch_tf32_bwd_drop<2, d, true>(const Tf32BwdArgs<2>&,  \
+                                                                int, cudaStream_t);
+SEGMM_K1B_EXTERN(16)
+SEGMM_K1B_EXTERN(64)
+SEGMM_K1B_EXTERN(96)
+SEGMM_K1B_EXTERN(128)
+#undef SEGMM_K1B_EXTERN
 }  // namespace segmm
 
 namespace segmm {

@@ -26,7 +26,10 @@ SegRec models (``segrec/``, :func:`segrec_state_dict`) take their flax
 names, so the same rules apply, and a BatchNorm's ``{scale, bias}`` params
 and ``{mean, var}`` statistics land on its ``weight``, ``bias``, ``mean``
 and ``var``; Dice's ``alpha`` and the models' single parameters
-(``overall_bias``, ``trainable_interest_weight``) go as they are.
+(``overall_bias``, ``trainable_interest_weight``; LightGCN's tables,
+Caser's convolutions, SRGNN's ``w_ih`` / ``w_hh`` used as ``x @ w.T``)
+go as they are, untransposed; a GRU's ``{name}/cell/x2h`` lands on
+``{name}.cell.x2h``.
 """
 
 from __future__ import annotations

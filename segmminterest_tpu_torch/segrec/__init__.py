@@ -5,9 +5,11 @@ package's).
 Readers -> fixed-shape numpy feeds -> torch models -> runners on the
 device, plus the Clip* segment-integration models that weight per-segment
 scores by Task-1 interest logits (``tasks/export_logits.py`` writes them).
-This slice holds the corpus, the ranking and CTR feeds and runners,
-``main`` and the models ClipWDRec (ClipRec), ClipDINRec, WideDeep and DIN;
-the rest of the JAX package's SegRec is ROADMAP Queue A item 4.
+It holds the corpus, the ranking and CTR feeds and runners (full-sort
+evaluation and the general and sequential models' loss routes among
+them), ``main`` and every general, sequential and context model of the
+JAX registry; the LeaveRankingRunner, Impression mode and the KG family
+are ROADMAP Queue A item 4.
 """
 
 from .corpus import Corpus

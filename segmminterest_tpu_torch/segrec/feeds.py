@@ -24,9 +24,22 @@ draws one uniform negative per history slot of the train split each epoch,
 never the positive there (DIEN.py:206-216), before the ranking negatives
 and from the same generator, as the JAX builder does.
 
-Not ported yet (ROADMAP Queue A item 3): S3Rec's pretrain views, SRGNN's
-session graphs, ContraRec's augmented histories and full-sort
-(``test_all``) evaluation; asking for one raises. The KG feeds are item 4.
+The sequential models' feeds:
+ * ``augment_history`` (ContraRec, train split): two augmented views of
+   each row's history, ``history_item_id_a`` / ``_b`` (Dataset.augment
+   :108-135), drawn per row at batch time, view a then view b, each a
+   ``beta`` then a ``random`` draw and then a ``shuffle`` or an
+   ``integers`` one;
+ * ``session_graph`` (SRGNN): each row's session graph, ``srgnn_items``,
+   ``srgnn_A`` and ``srgnn_alias`` (SRGNN.py:42-76);
+ * ``s3rec_pretrain`` (S3Rec stage 1, train split): the users' histories
+   cut into ``history_max`` chunks, a batch of masked-item and segment
+   views drawn per position and per segment (S3Rec.py:118-165), no
+   candidates;
+ * ``test_all`` (full-sort evaluation): [target] + every item id 1 ..
+   n_items - 1 as the candidates (BaseModel.py:231-235).
+
+The KG feeds are ROADMAP Queue A item 4.
 """
 
 from __future__ import annotations
@@ -40,8 +53,6 @@ from .corpus import Corpus
 
 CLIP_NUM = 40
 # the ROADMAP items that port the routes of the JAX package still missing
-QUEUE_SEQUENTIAL = ("ROADMAP Queue A item 3 (SegRec's general and "
-                    "sequential models)")
 QUEUE_RUNNERS = ("ROADMAP Queue A item 4 (SegRec's other runners and the "
                  "KG models)")
 QUEUE_MULTI_GPU = "ROADMAP Queue A item 6 (multi-GPU)"
@@ -92,20 +103,13 @@ class FeedBuilder:
                  include_history: bool = False,
                  neg_history: bool = False,
                  augment_history: bool = False,
+                 beta_a: int = 3, beta_b: int = 3,
                  session_graph: bool = False,
                  s3rec_pretrain: bool = False,
+                 s3rec_mask_ratio: float = 0.2,
                  test_all: bool = False,
                  clip_weights: Optional[ClipWeights] = None,
                  feature_store=None, seed: int = 0):
-        for flag, what in ((augment_history, "augment_history (ContraRec)"),
-                           (session_graph, "session_graph (SRGNN)"),
-                           (s3rec_pretrain and phase == "train",
-                            "s3rec_pretrain (S3Rec)"),
-                           (test_all, "test_all (full-sort evaluation)")):
-            if flag:
-                raise NotImplementedError(
-                    f"FeedBuilder {what} is not ported yet: "
-                    f"{QUEUE_SEQUENTIAL}")
         self.corpus = corpus
         self.phase = phase
         self.task = task
@@ -113,6 +117,14 @@ class FeedBuilder:
         self.history_max = history_max
         self.include_history = include_history
         self.neg_history = neg_history
+        self.augment_history = augment_history
+        self.beta_a, self.beta_b = beta_a, beta_b
+        self.session_graph = session_graph
+        self.s3rec_pretrain = s3rec_pretrain and phase == "train"
+        self.s3rec_mask_ratio = s3rec_mask_ratio
+        if self.s3rec_pretrain:
+            self._s3rec_corpus()
+        self.test_all = test_all
         self.hist_neg: Optional[np.ndarray] = None
         self.clip_weights = clip_weights
         self.store = feature_store
@@ -174,14 +186,101 @@ class FeedBuilder:
                 vals = corpus.user_his_situs[f][int(self.user_id[r])]
                 self.hist_situs[f][r, :len(items)] = vals[lo:pos]
 
+    def _s3rec_corpus(self):
+        """S3Rec's pretrain corpus (developing/S3Rec.py:118-131): every
+        user's history cut into history_max-long chunks, and the users'
+        histories end to end, where negative segments are drawn from."""
+        hmax = self.history_max
+        chunks, lens, long_seq = [], [], []
+        for uid in sorted(self.corpus.user_his_items):
+            inst = [int(x) for x in self.corpus.user_his_items[uid]]
+            long_seq.extend(inst)
+            for i0 in range((len(inst) - 1) // hmax + 1):
+                tr = inst[i0 * hmax:(i0 + 1) * hmax]
+                chunks.append(tr + [0] * (hmax - len(tr)))
+                lens.append(len(tr))
+        self.s3_item_seq = np.asarray(chunks, np.int64)
+        self.s3_seq_len = np.asarray(lens, np.int32)
+        self.s3_long_seq = np.asarray(long_seq, np.int64)
+
+    def _augment_seq(self, seq):
+        """ContraRec.py:108-124 mask_op / reorder_op over a beta(a, b)
+        share of the slots."""
+        n = len(seq)
+        ratio = self.rng.beta(self.beta_a, self.beta_b)
+        sel = int(n * ratio)
+        if self.rng.random() > 0.5:
+            keep = np.zeros(n, bool)
+            keep[:sel] = True
+            self.rng.shuffle(keep)
+            out = seq.copy()
+            out[keep] = self.corpus.n_items  # mask token
+            return out
+        start = int(self.rng.integers(0, n - sel + 1))
+        idx2 = np.arange(n)
+        self.rng.shuffle(idx2[start:start + sel])
+        return seq[idx2]
+
     def __len__(self) -> int:
+        if self.s3rec_pretrain:
+            return len(self.s3_item_seq)
         return len(self.user_id)
+
+    def _s3rec_batch(self, idx: np.ndarray, B: int):
+        """Masked-item and segment-prediction views (S3Rec.py:143-165)."""
+        hmax = self.s3_item_seq.shape[1]
+        n_items = self.corpus.n_items
+        mask_token = n_items
+        out = {k: np.zeros((B, hmax), np.int64)
+               for k in ("mask_seq", "pos_item", "neg_item", "mask_seg_seq",
+                         "pos_seg", "neg_seg")}
+        seq_len = np.zeros(B, np.int32)
+        row_mask = np.zeros(B, bool)
+        for r, ri in enumerate(idx):
+            n = int(self.s3_seq_len[ri])
+            seq = list(self.s3_item_seq[ri, :n])
+            seq_set = set(seq)
+
+            def neg():
+                it = int(self.rng.integers(1, n_items))
+                while it in seq_set:
+                    it = int(self.rng.integers(1, n_items))
+                return it
+
+            mask_seq, pos_item, neg_item = list(seq), list(seq), list(seq)
+            for j in range(n):
+                if self.rng.random() < self.s3rec_mask_ratio:
+                    mask_seq[j] = mask_token
+                    neg_item[j] = neg()
+            if n < 2:
+                mseg, pseg, nseg = list(seq), list(seq), list(seq)
+            else:
+                sl = int(self.rng.integers(1, n // 2 + 1))
+                st = int(self.rng.integers(0, n - sl))
+                nst = int(self.rng.integers(0, len(self.s3_long_seq) - sl))
+                tail = [mask_token] * (n - st - sl)
+                mseg = seq[:st] + [mask_token] * sl + seq[st + sl:]
+                pseg = [mask_token] * st + seq[st:st + sl] + tail
+                nseg = ([mask_token] * st
+                        + list(self.s3_long_seq[nst:nst + sl]) + tail)
+            for key, vals in (("mask_seq", mask_seq), ("pos_item", pos_item),
+                              ("neg_item", neg_item), ("mask_seg_seq", mseg),
+                              ("pos_seg", pseg), ("neg_seg", nseg)):
+                out[key][r, :len(vals)] = vals
+            seq_len[r] = n
+            row_mask[r] = True
+        out["seq_len"] = seq_len
+        out["row_mask"] = row_mask
+        return out
 
     def actions_before_epoch(self):
         """Per-epoch negative sampling with clicked-set rejection
         (GeneralModel.Dataset.actions_before_epoch, BaseModel.py:292-300);
         with ``neg_history``, first one uniform negative per history slot
-        other than the positive there (DIEN.py:206-216)."""
+        other than the positive there (DIEN.py:206-216). S3Rec's pretrain
+        draws no candidates (S3Rec.py:133-136)."""
+        if self.s3rec_pretrain:
+            return
         if self.neg_history and self.include_history \
                 and self.phase == "train":
             neg_h = self.rng.integers(1, self.corpus.n_items,
@@ -212,6 +311,15 @@ class FeedBuilder:
                 "call actions_before_epoch() before iterating the train split"
             return np.concatenate(
                 [self.item_id[idx][:, None], self.neg_items_epoch[idx]], axis=1)
+        if self.test_all:
+            # full-sort evaluation: [target] + every item id
+            # (BaseModel.py:231-235; the runner puts clicked items at -inf,
+            # BaseRunner.py:254-261)
+            all_items = np.arange(1, self.corpus.n_items, dtype=np.int64)
+            return np.concatenate(
+                [self.item_id[idx][:, None],
+                 np.broadcast_to(all_items, (len(idx), len(all_items)))],
+                axis=1)
         assert self._neg_eval is not None, \
             f"{self.phase}.csv has no neg_items column (needed for ranking)"
         return np.concatenate(
@@ -224,7 +332,9 @@ class FeedBuilder:
             self.rng.shuffle(order)
         for start in range(0, len(order), batch_size):
             idx = order[start:start + batch_size]
-            yield self._assemble(idx, batch_size if pad_final else len(idx))
+            B = batch_size if pad_final else len(idx)
+            yield (self._s3rec_batch(idx, B) if self.s3rec_pretrain
+                   else self._assemble(idx, B))
 
     def _assemble(self, idx: np.ndarray, B: int) -> Dict[str, np.ndarray]:
         corpus = self.corpus
@@ -271,6 +381,21 @@ class FeedBuilder:
             feed["history_delta_t"] = pad(
                 np.asarray(self.time[idx])[:, None] - self.hist_times[idx])
             feed["lengths"] = pad(self.hist_len[idx])
+            if self.session_graph:
+                graph = self._session_graphs(self.hist_items[idx])
+                for k, v in graph.items():
+                    feed[k] = pad(v)
+            if self.augment_history and self.phase == "train":
+                # two augmented views a row (ContraRec Dataset.augment: the
+                # mask or reorder op over the real slots, a beta-drawn
+                # extent; the mask token is n_items)
+                for key in ("history_item_id_a", "history_item_id_b"):
+                    aug = self.hist_items[idx].copy()
+                    for r2 in range(n_real):
+                        m2 = int(self.hist_len[idx][r2])
+                        if m2 > 0:
+                            aug[r2, :m2] = self._augment_seq(aug[r2, :m2])
+                    feed[key] = pad(aug)
             feed["user_min_intervals"] = pad(
                 self.user_min_interval[self.user_id[idx]])
             # historical item features (ContextSeqCTRModel.Dataset,
@@ -299,3 +424,32 @@ class FeedBuilder:
                     lines[r, c, :len(pl)] = pl
             feed["item_frame_lines"] = pad(lines, fill=-1)
         return feed
+
+    @staticmethod
+    def _session_graphs(hist: np.ndarray) -> Dict[str, np.ndarray]:
+        """SRGNN's session graph of each row (SRGNN.py:42-76): the unique
+        item nodes (0 among them where the history pads), the in / out
+        normalised adjacency [L, 2L] over the consecutive pairs up to the
+        first padding, and each position's node."""
+        n, L2 = hist.shape
+        alias = np.zeros((n, L2), np.int32)
+        items_u = np.zeros((n, L2), np.int64)
+        A = np.zeros((n, L2, 2 * L2), np.float32)
+        for r2 in range(n):
+            seq = hist[r2]
+            node = np.unique(seq)
+            items_u[r2, :len(node)] = node
+            uA = np.zeros((L2, L2))
+            for i2 in range(len(seq) - 1):
+                if seq[i2 + 1] == 0:
+                    break
+                u = int(np.where(node == seq[i2])[0][0])
+                v = int(np.where(node == seq[i2 + 1])[0][0])
+                uA[u][v] = 1
+            s_in = uA.sum(0)
+            s_in[s_in == 0] = 1
+            s_out = uA.sum(1)
+            s_out[s_out == 0] = 1
+            A[r2] = np.concatenate([uA / s_in, (uA.T / s_out)]).T
+            alias[r2] = [int(np.where(node == i3)[0][0]) for i3 in seq]
+        return {"srgnn_alias": alias, "srgnn_items": items_u, "srgnn_A": A}

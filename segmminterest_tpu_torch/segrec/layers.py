@@ -44,8 +44,8 @@ INIT_STD = 0.01
 def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """N(0, 0.01) into every Linear / Embedding weight and bias, in the
     order ``named_modules`` walks them (init_weights :37-44); then each
-    :func:`normal_param` and each InteractionAggregation, in that order
-    again."""
+    :func:`normal_param`, :func:`uniform_param` and InteractionAggregation,
+    in that order again."""
     from ..models.interest import InteractionAggregation
     with torch.no_grad():
         for m in model.modules():
@@ -55,6 +55,8 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
         for m in model.modules():
             for name, std in getattr(m, "normal_init", {}).items():
                 getattr(m, name).normal_(0.0, std, generator=generator)
+            for name, bound in getattr(m, "uniform_init", {}).items():
+                getattr(m, name).uniform_(-bound, bound, generator=generator)
             if isinstance(m, InteractionAggregation):
                 m.reset_parameters(generator)
     return model
@@ -68,6 +70,19 @@ def normal_param(owner: nn.Module, name: str, shape, std: float = 1.0
     if "normal_init" not in owner.__dict__:
         owner.normal_init = {}
     owner.normal_init[name] = std
+    p = nn.Parameter(torch.zeros(shape))
+    owner.register_parameter(name, p)
+    return p
+
+
+def uniform_param(owner: nn.Module, name: str, shape, bound: float
+                  ) -> nn.Parameter:
+    """A parameter ``name`` of ``owner`` that :func:`init_weights` draws
+    from U(-bound, bound) (SRGNN's GRU weights in the JAX package); zeros
+    until then."""
+    if "uniform_init" not in owner.__dict__:
+        owner.uniform_init = {}
+    owner.uniform_init[name] = bound
     p = nn.Parameter(torch.zeros(shape))
     owner.register_parameter(name, p)
     return p

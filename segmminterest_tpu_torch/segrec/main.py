@@ -12,12 +12,15 @@ with WUAUC.
 
 The parser is the JAX CLI's, every flag, plus ``--device`` (the card
 unless ``cpu`` is asked for; without a card and without ``--device cpu`` it
-raises). The CTR and Ranking (TopK) modes run every context model of the
-JAX registry (``models.MODEL_REGISTRY``), DIEN's auxiliary loss
-(``--alpha_aux``) included; the general and sequential models and
-``--test_all`` raise naming ROADMAP Queue A item 3, ``--model_mode
-Impression``, the KG models and ``--leave_rank`` item 4, a batch sharded
-over more than one card (``--use_mesh`` with several cards) item 6.
+raises). The CTR and Ranking (TopK) modes run every general, sequential
+and context model of the JAX registry (``models.MODEL_REGISTRY``), with
+their loss routes, DIEN's auxiliary loss (``--alpha_aux``), full-sort
+evaluation (``--test_all 1``) and the two-stage protocols (S3Rec
+``--s3rec_stage 1`` then ``2 --load 1``, TiMiRec ``--timirec_stage
+pretrain`` then ``finetune --load 1``, through ``--model_path``);
+``--model_mode Impression``, the KG models and ``--leave_rank`` raise
+naming ROADMAP Queue A item 4, a batch sharded over more than one card
+(``--use_mesh`` with several cards) item 6.
 ``save_final_results`` and ``all_inference`` write their TSVs with
 ``data/reader.py``'s ``write_csv`` (pandas' ``to_csv`` byte for byte). On
 the card the run logs its peak device memory.
@@ -38,8 +41,7 @@ from ..data.feature_store import FeatureStore
 from ..data.reader import write_csv
 from ..utils.device import resolve_device
 from .corpus import Corpus
-from .feeds import (QUEUE_MULTI_GPU, QUEUE_RUNNERS, QUEUE_SEQUENTIAL,
-                    ClipWeights, FeedBuilder)
+from .feeds import QUEUE_MULTI_GPU, QUEUE_RUNNERS, ClipWeights, FeedBuilder
 from .layers import init_weights
 from .models import model_class
 from .runner import CTRRunner, RankingRunner, RunnerConfig
@@ -232,6 +234,10 @@ def build_model(args, corpus: Corpus, use_frames: bool) -> torch.nn.Module:
     every device)."""
     name = args.model_name
     cls = model_class(name)
+    model = _general_or_sequential(args, corpus, cls)
+    if model is not None:
+        return init_weights(model, torch.Generator().manual_seed(
+            args.random_seed))
     feature_names = (corpus.user_feature_names + corpus.item_feature_names
                      + corpus.situation_feature_names
                      + ["user_id", "item_id"])
@@ -355,6 +361,99 @@ def build_model(args, corpus: Corpus, use_frames: bool) -> torch.nn.Module:
         args.random_seed))
 
 
+def _general_or_sequential(args, corpus: Corpus, cls):
+    """The general and sequential models' branches of the JAX CLI's
+    build_model (segrec/main.py:266-341), with the flags each reads; None
+    for a context model."""
+    name = args.model_name
+    base = dict(user_num=corpus.n_users, item_num=corpus.n_items,
+                emb_size=args.emb_size)
+    drop = dict(dropout=args.dropout)
+    hist = dict(history_max=args.history_max)
+    multi = dict(attn_size=args.comirec_attn_size, K=args.comirec_k,
+                 add_pos=bool(args.comirec_add_pos))
+    if name in ("BPRMF", "DirectAU"):
+        return cls(**base)
+    if name == "BUIR":
+        return cls(momentum=args.buir_momentum, **base)
+    if name == "NeuMF":
+        return cls(layers=json.loads(args.layers), **base, **drop)
+    if name == "LightGCN":
+        train = corpus.data_df["train"]
+        return cls(edge_users=train["user_id"].astype(np.int32),
+                   edge_items=train["item_id"].astype(np.int32), **base)
+    if name == "POP":
+        pop = np.bincount(corpus.data_df["train"]["item_id"].astype(
+            np.int64), minlength=corpus.n_items).astype(np.float32)
+        return cls(popularity=pop)
+    if name in ("SASRec", "Caser"):
+        return cls(**base, **hist, **drop)
+    if name in ("GRU4Rec", "FPMC"):
+        return cls(**base, **drop)
+    if name == "NARM":
+        return cls(hidden_size=args.narm_hidden_size,
+                   attention_size=args.narm_attention_size, **base, **drop)
+    if name == "TiSASRec":
+        return cls(time_max=args.time_max, **base, **hist, **drop)
+    if name == "ContraRec":
+        return cls(encoder=args.contrarec_encoder,
+                   gamma=args.contrarec_gamma, ccc_temp=args.ccc_temp,
+                   **base, **hist, **drop)
+    if name == "S3Rec":
+        return cls(mip_weight=args.mip_weight, sp_weight=args.sp_weight,
+                   pretrain=args.s3rec_stage == 1, **base, **hist, **drop)
+    if name == "CLRec":
+        return cls(temp=args.ccc_temp, **base, **hist, **drop)
+    if name == "FourierTA":
+        return cls(t_scalar=args.t_scalar, **base, **drop)
+    if name == "SRGNN":
+        return cls(num_layers=args.num_layers, **base, **drop)
+    if name == "TiMiRec":
+        return cls(temp=args.timirec_temp, n_layers=args.timirec_n_layers,
+                   stage=args.timirec_stage, **multi, **base, **hist,
+                   **drop)
+    if name == "ComiRec":
+        return cls(**multi, **base, **hist, **drop)
+    return None
+
+
+def feed_builders(args, corpus: Corpus, task: str, clip_weights=None,
+                  store=None, phases=("train", "dev", "test")):
+    """The FeedBuilder of each phase for ``args`` (the JAX CLI's wiring,
+    segrec/main.py:618-632): histories for the sequential models, DIEN's
+    history negatives, ContraRec's views, SRGNN's graphs, S3Rec's pretrain
+    corpus (stage 1, train) and full-sort candidates (``--test_all``)."""
+    hist = args.model_name in SEQ_MODELS
+    return {phase: FeedBuilder(
+        corpus, phase, task=task, num_neg=args.num_neg,
+        history_max=args.history_max, include_history=hist,
+        neg_history=args.alpha_aux > 0 and hist,
+        augment_history=args.model_name == "ContraRec",
+        beta_a=args.beta_a, beta_b=args.beta_b,
+        session_graph=args.model_name == "SRGNN",
+        s3rec_pretrain=(args.model_name == "S3Rec" and args.s3rec_stage == 1
+                        and phase == "train"),
+        s3rec_mask_ratio=args.mask_ratio,
+        test_all=(bool(args.test_all) and phase != "train"
+                  and task == "ranking"),
+        clip_weights=clip_weights, feature_store=store,
+        seed=args.random_seed) for phase in phases}
+
+
+def loss_name(args, task: str) -> str:
+    """The JAX CLI's loss route (segrec/main.py:647-658): ``--loss_n`` if
+    given (``DirectAU`` only so), else by task and model."""
+    if args.loss_n:
+        return args.loss_n
+    if task == "ctr":
+        return "BCE"
+    if args.model_name in ("BUIR", "ContraRec", "CLRec"):
+        return args.model_name
+    if args.model_name == "S3Rec" and args.s3rec_stage == 1:
+        return "S3Rec"
+    return "BPR"
+
+
 def _not_ported(args, task: str):
     """The routes of the JAX CLI the port lacks: raise naming the ROADMAP
     item that ports each."""
@@ -365,8 +464,6 @@ def _not_ported(args, task: str):
         what, item = f"the KG model {args.model_name}", QUEUE_RUNNERS
     elif args.leave_rank:
         what, item = "--leave_rank (LeaveRankingRunner)", QUEUE_RUNNERS
-    elif args.test_all and task == "ranking":
-        what, item = "--test_all (full-sort evaluation)", QUEUE_SEQUENTIAL
     if what:
         raise NotImplementedError(f"{what} is not ported yet: {item}")
     model_class(args.model_name)  # raises for a model not ported
@@ -407,13 +504,7 @@ def main(argv=None):
         store = FeatureStore.open(args.clip_feature_memmap, args.lineid_map)
         feat_table = store.feat
 
-    include_history = args.model_name in SEQ_MODELS
-    builders = {phase: FeedBuilder(
-        corpus, phase, task=task, num_neg=args.num_neg,
-        history_max=args.history_max, include_history=include_history,
-        neg_history=(args.alpha_aux > 0 and include_history),
-        clip_weights=clip_weights, feature_store=store,
-        seed=args.random_seed) for phase in ("train", "dev", "test")}
+    builders = feed_builders(args, corpus, task, clip_weights, store)
 
     model = build_model(args, corpus, use_frames=store is not None)
     metrics = args.metric or ("AUC,F1_SCORE,LOG_LOSS,ACC"
@@ -425,7 +516,7 @@ def main(argv=None):
         topk=tuple(int(x) for x in args.topk.split(",")),
         metrics=tuple(m.strip().upper() for m in metrics.split(",")),
         main_metric=args.main_metric,
-        loss_n=args.loss_n or ("BCE" if task == "ctr" else "BPR"),
+        loss_n=loss_name(args, task), ctc_temp=args.ctc_temp,
         auxillary_loss_weight=args.auxillary_loss_weight,
         seed=args.random_seed)
     runner_cls = CTRRunner if task == "ctr" else RankingRunner

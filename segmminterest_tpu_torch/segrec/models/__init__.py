@@ -4,13 +4,13 @@ the reference's *CTR / *Ranking class pairs map to the same module run
 under different runners (CTR applies sigmoid + BCE, Ranking softmax-weighted
 BPR).
 
-``MODEL_REGISTRY`` holds every context model of the JAX package's
-registry; its general and sequential models and the KG family raise
-``NotImplementedError`` naming the ROADMAP item that ports them. No model
-stands in for another.
+``MODEL_REGISTRY`` holds every model of the JAX package's registry: the
+general, sequential and context models; the KG family (segrec/kg.py)
+raises ``NotImplementedError`` naming the ROADMAP item that ports it. No
+model stands in for another.
 """
 
-from ..feeds import QUEUE_RUNNERS, QUEUE_SEQUENTIAL
+from ..feeds import QUEUE_RUNNERS
 from .adagin import AdaGINModel
 from .autoint import AutoIntModel
 from .can import CANModel
@@ -23,11 +23,36 @@ from .dien import DIENModel
 from .din import ClipDINModel, DINModel
 from .finalmlp import FinalMLPModel
 from .fm import FMModel
+from .general import (BPRMFModel, BUIRModel, DirectAUModel, LightGCNModel,
+                      NeuMFModel, POPModel)
 from .sam import SAMModel
 from .sdim import ETAModel, SDIMModel
+from .sequential import (CaserModel, CLRecModel, ComiRecModel,
+                         ContraRecModel, FourierTAModel, FPMCModel,
+                         GRU4RecModel, NARMModel, S3RecModel, SASRecModel,
+                         SRGNNModel, TiMiRecModel, TiSASRecModel)
 from .widedeep import WideDeepModel
 
 MODEL_REGISTRY = {
+    "BPRMF": BPRMFModel,
+    "BUIR": BUIRModel,
+    "NeuMF": NeuMFModel,
+    "LightGCN": LightGCNModel,
+    "DirectAU": DirectAUModel,
+    "POP": POPModel,
+    "SASRec": SASRecModel,
+    "GRU4Rec": GRU4RecModel,
+    "Caser": CaserModel,
+    "NARM": NARMModel,
+    "FPMC": FPMCModel,
+    "TiSASRec": TiSASRecModel,
+    "ComiRec": ComiRecModel,
+    "ContraRec": ContraRecModel,
+    "TiMiRec": TiMiRecModel,
+    "SRGNN": SRGNNModel,
+    "CLRec": CLRecModel,
+    "FourierTA": FourierTAModel,
+    "S3Rec": S3RecModel,
     "FM": FMModel,
     "WideDeep": WideDeepModel,
     "DeepFM": DeepFMModel,
@@ -56,17 +81,9 @@ MODEL_REGISTRY = {
 }
 
 # the JAX package's models still to port, by the ROADMAP Queue A item that
-# ports them: the general and sequential models
-# (segmminterest_tpu/segrec/models/__init__.py:30-74) and the KG family of
-# segrec/kg.py
-NOT_PORTED = {
-    **{name: QUEUE_SEQUENTIAL for name in (
-        "BPRMF", "BUIR", "NeuMF", "LightGCN", "DirectAU", "POP", "SASRec",
-        "GRU4Rec", "Caser", "NARM", "FPMC", "TiSASRec", "ComiRec",
-        "ContraRec", "TiMiRec", "SRGNN", "CLRec", "FourierTA", "S3Rec")},
-    **{name: QUEUE_RUNNERS for name in ("CFKG", "SLRCPlus", "Chorus",
-                                        "KDA")},
-}
+# ports them: the KG family of segrec/kg.py
+NOT_PORTED = {name: QUEUE_RUNNERS for name in ("CFKG", "SLRCPlus", "Chorus",
+                                               "KDA")}
 
 
 def model_class(name: str):

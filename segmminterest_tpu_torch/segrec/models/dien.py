@@ -42,10 +42,11 @@ class GRUCell(nn.Module):
     r/z/n (GRU) or u/r/n (AUGRU, the update gate scaled by the step's
     attention)."""
 
-    def __init__(self, hidden: int, cell_type: str = "gru"):
+    def __init__(self, hidden: int, cell_type: str = "gru",
+                 input_size: Optional[int] = None):
         super().__init__()
         self.hidden, self.cell_type = hidden, cell_type
-        self.x2h = nn.Linear(hidden, 3 * hidden)
+        self.x2h = nn.Linear(input_size or hidden, 3 * hidden)
         self.h2h = nn.Linear(hidden, 3 * hidden)
 
     def forward(self, h, gx, valid, attn=None):
@@ -72,12 +73,14 @@ class GRUCell(nn.Module):
 
 
 class MaskedGRU(nn.Module):
-    """GRU / AUGRU over (N, L, D) with per-row lengths -> (outputs (N, L,
-    D), last hidden (N, D))."""
+    """GRU / AUGRU over (N, L, input_size) with per-row lengths -> (outputs
+    (N, L, hidden), last hidden (N, hidden)); ``input_size`` defaults to
+    ``hidden`` (flax infers it from the input)."""
 
-    def __init__(self, hidden: int, cell_type: str = "gru"):
+    def __init__(self, hidden: int, cell_type: str = "gru",
+                 input_size: Optional[int] = None):
         super().__init__()
-        self.cell = GRUCell(hidden, cell_type)
+        self.cell = GRUCell(hidden, cell_type, input_size)
 
     def forward(self, xs: torch.Tensor, lengths: torch.Tensor,
                 attn: Optional[torch.Tensor] = None

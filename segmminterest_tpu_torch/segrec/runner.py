@@ -8,7 +8,12 @@ CTRRunner.py (:20-79):
    shuffled, exactly like the reference;
  * ranking loss = softmax-weighted soft BPR (BaseModel.py:212-226); CTR loss
    = BCE on sigmoid outputs (or MSE); optional BCE ranking loss
-   (BaseContextModel.py:63-73);
+   (BaseContextModel.py:63-73); the general and sequential models' routes
+   (``loss_n``): ContraRec's temperature softmax, BUIR's bootstrap loss,
+   DirectAU's alignment / uniformity, and none for CLRec and S3Rec's
+   pretrain, whose own terms are the objective;
+ * full-sort evaluation (``test_all`` feeds): the users' clicked items at
+   -inf (BaseRunner.py:254-261);
  * dev-metric early stop: non-increasing window or best-age > patience
    (:220-225);
  * evaluate_method: rank of the first column among candidates with the
@@ -46,7 +51,9 @@ The training loss adds what the model returns in ``losses`` (the flax
 models' sown terms): the contrastive term weighted by
 ``auxillary_loss_weight``, the others (DCNv2's ``reg_loss``, DIEN's
 ``aux_loss``) as they are, pre-weighted; then ``model.reg_loss()`` where
-the model has one (AFM, xDeepFM). Evaluation hands the model a generator
+the model has one (AFM, xDeepFM). A model with ``momentum_update``
+(BUIR) runs it after every optimizer step and ``sync_targets`` before
+training, as the JAX runner does. Evaluation hands the model a generator
 seeded from ``seed`` for each batch, as the JAX runner hands its evaluation
 a fixed ``gumbel`` key: AdaGIN samples its Gumbel noise there too.
 """
@@ -67,7 +74,8 @@ from ..engine.evaluation import _auc_score
 from ..engine.optim import Adagrad
 from ..models.convert import segrec_state_dict
 from ..utils.device import resolve_device
-from .feeds import QUEUE_SEQUENTIAL, FeedBuilder
+from .feeds import QUEUE_RUNNERS, FeedBuilder
+from .models.general import direct_au_loss
 
 logger = logging.getLogger(__name__)
 
@@ -86,7 +94,11 @@ class RunnerConfig:
     topk: Tuple[int, ...] = (5, 10, 20, 50)
     metrics: Tuple[str, ...] = ("NDCG", "HR")
     main_metric: str = ""
-    loss_n: str = "BPR"          # BPR | BCE (ranking); BCE | MSE (ctr)
+    # ranking: BPR | BCE | DirectAU | BUIR | ContraRec | CLRec | S3Rec;
+    # ctr: BCE | MSE
+    loss_n: str = "BPR"
+    directau_gamma: float = 1.0
+    ctc_temp: float = 1.0        # ContraRec's context-target temperature
     auxillary_loss_weight: float = 0.0
     seed: int = 0
 
@@ -232,17 +244,45 @@ class RankingRunner:
         raise KeyError(f"unknown optimizer {self.cfg.optimizer}")
 
     def _loss(self, predictions, batch):
+        """The loss route ``loss_n`` (the JAX runner's, route for route).
+        BUIR's and DirectAU's read the batch's first candidate column as
+        the model saw it, after the candidate shuffle, as the JAX runner's
+        do."""
         if "unshuffle" in batch:
             # restore candidate order so column 0 is the target
             # (BaseRunner.py:199-208)
             predictions = torch.gather(predictions, 1, batch["unshuffle"])
-        if self.cfg.loss_n == "BCE":
-            return bce_ranking_loss(predictions, batch["row_mask"])
-        if self.cfg.loss_n != "BPR":
+        name, rm = self.cfg.loss_n, batch["row_mask"]
+        if name in ("CFKG", "ChorusKG"):
             raise NotImplementedError(
-                f"ranking loss {self.cfg.loss_n} is not ported yet: "
-                f"{QUEUE_SEQUENTIAL}")
-        return bpr_loss(predictions, batch["row_mask"])
+                f"ranking loss {name} is not ported yet: {QUEUE_RUNNERS}")
+        if name in ("S3Rec", "CLRec"):
+            # the model's own term (its losses) is the whole objective
+            # (S3Rec.py:59-113, CLRec.py:61-63)
+            return torch.zeros((), dtype=predictions.dtype,
+                               device=predictions.device)
+        if name == "ContraRec":
+            # context-target contrastive: a temperature softmax over the
+            # candidates, NLL of column 0 (ContraRec.py:101-105)
+            t = self.cfg.ctc_temp
+            p = torch.softmax(predictions / t, dim=1)
+            per_row = -t * torch.log(torch.clamp(p[:, 0], 1e-12, 1.0))
+            rm = rm.to(per_row.dtype)
+            return (per_row * rm).sum() / torch.clamp(rm.sum(), min=1)
+        if name == "BUIR":
+            # the bootstrap loss over online / target tables
+            # (general/BUIR.py:101-114)
+            return self.model.buir_loss(batch["user_id"],
+                                        batch["item_id"][:, 0], rm)
+        if name == "DirectAU":
+            # alignment / uniformity over the MF tables (general/DirectAU.py)
+            return direct_au_loss(
+                self.model.u_embeddings(batch["user_id"].long()),
+                self.model.i_embeddings(batch["item_id"][:, 0].long()), rm,
+                self.cfg.directau_gamma)
+        if name == "BCE":
+            return bce_ranking_loss(predictions, rm)
+        return bpr_loss(predictions, rm)
 
     def put(self, feed: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
         """The batch's device keys (all but ``time``) on the device."""
@@ -282,7 +322,8 @@ class RankingRunner:
                 # xDeepFM.py:77-94)
                 loss = loss + self.model.reg_loss()
             self.optimizer.zero_grad(set_to_none=True)
-            loss.backward()
+            if loss.requires_grad:  # POP's scores depend on no parameter
+                loss.backward()
         finally:
             self.model.eval()
         with torch.no_grad():
@@ -292,6 +333,9 @@ class RankingRunner:
                 if self.cfg.l2 > 0 and not _is_bias(name):
                     p.grad.add_(p, alpha=self.cfg.l2)
         self.optimizer.step()
+        if hasattr(self.model, "momentum_update"):
+            # BUIR's target tables follow the online ones (BUIRRunner)
+            self.model.momentum_update()
         return loss.detach()
 
     def eval_scores(self, feed: Dict[str, np.ndarray]) -> np.ndarray:
@@ -326,7 +370,7 @@ class RankingRunner:
         builder.actions_before_epoch()
         losses = []
         for feed in builder.batches(self.cfg.batch_size, shuffle=True):
-            if self.task == "ranking":
+            if self.task == "ranking" and "item_id" in feed:
                 feed = self._shuffled_batch(feed)
             seed = int(self.rng.integers(0, 2 ** 31 - 1))
             losses.append(float(self.train_step(feed, seed)))
@@ -337,7 +381,17 @@ class RankingRunner:
         preds = [self.eval_scores(feed)[feed["row_mask"]]
                  for feed in builder.batches(self.cfg.eval_batch_size,
                                              shuffle=False)]
-        return np.concatenate(preds, axis=0)
+        predictions = np.concatenate(preds, axis=0)
+        if builder.test_all:
+            # column j >= 1 scores item id j; the items each user clicked
+            # in train and the residual splits leave the ranking
+            # (BaseRunner.py:254-261)
+            corpus = builder.corpus
+            for i, u in enumerate(builder.user_id):
+                clicked = (corpus.train_clicked_set.get(u, set())
+                           | corpus.residual_clicked_set.get(u, set()))
+                predictions[i, list(clicked)] = -np.inf
+        return predictions
 
     def evaluate(self, builder: FeedBuilder, state=None, topk=None,
                  metrics=None):
@@ -393,9 +447,16 @@ class RankingRunner:
         """Full training loop (BaseRunner.py:120-180). Returns
         (best_state, history dict)."""
         if builders["train"].task == "ranking":
-            # the JAX runner samples the train split's negatives once for
-            # the example batch it initialises from: the same draw here
+            # the JAX runner samples the train split's negatives once and
+            # assembles the first batch, the example it initialises from
+            # (ContraRec's views and S3Rec's pretrain views draw there):
+            # the same draws here
             builders["train"].actions_before_epoch()
+            next(builders["train"].batches(self.cfg.batch_size,
+                                           shuffle=False))
+        if hasattr(self.model, "sync_targets"):
+            # BUIR: online -> target after init, before any load
+            self.model.sync_targets()
         if init_path:
             if os.path.exists(init_path):
                 self.load_state(init_path, partial=True)

@@ -39,15 +39,39 @@ def test_library_files_start_with_its_source(lib):
 
 def test_fp32_backward_libraries_have_their_head_dim_parts():
     """The fp32 (3xTF32) bodies' instantiations by head dim, in parts of
-    their libraries (the forwards' past 64, the backwards' at 16, 64, 96
-    and 128), in the order the build globs them."""
-    for lib in ("two_block_attention_bwd", "masked_attention_bwd"):
-        assert [f.name for f in build._files(lib)[1:]] == [
-            f"{lib}.d128.cu", f"{lib}.d16.cu", f"{lib}.d64.cu",
-            f"{lib}.d96.cu"]
-    for lib in ("two_block_attention", "masked_attention"):
-        assert [f.name for f in build._files(lib)[1:]] == [
-            f"{lib}.d128.cu", f"{lib}.d96.cu"]
+    their libraries (K3f's past 64, K1f's at every head dim, the
+    backwards' at 16, 64, 96 and 128; K1b's at 64 and 128 by dropout too,
+    and K4b's K2 core backward), in the order the build globs them."""
+    lib = "two_block_attention_bwd"
+    assert [f.name for f in build._files(lib)[1:]] == [
+        f"{lib}.d128.cu", f"{lib}.d128_drop.cu", f"{lib}.d16.cu",
+        f"{lib}.d64.cu", f"{lib}.d64_drop.cu", f"{lib}.d96.cu"]
+    lib = "masked_attention_bwd"
+    assert [f.name for f in build._files(lib)[1:]] == [
+        f"{lib}.d128.cu", f"{lib}.d16.cu", f"{lib}.d64.cu",
+        f"{lib}.d96.cu"]
+    lib = "layer_stream_bwd"
+    assert [f.name for f in build._files(lib)[1:]] == [f"{lib}.core.cu"]
+
+
+def test_k2_core_forward_is_compiled_once():
+    """K2's bf16 core forward, which K2f, K4f and K4b run, is one COMMON
+    object linked into their three libraries, each of which declares it
+    extern (no library compiles it again)."""
+    assert build.COMMON["k2_core_fwd"] == (
+        "proj_two_block_attention", "layer_stream", "layer_stream_bwd")
+    inst = "launch_k2_core<false, false, kBlockKeys, float>"
+    for lib in build.COMMON["k2_core_fwd"]:
+        assert build.CSRC / "k2_core_fwd.cu" in build._common_files(lib)
+        text = "".join(f.read_text() for f in build._files(lib))
+        assert f"extern template cudaError_t {inst}" in text, lib
+    lib = "two_block_attention"
+    assert [f.name for f in build._files(lib)[1:]] == [
+        f"{lib}.d128.cu", f"{lib}.d16.cu", f"{lib}.d32.cu", f"{lib}.d64.cu",
+        f"{lib}.d96.cu"]
+    lib = "masked_attention"
+    assert [f.name for f in build._files(lib)[1:]] == [
+        f"{lib}.d128.cu", f"{lib}.d96.cu"]
 
 
 def test_library_name_follows_its_parts(tmp_path, monkeypatch):

@@ -23,7 +23,8 @@ package's on the CPU:
 * segrec.main --device cpu against the JAX main on the same directory from
   the same .msgpack weights: the metrics within 1e-5 and the
   save_final_results file; the guards (no card without --device cpu, the
-  routes not ported raise, naming the ROADMAP item that ports each).
+  routes not ported raise, naming the ROADMAP item that ports each); the
+  sequential models' feed flags build their feeds.
 """
 
 import json
@@ -733,19 +734,15 @@ def test_main_needs_the_card_or_cpu(data):
         main.main(argv + ["--epoch", "1"])
 
 
-ROUTES_NOT_PORTED = [  # (flags, what the message names, its Queue A item)
-    (["--model_mode", "Impression"], "Impression", 4),
-    (["--model_name", "CFKG"], "CFKG", 4),
-    (["--model_name", "SASRec"], "SASRec", 3),
-    (["--model_name", "GRU4Rec"], "GRU4Rec", 3),
-    (["--model_mode", "Ranking", "--test_all", "1"], "test_all", 3),
-    (["--leave_rank", "1"], "leave_rank", 4),
-]
+ROUTES_NOT_PORTED = {  # id: (flags, what the message names, Queue A item)
+    "extra0-Impression": (["--model_mode", "Impression"], "Impression", 4),
+    "extra1-CFKG": (["--model_name", "CFKG"], "CFKG", 4),
+    "extra5-leave_rank": (["--leave_rank", "1"], "leave_rank", 4),
+}
 
 
-@pytest.mark.parametrize(
-    "extra,match,item", ROUTES_NOT_PORTED,
-    ids=[f"extra{i}-{m}" for i, (_, m, _) in enumerate(ROUTES_NOT_PORTED)])
+@pytest.mark.parametrize("extra,match,item", list(ROUTES_NOT_PORTED.values()),
+                         ids=list(ROUTES_NOT_PORTED))
 def test_routes_not_ported_raise(data, extra, match, item):
     argv = ["--path", data["dir"], "--dataset", "SegMM_CTR",
             "--device", "cpu"] + extra
@@ -754,9 +751,18 @@ def test_routes_not_ported_raise(data, extra, match, item):
         main.main(argv)
 
 
-def test_feedbuilder_flags_not_ported_raise(data):
+def test_feedbuilder_sequential_flags_build_feeds(data):
+    """The sequential models' feed flags build their feeds (the feeds
+    against the JAX builder's: test_torch_segrec_sequential.py and
+    test_torch_segrec_general.py)."""
     corpus = Corpus(data["dir"], "SegMM")
-    for kw in (dict(augment_history=True), dict(session_graph=True),
-               dict(s3rec_pretrain=True), dict(test_all=True)):
-        with pytest.raises(NotImplementedError, match="Queue A item 3"):
-            feeds.FeedBuilder(corpus, "train", **kw)
+    for kw, phase, key in (
+            (dict(augment_history=True), "train", "history_item_id_a"),
+            (dict(session_graph=True), "dev", "srgnn_A"),
+            (dict(s3rec_pretrain=True), "train", "mask_seq"),
+            (dict(test_all=True), "test", "item_id")):
+        b = feeds.FeedBuilder(corpus, phase, include_history=True, **kw)
+        b.actions_before_epoch()
+        feed = next(b.batches(16, shuffle=False))
+        assert key in feed, kw
+    assert feed["item_id"].shape[1] == corpus.n_items
