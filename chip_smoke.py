@@ -150,6 +150,23 @@ Phases, each of which fails the run (non-zero exit) on any error:
                  512 rows x 100 candidates, a full-sort batch of 32 rows
                  (the target's two columns bit-equal); the host time of
                  SRGNN's and ContraRec's feeds
+  segrec_runners SegRec's other runners at segrec.main's defaults (emb
+                 64, B=512) over build_segrec_data --kg_meta 1's and
+                 build_leave_rank_data's directories of the synthetic CSV:
+                 CFKG's quadruple step, SLRCPlus, Chorus stage 1 and 2,
+                 KDA with its DistMult term, the BPRMF and SASRec
+                 impression rankers, PRM, SetRank (IMSAB, MSAB) and MIR
+                 over a BPRMF ranker (BPRsession), SASRec under
+                 --leave_rank 1: 10 steps timed after 2 (ms, rows/s, peak
+                 memory), an evaluation batch; the host ms of SLRCPlus's,
+                 Chorus's and KDA's feeds and of a CFKG epoch's negatives;
+                 a 32-row fp32 step of each card against CPU (1e-5, or 4x
+                 the CPU's own fp32-vs-fp64), beside phase segrec's CLIs;
+                 segrec.main for one epoch (--leave_rank 1 on both
+                 leave-rank datasets, BPRMF then PRM --model_mode
+                 Impression, Chorus --stage 1 then --stage 2 --load 1, KDA
+                 --include_attr 1: finite metrics) beside phases wide and
+                 train_cli; no pandas
 The last line is {"ok": true, "device": {...}}; before it come the card's
 name and power limit (nvidia-smi) and one JSON line describing the kernels.
 It needs no network and writes only under build/ (the kernels in
@@ -223,7 +240,7 @@ RESULT = {"kernels": {}, "launches": {}}
 ALL_PHASES = ("build", "kernels", "serving", "default", "train",
               "train_default", "train_bf16", "ablation", "fused_variants",
               "attn_v2", "wide", "train_cli", "watchtime", "msgpack",
-              "segrec", "segrec_models", "segrec_seq")
+              "segrec", "segrec_models", "segrec_seq", "segrec_runners")
 
 
 def log(*a):
@@ -3342,6 +3359,7 @@ def phase_wide(ctx):
 
     _data(ctx)
     _start_segrec_seq_clis(ctx)
+    _start_segrec_runner_clis(ctx)
     reader, store = ctx["reader"], ctx["store"]
     for key, base, kw, keys in WIDE_ROUTES:
         cfg = (_flagship_cfg(ctx["csv"]).replace(table_quant="int8")
@@ -3382,6 +3400,7 @@ def phase_train_cli(ctx):
 
     _data(ctx)
     _start_segrec_seq_clis(ctx)
+    _start_segrec_runner_clis(ctx)
     memmap, lineid = _cli_files(ctx)
     common = ["--sample_csv", ctx["csv"], "--min_interactions", "100",
               "--num_warmup", "80", "--memmap", memmap, "--lineid_map",
@@ -4172,6 +4191,8 @@ def _segrec_cli_and_checks(ctx, sdir, task1, memmap, lineid, env):
         clip = ClipWeights(logits_path, *id2)
         _segrec_checks(corpus, clip)
         _segrec_seq_checks(rank, seq_cache, torch.device("cuda"))
+        if "segrec_runner_prep" in ctx:
+            _segrec_runner_checks(ctx)
         results = [f.result() for f in running]
     for (name, extra), (res, err) in zip(SEGREC_CLI, results):
         ranking = "--model_mode" in extra
@@ -4746,6 +4767,339 @@ def phase_segrec_seq(ctx):
 
 
 # ---------------------------------------------------------------------------
+# SegRec's other runners: leave-frame ranking, Impression mode, the KG family
+
+SEGREC_RUNNERS_DIR = os.path.join(WORK, "segrec_runners")
+# each case at segrec.main's defaults (emb 64, --history_max 20, --num_neg
+# 1, B=512; Impression: 20 | 20 slots, the rerankers' --n_blocks 4,
+# --num_hidden_unit 64 over a BPRMF ranker; KDA's --n_dft 64, Chorus's
+# --lr_scale 0.1); a KG model over SegRec (r_next_watch, i_category),
+# Impression over SegRec_CTR's impressions, --leave_rank 1 over
+# SegMMstep1Ranking
+SEGREC_RUNNER_CASES = (
+    ("CFKG", ()), ("SLRCPlus", ()), ("Chorus", ("--stage", "1")),
+    ("Chorus", ("--stage", "2")), ("KDA", ()),
+    ("BPRMF", ("--model_mode", "Impression")),
+    ("SASRec", ("--model_mode", "Impression")),
+    ("PRM", ("--model_mode", "Impression")),
+    ("SetRank", ("--model_mode", "Impression")),
+    ("SetRank", ("--model_mode", "Impression", "--setrank_type", "MSAB")),
+    ("MIR", ("--model_mode", "Impression")),
+    ("SASRec", ("--leave_rank", "1")))
+# segrec.main for one epoch, each chain in a thread of its own ({dir}: the
+# phase's directory)
+SEGREC_RUNNER_CLI = (
+    (("SASRec", ("--leave_rank", "1")),),
+    (("BPRMF", ("--leave_rank", "1", "--dataset",
+                "SegMMstep1RankingDefault")),),
+    (("BPRMF", ("--model_mode", "Impression", "--model_path",
+                "{dir}/bprmf_impression.pt")),
+     ("PRM", ("--model_mode", "Impression", "--ranker_model_path",
+              "{dir}/bprmf_impression.pt"))),
+    (("Chorus", ("--stage", "1", "--model_path", "{dir}/chorus.pt")),
+     ("Chorus", ("--stage", "2", "--load", "1", "--model_path",
+                 "{dir}/chorus.pt"))),
+    (("KDA", ("--include_attr", "1")),))
+
+
+def _segrec_runner_args(name, extra=()):
+    """segrec.main's arguments of a case over SEGREC_RUNNERS_DIR."""
+    from segmminterest_tpu_torch.segrec import main as M
+    extra = [e.format(dir=SEGREC_RUNNERS_DIR) for e in extra]
+    if "Impression" in extra:
+        base = ["--dataset", "SegRec_CTR"]
+    elif "--leave_rank" in extra:
+        base = ["--model_mode", "TopK", "--dataset", "SegMMstep1Ranking"]
+    else:
+        base = ["--model_mode", "TopK", "--dataset", "SegRec"]
+    return M.build_parser().parse_args(["--model_name", name, "--path",
+                                        SEGREC_RUNNERS_DIR, *base, *extra])
+
+
+def _segrec_runner_data(csv):
+    """build_segrec_data --kg_meta 1 (SegRec, SegRec_CTR) and
+    build_leave_rank_data (SegMMstep1Ranking[Default]) over the synthetic
+    CSV, as phase watchtime's builds, into SEGREC_RUNNERS_DIR."""
+    from segmminterest_tpu_torch.tasks import (build_leave_rank_data,
+                                               build_segrec_data)
+    raw = ["--inter_csv", csv, "--min_interactions", "100", "--num_warmup",
+           "80", "--out", SEGREC_RUNNERS_DIR]
+    t0 = time.perf_counter()
+    build_segrec_data.main(raw + ["--name", "SegRec", "--kg_meta", "1"])
+    build_leave_rank_data.main(raw)
+    return time.perf_counter() - t0
+
+
+def _segrec_runner_prep():
+    """Host work of phase segrec_runners: each case's segrec.main
+    arguments, model (on the host, from --random_seed), SEGREC_TIMED + 2
+    training batches of SEGREC_B rows and an evaluation batch, and a
+    32-row training and evaluation batch for the card-against-CPU check,
+    from its builders (train, dev; one pair per kind of feed); the host ms
+    of a batch of SLRCPlus's, Chorus's and KDA's feeds and of one CFKG
+    epoch's negatives."""
+    from segmminterest_tpu_torch.segrec import main as M
+    from segmminterest_tpu_torch.segrec.corpus import Corpus
+    corpora, builders, feeds, host, cases = {}, {}, {}, {}, []
+    for name, extra in SEGREC_RUNNER_CASES:
+        args = _segrec_runner_args(name, extra)
+        if args.dataset not in corpora:
+            corpora[args.dataset] = Corpus(args.path, args.dataset)
+        corpus = corpora[args.dataset]
+        imp = args.model_mode == "Impression"
+        if imp:
+            kind = ("Impression", name in ("SASRec", "MIR"))
+        else:
+            kind = (args.dataset, name, args.stage,
+                    name in M.SEQ_MODELS)
+        if kind not in builders:
+            if imp:
+                builders[kind] = M.impression_builders(args, corpus,
+                                                       ("train", "dev"))
+            else:
+                builders[kind] = M.feed_builders(
+                    args, corpus, "ranking", phases=("train", "dev"),
+                    kg_meta=M.kg_metadata(args, corpus))
+            b, made = builders[kind]["train"], []
+            while len(made) < SEGREC_TIMED + 2:
+                t0 = time.perf_counter()
+                b.actions_before_epoch()
+                draw_ms = (time.perf_counter() - t0) * 1e3
+                for f in b.batches(SEGREC_B, shuffle=True):
+                    if not made:
+                        host[name, args.stage] = (
+                            draw_ms, (time.perf_counter() - t0) * 1e3
+                            - draw_ms)
+                    # the runner shuffles a ranking batch's candidates,
+                    # not an impression's
+                    made.append(f if imp else _candidate_shuffle(
+                        f, len(made)))
+            feeds[kind] = made[:SEGREC_TIMED + 2]
+            feeds[kind, "dev"] = next(builders[kind]["dev"].batches(
+                SEGREC_B, shuffle=False))
+        if imp:
+            _, model, _ = M.impression_setup(args, "cpu", builders[kind])
+        else:
+            model = M.build_model(args, corpus, False,
+                                  kg_meta=getattr(builders[kind]["train"],
+                                                  "kg", None))
+        cases.append([name, extra, args, builders[kind], model,
+                      feeds[kind], feeds[kind, "dev"]])
+    for case in cases:   # the 32-row batches, after every timed one
+        bs, imp = case[3], case[2].model_mode == "Impression"
+        bs["train"].actions_before_epoch()
+        feed = next(bs["train"].batches(32, shuffle=True))
+        case[3] = (feed if imp else _candidate_shuffle(feed, 0),
+                   next(bs["dev"].batches(32, shuffle=False)))
+    return dict(cases=cases, host=host)
+
+
+def _segrec_runner_host(path):
+    """_segrec_runner_prep saved to `path`, with its seconds."""
+    t0 = time.perf_counter()
+    prep = _segrec_runner_prep()
+    prep["seconds"] = time.perf_counter() - t0
+    torch.save(prep, path)
+
+
+def _in_process(call, what):
+    """`call`, a call of this module's, in a process of its own (from the
+    checkout's root): host work beside the untimed phases that would hold
+    this process's interpreter lock from their Python."""
+    proc = subprocess.run([sys.executable, "-c",
+                           "import chip_smoke as C; C." + call],
+                          cwd=ROOT, env=dict(os.environ),
+                          capture_output=True, text=True, timeout=600)
+    if proc.returncode:
+        raise AssertionError(f"{what} exited {proc.returncode}:\n"
+                             f"{proc.stderr[-4000:]}")
+
+
+def _segrec_runner_make(args, model, where, batch_size,
+                        dtype=torch.float32):
+    """segrec.main's runner for `args` on `where` over a copy of `model`."""
+    import copy
+
+    from segmminterest_tpu_torch.segrec import main as M
+    from segmminterest_tpu_torch.segrec.rerank import ImpressionRunner
+    model = copy.deepcopy(model).to(dtype)
+    args = copy.copy(args)
+    args.batch_size = args.eval_batch_size = batch_size
+    if args.model_mode == "Impression":
+        return ImpressionRunner(model, M.impression_config(args),
+                                      args.train_max_pos_item,
+                                      args.train_max_neg_item, device=where)
+    return M.make_runner(args, "ranking", model, device=where)
+
+
+def _segrec_runner_cli(chain):
+    """One chain of SEGREC_RUNNER_CLI through segrec.main (one epoch, on
+    the card): finite metrics; Chorus's stage 2 loads stage 1 in part,
+    PRM its BPRMF ranker."""
+    env = dict(os.environ)
+    for name, extra in chain:
+        args = _segrec_runner_args(name, extra)
+        flags = [e.format(dir=SEGREC_RUNNERS_DIR) for e in extra]
+        what = "segrec.main " + " ".join([name, *flags]).replace(
+            SEGREC_RUNNERS_DIR + "/", "")
+        res, err = _subprocess_json(
+            ["segmminterest_tpu_torch.segrec.main", "--model_name", name,
+             "--path", SEGREC_RUNNERS_DIR, "--dataset", args.dataset,
+             "--model_mode", args.model_mode, "--epoch", "1", *flags],
+            env, what)
+        if not res or not all(res[s] and _finite(res[s])
+                              for s in ("dev", "test")):
+            raise AssertionError(f"{what}: metrics {res}")
+        if "--load" in flags and "(partial)" not in err:
+            raise AssertionError(f"{what} loaded no stage-1 state")
+        if "--ranker_model_path" in flags and "Load ranker from" not in err:
+            raise AssertionError(f"{what} loaded no ranker")
+        peak = [ln.split("peak device memory: ", 1)[1] for ln in
+                err.splitlines() if "peak device memory: " in ln]
+        log(f"  {what}: dev {res['dev']}, test {res['test']}; peak device "
+            f"memory {peak[-1] if peak else 'not logged'}")
+
+
+def _start_segrec_runner_clis(ctx):
+    """Phase segrec_runners' data, then its CLI runs (SEGREC_RUNNER_CLI, a
+    thread a chain) beside its host preparation (_segrec_runner_host),
+    each in a process of its own, in the background beside phases wide
+    and train_cli, which time nothing; train_cli's end waits for them.
+    Started once."""
+    from concurrent.futures import ThreadPoolExecutor
+    if "segrec_runner_clis" in ctx:
+        return
+    ctx["segrec_runner_clis"] = True
+    _data(ctx)
+    csv = ctx["csv"]
+    path = os.path.join(WORK, "segrec_runners_prep.pt")
+
+    def run():
+        t0 = time.perf_counter()
+        _in_process(f"_segrec_runner_data({csv!r})", "segrec_runners' data")
+        built_s = time.perf_counter() - t0
+        with ThreadPoolExecutor(len(SEGREC_RUNNER_CLI) + 1) as pool:
+            running = [pool.submit(_segrec_runner_cli, chain)
+                       for chain in SEGREC_RUNNER_CLI]
+            pool.submit(_in_process, f"_segrec_runner_host({path!r})",
+                        "segrec_runners' host preparation").result()
+            prep = torch.load(path, weights_only=False)
+            ctx["segrec_runner_prep"] = prep
+            log(f"  segrec_runners' data built ({built_s:.1f} s), its host "
+                f"batches and models made ({prep['seconds']:.1f} s), each "
+                "in a process of its own")
+            for f in running:
+                f.result()
+    _in_background(ctx, "segrec_runners' data and CLI runs", run)
+
+
+def _segrec_runner_steps(prep, dev):
+    """One 32-row step of each case of SEGREC_RUNNER_CASES on `dev`, on the
+    CPU and on the CPU in fp64, from the same weights and batch: (case,
+    then (loss, gradient norm, evaluation scores of a 32-row dev batch
+    before the step) on dev, on the CPU, in fp64)."""
+    out = []
+    for name, extra, args, (feed, dev_feed), model, _, _ in prep["cases"]:
+
+        def step(where, dtype=torch.float32):
+            r = _segrec_runner_make(args, model, where, 32, dtype)
+            r.generator = torch.Generator()
+            scores = r.eval_scores(dev_feed).astype(np.float64)
+            loss = float(r.train_step(feed, 0))
+            norm = float(torch.sqrt(sum((p.grad.double() ** 2).sum()
+                                        for p in r.model.parameters())))
+            return loss, norm, scores
+        out.append(((name, extra), step(dev), step("cpu"),
+                    step("cpu", torch.float64)))
+    return out
+
+
+def _segrec_runner_checks(ctx):
+    """Phase segrec_runners' (b), run in phase segrec beside its CLIs (or
+    in phase segrec_runners where phase segrec did not run): one 32-row
+    fp32 step of each case on the card and on the CPU: loss, gradient norm
+    and a dev batch's scores within SEGREC_RTOL_CONTEXT, or SEGREC_COND
+    times the CPU's own fp32-vs-fp64 rounding where that is more."""
+    for (name, extra), card, cpu, fp64 in _segrec_runner_steps(
+            ctx["segrec_runner_prep"], torch.device("cuda")):
+        err, rounding = _rel_errs(card, cpu), _rel_errs(cpu, fp64)
+        limit = max(SEGREC_RTOL_CONTEXT, SEGREC_COND * max(rounding))
+        what = " ".join([name, *extra])
+        if max(err) > limit:
+            raise AssertionError(f"{what} 32-row step: card {card[:2]}, CPU "
+                                 f"{cpu[:2]}, relative errors {err} against "
+                                 f"{limit}")
+        log(f"  {what} 32-row fp32 step, card against the CPU: loss "
+            f"{card[0]:.6f} ({err[0]:.1e} relative), gradient norm "
+            f"{card[1]:.6f} ({err[1]:.1e}), dev scores {err[2]:.1e}; the "
+            "CPU's against fp64: " + ", ".join(f"{e:.1e}" for e in rounding)
+            + f"; limit {limit:.1e}")
+    ctx["segrec_runner_checked"] = True
+
+
+def phase_segrec_runners(ctx):
+    """SegRec's other runners on the card: leave-frame ranking (SASRec
+    under LeaveRankingRunner), Impression mode (the BPRMF and SASRec
+    rankers, PRM, SetRank IMSAB and MSAB, MIR over a BPRMF ranker, on
+    BPRsession) and the KG family (CFKG's quadruple step, SLRCPlus, Chorus
+    stage 1 and 2, KDA with its DistMult term), each at segrec.main's
+    defaults: SEGREC_TIMED steps timed after 2 on batches made before (ms,
+    rows/s, peak device memory above what is held) and an evaluation
+    batch; the host ms of SLRCPlus's, Chorus's and KDA's feeds and of a
+    CFKG epoch's negatives. Its data, host batches and CLI runs (one epoch
+    each: --leave_rank 1 on both leave-rank datasets, BPRMF then PRM
+    --model_mode Impression, Chorus --stage 1 then --stage 2 --load 1, KDA
+    --include_attr 1) went beside phases wide and train_cli, its 32-row
+    checks beside phase segrec's CLIs; where they did not, they run
+    here."""
+    _start_segrec_runner_clis(ctx)
+    _join_background(ctx)
+    if not ctx.get("segrec_runner_checked"):
+        _segrec_runner_checks(ctx)
+    prep = ctx.pop("segrec_runner_prep")
+    for (name, stage), (draw_ms, batch_ms) in prep["host"].items():
+        if name in ("CFKG", "SLRCPlus", "KDA") or (name, stage) == (
+                "Chorus", 2):
+            log(f"  {name}'s feeds on the host: {batch_ms:.1f} ms for a "
+                f"batch of {SEGREC_B} rows, {draw_ms:.1f} ms for an epoch's "
+                "draws" + (" (the negatives of its KG rows)"
+                           if name == "CFKG" else ""))
+    dev = torch.device("cuda")
+    for name, extra, args, _, model, feeds, dev_feed in prep["cases"]:
+        r = _segrec_runner_make(args, model, dev, SEGREC_B)
+        for i, feed in enumerate(feeds[:2]):   # warm-up
+            r.train_step(feed, i)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        for i, feed in enumerate(feeds[2:]):
+            loss = r.train_step(feed, i)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / len(feeds[2:])
+        peak = torch.cuda.max_memory_allocated()
+        what = " ".join([name, *extra])
+        if not math.isfinite(float(loss)):
+            raise AssertionError(f"{what}: loss {float(loss)}")
+        eval_ms = _time_ms(lambda: r.eval_scores(dev_feed), 3, warmup=1)
+        scores = r.eval_scores(dev_feed)[dev_feed["row_mask"]]
+        if not np.isfinite(scores).all():
+            raise AssertionError(f"{what}: evaluation scores not finite")
+        shape = "x".join(map(str, (feeds[2].get("item_id", feeds[2].get(
+            "head_id"))).shape))
+        log(f"  {what} at B={SEGREC_B} (batch {shape}): {ms:.2f} ms/step "
+            f"({SEGREC_B / ms * 1e3:.0f} rows/s, {len(feeds) - 2} steps "
+            f"after 2), eval batch {eval_ms:.2f} ms ({SEGREC_B} rows x "
+            f"{dev_feed['item_id'].shape[1]} candidates), peak device memory "
+            f"{peak / 2**30:.2f} GiB ({(peak - base) / 2**30:.2f} above the "
+            f"{base / 2**30:.2f} held)")
+        del r
+    torch.cuda.empty_cache()
+    if "pandas" in sys.modules:
+        raise AssertionError("SegRec's runners imported pandas")
+
+
+# ---------------------------------------------------------------------------
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--phases", default=",".join(ALL_PHASES))
@@ -4787,7 +5141,8 @@ def main(argv=None):
          "msgpack": lambda: phase_msgpack(ctx),
          "segrec": lambda: phase_segrec(ctx),
          "segrec_models": lambda: phase_segrec_models(ctx),
-         "segrec_seq": lambda: phase_segrec_seq(ctx)}[name]()
+         "segrec_seq": lambda: phase_segrec_seq(ctx),
+         "segrec_runners": lambda: phase_segrec_runners(ctx)}[name]()
         log(f"phase {name}: ok ({time.perf_counter() - t0:.1f} s)")
     _join_background(ctx)
     log(f"all phases: {time.perf_counter() - t_all:.1f} s")

@@ -29,7 +29,12 @@ and ``var``; Dice's ``alpha`` and the models' single parameters
 (``overall_bias``, ``trainable_interest_weight``; LightGCN's tables,
 Caser's convolutions, SRGNN's ``w_ih`` / ``w_hh`` used as ``x @ w.T``)
 go as they are, untransposed; a GRU's ``{name}/cell/x2h`` lands on
-``{name}.cell.x2h``.
+``{name}.cell.x2h``. The models of the other runners carry the flax
+tree's names too: a reranker's ranker under ``ranker``, MIR's LSTM cells
+``OptimizedLSTMCell_0`` / ``_1`` (Dense ``ii``...``io`` without a bias,
+``hi``...``ho`` with one), SetRank's inducing points ``I_{b}``, MIR's
+``w_b`` / ``w_v`` / ``w_q``, SLRCPlus's ``global_alpha`` and KDA's
+``freq_real`` / ``freq_imag`` as they are.
 """
 
 from __future__ import annotations

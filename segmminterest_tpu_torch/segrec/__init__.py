@@ -8,11 +8,12 @@ scores by Task-1 interest logits (``tasks/export_logits.py`` writes them).
 It holds the corpus, the ranking and CTR feeds and runners (full-sort
 evaluation and the general and sequential models' loss routes among
 them), ``main`` and every general, sequential and context model of the
-JAX registry; the LeaveRankingRunner, Impression mode and the KG family
-are ROADMAP Queue A item 4.
+JAX registry, the leave-frame ranking runner, Impression mode
+(``impression``, ``rerank``) and the KG family (``kg``): every route of
+the JAX CLI but a batch sharded over several cards.
 """
 
 from .corpus import Corpus
-from .runner import CTRRunner, RankingRunner
+from .runner import CTRRunner, LeaveRankingRunner, RankingRunner
 
-__all__ = ["Corpus", "RankingRunner", "CTRRunner"]
+__all__ = ["Corpus", "RankingRunner", "CTRRunner", "LeaveRankingRunner"]

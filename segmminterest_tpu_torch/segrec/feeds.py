@@ -39,7 +39,8 @@ The sequential models' feeds:
  * ``test_all`` (full-sort evaluation): [target] + every item id 1 ..
    n_items - 1 as the candidates (BaseModel.py:231-235).
 
-The KG feeds are ROADMAP Queue A item 4.
+The KG feeds (``kg.KGFeedBuilder``) and the impression feeds
+(``rerank.ImpressionFeedBuilder``) build on these.
 """
 
 from __future__ import annotations
@@ -52,9 +53,7 @@ import numpy as np
 from .corpus import Corpus
 
 CLIP_NUM = 40
-# the ROADMAP items that port the routes of the JAX package still missing
-QUEUE_RUNNERS = ("ROADMAP Queue A item 4 (SegRec's other runners and the "
-                 "KG models)")
+# the ROADMAP item that ports the route of the JAX package still missing
 QUEUE_MULTI_GPU = "ROADMAP Queue A item 6 (multi-GPU)"
 
 

@@ -12,15 +12,27 @@ with WUAUC.
 
 The parser is the JAX CLI's, every flag, plus ``--device`` (the card
 unless ``cpu`` is asked for; without a card and without ``--device cpu`` it
-raises). The CTR and Ranking (TopK) modes run every general, sequential
-and context model of the JAX registry (``models.MODEL_REGISTRY``), with
-their loss routes, DIEN's auxiliary loss (``--alpha_aux``), full-sort
-evaluation (``--test_all 1``) and the two-stage protocols (S3Rec
-``--s3rec_stage 1`` then ``2 --load 1``, TiMiRec ``--timirec_stage
-pretrain`` then ``finetune --load 1``, through ``--model_path``);
-``--model_mode Impression``, the KG models and ``--leave_rank`` raise
-naming ROADMAP Queue A item 4, a batch sharded over more than one card
-(``--use_mesh`` with several cards) item 6.
+raises). Every route of the JAX CLI runs:
+ * the CTR and Ranking (TopK) modes over every general, sequential and
+   context model of the JAX registry (``models.MODEL_REGISTRY``), with
+   their loss routes, DIEN's auxiliary loss (``--alpha_aux``), full-sort
+   evaluation (``--test_all 1``) and the two-stage protocols (S3Rec
+   ``--s3rec_stage 1`` then ``2 --load 1``, TiMiRec ``--timirec_stage
+   pretrain`` then ``finetune --load 1``, through ``--model_path``);
+ * ``--leave_rank 1``: the leave-frame ranking evaluation
+   (``runner.LeaveRankingRunner``) over the frame-as-item datasets of
+   ``tasks/build_leave_rank_data.py``;
+ * the KG family (CFKG, SLRCPlus, Chorus, KDA; ``kg.py``) over a dataset
+   with r_* relations in its item_meta.csv, with CFKG's and Chorus's
+   stage-1 margin loss, Chorus's stage 1 (``--stage 1 --model_path``) then
+   stage 2 (``--load 1``) on its own runner, KDA's DistMult term;
+ * ``--model_mode Impression`` (``run_impression``): the BPRMF and SASRec
+   impression rankers and the rerankers PRM, SetRank and MIR over a
+   pretrained ranker (``--ranker_model_path``: the port's ``.pt`` or the
+   JAX runner's ``.msgpack``), trained on an impression loss
+   (``--loss_n``, BPRsession by default).
+A batch sharded over more than one card (``--use_mesh`` with several
+cards) is ROADMAP Queue A item 6 and raises.
 ``save_final_results`` and ``all_inference`` write their TSVs with
 ``data/reader.py``'s ``write_csv`` (pandas' ``to_csv`` byte for byte). On
 the card the run logs its peak device memory.
@@ -38,13 +50,17 @@ import numpy as np
 import torch
 
 from ..data.feature_store import FeatureStore
-from ..data.reader import write_csv
+from ..data.reader import frame_len, write_csv
 from ..utils.device import resolve_device
 from .corpus import Corpus
-from .feeds import QUEUE_MULTI_GPU, QUEUE_RUNNERS, ClipWeights, FeedBuilder
+from .feeds import QUEUE_MULTI_GPU, ClipWeights, FeedBuilder
+from .kg import KGFeedBuilder, KGMeta, kda_freq_init, make_chorus_runner
 from .layers import init_weights
 from .models import model_class
-from .runner import CTRRunner, RankingRunner, RunnerConfig
+from .rerank import (IMPRESSION_RANKERS, RERANKERS, ImpressionFeedBuilder,
+                     ImpressionRunner)
+from .runner import (CTRRunner, LeaveRankingRunner, RankingRunner,
+                     RunnerConfig)
 
 logger = logging.getLogger(__name__)
 
@@ -219,22 +235,23 @@ def build_parser():
                         "is more than one and the batch sizes divide their "
                         "count (not ported yet: raises then)")
     p.add_argument("--leave_rank", type=int, default=0,
-                   help="evaluate with the leave-frame ranking variant (not "
-                        "ported yet: raises)")
+                   help="evaluate with the leave-frame ranking variant")
     p.add_argument("--all_inference", type=int, default=0,
                    help="after training, dump per-candidate prediction "
                         "scores over train/dev/test for the logits converter")
     return p
 
 
-def build_model(args, corpus: Corpus, use_frames: bool) -> torch.nn.Module:
+def build_model(args, corpus: Corpus, use_frames: bool,
+                kg_meta=None) -> torch.nn.Module:
     """The model of ``--model_name`` with the JAX CLI's arguments (its
-    ``build_model``, segrec/main.py:202-452, branch for branch),
-    initialised on the host from ``--random_seed`` (the same weights on
-    every device)."""
+    ``build_model``, segrec/main.py:202-452, branch for branch; a KG model
+    from ``kg_meta``), initialised on the host from ``--random_seed`` (the
+    same weights on every device)."""
     name = args.model_name
     cls = model_class(name)
-    model = _general_or_sequential(args, corpus, cls)
+    model = (_kg_model(args, corpus, cls, kg_meta) if kg_meta is not None
+             else _general_or_sequential(args, corpus, cls))
     if model is not None:
         return init_weights(model, torch.Generator().manual_seed(
             args.random_seed))
@@ -361,6 +378,48 @@ def build_model(args, corpus: Corpus, use_frames: bool) -> torch.nn.Module:
         args.random_seed))
 
 
+def _kg_model(args, corpus: Corpus, cls, kg_meta: KGMeta):
+    """The KG branches of the JAX CLI's build_model (segrec/main.py:
+    204-248): KDA's initial frequencies from the interactions (unless
+    ``--freq_rand 1``), its ``--gamma`` below 0 the KG rows per
+    interaction."""
+    name = args.model_name
+    if name == "CFKG":
+        return cls(user_num=corpus.n_users, entity_num=kg_meta.n_entities,
+                   relation_num=kg_meta.n_relations, emb_size=args.emb_size,
+                   margin=args.margin)
+    if name == "SLRCPlus":
+        return cls(user_num=corpus.n_users, item_num=corpus.n_items,
+                   relation_num=len(kg_meta.item_relations) + 1,
+                   emb_size=args.emb_size)
+    if name == "Chorus":
+        meta = kg_meta.item_meta_df
+        cate = args.category_col
+        return cls(user_num=corpus.n_users, item_num=corpus.n_items,
+                   relation_names=tuple(kg_meta.item_relations),
+                   category_num=(int(np.max(meta[cate])) + 1
+                                 if cate in meta else 1),
+                   emb_size=args.emb_size, margin=args.margin,
+                   stage=args.stage, base_method=args.base_method)
+    freq_real = freq_imag = None
+    n_dft = args.n_dft
+    if not args.freq_rand:
+        freq_x, n_dft = kda_freq_init(corpus, kg_meta, n_dft=args.n_dft,
+                                      t_scalar=args.t_scalar)
+        freq_real, freq_imag = np.real(freq_x), np.imag(freq_x)
+    gamma = args.gamma
+    if gamma < 0:
+        gamma = len(kg_meta.relation_df["head"]) / frame_len(corpus.all_df)
+    return cls(user_num=corpus.n_users, item_num=corpus.n_items,
+               entity_num=max(kg_meta.n_entities, corpus.n_items),
+               relation_num=kg_meta.n_relations, freq_dim=n_dft // 2 + 1,
+               freq_real_init=freq_real, freq_imag_init=freq_imag,
+               emb_size=args.emb_size, num_layers=args.num_layers,
+               num_heads=args.num_heads, attention_size=args.attention_size,
+               pooling=args.pooling, include_val=bool(args.include_val),
+               gamma=gamma, dropout=args.dropout)
+
+
 def _general_or_sequential(args, corpus: Corpus, cls):
     """The general and sequential models' branches of the JAX CLI's
     build_model (segrec/main.py:266-341), with the flags each reads; None
@@ -417,13 +476,38 @@ def _general_or_sequential(args, corpus: Corpus, cls):
     return None
 
 
+def kg_mode(args, phase: str) -> str:
+    """The KG feed of ``--model_name`` in ``phase`` (segrec/main.py:
+    597-606)."""
+    name = args.model_name
+    if name == "CFKG":
+        return "cfkg"
+    if name == "SLRCPlus":
+        return "slrc"
+    if name == "KDA":
+        return "kda"
+    return "chorus_kg" if (args.stage == 1 and phase == "train") \
+        else "chorus"
+
+
 def feed_builders(args, corpus: Corpus, task: str, clip_weights=None,
-                  store=None, phases=("train", "dev", "test")):
+                  store=None, phases=("train", "dev", "test"),
+                  kg_meta=None):
     """The FeedBuilder of each phase for ``args`` (the JAX CLI's wiring,
-    segrec/main.py:618-632): histories for the sequential models, DIEN's
+    segrec/main.py:607-635): histories for the sequential models, DIEN's
     history negatives, ContraRec's views, SRGNN's graphs, S3Rec's pretrain
-    corpus (stage 1, train) and full-sort candidates (``--test_all``)."""
+    corpus (stage 1, train) and full-sort candidates (``--test_all``); a
+    KG model's KGFeedBuilder over ``kg_meta``."""
     hist = args.model_name in SEQ_MODELS
+    if kg_meta is not None:
+        return {phase: KGFeedBuilder(
+            corpus, phase, kg=kg_meta, kg_mode=kg_mode(args, phase),
+            time_scalar=args.time_scalar, category_col=args.category_col,
+            t_scalar=args.t_scalar, num_neg_kg=args.num_neg,
+            neg_head_p=args.neg_head_p, task=task, num_neg=args.num_neg,
+            history_max=args.history_max, include_history=hist,
+            test_all=bool(args.test_all) and phase != "train",
+            seed=args.random_seed) for phase in phases}
     return {phase: FeedBuilder(
         corpus, phase, task=task, num_neg=args.num_neg,
         history_max=args.history_max, include_history=hist,
@@ -451,30 +535,76 @@ def loss_name(args, task: str) -> str:
         return args.model_name
     if args.model_name == "S3Rec" and args.s3rec_stage == 1:
         return "S3Rec"
+    if args.model_name == "CFKG":
+        return "CFKG"
+    if args.model_name == "Chorus" and args.stage == 1:
+        return "ChorusKG"
     return "BPR"
 
 
-def _not_ported(args, task: str):
-    """The routes of the JAX CLI the port lacks: raise naming the ROADMAP
-    item that ports each."""
-    what = None
-    if args.model_mode == "Impression":
-        what, item = "--model_mode Impression (rerankers)", QUEUE_RUNNERS
-    elif args.model_name in KG_MODELS:
-        what, item = f"the KG model {args.model_name}", QUEUE_RUNNERS
-    elif args.leave_rank:
-        what, item = "--leave_rank (LeaveRankingRunner)", QUEUE_RUNNERS
-    if what:
-        raise NotImplementedError(f"{what} is not ported yet: {item}")
-    model_class(args.model_name)  # raises for a model not ported
+def _save_path(path: str) -> str:
+    """The port writes .pt: trained from the JAX runner's .msgpack, the
+    state goes beside it."""
+    if path.endswith(".msgpack"):
+        return path[:-len(".msgpack")] + ".pt"
+    return path
+
+
+def _log_peak(device):
+    if device.type == "cuda":
+        logger.info("peak device memory: %.2f GiB",
+                    torch.cuda.max_memory_allocated(device) / 2 ** 30)
+
+
+def kg_metadata(args, corpus: Corpus):
+    """A KG model's KGMeta (item_meta.csv's relations, with
+    ``--include_attr`` its attribute entities); None for another model."""
+    if args.model_name not in KG_MODELS:
+        return None
+    return KGMeta(args.path, args.dataset, sep=args.sep,
+                  include_attr=bool(args.include_attr),
+                  n_items=corpus.n_items)
+
+
+def runner_config(args, task: str) -> RunnerConfig:
+    metrics = args.metric or ("AUC,F1_SCORE,LOG_LOSS,ACC"
+                              if task == "ctr" else "NDCG,HR")
+    return RunnerConfig(
+        epoch=args.epoch, early_stop=args.early_stop, lr=args.lr, l2=args.l2,
+        batch_size=args.batch_size, eval_batch_size=args.eval_batch_size,
+        optimizer=args.optimizer,
+        topk=tuple(int(x) for x in args.topk.split(",")),
+        metrics=tuple(m.strip().upper() for m in metrics.split(",")),
+        main_metric=args.main_metric,
+        loss_n=loss_name(args, task), ctc_temp=args.ctc_temp,
+        margin=args.margin,
+        auxillary_loss_weight=args.auxillary_loss_weight,
+        seed=args.random_seed)
+
+
+def make_runner(args, task: str, model, feat_table=None, device=None):
+    """The JAX CLI's runner choice (segrec/main.py:672-681): CTR, Chorus's
+    stage 2, leave-frame ranking, or ranking."""
+    cfg = runner_config(args, task)
+    if task == "ctr":
+        return CTRRunner(model, cfg, feat_table=feat_table, device=device)
+    if args.model_name == "Chorus" and args.stage == 2:
+        return make_chorus_runner(model, cfg, args.lr_scale,
+                                  feat_table=feat_table, device=device)
+    if args.leave_rank:
+        return LeaveRankingRunner(model, cfg, feat_table=feat_table,
+                                  data_name=args.dataset, device=device)
+    return RankingRunner(model, cfg, feat_table=feat_table, device=device)
 
 
 def main(argv=None):
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(levelname)s %(message)s")
     args = build_parser().parse_args(argv)
+    if args.model_mode == "Impression":
+        return run_impression(args)
     task = "ctr" if args.model_mode == "CTR" else "ranking"
-    _not_ported(args, task)
+    model_class(args.model_name)  # an unknown name raises
     device = resolve_device(args.device)
     if args.use_mesh and device.type == "cuda":
         n_dev = torch.cuda.device_count()
@@ -504,40 +634,23 @@ def main(argv=None):
         store = FeatureStore.open(args.clip_feature_memmap, args.lineid_map)
         feat_table = store.feat
 
-    builders = feed_builders(args, corpus, task, clip_weights, store)
-
-    model = build_model(args, corpus, use_frames=store is not None)
-    metrics = args.metric or ("AUC,F1_SCORE,LOG_LOSS,ACC"
-                              if task == "ctr" else "NDCG,HR")
-    cfg = RunnerConfig(
-        epoch=args.epoch, early_stop=args.early_stop, lr=args.lr, l2=args.l2,
-        batch_size=args.batch_size, eval_batch_size=args.eval_batch_size,
-        optimizer=args.optimizer,
-        topk=tuple(int(x) for x in args.topk.split(",")),
-        metrics=tuple(m.strip().upper() for m in metrics.split(",")),
-        main_metric=args.main_metric,
-        loss_n=loss_name(args, task), ctc_temp=args.ctc_temp,
-        auxillary_loss_weight=args.auxillary_loss_weight,
-        seed=args.random_seed)
-    runner_cls = CTRRunner if task == "ctr" else RankingRunner
-    runner = runner_cls(model, cfg, feat_table=feat_table, device=device)
+    kg_meta = kg_metadata(args, corpus)
+    builders = feed_builders(args, corpus, task, clip_weights, store,
+                             kg_meta=kg_meta)
+    model = build_model(args, corpus, use_frames=store is not None,
+                        kg_meta=kg_meta)
+    runner = make_runner(args, task, model, feat_table=feat_table,
+                         device=device)
 
     best_state, _ = runner.train(
         builders,
         init_path=args.model_path if (args.load or not args.train) else "",
         do_train=bool(args.train))
     if args.model_path and args.train:
-        # the port writes .pt: trained from the JAX runner's .msgpack, the
-        # state goes beside it
-        path = args.model_path
-        if path.endswith(".msgpack"):
-            path = path[:-len(".msgpack")] + ".pt"
-        runner.save_state(best_state, path)
+        runner.save_state(best_state, _save_path(args.model_path))
     dev_res = runner.evaluate(builders["dev"], best_state)
     test_res = runner.evaluate(builders["test"], best_state)
-    if device.type == "cuda":
-        logger.info("peak device memory: %.2f GiB",
-                    torch.cuda.max_memory_allocated(device) / 2 ** 30)
+    _log_peak(device)
     logger.info("Dev  After Training: %s", dev_res)
     logger.info("Test After Training: %s", test_res)
     result = {"dev": dev_res, "test": test_res}
@@ -559,6 +672,125 @@ def main(argv=None):
         logger.info("saved inference scores to %s", out_path)
     print(json.dumps(result, indent=2))
     return result
+
+
+def run_impression(args):
+    """Impression / reranking flow (ReChorus main.py with ImpressionReader /
+    ImpressionRunner; the JAX CLI's run_impression, segrec/main.py:
+    455-531): the base rankers (BPRMF / SASRec Impression variants) train
+    on impression lists; the rerankers (PRM / SetRank / MIR) wrap a ranker
+    taken from ``--ranker_model_path`` (frozen unless ``--tuneranker
+    1``)."""
+    device = resolve_device(args.device)
+    builders, _, runner = impression_setup(args, device)
+    is_reranker = args.model_name in RERANKERS
+    if is_reranker and args.ranker_model_path:
+        runner.load_ranker(args.ranker_model_path)
+        best_state = (_impression_train_from(runner, builders)
+                      if args.train else runner.state())
+    else:
+        best_state, _ = runner.train(
+            builders,
+            init_path=args.model_path if (args.load or not args.train)
+            else "", do_train=bool(args.train))
+    if args.model_path and args.train:
+        runner.save_state(best_state, _save_path(args.model_path))
+    dev_res = runner.evaluate(builders["dev"], best_state)
+    test_res = runner.evaluate(builders["test"], best_state)
+    _log_peak(device)
+    logger.info("Dev  After Training: %s", dev_res)
+    logger.info("Test After Training: %s", test_res)
+    result = {"dev": dev_res, "test": test_res}
+    print(json.dumps(result, indent=2))
+    return result
+
+
+def impression_builders(args, corpus=None, phases=("train", "dev", "test")):
+    """Impression mode's ImpressionFeedBuilders for ``args``
+    (segrec/main.py:462-474): histories where a SASRec ranker or MIR reads
+    them."""
+    corpus = corpus or Corpus(args.path, args.dataset, sep=args.sep)
+    seq_needed = (args.model_name in ("MIR", "SASRec")
+                  or (args.model_name in RERANKERS
+                      and args.ranker_name == "SASRec"))
+    return {phase: ImpressionFeedBuilder(
+        corpus, phase, pos_len=args.train_max_pos_item,
+        neg_len=args.train_max_neg_item,
+        history_max=args.history_max if seq_needed else 0,
+        seed=args.random_seed) for phase in phases}
+
+
+def impression_config(args) -> RunnerConfig:
+    """Impression mode's runner settings: NDCG, MAP and HR, the loss
+    BPRsession unless ``--loss_n`` names another."""
+    metrics = args.metric or "NDCG,MAP,HR"
+    return RunnerConfig(
+        epoch=args.epoch, early_stop=args.early_stop, lr=args.lr,
+        l2=args.l2, batch_size=args.batch_size,
+        eval_batch_size=args.eval_batch_size, optimizer=args.optimizer,
+        topk=tuple(int(x) for x in args.topk.split(",")),
+        metrics=tuple(m.strip().upper() for m in metrics.split(",")),
+        main_metric=args.main_metric,
+        loss_n=args.loss_n or "BPRsession", seed=args.random_seed)
+
+
+def impression_setup(args, device=None, builders=None):
+    """Impression mode's builders (``builders`` if given), model
+    (initialised from ``--random_seed``) and runner for ``args``
+    (segrec/main.py:462-511)."""
+    builders = builders or impression_builders(args)
+    corpus = builders["train"].corpus
+    pos_len, neg_len = args.train_max_pos_item, args.train_max_neg_item
+    is_reranker = args.model_name in RERANKERS
+
+    def make_ranker(name, emb):
+        kw = dict(user_num=corpus.n_users, item_num=corpus.n_items,
+                  emb_size=emb)
+        if name == "SASRec":
+            kw.update(num_heads=args.num_heads, history_max=args.history_max)
+        return IMPRESSION_RANKERS[name](**kw)
+
+    if is_reranker:
+        kw = dict(item_num=corpus.n_items,
+                  ranker=make_ranker(args.ranker_name, args.ranker_emb_size),
+                  ranker_emb_size=args.ranker_emb_size, pos_len=pos_len,
+                  neg_len=neg_len, emb_size=args.emb_size,
+                  num_heads=args.num_heads,
+                  num_hidden_unit=args.num_hidden_unit,
+                  dropout=args.dropout, tuneranker=bool(args.tuneranker))
+        if args.model_name in ("PRM", "SetRank"):
+            kw["n_blocks"] = args.n_blocks
+        if args.model_name == "SetRank":
+            kw["setrank_type"] = args.setrank_type
+        model = RERANKERS[args.model_name](**kw)
+    else:
+        model = make_ranker(args.model_name, args.emb_size)
+    init_weights(model, torch.Generator().manual_seed(args.random_seed))
+    return builders, model, ImpressionRunner(
+        model, impression_config(args), pos_len, neg_len, device=device)
+
+
+def _impression_train_from(runner, builders):
+    """runner.train() from the model as it stands (the ranker absorbed),
+    as the JAX CLI's loop (segrec/main.py:534-556): each epoch's dev
+    result at every top-k, no stop on a NaN loss. Returns the best
+    state."""
+    main_results = []
+    best_state = runner.state()
+    for epoch in range(runner.cfg.epoch):
+        loss = runner.fit(builders["train"], epoch + 1)
+        dev_result = runner.evaluate(builders["dev"])
+        main_results.append(dev_result[runner.main_metric])
+        star = ""
+        if max(main_results) == main_results[-1]:
+            best_state = runner.state()
+            star = " *"
+        logger.info("Epoch %-4d loss=%.4f dev=%s%s", epoch + 1, loss,
+                    dev_result, star)
+        if runner.eval_termination(main_results, runner.cfg.early_stop):
+            logger.info("Early stop at %d based on dev result.", epoch + 1)
+            break
+    return best_state
 
 
 def all_inference(args, task: str, runner, builders) -> str:

@@ -5,12 +5,12 @@ under different runners (CTR applies sigmoid + BCE, Ranking softmax-weighted
 BPR).
 
 ``MODEL_REGISTRY`` holds every model of the JAX package's registry: the
-general, sequential and context models; the KG family (segrec/kg.py)
-raises ``NotImplementedError`` naming the ROADMAP item that ports it. No
-model stands in for another.
+general, sequential and context models. :func:`model_class` finds those
+and the KG family (``segrec/kg.py``: CFKG, SLRCPlus, Chorus, KDA, built
+by ``segrec.main`` from the KG metadata); the impression rankers and the
+rerankers are ``segrec/rerank.py``'s. No model stands in for another.
 """
 
-from ..feeds import QUEUE_RUNNERS
 from .adagin import AdaGINModel
 from .autoint import AutoIntModel
 from .can import CANModel
@@ -80,22 +80,18 @@ MODEL_REGISTRY = {
     "ClipCANRec": ClipCANModel,
 }
 
-# the JAX package's models still to port, by the ROADMAP Queue A item that
-# ports them: the KG family of segrec/kg.py
-NOT_PORTED = {name: QUEUE_RUNNERS for name in ("CFKG", "SLRCPlus", "Chorus",
-                                               "KDA")}
 
 
 def model_class(name: str):
-    """The registry's class for ``name``; a JAX model not ported yet
-    raises ``NotImplementedError``."""
+    """The class of the model ``name``: the registry's, or the KG
+    family's; an unknown name raises ``ValueError``."""
+    from ..kg import KG_MODELS
     if name in MODEL_REGISTRY:
         return MODEL_REGISTRY[name]
-    if name in NOT_PORTED:
-        raise NotImplementedError(
-            f"SegRec model {name} is not ported yet: {NOT_PORTED[name]}")
+    if name in KG_MODELS:
+        return KG_MODELS[name]
     raise ValueError(f"unknown model {name}")
 
 
-__all__ = ["MODEL_REGISTRY", "NOT_PORTED", "model_class"] + sorted(
+__all__ = ["MODEL_REGISTRY", "model_class"] + sorted(
     {cls.__name__ for cls in MODEL_REGISTRY.values()})

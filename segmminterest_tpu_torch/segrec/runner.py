@@ -11,14 +11,19 @@ CTRRunner.py (:20-79):
    (BaseContextModel.py:63-73); the general and sequential models' routes
    (``loss_n``): ContraRec's temperature softmax, BUIR's bootstrap loss,
    DirectAU's alignment / uniformity, and none for CLRec and S3Rec's
-   pretrain, whose own terms are the objective;
+   pretrain, whose own terms are the objective; CFKG's and Chorus's
+   stage-1 margin loss over TransE quadruples (``cfkg_margin_loss``, the
+   ``margin`` of RunnerConfig);
  * full-sort evaluation (``test_all`` feeds): the users' clicked items at
    -inf (BaseRunner.py:254-261);
  * dev-metric early stop: non-increasing window or best-age > patience
    (:220-225);
  * evaluate_method: rank of the first column among candidates with the
    all-equal random fallback (:53-80); CTR: AUC/F1/ACC/LogLoss (:22-43) and
-   WUAUC (main.py:101-117);
+   WUAUC (main.py:101-117); ``LeaveRankingRunner``'s leave-frame variant
+   (SkipPredBaseline ReChorus fork, BaseRunner.py:52-114): candidate 0
+   ranked by ASCENDING score, ties broken by one ``rng.permutation`` a row
+   from the runner's generator, after every draw training made;
  * optimizer by name; ``l2`` is added to the gradient before the update,
    biases excluded (BaseModel.customize_parameters :77-86, torch-Adam-style
    L2, as ``optax.add_decayed_weights`` chains it).
@@ -45,7 +50,6 @@ generator that draws the step's dropout masks.
 ``save_state`` writes a ``.pt`` state_dict; ``load_state`` reads that or
 the JAX runner's ``.msgpack`` params (flax ``to_bytes`` of the params
 tree, decoded by ``engine/checkpoint.py``), in full or ``partial``.
-``LeaveRankingRunner`` is ROADMAP Queue A item 4.
 
 The training loss adds what the model returns in ``losses`` (the flax
 models' sown terms): the contrastive term weighted by
@@ -74,7 +78,8 @@ from ..engine.evaluation import _auc_score
 from ..engine.optim import Adagrad
 from ..models.convert import segrec_state_dict
 from ..utils.device import resolve_device
-from .feeds import QUEUE_RUNNERS, FeedBuilder
+from .feeds import FeedBuilder
+from .kg import cfkg_margin_loss
 from .models.general import direct_au_loss
 
 logger = logging.getLogger(__name__)
@@ -94,12 +99,14 @@ class RunnerConfig:
     topk: Tuple[int, ...] = (5, 10, 20, 50)
     metrics: Tuple[str, ...] = ("NDCG", "HR")
     main_metric: str = ""
-    # ranking: BPR | BCE | DirectAU | BUIR | ContraRec | CLRec | S3Rec;
-    # ctr: BCE | MSE
+    # ranking: BPR | BCE | DirectAU | BUIR | ContraRec | CLRec | S3Rec |
+    # CFKG | ChorusKG; ctr: BCE | MSE; the impression losses
+    # (impression.IMPRESSION_LOSSES) under ImpressionRunner
     loss_n: str = "BPR"
     directau_gamma: float = 1.0
     ctc_temp: float = 1.0        # ContraRec's context-target temperature
     auxillary_loss_weight: float = 0.0
+    margin: float = 0.0          # CFKG / Chorus-KG hinge margin
     seed: int = 0
 
 
@@ -156,6 +163,53 @@ def evaluate_ranking(predictions: np.ndarray, topk, metrics,
                 evaluations[key] = float(hit.mean())
             elif metric == "NDCG":
                 evaluations[key] = float((hit / np.log2(gt_rank + 1)).mean())
+            else:
+                raise ValueError(f"Undefined metric {metric}")
+    return evaluations
+
+
+def evaluate_leave_ranking(predictions: np.ndarray, topk, metrics,
+                           durations=None, data_name: str = "",
+                           rng: Optional[np.random.Generator] = None):
+    """Leave-frame ranking (SkipPredBaseline/ReChorus/src/helpers/
+    BaseRunner.py:52-114): rank of candidate 0 (the leave frame) by
+    ASCENDING score with random-permutation tie-breaking. Duration-mask
+    variants push out-of-duration candidates to +inf; 'Default' datasets trim
+    the trailing default-item row, 'Fill' ones their filler rows."""
+    predictions = np.asarray(predictions, dtype=np.float64)
+    bsz, seq_len = predictions.shape
+    if (durations is not None and "Default" not in data_name
+            and "Fill" not in data_name):
+        dur = np.asarray(durations)[:, None]
+        mask = np.arange(seq_len)[None, :] < dur
+        predictions = np.where(mask, predictions, np.inf)
+    elif "Default" in data_name:
+        predictions = predictions[:-1]
+        bsz -= 1
+    elif "Fill" in data_name:
+        # Fill datasets append a fixed count of filler rows that the
+        # evaluator trims (BaseRunner.py:82-87): 23 for KuaiMM, 36 for
+        # KuaiRand
+        n_fill = 36 if "KuaiRand" in data_name else 23
+        predictions = predictions[:-n_fill]
+        bsz -= n_fill
+    r = rng if rng is not None else np.random
+    permuted = np.stack([r.permutation(seq_len) for _ in range(bsz)]) \
+        if bsz else np.zeros((0, seq_len), np.int64)
+    shuffled = np.take_along_axis(predictions, permuted, axis=1)
+    sorted_indices = np.argsort(shuffled, axis=1)
+    target = np.argmax(permuted == 0, axis=1)
+    gt_rank = np.argmax(sorted_indices == target[:, None], axis=1) + 1
+    evaluations = {}
+    for k in topk:
+        hit = gt_rank <= k
+        for metric in metrics:
+            key = f"{metric}@{k}"
+            if metric == "HR":
+                evaluations[key] = float(hit.mean()) if bsz else float("nan")
+            elif metric == "NDCG":
+                evaluations[key] = float(
+                    (hit / np.log2(gt_rank + 1)).mean()) if bsz else float("nan")
             else:
                 raise ValueError(f"Undefined metric {metric}")
     return evaluations
@@ -243,6 +297,10 @@ class RankingRunner:
             return torch.optim.Adadelta(params, lr=lr, rho=0.9, eps=1e-6)
         raise KeyError(f"unknown optimizer {self.cfg.optimizer}")
 
+    def _decays(self, name: str) -> bool:
+        """Whether ``l2`` decays the parameter ``name``."""
+        return not _is_bias(name)
+
     def _loss(self, predictions, batch):
         """The loss route ``loss_n`` (the JAX runner's, route for route).
         BUIR's and DirectAU's read the batch's first candidate column as
@@ -254,8 +312,9 @@ class RankingRunner:
             predictions = torch.gather(predictions, 1, batch["unshuffle"])
         name, rm = self.cfg.loss_n, batch["row_mask"]
         if name in ("CFKG", "ChorusKG"):
-            raise NotImplementedError(
-                f"ranking loss {name} is not ported yet: {QUEUE_RUNNERS}")
+            # margin ranking over the (pos, pos, neg-tail, neg-head)
+            # quadruples (CFKG.py:70-76 / Chorus.py:168-177)
+            return cfkg_margin_loss(predictions, rm, self.cfg.margin)
         if name in ("S3Rec", "CLRec"):
             # the model's own term (its losses) is the whole objective
             # (S3Rec.py:59-113, CLRec.py:61-63)
@@ -330,7 +389,7 @@ class RankingRunner:
             for name, p in self.model.named_parameters():
                 if p.grad is None:  # unused this step: optax sees zeros
                     p.grad = torch.zeros_like(p)
-                if self.cfg.l2 > 0 and not _is_bias(name):
+                if self.cfg.l2 > 0 and self._decays(name):
                     p.grad.add_(p, alpha=self.cfg.l2)
         self.optimizer.step()
         if hasattr(self.model, "momentum_update"):
@@ -500,6 +559,25 @@ class RankingRunner:
                     dev_results[best_epoch] if dev_results else {})
         return best_state, {"main_results": main_results,
                             "dev_results": dev_results}
+
+
+class LeaveRankingRunner(RankingRunner):
+    """Ranking runner whose evaluation is the leave-frame variant of the
+    SkipPredBaseline ReChorus fork (ascending-score rank of the leave frame
+    with duration masking by ``c_frame_length`` / default-row trimming)."""
+
+    def __init__(self, model: nn.Module, cfg: RunnerConfig, feat_table=None,
+                 data_name: str = "", device=None):
+        super().__init__(model, cfg, feat_table, device=device)
+        self.data_name = data_name
+
+    def evaluate(self, builder: FeedBuilder, state=None, topk=None,
+                 metrics=None):
+        predictions = self.predict(builder, state)
+        durations = builder.situations.get("c_frame_length")
+        return evaluate_leave_ranking(
+            predictions, topk or self.topk, metrics or self.metrics,
+            durations=durations, data_name=self.data_name, rng=self.rng)
 
 
 class CTRRunner(RankingRunner):

@@ -22,9 +22,9 @@ package's on the CPU:
   against fp64 on the CPU, within the chip check's tolerances;
 * segrec.main --device cpu against the JAX main on the same directory from
   the same .msgpack weights: the metrics within 1e-5 and the
-  save_final_results file; the guards (no card without --device cpu, the
-  routes not ported raise, naming the ROADMAP item that ports each); the
-  sequential models' feed flags build their feeds.
+  save_final_results file; the guard (no card without --device cpu); the
+  Impression, KG and leave-rank routes run; the sequential models' feed
+  flags build their feeds.
 """
 
 import json
@@ -48,7 +48,8 @@ from segmminterest_tpu_torch.models.convert import segrec_state_dict
 from segmminterest_tpu_torch.segrec import feeds, main, runner
 from segmminterest_tpu_torch.segrec.corpus import Corpus
 from segmminterest_tpu_torch.segrec.models import MODEL_REGISTRY
-from segmminterest_tpu_torch.tasks import build_segrec_data
+from segmminterest_tpu_torch.tasks import (build_leave_rank_data,
+                                           build_segrec_data)
 from test_segrec import FEATURE_MAX, FEATURES, synthetic_feed
 
 FWD_RTOL = 1e-6
@@ -734,21 +735,44 @@ def test_main_needs_the_card_or_cpu(data):
         main.main(argv + ["--epoch", "1"])
 
 
-ROUTES_NOT_PORTED = {  # id: (flags, what the message names, Queue A item)
-    "extra0-Impression": (["--model_mode", "Impression"], "Impression", 4),
-    "extra1-CFKG": (["--model_name", "CFKG"], "CFKG", 4),
-    "extra5-leave_rank": (["--leave_rank", "1"], "leave_rank", 4),
+@pytest.fixture(scope="module")
+def other_routes_data(data):
+    """The KG metadata (build_segrec_data --kg_meta 1, as SegKG) and the
+    leave-rank datasets of ``data``'s CSV, beside its splits."""
+    csv = os.path.join(data["dir"], "inter.csv")
+    split = ["--min_interactions", "30", "--num_warmup", "10"]
+    build_segrec_data.main(["--inter_csv", csv, "--out", data["dir"],
+                            "--name", "SegKG", "--kg_meta", "1",
+                            "--n_eval_neg", "9"] + split)
+    build_leave_rank_data.main(["--inter_csv", csv, "--out", data["dir"]]
+                               + split)
+    return data["dir"]
+
+
+OTHER_ROUTES = {  # id: flags
+    "extra0-Impression": ["--model_mode", "Impression", "--model_name",
+                          "BPRMF", "--dataset", "SegMM_CTR"],
+    "extra1-CFKG": ["--model_name", "CFKG", "--model_mode", "TopK",
+                    "--dataset", "SegKG", "--margin", "1"],
+    "extra5-leave_rank": ["--leave_rank", "1", "--model_name", "BPRMF",
+                          "--model_mode", "TopK", "--dataset",
+                          "SegMMstep1RankingDefault"],
 }
 
 
-@pytest.mark.parametrize("extra,match,item", list(ROUTES_NOT_PORTED.values()),
-                         ids=list(ROUTES_NOT_PORTED))
-def test_routes_not_ported_raise(data, extra, match, item):
-    argv = ["--path", data["dir"], "--dataset", "SegMM_CTR",
-            "--device", "cpu"] + extra
-    with pytest.raises(NotImplementedError,
-                       match=f"{match}.*Queue A item {item}"):
-        main.main(argv)
+@pytest.mark.parametrize("extra", list(OTHER_ROUTES.values()),
+                         ids=list(OTHER_ROUTES))
+def test_other_routes_run(other_routes_data, extra):
+    """The routes the port once lacked (--model_mode Impression, the KG
+    family, --leave_rank 1) through segrec.main --device cpu for one
+    epoch: finite metrics (their checks against the JAX package:
+    test_torch_segrec_rerank.py and test_torch_segrec_kg.py)."""
+    res = main.main(["--path", other_routes_data, "--device", "cpu",
+                     "--epoch", "1", "--emb_size", "16", "--batch_size",
+                     "64", "--topk", "1,3", "--use_mesh", "0"] + extra)
+    for split in ("dev", "test"):
+        assert res[split] and all(np.isfinite(v) and 0 <= v <= 1
+                                  for v in res[split].values()), res
 
 
 def test_feedbuilder_sequential_flags_build_feeds(data):

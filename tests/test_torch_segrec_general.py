@@ -39,7 +39,7 @@ from segmminterest_tpu.segrec.models import MODEL_REGISTRY as JAX_MODELS
 from segmminterest_tpu_torch.models.convert import segrec_state_dict
 from segmminterest_tpu_torch.segrec import feeds, layers, main, runner
 from segmminterest_tpu_torch.segrec.corpus import Corpus
-from segmminterest_tpu_torch.segrec.models import MODEL_REGISTRY, NOT_PORTED
+from segmminterest_tpu_torch.segrec.models import MODEL_REGISTRY, model_class
 from segmminterest_tpu_torch.segrec.models.general import direct_au_loss
 from test_torch_segrec import (ADAM_BOUND, FWD_RTOL, LOSS_RTOL, LR,
                                METRIC_ATOL, STEPS, _frame_equal, _rel,
@@ -293,13 +293,17 @@ def test_forward_matches_jax(name, padded):
 
 
 def test_registry_holds_every_model():
-    """The 19 general and sequential models are ported: in the registry,
-    none of them in NOT_PORTED (only the KG family is)."""
+    """Every model of the JAX registry and the KG family has its port:
+    model_class finds each, and an unknown name raises ValueError."""
+    from segmminterest_tpu.segrec.kg import KG_MODELS as JAX_KG
     names = GENERAL + SEQUENTIAL
     assert len(names) == 19 and set(names) <= set(MODEL_REGISTRY)
-    assert not set(names) & set(NOT_PORTED)
-    assert set(NOT_PORTED) == {"CFKG", "SLRCPlus", "Chorus", "KDA"}
     assert set(JAX_MODELS) - set(MODEL_REGISTRY) == set()
+    assert JAX_KG == {"CFKG", "SLRCPlus", "Chorus", "KDA"}
+    for name in sorted(set(JAX_MODELS) | JAX_KG):
+        assert model_class(name).__name__.endswith("Model"), name
+    with pytest.raises(ValueError, match="unknown model"):
+        model_class("NoSuchModel")
 
 
 def test_loss_routes_match_jax():
