@@ -167,6 +167,24 @@ Phases, each of which fails the run (non-zero exit) on any error:
                  Impression, Chorus --stage 1 then --stage 2 --load 1, KDA
                  --include_attr 1: finite metrics) beside phases wide and
                  train_cli; no pandas
+  mmrec          MMRec's graph recommenders at mmrec.main's defaults (emb
+                 64, 64-d random features, --knn_k 10, B=2048) over
+                 build_mmrec_data of the synthetic CSV (197,064 frames,
+                 260,476 train pairs): BPR, LightGCN, LayerGCN, FREEDOM,
+                 BM3, LATTICE, MMGCN and SLMRec, FREEDOM also with
+                 --edge_dropout 0.1 and over a 197,064 x 1,025 feature
+                 matrix: 10 steps timed after 2 (ms, train pairs/s, peak
+                 memory); LATTICE's frozen global kNN graph built on the
+                 card and its per-epoch rebuild; an evaluation of the dev
+                 rows and an export of every row; one fp32 step of each
+                 model on a small graph card against CPU (1e-5, or 4x the
+                 CPU's own fp32-vs-fp64) and LATTICE's kNN graphs card
+                 against CPU, beside phase segrec's CLIs; its data (a
+                 process of its own at nice 19 from phase build on) and,
+                 beside phases wide and train_cli, mmrec.main for one epoch
+                 (FREEDOM --test_cold 1 --save_logits, LATTICE, BPR --grid
+                 over lr) and tasks.exp over two seeds (one thread each, at
+                 nice 19): finite metrics; no pandas
 The last line is {"ok": true, "device": {...}}; before it come the card's
 name and power limit (nvidia-smi) and one JSON line describing the kernels.
 It needs no network and writes only under build/ (the kernels in
@@ -240,7 +258,8 @@ RESULT = {"kernels": {}, "launches": {}}
 ALL_PHASES = ("build", "kernels", "serving", "default", "train",
               "train_default", "train_bf16", "ablation", "fused_variants",
               "attn_v2", "wide", "train_cli", "watchtime", "msgpack",
-              "segrec", "segrec_models", "segrec_seq", "segrec_runners")
+              "segrec", "segrec_models", "segrec_seq", "segrec_runners",
+              "mmrec")
 
 
 def log(*a):
@@ -278,10 +297,12 @@ def phase_build(ctx):
     soon as it links, during the build's tail, when the last long compiles
     leave most cores idle. The last ones' disassembly goes on beside phase
     kernels, at the lowest priority; its check fails the run where
-    _join_background reads it."""
+    _join_background reads it. Phase mmrec's host preparation starts here,
+    at the lowest priority too."""
     from concurrent.futures import ThreadPoolExecutor
 
     from segmminterest_tpu_torch.core import build
+    _start_mmrec_prep(ctx)
     t0 = time.perf_counter()
     cuobjdump = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
     libs = {name: build._lib_path(name) for name in SASS_LIBS}
@@ -2288,6 +2309,9 @@ def _device_int8_table(rows, dev, seed=0, chunk=1 << 18):
     return table, scale
 
 
+CSV_ARGS = dict(n_users=150, per_user=(250, 300), n_videos=10_000, seed=1)
+
+
 def _data(ctx):
     """The synthetic interactions, their reader and segment map, and the
     3,920,483-row int8 table on the card; built once, for every phase that
@@ -2301,8 +2325,7 @@ def _data(ctx):
     os.makedirs(WORK, exist_ok=True)
     t0 = time.perf_counter()
     csv_path = write_synthetic_csv(os.path.join(WORK, "inter.csv"),
-                                   n_users=150, per_user=(250, 300),
-                                   n_videos=10_000, seed=1)
+                                   **CSV_ARGS)
     reader = SeqReader.from_single_csv(csv_path, min_interactions=100,
                                        num_warmup=80)
     lineid_map = synthetic_lineid_map(reader, PRODUCTION_ROWS)
@@ -3125,12 +3148,14 @@ def _launches(counts, per, n):
         k: n * per.get(k, 0) for k in K2_KEYS + K6_KEYS}
 
 
-def _subprocess_json(args, env, what):
-    """Run `python -m args` from the checkout's root with `env`; its
-    stdout's last JSON object and its stderr. Logs the wall time and when
-    each of its log lines came, for where a CLI run's time goes."""
+def _subprocess_json(args, env, what, nice=0):
+    """Run `python -m args` from the checkout's root with `env` (at
+    `nice`); its stdout's last JSON object and its stderr. Logs the wall
+    time and when each of its log lines came, for where a CLI run's time
+    goes."""
     t0 = time.time()
-    proc = subprocess.run([sys.executable, "-m", *args], cwd=ROOT, env=env,
+    proc = subprocess.run((["nice", "-n", str(nice)] if nice else [])
+                          + [sys.executable, "-m", *args], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=600)
     if proc.returncode:
         raise AssertionError(f"{what} exited {proc.returncode}:\n"
@@ -3314,10 +3339,12 @@ def phase_attn_v2(ctx):
 def _in_background(ctx, what, fn):
     """Run fn() in a thread beside the next, untimed phases; its failure
     fails the run where _join_background reads it (at the end of phase
-    train_cli, or of the run)."""
+    train_cli, or of the run). Returns its future."""
     from concurrent.futures import ThreadPoolExecutor
     pool = ThreadPoolExecutor(1)
-    ctx.setdefault("background", []).append((what, pool.submit(fn), pool))
+    done = pool.submit(fn)
+    ctx.setdefault("background", []).append((what, done, pool))
+    return done
 
 
 def _join_background(ctx):
@@ -3360,6 +3387,7 @@ def phase_wide(ctx):
     _data(ctx)
     _start_segrec_seq_clis(ctx)
     _start_segrec_runner_clis(ctx)
+    _start_mmrec_background(ctx)
     reader, store = ctx["reader"], ctx["store"]
     for key, base, kw, keys in WIDE_ROUTES:
         cfg = (_flagship_cfg(ctx["csv"]).replace(table_quant="int8")
@@ -3401,6 +3429,7 @@ def phase_train_cli(ctx):
     _data(ctx)
     _start_segrec_seq_clis(ctx)
     _start_segrec_runner_clis(ctx)
+    _start_mmrec_background(ctx)
     memmap, lineid = _cli_files(ctx)
     common = ["--sample_csv", ctx["csv"], "--min_interactions", "100",
               "--num_warmup", "80", "--memmap", memmap, "--lineid_map",
@@ -4193,6 +4222,7 @@ def _segrec_cli_and_checks(ctx, sdir, task1, memmap, lineid, env):
         _segrec_seq_checks(rank, seq_cache, torch.device("cuda"))
         if "segrec_runner_prep" in ctx:
             _segrec_runner_checks(ctx)
+        _mmrec_checks(ctx)
         results = [f.result() for f in running]
     for (name, extra), (res, err) in zip(SEGREC_CLI, results):
         ranking = "--model_mode" in extra
@@ -5099,6 +5129,418 @@ def phase_segrec_runners(ctx):
         raise AssertionError("SegRec's runners imported pandas")
 
 
+
+# ---------------------------------------------------------------------------
+# MMRec's graph recommenders
+
+MMREC_DIR = os.path.join(WORK, "mmrec")
+MMREC_B = 2048          # mmrec.main's --batch_size default
+MMREC_TIMED = 10        # steps timed per case, after 2
+MMREC_KNN = 10          # --knn_k
+MMREC_CLIP_WIDTH = 1025  # CLIP's 1024 + the position column
+# (case, model, --edge_dropout, feature columns) at mmrec.main's defaults
+MMREC_CASES = tuple((n, n, 0.0, 64) for n in (
+    "BPR", "LightGCN", "LayerGCN", "FREEDOM", "BM3", "LATTICE", "MMGCN",
+    "SLMRec")) + (("FREEDOM --edge_dropout 0.1", "FREEDOM", 0.1, 64),
+                  ("FREEDOM 1,025 columns", "FREEDOM", 0.0, MMREC_CLIP_WIDTH))
+MMREC_RTOL = 1e-5       # the small graph's steps, card against CPU
+MMREC_SMALL = dict(n_users=300, n_items=400, n_edges=3000, rows=256,
+                   real=200)
+# mmrec.main for one epoch, each chain in a thread of its own ({dir}: the
+# phase's directory, {csv}: the script's CSV)
+MMREC_CLI = (
+    ("segmminterest_tpu_torch.mmrec.main", "--model", "FREEDOM",
+     "--inter_csv", "{csv}", "--epochs", "1", "--test_cold", "1",
+     "--save_logits", "{dir}/freedom_logits.json"),
+    ("segmminterest_tpu_torch.mmrec.main", "--model", "LATTICE",
+     "--inter_csv", "{csv}", "--epochs", "1"),
+    ("segmminterest_tpu_torch.mmrec.main", "--model", "BPR", "--inter_csv",
+     "{csv}", "--epochs", "1", "--grid", "lr=0.01,0.001"),
+    ("segmminterest_tpu_torch.tasks.exp", "--entry", "mmrec", "--seeds",
+     "0,1", "--out", "{dir}/exp.csv", "--", "--model", "BPR",
+     "--inter_csv", "{csv}", "--epochs", "1"))
+
+
+def _mmrec_prep(path):
+    """Host work of phase mmrec, in a process of its own: build_mmrec_data
+    over the script's CSV (written again, beside `path`; mmrec.main's
+    defaults), the CLI's random 64-d
+    features and FREEDOM's block-local kNN graph over them, a 197,064 x
+    1,025 feature matrix (a position column in [0, 1)) written beside
+    `path` and FREEDOM's graph over its 1,024 columns; the host seconds of
+    each and the number of keys of the exported rows beside `path`."""
+    from segmminterest_tpu_torch.data.synthetic import write_synthetic_csv
+    from segmminterest_tpu_torch.mmrec import main as M
+    from segmminterest_tpu_torch.mmrec.graph import knn_item_graph
+    secs = {}
+    t0 = time.perf_counter()
+    csv = write_synthetic_csv(path + ".csv", **CSV_ARGS)
+    data = M.build_mmrec_data(csv, ",", 100, 80, 2024)
+    secs["data"] = time.perf_counter() - t0
+    n = data["n_items"]
+    feats = np.random.default_rng(0).normal(size=(n, 64)).astype(np.float32)
+    t0 = time.perf_counter()
+    graph = knn_item_graph(feats, MMREC_KNN)
+    secs["knn 64"] = time.perf_counter() - t0
+    rng = np.random.default_rng(1)
+    wide = np.lib.format.open_memmap(path + ".clip.npy", "w+", np.float32,
+                                     (n, MMREC_CLIP_WIDTH))
+    for s in range(0, n, 16384):
+        e = min(n, s + 16384)
+        wide[s:e, :-1] = rng.normal(size=(e - s, MMREC_CLIP_WIDTH - 1))
+        wide[s:e, -1] = rng.random(e - s)
+    t0 = time.perf_counter()
+    wide_graph = knn_item_graph(wide[:, :-1], MMREC_KNN)
+    secs["knn 1024"] = time.perf_counter() - t0
+    wide.flush()
+    torch.save(dict(data=data, feats=feats, graph=graph,
+                    wide_graph=wide_graph), path)
+    keys = {f"{r['user_id']}-{r['photo_id']}-{r['time']}"
+            for r in data["all"]}
+    with open(path + ".json", "w") as f:
+        json.dump(dict(secs=secs, n_keys=len(keys)), f)
+
+
+def _mmrec_cli(chain, csv, prep):
+    """One run of MMREC_CLI (one epoch on the card): finite metrics;
+    FREEDOM's --save_logits file holds one 40-wide finite row for each key
+    of its interactions (those of `prep`, a future of the prepared data);
+    the sweep's CSV its two seeds and their mean."""
+    args = [a.format(dir=MMREC_DIR, csv=csv) for a in chain]
+    what = " ".join(a for a in chain if a not in ("--inter_csv", "{csv}"))
+    what = what.replace("segmminterest_tpu_torch.", "").replace(
+        "{dir}/", "")
+    res, err = _subprocess_json(args, dict(os.environ, **ONE_THREAD), what,
+                                nice=19)
+    if "--grid" in args:
+        metrics = [g["best_test_upon_valid"] for g in res["grid"]]
+        if len(metrics) != 2:
+            raise AssertionError(f"{what}: grid {res}")
+    elif "tasks.exp" in args[0]:
+        with open(os.path.join(MMREC_DIR, "exp.csv")) as f:
+            rows = f.read().splitlines()
+        seeds = [r.split(",", 1)[0] for r in rows[1:]]
+        metrics = [{k: float(v) for k, v in zip(rows[0].split(","), r.split(
+            ",")) if k != "seed"} for r in rows[1:]]
+        if seeds != ["0", "1", "mean"]:
+            raise AssertionError(f"{what}: rows {seeds}")
+    else:
+        metrics = [res["best_valid_result"], res["best_test_upon_valid"]]
+    if "--test_cold" in args:
+        metrics += [res["cold_test"], res["hot_test"]]
+    if not all(m and _finite(m) for m in metrics):
+        raise AssertionError(f"{what}: metrics {metrics}")
+    if "--save_logits" in args:
+        with open(args[args.index("--save_logits") + 1]) as f:
+            logits = json.load(f)
+        n_keys = prep.result()["n_keys"]
+        if len(logits) != n_keys or not all(
+                len(v) == 40 and _finite(v) for v in logits.values()):
+            raise AssertionError(f"{what}: {len(logits)} rows for {n_keys} "
+                                 "keys")
+        what += f" ({len(logits)} rows of 40 finite logits)"
+    peak = [ln.split("peak device memory: ", 1)[1] for ln in
+            err.splitlines() if "peak device memory: " in ln]
+    hr5 = [v for k, v in metrics[-1].items() if k.endswith("hr@5")]
+    log(f"  {what}: hr@5 {hr5[0]:.4f}; peak device memory "
+        f"{peak[-1] if peak else 'not logged'}")
+
+
+# one thread each for the BLAS and OpenMP pools of mmrec's processes: their
+# host work is serial, and idle pools' spinning threads would take the
+# cores of the phases they go beside
+ONE_THREAD = dict(OMP_NUM_THREADS="1", OPENBLAS_NUM_THREADS="1",
+                  MKL_NUM_THREADS="1")
+
+
+def _start_mmrec_prep(ctx):
+    """_mmrec_prep in a process of its own at the lowest priority, from
+    phase build on (it takes what the compiles leave); its future holds the
+    prepared data. Started once."""
+    if "mmrec_prep" in ctx:
+        return
+    os.makedirs(MMREC_DIR, exist_ok=True)
+    path = os.path.join(MMREC_DIR, "prep.pt")
+
+    def prepare():
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            ["nice", "-n", "19", sys.executable, "-c",
+             f"import chip_smoke as C; C._mmrec_prep({path!r})"],
+            cwd=ROOT, env=dict(os.environ, **ONE_THREAD),
+            capture_output=True, text=True, timeout=900)
+        if proc.returncode:
+            raise AssertionError(f"mmrec's data exited {proc.returncode}:\n"
+                                 f"{proc.stderr[-4000:]}")
+        with open(path + ".json") as f:
+            made = json.load(f)
+        log(f"  mmrec's data built in a process of its own at nice 19 "
+            f"({time.perf_counter() - t0:.1f} s: "
+            + ", ".join(f"{k} {v:.1f} s" for k, v in made["secs"].items())
+            + ")")
+        return dict(made, path=path)
+    ctx["mmrec_prep"] = _in_background(ctx, "mmrec's data", prepare)
+
+
+def _start_mmrec_background(ctx):
+    """Phase mmrec's CLI runs (MMREC_CLI, a thread a run, each a process of
+    one thread at the lowest priority: they take what the phases' own work
+    leaves), in the background beside phases wide and train_cli, which time
+    nothing; train_cli's end waits for them. Started once."""
+    from concurrent.futures import ThreadPoolExecutor
+    if "mmrec_background" in ctx:
+        return
+    ctx["mmrec_background"] = True
+    _data(ctx)
+    _start_mmrec_prep(ctx)
+    csv, prep = ctx["csv"], ctx["mmrec_prep"]
+
+    def run():
+        with ThreadPoolExecutor(len(MMREC_CLI)) as pool:
+            for f in [pool.submit(_mmrec_cli, c, csv, prep)
+                      for c in MMREC_CLI]:
+                f.result()
+    _in_background(ctx, "mmrec's CLI runs", run)
+
+
+def _mmrec_small():
+    """A small graph (MMREC_SMALL: a quarter of the items and every user
+    past 250 without a train edge), 65 feature columns (a position column),
+    FREEDOM's and LATTICE's item graphs over them (built on the CPU), a
+    padded batch and BM3's and SLMRec's dropout masks, from seeds."""
+    from segmminterest_tpu_torch.mmrec import graph as G
+    c = MMREC_SMALL
+    rng = np.random.default_rng(11)
+    users = rng.integers(1, 250, c["n_edges"])
+    items = rng.integers(1, 300, c["n_edges"])
+    feats = rng.normal(size=(c["n_items"], 65)).astype(np.float32)
+    feats[:, -1] = rng.random(c["n_items"]) * 1.2 - 0.1
+    rows = c["rows"]
+    idx = rng.integers(0, c["n_edges"], rows)
+    idx[c["real"]:] = 0
+    mask = np.ones(rows, np.float32)
+    mask[c["real"]:] = 0
+    gen = torch.Generator().manual_seed(3)
+    return dict(
+        users=users, items=items, feats=feats,
+        edges=G.bipartite_norm_edges(users, items, c["n_users"],
+                                     c["n_items"]),
+        freedom=G.knn_item_graph(feats[:, :-1], MMREC_KNN),
+        lattice=G.global_weighted_knn_graph_device(
+            torch.from_numpy(feats[:, :-1]), MMREC_KNN),
+        batch=(users[idx], items[idx],
+               rng.integers(1, c["n_items"], rows), mask),
+        masks={"BM3": [torch.rand((c[k], 64), generator=gen) < 0.7
+                       for k in ("n_users", "n_items", "n_items")],
+               "SLMRec": [torch.rand((rows, 64), generator=gen) < 0.9
+                          for _ in range(2)]})
+
+
+def _mmrec_small_steps(dev, small):
+    """One step of each model on the small graph on `dev`, on the CPU and
+    on the CPU in fp64, from the same weights, batch, masks and (LATTICE)
+    learned edges: (name, then (loss, gradient norm, embeddings) on each)."""
+    import copy
+
+    from segmminterest_tpu_torch.mmrec.graph import knn_edges_device
+    from segmminterest_tpu_torch.mmrec.models import MMREC_REGISTRY
+    from segmminterest_tpu_torch.mmrec.runner import MMRecConfig, MMRecRunner
+    c, out = MMREC_SMALL, []
+    eu, ei, ev = small["edges"]
+    for name, cls in MMREC_REGISTRY.items():
+        graph = {"FREEDOM": small["freedom"], "LATTICE": small["lattice"]}
+        mm_edges, mm_values = graph.get(name, (None, None))
+        base = cls(n_users=c["n_users"], n_items=c["n_items"], edge_u=eu,
+                   edge_i=ei, edge_values=ev, v_feat=small["feats"],
+                   mm_edges=mm_edges, mm_values=mm_values)
+        base.reset_parameters(torch.Generator().manual_seed(5))
+        learned = None
+        if name == "LATTICE":
+            with torch.no_grad():
+                learned = knn_edges_device(base.projected_features(),
+                                           MMREC_KNN)
+        runs = []
+        for where, dtype in ((dev, torch.float32), ("cpu", torch.float32),
+                             ("cpu", torch.float64)):
+            r = MMRecRunner(copy.deepcopy(base).to(dtype), MMRecConfig(),
+                            small["users"], small["items"], c["n_items"],
+                            device=where)
+            with torch.no_grad():
+                u, i = (r.model.embeddings(None, learned.to(where))
+                        if learned is not None else r.model.embeddings())
+            batch = [torch.from_numpy(a).to(where) for a in small["batch"]]
+            masks = small["masks"].get(name)
+            loss = r._loss(*batch, None, None if learned is None
+                           else learned.to(where),
+                           None if masks is None
+                           else [m.to(where) for m in masks])
+            loss.backward()
+            norm = float(torch.sqrt(sum((p.grad.double() ** 2).sum()
+                                        for p in r.model.parameters())))
+            emb = torch.cat([u, i]).detach().double().cpu().numpy()
+            runs.append((float(loss.detach()), norm, emb))
+        out.append((name, *runs))
+    return out
+
+
+def _mmrec_checks(ctx):
+    """Phase mmrec's (b), run in phase segrec beside its CLIs (or in phase
+    mmrec where phase segrec did not run): one fp32 step of each model on
+    the small graph on
+    the card and on the CPU: loss, gradient norm and embeddings within
+    MMREC_RTOL, or SEGREC_COND times the CPU's own fp32-vs-fp64 rounding
+    where that is more; LATTICE's kNN graphs (the frozen global one and a
+    learned rebuild) built on the card: the CPU's edges row by row, the
+    frozen values within MMREC_RTOL."""
+    from segmminterest_tpu_torch.mmrec import graph as G
+    dev = torch.device("cuda")
+    small = _mmrec_small()
+    feats = torch.from_numpy(small["feats"][:, :-1])
+    for what, cpu, card in (
+            ("frozen global kNN", small["lattice"],
+             G.global_weighted_knn_graph_device(feats.to(dev), MMREC_KNN)),
+            ("learned kNN rebuild", (G.knn_edges_device(feats, MMREC_KNN),),
+             (G.knn_edges_device(feats.to(dev), MMREC_KNN),))):
+        want, got = cpu[0].numpy(), card[0].cpu().numpy()
+        same = (np.sort(got[:, 1].reshape(-1, MMREC_KNN), 1)
+                == np.sort(want[:, 1].reshape(-1, MMREC_KNN), 1)).all(1)
+        if not same.all() or (got[:, 0] != want[:, 0]).any():
+            raise AssertionError(f"LATTICE's {what} on the card: "
+                                 f"{int((~same).sum())} rows differ from "
+                                 "the CPU's")
+        err = 0.0
+        if len(cpu) == 2:
+            err = float(np.abs(card[1].cpu().numpy() - cpu[1].numpy()).max()
+                        / np.abs(cpu[1].numpy()).max())
+            if err > MMREC_RTOL:
+                raise AssertionError(f"LATTICE's {what}: values {err:.1e} "
+                                     "from the CPU's")
+        log(f"  LATTICE's {what} ({MMREC_SMALL['n_items']} items, k "
+            f"{MMREC_KNN}) on the card: the CPU's edges in every row"
+            + (f", values within {err:.1e}" if len(cpu) == 2 else ""))
+    for name, card, cpu, fp64 in _mmrec_small_steps(dev, small):
+        err, rounding = _rel_errs(card, cpu), _rel_errs(cpu, fp64)
+        limit = max(MMREC_RTOL, SEGREC_COND * max(rounding))
+        if max(err) > limit:
+            raise AssertionError(f"{name} small-graph step: card {card[:2]}"
+                                 f", CPU {cpu[:2]}, relative errors {err} "
+                                 f"against {limit}")
+        log(f"  {name} small-graph fp32 step, card against the CPU: loss "
+            f"{card[0]:.6f} ({err[0]:.1e} relative), gradient norm "
+            f"{card[1]:.6f} ({err[1]:.1e}), embeddings {err[2]:.1e}; the "
+            "CPU's against fp64: " + ", ".join(f"{e:.1e}" for e in rounding)
+            + f"; limit {limit:.1e}")
+    ctx["mmrec_checked"] = True
+
+
+def _mmrec_case(prep, model, dropout, width, dev):
+    """mmrec.main's model and runner for one case of MMREC_CASES on `dev`
+    over phase mmrec's prepared data; LATTICE's frozen graph built on the
+    card (its ms, else None)."""
+    from segmminterest_tpu_torch.mmrec import main as M
+    args = M.build_parser().parse_args(["--inter_csv", "", "--model", model,
+                                        "--edge_dropout", str(dropout),
+                                        "--seed", "0"])
+    feats, graph, frozen_ms = prep["feats"], prep["graph"], None
+    if width == MMREC_CLIP_WIDTH:
+        feats = np.load(os.path.join(MMREC_DIR, "prep.pt.clip.npy"))
+        graph = prep["wide_graph"]
+    if model == "LATTICE":
+        t0 = time.perf_counter()
+        graph = M.item_graph(model, feats, MMREC_KNN, dev)
+        torch.cuda.synchronize()
+        frozen_ms = (time.perf_counter() - t0) * 1e3
+    m = M.build_model(args, prep["data"], dev, v_feat=feats, mm_graph=graph)
+    return M.make_runner(args, prep["data"], m, dev), frozen_ms
+
+
+def phase_mmrec(ctx):
+    """MMRec's graph recommenders on the card at mmrec.main's defaults
+    (emb 64, 64-d random features, --knn_k 10, B=2048, lr 1e-3) over
+    build_mmrec_data of the script's CSV (197,064 frames, 260,476 train
+    pairs): (a) each model's steps (BPR, LightGCN, LayerGCN, FREEDOM, BM3,
+    LATTICE, MMGCN, SLMRec; FREEDOM also with --edge_dropout 0.1 and over
+    a 197,064 x 1,025 feature matrix): MMREC_TIMED steps timed after 2 (ms,
+    train pairs/s, peak device memory above what is held); LATTICE's
+    frozen global kNN graph built on the card and its per-epoch rebuild;
+    an evaluation of the 2,711 dev rows and an export of the 29,442 rows;
+    (b) one fp32 step of each model on a small graph, card against CPU;
+    LATTICE's kNN graphs card against CPU. Its data (built in a process of
+    its own at the lowest priority from phase build on), its CLI runs (c:
+    FREEDOM --test_cold 1 --save_logits, LATTICE, BPR --grid over lr,
+    tasks.exp over two seeds; one thread each, at the lowest priority) and
+    its checks (b) went beside phases build, wide and train_cli, and
+    segrec's CLIs; where they did not, they run here. No pandas."""
+    _start_mmrec_background(ctx)
+    _join_background(ctx)
+    prep = torch.load(ctx.pop("mmrec_prep").result()["path"],
+                      weights_only=False)
+    data = prep["data"]
+    log(f"  mmrec's data: {data['n_items']} frames, {data['n_users']} users, "
+        f"{len(data['train_u'])} train pairs, {len(data['dev'])} dev / "
+        f"{len(data['test'])} test / {len(data['all'])} rows")
+    if not ctx.get("mmrec_checked"):
+        _mmrec_checks(ctx)
+    dev = torch.device("cuda")
+    for what, model, dropout, width in MMREC_CASES:
+        t0 = time.perf_counter()
+        r, frozen_ms = _mmrec_case(prep, model, dropout, width, dev)
+        build_ms = (time.perf_counter() - t0) * 1e3
+        r.init_state()
+        t0 = time.perf_counter()
+        keep, arrays = r.epoch_batches()
+        torch.cuda.synchronize()
+        draw_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        learned = r._rebuild_edges()
+        torch.cuda.synchronize()
+        rebuild_ms = (time.perf_counter() - t0) * 1e3
+        batches = [[torch.from_numpy(a[s * MMREC_B:(s + 1) * MMREC_B]).to(dev)
+                    for a in arrays] for s in range(MMREC_TIMED + 2)]
+        for b in batches[:2]:   # warm-up
+            r.train_step(*b, keep, learned)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        for b in batches[2:]:
+            loss = r.train_step(*b, keep, learned)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / MMREC_TIMED
+        peak = torch.cuda.max_memory_allocated()
+        if not math.isfinite(float(loss)):
+            raise AssertionError(f"{what}: loss {float(loss)}")
+        log(f"  {what} at B={MMREC_B}: {ms:.2f} ms/step "
+            f"({MMREC_B / ms * 1e3:.0f} train pairs/s, {MMREC_TIMED} steps "
+            f"after 2), peak device memory {peak / 2**30:.2f} GiB "
+            f"({(peak - base) / 2**30:.2f} above the {base / 2**30:.2f} "
+            f"held); model and runner made {build_ms:.0f} ms, an epoch's "
+            f"draws {draw_ms:.0f} ms")
+        if frozen_ms is not None:
+            log(f"  LATTICE's frozen global kNN graph ({data['n_items']} "
+                f"frames, k {MMREC_KNN}, 64-d) built on the card: "
+                f"{frozen_ms:.0f} ms; its learned graph rebuilt (each epoch)"
+                f": {rebuild_ms:.0f} ms")
+        if what == "FREEDOM":
+            rng = np.random.default_rng(0)
+            t0 = time.perf_counter()
+            res = r.evaluate(None, data["dev"], data["frame_map"], rng)
+            eval_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            logits = r.export_logits(None, data["all"], data["frame_map"])
+            export_s = time.perf_counter() - t0
+            if not _finite(res) or not all(len(v) == 40 and _finite(v)
+                                           for v in logits.values()):
+                raise AssertionError(f"FREEDOM: evaluation {res}")
+            log(f"  FREEDOM's evaluation of {len(data['dev'])} dev rows "
+                f"{eval_s * 1e3:.0f} ms (hr@5 {res['hr@5']:.4f}); export of "
+                f"{len(data['all'])} rows {export_s * 1e3:.0f} ms "
+                f"({len(logits)} keys)")
+        del r, batches
+        torch.cuda.empty_cache()
+    if "pandas" in sys.modules:
+        raise AssertionError("MMRec imported pandas")
+
 # ---------------------------------------------------------------------------
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -5142,7 +5584,8 @@ def main(argv=None):
          "segrec": lambda: phase_segrec(ctx),
          "segrec_models": lambda: phase_segrec_models(ctx),
          "segrec_seq": lambda: phase_segrec_seq(ctx),
-         "segrec_runners": lambda: phase_segrec_runners(ctx)}[name]()
+         "segrec_runners": lambda: phase_segrec_runners(ctx),
+         "mmrec": lambda: phase_mmrec(ctx)}[name]()
         log(f"phase {name}: ok ({time.perf_counter() - t0:.1f} s)")
     _join_background(ctx)
     log(f"all phases: {time.perf_counter() - t_all:.1f} s")

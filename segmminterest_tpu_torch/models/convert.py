@@ -35,6 +35,12 @@ tree's names too: a reranker's ranker under ``ranker``, MIR's LSTM cells
 ``hi``...``ho`` with one), SetRank's inducing points ``I_{b}``, MIR's
 ``w_b`` / ``w_v`` / ``w_q``, SLRCPlus's ``global_alpha`` and KDA's
 ``freq_real`` / ``freq_imag`` as they are.
+
+MMRec models (``mmrec/models.py``, :func:`mmrec_state_dict`) carry the
+flax names too: the tables ``user_embedding``, ``item_id_embedding``,
+``new_pos_embedding`` and the scalar ``learnable_param`` as they are, the
+Denses ``image_trs``, ``predictor``, ``modal_trs``, ``modal_layer_u_{l}``
+and ``modal_layer_i_{l}`` transposed.
 """
 
 from __future__ import annotations
@@ -134,3 +140,10 @@ def segrec_state_dict(model: nn.Module, params: Mapping,
         return flax_to_state_dict(params, target, partial=partial)
     return flax_to_state_dict(_merge(params, batch_stats), model,
                               partial=partial)
+
+
+def mmrec_state_dict(model: nn.Module,
+                     params: Mapping) -> Dict[str, torch.Tensor]:
+    """The state_dict of an MMRec ``model`` holding the flax ``params`` (its
+    graph arrays and features are buffers outside the state_dict)."""
+    return flax_to_state_dict(params, model)
